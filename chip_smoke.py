@@ -1,0 +1,434 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one CUDA card and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines:
+
+0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
+1. build every kernel of the path from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, all started together);
+2. hold each kernel bit-equal against its plain PyTorch version on the card,
+   at d = 70,001 and 16,777,217 (n = 8 peers, keys folded per rank from
+   ``PRNGKey(seed)``), with a forced-small-cap overflow case and shard
+   windows straddling block edges, and at the largest shape the main path
+   gives it; time kernel and plain version;
+3. the main path: ``sync_grads_bucketed`` over the qwen3-4b gradient tree
+   (full width, 4 of 36 layers, 792,657,920 compressed coordinates per
+   rank) on ``StackedComm(8, "cuda")`` for the ``fixed_k_1bit`` and
+   ``bernoulli_seed_1bit`` presets and the flat-decode Bernoulli round,
+   3 steps each (keys ``fold_in(PRNGKey(0), step)``), with synthetic
+   seeded gradients.  Checks the kernel launch counts, finiteness, the
+   bytes handed to the communicator against the accounting, and the squared
+   error against the closed-form MSE.
+
+Then one JSON line with every kernel's numbers and, last, the device line.
+Exits nonzero, and prints no result, when there is no CUDA card, when the
+port's package is not beside this script, or when any check fails.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+SIZES = (70_001, 16_777_217)
+STEPS = 3
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+# 32-bit integer rate: the data sheet's 67 TFLOP/s float32 is 132 SMs x 128
+# FP32 lanes x 2 flops (one FMA) x 1.98 GHz; the H100 architecture white
+# paper gives each SM 64 INT32 lanes, so 132 x 64 x 1.98 GHz = 67e12 / 4.
+INT32_OPS_PER_S = 67e12 * 64 / (128 * 2)
+# float32 adds and multiplies that are not fused: one per FP32 lane and clock
+F32_OPS_PER_S = 67e12 / 2
+# the least integer work of one Threefry-2x32 cipher call: 2 key adds, 20
+# rounds of (add, funnel-shift rotate, xor), 5 key injections of one add on
+# each word (csrc/threefry.cuh); counter words and mantissa fill not counted.
+# One call yields the bits of two coordinates of a full-length draw (j and
+# j + ceil(d/2)), so a full draw needs ceil(d/2) calls; a shard window's
+# coordinates pair with coordinates of other shards and need one call each.
+OPS_PER_CALL = 72
+
+REPLACES = {
+    "bernoulli_encode": "src/repro/kernels/bernoulli_wire/kernel.py:184",
+    "bernoulli_decode_sum": "src/repro/kernels/bernoulli_wire/kernel.py:248",
+    "bernoulli_support_counts": "src/repro/kernels/bernoulli_wire/kernel.py:336",
+    "bernoulli_decode_sum_shard": "src/repro/kernels/bernoulli_wire/kernel.py:336",
+    "fixed_k_gather": "src/repro/kernels/fixed_k_encode/fixed_k_encode.py:39",
+}
+SOURCE = {
+    "bernoulli_encode": "src/repro_torch/csrc/bernoulli_wire.cu",
+    "bernoulli_decode_sum": "src/repro_torch/csrc/bernoulli_wire.cu",
+    "bernoulli_support_counts": "src/repro_torch/csrc/bernoulli_wire.cu",
+    "bernoulli_decode_sum_shard": "src/repro_torch/csrc/bernoulli_wire.cu",
+    "fixed_k_gather": "src/repro_torch/csrc/fixed_k_encode.cu",
+}
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def need(cond: bool, what: str) -> None:
+    if not cond:
+        raise CheckFailed(what)
+
+
+def setup():
+    """Import torch and the port; fail without a card or without the port."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device is available")
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        raise SystemExit(f"chip_smoke: the port's package is missing under {SRC}")
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    need(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 3) -> float:
+    """Mean device time of one call, by CUDA events, after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, int_ops: float, f32_ops: float):
+    """(least time in ms, what bounds it) for the given bytes, int32 and
+    float32 operations; the integer and float pipes run side by side."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = max(int_ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))
+
+
+def max_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+# --------------------------------------------------------------------------- #
+# Phase 2: every kernel against its plain version.
+# --------------------------------------------------------------------------- #
+
+def _keys(seed: int, n: int):
+    import torch
+    from repro_torch import random as R
+
+    base = R.PRNGKey(seed)
+    return torch.stack([R.fold_in(base, i) for i in range(n)])
+
+
+def check_kernels(sizes, main_d: int, main_shard: int, records: dict) -> None:
+    """Bit-equality of each kernel wrapper with its plain version on the
+    card; ``records`` gets each kernel's error, times and bound at the
+    largest shape checked (the main path's)."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.core import comm_cost
+    from repro_torch.kernels.bernoulli_wire import kernel as bwk
+    from repro_torch.kernels.bernoulli_wire import ref as bwr
+    from repro_torch.kernels.fixed_k_encode import fixed_k_encode as fkk
+    from repro_torch.kernels.fixed_k_encode import ref as fkr
+    from repro_torch.train.synthetic import N
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+
+    def rec(name, err, ms, plain_ms, nbytes, int_ops, f32_ops):
+        b, by = bound_ms(nbytes, int_ops, f32_ops)
+        records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b, "bound_by": by, "library_ms": None}
+
+    cases = [(d, 1.0 / 16, None) for d in sizes]
+    cases.append((sizes[0], 1.0 / 16, 100))      # forced small cap: overflow drops
+    cases.append((sizes[0], 0.3, None))          # 1/p not a power of two
+    cases.append((main_d, 1.0 / 16, None))       # the main path's largest bucket
+    for d, p, cap in cases:
+        cap = comm_cost.bernoulli_capacity(d, p) if cap is None else cap
+        gen.manual_seed(d)
+        flat = torch.randn(d, generator=gen, device=dev) * 0.5 + 0.1
+        mu = flat.mean()
+        key = R.fold_in(R.PRNGKey(7), 3)
+        got = bwk.encode(flat, key, mu, p=p, cap=cap)
+        want = bwr.encode(flat, key, p, cap, mu)
+        need(same_bits(got, want), f"bernoulli_encode d={d} p={p} cap={cap}: kernel != plain")
+        tag = f"d={d} p={p:.4g} cap={cap}"
+        if d == main_d:
+            ms = cuda_ms(lambda: bwk.encode(flat, key, mu, p=p, cap=cap))
+            pms = cuda_ms(lambda: bwr.encode(flat, key, p, cap, mu), reps=1)
+            rec("bernoulli_encode", max_err(got, want), ms, pms,
+                4 * d + 4 * cap, OPS_PER_CALL * -(-d // 2), 2 * cap)
+            tag += f" kernel {ms:.3f} ms plain {pms:.3f} ms"
+        print(f"  bernoulli_encode {tag}: bit-equal", flush=True)
+        del flat, got, want
+
+    # decode: random buffers exercise every rank/cap combination directly
+    decode_cases = [(d, None, None) for d in sizes]
+    decode_cases += [(sizes[0], 300, None), (main_d, None, main_shard)]
+    for d, cap_override, shard_len in decode_cases:
+        p = 1.0 / 16
+        cap = comm_cost.bernoulli_capacity(d, p) if cap_override is None else cap_override
+        gen.manual_seed(d + 1)
+        bufs = torch.randn(N, cap, generator=gen, device=dev) * 0.7
+        mus = torch.randn(N, generator=gen, device=dev) * 0.1
+        keys = _keys(d, N)
+        big = d == main_d
+        if not big:
+            got = bwk.decode_sum(bufs, mus, keys, p=p, cap=cap, d=d)
+            want = bwr.decode_sum_sequential(bufs, mus, keys, p, cap, d)
+            need(same_bits(got, want), f"bernoulli_decode_sum d={d} cap={cap}: kernel != sequential")
+            print(f"  bernoulli_decode_sum d={d} cap={cap}: bit-equal", flush=True)
+        else:
+            got = bwk.decode_sum(bufs, mus, keys, p=p, cap=cap, d=d)
+            want = bwr.decode_sum(bufs, mus, keys, p, cap, d)
+            need(same_bits(got, want), f"bernoulli_decode_sum d={d}: kernel != plain")
+            ms = cuda_ms(lambda: bwk.decode_sum(bufs, mus, keys, p=p, cap=cap, d=d))
+            pms = cuda_ms(lambda: bwr.decode_sum(bufs, mus, keys, p, cap, d), reps=1)
+            rec("bernoulli_decode_sum", max_err(got, want), ms, pms,
+                4 * N * cap + 4 * N + 4 * d, OPS_PER_CALL * N * -(-d // 2), N * d)
+            print(f"  bernoulli_decode_sum d={d} n={N}: bit-equal, kernel {ms:.3f} ms "
+                  f"plain {pms:.3f} ms", flush=True)
+        del got, want
+
+        # §12 shards: windows of ceil(d/N) straddle 1024-blocks; stitched
+        # shards must equal the full decode, counts and bits the plain ones.
+        ds = -(-d // N) if shard_len is None else shard_len
+        shards = range(N) if not big else [N - 2]
+        sups_k = {s: bwk.support_counts(keys, p=p, d=d, start=s * ds, ds=ds, device=dev)
+                  for s in range(N)}
+        sups_p = {s: bwr.support_counts(keys, p, d, s * ds, ds, dev) for s in shards}
+        for s in shards:
+            need(torch.equal(sups_k[s].counts, sups_p[s].counts)
+                 and torch.equal(sups_k[s].mask, sups_p[s].mask),
+                 f"bernoulli_support_counts d={d} shard {s}: kernel != plain")
+        allc = torch.stack([sups_k[s].counts.sum(1, dtype=torch.int32) for s in range(N)])
+        prior = torch.cumsum(allc, 0, dtype=torch.int32) - allc
+        parts = []
+        for s in shards:
+            pk = bwk.decode_sum_shard(bufs, mus, sups_k[s], prior[s].contiguous(), cap=cap)
+            pp = bwr.decode_sum_shard(bufs, mus, sups_p[s], prior[s].contiguous(), cap)
+            need(same_bits(pk, pp), f"bernoulli_decode_sum_shard d={d} shard {s}: kernel != plain")
+            parts.append(pk)
+        if not big:
+            full = torch.cat(parts)[:d]
+            need(same_bits(full, bwr.decode_sum_sequential(bufs, mus, keys, p, cap, d)),
+                 f"stitched shards d={d} cap={cap} != sequential decode")
+            print(f"  bernoulli_support_counts + decode_sum_shard d={d} cap={cap}: "
+                  f"{N} shards of {ds} bit-equal, stitched == sequential", flush=True)
+        else:
+            s = shards[0]
+            sup = sups_k[s]
+            pr = prior[s].contiguous()
+            ms_c = cuda_ms(lambda: bwk.support_counts(keys, p=p, d=d, start=s * ds, ds=ds, device=dev))
+            pms_c = cuda_ms(lambda: bwr.support_counts(keys, p, d, s * ds, ds, dev), reps=1)
+            nck = sup.counts.shape[1]
+            rec("bernoulli_support_counts", 0.0, ms_c, pms_c,
+                4 * N * nck + N * nck * 128, OPS_PER_CALL * N * ds, 0)
+            ms_d = cuda_ms(lambda: bwk.decode_sum_shard(bufs, mus, sup, pr, cap=cap))
+            pms_d = cuda_ms(lambda: bwr.decode_sum_shard(bufs, mus, sups_p[s], pr, cap), reps=1)
+            kept = int(torch.clamp(cap - pr.long(), min=0).clamp(max=allc[s].long()).sum())
+            rec("bernoulli_decode_sum_shard", max_err(parts[0], pp), ms_d, pms_d,
+                4 * kept + N * nck * 128 + 4 * N * nck + 4 * N + 4 * ds, 0, N * ds)
+            print(f"  bernoulli_support_counts + decode_sum_shard d={d} shard {s} "
+                  f"ds={ds}: bit-equal, counts {ms_c:.3f} ms (plain {pms_c:.3f}), "
+                  f"decode {ms_d:.3f} ms (plain {pms_d:.3f})", flush=True)
+        del bufs, parts, sups_k, sups_p
+
+    for d in (*sizes, main_d):
+        gen.manual_seed(d + 2)
+        flat = torch.randn(d, generator=gen, device=dev)
+        mu = flat.mean()
+        nb = -(-d // fkr.BLOCK)
+        kb = max(1, min(nb, round(nb / 16)))
+        ids = fkr.sample_blocks(R.fold_in(R.PRNGKey(5), 1), nb, kb, dev)
+        if int(ids[-1]) != nb - 1:             # include the ragged last block
+            ids[-1] = nb - 1
+        scale = nb * fkr.BLOCK / (kb * fkr.BLOCK)
+        got = fkk.fixed_k_gather(flat, ids, scale, mu)
+        padded = torch.nn.functional.pad(flat, (0, nb * fkr.BLOCK - d))
+        want = fkr.fixed_k_encode(padded, ids, mu, scale)
+        need(same_bits(got, want), f"fixed_k_gather d={d}: kernel != plain")
+        tag = f"d={d} kb={kb}"
+        if d == main_d:
+            ms = cuda_ms(lambda: fkk.fixed_k_gather(flat, ids, scale, mu), reps=10)
+            pms = cuda_ms(lambda: fkr.fixed_k_encode(padded, ids, mu, scale))
+            k = kb * fkr.BLOCK
+            rec("fixed_k_gather", max_err(got, want), ms, pms, 8 * k + 8 * kb, 0, 2 * k)
+            tag += f" kernel {ms:.3f} ms plain {pms:.3f} ms"
+        print(f"  fixed_k_gather {tag}: bit-equal", flush=True)
+        del flat, padded, got, want
+
+
+# --------------------------------------------------------------------------- #
+# Phase 3: the main path.
+# --------------------------------------------------------------------------- #
+
+def run_main_path(name, cmp, steps, launches_total):
+    """``steps`` bucketed syncs of one config; returns its summary line."""
+    import torch
+    from repro_torch.core import mse, wire
+    from repro_torch.core.wire import codecs
+    from repro_torch.kernels import backend
+    from repro_torch.train import bucketing
+    from repro_torch.train.synthetic import N, main_path, step_key, synthetic_grads
+
+    dev = torch.device("cuda")
+    shapes, plan, comm = main_path(cmp, dev)
+    comp = [b for b in plan.buckets if b.kind == "compressed"]
+    exact = [b for b in plan.buckets if b.kind == "exact"]
+    codec = wire.resolve(cmp)
+    if cmp.mode == "gather_decode":
+        expect = {"bernoulli_encode": N}
+        if cmp.scatter_decode:
+            expect.update(bernoulli_support_counts=N, bernoulli_decode_sum_shard=N)
+        else:
+            expect.update(bernoulli_decode_sum=1)
+        wire_bits = bucketing.bucket_wire_bits(plan, cmp, N)
+    else:
+        expect = {"fixed_k_gather": N}
+        wire_bits = {b.bid: codec.wire_bits(N, b.size, cmp) for b in comp}
+    exact_bytes = sum(N * b.size * 4 for b in exact)
+    err_sum = cf_sum = 0.0
+    times = []
+    for step in range(steps):
+        grads = synthetic_grads(shapes, N, step, dev)
+        key = step_key(step)
+        comm.reset_bytes()
+        torch.cuda.synchronize()
+        backend.reset_launches()
+        t0 = time.perf_counter()
+        out = bucketing.sync_grads_bucketed(grads, plan, cmp, key, comm)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = dict(backend.launches)
+        launches_total.update(counts)
+        want = {k: v * len(comp) for k, v in expect.items()}
+        need(counts == want, f"{name} step {step}: launches {counts} != expected {want}")
+        need(all(bool(torch.isfinite(v).all()) for v in out.values()),
+             f"{name} step {step}: non-finite output")
+        sent = sum(wire_bits.values()) / 8
+        if cmp.mode == "gather_decode":
+            need(comm.bytes_gathered == sent and comm.bytes_reduced == exact_bytes,
+                 f"{name}: communicator bytes {comm.bytes_gathered}+{comm.bytes_reduced} "
+                 f"!= accounting {sent}+{exact_bytes}")
+        else:
+            need(comm.bytes_gathered == 0 and comm.bytes_reduced == sent + exact_bytes,
+                 f"{name}: communicator bytes {comm.bytes_reduced} != accounting "
+                 f"{sent + exact_bytes}")
+        for b in comp:
+            v = bucketing.pack_bucket(grads, b)
+            y = torch.cat([out[s.name].reshape(-1) for s in b.slots])
+            err_sum += float(torch.sum((y - v.mean(0)) ** 2, dtype=torch.float64))
+            mus = v.mean(1)
+            if cmp.encoder.kind == "bernoulli":
+                cf_sum += float(mse.mse_bernoulli(v, cmp.encoder.fraction, mus))
+            else:
+                k = codecs.fixed_k_blocks(b.size, cmp.encoder.fraction) * 1024
+                cf_sum += float(mse.mse_fixed_k_shared(v, k, mus))
+            del v, y
+        del grads, out
+    ratio = err_sum / cf_sum
+    need(abs(ratio - 1.0) <= 0.10, f"{name}: error / closed form = {ratio:.4f}, outside 10%")
+    coords = sum(b.size for b in comp)
+    wire_mb = sum(wire_bits.values()) / 8 / 1e6
+    dense_mb = N * coords * 4 / 1e6
+    return {"config": name, "steps": steps, "ms_per_sync": times,
+            "compressed_buckets": len(comp), "coords_per_rank": coords,
+            "wire_MB": wire_mb, "dense_f32_MB": dense_mb,
+            "err_over_closed_form": ratio, "launches_per_step": expect}
+
+
+def main() -> int:
+    setup()
+    import torch
+
+    t_start = time.perf_counter()
+    card = card_line()
+    print(card, flush=True)    # name, power limit: as nvidia-smi gives them
+    print(f"[0] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
+          flush=True)
+
+    from repro_torch.kernels import backend
+    from repro_torch.train import synthetic
+
+    t0 = time.perf_counter()
+    backend.build()
+    for name in backend.SOURCES:
+        backend.lib(name)
+    print(f"[1] built {', '.join(backend.SOURCES)} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    shapes, _ = synthetic.main_shapes()
+    main_d = max(math.prod(s) for s in shapes.values())
+    records = {}
+    t0 = time.perf_counter()
+    check_kernels(SIZES, main_d, -(-main_d // synthetic.N), records)
+    print(f"[2] kernels bit-equal to their plain versions ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    runs = [(name, synthetic.preset(name)) for name in synthetic.PRESETS]
+    runs.append(("bernoulli_seed_1bit flat decode",
+                 dataclasses.replace(synthetic.preset("bernoulli_seed_1bit"),
+                                     scatter_decode=False)))
+    from collections import Counter
+    total = Counter()
+    for name, cmp in runs:
+        t0 = time.perf_counter()
+        steps = STEPS if cmp.scatter_decode or cmp.mode != "gather_decode" else 1
+        summary = run_main_path(name, cmp, steps, total)
+        print(f"[3] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    launches = dict(total)
+    for k in REPLACES:
+        need(launches.get(k, 0) > 0, f"kernel {k} was never launched on the main path")
+
+    kernels = []
+    for k in REPLACES:
+        r = records[k]
+        kernels.append({"name": k, "route": "cuda", "source": SOURCE[k],
+                        "replaces": REPLACES[k], "launches": launches[k],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(f"[4] total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

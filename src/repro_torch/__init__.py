@@ -1,0 +1,36 @@
+"""PyTorch + CUDA port of the randomized distributed mean estimation system.
+
+``repro_torch`` mirrors the layout and names of the JAX package ``repro``
+(the reference), module for module, so that each function's counterpart is
+easy to find.  It imports ``torch``, numpy and ctypes only — never JAX and
+never ``repro``.
+
+Slice 1 covers the compressed-mean gradient sync of the ``fixed_k_1bit``
+and ``bernoulli_seed_1bit`` presets:
+``train.bucketing.sync_grads_bucketed`` → ``core.collectives
+.compressed_mean`` → ``core.wire.registry.resolve`` → codec pack →
+all_gather / psum → decode → mean, with hand-written CUDA kernels for the
+Threefry-driven Bernoulli wire and the fixed-k gather
+(``src/repro_torch/csrc``).
+
+Entry points run on the CUDA card unless the caller passes a CPU device;
+with no card and no device given they raise (:func:`resolve_device`).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else cuda.
+
+    Raises RuntimeError when no device was asked for and no CUDA card is
+    present — the port never falls back to the CPU on its own.
+    """
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions")
+    return torch.device("cuda")

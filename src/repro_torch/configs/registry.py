@@ -1,0 +1,150 @@
+"""Architecture registry, compression presets and parameter shapes — the
+parts of ``repro.configs.registry`` the port's gradient sync needs.
+
+``COMPRESSION_PRESETS`` is the reference's table, all 14 entries, so a
+preset name means the same config on both sides; the registry
+(:func:`repro_torch.core.wire.resolve`) says which of them the port can run.
+:func:`param_shapes` gives the dense family's leaf names, global shapes and
+sharding specs exactly as ``repro.models.transformer.init_lm`` with
+``init_attention`` / ``init_mlp`` builds them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+from repro_torch.configs import qwen3_4b
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import types as core_types
+from repro_torch.core.wire.base import NotPortedError
+
+_ARCHS = {m.CONFIG.name: m.CONFIG for m in (qwen3_4b,)}
+
+
+def list_archs():
+    return sorted(_ARCHS)
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in _ARCHS:
+        raise KeyError(f"unknown arch {name!r}; have {list_archs()}")
+    return _ARCHS[name]
+
+
+_E = core_types.EncoderSpec
+_C = core_types.CompressionConfig
+
+# default compression for train shapes: fixed-k at k/d = 1/r = 1/16 with
+# shared support (Example 7), across the pod axis.
+_TRAIN_COMPRESSION = _C(encoder=_E(kind="fixed_k", fraction=1.0 / 16, center="mean"),
+                        mode="shared_support", axes=("pod",))
+
+COMPRESSION_PRESETS: Dict[str, core_types.CompressionConfig] = {
+    "fixed_k_1bit": _TRAIN_COMPRESSION,
+    "bernoulli_seed_1bit": _C(
+        encoder=_E(kind="bernoulli", fraction=1.0 / 16, center="mean"),
+        mode="gather_decode", axes=("pod",), scatter_decode=True),
+    "binary_packed": _C(
+        encoder=_E(kind="binary", center="min"),
+        mode="gather_decode", axes=("pod",), scatter_decode=True),
+    "ternary_packed": _C(
+        encoder=_E(kind="ternary", fraction=1.0 / 16, center="min"),
+        mode="gather_decode", axes=("pod",), scatter_decode=True),
+    "rotated_binary": _C(
+        encoder=_E(kind="binary", center="min", rotation=True),
+        mode="gather_decode", axes=("pod",)),
+    "rotated_fixed_k": _C(
+        encoder=_E(kind="fixed_k", fraction=1.0 / 16, center="mean", rotation=True),
+        mode="gather_decode", axes=("pod",)),
+    "ternary_opt": _C(
+        encoder=_E(kind="ternary", fraction=1.0 / 16, probs="optimal", center="min"),
+        mode="gather_decode", axes=("pod",)),
+    "ef_fixed_k": _C(
+        encoder=_E(kind="fixed_k", fraction=1.0 / 16, center="mean"),
+        mode="gather_decode", axes=("pod",), error_feedback=True),
+    "ef_bernoulli": _C(
+        encoder=_E(kind="bernoulli", fraction=1.0 / 16, center="mean"),
+        mode="gather_decode", axes=("pod",), error_feedback=True,
+        scatter_decode=True),
+    "ef_binary": _C(
+        encoder=_E(kind="binary", center="min"),
+        mode="gather_decode", axes=("pod",), error_feedback=True,
+        scatter_decode=True),
+    "ef_ternary": _C(
+        encoder=_E(kind="ternary", fraction=1.0 / 16, center="min"),
+        mode="gather_decode", axes=("pod",), error_feedback=True,
+        scatter_decode=True),
+    "ef_rotated_binary": _C(
+        encoder=_E(kind="binary", center="min", rotation=True),
+        mode="gather_decode", axes=("pod",), error_feedback=True,
+        scatter_decode=True),
+    "hier_fixed_k": _C(
+        encoder=_E(kind="fixed_k", fraction=1.0 / 16, center="mean"),
+        mode="gather_decode", axes=("pod",), inner_axes=("data",),
+        scatter_decode=True),
+    "hier_bernoulli": _C(
+        encoder=_E(kind="bernoulli", fraction=1.0 / 16, center="mean"),
+        mode="gather_decode", axes=("pod",), inner_axes=("data",),
+        scatter_decode=True),
+}
+
+
+def compression_preset(name: str,
+                       axes: Optional[Tuple[str, ...]] = None
+                       ) -> core_types.CompressionConfig:
+    """Resolve a named preset, optionally re-pointing its mesh axes; inner
+    axes that collide with the new axes are dropped (a hierarchical preset
+    on a single-axis mesh becomes its flat codec, scatter decode kept)."""
+    if name not in COMPRESSION_PRESETS:
+        raise KeyError(f"unknown compression preset {name!r}; "
+                       f"have {sorted(COMPRESSION_PRESETS)}")
+    cfg = COMPRESSION_PRESETS[name]
+    if axes is None:
+        return cfg
+    inner = tuple(a for a in cfg.inner_axes if a not in axes)
+    return dataclasses.replace(cfg, axes=axes, inner_axes=inner)
+
+
+def _ceil_to(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def param_shapes(cfg: ArchConfig, tp: int = 1, fsdp: Optional[str] = None):
+    """(shapes, specs): the global shape and sharding spec of every leaf of
+    a dense-family model, named and built as ``init_lm`` builds them (``tp``
+    the model-axis size, ``fsdp`` the FSDP axis or None)."""
+    if cfg.family not in ("dense", "vlm"):
+        raise NotPortedError(
+            f"parameter shapes of the {cfg.family!r} family are not ported "
+            "yet: they arrive with the models slice (ROADMAP.md, queue 1)")
+    shapes: Dict[str, Tuple[int, ...]] = {}
+    specs: Dict[str, tuple] = {}
+
+    def add(name, shape, spec):
+        shapes[name] = tuple(shape)
+        specs[name] = tuple(spec)
+
+    d, L, hd = cfg.d_model, cfg.num_layers, cfg.hd
+    vshard = "model" if tp > 1 else None
+    add("embed", (cfg.vocab_padded(tp), d), (vshard, None))
+    if not cfg.tie_embeddings:
+        add("lm_head", (cfg.vocab_padded(tp), d), (vshard, None))
+    add("final_norm", (d,), (None,))
+
+    q_heads = _ceil_to(cfg.num_heads, tp)
+    kv_spec = None if cfg.num_kv_heads < tp else "model"
+    add("layers.attn.wq", (L, d, q_heads, hd), (None, fsdp, "model", None))
+    add("layers.attn.wk", (L, d, cfg.num_kv_heads, hd), (None, fsdp, kv_spec, None))
+    add("layers.attn.wv", (L, d, cfg.num_kv_heads, hd), (None, fsdp, kv_spec, None))
+    add("layers.attn.wo", (L, q_heads, hd, d), (None, "model", None, fsdp))
+    if cfg.qk_norm:
+        add("layers.attn.q_norm", (L, hd), (None, None))
+        add("layers.attn.k_norm", (L, hd), (None, None))
+    add("layers.mlp.w_up", (L, d, cfg.d_ff), (None, fsdp, "model"))
+    add("layers.mlp.w_gate", (L, d, cfg.d_ff), (None, fsdp, "model"))
+    add("layers.mlp.w_down", (L, cfg.d_ff, d), (None, "model", fsdp))
+    add("layers.norm1", (L, d), (None, None))
+    add("layers.norm2", (L, d), (None, None))
+    if cfg.family == "vlm":
+        add("patch_proj", (d, d), (None, None))
+    return shapes, specs

@@ -1,0 +1,53 @@
+"""Carry state from the JAX package to the port, names kept.
+
+The port imports nothing of ``repro``; these functions take what the JAX
+side hands over as numpy arrays and plain objects:
+
+* :func:`tree_to_torch` — a gradient or parameter dict of numpy arrays →
+  torch tensors on ``device`` (same leaf names, same dtypes);
+* :func:`key_to_torch` — raw ``uint32[2]`` Threefry key data
+  (``jax.random.key_data(key)``) → the port's key (int64 words);
+* :func:`compression_config` — any object with the fields of
+  ``repro.core.types.CompressionConfig`` → the port's config.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core import types as t
+
+
+def tree_to_torch(tree: Mapping[str, np.ndarray], device="cpu") -> Dict[str, torch.Tensor]:
+    """Numpy leaves → torch tensors on ``device``; names and dtypes kept."""
+    return {name: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for name, v in tree.items()}
+
+
+def key_to_torch(key_data) -> torch.Tensor:
+    """uint32[2] key data → the port's (2,) int64 key."""
+    k = np.asarray(key_data).reshape(-1)
+    if k.shape != (2,) or k.dtype != np.uint32:
+        raise ValueError(f"expected uint32[2] key data, got {k.dtype}{list(k.shape)}")
+    return torch.from_numpy(k.astype(np.int64))
+
+
+def _copy(cls, src, **override):
+    kw = {f.name: getattr(src, f.name) for f in dataclasses.fields(cls)}
+    kw.update(override)
+    return cls(**kw)
+
+
+def compression_config(src) -> t.CompressionConfig:
+    """A CompressionConfig-shaped object → the port's CompressionConfig."""
+    wire_dtype = src.wire_dtype
+    if not isinstance(wire_dtype, str):
+        wire_dtype = np.dtype(wire_dtype).name
+    return _copy(t.CompressionConfig, src,
+                 encoder=_copy(t.EncoderSpec, src.encoder),
+                 bucket=_copy(t.BucketSpec, src.bucket),
+                 axes=tuple(src.axes), inner_axes=tuple(src.inner_axes),
+                 wire_dtype=wire_dtype)

@@ -1,0 +1,147 @@
+"""Compressed mean estimation as a collective — port of
+``repro.core.collectives`` and of the ``shard_map`` axes it runs inside.
+
+In the reference these functions run inside ``jax.shard_map`` with the
+compression axes manual.  Here a communicator stands in for the axes:
+
+* :class:`StackedComm` — n ranks as the rows of a leading dimension on one
+  device: the card's counterpart of the reference's fake CPU devices.  It
+  runs each rank's pack and each shard's decode in turn; all_gather is the
+  stack itself; psum accumulates in f32 in rank order.
+* :class:`DistComm` — the same interface over ``torch.distributed`` (one
+  rank per process): ``all_gather_into_tensor`` and ``all_reduce``.
+
+Both count the bytes handed to them, so a run can hold the traffic against
+the codecs' ``wire_bits`` / ``scatter_bits`` accounting.
+
+Local data is a stack (L, *shape) with one row per local rank; every entry
+point returns the single (*shape) estimate all ranks hold.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import types as t
+from repro_torch.core.wire import base as wire_base
+from repro_torch.core.wire import registry
+
+
+class StackedComm:
+    """n ranks stacked on one device; see the module docstring.
+
+    ``bytes_gathered`` / ``bytes_reduced`` count every byte the ranks hand
+    to all_gather / psum (all n contributions).
+    """
+
+    def __init__(self, n: int, device=None):
+        self.size = int(n)
+        self.local_ranks = tuple(range(self.size))
+        self.device = resolve_device(device)
+        self.bytes_gathered = 0
+        self.bytes_reduced = 0
+
+    def reset_bytes(self) -> None:
+        self.bytes_gathered = 0
+        self.bytes_reduced = 0
+
+    def _check(self, local):
+        if local.shape[0] != self.size:
+            raise ValueError(f"expected {self.size} stacked rank rows, got {local.shape[0]}")
+
+    def all_gather(self, local):
+        """(n, ...) rows of all ranks → the same (n, ...) stack."""
+        self._check(local)
+        self.bytes_gathered += local.numel() * local.element_size()
+        return local
+
+    def psum(self, local):
+        """Σ over ranks of the (n, ...) rows, accumulated in f32 from 0 in
+        rank order."""
+        self._check(local)
+        self.bytes_reduced += local.numel() * local.element_size()
+        acc = torch.zeros(local.shape[1:], dtype=torch.float32, device=local.device)
+        for r in range(self.size):
+            acc += local[r]
+        return acc
+
+
+class DistComm:
+    """One rank per process over ``torch.distributed`` (any backend with
+    all_gather_into_tensor and all_reduce: NCCL on cards, gloo on CPUs).
+
+    ``psum`` all-reduces the buffer in its own dtype (bf16 for the fixed-k
+    wire, so the bytes are the accounted ones); the backend picks the
+    summation order, so its bf16 sum can differ from StackedComm's f32
+    rank-order sum in the last bit for n > 2.  ``bytes_*`` count this
+    rank's contributions.
+    """
+
+    def __init__(self, group=None, device=None):
+        import torch.distributed as dist
+
+        self._dist = dist
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.local_ranks = (self.rank,)
+        self.device = resolve_device(device)
+        self.bytes_gathered = 0
+        self.bytes_reduced = 0
+
+    def reset_bytes(self) -> None:
+        self.bytes_gathered = 0
+        self.bytes_reduced = 0
+
+    def all_gather(self, local):
+        """(1, ...) local row → (n, ...) rows of all ranks in rank order."""
+        if local.shape[0] != 1:
+            raise ValueError(f"DistComm holds one rank; got {local.shape[0]} rows")
+        local = local.contiguous()
+        out = torch.empty((self.size,) + tuple(local.shape[1:]), dtype=local.dtype,
+                          device=local.device)
+        self._dist.all_gather_into_tensor(out, local, group=self.group)
+        self.bytes_gathered += local.numel() * local.element_size()
+        return out
+
+    def psum(self, local):
+        if local.shape[0] != 1:
+            raise ValueError(f"DistComm holds one rank; got {local.shape[0]} rows")
+        buf = local[0].clone()
+        self._dist.all_reduce(buf, group=self.group)
+        self.bytes_reduced += buf.numel() * buf.element_size()
+        return buf.to(torch.float32)
+
+
+def exact_mean(x, comm):
+    """The exact mean over ranks of the (L, *shape) stack (f32 psum / n)."""
+    shape, dtype = x.shape[1:], x.dtype
+    flat = x.reshape(x.shape[0], -1).to(torch.float32)
+    return (comm.psum(flat) / comm.size).reshape(shape).to(dtype)
+
+
+def compressed_mean(x, key, cfg: t.CompressionConfig, comm, drop_mask=None):
+    """Estimate the mean over the communicator's ranks of the (L, *shape)
+    stack ``x`` under the configured protocol; returns (*shape).
+
+    Unbiased for every ported codec: E[result] = the exact mean (Lemmas
+    3.1/3.3).  Mode "none" and buckets below ``min_compress_size`` take the
+    exact mean.  ``drop_mask`` (decode-time peer exclusion) is not ported.
+    """
+    if drop_mask is not None:
+        wire_base.check_ported(cfg, drop_mask)
+    if cfg.mode == "none" or x[0].numel() < cfg.min_compress_size:
+        return exact_mean(x, comm)
+    return registry.resolve(cfg).mean(x, key, cfg, comm)
+
+
+def partial_mean(x, alive, comm):
+    """Straggler-tolerant exact mean over the live ranks only.
+
+    ``alive``: (L,) 0/1 per local rank.  All-dead contract: the survivors'
+    mean does not exist and the result is NaN (0/0) by design.
+    """
+    a = alive.to(torch.float32).reshape((-1,) + (1,) * (x.dim() - 1))
+    num = comm.psum(x.to(torch.float32) * a)
+    den = comm.psum(alive.to(torch.float32).reshape(-1, 1))
+    return num / den.reshape(())

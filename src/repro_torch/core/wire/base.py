@@ -1,0 +1,227 @@
+"""WireCodec: the unit of the wire layer — port of ``repro.core.wire.base``.
+
+A codec is one wire format: ``pack`` (one node's buffer), the averaging
+decode of the gathered rows (or of the reduced buffer, for "psum" codecs),
+``wire_slots`` / ``wire_bits`` accounting and the reduce kind.  The
+collective round itself (:meth:`WireCodec.mean_flat`) is the same for every
+codec and runs over a communicator instead of ``shard_map`` axes
+(:mod:`repro_torch.core.collectives`):
+
+* ``comm.size`` — n, the ranks of the compression axes;
+* ``comm.local_ranks`` — the ranks this process holds (all n for
+  ``StackedComm``, one for ``DistComm``);
+* ``comm.all_gather(local)`` — (L, ...) local rows → (n, ...) in rank order;
+* ``comm.psum(local)`` — (L, ...) → the f32 sum over all n ranks.
+
+Local data is always a stack with one row per local rank.  Decoded results
+are the same on every rank by construction, so a round returns one
+estimate, not one per rank.
+
+Ported: the plain averaging decode (``decode_policy="mean"``, no drop
+mask) on one flat compression axis, with and without the §12 scatter
+decode.  Robust policies, drop masks and hierarchical ``inner_axes`` raise
+:class:`NotPortedError` naming the slice that brings them.
+
+Accounting contract: ``comm_cost_bits == wire_bits + seed_bits``.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional, Sequence
+
+import torch
+
+from repro_torch.core import types as t
+
+
+class NotPortedError(NotImplementedError):
+    """A config asks for a part of the reference the port does not have yet;
+    the message names the ROADMAP slice that brings it."""
+
+
+def _not_ported(what: str, slice_name: str) -> NotPortedError:
+    return NotPortedError(f"{what} is not ported yet: it arrives with {slice_name} "
+                          "(ROADMAP.md, queue 1)")
+
+
+def axis_rank_size(comm):
+    """The local ranks this process holds and the node count n."""
+    return tuple(comm.local_ranks), int(comm.size)
+
+
+def gather_nested(local, comm):
+    """all_gather of the local rows over the communicator's ranks."""
+    return comm.all_gather(local)
+
+
+def scatter_axes(cfg: t.CompressionConfig):
+    """The axes a scatter decode shards over: the inner axes when present
+    (hierarchical), else the compression axes (flat mesh)."""
+    return cfg.inner_axes if cfg.inner_axes else cfg.axes
+
+
+def scatter_shard_len(d: int, nshards: int, align: int = 1) -> int:
+    """Length of one scatter-decode shard: ⌈d/nshards⌉ rounded up to ``align``."""
+    ds = -(-d // nshards)
+    return -(-ds // align) * align
+
+
+def effective_nodes(cfg: t.CompressionConfig, n: int,
+                    mesh_sizes: Optional[Mapping[str, int]] = None) -> int:
+    """The codec's effective node count: n for flat configs, the cross-host
+    group size n / prod(inner sizes) for hierarchical ones."""
+    if not cfg.inner_axes:
+        return int(n)
+    if mesh_sizes is None:
+        raise ValueError(
+            f"config has inner_axes={cfg.inner_axes}: accounting needs "
+            "mesh_sizes to derive the cross-host group size")
+    m = 1
+    for ax in cfg.inner_axes:
+        if ax not in mesh_sizes:
+            raise ValueError(f"inner axis {ax!r} missing from mesh_sizes {mesh_sizes}")
+        m *= int(mesh_sizes[ax])
+    if m <= 0 or n % m:
+        raise ValueError(
+            f"world size {n} not divisible by inner-group size {m} "
+            f"(inner_axes={cfg.inner_axes}, mesh_sizes={mesh_sizes})")
+    return int(n) // m
+
+
+def center(x, policy: str):
+    """The node center μ_i used on the wire, as an f32 0-dim tensor."""
+    if policy == "zero":
+        return torch.zeros((), dtype=torch.float32, device=x.device)
+    if policy == "mean":
+        return torch.mean(x).to(torch.float32)
+    if policy == "min":
+        return torch.min(x).to(torch.float32)
+    raise ValueError(f"center policy {policy!r} not supported on the wire "
+                     "(optimal centers need the §6 solver — reference path only)")
+
+
+def check_ported(cfg: t.CompressionConfig, drop_mask=None) -> None:
+    """Raise NotPortedError for the round options the port does not have."""
+    if drop_mask is not None:
+        raise _not_ported("decode-time peer exclusion (drop_mask)",
+                          "the robust-decode slice")
+    kind, _ = t.parse_decode_policy(cfg.decode_policy)
+    if kind != "mean":
+        raise _not_ported(f"decode_policy {cfg.decode_policy!r}",
+                          "the robust-decode slice")
+    if cfg.inner_axes:
+        raise _not_ported(f"the hierarchical schedule (inner_axes={cfg.inner_axes})",
+                          "the hierarchical-collectives slice")
+
+
+class WireCodec:
+    """One registered wire format; see the module docstring.
+
+    Codecs are stateless: every parameter comes from the
+    :class:`~repro_torch.core.types.CompressionConfig` passed to each call.
+    """
+
+    name: str = "?"
+    reduce: str = "all_gather"          # "all_gather" | "psum"
+    scatter_supported: bool = False
+
+    # ---- wire geometry & accounting -------------------------------------- #
+
+    def wire_slots(self, d: int, cfg: t.CompressionConfig) -> int:
+        raise NotImplementedError
+
+    def wire_bits(self, n: int, d: int, cfg: t.CompressionConfig) -> float:
+        """Gathered payload bits of one n-node round (star convention)."""
+        raise NotImplementedError
+
+    def seed_bits(self, n: int, cfg: t.CompressionConfig) -> float:
+        return 0.0
+
+    def scatter_bits(self, n: int, d: int, cfg: t.CompressionConfig) -> float:
+        """Extra collective bits of a flat scatter decode (0 otherwise)."""
+        return 0.0
+
+    def cost_spec(self, d: int, cfg: t.CompressionConfig):
+        raise NotImplementedError
+
+    def comm_cost_bits(self, n: int, d: int, cfg: t.CompressionConfig) -> float:
+        """Analytic §4 cost via comm_cost.cost — == wire_bits + seed_bits."""
+        from repro_torch.core import comm_cost
+        spec, kw = self.cost_spec(d, cfg)
+        return comm_cost.cost(spec, n=n, d=d, **kw)
+
+    # ---- per-node wire format -------------------------------------------- #
+
+    def pack(self, flat, key, rank: int, cfg: t.CompressionConfig):
+        """Encode one node's (d,) f32 vector into its flat wire buffer."""
+        raise NotImplementedError
+
+    def decode_gathered(self, rows, key, cfg: t.CompressionConfig, d: int, n: int):
+        """Averaging decoder over the gathered (n, slots) rows: (1/n) Σ_i of
+        each peer's reconstruction, peers in ascending order."""
+        raise NotImplementedError
+
+    def decode_gathered_shard(self, rows, key, cfg: t.CompressionConfig,
+                              d: int, n: int, shard: int, nshards: int):
+        """Shard ``shard`` of ``nshards`` of :meth:`decode_gathered`."""
+        raise NotImplementedError(f"codec {self.name!r} does not support scatter_decode")
+
+    def decode_shards(self, rows, key, cfg: t.CompressionConfig, d: int,
+                      n: int, shards: Sequence[int], comm):
+        """The local shards' decodes, stacked (L, shard length).
+
+        Default: :meth:`decode_gathered_shard` per local shard.  Codecs whose
+        shard decode needs a collective of its own (Bernoulli's rank-offset
+        count exchange) override this and run it over ``comm``.
+        """
+        return torch.stack([self.decode_gathered_shard(rows, key, cfg, d, n, s, n)
+                            for s in shards])
+
+    def decode_reduced(self, wire, key, cfg: t.CompressionConfig, d: int):
+        """Decode the reduced wire buffer of a "psum" codec."""
+        raise NotImplementedError
+
+    # ---- the collective --------------------------------------------------- #
+
+    def mean_flat(self, x, key, cfg: t.CompressionConfig, comm):
+        """Estimate the mean over the communicator's ranks of the (L, d) f32
+        local stack ``x``; returns the (d,) estimate every rank holds."""
+        check_ported(cfg)
+        return self._round(x, key, cfg, comm)
+
+    def _round(self, x, key, cfg: t.CompressionConfig, comm):
+        """One codec round: pack per local rank, then psum (mean of the
+        buffers, rounded once to the wire dtype) and decode the reduced
+        buffer, or all_gather and decode the rows."""
+        d = x.shape[1]
+        ranks, n = axis_rank_size(comm)
+        bufs = torch.stack([self.pack(x[i], key, r, cfg) for i, r in enumerate(ranks)])
+        if self.reduce == "psum":
+            wire = (comm.psum(bufs) / n).to(bufs.dtype)
+            return self.decode_reduced(wire, key, cfg, d)
+        return self.gather_decode(bufs, key, cfg, d, comm)
+
+    def gather_decode(self, bufs, key, cfg: t.CompressionConfig, d: int, comm):
+        """all_gather the packed buffers and decode.
+
+        With ``cfg.scatter_decode`` (flat mesh, §12) each rank decodes only
+        its contiguous shard of all n rows and one all_gather of decoded
+        shards reassembles the estimate; shards concatenate in rank order
+        and pads sit past d, so the result equals the flat decode.
+        """
+        ranks, n = axis_rank_size(comm)
+        rows = gather_nested(bufs, comm).reshape(n, bufs.shape[1])
+        if not cfg.scatter_decode:
+            return self.decode_gathered(rows, key, cfg, d, n)
+        parts = self.decode_shards(rows, key, cfg, d, n, ranks, comm)
+        return gather_nested(parts, comm).reshape(-1)[:d]
+
+    def mean(self, x, key, cfg: t.CompressionConfig, comm):
+        """Shape/dtype-preserving wrapper: ``x`` is (L, *shape), the result
+        (*shape)."""
+        shape, dtype = x.shape[1:], x.dtype
+        flat = x.reshape(x.shape[0], -1).to(torch.float32)
+        y = self.mean_flat(flat, key, cfg, comm)
+        return y.reshape(shape).to(dtype)
+
+    def __repr__(self):
+        return f"<WireCodec {self.name} reduce={self.reduce}>"

@@ -1,0 +1,282 @@
+"""The ported wire codecs — port of the fixed-k and Bernoulli parts of
+``repro.core.wire.codecs``:
+
+* ``fixed_k``        — §4.4 Eq. (9) gather path: block-structured fixed-k
+  values + μ tail; supports regenerate from fold_in(key, peer).
+* ``fixed_k_shared`` — shared support: one psum of the k-length value
+  buffer (reduce kind "psum"); the default train compression.
+* ``bernoulli``      — §4.4 Eq. (10) seed trick with capacity-padded value
+  buffers and the §12 flat scatter decode.
+
+The PRNG fold_in chains, buffer layouts and op order are the reference's,
+so the packed bytes equal the golden wire matrix and the decodes equal the
+reference's bit for bit (tests/test_torch_golden_wire.py,
+tests/test_torch_collective.py).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import random as prandom
+from repro_torch.core import comm_cost
+from repro_torch.core import types as t
+from repro_torch.core.wire import base
+from repro_torch.kernels.bernoulli_wire import ops as bw_ops
+from repro_torch.kernels.fixed_k_encode import ops as fk
+
+_WIRE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                "float32": torch.float32}
+
+
+def torch_dtype(wire_dtype) -> torch.dtype:
+    """The torch dtype of a config's wire dtype name."""
+    if isinstance(wire_dtype, torch.dtype):
+        return wire_dtype
+    if wire_dtype not in _WIRE_DTYPES:
+        raise ValueError(f"unsupported wire dtype {wire_dtype!r}")
+    return _WIRE_DTYPES[wire_dtype]
+
+
+def wire_bits(wire_dtype) -> int:
+    """Bits per wire float (r): 32 for float32, 16 for bfloat16/float16 —
+    the port's copy of ``repro.core.bitplane.wire_bits``."""
+    return torch_dtype(wire_dtype).itemsize * 8
+
+
+def _wire_r(cfg: t.CompressionConfig) -> int:
+    return wire_bits(cfg.wire_dtype)
+
+
+def _seed_spec(cfg: t.CompressionConfig) -> t.CommSpec:
+    """CommSpec of the §4.4 seed-trick paths at the configured wire dtype."""
+    r = _wire_r(cfg)
+    return t.CommSpec(protocol="sparse_seed", r_bits=r, rbar_bits=r,
+                      rseed_bits=t.DEFAULT_RSEED_BITS)
+
+
+def _with_tail(vals, mu, cfg):
+    """[vals ‖ μ] in the wire dtype, rounding each value once."""
+    out = torch.empty(vals.numel() + 1, dtype=torch_dtype(cfg.wire_dtype),
+                      device=vals.device)
+    out[:-1] = vals.reshape(-1)
+    out[-1] = mu
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# fixed-k (block-structured) — gather + shared-support variants.
+# --------------------------------------------------------------------------- #
+
+def fixed_k_blocks(d: int, fraction: float) -> int:
+    """kb: number of sampled blocks for a d-vector at the given fraction."""
+    nb = fk.num_blocks(d)
+    return max(1, min(nb, int(round(fraction * nb))))
+
+
+def fixed_k_wire_slots(d: int, fraction: float) -> int:
+    """Wire-dtype elements of one fixed-k buffer: kb·BLOCK values + μ."""
+    return fixed_k_blocks(d, fraction) * fk.BLOCK + 1
+
+
+def fixed_k_pack(flat, key, cfg, *, scale=None):
+    """THE fixed-k wire buffer: [kb·BLOCK values ‖ μ] at the wire dtype.
+    ``key`` is the support seed as sampled (the gather codec folds the rank
+    in, the shared codec does not)."""
+    d = flat.shape[0]
+    nb = fk.num_blocks(d)
+    kb = fixed_k_blocks(d, cfg.encoder.fraction)
+    ids = fk.sample_blocks(key, nb, kb, flat.device)
+    mu = base.center(flat, cfg.encoder.center)
+    vals = fk.fixed_k_encode(flat, ids, mu, scale=scale)
+    return _with_tail(vals, mu, cfg)
+
+
+class FixedKGatherCodec(base.WireCodec):
+    """gather_decode fixed-k: independent supports, [values ‖ μ] per node.
+    Y = mean μ_i + (1/n) Σ_i scatter(ids_i, vals_i)."""
+
+    name = "fixed_k"
+    scatter_supported = True
+
+    def wire_slots(self, d, cfg):
+        return fixed_k_wire_slots(d, cfg.encoder.fraction)
+
+    def wire_bits(self, n, d, cfg):
+        return float(n * self.wire_slots(d, cfg) * _wire_r(cfg))
+
+    def seed_bits(self, n, cfg):
+        return float(n * t.DEFAULT_RSEED_BITS)
+
+    def cost_spec(self, d, cfg):
+        k = fixed_k_blocks(d, cfg.encoder.fraction) * fk.BLOCK
+        return _seed_spec(cfg), {"k": k}
+
+    def pack(self, flat, key, rank, cfg):
+        return fixed_k_pack(flat, prandom.fold_in(key, rank), cfg)
+
+    def decode_gathered(self, rows, key, cfg, d, n):
+        # fused scatter-accumulate: one (nb, BLOCK) accumulator, peers in order
+        rows = rows.to(torch.float32)
+        nb = fk.num_blocks(d)
+        kb = fixed_k_blocks(d, cfg.encoder.fraction)
+        all_vals = rows[:, :-1].reshape(n, kb, fk.BLOCK)
+        all_mu = rows[:, -1]
+        acc = torch.zeros((nb, fk.BLOCK), dtype=torch.float32, device=rows.device)
+        for i in range(n):
+            ids_i = fk.sample_blocks(prandom.fold_in(key, i), nb, kb, rows.device)
+            acc.index_add_(0, ids_i, all_vals[i])
+        return (acc / n + torch.mean(all_mu)).reshape(-1)[:d]
+
+    def decode_gathered_shard(self, rows, key, cfg, d, n, shard, nshards):
+        # accumulate only the blocks of this shard's ⌈nb/nshards⌉-block
+        # window; out-of-window ids land in a dump row that is sliced off,
+        # so in-window blocks get the flat decode's adds in the same order.
+        rows = rows.to(torch.float32)
+        nb = fk.num_blocks(d)
+        kb = fixed_k_blocks(d, cfg.encoder.fraction)
+        nb_s = -(-nb // nshards)
+        all_vals = rows[:, :-1].reshape(n, kb, fk.BLOCK)
+        all_mu = rows[:, -1]
+        lo = shard * nb_s
+        acc = torch.zeros((nb_s + 1, fk.BLOCK), dtype=torch.float32, device=rows.device)
+        for i in range(n):
+            ids_i = fk.sample_blocks(prandom.fold_in(key, i), nb, kb, rows.device)
+            loc = ids_i - lo
+            loc = torch.where((loc >= 0) & (loc < nb_s), loc, torch.full_like(loc, nb_s))
+            acc.index_add_(0, loc, all_vals[i])
+        return (acc[:nb_s] / n + torch.mean(all_mu)).reshape(-1)
+
+    def scatter_bits(self, n, d, cfg):
+        # flat scatter adds one collective: the decoded f32 shard all_gather
+        if not cfg.scatter_decode or cfg.inner_axes:
+            return 0.0
+        nb_s = -(-fk.num_blocks(d) // n)
+        return float(n * nb_s * fk.BLOCK * 32)
+
+
+class FixedKSharedCodec(base.WireCodec):
+    """shared_support fixed-k: one psum of [k wire values ‖ μ] + scatter.
+    All nodes draw the same support (``key`` not rank-folded), so the
+    averaged values ride a plain psum.  MSE: ``mse.mse_fixed_k_shared``."""
+
+    name = "fixed_k_shared"
+    reduce = "psum"
+
+    def wire_slots(self, d, cfg):
+        return fixed_k_wire_slots(d, cfg.encoder.fraction)
+
+    def wire_bits(self, n, d, cfg):
+        # star-payload convention: n × the reduced buffer
+        return float(n * self.wire_slots(d, cfg) * _wire_r(cfg))
+
+    def seed_bits(self, n, cfg):
+        return float(n * t.DEFAULT_RSEED_BITS)
+
+    def cost_spec(self, d, cfg):
+        k = fixed_k_blocks(d, cfg.encoder.fraction) * fk.BLOCK
+        return _seed_spec(cfg), {"k": k}
+
+    def pack(self, flat, key, rank, cfg):
+        return fixed_k_pack(flat, key, cfg)
+
+    def decode_reduced(self, wire, key, cfg, d):
+        wire = wire.to(torch.float32)
+        nb = fk.num_blocks(d)
+        kb = fixed_k_blocks(d, cfg.encoder.fraction)
+        ids = fk.sample_blocks(key, nb, kb, wire.device)
+        gvals = wire[:-1].reshape(-1, fk.BLOCK)
+        return fk.fixed_k_decode(gvals, ids, wire[-1], (d,))
+
+
+# --------------------------------------------------------------------------- #
+# Bernoulli (variable-size-support) — the §4.4 seed trick.
+# --------------------------------------------------------------------------- #
+
+def bernoulli_wire_slots(d: int, fraction: float) -> int:
+    """Wire-dtype elements of one §4.4 Bernoulli buffer: cap values + μ."""
+    return comm_cost.bernoulli_capacity(d, float(fraction)) + 1
+
+
+def bernoulli_pack(flat, key, p: float, cap: int, mu):
+    """The (cap,) f32 Eq. (1) value buffer: sent coordinates at their
+    support rank, overflow ranks dropped (the decoder drops them too)."""
+    return bw_ops.encode(flat, key, p, cap, mu)
+
+
+def bernoulli_buffer(flat, key, rank, cfg):
+    """THE §4.4 Bernoulli wire buffer: [cap value slots ‖ μ] at wire dtype,
+    support from fold_in(key, rank)."""
+    d = flat.shape[0]
+    p = float(cfg.encoder.fraction)
+    cap = comm_cost.bernoulli_capacity(d, p)
+    mu = base.center(flat, cfg.encoder.center)
+    buf = bernoulli_pack(flat, prandom.fold_in(key, rank), p, cap, mu)
+    return _with_tail(buf, mu, cfg)
+
+
+def _peer_keys(key, n: int):
+    return torch.stack([prandom.fold_in(key, i) for i in range(n)])
+
+
+class BernoulliCodec(base.WireCodec):
+    """gather_decode for the uniform-p Bernoulli encoder, real §4.4 wire.
+    Each node all_gathers one [cap value slots ‖ μ] buffer; peers regenerate
+    the supports from fold_in(key, peer)."""
+
+    name = "bernoulli"
+    scatter_supported = True
+
+    def wire_slots(self, d, cfg):
+        return bernoulli_wire_slots(d, cfg.encoder.fraction)
+
+    def wire_bits(self, n, d, cfg):
+        return float(n * self.wire_slots(d, cfg) * _wire_r(cfg))
+
+    def seed_bits(self, n, cfg):
+        return float(n * t.DEFAULT_RSEED_BITS)
+
+    def cost_spec(self, d, cfg):
+        cap = comm_cost.bernoulli_capacity(d, float(cfg.encoder.fraction))
+        return _seed_spec(cfg), {"cap": cap}
+
+    def pack(self, flat, key, rank, cfg):
+        return bernoulli_buffer(flat, key, rank, cfg)
+
+    def decode_gathered(self, rows, key, cfg, d, n):
+        # fused regenerate + select + accumulate over all n buffers into one
+        # (d,) accumulator — never n dense per-peer reconstructions
+        p = float(cfg.encoder.fraction)
+        cap = comm_cost.bernoulli_capacity(d, p)
+        rows = rows.to(torch.float32)
+        total = bw_ops.decode_sum(rows[:, :-1], rows[:, -1].contiguous(),
+                                  _peer_keys(key, n), p, cap, d)
+        return total / n
+
+    def decode_shards(self, rows, key, cfg, d, n, shards, comm):
+        # §12 reduce-scatter decode.  Support ranks are global, so each
+        # shard needs every peer's support count strictly before its window:
+        # the count phase of every local shard runs first, the per-shard
+        # counts are all_gathered over the ranks and exclusive-cumsummed,
+        # and each shard's decode reuses its count phase's support bits.
+        p = float(cfg.encoder.fraction)
+        cap = comm_cost.bernoulli_capacity(d, p)
+        rows = rows.to(torch.float32)
+        bufs, mus = rows[:, :-1], rows[:, -1].contiguous()
+        keys = _peer_keys(key, n)
+        ds = base.scatter_shard_len(d, n)
+        sups = [bw_ops.support_counts(keys, p, d, s * ds, ds, rows.device)
+                for s in shards]
+        counts = torch.stack([s.counts.sum(1, dtype=torch.int32) for s in sups])
+        allc = base.gather_nested(counts, comm).reshape(n, n)
+        prior = torch.cumsum(allc, 0, dtype=torch.int32) - allc
+        return torch.stack([
+            bw_ops.decode_sum_shard(bufs, mus, sup, prior[s].contiguous(), cap=cap) / n
+            for s, sup in zip(shards, sups)])
+
+    def scatter_bits(self, n, d, cfg):
+        # flat scatter adds two collectives: the per-shard support counts
+        # (n i32 per node) and the decoded f32 shard all_gather
+        if not cfg.scatter_decode or cfg.inner_axes:
+            return 0.0
+        ds = base.scatter_shard_len(d, n)
+        return float(n * n * 32 + n * ds * 32)

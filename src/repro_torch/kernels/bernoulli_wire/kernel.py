@@ -1,0 +1,164 @@
+"""ctypes wrappers of the Hopper Bernoulli wire kernels (``csrc/bernoulli_wire.cu``).
+
+Each wrapper takes CUDA tensors only, checks device, dtype, shape and
+contiguity, allocates its outputs and scratch with ``torch.empty``,
+launches on PyTorch's current stream, raises on a nonzero
+``cudaGetLastError`` after every launch, and adds one to its launch count
+in :data:`repro_torch.kernels.backend.launches`:
+
+* :func:`encode` — ``bernoulli_encode`` (replaces ``encode_pallas``);
+* :func:`decode_sum` — ``bernoulli_decode_sum`` (``decode_sum_pallas``);
+* :func:`support_counts` — ``bernoulli_support_counts``, the count phase of
+  the shard decode, run before the §12 count exchange;
+* :func:`decode_sum_shard` — ``bernoulli_decode_sum_shard`` (the rest of
+  ``decode_sum_shard_pallas``).
+
+The design, the bit-exactness argument and the bound of each kernel are in
+the source's header comment.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import backend
+from repro_torch.kernels.bernoulli_wire import ref
+from repro_torch.kernels.bernoulli_wire.ref import Support, num_chunks
+
+_LIB = "bernoulli_wire"
+MAX_PEERS = 256
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_SIGS = {
+    "bw_support_counts": [_P, ctypes.c_int, _I64, _I64, _I64, ctypes.c_float,
+                          _P, _P, _P],
+    "bw_scan_rows": [_P, _P, ctypes.c_int, _I64, _P, _P, _P],
+    "bw_encode_write": [_P, _P, _P, _P, _I64, _I64, ctypes.c_float,
+                        ctypes.c_float, _P, _P, _P],
+    "bw_decode": [_P, _I64, _P, _P, _P, ctypes.c_int, _I64, _I64, _P, _P],
+}
+
+
+def _fn(name: str):
+    f = getattr(backend.lib(_LIB), name)
+    if f.argtypes is None:
+        f.argtypes = _SIGS[name]
+        f.restype = ctypes.c_int
+    return f
+
+
+def _host_keys(keys) -> ctypes.Array:
+    """(n, 2) key words → a host uint32 array the launch copies by value."""
+    k = torch.as_tensor(keys).reshape(-1, 2).to(torch.int64).cpu()
+    n = k.shape[0]
+    if not 1 <= n <= MAX_PEERS:
+        raise ValueError(f"need 1..{MAX_PEERS} peer keys, got {n}")
+    return (ctypes.c_uint32 * (2 * n))(*[int(w) & 0xFFFFFFFF for w in k.reshape(-1)])
+
+
+def _count(keys_host, n, start, ds, d, p32, device):
+    nck = num_chunks(ds)
+    counts = torch.empty((n, nck), dtype=torch.int32, device=device)
+    mask = torch.empty((n, nck * ref.WORDS), dtype=torch.int32, device=device)
+    err = _fn("bw_support_counts")(keys_host, n, start, ds, d, p32,
+                                   counts.data_ptr(), mask.data_ptr(),
+                                   backend.stream_ptr(device))
+    backend.check_launch(err, "bernoulli support count")
+    return counts, mask
+
+
+def _scan(counts, init, device):
+    rows, length = counts.shape
+    offsets = torch.empty_like(counts)
+    totals = torch.empty(rows, dtype=torch.int32, device=device)
+    err = _fn("bw_scan_rows")(counts.data_ptr(),
+                              None if init is None else init.data_ptr(),
+                              rows, length, offsets.data_ptr(),
+                              totals.data_ptr(), backend.stream_ptr(device))
+    backend.check_launch(err, "bernoulli rank scan")
+    return offsets, totals
+
+
+def _decode(bufs, mus, mask, offsets, ds, cap, device):
+    n = bufs.shape[0]
+    out = torch.empty(ds, dtype=torch.float32, device=device)
+    err = _fn("bw_decode")(bufs.data_ptr(), bufs.stride(0), mus.data_ptr(),
+                           mask.data_ptr(), offsets.data_ptr(), n, ds, cap,
+                           out.data_ptr(), backend.stream_ptr(device))
+    backend.check_launch(err, "bernoulli decode")
+    return out
+
+
+def _check_bufs(bufs, mus, cap):
+    if bufs.dim() != 2 or bufs.shape[1] != cap:
+        raise ValueError(f"bufs: expected (n, {cap}), got {tuple(bufs.shape)}")
+    backend.check(bufs, "bufs", torch.float32, contiguous=False)
+    if bufs.stride(1) != 1:
+        raise ValueError("bufs: rows must be contiguous (stride 1)")
+    backend.check(mus, "mus", torch.float32, (bufs.shape[0],))
+
+
+def encode(flat, key, mu, *, p: float, cap: int):
+    """(d,) f32 + rank-folded (2,) key + device f32 μ → (cap,) f32 buffer."""
+    backend.check(flat, "flat", torch.float32)
+    if flat.dim() != 1:
+        raise ValueError(f"flat: expected 1-D, got {tuple(flat.shape)}")
+    backend.check(mu, "mu", torch.float32, ())
+    dev = flat.device
+    d = flat.shape[0]
+    p32, inv_p, c = ref.coefficients(p)
+    counts, mask = _count(_host_keys(key), 1, 0, d, d, p32, dev)
+    offsets, total = _scan(counts, None, dev)
+    out = torch.empty(cap, dtype=torch.float32, device=dev)
+    err = _fn("bw_encode_write")(flat.data_ptr(), mask.data_ptr(),
+                                 offsets.data_ptr(), total.data_ptr(), d, cap,
+                                 inv_p, c, mu.data_ptr(), out.data_ptr(),
+                                 backend.stream_ptr(dev))
+    backend.check_launch(err, "bernoulli encode write")
+    backend.launches["bernoulli_encode"] += 1
+    return out
+
+
+def support_counts(keys, *, p: float, d: int, start: int, ds: int, device):
+    """Count phase of the shard decode over [start, start + ds): a Support."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"support_counts kernel needs a CUDA device, got {device}")
+    kh = _host_keys(keys)
+    n = len(kh) // 2
+    counts, mask = _count(kh, n, int(start), int(ds), int(d),
+                          ref.coefficients(p)[0], device)
+    backend.launches["bernoulli_support_counts"] += 1
+    return Support(counts, mask, int(ds))
+
+
+def decode_sum_shard(bufs, mus, support: Support, prior, *, cap: int):
+    """Σ_i reconstruction_i over the support's window, as (ds,) f32."""
+    _check_bufs(bufs, mus, cap)
+    n = bufs.shape[0]
+    nck = num_chunks(support.ds)
+    backend.check(support.counts, "support.counts", torch.int32, (n, nck))
+    backend.check(support.mask, "support.mask", torch.int32, (n, nck * ref.WORDS))
+    backend.check(prior, "prior", torch.int32, (n,))
+    dev = bufs.device
+    offsets, _ = _scan(support.counts, prior, dev)
+    out = _decode(bufs, mus, support.mask, offsets, support.ds, cap, dev)
+    backend.launches["bernoulli_decode_sum_shard"] += 1
+    return out
+
+
+def decode_sum(bufs, mus, keys, *, p: float, cap: int, d: int):
+    """Σ_i reconstruction_i as (d,) f32 (count, scan and decode phases)."""
+    _check_bufs(bufs, mus, cap)
+    dev = bufs.device
+    kh = _host_keys(keys)
+    n = len(kh) // 2
+    if n != bufs.shape[0]:
+        raise ValueError(f"{n} keys for {bufs.shape[0]} buffers")
+    counts, mask = _count(kh, n, 0, d, d, ref.coefficients(p)[0], dev)
+    offsets, _ = _scan(counts, None, dev)
+    out = _decode(bufs, mus, mask, offsets, d, cap, dev)
+    backend.launches["bernoulli_decode_sum"] += 1
+    return out

@@ -1,0 +1,245 @@
+"""The port's compressed-mean round on ``StackedComm`` against the JAX
+package's meshless round, bit for bit, plus ``DistComm`` rounds over gloo.
+
+Both sides get the same μ.  μ = mean(x) is not bit-reproducible across
+frameworks: jnp's CPU mean multiplies the sum by the f32 reciprocal of d,
+torch's divides, and their summation orders differ.  So the inputs lie on
+a 2⁻⁶ grid (every partial sum exact in f32, hence the same sum on both
+sides) and the port's center is computed here the reference's way, sum ×
+(1/d); the test asserts that this equals jnp's μ exactly.  The port's own
+μ is held to jnp's separately, within a stated tolerance
+(:func:`test_port_mean_close_to_reference_mean`).
+
+* gather codecs (``fixed_k``, ``bernoulli``), flat decode: equal to the
+  reference's ``decode_gathered`` over the stacked packs
+  (tests/conftest.py::simulate_wire_round);
+* the same with the §12 scatter decode: fixed-k equal to the reference's
+  ``decode_gathered_shard`` concatenated, Bernoulli equal to the
+  reference's flat decode (its shard decode equals its flat decode);
+* ``fixed_k_1bit`` (psum): equal to the reference's ``decode_reduced`` of
+  the rank-order f32 mean of its pack buffers, rounded once to bf16.
+
+``DistComm`` all-reduces the bf16 fixed-k buffer in bf16, in the backend's
+order, where ``StackedComm`` sums in f32 in rank order and rounds once.
+At world size 2 the two agree bit for bit (one add, one rounding); at 4
+the fixed-k round is held to the bound of that bf16 rounding
+(:func:`test_distcomm_gloo_world_size_4_fixed_k_within_bf16_rounding`).
+"""
+import dataclasses
+import pathlib
+import socket
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import compression_preset as jpreset
+from repro.core import wire as jwire
+from repro_torch import convert
+from repro_torch import random as R
+from repro_torch.configs.registry import compression_preset as tpreset
+from repro_torch.core import collectives as tcoll
+from repro_torch.core.wire import base as tbase
+from repro_torch.core.wire import registry as tregistry
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+D = 70_001
+KEY_SEED = 99
+
+
+def _xs(n, d, seed):
+    rng = np.random.default_rng(seed)
+    x = np.round(rng.standard_normal((n, d)) * 32) / 64
+    x += (np.arange(n)[:, None] - n / 2) / 64
+    return x.astype(np.float32)
+
+
+def _configs():
+    bern = jpreset("bernoulli_seed_1bit", axes=("data",))
+    fk = jpreset("hier_fixed_k", axes=("data",))
+    return {
+        "fixed_k_gather_flat": dataclasses.replace(fk, scatter_decode=False),
+        "fixed_k_gather_scatter": fk,
+        "bernoulli_flat": dataclasses.replace(bern, scatter_decode=False),
+        "bernoulli_scatter": bern,
+        "fixed_k_1bit": jpreset("fixed_k_1bit", axes=("data",)),
+    }
+
+
+def _jax_round(jcfg, xs):
+    n, d = xs.shape
+    codec = jwire.resolve(jcfg)
+    key = jax.random.PRNGKey(KEY_SEED)
+    with jax.threefry_partitionable(False):
+        mus = [float(jnp.mean(jnp.asarray(x))) for x in xs]
+        bufs = [codec.pack(jnp.asarray(xs[r]), key, r, jcfg) for r in range(n)]
+        if codec.reduce == "psum":
+            acc = jnp.zeros(bufs[0].shape, jnp.float32)
+            for b in bufs:
+                acc = acc + b.astype(jnp.float32)
+            wire = (acc / n).astype(bufs[0].dtype)
+            return np.asarray(codec.decode_reduced(wire, key, jcfg, d)), mus
+        rows = jnp.stack(bufs)
+        if jcfg.scatter_decode and codec.name == "fixed_k":
+            parts = [codec.decode_gathered_shard(rows, key, jcfg, d, n, s, n) for s in range(n)]
+            return np.asarray(jnp.concatenate(parts)[:d]), mus
+        return np.asarray(codec.decode_gathered(rows, key, jcfg, d, n)), mus
+
+
+def _reference_style_center(x, policy):
+    """μ as the reference's jnp.mean computes it on the CPU: sum × f32(1/d)."""
+    assert policy == "mean"
+    return torch.sum(x) * torch.tensor(np.float32(1.0) / np.float32(x.numel()))
+
+
+@pytest.mark.parametrize("n", (2, 8))
+@pytest.mark.parametrize("name", sorted(_configs()))
+def test_stacked_round_equals_reference(name, n, monkeypatch):
+    jcfg = _configs()[name]
+    xs = _xs(n, D, seed=n)
+    want, jmus = _jax_round(jcfg, xs)
+    x = torch.from_numpy(xs)
+    tmus = [float(_reference_style_center(x[r], "mean")) for r in range(n)]
+    assert tmus == jmus
+    monkeypatch.setattr(tbase, "center", _reference_style_center)
+    cfg = convert.compression_config(jcfg)
+    comm = tcoll.StackedComm(n, "cpu")
+    got = tcoll.compressed_mean(x, R.PRNGKey(KEY_SEED), cfg, comm).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("d", (4096, 70001, 1 << 20))
+def test_port_mean_close_to_reference_mean(d):
+    """The port's own μ (torch.mean) against jnp.mean: they may differ in
+    the last bits; the difference stays within 4 f32 epsilons of mean|x|
+    (measured at most 2.7 over 90 draws at these d)."""
+    for seed, off in ((0, 0.0), (1, 0.5), (2, -3.0)):
+        x = (np.random.default_rng(seed).standard_normal(d) + off).astype(np.float32)
+        want = float(jnp.mean(jnp.asarray(x)))
+        got = float(tbase.center(torch.from_numpy(x), "mean"))
+        assert abs(got - want) <= 4 * 2.0 ** -23 * float(np.abs(x).mean())
+
+
+@pytest.mark.parametrize("name", ("bernoulli_scatter", "fixed_k_1bit"))
+def test_stacked_bytes_match_accounting(name):
+    n = 8
+    cfg = convert.compression_config(_configs()[name])
+    comm = tcoll.StackedComm(n, "cpu")
+    tcoll.compressed_mean(torch.from_numpy(_xs(n, D, 3)), R.PRNGKey(1), cfg, comm)
+    from repro_torch.core import wire
+    codec = wire.resolve(cfg)
+    bits = codec.wire_bits(n, D, cfg) + codec.scatter_bits(n, D, cfg)
+    sent = comm.bytes_gathered if codec.reduce == "all_gather" else comm.bytes_reduced
+    assert sent * 8 == bits
+    assert comm.bytes_gathered + comm.bytes_reduced == sent
+
+
+def test_exact_and_partial_mean():
+    xs = torch.from_numpy(_xs(4, 1000, 5))
+    comm = tcoll.StackedComm(4, "cpu")
+    cfg = convert.compression_config(jpreset("fixed_k_1bit", axes=("data",)))
+    small = tcoll.compressed_mean(xs, R.PRNGKey(0), cfg, comm)   # below min_compress_size
+    want = ((xs[0] + xs[1]) + xs[2] + xs[3]) / 4
+    assert torch.equal(small, want)
+    alive = torch.tensor([1.0, 0.0, 1.0, 1.0])
+    part = tcoll.partial_mean(xs, alive, comm)
+    assert torch.equal(part, ((xs[0] + xs[2]) + xs[3]) / 3)
+    assert torch.isnan(tcoll.partial_mean(xs, torch.zeros(4), comm)).all()
+
+
+_WORKER = r"""
+import sys, numpy as np, torch, torch.distributed as dist
+sys.path.insert(0, sys.argv[1])
+from repro_torch import random as R
+from repro_torch.configs.registry import compression_preset
+from repro_torch.core.collectives import DistComm, compressed_mean
+import dataclasses
+rank, port, out, world = int(sys.argv[2]), sys.argv[3], sys.argv[4], int(sys.argv[5])
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                        rank=rank)
+xs = torch.from_numpy(np.load(out + "/xs.npy"))
+bern = compression_preset("bernoulli_seed_1bit", axes=("data",))
+for name, cfg in (("bernoulli_scatter", bern),
+                  ("bernoulli_flat", dataclasses.replace(bern, scatter_decode=False)),
+                  ("fixed_k_1bit", compression_preset("fixed_k_1bit", axes=("data",)))):
+    comm = DistComm(device="cpu")
+    y = compressed_mean(xs[rank:rank + 1], R.PRNGKey(7), cfg, comm)
+    np.save(f"{out}/{name}.{rank}.npy", y.numpy())
+    np.save(f"{out}/{name}.{rank}.bytes.npy", np.array([comm.bytes_gathered, comm.bytes_reduced]))
+dist.destroy_process_group()
+"""
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _gloo_rounds(tmp_path, world):
+    """Runs the worker in ``world`` gloo processes; returns the inputs and,
+    per config, the StackedComm round over the same stack."""
+    xs = _xs(world, 20_000, 11)
+    np.save(tmp_path / "xs.npy", xs)
+    port = str(_free_port())
+    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(ROOT / "src"), str(r),
+                               port, str(tmp_path), str(world)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = [p.communicate(timeout=240)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0] * world, "\n".join(outs)
+    bern = tpreset("bernoulli_seed_1bit", axes=("data",))
+    cfgs = {"bernoulli_scatter": bern,
+            "bernoulli_flat": dataclasses.replace(bern, scatter_decode=False),
+            "fixed_k_1bit": tpreset("fixed_k_1bit", axes=("data",))}
+    stacked = {}
+    for name, cfg in cfgs.items():
+        comm = tcoll.StackedComm(world, "cpu")
+        want = tcoll.compressed_mean(torch.from_numpy(xs), R.PRNGKey(7), cfg, comm).numpy()
+        stacked[name] = (cfg, want, comm)
+        for r in range(world):
+            g, red = np.load(tmp_path / f"{name}.{r}.bytes.npy")
+            assert world * g == comm.bytes_gathered and world * red == comm.bytes_reduced
+    return xs, stacked
+
+
+def test_distcomm_gloo_world_size_2_equals_stacked(tmp_path):
+    _, stacked = _gloo_rounds(tmp_path, 2)
+    for name, (_, want, _) in stacked.items():
+        for r in range(2):
+            np.testing.assert_array_equal(np.load(tmp_path / f"{name}.{r}.npy"), want)
+
+
+def test_distcomm_gloo_world_size_4_fixed_k_within_bf16_rounding(tmp_path):
+    """Gather rounds stay bit-equal at n = 4.  The psum round differs from
+    StackedComm's only by the bf16 rounding of the backend's running sum:
+    with S = Σ b_i and A = Σ |b_i| over the ranks' bf16 buffers and u =
+    2⁻⁸, n − 1 bf16 adds put the reduced mean within (n − 1)·u·A/n of S/n,
+    StackedComm's single rounding within u·|S|/n (plus f32 adds, below
+    n·2⁻²⁴·A/n).  The decode adds the μ slot's bound to each value's, and
+    each side rounds that add once (2⁻²³ of the result)."""
+    n = 4
+    xs, stacked = _gloo_rounds(tmp_path, n)
+    for name in ("bernoulli_scatter", "bernoulli_flat"):
+        for r in range(n):
+            np.testing.assert_array_equal(np.load(tmp_path / f"{name}.{r}.npy"),
+                                          stacked[name][1])
+    cfg, want, _ = stacked["fixed_k_1bit"]
+    codec = tregistry.resolve(cfg)
+    x = torch.from_numpy(xs)
+    bufs = torch.stack([codec.pack(x[i], R.PRNGKey(7), i, cfg) for i in range(n)]).float()
+    u = 2.0 ** -8
+    a, s = bufs.abs().sum(0), bufs.sum(0)
+    tol_wire = (u * ((n - 1) * a + s.abs()) + 2.0 ** -24 * n * a) / n
+    tol = codec.decode_reduced(tol_wire, R.PRNGKey(7), cfg, xs.shape[1]).numpy()
+    tol = tol + 2.0 ** -23 * np.abs(want)
+    for r in range(n):
+        got = np.load(tmp_path / f"fixed_k_1bit.{r}.npy")
+        np.testing.assert_array_equal(got, np.load(tmp_path / "fixed_k_1bit.0.npy"))
+        assert np.all(np.abs(got - want) <= tol)
+

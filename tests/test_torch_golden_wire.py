@@ -1,0 +1,84 @@
+"""The port's packed wire bytes against the committed golden matrix
+(``tests/golden/golden_wire.npz``), built from the inputs of
+``tests/golden/regen_golden_wire.py::build_matrix`` (D = 4096, 2 ranks,
+x seed 1234, key seed 99).
+
+The presets of this slice must match byte for byte with μ computed by the
+port itself (the bf16 wire absorbs the last-bit differences of the mean on
+this input).  The other presets resolve to codecs the port does not have
+yet and must say so by raising NotPortedError, never by falling back.
+"""
+import pathlib
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jregistry
+from repro_torch import convert
+from repro_torch import random as R
+from repro_torch.configs import registry as tregistry
+from repro_torch.core import wire as twire
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "golden"))
+import regen_golden_wire as regen  # noqa: E402
+
+PORTED = ("fixed_k_1bit", "bernoulli_seed_1bit", "hier_fixed_k", "hier_bernoulli")
+# the slice of ROADMAP.md queue 1 each waiting preset arrives with
+WAITING = {
+    "binary_packed": "slice 2",
+    "ternary_packed": "slice 3",
+    "ternary_opt": "slice 3",
+    "rotated_binary": "slice 2",
+    "rotated_fixed_k": "slice 4",
+    "ef_fixed_k": "slice 5",
+    "ef_bernoulli": "slice 5",
+    "ef_binary": "slice 2",
+    "ef_ternary": "slice 3",
+    "ef_rotated_binary": "slice 2",
+}
+
+
+@pytest.fixture(scope="module")
+def golden():
+    with np.load(regen.GOLDEN) as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.fixture(scope="module")
+def xs():
+    with jax.threefry_partitionable(False):
+        return np.asarray(jax.random.normal(
+            jax.random.PRNGKey(regen.X_SEED), (regen.N_RANKS, regen.D)) * 0.5)
+
+
+def test_preset_tables_agree():
+    assert sorted(tregistry.COMPRESSION_PRESETS) == sorted(jregistry.COMPRESSION_PRESETS)
+    assert sorted(PORTED + tuple(WAITING)) == sorted(jregistry.COMPRESSION_PRESETS)
+    for name, cfg in jregistry.COMPRESSION_PRESETS.items():
+        assert convert.compression_config(cfg) == tregistry.COMPRESSION_PRESETS[name]
+        assert (convert.compression_config(jregistry.compression_preset(name, axes=("data",)))
+                == tregistry.compression_preset(name, axes=("data",)))
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_ported_preset_bytes_match_golden(name, golden, xs):
+    cfg = tregistry.compression_preset(name, axes=("data",))
+    codec = twire.resolve(cfg)
+    key = R.PRNGKey(regen.KEY_SEED)
+    rows = []
+    for r in range(regen.N_RANKS):
+        buf = codec.pack(torch.from_numpy(np.array(xs[r])), key, r, cfg)
+        rows.append(buf.contiguous().view(torch.uint8).numpy())
+    assert str(golden[f"{name}.dtype"]) == "bfloat16" == cfg.wire_dtype
+    assert int(golden[f"{name}.slots"]) == codec.wire_slots(regen.D, cfg) == rows[0].size // 2
+    np.testing.assert_array_equal(np.stack(rows), golden[f"{name}.bytes"])
+
+
+@pytest.mark.parametrize("name", sorted(WAITING))
+def test_waiting_preset_raises_not_ported(name):
+    cfg = tregistry.compression_preset(name, axes=("data",))
+    with pytest.raises(twire.NotPortedError, match=WAITING[name]):
+        twire.resolve(cfg)

@@ -1,0 +1,66 @@
+"""The port stands alone: importing every module of ``repro_torch`` loads
+neither JAX nor the JAX package, entry points refuse to run without a card
+unless a device is given, and the kernel dispatch rule takes no mixed or
+foreign devices."""
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import collectives as tcoll
+from repro_torch.kernels import backend
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.path.insert(0, sys.argv[1])
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LOADED", len([k for k in sys.modules if k.startswith("repro_torch")]), "BAD", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL, str(ROOT / "src")],
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "BAD []" in res.stdout
+
+
+def test_chip_smoke_imports_no_jax():
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert "import jax" not in src and "from repro." not in src and "import repro\n" not in src
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcoll.StackedComm(4)
+    assert tcoll.StackedComm(4, "cpu").device == torch.device("cpu")
+
+
+def test_dispatch_rule():
+    cpu = torch.zeros(3)
+    assert backend.use_plain(cpu, None, cpu)
+    with pytest.raises(ValueError):
+        backend.use_plain(cpu, torch.zeros(3, device="meta"))
+
+
+def test_kernel_wrappers_reject_cpu_tensors():
+    from repro_torch.kernels.bernoulli_wire import kernel as bwk
+    from repro_torch.kernels.fixed_k_encode import fixed_k_encode as fkk
+
+    x = torch.zeros(2048)
+    with pytest.raises(ValueError, match="CUDA"):
+        bwk.encode(x, torch.tensor([0, 1]), torch.tensor(0.0), p=0.5, cap=10)
+    with pytest.raises(ValueError, match="CUDA"):
+        fkk.fixed_k_gather(x, torch.tensor([0, 1]), 2.0, torch.tensor(0.0))

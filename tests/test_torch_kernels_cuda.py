@@ -1,0 +1,74 @@
+"""The port's CUDA kernels against their plain versions, on a card.
+
+Marked ``cuda``; every test skips, with its reason, where no CUDA device is
+present (decided in a fixture, never at import).  On a card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+``chip_smoke.py`` runs the same comparisons at the main path's shapes.
+"""
+import pytest
+import torch
+
+from repro_torch import random as R
+from repro_torch.core import comm_cost
+from repro_torch.kernels.bernoulli_wire import kernel as bwk
+from repro_torch.kernels.bernoulli_wire import ref as bwr
+from repro_torch.kernels.fixed_k_encode import fixed_k_encode as fkk
+from repro_torch.kernels.fixed_k_encode import ref as fkr
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _same(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("d,p,cap", [(1, 0.5, None), (70001, 1 / 16, None),
+                                     (70001, 1 / 16, 100), (4103, 0.3, None)])
+def test_encode_kernel_equals_plain(dev, d, p, cap):
+    cap = cap or comm_cost.bernoulli_capacity(d, p)
+    x = torch.randn(d, device=dev, generator=torch.Generator(dev).manual_seed(d))
+    key = R.fold_in(R.PRNGKey(1), 2)
+    mu = x.mean()
+    assert _same(bwk.encode(x, key, mu, p=p, cap=cap), bwr.encode(x, key, p, cap, mu))
+
+
+@pytest.mark.parametrize("d,n,cap", [(33, 2, None), (70001, 8, None), (5000, 4, 1500)])
+def test_decode_kernels_equal_plain(dev, d, n, cap):
+    p = 1 / 16 if cap is None else 0.5
+    cap = cap or comm_cost.bernoulli_capacity(d, p)
+    g = torch.Generator(dev).manual_seed(d)
+    bufs = torch.randn(n, cap, device=dev, generator=g)
+    mus = torch.randn(n, device=dev, generator=g)
+    keys = torch.stack([R.fold_in(R.PRNGKey(d), i) for i in range(n)])
+    want = bwr.decode_sum_sequential(bufs, mus, keys, p, cap, d)
+    assert _same(bwk.decode_sum(bufs, mus, keys, p=p, cap=cap, d=d), want)
+    ds = -(-d // n)
+    sups = [bwk.support_counts(keys, p=p, d=d, start=s * ds, ds=ds, device=dev) for s in range(n)]
+    allc = torch.stack([s.counts.sum(1, dtype=torch.int32) for s in sups])
+    prior = torch.cumsum(allc, 0, dtype=torch.int32) - allc
+    parts = []
+    for s, sup in enumerate(sups):
+        plain = bwr.support_counts(keys, p, d, s * ds, ds, dev)
+        assert torch.equal(sup.counts, plain.counts) and torch.equal(sup.mask, plain.mask)
+        parts.append(bwk.decode_sum_shard(bufs, mus, sup, prior[s].contiguous(), cap=cap))
+    assert _same(torch.cat(parts)[:d], want)
+
+
+@pytest.mark.parametrize("d", (1024, 70001))
+def test_fixed_k_gather_equals_plain(dev, d):
+    x = torch.randn(d, device=dev, generator=torch.Generator(dev).manual_seed(d))
+    nb = -(-d // 1024)
+    kb = max(1, round(nb / 16))
+    ids = fkr.sample_blocks(R.PRNGKey(3), nb, kb, dev)
+    mu = x.mean()
+    want = fkr.fixed_k_encode(torch.nn.functional.pad(x, (0, nb * 1024 - d)), ids, mu)
+    assert _same(fkk.fixed_k_gather(x, ids, nb / kb, mu), want)
