@@ -11,16 +11,21 @@ Phases, each printing its own lines:
 2. hold each kernel bit-equal against its plain PyTorch version on the card,
    at d = 70,001 and 16,777,217 (n = 8 peers, keys folded per rank from
    ``PRNGKey(seed)``), with a forced-small-cap overflow case and shard
-   windows straddling block edges, and at the largest shape the main path
-   gives it; time kernel and plain version;
+   windows straddling block edges, the bit-plane kernels at every width and
+   on strided word windows, and at the largest shape the main path gives
+   each kernel; time kernel and plain version;
 3. the main path: ``sync_grads_bucketed`` over the qwen3-4b gradient tree
    (full width, 4 of 36 layers, 792,657,920 compressed coordinates per
-   rank) on ``StackedComm(8, "cuda")`` for the ``fixed_k_1bit`` and
-   ``bernoulli_seed_1bit`` presets and the flat-decode Bernoulli round,
-   3 steps each (keys ``fold_in(PRNGKey(0), step)``), with synthetic
-   seeded gradients.  Checks the kernel launch counts, finiteness, the
-   bytes handed to the communicator against the accounting, and the squared
-   error against the closed-form MSE.
+   rank) on ``StackedComm(8, "cuda")`` for each preset of
+   ``train/synthetic.py`` (``fixed_k_1bit``, ``bernoulli_seed_1bit``,
+   ``binary_packed``, ``ternary_packed``, ``ternary_opt``), 3 steps each
+   (keys ``fold_in(PRNGKey(0), step)``), then one step each of the
+   flat-decode Bernoulli round and of the dense simulation (Bernoulli 1/16
+   encoder), with synthetic seeded gradients.  Checks the kernel launch
+   counts per bucket against each codec's table (``expected_launches``),
+   finiteness, the bytes handed to the communicator against the accounting,
+   and the squared error against the codec's closed-form MSE (``closed_form``,
+   within 10%).
 
 Then one JSON line with every kernel's numbers and, last, the device line.
 Exits nonzero, and prints no result, when there is no CUDA card, when the
@@ -62,6 +67,9 @@ REPLACES = {
     "bernoulli_support_counts": "src/repro/kernels/bernoulli_wire/kernel.py:336",
     "bernoulli_decode_sum_shard": "src/repro/kernels/bernoulli_wire/kernel.py:336",
     "fixed_k_gather": "src/repro/kernels/fixed_k_encode/fixed_k_encode.py:39",
+    "bitplane_pack": "src/repro/kernels/bitplane/bitplane.py:53",
+    "bitplane_unpack": "src/repro/kernels/bitplane/bitplane.py:109",
+    "bitplane_binary_accum": "src/repro/kernels/bitplane/bitplane.py:92",
 }
 SOURCE = {
     "bernoulli_encode": "src/repro_torch/csrc/bernoulli_wire.cu",
@@ -69,6 +77,9 @@ SOURCE = {
     "bernoulli_support_counts": "src/repro_torch/csrc/bernoulli_wire.cu",
     "bernoulli_decode_sum_shard": "src/repro_torch/csrc/bernoulli_wire.cu",
     "fixed_k_gather": "src/repro_torch/csrc/fixed_k_encode.cu",
+    "bitplane_pack": "src/repro_torch/csrc/bitplane.cu",
+    "bitplane_unpack": "src/repro_torch/csrc/bitplane.cu",
+    "bitplane_binary_accum": "src/repro_torch/csrc/bitplane.cu",
 }
 
 
@@ -127,10 +138,21 @@ def bound_ms(nbytes: float, int_ops: float, f32_ops: float):
 
 
 def same_bits(a, b) -> bool:
+    """Same shape, dtype and bits (floats compared as their bit patterns)."""
     import torch
 
-    return (a.shape == b.shape and a.dtype == b.dtype
-            and torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+    return torch.equal(a, b)
+
+
+def record(records: dict, name: str, err, ms, plain_ms, nbytes, int_ops, f32_ops) -> None:
+    """One kernel's numbers at the main path's largest shape."""
+    b, by = bound_ms(nbytes, int_ops, f32_ops)
+    records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b, "bound_by": by, "library_ms": None}
 
 
 def max_err(a, b) -> float:
@@ -165,11 +187,6 @@ def check_kernels(sizes, main_d: int, main_shard: int, records: dict) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
 
-    def rec(name, err, ms, plain_ms, nbytes, int_ops, f32_ops):
-        b, by = bound_ms(nbytes, int_ops, f32_ops)
-        records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": b, "bound_by": by, "library_ms": None}
-
     cases = [(d, 1.0 / 16, None) for d in sizes]
     cases.append((sizes[0], 1.0 / 16, 100))      # forced small cap: overflow drops
     cases.append((sizes[0], 0.3, None))          # 1/p not a power of two
@@ -187,8 +204,8 @@ def check_kernels(sizes, main_d: int, main_shard: int, records: dict) -> None:
         if d == main_d:
             ms = cuda_ms(lambda: bwk.encode(flat, key, mu, p=p, cap=cap))
             pms = cuda_ms(lambda: bwr.encode(flat, key, p, cap, mu), reps=1)
-            rec("bernoulli_encode", max_err(got, want), ms, pms,
-                4 * d + 4 * cap, OPS_PER_CALL * -(-d // 2), 2 * cap)
+            record(records, "bernoulli_encode", max_err(got, want), ms, pms,
+                   4 * d + 4 * cap, OPS_PER_CALL * -(-d // 2), 2 * cap)
             tag += f" kernel {ms:.3f} ms plain {pms:.3f} ms"
         print(f"  bernoulli_encode {tag}: bit-equal", flush=True)
         del flat, got, want
@@ -215,8 +232,8 @@ def check_kernels(sizes, main_d: int, main_shard: int, records: dict) -> None:
             need(same_bits(got, want), f"bernoulli_decode_sum d={d}: kernel != plain")
             ms = cuda_ms(lambda: bwk.decode_sum(bufs, mus, keys, p=p, cap=cap, d=d))
             pms = cuda_ms(lambda: bwr.decode_sum(bufs, mus, keys, p, cap, d), reps=1)
-            rec("bernoulli_decode_sum", max_err(got, want), ms, pms,
-                4 * N * cap + 4 * N + 4 * d, OPS_PER_CALL * N * -(-d // 2), N * d)
+            record(records, "bernoulli_decode_sum", max_err(got, want), ms, pms,
+                   4 * N * cap + 4 * N + 4 * d, OPS_PER_CALL * N * -(-d // 2), N * d)
             print(f"  bernoulli_decode_sum d={d} n={N}: bit-equal, kernel {ms:.3f} ms "
                   f"plain {pms:.3f} ms", flush=True)
         del got, want
@@ -253,13 +270,13 @@ def check_kernels(sizes, main_d: int, main_shard: int, records: dict) -> None:
             ms_c = cuda_ms(lambda: bwk.support_counts(keys, p=p, d=d, start=s * ds, ds=ds, device=dev))
             pms_c = cuda_ms(lambda: bwr.support_counts(keys, p, d, s * ds, ds, dev), reps=1)
             nck = sup.counts.shape[1]
-            rec("bernoulli_support_counts", 0.0, ms_c, pms_c,
-                4 * N * nck + N * nck * 128, OPS_PER_CALL * N * ds, 0)
+            record(records, "bernoulli_support_counts", 0.0, ms_c, pms_c,
+                   4 * N * nck + N * nck * 128, OPS_PER_CALL * N * ds, 0)
             ms_d = cuda_ms(lambda: bwk.decode_sum_shard(bufs, mus, sup, pr, cap=cap))
             pms_d = cuda_ms(lambda: bwr.decode_sum_shard(bufs, mus, sups_p[s], pr, cap), reps=1)
             kept = int(torch.clamp(cap - pr.long(), min=0).clamp(max=allc[s].long()).sum())
-            rec("bernoulli_decode_sum_shard", max_err(parts[0], pp), ms_d, pms_d,
-                4 * kept + N * nck * 128 + 4 * N * nck + 4 * N + 4 * ds, 0, N * ds)
+            record(records, "bernoulli_decode_sum_shard", max_err(parts[0], pp), ms_d,
+                   pms_d, 4 * kept + N * nck * 128 + 4 * N * nck + 4 * N + 4 * ds, 0, N * ds)
             print(f"  bernoulli_support_counts + decode_sum_shard d={d} shard {s} "
                   f"ds={ds}: bit-equal, counts {ms_c:.3f} ms (plain {pms_c:.3f}), "
                   f"decode {ms_d:.3f} ms (plain {pms_d:.3f})", flush=True)
@@ -284,21 +301,169 @@ def check_kernels(sizes, main_d: int, main_shard: int, records: dict) -> None:
             ms = cuda_ms(lambda: fkk.fixed_k_gather(flat, ids, scale, mu), reps=10)
             pms = cuda_ms(lambda: fkr.fixed_k_encode(padded, ids, mu, scale))
             k = kb * fkr.BLOCK
-            rec("fixed_k_gather", max_err(got, want), ms, pms, 8 * k + 8 * kb, 0, 2 * k)
+            record(records, "fixed_k_gather", max_err(got, want), ms, pms, 8 * k + 8 * kb, 0, 2 * k)
             tag += f" kernel {ms:.3f} ms plain {pms:.3f} ms"
         print(f"  fixed_k_gather {tag}: bit-equal", flush=True)
         del flat, padded, got, want
+
+
+def check_bitplane(sizes, main_d: int, records: dict) -> None:
+    """Bit-equality of the bit-plane kernels with their plain versions on
+    the card: pack and unpack at every width (uint8 and int32 symbols, high
+    bits above the field masked) and at the main path's plane shapes (w = 1
+    binary, w = 2 ternary, at the embed bucket); the binary accumulate over
+    8 peers' word windows, strided views of the gathered rows as the §13
+    decode passes them, at the embed shard."""
+    import torch
+    from repro_torch.core import bitplane as cbp
+    from repro_torch.core.wire import scatter_shard_len
+    from repro_torch.kernels.bitplane import bitplane as bpk
+    from repro_torch.kernels.bitplane import ref as bpr
+    from repro_torch.train.synthetic import N
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+
+    def bits32(shape):
+        return torch.randint(-(1 << 31), 1 << 31, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    for d in sizes:
+        gen.manual_seed(d + 3)
+        sym32 = bits32((d,))
+        for w in bpr.WIDTHS:
+            syms = [sym32, (sym32 & 0xFF).to(torch.uint8), (sym32 & 0xFF).to(torch.uint8)[1:]]
+            for sy in syms:
+                need(same_bits(bpk.pack_bits(sy, w), bpr.pack_bits(sy, w)),
+                     f"bitplane_pack d={sy.numel()} w={w} {sy.dtype}: kernel != plain")
+            words = bpr.pack_bits(sym32, w)
+            for ww, dd in ((words, d), (words[1:], d - 32 // w)):
+                if dd < 1:
+                    continue
+                need(same_bits(bpk.unpack_bits(ww, w, dd), bpr.unpack_bits(ww, w, dd)),
+                     f"bitplane_unpack d={dd} w={w}: kernel != plain")
+        print(f"  bitplane_pack + unpack d={d}: every width, uint8/int32 symbols, "
+              "unaligned starts: bit-equal", flush=True)
+        del sym32, syms, words
+
+    # the main path's planes: the binary support (w = 1) and the ternary
+    # branch symbols (w = 2) of the embed bucket, packed and unpacked
+    for w, hi in ((1, 2), (2, 3)):
+        gen.manual_seed(main_d + w)
+        sym = torch.randint(0, hi, (main_d,), generator=gen, device=dev, dtype=torch.uint8)
+        got = bpk.pack_bits(sym, w)
+        want = bpr.pack_bits(sym, w)
+        need(same_bits(got, want), f"bitplane_pack d={main_d} w={w}: kernel != plain")
+        ms = cuda_ms(lambda: bpk.pack_bits(sym, w), reps=10)
+        pms = cuda_ms(lambda: bpr.pack_bits(sym, w), reps=1)
+        nw = got.numel()
+        if w == 2:
+            record(records, "bitplane_pack", 0.0, ms, pms, main_d + 4 * nw, 2 * main_d, 0)
+        print(f"  bitplane_pack d={main_d} w={w} (uint8 symbols): bit-equal, kernel {ms:.3f} ms "
+              f"plain {pms:.3f} ms, bound {bound_ms(main_d + 4 * nw, 2 * main_d, 0)[0]:.3f} ms",
+              flush=True)
+        del want
+        back = bpk.unpack_bits(got, w, main_d)
+        need(torch.equal(back, sym), f"bitplane_unpack d={main_d} w={w}: round trip")
+        need(same_bits(back, bpr.unpack_bits(got, w, main_d)),
+             f"bitplane_unpack d={main_d} w={w}: kernel != plain")
+        ms = cuda_ms(lambda: bpk.unpack_bits(got, w, main_d), reps=10)
+        pms = cuda_ms(lambda: bpr.unpack_bits(got, w, main_d), reps=1)
+        if w == 2:
+            record(records, "bitplane_unpack", 0.0, ms, pms, 4 * nw + main_d, 2 * main_d, 0)
+        print(f"  bitplane_unpack d={main_d} w={w} (uint8 symbols): bit-equal, kernel {ms:.3f} ms "
+              f"plain {pms:.3f} ms, bound {bound_ms(4 * nw + main_d, 2 * main_d, 0)[0]:.3f} ms",
+              flush=True)
+        del sym, got, back
+
+    # binary accumulate: 8 peers' rows [plane ‖ bf16 centers], the §13
+    # word windows of shards as views of the rows
+    for d in (*sizes, main_d):
+        gen.manual_seed(d + 4)
+        pw = bpr.num_words(d, 1)
+        rows = bits32((N, pw + 1))
+        c = torch.sort(torch.randn(N, 2, generator=gen, device=dev), dim=1).values
+        rows[:, pw] = torch.stack([cbp.floats_to_words(ci, "bfloat16")[0] for ci in c])
+        ds = scatter_shard_len(d, N, cbp.BINARY_ALIGN)
+        shards = range(N) if d != main_d else [N - 2, N - 1]
+        for sh in shards:
+            win = cbp._plane_window(rows[:, :pw], N, ds // 32, sh * ds // 32)
+            lo, hi = (torch.stack([cbp.words_to_floats(r[pw:], 2, "bfloat16") for r in rows])
+                      .T.contiguous())
+            got = bpk.binary_accum(win, lo, hi, ds)
+            want = bpr.binary_accum(win, lo, hi, ds)
+            need(same_bits(got, want), f"bitplane_binary_accum d={d} shard {sh}: kernel != plain")
+        if d == main_d:
+            ms = cuda_ms(lambda: bpk.binary_accum(win, lo, hi, ds), reps=10)
+            pms = cuda_ms(lambda: bpr.binary_accum(win, lo, hi, ds), reps=1)
+            ws = ds // 32
+            record(records, "bitplane_binary_accum", max_err(got, want), ms, pms,
+                   4 * N * ws + 8 * N + 4 * ds, N * ds, N * ds)
+            print(f"  bitplane_binary_accum d={d} shard {N - 1} ds={ds} n={N}: bit-equal, "
+                  f"kernel {ms:.3f} ms plain {pms:.3f} ms", flush=True)
+        else:
+            print(f"  bitplane_binary_accum d={d} n={N}: {N} shard windows bit-equal", flush=True)
+        del rows, win, got, want
 
 
 # --------------------------------------------------------------------------- #
 # Phase 3: the main path.
 # --------------------------------------------------------------------------- #
 
+# Kernel launches per compressed bucket of one round, by codec: the packs
+# (one per rank), then the decode's (one per shard of the §12/§13 scatter
+# decode, one per peer row of a flat bit-plane decode, one for the fused
+# flat Bernoulli decode).  The dense simulation launches no kernel.
+def expected_launches(codec: str, scatter: bool, n: int) -> dict:
+    if codec == "fixed_k_shared":
+        return {"fixed_k_gather": n}
+    if codec == "bernoulli":
+        if scatter:
+            return {"bernoulli_encode": n, "bernoulli_support_counts": n,
+                    "bernoulli_decode_sum_shard": n}
+        return {"bernoulli_encode": n, "bernoulli_decode_sum": 1}
+    if codec == "binary":
+        return {"bitplane_pack": n,
+                ("bitplane_binary_accum" if scatter else "bitplane_unpack"): n}
+    if codec in ("ternary", "ternary_opt"):
+        return {"bitplane_pack": n, "bitplane_unpack": n}
+    if codec == "dense":
+        return {}
+    raise CheckFailed(f"no launch table for codec {codec!r}")
+
+
+def closed_form(codec: str, cmp, v) -> float:
+    """The codec's closed-form MSE of one bucket's (n, d) round."""
+    import torch
+    from repro_torch.core import mse, optimal
+    from repro_torch.core.wire import codecs
+
+    q = cmp.encoder.fraction
+    if codec == "fixed_k_shared":
+        k = codecs.fixed_k_blocks(v.shape[1], q) * 1024
+        return float(mse.mse_fixed_k_shared(v, k, v.mean(1)))
+    if codec in ("bernoulli", "dense"):
+        return float(mse.mse_bernoulli(v, q, v.mean(1)))
+    if codec == "binary":
+        return float(mse.mse_binary(v))
+    c1, c2 = v.amin(1), v.amax(1)
+    if codec == "ternary":
+        half = (1.0 - q) / 2.0
+        return float(mse.mse_ternary(v, half, half, c1, c2))
+    if codec == "ternary_opt":   # each rank's own optimal split, one rank at a time
+        total = 0.0
+        for i in range(v.shape[0]):
+            p1, p2 = optimal.ternary_optimal_probs(v[i], q, c1[i], c2[i])
+            total += float(mse.mse_ternary(v[i:i + 1], p1, p2, c1[i:i + 1], c2[i:i + 1]))
+            del p1, p2
+        return total / v.shape[0] ** 2
+    raise CheckFailed(f"no closed form for codec {codec!r}")
+
+
 def run_main_path(name, cmp, steps, launches_total):
     """``steps`` bucketed syncs of one config; returns its summary line."""
     import torch
-    from repro_torch.core import mse, wire
-    from repro_torch.core.wire import codecs
+    from repro_torch.core import wire
     from repro_torch.kernels import backend
     from repro_torch.train import bucketing
     from repro_torch.train.synthetic import N, main_path, step_key, synthetic_grads
@@ -308,15 +473,10 @@ def run_main_path(name, cmp, steps, launches_total):
     comp = [b for b in plan.buckets if b.kind == "compressed"]
     exact = [b for b in plan.buckets if b.kind == "exact"]
     codec = wire.resolve(cmp)
-    if cmp.mode == "gather_decode":
-        expect = {"bernoulli_encode": N}
-        if cmp.scatter_decode:
-            expect.update(bernoulli_support_counts=N, bernoulli_decode_sum_shard=N)
-        else:
-            expect.update(bernoulli_decode_sum=1)
+    expect = expected_launches(codec.name, cmp.scatter_decode, N)
+    if codec.reduce == "all_gather":
         wire_bits = bucketing.bucket_wire_bits(plan, cmp, N)
     else:
-        expect = {"fixed_k_gather": N}
         wire_bits = {b.bid: codec.wire_bits(N, b.size, cmp) for b in comp}
     exact_bytes = sum(N * b.size * 4 for b in exact)
     err_sum = cf_sum = 0.0
@@ -338,7 +498,7 @@ def run_main_path(name, cmp, steps, launches_total):
         need(all(bool(torch.isfinite(v).all()) for v in out.values()),
              f"{name} step {step}: non-finite output")
         sent = sum(wire_bits.values()) / 8
-        if cmp.mode == "gather_decode":
+        if codec.reduce == "all_gather":
             need(comm.bytes_gathered == sent and comm.bytes_reduced == exact_bytes,
                  f"{name}: communicator bytes {comm.bytes_gathered}+{comm.bytes_reduced} "
                  f"!= accounting {sent}+{exact_bytes}")
@@ -350,12 +510,7 @@ def run_main_path(name, cmp, steps, launches_total):
             v = bucketing.pack_bucket(grads, b)
             y = torch.cat([out[s.name].reshape(-1) for s in b.slots])
             err_sum += float(torch.sum((y - v.mean(0)) ** 2, dtype=torch.float64))
-            mus = v.mean(1)
-            if cmp.encoder.kind == "bernoulli":
-                cf_sum += float(mse.mse_bernoulli(v, cmp.encoder.fraction, mus))
-            else:
-                k = codecs.fixed_k_blocks(b.size, cmp.encoder.fraction) * 1024
-                cf_sum += float(mse.mse_fixed_k_shared(v, k, mus))
+            cf_sum += closed_form(codec.name, cmp, v)
             del v, y
         del grads, out
     ratio = err_sum / cf_sum
@@ -366,7 +521,7 @@ def run_main_path(name, cmp, steps, launches_total):
     return {"config": name, "steps": steps, "ms_per_sync": times,
             "compressed_buckets": len(comp), "coords_per_rank": coords,
             "wire_MB": wire_mb, "dense_f32_MB": dense_mb,
-            "err_over_closed_form": ratio, "launches_per_step": expect}
+            "err_over_closed_form": ratio, "launches_per_bucket": expect}
 
 
 def main() -> int:
@@ -395,18 +550,20 @@ def main() -> int:
     records = {}
     t0 = time.perf_counter()
     check_kernels(SIZES, main_d, -(-main_d // synthetic.N), records)
+    check_bitplane(SIZES, main_d, records)
     print(f"[2] kernels bit-equal to their plain versions ({time.perf_counter() - t0:.1f} s)",
           flush=True)
 
-    runs = [(name, synthetic.preset(name)) for name in synthetic.PRESETS]
+    bern = synthetic.preset("bernoulli_seed_1bit")
+    runs = [(name, synthetic.preset(name), STEPS) for name in synthetic.PRESETS]
     runs.append(("bernoulli_seed_1bit flat decode",
-                 dataclasses.replace(synthetic.preset("bernoulli_seed_1bit"),
-                                     scatter_decode=False)))
+                 dataclasses.replace(bern, scatter_decode=False), 1))
+    runs.append(("dense_sim bernoulli 1/16",
+                 dataclasses.replace(bern, mode="dense_sim", scatter_decode=False), 1))
     from collections import Counter
     total = Counter()
-    for name, cmp in runs:
+    for name, cmp, steps in runs:
         t0 = time.perf_counter()
-        steps = STEPS if cmp.scatter_decode or cmp.mode != "gather_decode" else 1
         summary = run_main_path(name, cmp, steps, total)
         print(f"[3] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     launches = dict(total)

@@ -1,6 +1,7 @@
 """Closed-form MSE of the encoding protocols — the parts of
-``repro.core.mse`` the ported codecs need: Lemma 3.2 at uniform p, and the
-shared-support fixed-k form.
+``repro.core.mse`` the ported codecs need: Lemma 3.2 at uniform p, the
+shared-support fixed-k form, Example 4 (binary) with its bound, and the
+corrected Lemma 7.2 (ternary).
 
 Conventions: xs is (n, d); mus (n,).  The sums run one node row at a time,
 so a full-width bucket needs one (d,) temporary, not an (n, d) one.
@@ -30,3 +31,35 @@ def mse_fixed_k_shared(xs, k, mus):
         mean_dev += xs[i] - mus[i]
     mean_dev /= n
     return (d - k) / k * torch.sum(mean_dev ** 2)
+
+
+def mse_binary(xs):
+    """Example 4:  (1/n²) Σ_ij (X^max_i − X_i(j))(X_i(j) − X^min_i)."""
+    n = xs.shape[0]
+    total = sum(torch.sum((torch.amax(x) - x) * (x - torch.amin(x))) for x in xs)
+    return total / n ** 2
+
+
+def mse_binary_bound(xs):
+    """Example 4 / [10, Thm 1] bound:  d/(2n) · (1/n) Σ_i ||X_i||²."""
+    n, d = xs.shape
+    return d / (2 * n) * (sum(torch.sum(x * x) for x in xs) / n)
+
+
+def mse_ternary(xs, p1, p2, c1s, c2s):
+    """Eq. (21), corrected Lemma 7.2: per coordinate
+    p1(X−c1)² + p2(X−c2)² + (p1(X−c1) + p2(X−c2))² / (1−p1−p2), summed and
+    divided by n².  ``p1``/``p2`` are scalars, (d,) or (n, d)."""
+    n = xs.shape[0]
+    total = 0.0
+    for i in range(n):
+        a = torch.as_tensor(p1, dtype=xs.dtype, device=xs.device)
+        b = torch.as_tensor(p2, dtype=xs.dtype, device=xs.device)
+        a = a[i] if a.dim() == 2 else a
+        b = b[i] if b.dim() == 2 else b
+        d1 = xs[i] - c1s[i]
+        d2 = xs[i] - c2s[i]
+        rest = 1.0 - a - b
+        restsafe = torch.where(rest > 0, rest, torch.ones_like(rest))
+        total = total + torch.sum(a * d1 ** 2 + b * d2 ** 2 + (a * d1 + b * d2) ** 2 / restsafe)
+    return total / n ** 2

@@ -19,8 +19,9 @@ estimate, not one per rank.
 
 Ported: the plain averaging decode (``decode_policy="mean"``, no drop
 mask) on one flat compression axis, with and without the §12 scatter
-decode.  Robust policies, drop masks and hierarchical ``inner_axes`` raise
-:class:`NotPortedError` naming the slice that brings them.
+decode (§13 word-aligned shards for the packed planes).  Robust policies,
+drop masks and hierarchical ``inner_axes`` raise :class:`NotPortedError`
+naming the slice that brings them.
 
 Accounting contract: ``comm_cost_bits == wire_bits + seed_bits``.
 """
@@ -63,6 +64,15 @@ def scatter_shard_len(d: int, nshards: int, align: int = 1) -> int:
     """Length of one scatter-decode shard: ⌈d/nshards⌉ rounded up to ``align``."""
     ds = -(-d // nshards)
     return -(-ds // align) * align
+
+
+def scatter_word_align(cfg: t.CompressionConfig) -> int:
+    """Shard alignment (coordinates per indivisible wire word) of the codec
+    ``cfg`` resolves to: 1 for the linear codecs, 32 for the 1-bit plane, 16
+    for the 2-bit plane.  ``scatter_shard_len(d, n, scatter_word_align(cfg))``
+    is THE shard split every scatter consumer agrees on."""
+    from repro_torch.core.wire import registry
+    return registry.resolve(cfg).scatter_align(cfg)
 
 
 def effective_nodes(cfg: t.CompressionConfig, n: int,
@@ -140,6 +150,11 @@ class WireCodec:
         """Extra collective bits of a flat scatter decode (0 otherwise)."""
         return 0.0
 
+    def scatter_align(self, cfg: t.CompressionConfig) -> int:
+        """Coordinates per indivisible wire word (shard-split alignment);
+        the packed-plane codecs override it (32 or 16)."""
+        return 1
+
     def cost_spec(self, d: int, cfg: t.CompressionConfig):
         raise NotImplementedError
 
@@ -155,10 +170,20 @@ class WireCodec:
         """Encode one node's (d,) f32 vector into its flat wire buffer."""
         raise NotImplementedError
 
-    def decode_gathered(self, rows, key, cfg: t.CompressionConfig, d: int, n: int):
-        """Averaging decoder over the gathered (n, slots) rows: (1/n) Σ_i of
-        each peer's reconstruction, peers in ascending order."""
+    def unpack(self, row, peer: int, key, cfg: t.CompressionConfig, d: int):
+        """Reconstruct peer ``peer``'s dense (d,) f32 Y_i from its row."""
         raise NotImplementedError
+
+    def decode_gathered(self, rows, key, cfg: t.CompressionConfig, d: int, n: int):
+        """Averaging decoder over the gathered (n, slots) rows.
+
+        Default: (1/n) Σ_i unpack(row_i), peers added in ascending order
+        into a zero f32 accumulator; codecs with a fused decode override it.
+        """
+        acc = torch.zeros(d, dtype=torch.float32, device=rows.device)
+        for i in range(n):
+            acc = acc + self.unpack(rows[i], i, key, cfg, d)
+        return acc / n
 
     def decode_gathered_shard(self, rows, key, cfg: t.CompressionConfig,
                               d: int, n: int, shard: int, nshards: int):

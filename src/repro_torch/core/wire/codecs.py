@@ -1,5 +1,4 @@
-"""The ported wire codecs — port of the fixed-k and Bernoulli parts of
-``repro.core.wire.codecs``:
+"""The wire codecs — port of ``repro.core.wire.codecs``:
 
 * ``fixed_k``        — §4.4 Eq. (9) gather path: block-structured fixed-k
   values + μ tail; supports regenerate from fold_in(key, peer).
@@ -7,6 +6,14 @@
   buffer (reduce kind "psum"); the default train compression.
 * ``bernoulli``      — §4.4 Eq. (10) seed trick with capacity-padded value
   buffers and the §12 flat scatter decode.
+* ``binary``         — §4.5 Eq. (11) packed 1-bit plane (no seed term: the
+  plane travels) with the §13 word-aligned scatter decode.
+* ``ternary``        — §7.1 Eq. (21) packed 2-bit plane + capacity-padded
+  pass-through values, §13 scatter decode with the pass-through counts
+  exchange.
+* ``ternary_opt``    — the §6-optimal per-coordinate split on the same wire.
+* ``dense``          — dense simulation: encode per node, exact mean of the
+  dense f32 encodings (reduce kind "psum"; any encoder).
 
 The PRNG fold_in chains, buffer layouts and op order are the reference's,
 so the packed bytes equal the golden wire matrix and the decodes equal the
@@ -18,33 +25,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch import random as prandom
+from repro_torch.core import bitplane
 from repro_torch.core import comm_cost
+from repro_torch.core import encoders
 from repro_torch.core import types as t
 from repro_torch.core.wire import base
 from repro_torch.kernels.bernoulli_wire import ops as bw_ops
 from repro_torch.kernels.fixed_k_encode import ops as fk
 
-_WIRE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
-                "float32": torch.float32}
-
-
-def torch_dtype(wire_dtype) -> torch.dtype:
-    """The torch dtype of a config's wire dtype name."""
-    if isinstance(wire_dtype, torch.dtype):
-        return wire_dtype
-    if wire_dtype not in _WIRE_DTYPES:
-        raise ValueError(f"unsupported wire dtype {wire_dtype!r}")
-    return _WIRE_DTYPES[wire_dtype]
-
-
-def wire_bits(wire_dtype) -> int:
-    """Bits per wire float (r): 32 for float32, 16 for bfloat16/float16 —
-    the port's copy of ``repro.core.bitplane.wire_bits``."""
-    return torch_dtype(wire_dtype).itemsize * 8
-
 
 def _wire_r(cfg: t.CompressionConfig) -> int:
-    return wire_bits(cfg.wire_dtype)
+    """r: bits per wire float (16 for bf16, 32 for f32)."""
+    return bitplane.wire_bits(cfg.wire_dtype)
 
 
 def _seed_spec(cfg: t.CompressionConfig) -> t.CommSpec:
@@ -56,7 +48,7 @@ def _seed_spec(cfg: t.CompressionConfig) -> t.CommSpec:
 
 def _with_tail(vals, mu, cfg):
     """[vals ‖ μ] in the wire dtype, rounding each value once."""
-    out = torch.empty(vals.numel() + 1, dtype=torch_dtype(cfg.wire_dtype),
+    out = torch.empty(vals.numel() + 1, dtype=bitplane.torch_dtype(cfg.wire_dtype),
                       device=vals.device)
     out[:-1] = vals.reshape(-1)
     out[-1] = mu
@@ -280,3 +272,151 @@ class BernoulliCodec(base.WireCodec):
             return 0.0
         ds = base.scatter_shard_len(d, n)
         return float(n * n * 32 + n * ds * 32)
+
+
+# --------------------------------------------------------------------------- #
+# Binary / ternary packed bit-plane codecs (§4.5 / §7.1).
+# --------------------------------------------------------------------------- #
+
+class BinaryCodec(base.WireCodec):
+    """gather_decode for binary quantization with the packed 1-bit plane:
+    each node all_gathers one [sign plane ‖ vmin, vmax] word buffer."""
+
+    name = "binary"
+    scatter_supported = True
+
+    def wire_slots(self, d, cfg):
+        return bitplane.binary_wire_words(d, cfg.wire_dtype)
+
+    def wire_bits(self, n, d, cfg):
+        return float(n * 32 * self.wire_slots(d, cfg))
+
+    def cost_spec(self, d, cfg):
+        return t.CommSpec(protocol="binary", r_bits=_wire_r(cfg)), {"packed": True}
+
+    def pack(self, flat, key, rank, cfg):
+        return bitplane.binary_pack(flat, prandom.fold_in(key, rank), cfg.wire_dtype)
+
+    def unpack(self, row, peer, key, cfg, d):
+        return bitplane.binary_unpack(row, d, cfg.wire_dtype)
+
+    def scatter_align(self, cfg):
+        return bitplane.BINARY_ALIGN
+
+    def decode_gathered_shard(self, rows, key, cfg, d, n, shard, nshards):
+        # §13: shards snap to words of the 1-bit plane, and one fused
+        # unpack + select + accumulate folds the n peers' word windows
+        ds = base.scatter_shard_len(d, nshards, bitplane.BINARY_ALIGN)
+        total = bitplane.binary_decode_shard(rows, d, cfg.wire_dtype, shard * ds, ds, nshards)
+        return total / n
+
+    def scatter_bits(self, n, d, cfg):
+        # flat scatter adds one collective: the decoded f32 shard all_gather
+        if not cfg.scatter_decode or cfg.inner_axes:
+            return 0.0
+        return float(n * base.scatter_shard_len(d, n, bitplane.BINARY_ALIGN) * 32)
+
+
+class TernaryCodec(base.WireCodec):
+    """gather_decode for the ternary encoder (Eq. (21)) with the 2-bit
+    plane: [branch plane ‖ cap pass-through value slots ‖ c1, c2] words."""
+
+    name = "ternary"
+    scatter_supported = True
+    probs = "uniform"
+
+    def _cap(self, d, cfg):
+        return comm_cost.bernoulli_capacity(d, float(cfg.encoder.fraction))
+
+    def wire_slots(self, d, cfg):
+        return bitplane.ternary_wire_words(d, self._cap(d, cfg), cfg.wire_dtype)
+
+    def wire_bits(self, n, d, cfg):
+        return float(n * 32 * self.wire_slots(d, cfg))
+
+    def cost_spec(self, d, cfg):
+        return (t.CommSpec(protocol="ternary", r_bits=_wire_r(cfg)),
+                {"packed": True, "cap": self._cap(d, cfg)})
+
+    def pack(self, flat, key, rank, cfg):
+        d = flat.shape[0]
+        return bitplane.ternary_pack(flat, prandom.fold_in(key, rank),
+                                     float(cfg.encoder.fraction), self._cap(d, cfg),
+                                     cfg.wire_dtype, probs=self.probs)
+
+    def unpack(self, row, peer, key, cfg, d):
+        return bitplane.ternary_unpack(row, d, self._cap(d, cfg), cfg.wire_dtype)
+
+    def scatter_align(self, cfg):
+        return bitplane.TERNARY_ALIGN
+
+    def decode_shards(self, rows, key, cfg, d, n, shards, comm):
+        # §13 with the §12 count exchange: pass-through slots are addressed
+        # by global support rank, so every shard needs each peer's
+        # pass-through count before its window.  The symbol windows of all
+        # local shards come first, their per-shard counts are all_gathered
+        # over the ranks and exclusive-cumsummed, then each shard decodes.
+        ds = base.scatter_shard_len(d, n, bitplane.TERNARY_ALIGN)
+        cap = self._cap(d, cfg)
+        syms = [bitplane.ternary_shard_syms(rows, d, s * ds, ds, n) for s in shards]
+        counts = torch.stack([(sy == 2).sum(1, dtype=torch.int32) for sy in syms])
+        allc = base.gather_nested(counts, comm).reshape(n, n)
+        prior = torch.cumsum(allc, 0, dtype=torch.int32) - allc
+        return torch.stack([
+            bitplane.ternary_decode_shard(rows, sy, prior[s], d, cap, cfg.wire_dtype,
+                                          s * ds) / n
+            for s, sy in zip(shards, syms)])
+
+    def scatter_bits(self, n, d, cfg):
+        # flat scatter adds two collectives: the per-shard pass-through
+        # counts (n i32 per node) and the decoded f32 shard all_gather
+        if not cfg.scatter_decode or cfg.inner_axes:
+            return 0.0
+        ds = base.scatter_shard_len(d, n, bitplane.TERNARY_ALIGN)
+        return float(n * n * 32 + n * ds * 32)
+
+
+class TernaryOptCodec(TernaryCodec):
+    """The §6-optimal per-coordinate split (``probs="optimal"``,
+    :func:`repro_torch.core.optimal.ternary_optimal_probs`) on the ternary
+    wire: the branch choices ride the plane, so decode, capacity and
+    accounting are :class:`TernaryCodec`'s."""
+
+    name = "ternary_opt"
+    probs = "optimal"
+
+
+# --------------------------------------------------------------------------- #
+# Dense simulation (any encoder).
+# --------------------------------------------------------------------------- #
+
+class DenseSimCodec(base.WireCodec):
+    """Encode locally, exact mean of the dense encodings (reduce "psum").
+
+    Supports every encoder and is charged naive dense f32 bits.  The wire is
+    PINNED to float32 whatever ``cfg.wire_dtype`` says: a narrower psum
+    buffer would change the reduce arithmetic.
+    """
+
+    name = "dense"
+    reduce = "psum"
+    WIRE_BITS_PER_SLOT = 32
+
+    def wire_slots(self, d, cfg):
+        return d
+
+    def wire_bits(self, n, d, cfg):
+        return float(n * d * self.WIRE_BITS_PER_SLOT)
+
+    def cost_spec(self, d, cfg):
+        return t.CommSpec(protocol="naive", r_bits=32), {}
+
+    def pack(self, flat, key, rank, cfg):
+        kenc = prandom.fold_in(key, rank)
+        return encoders.encode(kenc, flat, cfg.encoder).y.to(torch.float32)
+
+    def decode_reduced(self, wire, key, cfg, d):
+        return wire
+
+    def unpack(self, row, peer, key, cfg, d):
+        return row.to(torch.float32)

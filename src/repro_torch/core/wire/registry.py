@@ -2,11 +2,11 @@
 
 Every consumer of "what does this config put on the wire" (the collective,
 the bit accounting, the bucket plan) resolves a codec here.  ``gather_kind``
-is the reference's rule verbatim.  The port has the ``fixed_k``,
-``fixed_k_shared`` and ``bernoulli`` codecs; a config that resolves to any
-other codec (binary, ternary, dense simulation) or asks for a wrapper
-(rotation, error feedback) raises :class:`~.base.NotPortedError` naming
-the slice that brings it.  It never falls back to another codec.
+is the reference's rule verbatim.  The port has every base codec:
+``fixed_k``, ``fixed_k_shared``, ``bernoulli``, ``binary``, ``ternary``,
+``ternary_opt`` and ``dense``; a config that asks for a wrapper (rotation,
+error feedback) raises :class:`~.base.NotPortedError` naming the slice that
+brings it.  It never falls back to another codec.
 """
 from __future__ import annotations
 
@@ -19,10 +19,6 @@ _CODECS: Dict[str, base.WireCodec] = {}
 
 # the slice of ROADMAP.md queue 1 that brings each codec not ported yet
 PENDING = {
-    "binary": "slice 2 (binary_packed: core/bitplane.py and the bitplane kernels)",
-    "ternary": "slice 3 (ternary)",
-    "ternary_opt": "slice 3 (ternary)",
-    "dense": "slice 3 (ternary and the dense simulation)",
     "rotation": "slice 4 (rotation and the FWHT kernels)",
     "error_feedback": "slice 5 (error feedback)",
 }
@@ -55,12 +51,16 @@ def names() -> List[str]:
 register(codecs.FixedKGatherCodec())
 register(codecs.FixedKSharedCodec())
 register(codecs.BernoulliCodec())
+register(codecs.BinaryCodec())
+register(codecs.TernaryCodec())
+register(codecs.TernaryOptCodec())
+register(codecs.DenseSimCodec())
 
 
 def gather_kind(cfg: t.CompressionConfig) -> str:
     """The base wire format gather_decode mode uses for ``cfg``: one of
     "fixed_k" | "bernoulli" | "binary" | "ternary" | "ternary_opt" | "dense"
-    (the reference's rule, including codecs not ported yet)."""
+    (the reference's rule)."""
     e = cfg.encoder
     if e.kind == "fixed_k":
         return "fixed_k"

@@ -12,8 +12,10 @@ two steps timed by the host clock around a synchronize, then one step under
 step's wall time, the time the card was busy (the union of its kernel,
 copy and fill intervals), the idle share of the profiled step, the number
 of device events, and the top kernels by device time and operations by
-host time.  Needs a CUDA card; fails
-without one.
+host time.  Before the presets it times the plain-torch Threefry uniform
+draw (``random.uniform``) of the largest bucket by CUDA events: the draw
+every binary and ternary pack makes once per rank and bucket.  Needs a CUDA
+card; fails without one.
 """
 from __future__ import annotations
 
@@ -32,6 +34,30 @@ def _busy_ms(kernels) -> float:
             busy += hi - max(lo, end)
             end = hi
     return busy / 1e3
+
+
+def time_uniform_draw():
+    """Device ms of one ``random.uniform`` draw of the largest bucket's length."""
+    import math
+
+    import torch
+
+    from repro_torch import random as prandom
+    from repro_torch.train import synthetic
+
+    shapes, _ = synthetic.main_shapes()
+    d = max(math.prod(s) for s in shapes.values())
+    key = synthetic.step_key(0)
+    prandom.uniform(key, d, "cuda")
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        prandom.uniform(key, d, "cuda")
+    end.record()
+    end.synchronize()
+    return {"d": d, "ms": start.elapsed_time(end) / 3,
+            "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def profile_preset(preset: str):
@@ -104,6 +130,8 @@ def main(argv=None) -> int:
     backend.build()
     out = {"card": card, "torch": torch.__version__, "results": []}
     print(f"card: {card}", flush=True)
+    out["uniform_draw"] = time_uniform_draw()
+    print(f"uniform draw: {json.dumps(out['uniform_draw'])}", flush=True)
     for preset in synthetic.PRESETS:
         r = profile_preset(preset)
         out["results"].append(r)

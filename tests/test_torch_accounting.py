@@ -28,7 +28,14 @@ def _configs():
     return [bern, dataclasses.replace(bern, scatter_decode=False), fk,
             dataclasses.replace(fk, scatter_decode=False),
             jpreset("fixed_k_1bit", axes=("data",)),
-            dataclasses.replace(bern, wire_dtype="float32")]
+            dataclasses.replace(bern, wire_dtype="float32"),
+            jpreset("binary_packed", axes=("data",)),
+            dataclasses.replace(jpreset("binary_packed", axes=("data",)), wire_dtype="float32"),
+            jpreset("ternary_packed", axes=("data",)),
+            dataclasses.replace(jpreset("ternary_packed", axes=("data",)),
+                                scatter_decode=False, wire_dtype="float32"),
+            jpreset("ternary_opt", axes=("data",)),
+            dataclasses.replace(bern, mode="dense_sim", scatter_decode=False)]
 
 
 @pytest.mark.parametrize("p", (1 / 16, 0.3, 1.0))
@@ -43,6 +50,7 @@ def test_codec_accounting_matches(i):
     cfg = convert.compression_config(jcfg)
     jc, tc = jwire.resolve(jcfg), twire.resolve(cfg)
     assert (tc.name, tc.reduce, tc.scatter_supported) == (jc.name, jc.reduce, jc.scatter_supported)
+    assert twire.scatter_word_align(cfg) == tc.scatter_align(cfg) == jc.scatter_align(jcfg)
     for d in DS:
         for n in (2, 8):
             assert tc.wire_slots(d, cfg) == jc.wire_slots(d, jcfg)

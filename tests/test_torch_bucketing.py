@@ -6,8 +6,9 @@ package's ``train/bucketing.py``.
 * ``build_plan`` equals the reference's (ids, kinds, slots, offsets,
   sizes, readiness) on those trees and on a smoke-size tree with a small
   capacity (multi-leaf buckets);
-* ``sync_grads_bucketed`` on the smoke-size tree equals the reference's
-  per-bucket rounds run meshless, leaf for leaf, bit for bit.
+* ``sync_grads_bucketed`` on the smoke-size tree (vocabulary cut to 256)
+  equals the reference's per-bucket rounds run meshless, leaf for leaf,
+  bit for bit, for the fixed-k, Bernoulli, binary and ternary presets.
 
 Gradients lie on a 2⁻⁶ grid and the port's center is computed the
 reference's way (sum × f32(1/d)), so μ is the same on both sides — see
@@ -23,7 +24,6 @@ import torch
 
 from repro.configs import registry as jregistry
 from repro.core import types as jtypes
-from repro.core import wire as jwire
 from repro.models import model as jmodel
 from repro.train import bucketing as jbucketing
 from repro_torch import convert
@@ -33,6 +33,7 @@ from repro_torch.configs import registry as tregistry
 from repro_torch.core import collectives as tcoll
 from repro_torch.core.wire import base as twire_base
 from repro_torch.train import bucketing as tbucketing
+from test_torch_collective import reference_round
 
 MSIZES = {"data": 8}
 MESH_AXES = ("data",)
@@ -87,7 +88,9 @@ def test_build_plan_matches(layers, preset):
 
 
 def _smoke(preset):
-    jcfg = jregistry.smoke_config("qwen3-4b")
+    # the smoke tree with its vocabulary cut from 512 to 256: two bucket
+    # sizes (16384, 12288) instead of three, and fewer reference compiles
+    jcfg = dataclasses.replace(jregistry.smoke_config("qwen3-4b"), vocab_size=256)
     jcmp = dataclasses.replace(
         jregistry.compression_preset(preset, axes=MESH_AXES), min_compress_size=2048,
         bucket=jtypes.BucketSpec(capacity=1 << 14))
@@ -125,23 +128,14 @@ def _jax_bucketed(grads, plan, jcmp, key, n):
                 y = acc / np.float32(n)
             else:
                 lcfg = jbucketing._bucket_cfg(b, jcmp, error_feedback=False)
-                codec = jwire.resolve(lcfg)
-                kb = jax.random.fold_in(key, j)
-                bufs = [codec.pack(jnp.asarray(v[r]), kb, r, lcfg) for r in range(n)]
-                if codec.reduce == "psum":
-                    acc = jnp.zeros(bufs[0].shape, jnp.float32)
-                    for buf in bufs:
-                        acc = acc + buf.astype(jnp.float32)
-                    y = codec.decode_reduced((acc / n).astype(bufs[0].dtype), kb, lcfg, b.size)
-                else:
-                    y = codec.decode_gathered(jnp.stack(bufs), kb, lcfg, b.size, n)
-                y = np.asarray(y)
+                y = np.asarray(reference_round(jnp.asarray(v), jax.random.fold_in(key, j), lcfg))
             for s in b.slots:
                 out[s.name] = y[s.offset:s.offset + s.size].reshape(s.shape)
     return out
 
 
-@pytest.mark.parametrize("preset", ("fixed_k_1bit", "bernoulli_seed_1bit"))
+@pytest.mark.parametrize("preset", ("fixed_k_1bit", "bernoulli_seed_1bit", "binary_packed",
+                                    "ternary_packed", "ternary_opt"))
 def test_sync_grads_bucketed_equals_reference(preset, monkeypatch):
     n = 4
     jcfg, jcmp, shapes, specs = _smoke(preset)

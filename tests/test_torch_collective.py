@@ -24,8 +24,11 @@ order, where ``StackedComm`` sums in f32 in rank order and rounds once.
 At world size 2 the two agree bit for bit (one add, one rounding); at 4
 the fixed-k round is held to the bound of that bf16 rounding
 (:func:`test_distcomm_gloo_world_size_4_fixed_k_within_bf16_rounding`).
+The gather rounds over gloo (Bernoulli, binary and ternary, the latter
+with its pass-through count exchange) equal the stacked ones bit for bit.
 """
 import dataclasses
+import json
 import pathlib
 import socket
 import subprocess
@@ -47,7 +50,7 @@ from repro_torch.core.wire import base as tbase
 from repro_torch.core.wire import registry as tregistry
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-D = 70_001
+D = 20_011
 KEY_SEED = 99
 
 
@@ -59,35 +62,51 @@ def _xs(n, d, seed):
 
 
 def _configs():
-    bern = jpreset("bernoulli_seed_1bit", axes=("data",))
-    fk = jpreset("hier_fixed_k", axes=("data",))
+    # D sits below the presets' min_compress_size: compress every bucket
+    bern = dataclasses.replace(jpreset("bernoulli_seed_1bit", axes=("data",)),
+                               min_compress_size=1)
+    fk = dataclasses.replace(jpreset("hier_fixed_k", axes=("data",)), min_compress_size=1)
     return {
         "fixed_k_gather_flat": dataclasses.replace(fk, scatter_decode=False),
         "fixed_k_gather_scatter": fk,
         "bernoulli_flat": dataclasses.replace(bern, scatter_decode=False),
         "bernoulli_scatter": bern,
-        "fixed_k_1bit": jpreset("fixed_k_1bit", axes=("data",)),
+        "fixed_k_1bit": dataclasses.replace(jpreset("fixed_k_1bit", axes=("data",)),
+                                            min_compress_size=1),
     }
 
 
-def _jax_round(jcfg, xs):
+def reference_round(xs, key, jcfg):
+    """The reference's meshless round over the (n, d) stack: pack per rank,
+    then the rank-order f32 mean of the buffers rounded once to the wire
+    dtype and ``decode_reduced`` (psum codecs), or the shard decodes
+    concatenated (fixed-k scatter), or ``decode_gathered`` of the stacked
+    rows (its scatter decode equals it).
+
+    It runs op by op, as the golden wire bytes were made: under ``jit`` XLA
+    on the CPU contracts array multiply-adds into FMAs and turns a division
+    by a constant n into a multiplication, which moves last bits of the
+    reference itself (ROADMAP.md queue 3)."""
     n, d = xs.shape
     codec = jwire.resolve(jcfg)
-    key = jax.random.PRNGKey(KEY_SEED)
+    bufs = [codec.pack(xs[r], key, r, jcfg) for r in range(n)]
+    if codec.reduce == "psum":
+        acc = jnp.zeros(bufs[0].shape, jnp.float32)
+        for b in bufs:
+            acc = acc + b.astype(jnp.float32)
+        return codec.decode_reduced((acc / n).astype(bufs[0].dtype), key, jcfg, d)
+    rows = jnp.stack(bufs)
+    if jcfg.scatter_decode and codec.name == "fixed_k":
+        parts = [codec.decode_gathered_shard(rows, key, jcfg, d, n, s, n) for s in range(n)]
+        return jnp.concatenate(parts)[:d]
+    return codec.decode_gathered(rows, key, jcfg, d, n)
+
+
+def _jax_round(jcfg, xs):
     with jax.threefry_partitionable(False):
         mus = [float(jnp.mean(jnp.asarray(x))) for x in xs]
-        bufs = [codec.pack(jnp.asarray(xs[r]), key, r, jcfg) for r in range(n)]
-        if codec.reduce == "psum":
-            acc = jnp.zeros(bufs[0].shape, jnp.float32)
-            for b in bufs:
-                acc = acc + b.astype(jnp.float32)
-            wire = (acc / n).astype(bufs[0].dtype)
-            return np.asarray(codec.decode_reduced(wire, key, jcfg, d)), mus
-        rows = jnp.stack(bufs)
-        if jcfg.scatter_decode and codec.name == "fixed_k":
-            parts = [codec.decode_gathered_shard(rows, key, jcfg, d, n, s, n) for s in range(n)]
-            return np.asarray(jnp.concatenate(parts)[:d]), mus
-        return np.asarray(codec.decode_gathered(rows, key, jcfg, d, n)), mus
+        out = reference_round(jnp.asarray(xs), jax.random.PRNGKey(KEY_SEED), jcfg)
+        return np.asarray(out), mus
 
 
 def _reference_style_center(x, policy):
@@ -153,7 +172,7 @@ def test_exact_and_partial_mean():
 
 
 _WORKER = r"""
-import sys, numpy as np, torch, torch.distributed as dist
+import json, sys, numpy as np, torch, torch.distributed as dist
 sys.path.insert(0, sys.argv[1])
 from repro_torch import random as R
 from repro_torch.configs.registry import compression_preset
@@ -163,16 +182,24 @@ rank, port, out, world = int(sys.argv[2]), sys.argv[3], sys.argv[4], int(sys.arg
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
                         rank=rank)
 xs = torch.from_numpy(np.load(out + "/xs.npy"))
-bern = compression_preset("bernoulli_seed_1bit", axes=("data",))
-for name, cfg in (("bernoulli_scatter", bern),
-                  ("bernoulli_flat", dataclasses.replace(bern, scatter_decode=False)),
-                  ("fixed_k_1bit", compression_preset("fixed_k_1bit", axes=("data",)))):
+for name, (preset, scatter) in json.load(open(out + "/cfgs.json")).items():
+    cfg = dataclasses.replace(compression_preset(preset, axes=("data",)),
+                              scatter_decode=scatter, min_compress_size=1)
     comm = DistComm(device="cpu")
     y = compressed_mean(xs[rank:rank + 1], R.PRNGKey(7), cfg, comm)
     np.save(f"{out}/{name}.{rank}.npy", y.numpy())
     np.save(f"{out}/{name}.{rank}.bytes.npy", np.array([comm.bytes_gathered, comm.bytes_reduced]))
 dist.destroy_process_group()
 """
+
+
+# the rounds the gloo workers run: name -> (preset, scatter_decode); the
+# inputs sit below min_compress_size, which both sides set to 1
+GLOO_ROUNDS = {"bernoulli_scatter": ("bernoulli_seed_1bit", True),
+               "bernoulli_flat": ("bernoulli_seed_1bit", False),
+               "fixed_k_1bit": ("fixed_k_1bit", False),
+               "binary_scatter": ("binary_packed", True),
+               "ternary_scatter": ("ternary_packed", True)}
 
 
 def _free_port():
@@ -186,6 +213,7 @@ def _gloo_rounds(tmp_path, world):
     per config, the StackedComm round over the same stack."""
     xs = _xs(world, 20_000, 11)
     np.save(tmp_path / "xs.npy", xs)
+    (tmp_path / "cfgs.json").write_text(json.dumps(GLOO_ROUNDS))
     port = str(_free_port())
     procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(ROOT / "src"), str(r),
                                port, str(tmp_path), str(world)],
@@ -193,12 +221,10 @@ def _gloo_rounds(tmp_path, world):
              for r in range(world)]
     outs = [p.communicate(timeout=240)[0] for p in procs]
     assert [p.returncode for p in procs] == [0] * world, "\n".join(outs)
-    bern = tpreset("bernoulli_seed_1bit", axes=("data",))
-    cfgs = {"bernoulli_scatter": bern,
-            "bernoulli_flat": dataclasses.replace(bern, scatter_decode=False),
-            "fixed_k_1bit": tpreset("fixed_k_1bit", axes=("data",))}
     stacked = {}
-    for name, cfg in cfgs.items():
+    for name, (preset, scatter) in GLOO_ROUNDS.items():
+        cfg = dataclasses.replace(tpreset(preset, axes=("data",)), scatter_decode=scatter,
+                                  min_compress_size=1)
         comm = tcoll.StackedComm(world, "cpu")
         want = tcoll.compressed_mean(torch.from_numpy(xs), R.PRNGKey(7), cfg, comm).numpy()
         stacked[name] = (cfg, want, comm)
@@ -225,7 +251,9 @@ def test_distcomm_gloo_world_size_4_fixed_k_within_bf16_rounding(tmp_path):
     each side rounds that add once (2⁻²³ of the result)."""
     n = 4
     xs, stacked = _gloo_rounds(tmp_path, n)
-    for name in ("bernoulli_scatter", "bernoulli_flat"):
+    for name in GLOO_ROUNDS:
+        if name == "fixed_k_1bit":
+            continue
         for r in range(n):
             np.testing.assert_array_equal(np.load(tmp_path / f"{name}.{r}.npy"),
                                           stacked[name][1])

@@ -3,10 +3,12 @@
 ``tests/golden/regen_golden_wire.py::build_matrix`` (D = 4096, 2 ranks,
 x seed 1234, key seed 99).
 
-The presets of this slice must match byte for byte with μ computed by the
-port itself (the bf16 wire absorbs the last-bit differences of the mean on
-this input).  The other presets resolve to codecs the port does not have
-yet and must say so by raising NotPortedError, never by falling back.
+The ported presets must match byte for byte with μ computed by the port
+itself (the bf16 wire absorbs the last-bit differences of the mean on this
+input; the binary and ternary planes center at min/max, exact on both
+sides).  The other presets need a wrapper the port does not have yet
+(rotation, error feedback) and must say so by raising NotPortedError,
+never by falling back.
 """
 import pathlib
 import sys
@@ -25,20 +27,21 @@ from repro_torch.core import wire as twire
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "golden"))
 import regen_golden_wire as regen  # noqa: E402
 
-PORTED = ("fixed_k_1bit", "bernoulli_seed_1bit", "hier_fixed_k", "hier_bernoulli")
+PORTED = ("fixed_k_1bit", "bernoulli_seed_1bit", "hier_fixed_k", "hier_bernoulli",
+          "binary_packed", "ternary_packed", "ternary_opt")
 # the slice of ROADMAP.md queue 1 each waiting preset arrives with
 WAITING = {
-    "binary_packed": "slice 2",
-    "ternary_packed": "slice 3",
-    "ternary_opt": "slice 3",
-    "rotated_binary": "slice 2",
+    "rotated_binary": "slice 4",
     "rotated_fixed_k": "slice 4",
+    "ef_rotated_binary": "slice 4",
     "ef_fixed_k": "slice 5",
     "ef_bernoulli": "slice 5",
-    "ef_binary": "slice 2",
-    "ef_ternary": "slice 3",
-    "ef_rotated_binary": "slice 2",
+    "ef_binary": "slice 5",
+    "ef_ternary": "slice 5",
 }
+# the port's buffer dtype for each wire dtype the golden matrix records
+# (packed planes are uint32 words, held as int32 bit patterns)
+BUFFER_DTYPE = {"bfloat16": torch.bfloat16, "uint32": torch.int32}
 
 
 @pytest.fixture(scope="module")
@@ -72,8 +75,10 @@ def test_ported_preset_bytes_match_golden(name, golden, xs):
     for r in range(regen.N_RANKS):
         buf = codec.pack(torch.from_numpy(np.array(xs[r])), key, r, cfg)
         rows.append(buf.contiguous().view(torch.uint8).numpy())
-    assert str(golden[f"{name}.dtype"]) == "bfloat16" == cfg.wire_dtype
-    assert int(golden[f"{name}.slots"]) == codec.wire_slots(regen.D, cfg) == rows[0].size // 2
+    dtype = BUFFER_DTYPE[str(golden[f"{name}.dtype"])]
+    assert buf.dtype == dtype and cfg.wire_dtype == "bfloat16"
+    assert (int(golden[f"{name}.slots"]) == codec.wire_slots(regen.D, cfg)
+            == rows[0].size // dtype.itemsize)
     np.testing.assert_array_equal(np.stack(rows), golden[f"{name}.bytes"])
 
 

@@ -57,9 +57,17 @@ def test_dispatch_rule():
 
 def test_kernel_wrappers_reject_cpu_tensors():
     from repro_torch.kernels.bernoulli_wire import kernel as bwk
+    from repro_torch.kernels.bitplane import bitplane as bpk
     from repro_torch.kernels.fixed_k_encode import fixed_k_encode as fkk
 
     x = torch.zeros(2048)
+    words = torch.zeros(64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        bpk.pack_bits(torch.zeros(64, dtype=torch.uint8), 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        bpk.unpack_bits(words, 2, 1024)
+    with pytest.raises(ValueError, match="CUDA"):
+        bpk.binary_accum(words.reshape(2, 32), torch.zeros(2), torch.ones(2), 1024)
     with pytest.raises(ValueError, match="CUDA"):
         bwk.encode(x, torch.tensor([0, 1]), torch.tensor(0.0), p=0.5, cap=10)
     with pytest.raises(ValueError, match="CUDA"):

@@ -14,6 +14,8 @@ from repro_torch import random as R
 from repro_torch.core import comm_cost
 from repro_torch.kernels.bernoulli_wire import kernel as bwk
 from repro_torch.kernels.bernoulli_wire import ref as bwr
+from repro_torch.kernels.bitplane import bitplane as bpk
+from repro_torch.kernels.bitplane import ref as bpr
 from repro_torch.kernels.fixed_k_encode import fixed_k_encode as fkk
 from repro_torch.kernels.fixed_k_encode import ref as fkr
 
@@ -72,3 +74,34 @@ def test_fixed_k_gather_equals_plain(dev, d):
     mu = x.mean()
     want = fkr.fixed_k_encode(torch.nn.functional.pad(x, (0, nb * 1024 - d)), ids, mu)
     assert _same(fkk.fixed_k_gather(x, ids, nb / kb, mu), want)
+
+
+@pytest.mark.parametrize("d", (1, 31, 33, 4099, 70001))
+@pytest.mark.parametrize("width", bpr.WIDTHS)
+def test_bitplane_pack_unpack_equal_plain(dev, d, width):
+    g = torch.Generator(dev).manual_seed(d * 31 + width)
+    sym32 = torch.randint(-(1 << 31), 1 << 31, (d,), generator=g, device=dev, dtype=torch.int64)
+    sym32 = sym32.to(torch.int32)                # high bits above the field: masked
+    words = bpk.pack_bits(sym32, width)
+    assert torch.equal(words, bpr.pack_bits(sym32, width))
+    sym8 = (sym32 & 0xFF).to(torch.uint8)
+    assert torch.equal(bpk.pack_bits(sym8, width), bpr.pack_bits(sym8, width))
+    assert torch.equal(bpk.unpack_bits(words, width, d), bpr.unpack_bits(words, width, d))
+    off = words[1:] if words.numel() > 1 else words   # a 4-byte-aligned, not 16, start
+    dd = min(d, off.numel() * (32 // width))
+    assert torch.equal(bpk.unpack_bits(off, width, dd), bpr.unpack_bits(off, width, dd))
+    if d > 1:                                    # symbols not 4-byte aligned
+        assert torch.equal(bpk.pack_bits(sym8[1:], width), bpr.pack_bits(sym8[1:], width))
+
+
+@pytest.mark.parametrize("n,d", [(1, 33), (3, 4099), (8, 70001)])
+def test_binary_accum_equals_plain(dev, n, d):
+    g = torch.Generator(dev).manual_seed(n * d)
+    nw = bpr.num_words(d, 1)
+    rows = torch.randint(-(1 << 31), 1 << 31, (n, nw + 5), generator=g, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+    lo = torch.randn(n, generator=g, device=dev)
+    hi = lo + torch.rand(n, generator=g, device=dev)
+    for win in (rows[:, :nw].contiguous(), rows[:, 3:3 + nw]):
+        want = bpr.binary_accum(win, lo, hi, d)
+        assert _same(bpk.binary_accum(win, lo, hi, d), want)
