@@ -12,13 +12,18 @@ Phases, each printing its own lines:
    at d = 70,001 and 16,777,217 (n = 8 peers, keys folded per rank from
    ``PRNGKey(seed)``), with a forced-small-cap overflow case and shard
    windows straddling block edges, the bit-plane kernels at every width and
-   on strided word windows, and at the largest shape the main path gives
-   each kernel; time kernel and plain version;
+   on strided word windows, the FWHT and rotate-min/max kernels at row
+   lengths 2^8 .. 2^20 (odd exponents included, where 1/sqrt(c) is not a
+   power of two), the rotated encode-pack at a ragged length and at
+   delta = 0, and every kernel at the largest shape the main path gives it;
+   time kernel and plain version (and, for the FWHT, the Kronecker matmul
+   formulation of the TPU kernel as a yardstick);
 3. the main path: ``sync_grads_bucketed`` over the qwen3-4b gradient tree
    (full width, 4 of 36 layers, 792,657,920 compressed coordinates per
    rank) on ``StackedComm(8, "cuda")`` for each preset of
    ``train/synthetic.py`` (``fixed_k_1bit``, ``bernoulli_seed_1bit``,
-   ``binary_packed``, ``ternary_packed``, ``ternary_opt``), 3 steps each
+   ``binary_packed``, ``ternary_packed``, ``ternary_opt``,
+   ``rotated_binary``, ``rotated_fixed_k``), 3 steps each
    (keys ``fold_in(PRNGKey(0), step)``), then one step each of the
    flat-decode Bernoulli round and of the dense simulation (Bernoulli 1/16
    encoder), with synthetic seeded gradients.  Checks the kernel launch
@@ -70,6 +75,9 @@ REPLACES = {
     "bitplane_pack": "src/repro/kernels/bitplane/bitplane.py:53",
     "bitplane_unpack": "src/repro/kernels/bitplane/bitplane.py:109",
     "bitplane_binary_accum": "src/repro/kernels/bitplane/bitplane.py:92",
+    "fwht": "src/repro/kernels/hadamard/hadamard.py:57",
+    "rotate_minmax": "src/repro/kernels/rotated_encode/kernel.py:70",
+    "encode_pack": "src/repro/kernels/rotated_encode/kernel.py:121",
 }
 SOURCE = {
     "bernoulli_encode": "src/repro_torch/csrc/bernoulli_wire.cu",
@@ -80,6 +88,9 @@ SOURCE = {
     "bitplane_pack": "src/repro_torch/csrc/bitplane.cu",
     "bitplane_unpack": "src/repro_torch/csrc/bitplane.cu",
     "bitplane_binary_accum": "src/repro_torch/csrc/bitplane.cu",
+    "fwht": "src/repro_torch/csrc/hadamard.cu",
+    "rotate_minmax": "src/repro_torch/csrc/rotated_encode.cu",
+    "encode_pack": "src/repro_torch/csrc/rotated_encode.cu",
 }
 
 
@@ -406,6 +417,104 @@ def check_bitplane(sizes, main_d: int, records: dict) -> None:
         del rows, win, got, want
 
 
+ROW_LOGS = (8, 13, 14, 17, 20)   # FWHT row lengths 2^m checked, one pass and two
+
+
+def check_rotation(main_rows: int, records: dict) -> None:
+    """Bit-equality of the FWHT, rotate-min/max and rotated encode-pack
+    kernels with their plain versions on the card, at rows of 2^m for m in
+    ``ROW_LOGS`` (3 rows each) and at the main path's largest shape,
+    ``main_rows`` rows of 2^20 (the embed bucket's block-diagonal chunks);
+    the fused pack against the chain ``rotate`` -> ``binary_pack`` (FWHT
+    kernel, plain encoder, bit-plane pack kernel); and, as a yardstick
+    only, the Kronecker matmul formulation of the TPU kernel."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.core import bitplane, rotation
+    from repro_torch.kernels.hadamard import hadamard as hk
+    from repro_torch.kernels.hadamard import ref as hr
+    from repro_torch.kernels.rotated_encode import kernel as rek
+    from repro_torch.kernels.rotated_encode import ops as reo
+    from repro_torch.kernels.rotated_encode import ref as rer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    key = R.fold_in(R.PRNGKey(11), 2)
+    for m in (*ROW_LOGS, None):
+        b, c = (3, 1 << m) if m is not None else (main_rows, 1 << 20)
+        gen.manual_seed(b * c + 7)
+        x = torch.randn(b, c, generator=gen, device=dev) * 0.02
+        signs = R.rademacher(key, (b, c), dev)
+        scale = float(rotation.chunk_scale(c, "cpu"))
+        got = hk.fwht(x)
+        want = hr.fwht(x)
+        need(same_bits(got, want), f"fwht ({b}, {c}): kernel != plain")
+        z, mm = rek.rotate_minmax(x, signs, scale)
+        zp, mmp = rer.rotate_minmax(x, signs, scale)
+        need(same_bits(z, zp) and same_bits(mm, mmp), f"rotate_minmax ({b}, {c}): kernel != plain")
+        tag = f"({b}, {c})"
+        if m is None:
+            n = b * c
+            ms = cuda_ms(lambda: hk.fwht(x))
+            pms = cuda_ms(lambda: hr.fwht(x), reps=1)
+            record(records, "fwht", max_err(got, want), ms, pms, 8 * n, 0, 20 * n)
+            # the TPU kernel's formulation H_1024 X H_1024 as two f32 matmuls,
+            # TF32 off (setup()): a yardstick only, nothing on the path uses it
+            h = hr.hadamard_matrix(1024, device=dev)
+            x3 = x.reshape(b, 1024, 1024)
+            kron = lambda: torch.matmul(h, torch.matmul(x3, h))  # noqa: E731
+            lms = cuda_ms(kron)
+            dev_k = max_err(kron().reshape(b, c), want)
+            records["fwht"]["library_ms"] = lms
+            del h, x3
+            rms = cuda_ms(lambda: rek.rotate_minmax(x, signs, scale))
+            rpms = cuda_ms(lambda: rer.rotate_minmax(x, signs, scale), reps=1)
+            record(records, "rotate_minmax", max(max_err(z, zp), max_err(mm, mmp)), rms, rpms,
+                   12 * n + 8 * b, 0, 24 * n)
+            tag += (f" fwht {ms:.3f} ms (plain {pms:.3f}, Kronecker matmuls {lms:.3f}, "
+                    f"max |matmuls - butterfly| {dev_k:.3g}); rotate_minmax {rms:.3f} ms "
+                    f"(plain {rpms:.3f})")
+        print(f"  fwht + rotate_minmax {tag}: bit-equal", flush=True)
+        del x, signs, got, want, z, zp
+
+    kenc = R.fold_in(key, 5)
+    flat = torch.randn(70_001, generator=gen.manual_seed(70_001), device=dev)
+    dp = rotation.padded_dim(flat.numel())
+    zr = rotation.rotate(R.PRNGKey(3), flat)
+    cases = [(zr, zr.amin(), zr.amax()),                      # 70,001 padded to 131,072
+             (flat, flat.amin(), flat.amax()),                # dp not a multiple of 32
+             (zr, zr[5], zr[5].clone())]                      # delta = 0: every bit 0
+    for zz, lo, hi in cases:
+        d = zz.numel()
+        got = rek.encode_pack(zz, kenc, lo, hi, d)
+        need(same_bits(got, rer.binary_plane(zz, kenc, lo, hi, d)),
+             f"encode_pack dp={d} vmin={float(lo)} vmax={float(hi)}: kernel != plain")
+    need(not bool(got.any()), "encode_pack with delta = 0 set a bit")
+    for d in (100, 300, 70_001):
+        for wire in ("bfloat16", "float32"):
+            chain = bitplane.binary_pack(rotation.rotate(rotation.rotation_key(key), flat[:d]),
+                                         R.fold_in(key, 1), wire)
+            need(same_bits(reo.pack_binary(flat[:d], key, 1, wire), chain),
+                 f"pack_binary d={d} {wire}: fused kernels != chain")
+    print(f"  encode_pack dp={dp}, {flat.numel()} (ragged), delta = 0: bit-equal; "
+          "fused pack_binary == chain at d = 100, 300, 70,001", flush=True)
+    del flat, zr, cases
+
+    n = main_rows << 20
+    gen.manual_seed(n)
+    z = torch.randn(n, generator=gen, device=dev)
+    lo, hi = z.amin(), z.amax()
+    got = rek.encode_pack(z, kenc, lo, hi, n)
+    want = rer.binary_plane(z, kenc, lo, hi, n)
+    need(same_bits(got, want), f"encode_pack dp={n}: kernel != plain")
+    ms = cuda_ms(lambda: rek.encode_pack(z, kenc, lo, hi, n))
+    pms = cuda_ms(lambda: rer.binary_plane(z, kenc, lo, hi, n), reps=1)
+    record(records, "encode_pack", 0.0, ms, pms, 4 * n + 4 * got.numel() + 8,
+           OPS_PER_CALL * -(-n // 2), 3 * n)
+    print(f"  encode_pack dp={n}: bit-equal, kernel {ms:.3f} ms plain {pms:.3f} ms", flush=True)
+    del z, got, want
+
+
 # --------------------------------------------------------------------------- #
 # Phase 3: the main path.
 # --------------------------------------------------------------------------- #
@@ -413,8 +522,17 @@ def check_bitplane(sizes, main_d: int, records: dict) -> None:
 # Kernel launches per compressed bucket of one round, by codec: the packs
 # (one per rank), then the decode's (one per shard of the §12/§13 scatter
 # decode, one per peer row of a flat bit-plane decode, one for the fused
-# flat Bernoulli decode).  The dense simulation launches no kernel.
+# flat Bernoulli decode).  The dense simulation launches no kernel.  A
+# rotated codec packs through the fused rotate-min/max + encode-pack pair
+# (inner binary) or rotates each rank with one FWHT launch before the inner
+# pack, decodes like its inner codec at the padded length, and unrotates
+# the estimate with one more FWHT launch.
 def expected_launches(codec: str, scatter: bool, n: int) -> dict:
+    if codec == "rotated_binary":
+        return {"rotate_minmax": n, "encode_pack": n, "fwht": 1,
+                ("bitplane_binary_accum" if scatter else "bitplane_unpack"): n}
+    if codec == "rotated_fixed_k":
+        return {"fwht": n + 1, "fixed_k_gather": n}
     if codec == "fixed_k_shared":
         return {"fixed_k_gather": n}
     if codec == "bernoulli":
@@ -432,13 +550,25 @@ def expected_launches(codec: str, scatter: bool, n: int) -> dict:
     raise CheckFailed(f"no launch table for codec {codec!r}")
 
 
-def closed_form(codec: str, cmp, v) -> float:
-    """The codec's closed-form MSE of one bucket's (n, d) round."""
+def closed_form(codec: str, cmp, v, bucket_key) -> float:
+    """The codec's closed-form MSE of one bucket's (n, d) round; a rotated
+    codec's is its inner closed form at the bucket's rotation (§7.2),
+    summed one rank at a time."""
     import torch
-    from repro_torch.core import mse, optimal
+    from repro_torch.core import mse, optimal, rotation
     from repro_torch.core.wire import codecs
 
     q = cmp.encoder.fraction
+    if codec in ("rotated_binary", "rotated_fixed_k"):
+        krot = rotation.rotation_key(bucket_key)
+        k = codecs.fixed_k_blocks(rotation.padded_dim(v.shape[1]), q) * 1024
+        total = 0.0
+        for i in range(v.shape[0]):
+            if codec == "rotated_binary":
+                total += float(mse.mse_rotated_binary(v[i:i + 1], krot))
+            else:
+                total += float(mse.mse_rotated_fixed_k(v[i:i + 1], k, krot))
+        return total / v.shape[0] ** 2
     if codec == "fixed_k_shared":
         k = codecs.fixed_k_blocks(v.shape[1], q) * 1024
         return float(mse.mse_fixed_k_shared(v, k, v.mean(1)))
@@ -463,6 +593,7 @@ def closed_form(codec: str, cmp, v) -> float:
 def run_main_path(name, cmp, steps, launches_total):
     """``steps`` bucketed syncs of one config; returns its summary line."""
     import torch
+    from repro_torch import random as prandom
     from repro_torch.core import wire
     from repro_torch.kernels import backend
     from repro_torch.train import bucketing
@@ -506,11 +637,13 @@ def run_main_path(name, cmp, steps, launches_total):
             need(comm.bytes_gathered == 0 and comm.bytes_reduced == sent + exact_bytes,
                  f"{name}: communicator bytes {comm.bytes_reduced} != accounting "
                  f"{sent + exact_bytes}")
-        for b in comp:
+        for j, b in enumerate(plan.buckets):
+            if b.kind != "compressed":
+                continue
             v = bucketing.pack_bucket(grads, b)
             y = torch.cat([out[s.name].reshape(-1) for s in b.slots])
             err_sum += float(torch.sum((y - v.mean(0)) ** 2, dtype=torch.float64))
-            cf_sum += closed_form(codec.name, cmp, v)
+            cf_sum += closed_form(codec.name, cmp, v, prandom.fold_in(key, j))
             del v, y
         del grads, out
     ratio = err_sum / cf_sum
@@ -551,6 +684,8 @@ def main() -> int:
     t0 = time.perf_counter()
     check_kernels(SIZES, main_d, -(-main_d // synthetic.N), records)
     check_bitplane(SIZES, main_d, records)
+    from repro_torch.core import rotation
+    check_rotation(rotation.padded_dim(main_d) >> 20, records)
     print(f"[2] kernels bit-equal to their plain versions ({time.perf_counter() - t0:.1f} s)",
           flush=True)
 

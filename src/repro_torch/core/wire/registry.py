@@ -4,22 +4,23 @@ Every consumer of "what does this config put on the wire" (the collective,
 the bit accounting, the bucket plan) resolves a codec here.  ``gather_kind``
 is the reference's rule verbatim.  The port has every base codec:
 ``fixed_k``, ``fixed_k_shared``, ``bernoulli``, ``binary``, ``ternary``,
-``ternary_opt`` and ``dense``; a config that asks for a wrapper (rotation,
-error feedback) raises :class:`~.base.NotPortedError` naming the slice that
-brings it.  It never falls back to another codec.
+``ternary_opt`` and ``dense``, and the §7.2 rotation wrapper
+(:class:`~.rotated.RotatedCodec`, registered as ``rotated_binary`` and
+``rotated_fixed_k``, built on the fly around any other codec); a config
+that asks for error feedback raises :class:`~.base.NotPortedError` naming
+the slice that brings it.  It never falls back to another codec.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
 from repro_torch.core import types as t
-from repro_torch.core.wire import base, codecs
+from repro_torch.core.wire import base, codecs, rotated
 
 _CODECS: Dict[str, base.WireCodec] = {}
 
 # the slice of ROADMAP.md queue 1 that brings each codec not ported yet
 PENDING = {
-    "rotation": "slice 4 (rotation and the FWHT kernels)",
     "error_feedback": "slice 5 (error feedback)",
 }
 
@@ -55,6 +56,9 @@ register(codecs.BinaryCodec())
 register(codecs.TernaryCodec())
 register(codecs.TernaryOptCodec())
 register(codecs.DenseSimCodec())
+# the shipped rotations get stable names; resolve() builds any other on the fly
+register(rotated.RotatedCodec(get("binary")))
+register(rotated.RotatedCodec(get("fixed_k")))
 
 
 def gather_kind(cfg: t.CompressionConfig) -> str:
@@ -79,10 +83,11 @@ def gather_kind(cfg: t.CompressionConfig) -> str:
 def resolve(cfg: t.CompressionConfig) -> base.WireCodec:
     """The codec ``compressed_mean`` executes for ``cfg``.
 
-    Raises NotPortedError for codecs and wrappers the port does not have,
-    ValueError for modes without a wire codec and for the reference's
-    invalid combinations (scatter decode on a codec that cannot shard, a
-    robust policy on a psum codec).
+    Composition order: base codec → §7.2 rotation (``cfg.encoder.rotation``)
+    → error feedback (not ported).  Raises NotPortedError for wrappers the
+    port does not have, ValueError for modes without a wire codec and for
+    the reference's invalid combinations (scatter decode on a codec that
+    cannot shard, a robust policy on a psum codec).
     """
     if cfg.mode == "shared_support":
         codec = get("fixed_k_shared")
@@ -93,7 +98,7 @@ def resolve(cfg: t.CompressionConfig) -> base.WireCodec:
     else:
         raise ValueError(cfg.mode)
     if cfg.encoder.rotation:
-        raise _pending("rotation")
+        codec = _CODECS.get("rotated_" + codec.name) or rotated.RotatedCodec(codec)
     if cfg.error_feedback:
         raise _pending("error_feedback")
     if cfg.scatter_decode and not codec.scatter_supported:

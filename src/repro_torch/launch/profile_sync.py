@@ -11,11 +11,13 @@ two steps timed by the host clock around a synchronize, then one step under
 ``torch.profiler`` (CPU and CUDA activity).  Prints and writes as JSON: the
 step's wall time, the time the card was busy (the union of its kernel,
 copy and fill intervals), the idle share of the profiled step, the number
-of device events, and the top kernels by device time and operations by
-host time.  Before the presets it times the plain-torch Threefry uniform
-draw (``random.uniform``) of the largest bucket by CUDA events: the draw
-every binary and ternary pack makes once per rank and bucket.  Needs a CUDA
-card; fails without one.
+of device events, the top kernels by device time, the port's own kernels
+(``csrc``) by device time, and the top operations by host time.  Before the presets it times, by CUDA events, the plain-torch
+Threefry uniform draw (``random.uniform``) of the largest bucket — the draw
+every binary and ternary pack makes once per rank and bucket — and the
+Rademacher sign draw (``random.rademacher``) at that bucket's rotated
+length, which the rotated presets make once per rank's pack and once per
+unrotate.  Needs a CUDA card; fails without one.
 """
 from __future__ import annotations
 
@@ -36,24 +38,20 @@ def _busy_ms(kernels) -> float:
     return busy / 1e3
 
 
-def time_uniform_draw():
-    """Device ms of one ``random.uniform`` draw of the largest bucket's length."""
-    import math
-
+def time_draw(draw, d: int):
+    """Device ms and peak GB of one ``draw(key, d, "cuda")`` (3 after a warm-up)."""
     import torch
 
-    from repro_torch import random as prandom
     from repro_torch.train import synthetic
 
-    shapes, _ = synthetic.main_shapes()
-    d = max(math.prod(s) for s in shapes.values())
     key = synthetic.step_key(0)
-    prandom.uniform(key, d, "cuda")
+    draw(key, d, "cuda")
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(3):
-        prandom.uniform(key, d, "cuda")
+        draw(key, d, "cuda")
     end.record()
     end.synchronize()
     return {"d": d, "ms": start.elapsed_time(end) / 3,
@@ -102,6 +100,10 @@ def profile_preset(preset: str):
                    for e in averages if e.device_type == DeviceType.CPU),
                   key=lambda r: -r[1])
     busy = _busy_ms(on_card)
+    # the port's own kernels (csrc/*.cu): every device row that is not one of
+    # PyTorch's kernels, copies or fills
+    own = [r for r in device
+           if not any(t in r[0] for t in ("at::native", "at_cuda_detail", "Memcpy", "Memset"))]
     return {
         "preset": preset, "layers": synthetic.LAYERS, "n": synthetic.N,
         "wall_ms": walls, "profiled_wall_ms": prof_wall,
@@ -109,6 +111,7 @@ def profile_preset(preset: str):
         "device_events": len(on_card),
         "wrapper_launches": dict(backend.launches),
         "top_device": [[k, ms, c] for k, ms, c in device[:12]],
+        "own_kernels": [[k, ms, c] for k, ms, c in own],
         "top_host": [[k, ms, c] for k, ms, c in host[:12]],
     }
 
@@ -130,8 +133,16 @@ def main(argv=None) -> int:
     backend.build()
     out = {"card": card, "torch": torch.__version__, "results": []}
     print(f"card: {card}", flush=True)
-    out["uniform_draw"] = time_uniform_draw()
+    import math
+
+    from repro_torch import random as prandom
+    from repro_torch.core import rotation
+    shapes, _ = synthetic.main_shapes()
+    d = max(math.prod(s) for s in shapes.values())
+    out["uniform_draw"] = time_draw(prandom.uniform, d)
+    out["sign_draw"] = time_draw(prandom.rademacher, rotation.padded_dim(d))
     print(f"uniform draw: {json.dumps(out['uniform_draw'])}", flush=True)
+    print(f"sign draw: {json.dumps(out['sign_draw'])}", flush=True)
     for preset in synthetic.PRESETS:
         r = profile_preset(preset)
         out["results"].append(r)
@@ -141,6 +152,8 @@ def main(argv=None) -> int:
               flush=True)
         for k, ms, c in r["top_device"][:8]:
             print(f"  device {ms:9.3f} ms  x{c:<6d} {k[:90]}")
+        for k, ms, c in r["own_kernels"]:
+            print(f"  kernel {ms:9.3f} ms  x{c:<6d} {k[:90]}")
         for k, ms, c in r["top_host"][:8]:
             print(f"  host   {ms:9.3f} ms  x{c:<6d} {k[:90]}")
     path = pathlib.Path(args.out)

@@ -43,6 +43,17 @@ def uniform(key, shape, device=None) -> torch.Tensor:
     return tf.uniform(key, size, device).reshape(shape)
 
 
+def rademacher(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.rademacher(key, shape, float32)``: ±1 with equal odds.
+
+    JAX draws ``bernoulli(key, 0.5, shape)`` — ``uniform(key, shape) < 0.5``
+    — and maps True to 1, False to −1.
+    """
+    u = uniform(key, shape, device)
+    one = torch.ones((), dtype=torch.float32, device=u.device)
+    return torch.where(u < 0.5, one, -one)
+
+
 def gumbel(key, shape, device=None) -> torch.Tensor:
     """``jax.random.gumbel(key, shape, float32)`` (its default "low" mode).
 

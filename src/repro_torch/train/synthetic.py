@@ -27,7 +27,7 @@ MODEL = "qwen3-4b"
 LAYERS = 4          # of 36: depth is cut, width is not
 N = 8               # data-parallel ranks, stacked on one device
 PRESETS = ("fixed_k_1bit", "bernoulli_seed_1bit", "binary_packed", "ternary_packed",
-           "ternary_opt")
+           "ternary_opt", "rotated_binary", "rotated_fixed_k")
 
 
 def synthetic_grads(shapes: Mapping[str, Sequence[int]], n: int, step: int,

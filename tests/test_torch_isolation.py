@@ -59,6 +59,8 @@ def test_kernel_wrappers_reject_cpu_tensors():
     from repro_torch.kernels.bernoulli_wire import kernel as bwk
     from repro_torch.kernels.bitplane import bitplane as bpk
     from repro_torch.kernels.fixed_k_encode import fixed_k_encode as fkk
+    from repro_torch.kernels.hadamard import hadamard as hk
+    from repro_torch.kernels.rotated_encode import kernel as rek
 
     x = torch.zeros(2048)
     words = torch.zeros(64, dtype=torch.int32)
@@ -72,3 +74,9 @@ def test_kernel_wrappers_reject_cpu_tensors():
         bwk.encode(x, torch.tensor([0, 1]), torch.tensor(0.0), p=0.5, cap=10)
     with pytest.raises(ValueError, match="CUDA"):
         fkk.fixed_k_gather(x, torch.tensor([0, 1]), 2.0, torch.tensor(0.0))
+    with pytest.raises(ValueError, match="CUDA"):
+        hk.fwht(x.reshape(2, 1024))
+    with pytest.raises(ValueError, match="CUDA"):
+        rek.rotate_minmax(x.reshape(2, 1024), x.reshape(2, 1024), 32.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        rek.encode_pack(x, torch.tensor([0, 1]), torch.tensor(0.0), torch.tensor(1.0), 2048)

@@ -11,13 +11,20 @@ import pytest
 import torch
 
 from repro_torch import random as R
+from repro_torch.core import bitplane as cbp
 from repro_torch.core import comm_cost
+from repro_torch.core import rotation
 from repro_torch.kernels.bernoulli_wire import kernel as bwk
 from repro_torch.kernels.bernoulli_wire import ref as bwr
 from repro_torch.kernels.bitplane import bitplane as bpk
 from repro_torch.kernels.bitplane import ref as bpr
 from repro_torch.kernels.fixed_k_encode import fixed_k_encode as fkk
 from repro_torch.kernels.fixed_k_encode import ref as fkr
+from repro_torch.kernels.hadamard import hadamard as hk
+from repro_torch.kernels.hadamard import ref as hr
+from repro_torch.kernels.rotated_encode import kernel as rek
+from repro_torch.kernels.rotated_encode import ops as reo
+from repro_torch.kernels.rotated_encode import ref as rer
 
 pytestmark = pytest.mark.cuda
 
@@ -105,3 +112,49 @@ def test_binary_accum_equals_plain(dev, n, d):
     for win in (rows[:, :nw].contiguous(), rows[:, 3:3 + nw]):
         want = bpr.binary_accum(win, lo, hi, d)
         assert _same(bpk.binary_accum(win, lo, hi, d), want)
+
+
+@pytest.mark.parametrize("b,m", [(1, 0), (3, 1), (2, 5), (3, 8), (2, 13), (3, 14), (2, 17)])
+def test_fwht_and_rotate_minmax_equal_plain(dev, b, m):
+    """One pass up to 2^13, two beyond; odd m, where sqrt(c) is not a power
+    of two, included."""
+    c = 1 << m
+    x = torch.randn(b, c, device=dev, generator=torch.Generator(dev).manual_seed(b * c))
+    assert _same(hk.fwht(x), hr.fwht(x))
+    signs = R.rademacher(R.PRNGKey(m), (b, c), dev)
+    scale = float(rotation.chunk_scale(c, "cpu"))
+    z, mm = rek.rotate_minmax(x, signs, scale)
+    zp, mmp = rer.rotate_minmax(x, signs, scale)
+    assert _same(z, zp) and _same(mm, mmp)
+
+
+@pytest.mark.parametrize("dp", (1, 33, 70001, 131072))
+def test_encode_pack_equals_plain(dev, dp):
+    z = torch.randn(dp, device=dev, generator=torch.Generator(dev).manual_seed(dp))
+    key = R.fold_in(R.PRNGKey(4), 1)
+    for lo, hi in ((z.amin(), z.amax()), (z[0], z[0].clone())):   # delta = 0 last
+        got = rek.encode_pack(z, key, lo, hi, dp)
+        assert torch.equal(got, rer.binary_plane(z, key, lo, hi, dp))
+    assert not bool(got.any())
+
+
+@pytest.mark.parametrize("d", (100, 300, 5000, 70001))
+def test_fused_pack_binary_equals_chain(dev, d):
+    x = torch.randn(d, device=dev, generator=torch.Generator(dev).manual_seed(d))
+    key = R.PRNGKey(9)
+    chain = cbp.binary_pack(rotation.rotate(rotation.rotation_key(key), x),
+                            R.fold_in(key, 2), "bfloat16")
+    assert torch.equal(reo.pack_binary(x, key, 2, "bfloat16"), chain)
+
+
+@pytest.mark.parametrize("d", (4096, 70001))
+def test_rotation_on_card_equals_cpu(dev, d):
+    """70,001 pads to 2^17: √c is not a power of two, so the card must divide
+    as the CPU does (core/rotation.py::chunk_scale)."""
+    x = torch.randn(d, generator=torch.Generator().manual_seed(d))
+    krot = rotation.rotation_key(R.PRNGKey(6))
+    z = rotation.rotate(krot, x.to(dev))
+    assert _same(z.cpu(), rotation.rotate(krot, x))
+    assert _same(rotation.unrotate(krot, z, d).cpu(), rotation.unrotate(krot, z.cpu(), d))
+    assert torch.equal(reo.pack_binary(x.to(dev), R.PRNGKey(6), 3, "bfloat16").cpu(),
+                       reo.pack_binary(x, R.PRNGKey(6), 3, "bfloat16"))
