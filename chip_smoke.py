@@ -8,7 +8,7 @@ Phases, each printing its own lines:
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 1. build every kernel of the path from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together);
-2. hold each kernel bit-equal against its plain PyTorch version on the card,
+2. hold each wire kernel bit-equal against its plain PyTorch version on the card,
    at d = 70,001 and 16,777,217 (n = 8 peers, keys folded per rank from
    ``PRNGKey(seed)``), with a forced-small-cap overflow case and shard
    windows straddling block edges, the bit-plane kernels at every width and
@@ -17,8 +17,15 @@ Phases, each printing its own lines:
    power of two), the rotated encode-pack at a ragged length and at
    delta = 0, and every kernel at the largest shape the main path gives it;
    time kernel and plain version (and, for the FWHT, the Kronecker matmul
-   formulation of the TPU kernel as a yardstick);
-3. the main path: ``sync_grads_bucketed`` over the qwen3-4b gradient tree
+   formulation of the TPU kernel as a yardstick); then hold the
+   flash-attention forward within the reference's tolerances for
+   its own kernel (f32: atol = rtol = 2e-3 on o; bf16: atol 3e-2 on o;
+   lse within 1e-3) against its plain blockwise version and the full-softmax
+   oracle, at (1, 256, 4/2, 64) causal and not, a window of 128, q_offset
+   256 (Sq 128, Sk 512), (1, 8192, 32/8, 128) bf16 and the serving path's
+   (8, 2048, 32/8, 128) bf16 causal; time kernel, plain version and
+   ``F.scaled_dot_product_attention`` (the library yardstick);
+3. the sync path: ``sync_grads_bucketed`` over the qwen3-4b gradient tree
    (full width, 4 of 36 layers, 792,657,920 compressed coordinates per
    rank) on ``StackedComm(8, "cuda")`` for each preset of
    ``train/synthetic.py`` (``fixed_k_1bit``, ``bernoulli_seed_1bit``,
@@ -30,7 +37,15 @@ Phases, each printing its own lines:
    counts per bucket against each codec's table (``expected_launches``),
    finiteness, the bytes handed to the communicator against the accounting,
    and the squared error against the codec's closed-form MSE (``closed_form``,
-   within 10%).
+   within 10%);
+4. the serving path: qwen3-4b at all 36 layers and full width, parameters
+   drawn from a seed and cast to bf16, 8 prompts of 2048 seeded tokens:
+   ``engine.generate`` (``build_serve_fns`` → prefill → 32 greedy decode
+   steps) with 36 flash-attention launches per prefill; finite logits; a
+   teacher-forced decode of positions 2048..2079 against one forward over
+   the 2080 tokens, and the flash prefill against the ``attn_impl="xla"``
+   one (``SERVE_TOL``); prefill ms, decode ms per token, tokens/s, peak
+   memory.
 
 Then one JSON line with every kernel's numbers and, last, the device line.
 Exits nonzero, and prints no result, when there is no CUDA card, when the
@@ -58,6 +73,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT32_OPS_PER_S = 67e12 * 64 / (128 * 2)
 # float32 adds and multiplies that are not fused: one per FP32 lane and clock
 F32_OPS_PER_S = 67e12 / 2
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores, NVIDIA data sheet
 # the least integer work of one Threefry-2x32 cipher call: 2 key adds, 20
 # rounds of (add, funnel-shift rotate, xor), 5 key injections of one add on
 # each word (csrc/threefry.cuh); counter words and mantissa fill not counted.
@@ -78,6 +94,7 @@ REPLACES = {
     "fwht": "src/repro/kernels/hadamard/hadamard.py:57",
     "rotate_minmax": "src/repro/kernels/rotated_encode/kernel.py:70",
     "encode_pack": "src/repro/kernels/rotated_encode/kernel.py:121",
+    "flash_attention_fwd": "src/repro/kernels/flash_attention/flash_attention.py:121",
 }
 SOURCE = {
     "bernoulli_encode": "src/repro_torch/csrc/bernoulli_wire.cu",
@@ -91,6 +108,7 @@ SOURCE = {
     "fwht": "src/repro_torch/csrc/hadamard.cu",
     "rotate_minmax": "src/repro_torch/csrc/rotated_encode.cu",
     "encode_pack": "src/repro_torch/csrc/rotated_encode.cu",
+    "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
 }
 
 
@@ -515,8 +533,90 @@ def check_rotation(main_rows: int, records: dict) -> None:
     del z, got, want
 
 
+# (b, sq, sk, hq, hkv, hd, causal, window, q_offset, dtypes); the last is the
+# serving path's prefill (8 prompts of 2048 tokens, qwen3-4b's heads)
+FLASH_CASES = [
+    (1, 256, 256, 4, 2, 64, True, None, 0, ("float32", "bfloat16")),
+    (1, 256, 256, 4, 2, 64, False, None, 0, ("float32", "bfloat16")),
+    (1, 512, 512, 2, 1, 64, True, 128, 0, ("float32", "bfloat16")),
+    (1, 128, 512, 2, 2, 64, True, None, 256, ("float32", "bfloat16")),
+    (1, 8192, 8192, 32, 8, 128, True, None, 0, ("bfloat16",)),
+    (8, 2048, 2048, 32, 8, 128, True, None, 0, ("bfloat16",)),
+]
+# (atol, rtol) on o: the reference's own for its kernel (tests/test_kernel_flash.py)
+FLASH_TOL = {"float32": (2e-3, 2e-3), "bfloat16": (3e-2, 0.0)}
+LSE_TOL = 1e-3
+
+
+def live_pairs(sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
+    """The (q, k) pairs the mask keeps: the work attention needs."""
+    import torch
+
+    p = torch.arange(q_offset, q_offset + sq, dtype=torch.int64)
+    hi = torch.clamp(p + 1, max=sk) if causal else torch.full_like(p, sk)
+    lo = torch.clamp(p - window + 1, min=0) if window is not None else torch.zeros_like(p)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def within(a, b, atol: float, rtol: float) -> bool:
+    return bool(((a.double() - b.double()).abs() <= atol + rtol * b.double().abs()).all())
+
+
+def check_flash(records: dict) -> None:
+    """The flash-attention kernel against its plain blockwise version and the
+    full-softmax oracle on the same inputs, within the reference's own
+    tolerances; at the serving path's shape, kernel, plain version and
+    ``F.scaled_dot_product_attention`` (the yardstick) timed."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention import ref as far
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    for b, sq, sk, hq, hkv, hd, causal, window, q_offset, dtypes in FLASH_CASES:
+        for dt in dtypes:
+            dtype = getattr(torch, dt)
+            gen.manual_seed(sq * hq + hd)
+            q = torch.randn(b, sq, hq, hd, generator=gen, device=dev).to(dtype)
+            k = torch.randn(b, sk, hkv, hd, generator=gen, device=dev).to(dtype)
+            v = torch.randn(b, sk, hkv, hd, generator=gen, device=dev).to(dtype)
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            o, lse = fak.flash_attention_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            op, lsep = far.flash_attention_fwd(q, k, v, **kw)
+            oracle = far.attention(q, k, v, **kw)
+            atol, rtol = FLASH_TOL[dt]
+            tag = (f"flash_attention_fwd ({b}, {sq}/{sk}, {hq}/{hkv}, {hd}) {dt} causal={causal} "
+                   f"window={window} q_offset={q_offset}")
+            need(bool(torch.isfinite(o.float()).all()), f"{tag}: non-finite output")
+            need(within(o, op, atol, rtol) and within(o, oracle, atol, rtol),
+                 f"{tag}: o outside atol {atol} rtol {rtol} of plain / oracle "
+                 f"({max_err(o, op):.3g}, {max_err(o, oracle):.3g})")
+            need(within(lse, lsep, LSE_TOL, 0.0), f"{tag}: lse off by {max_err(lse, lsep):.3g}")
+            err = max_err(o, op)
+            tag += (f": max |o - plain| {err:.3g}, |o - oracle| {max_err(o, oracle):.3g}, "
+                    f"|lse - plain| {max_err(lse, lsep):.3g}")
+            del oracle
+            if sq == 2048:    # the serving path's shape
+                ms = cuda_ms(lambda: fak.flash_attention_fwd(q, k, v, **kw), reps=10)
+                pms = cuda_ms(lambda: far.flash_attention_fwd(q, k, v, **kw), reps=1)
+                qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                lms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+                nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
+                flops = 4 * b * hq * hd * live_pairs(sq, sk, causal, window, q_offset)
+                tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+                records["flash_attention_fwd"] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": max(tb, tf),
+                    "bound_by": "bytes" if tb >= tf else "operations", "library_ms": lms}
+                tag += (f"; kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {pms:.3f} "
+                        f"ms, sdpa {lms:.3f} ms, bound {max(tb, tf):.3f} ms")
+            print(f"  {tag}", flush=True)
+            del q, k, v, o, lse, op, lsep
+
+
 # --------------------------------------------------------------------------- #
-# Phase 3: the main path.
+# Phase 3: the sync path.
 # --------------------------------------------------------------------------- #
 
 # Kernel launches per compressed bucket of one round, by codec: the packs
@@ -657,6 +757,140 @@ def run_main_path(name, cmp, steps, launches_total):
             "err_over_closed_form": ratio, "launches_per_bucket": expect}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 4: the serving path.
+# --------------------------------------------------------------------------- #
+
+SERVE_MODEL = "qwen3-4b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 8, 2048, 32
+SERVE_SEED = 0
+# Agreement of two bf16 computations of the same logits (standard deviation
+# about 1 at this init: embed scale 0.02 over d = 2560): max |diff| <=
+# SERVE_TOL and mean |diff| <= SERVE_MEAN_TOL.  Rehearsed on the CPU, the
+# teacher-forced gap grew from 0.035 / 0.005 (max / mean) at 4 layers to
+# 0.137 / 0.018 at 36 (d = 512), and was 0.074 / 0.012 at full width and 4
+# layers: about 0.3 / 0.04 expected here; a wrong cache slot or rope
+# position gives a mean near 1.
+SERVE_TOL, SERVE_MEAN_TOL = 0.75, 0.1
+
+
+def agreement(name: str, got, want) -> dict:
+    """Max and mean |got - want| within the serving tolerances, and greedy
+    tokens equal wherever ``want``'s top-2 margin exceeds SERVE_TOL."""
+    import torch
+
+    diff = (got - want).abs()
+    top2 = torch.topk(want, 2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > SERVE_TOL
+    same = torch.argmax(got, -1) == torch.argmax(want, -1)
+    out = {"max_abs": float(diff.max()), "mean_abs": float(diff.mean()),
+           "positions": int(decided.numel()), "compared": int(decided.sum()),
+           "argmax_equal_all": int(same.sum())}
+    need(out["max_abs"] <= SERVE_TOL and out["mean_abs"] <= SERVE_MEAN_TOL,
+         f"{name}: max / mean |diff| {out['max_abs']:.4g} / {out['mean_abs']:.4g} over "
+         f"{SERVE_TOL} / {SERVE_MEAN_TOL}")
+    need(bool(same[decided].all()), f"{name}: greedy tokens differ where the margin > {SERVE_TOL}")
+    return out
+
+
+def run_serving(launches_total) -> dict:
+    """qwen3-4b at 36 layers, full width: the user's entry points, checked
+    and timed; returns the summary line."""
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import backend
+    from repro_torch.models import model, transformer
+    from repro_torch.serving import engine
+
+    dev = torch.device("cuda")
+    cfg = get_config(SERVE_MODEL)
+    run = RunConfig()                     # flash attention, bf16 compute
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SERVE_SEED, cfg, device=dev)          # f32, then bf16 leaf by leaf
+    for name in list(params):
+        params[name] = params[name].to(torch.bfloat16)
+    n_params = sum(v.numel() for v in params.values())
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    total = SERVE_PROMPT + SERVE_STEPS
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, total), generator=gen, device=dev)
+    prompt = {"tokens": tokens[:, :SERVE_PROMPT]}
+    prefill_fn, decode_fn = engine.build_serve_fns(
+        cfg, run, ShapeSpec("serve", "decode", total, SERVE_BATCH), device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+
+    # teacher-forced: decode the known continuation after a prefill of the
+    # prompt, against one forward over all 2080 tokens (this also warms up)
+    ctx = model.make_ctx(cfg, run)
+    cache, _ = prefill_fn(params, prompt)
+    dec = []
+    for i in range(SERVE_STEPS):
+        pos = SERVE_PROMPT + i
+        _, logits, cache = model.decode_step(ctx, params, cfg, run, cache,
+                                             tokens[:, pos:pos + 1], pos)
+        dec.append(logits)
+    del cache
+    x = model.embed_inputs(ctx, params, cfg, {"tokens": tokens})
+    h, _ = transformer.forward(ctx, params, cfg, run, x, torch.arange(total, device=dev))
+    full = transformer.lm_head_logits(ctx, params, cfg, h[:, SERVE_PROMPT:])
+    del x, h
+    teacher = agreement("teacher-forced decode vs prefill of 2080",
+                        torch.cat(dec, dim=1), full)
+    del dec, full
+
+    # the main path, as a user drives it; every count zeroed just before it
+    times = {"prefill": [], "decode": []}
+    seen = {}
+
+    def timed(fn, key):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t) * 1e3)
+            seen[key] = out
+            return out
+        return call
+
+    backend.reset_launches()
+    out = engine.generate(timed(prefill_fn, "prefill"), timed(decode_fn, "decode"), params,
+                          prompt, SERVE_STEPS)
+    counts = dict(backend.launches)
+    launches_total.update(counts)
+    need(counts == {"flash_attention_fwd": cfg.num_layers},
+         f"serving: launches {counts} != one flash forward per layer ({cfg.num_layers})")
+    need(tuple(out.shape) == (SERVE_BATCH, SERVE_STEPS), f"serving: tokens {tuple(out.shape)}")
+    need(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "serving: token out of range")
+    flash_logits = seen["prefill"][1]
+    need(bool(torch.isfinite(flash_logits).all()), "serving: non-finite prefill logits")
+    del seen
+
+    _, xla_logits = model.prefill(ctx, params, cfg, dataclasses.replace(run, attn_impl="xla"),
+                                  prompt)
+    xla = agreement("flash prefill vs xla prefill", flash_logits, xla_logits)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, flash_logits, xla_logits
+    torch.cuda.empty_cache()
+
+    prefill_ms = times["prefill"][0]
+    decode_ms = sum(times["decode"]) / len(times["decode"])
+    return {"model": SERVE_MODEL, "layers": cfg.num_layers, "params": n_params,
+            "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "decode_steps": SERVE_STEPS,
+            "setup_s": setup_s, "prefill_ms": prefill_ms,
+            "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3,
+            "decode_ms_per_token": decode_ms, "decode_ms": times["decode"],
+            "decode_tokens_per_s": SERVE_BATCH / decode_ms * 1e3,
+            "flash_launches_per_prefill": counts["flash_attention_fwd"],
+            "teacher_forced": teacher, "flash_vs_xla": xla, "init_peak_GiB": init_peak,
+            "serve_peak_GiB": peak}
+
+
 def main() -> int:
     setup()
     import torch
@@ -686,8 +920,9 @@ def main() -> int:
     check_bitplane(SIZES, main_d, records)
     from repro_torch.core import rotation
     check_rotation(rotation.padded_dim(main_d) >> 20, records)
-    print(f"[2] kernels bit-equal to their plain versions ({time.perf_counter() - t0:.1f} s)",
-          flush=True)
+    check_flash(records)
+    print(f"[2] wire kernels bit-equal to their plain versions, flash attention within "
+          f"tolerance ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     bern = synthetic.preset("bernoulli_seed_1bit")
     runs = [(name, synthetic.preset(name), STEPS) for name in synthetic.PRESETS]
@@ -701,6 +936,9 @@ def main() -> int:
         t0 = time.perf_counter()
         summary = run_main_path(name, cmp, steps, total)
         print(f"[3] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    summary = run_serving(total)
+    print(f"[4] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     launches = dict(total)
     for k in REPLACES:
         need(launches.get(k, 0) > 0, f"kernel {k} was never launched on the main path")
@@ -713,7 +951,7 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    print(f"[4] total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[5] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -5,14 +5,19 @@
 easy to find.  It imports ``torch``, numpy and ctypes only — never JAX and
 never ``repro``.
 
-Slices 1–3 cover the compressed-mean gradient sync of the
+Slices 1–4 cover the compressed-mean gradient sync of the
 ``fixed_k_1bit``, ``bernoulli_seed_1bit``, ``binary_packed``,
-``ternary_packed`` and ``ternary_opt`` presets and the dense simulation:
+``ternary_packed``, ``ternary_opt``, ``rotated_binary`` and
+``rotated_fixed_k`` presets and the dense simulation:
 ``train.bucketing.sync_grads_bucketed`` → ``core.collectives
 .compressed_mean`` → ``core.wire.registry.resolve`` → codec pack →
 all_gather / psum → decode → mean, with hand-written CUDA kernels for the
-Threefry-driven Bernoulli wire, the fixed-k gather and the bit-plane pack,
-unpack and binary accumulate (``src/repro_torch/csrc``).
+Threefry-driven Bernoulli wire, the fixed-k gather, the bit-plane pack,
+unpack and binary accumulate, the FWHT and the rotated encode.  Slice 5
+serves the dense family (qwen3-4b): ``serving.engine.build_serve_fns`` →
+``models.model.prefill`` / ``decode_step`` → ``models.transformer.forward``
+→ the flash-attention forward kernel, then ``serving.engine.generate``.
+The kernels are in ``src/repro_torch/csrc``.
 
 Entry points run on the CUDA card unless the caller passes a CPU device;
 with no card and no device given they raise (:func:`resolve_device`).

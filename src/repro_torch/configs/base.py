@@ -1,13 +1,23 @@
-"""Architecture configuration schema — port of ``repro.configs.base``'s
-:class:`ArchConfig`.
+"""Architecture, shape and run configuration schema — port of
+``repro.configs.base``.
 
-Field for field the reference's dataclass; the MoE and SSM sub-configs are
-kept as opaque values until their model families are ported.
+:class:`ArchConfig` and :class:`ShapeSpec` are field for field the
+reference's dataclasses (the MoE and SSM sub-configs kept as opaque values
+until their model families are ported).  :class:`RunConfig` has only the
+fields the serving path reads.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str              # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,3 +50,23 @@ class ArchConfig:
 
     def vocab_padded(self, tp: int) -> int:
         return -(-self.vocab_size // tp) * tp
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """The reference's execution tunables that the serving path reads.
+
+    ``attn_impl``: "flash" runs the flash-attention forward (the Hopper
+    kernel on a CUDA tensor, its plain blockwise version on a CPU one);
+    "xla" the model's chunked online softmax
+    (:func:`repro_torch.models.attention.chunked_attention`), the
+    reference's name for it.  ``attn_chunk_q`` / ``attn_chunk_k`` are the
+    chunk sizes of that path and the block sizes of the plain flash version
+    (the kernel tiles by 64).  ``compute_dtype`` names the torch dtype of
+    activations and matmul inputs.  ``remat`` has no effect when serving.
+    """
+    attn_chunk_q: int = 1024
+    attn_chunk_k: int = 1024
+    remat: bool = True
+    attn_impl: str = "flash"
+    compute_dtype: str = "bfloat16"

@@ -1,5 +1,5 @@
-"""Architecture registry, compression presets and parameter shapes — the
-parts of ``repro.configs.registry`` the port's gradient sync needs.
+"""Architecture registry, compression presets, smoke configs and parameter
+shapes — the parts of ``repro.configs.registry`` the port needs.
 
 ``COMPRESSION_PRESETS`` is the reference's table, all 14 entries, so a
 preset name means the same config on both sides; the registry
@@ -103,6 +103,22 @@ def compression_preset(name: str,
         return cfg
     inner = tuple(a for a in cfg.inner_axes if a not in axes)
     return dataclasses.replace(cfg, axes=axes, inner_axes=inner)
+
+
+def smoke_config(name: str) -> ArchConfig:
+    """The reference's reduced smoke variant (``repro.configs.registry
+    .smoke_config``): same family and topology, tiny dims.  Dense family
+    only; the others arrive with their model families."""
+    cfg = get_config(name)
+    if cfg.family != "dense":
+        raise NotPortedError(
+            f"the {cfg.family!r} family is not ported yet (ROADMAP.md, queue 1)")
+    return ArchConfig(
+        name=cfg.name + "-smoke", family=cfg.family,
+        num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+        d_ff=128, vocab_size=512, qk_norm=cfg.qk_norm,
+        window=16 if cfg.window else None, rope_theta=cfg.rope_theta,
+        tie_embeddings=cfg.tie_embeddings, sub_quadratic=cfg.sub_quadratic)
 
 
 def _ceil_to(a: int, b: int) -> int:

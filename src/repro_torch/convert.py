@@ -8,7 +8,10 @@ side hands over as numpy arrays and plain objects:
 * :func:`key_to_torch` — raw ``uint32[2]`` Threefry key data
   (``jax.random.key_data(key)``) → the port's key (int64 words);
 * :func:`compression_config` — any object with the fields of
-  ``repro.core.types.CompressionConfig`` → the port's config.
+  ``repro.core.types.CompressionConfig`` → the port's config;
+* :func:`arch_config` / :func:`run_config` — objects with the fields of
+  ``repro.configs.base.ArchConfig`` / ``RunConfig`` → the port's (the dense
+  family; the run fields the serving path reads).
 """
 from __future__ import annotations
 
@@ -18,7 +21,9 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core import types as t
+from repro_torch.core.wire.base import NotPortedError
 
 
 def tree_to_torch(tree: Mapping[str, np.ndarray], device="cpu") -> Dict[str, torch.Tensor]:
@@ -51,3 +56,22 @@ def compression_config(src) -> t.CompressionConfig:
                  bucket=_copy(t.BucketSpec, src.bucket),
                  axes=tuple(src.axes), inner_axes=tuple(src.inner_axes),
                  wire_dtype=wire_dtype)
+
+
+def arch_config(src) -> ArchConfig:
+    """An ArchConfig-shaped object → the port's ArchConfig.  MoE and SSM
+    sub-configs are not ported yet."""
+    if src.moe is not None or src.ssm is not None:
+        raise NotPortedError(f"{src.name}: MoE and SSM configs are not ported yet "
+                             "(ROADMAP.md, queue 1)")
+    return _copy(ArchConfig, src)
+
+
+def run_config(src) -> RunConfig:
+    """A RunConfig-shaped object → the port's RunConfig (the fields it has).
+    FSDP is not ported yet."""
+    if getattr(src, "fsdp", False):
+        raise NotPortedError("FSDP is not ported yet: it arrives with slice 6 (the "
+                             "training step) if its multi-card step needs it "
+                             "(ROADMAP.md, queue 1)")
+    return _copy(RunConfig, src)

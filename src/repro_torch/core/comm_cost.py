@@ -59,7 +59,7 @@ def cost(spec: CommSpec, *, n: int, d: int, k=None, cap=None, packed: bool = Fal
     Bernoulli) or ``k`` (fixed-k Eq. (9)); the word-padded binary and
     ternary planes (``packed``; ternary needs ``cap``).  The ideal §4.5 /
     §7.1 forms and the varying-length and sparse models arrive with
-    slice 9."""
+    slice 7."""
     if spec.protocol == "naive":
         return cost_naive(n, d, spec)
     if spec.protocol == "sparse_seed" and cap is not None:

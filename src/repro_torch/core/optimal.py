@@ -2,7 +2,7 @@
 needs: the per-coordinate ternary split of the ``ternary_opt`` codec.
 
 The §6 Bernoulli optimizers (``optimal_probs``, ``alternating_minimization``)
-belong to the single-host math and come with ROADMAP slice 9.
+belong to the single-host math and come with ROADMAP slice 7.
 """
 from __future__ import annotations
 

@@ -21,7 +21,7 @@ _CODECS: Dict[str, base.WireCodec] = {}
 
 # the slice of ROADMAP.md queue 1 that brings each codec not ported yet
 PENDING = {
-    "error_feedback": "slice 5 (error feedback)",
+    "error_feedback": "slice 8 (error feedback)",
 }
 
 

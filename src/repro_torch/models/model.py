@@ -1,0 +1,106 @@
+"""Model facade, dense family — port of ``repro.models.model``'s serving
+functions at ``tp = 1``: context, init, input embedding, the decode cache,
+prefill and the decode step.
+
+The reference runs these per shard inside ``shard_map``; the port runs them
+on one device with no mesh.  A mesh with a model axis above 1 raises
+:class:`NotPortedError`.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.core.wire.base import NotPortedError
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import common
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import ShardCtx
+from repro_torch.models.transformer import sub
+
+
+def make_ctx(cfg: ArchConfig, run: RunConfig, mesh_sizes: Optional[Dict[str, int]] = None,
+             dtype: Optional[torch.dtype] = None) -> ShardCtx:
+    """The one-device context; ``dtype`` defaults to ``run.compute_dtype``
+    (the reference's default, bf16).  A model axis above 1 raises."""
+    return ShardCtx(tp=(mesh_sizes or {}).get("model", 1),
+                    compute_dtype=dtype or getattr(torch, run.compute_dtype))
+
+
+def init(seed: int, cfg: ArchConfig, device=None) -> Dict[str, torch.Tensor]:
+    """f32 parameters drawn on ``device`` (the card unless given) from a
+    ``torch.Generator`` seeded with ``seed``."""
+    gen = torch.Generator(resolve_device(device)).manual_seed(seed)
+    return tfm.init_lm(gen, cfg)
+
+
+def embed_inputs(ctx: ShardCtx, params, cfg: ArchConfig, batch):
+    tfm.check_family(cfg)
+    return tfm.embed_tokens(ctx, params, cfg, batch["tokens"])
+
+
+def make_cache(ctx: ShardCtx, cfg: ArchConfig, b_local: int, s_max: int,
+               dtype=torch.bfloat16, device=None):
+    """Zeroed decode cache {"k", "v"}: (L, B, s_max, Hkv, hd) each."""
+    tfm.check_family(cfg)
+    if cfg.window is not None:
+        s_max = min(s_max, cfg.window)
+    shape = (cfg.num_layers, b_local, s_max, cfg.num_kv_heads, cfg.hd)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _attn_decode_layer(ctx, cfg, p, x, kcs, vcs, li: int, pos: int, dims):
+    """Decode attention writing the new token's K/V slot of layer ``li`` in
+    place (the reference's ``dynamic_update_slice`` on the carry, which
+    aliases)."""
+    h = common.rms_norm(x, p["norm1"])
+    positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    q, k, v = attn_lib.project_qkv(ctx, sub(p, "attn"), h, dims, cfg.qk_norm, positions,
+                                   cfg.rope_theta)
+    write = pos if cfg.window is None else pos % kcs.shape[2]
+    kcs[li, :, write] = k[:, 0].to(kcs.dtype)
+    vcs[li, :, write] = v[:, 0].to(vcs.dtype)
+    # a window's ring buffer: every slot is valid once full
+    valid = pos + 1 if cfg.window is None else min(pos + 1, kcs.shape[2])
+    o = attn_lib.decode_attention(q, kcs[li], vcs[li], valid)
+    return x + attn_lib.output_proj(ctx, sub(p, "attn"), o)
+
+
+def decode_step(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, cache, tok, pos: int):
+    """tok: (B, 1) ints; pos: the current length.  Returns (next_token
+    (B, 1), logits (B, 1, V) f32, cache) — the cache updated in place."""
+    tfm.check_family(cfg)
+    dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, ctx.tp)
+    x = tfm.embed_tokens(ctx, params, cfg, tok)
+    lp = sub(params, "layers")
+    for li in range(cfg.num_layers):
+        layer = tfm.take_layer(lp, li, ctx.compute_dtype)
+        x = _attn_decode_layer(ctx, cfg, layer, x, cache["k"], cache["v"], li, pos, dims)
+        x = tfm._ffn_sublayer(ctx, cfg, run, layer, x)
+    h = common.rms_norm(x, params["final_norm"])
+    logits = tfm.lm_head_logits(ctx, params, cfg, h)
+    return tfm.greedy_sample(ctx, logits), logits, cache
+
+
+def prefill(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
+            s_max: Optional[int] = None):
+    """Run the prompt through the model; returns (cache, last-position logits
+    (B, 1, V) f32).  The cache (:func:`make_cache`) holds the prompt's K/V
+    in bf16, zero-padded to ``s_max`` when given."""
+    x = embed_inputs(ctx, params, cfg, batch)
+    positions = torch.arange(batch["tokens"].shape[1], device=x.device)
+    h, (k, v) = tfm.forward(ctx, params, cfg, run, x, positions, want_cache=True)
+    logits = tfm.lm_head_logits(ctx, params, cfg, h[:, -1:])
+    s = k.shape[2]
+    cache = make_cache(ctx, cfg, k.shape[1], max(s, s_max or s), device=k.device)
+    if cache["k"].shape[2] < s:
+        raise NotPortedError(f"a prompt of {s} tokens is longer than the sliding window's "
+                             f"cache ({cache['k'].shape[2]})")
+    cache["k"][:, :, :s] = k
+    cache["v"][:, :, :s] = v
+    return cache, logits

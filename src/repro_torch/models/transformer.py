@@ -1,0 +1,121 @@
+"""Decoder-only LM assembly, dense family — port of
+``repro.models.transformer`` at ``tp = 1``: init, embedding, the tied or
+untied LM head, greedy sampling, the attention and FFN sublayers, and the
+forward over the stacked layers (a Python loop where the reference scans).
+
+Every layer's weights are cast to the compute dtype before use, as the
+reference's ``gather_fsdp`` casts them; the embedding and the final norm
+are not.  Other families raise :class:`NotPortedError`.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.core.wire.base import NotPortedError
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import common
+from repro_torch.models import mlp as mlp_lib
+from repro_torch.models.common import ShardCtx
+
+
+def sub(p: Dict[str, Any], prefix: str) -> Dict[str, Any]:
+    pl = len(prefix) + 1
+    return {k[pl:]: v for k, v in p.items() if k.startswith(prefix + ".")}
+
+
+def take_layer(p: Dict[str, Any], i: int, dtype: torch.dtype) -> Dict[str, Any]:
+    """Layer ``i`` of the stacked leaves, cast to ``dtype``."""
+    return {k: v[i].to(dtype) for k, v in p.items()}
+
+
+def check_family(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise NotPortedError(
+            f"the {cfg.family!r} family is not ported yet: the port serves the dense "
+            "family (ROADMAP.md, queue 1)")
+
+
+def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+    """The dense family's f32 parameters on ``gen``'s device, drawn from
+    ``gen``: the names and shapes of ``configs.registry.param_shapes`` and
+    the reference's scales."""
+    check_family(cfg)
+    pb = common.ParamBuilder(gen)
+    d = cfg.d_model
+    dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, 1)
+    pb.add("embed", (cfg.vocab_padded(1), d), scale=0.02)
+    if not cfg.tie_embeddings:
+        pb.add("lm_head", (cfg.vocab_padded(1), d), scale=d ** -0.5)
+    pb.ones("final_norm", (d,))
+    L = cfg.num_layers
+    attn_lib.init_attention(pb, "layers.attn", L, d, dims, cfg.qk_norm)
+    mlp_lib.init_mlp(pb, "layers.mlp", L, d, cfg.d_ff)
+    pb.ones("layers.norm1", (L, d))
+    pb.ones("layers.norm2", (L, d))
+    return pb.params
+
+
+def embed_tokens(ctx: ShardCtx, params, cfg: ArchConfig, tokens):
+    """tokens (B, S) → (B, S, D) embeddings in the compute dtype."""
+    return params["embed"][tokens.long()].to(ctx.compute_dtype)
+
+
+def lm_head_logits(ctx: ShardCtx, params, cfg: ArchConfig, h):
+    """h: (B, T, D) → logits (B, T, V) f32 (products of compute-dtype
+    inputs summed in f32)."""
+    w = params["lm_head"] if not cfg.tie_embeddings else params["embed"]
+    return torch.einsum("btd,vd->btv", h.float(), w.to(ctx.compute_dtype).float())
+
+
+def greedy_sample(ctx: ShardCtx, logits):
+    """(B, 1, V) → (B, 1) int64: the first index among ties, as
+    ``jnp.argmax``."""
+    return torch.argmax(logits, dim=-1)
+
+
+def _attn_sublayer(ctx, cfg: ArchConfig, run: RunConfig, p, x, positions, dims):
+    """norm → attention → residual.  Returns (x, (k, v) for the cache)."""
+    h = common.rms_norm(x, p["norm1"])
+    q, k, v = attn_lib.project_qkv(ctx, sub(p, "attn"), h, dims, cfg.qk_norm, positions,
+                                   cfg.rope_theta)
+    if run.attn_impl == "flash":
+        o = fa_ops.flash_attention(q, k, v, causal=True, window=cfg.window,
+                                   block_q=run.attn_chunk_q, block_k=run.attn_chunk_k)
+    elif run.attn_impl == "xla":
+        o = attn_lib.chunked_attention(q, k, v, causal=True, window=cfg.window,
+                                       chunk_q=run.attn_chunk_q, chunk_k=run.attn_chunk_k)
+    else:
+        raise ValueError(f"attn_impl must be 'flash' or 'xla', got {run.attn_impl!r}")
+    o = attn_lib.output_proj(ctx, sub(p, "attn"), o)
+    return x + o, (k, v)
+
+
+def _ffn_sublayer(ctx, cfg, run, p, x):
+    h = common.rms_norm(x, p["norm2"])
+    return x + mlp_lib.mlp(ctx, sub(p, "mlp"), h)
+
+
+def forward(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, x, positions,
+            want_cache: bool = False) -> Tuple[torch.Tensor, Optional[Tuple]]:
+    """Run all blocks.  x: (B, S, D).  Returns (final-normed h, caches):
+    caches are the stacked (L, B, S, Hkv, hd) k and v in the compute dtype
+    when ``want_cache``, else None.  (The reference also returns the MoE
+    aux loss, always 0 for the dense family.)"""
+    check_family(cfg)
+    dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, ctx.tp)
+    lp = sub(params, "layers")
+    ks: List[torch.Tensor] = []
+    vs: List[torch.Tensor] = []
+    for i in range(cfg.num_layers):
+        layer = take_layer(lp, i, ctx.compute_dtype)
+        x, (k, v) = _attn_sublayer(ctx, cfg, run, layer, x, positions, dims)
+        x = _ffn_sublayer(ctx, cfg, run, layer, x)
+        if want_cache:
+            ks.append(k)
+            vs.append(v)
+    caches = (torch.stack(ks), torch.stack(vs)) if want_cache else None
+    return common.rms_norm(x, params["final_norm"]), caches

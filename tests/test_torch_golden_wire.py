@@ -33,11 +33,11 @@ PORTED = ("fixed_k_1bit", "bernoulli_seed_1bit", "hier_fixed_k", "hier_bernoulli
           "rotated_fixed_k")
 # the slice of ROADMAP.md queue 1 each waiting preset arrives with
 WAITING = {
-    "ef_rotated_binary": "slice 5 (error feedback)",
-    "ef_fixed_k": "slice 5",
-    "ef_bernoulli": "slice 5",
-    "ef_binary": "slice 5",
-    "ef_ternary": "slice 5",
+    "ef_rotated_binary": "slice 8 (error feedback)",
+    "ef_fixed_k": "slice 8",
+    "ef_bernoulli": "slice 8",
+    "ef_binary": "slice 8",
+    "ef_ternary": "slice 8",
 }
 # the port's buffer dtype for each wire dtype the golden matrix records
 # (packed planes are uint32 words, held as int32 bit patterns)

@@ -10,8 +10,12 @@ import pytest
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import RunConfig, ShapeSpec
+from repro_torch.configs.registry import smoke_config
 from repro_torch.core import collectives as tcoll
 from repro_torch.kernels import backend
+from repro_torch.models import model
+from repro_torch.serving import engine
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -46,6 +50,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcoll.StackedComm(4)
     assert tcoll.StackedComm(4, "cpu").device == torch.device("cpu")
+    cfg, run = smoke_config("qwen3-4b"), RunConfig()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(0, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.build_serve_fns(cfg, run, ShapeSpec("serve", "decode", 64, 4))
+    assert model.init(0, cfg, device="cpu")["embed"].device == torch.device("cpu")
 
 
 def test_dispatch_rule():
@@ -59,6 +69,7 @@ def test_kernel_wrappers_reject_cpu_tensors():
     from repro_torch.kernels.bernoulli_wire import kernel as bwk
     from repro_torch.kernels.bitplane import bitplane as bpk
     from repro_torch.kernels.fixed_k_encode import fixed_k_encode as fkk
+    from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.kernels.hadamard import hadamard as hk
     from repro_torch.kernels.rotated_encode import kernel as rek
 
@@ -80,3 +91,6 @@ def test_kernel_wrappers_reject_cpu_tensors():
         rek.rotate_minmax(x.reshape(2, 1024), x.reshape(2, 1024), 32.0)
     with pytest.raises(ValueError, match="CUDA"):
         rek.encode_pack(x, torch.tensor([0, 1]), torch.tensor(0.0), torch.tensor(1.0), 2048)
+    with pytest.raises(ValueError, match="CUDA"):
+        fak.flash_attention_fwd(torch.zeros(1, 64, 2, 64), torch.zeros(1, 64, 1, 64),
+                                torch.zeros(1, 64, 1, 64))

@@ -20,6 +20,10 @@ from repro_torch.kernels.bitplane import bitplane as bpk
 from repro_torch.kernels.bitplane import ref as bpr
 from repro_torch.kernels.fixed_k_encode import fixed_k_encode as fkk
 from repro_torch.kernels.fixed_k_encode import ref as fkr
+from repro_torch.kernels import backend
+from repro_torch.kernels.flash_attention import kernel as fak
+from repro_torch.kernels.flash_attention import ops as fao
+from repro_torch.kernels.flash_attention import ref as far
 from repro_torch.kernels.hadamard import hadamard as hk
 from repro_torch.kernels.hadamard import ref as hr
 from repro_torch.kernels.rotated_encode import kernel as rek
@@ -158,3 +162,46 @@ def test_rotation_on_card_equals_cpu(dev, d):
     assert _same(rotation.unrotate(krot, z, d).cpu(), rotation.unrotate(krot, z.cpu(), d))
     assert torch.equal(reo.pack_binary(x.to(dev), R.PRNGKey(6), 3, "bfloat16").cpu(),
                        reo.pack_binary(x, R.PRNGKey(6), 3, "bfloat16"))
+
+
+# flash attention: held within the reference's tolerances for its own kernel
+# (tests/test_kernel_flash.py), not bit for bit (exp and sum orders differ)
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
+
+
+def _qkv(dev, b, sq, sk, hq, hkv, hd, dtype):
+    g = torch.Generator(dev).manual_seed(sq * hd + hq)
+    return [torch.randn(b, s, h, hd, generator=g, device=dev).to(dtype)
+            for s, h in ((sq, hq), (sk, hkv), (sk, hkv))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal,window,q_offset", [
+    (1, 256, 256, 4, 2, 64, True, None, 0),
+    (2, 100, 100, 8, 2, 128, False, None, 0),     # ragged tiles, not causal
+    (1, 128, 512, 4, 1, 128, True, 96, 256),      # window and q offset
+])
+def test_flash_attention_kernel_within_tolerance_of_plain(dev, dtype, b, sq, sk, hq, hkv, hd,
+                                                          causal, window, q_offset):
+    q, k, v = _qkv(dev, b, sq, sk, hq, hkv, hd, dtype)
+    o, lse = fak.flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    op, lsep = far.flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                       block_q=sq, block_k=sk)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    rtol = tol if dtype == torch.float32 else 0.0
+    torch.testing.assert_close(o.float(), op.float(), atol=tol, rtol=rtol)
+    torch.testing.assert_close(lse, lsep, atol=1e-3, rtol=0)
+
+
+def test_flash_attention_ops_launches_the_kernel_on_a_card(dev, monkeypatch):
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(far, "flash_attention_fwd", plain)
+    q, k, v = _qkv(dev, 1, 128, 128, 4, 2, 128, torch.bfloat16)
+    before = backend.launches["flash_attention_fwd"]
+    out = fao.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert backend.launches["flash_attention_fwd"] == before + 1
+    assert out.shape == q.shape and out.dtype == q.dtype

@@ -134,7 +134,7 @@ def test_registry_wraps_and_later_slices_raise():
     assert {"rotated_binary", "rotated_fixed_k"} <= set(twire.names())
     with pytest.raises(ValueError, match="does not nest"):
         type(codec)(codec)
-    with pytest.raises(twire.NotPortedError, match="slice 5"):
+    with pytest.raises(twire.NotPortedError, match="slice 8"):
         codec.state_shape(D, cfg)
-    with pytest.raises(twire.NotPortedError, match="slice 6"):
+    with pytest.raises(twire.NotPortedError, match="slice 9"):
         codec.decode_rows_reduce(None, None, cfg, D, 2)
