@@ -24,7 +24,13 @@ Phases, each printing its own lines:
    oracle, at (1, 256, 4/2, 64) causal and not, a window of 128, q_offset
    256 (Sq 128, Sk 512), (1, 8192, 32/8, 128) bf16 and the serving path's
    (8, 2048, 32/8, 128) bf16 causal; time kernel, plain version and
-   ``F.scaled_dot_product_attention`` (the library yardstick);
+   ``F.scaled_dot_product_attention`` (the library yardstick); then hold the
+   flash-attention backward kernels (dK/dV and dQ sweeps) against the plain
+   blockwise backward on the same inputs (f32: |Δ| ≤ 2e-3 + 2e-3·|ref|;
+   bf16: ‖Δ‖/‖ref‖ ≤ 1e-2 for each of dq, dk, dv) at g = 4 and 1, causal and
+   not, a window, a q offset, ragged S = 1000, hd 64 and 128, and the
+   training path's (1, 4096, 32/8, 128) bf16 causal, where kernels, plain
+   sweeps and SDPA's backward are timed;
 3. the sync path: ``sync_grads_bucketed`` over the qwen3-4b gradient tree
    (full width, 4 of 36 layers, 792,657,920 compressed coordinates per
    rank) on ``StackedComm(8, "cuda")`` for each preset of
@@ -45,6 +51,17 @@ Phases, each printing its own lines:
    teacher-forced decode of positions 2048..2079 against one forward over
    the 2080 tokens, and the flash prefill against the ``attn_impl="xla"``
    one (``SERVE_TOL``); prefill ms, decode ms per token, tokens/s, peak
+   memory;
+5. the training path (``train/synthetic.py::train_main_path``): qwen3-4b at
+   full width and 4 layers, 8 ranks stacked, one 4096-token sequence each,
+   ``fixed_k_1bit``.  Step 0's rank-0 loss and gradients with the flash
+   kernels against ``attn_impl="xla"`` (``TRAIN_LOSS_RTOL``,
+   ``TRAIN_GRAD_TOL``); then ``Trainer.fit`` for 4 steps: finite losses and
+   norms, the launches of every phase of every step (flash forward 2·L·n
+   with remat, each backward sweep L·n, the fixed-k gathers per bucket),
+   the communicator's bytes against the accounting, the sync's error over
+   the stacked real gradients against the closed form (within 10%), step
+   ms split into forward+backward, sync and optimizer, tokens/s, peak
    memory.
 
 Then one JSON line with every kernel's numbers and, last, the device line.
@@ -95,6 +112,8 @@ REPLACES = {
     "rotate_minmax": "src/repro/kernels/rotated_encode/kernel.py:70",
     "encode_pack": "src/repro/kernels/rotated_encode/kernel.py:121",
     "flash_attention_fwd": "src/repro/kernels/flash_attention/flash_attention.py:121",
+    "flash_attention_bwd_dkv": "src/repro/kernels/flash_attention/flash_attention.py:280",
+    "flash_attention_bwd_dq": "src/repro/kernels/flash_attention/flash_attention.py:318",
 }
 SOURCE = {
     "bernoulli_encode": "src/repro_torch/csrc/bernoulli_wire.cu",
@@ -109,6 +128,8 @@ SOURCE = {
     "rotate_minmax": "src/repro_torch/csrc/rotated_encode.cu",
     "encode_pack": "src/repro_torch/csrc/rotated_encode.cu",
     "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dkv": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dq": "src/repro_torch/csrc/flash_attention_bwd.cu",
 }
 
 
@@ -615,6 +636,106 @@ def check_flash(records: dict) -> None:
             del q, k, v, o, lse, op, lsep
 
 
+# (b, sq, sk, hq, hkv, hd, causal, window, q_offset, dtypes); the last is the
+# training path's (one 4096-token sequence, qwen3-4b's heads)
+FLASH_BWD_CASES = [
+    (1, 256, 256, 4, 1, 64, True, None, 0, ("float32", "bfloat16")),      # g = 4
+    (1, 256, 256, 4, 4, 128, False, None, 0, ("float32", "bfloat16")),    # g = 1, not causal
+    (1, 512, 512, 2, 1, 64, True, 128, 0, ("float32", "bfloat16")),      # window
+    (1, 128, 512, 4, 2, 128, True, None, 256, ("float32", "bfloat16")),   # q offset
+    (2, 1000, 1000, 8, 2, 128, True, None, 0, ("float32", "bfloat16")),   # ragged tiles
+    (1, 4096, 4096, 32, 8, 128, True, None, 0, ("bfloat16",)),
+]
+# f32: |Δ| ≤ atol + rtol·|ref|, the forward's; bf16: relative Frobenius error
+# of each of dq, dk, dv (p and ds enter the products as bf16 hi + lo pairs)
+BWD_F32_TOL = (2e-3, 2e-3)
+BWD_BF16_REL = 1e-2
+
+
+def rel_err(a, b) -> float:
+    """‖a − b‖ / ‖b‖, in f64."""
+    import torch
+
+    return float(torch.linalg.vector_norm(a.double() - b.double())
+                 / torch.linalg.vector_norm(b.double()))
+
+
+def check_flash_bwd(records: dict) -> None:
+    """The backward kernels against the plain blockwise sweeps on the same
+    inputs (q, k, v, do drawn from a seed; lse from the forward kernel;
+    delta = rowsum(do · o)); at the training path's shape, kernels, plain
+    sweeps and the backward of ``F.scaled_dot_product_attention`` (the
+    yardstick: one call for dq, dk and dv, timed as ``torch.autograd.grad``
+    of a forward built outside the timed region) timed."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention import ref as far
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    for b, sq, sk, hq, hkv, hd, causal, window, q_offset, dtypes in FLASH_BWD_CASES:
+        for dt in dtypes:
+            dtype = getattr(torch, dt)
+            gen.manual_seed(sq * hq + hd + 1)
+            q = torch.randn(b, sq, hq, hd, generator=gen, device=dev).to(dtype)
+            k = torch.randn(b, sk, hkv, hd, generator=gen, device=dev).to(dtype)
+            v = torch.randn(b, sk, hkv, hd, generator=gen, device=dev).to(dtype)
+            do = torch.randn(b, sq, hq, hd, generator=gen, device=dev).to(dtype)
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            o, lse = fak.flash_attention_fwd(q, k, v, **kw)
+            delta = torch.sum(do.float() * o.float(), -1).transpose(1, 2).contiguous()
+            args = (q, k, v, do, lse, delta)
+            dk, dv = fak.flash_attention_bwd_dkv(*args, **kw)
+            dq = fak.flash_attention_bwd_dq(*args, **kw)
+            torch.cuda.synchronize()
+            blocks = dict(block_q=512 if sq % 512 == 0 else sq,
+                          block_k=512 if sk % 512 == 0 else sk)
+            pdk, pdv = far.flash_attention_bwd_dkv(*args, **kw, **blocks)
+            pdq = far.flash_attention_bwd_dq(*args, **kw, **blocks)
+            tag = (f"flash_attention_bwd ({b}, {sq}/{sk}, {hq}/{hkv}, {hd}) {dt} causal={causal} "
+                   f"window={window} q_offset={q_offset}")
+            errs = {}
+            for name, got, want in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
+                need(bool(torch.isfinite(got).all()), f"{tag}: non-finite {name}")
+                errs[name] = (max_err(got, want), rel_err(got, want))
+                if dt == "float32":
+                    need(within(got, want, *BWD_F32_TOL),
+                         f"{tag}: {name} outside atol/rtol {BWD_F32_TOL} ({errs[name][0]:.3g})")
+                else:
+                    need(errs[name][1] <= BWD_BF16_REL,
+                         f"{tag}: {name} relative error {errs[name][1]:.3g} > {BWD_BF16_REL}")
+            tag += ": " + ", ".join(f"{n} max |Δ| {e[0]:.3g} rel {e[1]:.3g}"
+                                    for n, e in errs.items())
+            if sq == 4096:    # the training path's shape
+                ms_kv = cuda_ms(lambda: fak.flash_attention_bwd_dkv(*args, **kw), reps=10)
+                ms_q = cuda_ms(lambda: fak.flash_attention_bwd_dq(*args, **kw), reps=10)
+                pms_kv = cuda_ms(lambda: far.flash_attention_bwd_dkv(*args, **kw, **blocks), reps=1)
+                pms_q = cuda_ms(lambda: far.flash_attention_bwd_dq(*args, **kw, **blocks), reps=1)
+                qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+                out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+                dot = do.transpose(1, 2)
+                lms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                          retain_graph=True), reps=10)
+                del out, qt, kt, vt
+                pairs = b * hq * live_pairs(sq, sk, causal, window, q_offset)
+                io = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * (lse.numel() + delta.numel())
+                for name, ms, pms, flops, nbytes, err in (
+                        ("flash_attention_bwd_dkv", ms_kv, pms_kv, 8 * hd * pairs,
+                         io + 4 * 2 * k.numel(), max(errs["dk"][0], errs["dv"][0])),
+                        ("flash_attention_bwd_dq", ms_q, pms_q, 6 * hd * pairs,
+                         io + 4 * q.numel(), errs["dq"][0])):
+                    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+                    records[name] = {
+                        "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": max(tb, tf),
+                        "bound_by": "bytes" if tb >= tf else "operations", "library_ms": lms}
+                    tag += (f"; {name} {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, bound "
+                            f"{max(tb, tf):.3f} ms), plain {pms:.3f} ms")
+                tag += f"; sdpa backward {lms:.3f} ms"
+            print(f"  {tag}", flush=True)
+            del q, k, v, do, o, lse, delta, dq, dk, dv, pdq, pdk, pdv
+
+
 # --------------------------------------------------------------------------- #
 # Phase 3: the sync path.
 # --------------------------------------------------------------------------- #
@@ -690,10 +811,54 @@ def closed_form(codec: str, cmp, v, bucket_key) -> float:
     raise CheckFailed(f"no closed form for codec {codec!r}")
 
 
+def wire_accounting(plan, cmp, n: int):
+    """(wire bits per compressed bucket, the (gathered, reduced) bytes one
+    round hands the communicator): gather codecs ship ``bucket_wire_bits``
+    and psum the exact buckets; psum codecs reduce their ``wire_bits`` and
+    the exact buckets together."""
+    from repro_torch.core import wire
+    from repro_torch.train import bucketing
+
+    codec = wire.resolve(cmp)
+    if codec.reduce == "all_gather":
+        wire_bits = bucketing.bucket_wire_bits(plan, cmp, n)
+    else:
+        wire_bits = {b.bid: codec.wire_bits(n, b.size, cmp)
+                     for b in plan.buckets if b.kind == "compressed"}
+    sent = sum(wire_bits.values()) / 8
+    exact_bytes = sum(n * b.size * 4 for b in plan.buckets if b.kind == "exact")
+    if codec.reduce == "all_gather":
+        return wire_bits, (sent, exact_bytes)
+    return wire_bits, (0, sent + exact_bytes)
+
+
+def check_bytes(name: str, comm, want) -> None:
+    got = (comm.bytes_gathered, comm.bytes_reduced)
+    need(got == want, f"{name}: communicator bytes (gathered, reduced) {got} != accounting {want}")
+
+
+def error_and_closed_form(codec: str, cmp, plan, stacks, synced, key):
+    """(Σ squared error of the synced estimate against the exact mean of the
+    (n, ...) stacks, Σ closed form) over the plan's compressed buckets."""
+    import torch
+    from repro_torch import random as prandom
+    from repro_torch.train import bucketing
+
+    err = cf = 0.0
+    for j, b in enumerate(plan.buckets):
+        if b.kind != "compressed":
+            continue
+        v = bucketing.pack_bucket(stacks, b)
+        y = torch.cat([synced[s.name].reshape(-1) for s in b.slots])
+        err += float(torch.sum((y - v.mean(0)) ** 2, dtype=torch.float64))
+        cf += closed_form(codec, cmp, v, prandom.fold_in(key, j))
+        del v, y
+    return err, cf
+
+
 def run_main_path(name, cmp, steps, launches_total):
     """``steps`` bucketed syncs of one config; returns its summary line."""
     import torch
-    from repro_torch import random as prandom
     from repro_torch.core import wire
     from repro_torch.kernels import backend
     from repro_torch.train import bucketing
@@ -702,14 +867,9 @@ def run_main_path(name, cmp, steps, launches_total):
     dev = torch.device("cuda")
     shapes, plan, comm = main_path(cmp, dev)
     comp = [b for b in plan.buckets if b.kind == "compressed"]
-    exact = [b for b in plan.buckets if b.kind == "exact"]
     codec = wire.resolve(cmp)
     expect = expected_launches(codec.name, cmp.scatter_decode, N)
-    if codec.reduce == "all_gather":
-        wire_bits = bucketing.bucket_wire_bits(plan, cmp, N)
-    else:
-        wire_bits = {b.bid: codec.wire_bits(N, b.size, cmp) for b in comp}
-    exact_bytes = sum(N * b.size * 4 for b in exact)
+    wire_bits, want_bytes = wire_accounting(plan, cmp, N)
     err_sum = cf_sum = 0.0
     times = []
     for step in range(steps):
@@ -728,23 +888,10 @@ def run_main_path(name, cmp, steps, launches_total):
         need(counts == want, f"{name} step {step}: launches {counts} != expected {want}")
         need(all(bool(torch.isfinite(v).all()) for v in out.values()),
              f"{name} step {step}: non-finite output")
-        sent = sum(wire_bits.values()) / 8
-        if codec.reduce == "all_gather":
-            need(comm.bytes_gathered == sent and comm.bytes_reduced == exact_bytes,
-                 f"{name}: communicator bytes {comm.bytes_gathered}+{comm.bytes_reduced} "
-                 f"!= accounting {sent}+{exact_bytes}")
-        else:
-            need(comm.bytes_gathered == 0 and comm.bytes_reduced == sent + exact_bytes,
-                 f"{name}: communicator bytes {comm.bytes_reduced} != accounting "
-                 f"{sent + exact_bytes}")
-        for j, b in enumerate(plan.buckets):
-            if b.kind != "compressed":
-                continue
-            v = bucketing.pack_bucket(grads, b)
-            y = torch.cat([out[s.name].reshape(-1) for s in b.slots])
-            err_sum += float(torch.sum((y - v.mean(0)) ** 2, dtype=torch.float64))
-            cf_sum += closed_form(codec.name, cmp, v, prandom.fold_in(key, j))
-            del v, y
+        check_bytes(name, comm, want_bytes)
+        err, cf = error_and_closed_form(codec.name, cmp, plan, grads, out, key)
+        err_sum += err
+        cf_sum += cf
         del grads, out
     ratio = err_sum / cf_sum
     need(abs(ratio - 1.0) <= 0.10, f"{name}: error / closed form = {ratio:.4f}, outside 10%")
@@ -891,6 +1038,150 @@ def run_serving(launches_total) -> dict:
             "serve_peak_GiB": peak}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 5: the training path.
+# --------------------------------------------------------------------------- #
+
+TRAIN_SEED = 0
+# Step 0, rank 0, flash kernels against attn_impl="xla" (plain-torch chunked
+# attention under autograd), both bf16: per-leaf ‖Δg‖/‖g‖ ≤ TRAIN_GRAD_TOL
+# and |Δloss|/|loss| ≤ TRAIN_LOSS_RTOL.  Rehearsed on the CPU at full width,
+# 1 and 2 layers of one 512-token sequence (launch/compare_attn_grads.py:
+# plain flash forward and backward against xla): gradients ≤ 5.5e-3 apart
+# with equal blocks, losses equal; with flash in 64-blocks, as the kernels
+# tile, 1.4e-2 and 2.0e-2 (bf16 noise of the forward's tiling, growing with
+# depth).  Four layers of 4096 tokens run here; a wrong dS, scale or mask
+# is off by order 1.
+TRAIN_GRAD_TOL, TRAIN_LOSS_RTOL = 5e-2, 1e-3
+
+
+def _rank_loss_and_grads(cfg, run, params, batch, global_tokens):
+    import torch
+    from repro_torch.models import model
+
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss, _ = model.train_loss(model.make_ctx(cfg, run), leaves, cfg, run, batch, global_tokens)
+    names = sorted(leaves)
+    grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+    return float(loss), dict(zip(names, grads))
+
+
+def run_training(launches_total) -> dict:
+    """qwen3-4b at full width and 4 layers, 8 stacked ranks of one
+    4096-token sequence, ``fixed_k_1bit``: the flash-vs-xla check of step 0,
+    then ``Trainer.fit`` for ``TRAIN_STEPS`` steps, every phase checked and
+    timed (host clock after a synchronize; the checks run outside the timed
+    spans); returns the summary line."""
+    import collections
+
+    import torch
+    from repro_torch.core import wire
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import backend
+    from repro_torch.models import model
+    from repro_torch.train import synthetic
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    cfg, run, shape = synthetic.train_main_path()
+    n, steps, L = synthetic.N, synthetic.TRAIN_STEPS, cfg.num_layers
+    cmp = run.compression
+    global_tokens = float(shape.global_batch * shape.seq_len)
+    torch.cuda.empty_cache()
+
+    # step 0, rank 0: flash kernels against the chunked attention
+    params = model.init(TRAIN_SEED, cfg, device=dev)
+    batch = SyntheticLM(cfg, shape, seed=TRAIN_SEED).batch(0, dev)
+    rank0 = {k: v[:shape.global_batch // n] for k, v in batch.items()}
+    lf, gf = _rank_loss_and_grads(cfg, run, params, rank0, global_tokens)
+    lx, gx = _rank_loss_and_grads(cfg, dataclasses.replace(run, attn_impl="xla"), params, rank0,
+                                  global_tokens)
+    errs = {k: rel_err(gf[k], gx[k]) for k in gf}
+    worst = max(errs, key=errs.get)
+    need(all(bool(torch.isfinite(g).all()) for g in gf.values()), "flash gradients not finite")
+    need(errs[worst] <= TRAIN_GRAD_TOL,
+         f"flash vs xla gradients: {worst} off by {errs[worst]:.3g} > {TRAIN_GRAD_TOL}")
+    need(abs(lf - lx) <= TRAIN_LOSS_RTOL * abs(lx),
+         f"flash vs xla loss: {lf} vs {lx}, beyond {TRAIN_LOSS_RTOL} relative")
+    flash_vs_xla = {"loss_flash": lf, "loss_xla": lx, "worst_leaf": worst,
+                    "worst_rel": errs[worst], "rel": errs}
+    del params, batch, rank0, gf, gx
+    torch.cuda.empty_cache()
+
+    # Trainer.fit: every phase of every step checked, the checks untimed
+    codec = wire.resolve(cmp)
+    expect = {"start": {}, "update": {},
+              "backward": {"flash_attention_fwd": 2 * L * n, "flash_attention_bwd_dkv": L * n,
+                           "flash_attention_bwd_dq": L * n}}
+    st = {"t": 0.0, "last": collections.Counter(), "err": 0.0, "cf": 0.0, "peak": 0}
+    phase_ms = collections.defaultdict(list)
+
+    def on_phase(name, **state):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if name != "start":
+            phase_ms[name].append((now - st["t"]) * 1e3)
+        st["peak"] = max(st["peak"], torch.cuda.max_memory_allocated())
+        counts = collections.Counter(backend.launches)
+        got = dict(counts - st["last"])
+        st["last"] = counts
+        need(got == expect[name], f"training {name}: launches {got} != {expect[name]}")
+        if name == "sync":
+            check_bytes("training sync", state["comm"], want_bytes)
+            state["comm"].reset_bytes()
+            need(all(bool(torch.isfinite(v).all()) for v in state["synced"].values()),
+                 "training sync: non-finite gradient")
+            err, cf = error_and_closed_form(codec.name, cmp, plan, state["grads"],
+                                            state["synced"], state["key"])
+            st["err"] += err
+            st["cf"] += cf
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st["t"] = time.perf_counter()
+
+    trainer = Trainer(cfg, run, shape,
+                      TrainerConfig(steps=steps, log_every=1, seed=TRAIN_SEED), n,
+                      device=dev, on_phase=on_phase)
+    plan = trainer.sync_plan
+    comp = [b for b in plan.buckets if b.kind == "compressed"]
+    expect["sync"] = {k: v * len(comp)
+                      for k, v in expected_launches(codec.name, cmp.scatter_decode, n).items()}
+    wire_bits, want_bytes = wire_accounting(plan, cmp, n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    params, opt_state, hist = trainer.fit()
+    torch.cuda.synchronize()
+    counts = dict(backend.launches)
+    launches_total.update(counts)
+    per_step = collections.Counter()
+    for phase in ("backward", "sync"):
+        per_step.update(expect[phase])
+    need(counts == {k: v * steps for k, v in per_step.items()},
+         f"training: launches {counts} != {steps} x {dict(per_step)}")
+    need(len(hist) == steps and all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                                    for h in hist), f"training: non-finite metrics {hist}")
+    need(int(opt_state.step) == steps, f"training: optimizer step {int(opt_state.step)}")
+    need(all(bool(torch.isfinite(v).all()) for v in params.values()),
+         "training: non-finite parameters")
+    ratio = st["err"] / st["cf"]
+    need(abs(ratio - 1.0) <= 0.10, f"training: error / closed form = {ratio:.4f}, outside 10%")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    step_ms = [sum(phase_ms[p][i] for p in ("backward", "sync", "update")) for i in range(steps)]
+    tokens = shape.global_batch * shape.seq_len
+    return {"model": cfg.name, "layers": L, "ranks": n, "tokens_per_rank": shape.seq_len,
+            "steps": steps, "preset": synthetic.TRAIN_PRESET,
+            "loss": [h["loss"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist],
+            "lr": [h["lr"] for h in hist], "step_ms": step_ms,
+            "fwd_bwd_ms": phase_ms["backward"], "sync_ms": phase_ms["sync"],
+            "optimizer_ms": phase_ms["update"],
+            "tokens_per_s": [tokens / ms * 1e3 for ms in step_ms],
+            "peak_GiB": st["peak"] / 2**30, "err_over_closed_form": ratio,
+            "compressed_buckets": len(comp), "wire_MB": sum(wire_bits.values()) / 8 / 1e6,
+            "launches_per_step": dict(per_step), "flash_vs_xla": flash_vs_xla}
+
+
 def main() -> int:
     setup()
     import torch
@@ -921,8 +1212,9 @@ def main() -> int:
     from repro_torch.core import rotation
     check_rotation(rotation.padded_dim(main_d) >> 20, records)
     check_flash(records)
-    print(f"[2] wire kernels bit-equal to their plain versions, flash attention within "
-          f"tolerance ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check_flash_bwd(records)
+    print(f"[2] wire kernels bit-equal to their plain versions, flash attention forward and "
+          f"backward within tolerance ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     bern = synthetic.preset("bernoulli_seed_1bit")
     runs = [(name, synthetic.preset(name), STEPS) for name in synthetic.PRESETS]
@@ -939,6 +1231,9 @@ def main() -> int:
     t0 = time.perf_counter()
     summary = run_serving(total)
     print(f"[4] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    summary = run_training(total)
+    print(f"[5] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     launches = dict(total)
     for k in REPLACES:
         need(launches.get(k, 0) > 0, f"kernel {k} was never launched on the main path")
@@ -951,7 +1246,7 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    print(f"[5] total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[6] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

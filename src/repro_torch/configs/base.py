@@ -3,13 +3,16 @@
 
 :class:`ArchConfig` and :class:`ShapeSpec` are field for field the
 reference's dataclasses (the MoE and SSM sub-configs kept as opaque values
-until their model families are ported).  :class:`RunConfig` has only the
-fields the serving path reads.
+until their model families are ported).  :class:`RunConfig` has the fields
+the serving path and the training step read, with the reference's defaults.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
+
+from repro_torch.core import types as core_types
+from repro_torch.core.wire.base import NotPortedError
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,6 +21,9 @@ class ShapeSpec:
     kind: str              # "train" | "prefill" | "decode"
     seq_len: int
     global_batch: int
+
+
+SHAPES = {"train_4k": ShapeSpec("train_4k", "train", 4096, 256)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +60,7 @@ class ArchConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """The reference's execution tunables that the serving path reads.
+    """The reference's execution tunables (``repro.configs.base.RunConfig``).
 
     ``attn_impl``: "flash" runs the flash-attention forward (the Hopper
     kernel on a CUDA tensor, its plain blockwise version on a CPU one);
@@ -63,10 +69,30 @@ class RunConfig:
     reference's name for it.  ``attn_chunk_q`` / ``attn_chunk_k`` are the
     chunk sizes of that path and the block sizes of the plain flash version
     (the kernel tiles by 64).  ``compute_dtype`` names the torch dtype of
-    activations and matmul inputs.  ``remat`` has no effect when serving.
+    activations and matmul inputs.  ``remat`` recomputes each layer's
+    forward in the backward (``torch.utils.checkpoint``), ``remat_attention``
+    the attention call's; neither has an effect without a gradient.
+    ``microbatches`` splits each rank's batch for f32 gradient accumulation;
+    ``compression`` configures the gradient sync.  ``model_parallel`` and
+    ``seq_shard`` act only with a model axis above 1, which raises
+    (:func:`repro_torch.models.model.make_ctx`); ``fsdp=True`` raises here.
     """
+    microbatches: int = 1
+    fsdp: bool = False
+    model_parallel: bool = True
+    seq_shard: bool = True
     attn_chunk_q: int = 1024
     attn_chunk_k: int = 1024
     remat: bool = True
+    remat_attention: bool = False
     attn_impl: str = "flash"
+    compression: core_types.CompressionConfig = dataclasses.field(
+        default_factory=lambda: core_types.CompressionConfig(mode="none"))
     compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.fsdp:
+            raise NotPortedError("FSDP is not ported yet: the port's training step keeps "
+                                 "every parameter whole on one card (ROADMAP.md, queue 1)")
+        if self.microbatches < 1:
+            raise ValueError(f"microbatches must be >= 1, got {self.microbatches}")

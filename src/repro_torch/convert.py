@@ -11,7 +11,9 @@ side hands over as numpy arrays and plain objects:
   ``repro.core.types.CompressionConfig`` → the port's config;
 * :func:`arch_config` / :func:`run_config` — objects with the fields of
   ``repro.configs.base.ArchConfig`` / ``RunConfig`` → the port's (the dense
-  family; the run fields the serving path reads).
+  family; the run config with its compression config);
+* :func:`adamw_state` — an ``AdamWState``-shaped object (``step``, ``m``,
+  ``v``, numpy leaves) → the port's optimizer state.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core import types as t
 from repro_torch.core.wire.base import NotPortedError
+from repro_torch.optim.optimizers import AdamWState
 
 
 def tree_to_torch(tree: Mapping[str, np.ndarray], device="cpu") -> Dict[str, torch.Tensor]:
@@ -68,10 +71,15 @@ def arch_config(src) -> ArchConfig:
 
 
 def run_config(src) -> RunConfig:
-    """A RunConfig-shaped object → the port's RunConfig (the fields it has).
-    FSDP is not ported yet."""
-    if getattr(src, "fsdp", False):
-        raise NotPortedError("FSDP is not ported yet: it arrives with slice 6 (the "
-                             "training step) if its multi-card step needs it "
-                             "(ROADMAP.md, queue 1)")
-    return _copy(RunConfig, src)
+    """A RunConfig-shaped object → the port's RunConfig.  FSDP raises
+    :class:`NotPortedError` (``RunConfig.__post_init__``)."""
+    return _copy(RunConfig, src, compression=compression_config(src.compression))
+
+
+def adamw_state(src, device="cpu") -> AdamWState:
+    """An AdamWState-shaped object (``step``; ``m``, ``v`` dicts of numpy
+    leaves) → the port's :class:`~repro_torch.optim.optimizers.AdamWState`
+    on ``device``."""
+    return AdamWState(step=torch.tensor(int(np.asarray(src.step)), dtype=torch.int32,
+                                        device=device),
+                      m=tree_to_torch(src.m, device), v=tree_to_torch(src.v, device))

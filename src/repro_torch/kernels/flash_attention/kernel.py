@@ -1,15 +1,20 @@
-"""ctypes wrapper of the Hopper flash-attention forward
-(``csrc/flash_attention.cu``).
+"""ctypes wrappers of the Hopper flash-attention kernels
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).
 
-:func:`flash_attention_fwd` replaces ``flash_attention_fwd``
-(``repro/kernels/flash_attention/flash_attention.py:121``) and is counted as
-``flash_attention_fwd`` in :data:`repro_torch.kernels.backend.launches`.
-It takes CUDA tensors only, in the model's (B, S, H, hd) layout (the
-reference kernel takes (B, H, S, hd)), checks them, allocates ``o`` and
-``lse`` with ``torch.empty``, launches on PyTorch's current stream and
-raises on a nonzero ``cudaGetLastError``.  bf16 runs the ``mma.sync``
-kernel, f32 the SIMT one; tiles are 64 × 64 whatever the caller's block
-sizes.  Design and bound are in the source's header comment.
+* :func:`flash_attention_fwd` replaces ``flash_attention_fwd``
+  (``repro/kernels/flash_attention/flash_attention.py:121``);
+* :func:`flash_attention_bwd_dkv` and :func:`flash_attention_bwd_dq`
+  replace the two sweeps of ``flash_attention_bwd`` (the ``pallas_call`` at
+  ``:280``, dK/dV, and at ``:318``, dQ).
+
+Each is counted under its own name in
+:data:`repro_torch.kernels.backend.launches`.  They take CUDA tensors only,
+in the model's (B, S, H, hd) layout (the reference kernels take
+(B, H, S, hd)), check them, allocate their outputs with ``torch.empty``,
+launch on PyTorch's current stream and raise on a nonzero
+``cudaGetLastError``.  bf16 runs the ``mma.sync`` kernels, f32 the SIMT
+ones; tiles are 64 × 64 whatever the caller's block sizes.  Design and
+bound are in the sources' header comments.
 """
 from __future__ import annotations
 
@@ -20,28 +25,29 @@ import torch
 
 from repro_torch.kernels import backend
 
-_LIB = "flash_attention"
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_SIG = [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, ctypes.c_int, _I64,
-        ctypes.c_float, ctypes.c_int, _P]
+_I = ctypes.c_int
+# shapes (b, sq, sk, hq, hkv, hd, q_offset), causal, window, scale, dtype, stream
+_TAIL = [_I64] * 7 + [_I, _I64, ctypes.c_float, _I, _P]
+_SIGS = {("flash_attention", "fa_fwd"): [_P] * 5 + _TAIL,
+         ("flash_attention_bwd", "fa_bwd_dkv"): [_P] * 8 + _TAIL,
+         ("flash_attention_bwd", "fa_bwd_dq"): [_P] * 7 + _TAIL}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 
 
-def _fn():
-    f = backend.lib(_LIB).fa_fwd
+def _fn(lib: str, name: str):
+    f = getattr(backend.lib(lib), name)
     if f.argtypes is None:
-        f.argtypes = _SIG
+        f.argtypes = _SIGS[(lib, name)]
         f.restype = ctypes.c_int
     return f
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-                        q_offset: int = 0):
-    """q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd), CUDA, one dtype (f32 or
-    bf16), hd 64 or 128, Hq % Hkv == 0 → (o (B, Sq, Hq, hd) in q's dtype,
-    lse (B, Hq, Sq) f32)."""
+def _check(q, k, v, q_offset: int, window: Optional[int]):
+    """Validate q, k, v (and the mask options); returns (b, sq, sk, hq, hkv,
+    hd)."""
     if q.dtype not in DTYPES:
         raise ValueError(f"q: expected float32 or bfloat16, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4:
@@ -57,12 +63,66 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: Optional[int] =
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}")
     if q_offset < 0 or (window is not None and window < 1):
         raise ValueError(f"q_offset must be ≥ 0 and window ≥ 1; got {q_offset}, {window}")
+    return b, sq, sk, hq, hkv, hd
+
+
+def _tail(q, shape, q_offset, causal, window):
+    hd = shape[-1]
+    return (*shape, q_offset, int(bool(causal)), 0 if window is None else window, hd ** -0.5,
+            DTYPES[q.dtype], backend.stream_ptr(q.device))
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                        q_offset: int = 0):
+    """q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd), CUDA, one dtype (f32 or
+    bf16), hd 64 or 128, Hq % Hkv == 0 → (o (B, Sq, Hq, hd) in q's dtype,
+    lse (B, Hq, Sq) f32)."""
+    shape = _check(q, k, v, q_offset, window)
+    b, sq, _, hq = shape[:4]
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                b, sq, sk, hq, hkv, hd, q_offset, int(bool(causal)),
-                0 if window is None else window, hd ** -0.5, DTYPES[q.dtype],
-                backend.stream_ptr(q.device))
+    err = _fn("flash_attention", "fa_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        *_tail(q, shape, q_offset, causal, window))
     backend.check_launch(err, "flash_attention_fwd")
     backend.launches["flash_attention_fwd"] += 1
     return o, lse
+
+
+def _check_bwd(q, do, lse, delta):
+    b, sq, hq, _ = q.shape
+    backend.check(do, "do", q.dtype, q.shape)
+    backend.check(lse, "lse", torch.float32, (b, hq, sq))
+    backend.check(delta, "delta", torch.float32, (b, hq, sq))
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                            window: Optional[int] = None, q_offset: int = 0):
+    """The dK/dV sweep.  q, do: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd), CUDA,
+    one dtype (f32 or bf16); lse (the forward's) and delta = rowsum(do · o):
+    (B, Hq, Sq) f32 → (dk, dv) (B, Sk, Hkv, hd) f32."""
+    shape = _check(q, k, v, q_offset, window)
+    _check_bwd(q, do, lse, delta)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty_like(dk)
+    err = _fn("flash_attention_bwd", "fa_bwd_dkv")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_tail(q, shape, q_offset, causal, window))
+    backend.check_launch(err, "flash_attention_bwd_dkv")
+    backend.launches["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                           window: Optional[int] = None, q_offset: int = 0):
+    """The dQ sweep; arguments as :func:`flash_attention_bwd_dkv` → dq
+    (B, Sq, Hq, hd) f32."""
+    shape = _check(q, k, v, q_offset, window)
+    _check_bwd(q, do, lse, delta)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    err = _fn("flash_attention_bwd", "fa_bwd_dq")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), *_tail(q, shape, q_offset, causal, window))
+    backend.check_launch(err, "flash_attention_bwd_dq")
+    backend.launches["flash_attention_bwd_dq"] += 1
+    return dq

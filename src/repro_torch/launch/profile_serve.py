@@ -39,7 +39,10 @@ def _kind(name: str) -> str:
     return "other"
 
 
-def _window(prof, wall_ms: float) -> dict:
+def _window(prof, wall_ms: float, kind=_kind) -> dict:
+    """Wall and busy ms, idle share, device ms by ``kind(kernel name)``, and
+    the top kernels by device time and operations by host time, of one
+    profiled window."""
     from torch.autograd import DeviceType
 
     on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -54,7 +57,7 @@ def _window(prof, wall_ms: float) -> dict:
                   key=lambda r: -r[1])
     by_kind = {}
     for k, ms, _ in device:
-        by_kind[_kind(k)] = by_kind.get(_kind(k), 0.0) + ms
+        by_kind[kind(k)] = by_kind.get(kind(k), 0.0) + ms
     busy = _busy_ms(on_card)
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
             "device_events": len(on_card), "device_ms_by_kind": by_kind,

@@ -1,0 +1,119 @@
+"""Where the time of a qwen3-4b training step goes, on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        [--out build/profile_train.json]
+
+Builds the training path of ``chip_smoke.py`` phase 5
+(``train/synthetic.py::train_main_path``: qwen3-4b at full width and 4
+layers, 8 ranks stacked on the card, one 4096-token sequence each,
+``fixed_k_1bit``, bf16 compute, flash attention, remat), runs one step to
+warm up, times 2 steps by the host clock (a synchronize at each phase
+boundary: forward+backward over the ranks, sync, optimizer), then profiles
+one step under ``torch.profiler`` (CPU and CUDA activity).  Prints and
+writes as JSON: the step's wall time, the time the card was busy (the union
+of its kernel, copy and fill intervals), the idle share, the device time by
+class — the flash-attention forward (``fa_fwd_*``) and backward
+(``fa_bwd_*``) kernels, the fixed-k gather, matrix products (cuBLAS /
+CUTLASS kernels), and everything else (PyTorch's elementwise and reduction
+kernels, copies) — and the top kernels by device time and operations by
+host time.  Needs a CUDA card; fails without one.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import pathlib
+import subprocess
+import time
+
+from repro_torch.launch.profile_serve import _kind as _serve_kind
+from repro_torch.launch.profile_serve import _window
+
+
+def _kind(name: str) -> str:
+    low = name.lower()
+    if "fa_bwd" in low:
+        return "flash_attention_bwd"
+    if "fixed_k" in low:
+        return "fixed_k_gather"
+    return _serve_kind(name)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default="build/profile_train.json")
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train: no CUDA device is available")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    print(f"card: {card}", flush=True)
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import backend
+    from repro_torch.train import synthetic
+    from repro_torch.train.train_step import build_train_step
+
+    backend.build()
+    dev = torch.device("cuda")
+    cfg, run, shape = synthetic.train_main_path()
+    phase_ms = collections.defaultdict(list)
+    clock = {"t": 0.0}
+
+    def on_phase(name, **state):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if name != "start":
+            phase_ms[name].append((now - clock["t"]) * 1e3)
+        clock["t"] = now
+
+    step_fn, init_fn, _ = build_train_step(cfg, run, shape, synthetic.N, device=dev,
+                                           on_phase=on_phase)
+    params, opt_state = init_fn(0)
+    data = SyntheticLM(cfg, shape)
+    batches = [data.batch(step, dev) for step in range(4)]
+
+    def step(i):
+        nonlocal params, opt_state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, _ = step_fn(params, opt_state, batches[i], i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    step(0)                                               # warm-up
+    phase_ms.clear()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = [step(1), step(2)]
+    out = {"card": card, "torch": torch.__version__, "model": cfg.name,
+           "layers": cfg.num_layers, "ranks": synthetic.N, "tokens_per_rank": shape.seq_len,
+           "preset": synthetic.TRAIN_PRESET, "step_ms": step_ms,
+           "phase_ms": {k: list(v) for k, v in phase_ms.items()},
+           "peak_GiB": torch.cuda.max_memory_allocated() / 2**30}
+    backend.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = step(3)
+    out["step"] = _window(prof, wall, kind=_kind)
+    out["step"]["wrapper_launches"] = dict(backend.launches)
+
+    print(json.dumps({k: out[k] for k in ("step_ms", "phase_ms", "peak_GiB")}), flush=True)
+    r = out["step"]
+    print(json.dumps({k: r[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                        "device_events", "device_ms_by_kind")}), flush=True)
+    for k, ms, c in r["top_device"][:10]:
+        print(f"  device {ms:9.3f} ms  x{c:<6d} {k[:90]}")
+    for k, ms, c in r["top_host"][:8]:
+        print(f"  host   {ms:9.3f} ms  x{c:<6d} {k[:90]}")
+    path = pathlib.Path(args.out)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

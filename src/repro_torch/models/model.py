@@ -1,6 +1,6 @@
-"""Model facade, dense family — port of ``repro.models.model``'s serving
-functions at ``tp = 1``: context, init, input embedding, the decode cache,
-prefill and the decode step.
+"""Model facade, dense family — port of ``repro.models.model`` at
+``tp = 1``: context, init, input embedding, the train loss, the decode
+cache, prefill and the decode step.
 
 The reference runs these per shard inside ``shard_map``; the port runs them
 on one device with no mesh.  A mesh with a model axis above 1 raises
@@ -26,8 +26,8 @@ def make_ctx(cfg: ArchConfig, run: RunConfig, mesh_sizes: Optional[Dict[str, int
              dtype: Optional[torch.dtype] = None) -> ShardCtx:
     """The one-device context; ``dtype`` defaults to ``run.compute_dtype``
     (the reference's default, bf16).  A model axis above 1 raises."""
-    return ShardCtx(tp=(mesh_sizes or {}).get("model", 1),
-                    compute_dtype=dtype or getattr(torch, run.compute_dtype))
+    tp = (mesh_sizes or {}).get("model", 1) if run.model_parallel else 1
+    return ShardCtx(tp=tp, compute_dtype=dtype or getattr(torch, run.compute_dtype))
 
 
 def init(seed: int, cfg: ArchConfig, device=None) -> Dict[str, torch.Tensor]:
@@ -40,6 +40,33 @@ def init(seed: int, cfg: ArchConfig, device=None) -> Dict[str, torch.Tensor]:
 def embed_inputs(ctx: ShardCtx, params, cfg: ArchConfig, batch):
     tfm.check_family(cfg)
     return tfm.embed_tokens(ctx, params, cfg, batch["tokens"])
+
+
+def _labels_local(batch):
+    """(labels, mask) of a dense-family batch; the mask defaults to ones
+    (f32)."""
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    return labels, mask
+
+
+def train_loss(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
+               global_token_count: float):
+    """Returns (loss, metrics): loss = local CE sum / global token count, so
+    that the ranks' gradients sum (or, n times, average) to the global
+    batch's.  The division is by an f32 tensor on the device, a true
+    division as in the reference.  (The reference adds the MoE aux loss over
+    the layer count, always 0 for the dense family.)"""
+    tfm.check_family(cfg)
+    x = embed_inputs(ctx, params, cfg, batch)
+    positions = torch.arange(batch["tokens"].shape[1], device=x.device)
+    h, _ = tfm.forward(ctx, params, cfg, run, x, positions)
+    labels, mask = _labels_local(batch)
+    ce_sum, cnt = tfm.vocab_parallel_ce(ctx, params, cfg, h, labels, mask)
+    loss = ce_sum / torch.tensor(global_token_count, dtype=torch.float32, device=ce_sum.device)
+    return loss, {"ce_sum": ce_sum, "count": cnt}
 
 
 def make_cache(ctx: ShardCtx, cfg: ArchConfig, b_local: int, s_max: int,

@@ -1,17 +1,23 @@
 """Decoder-only LM assembly, dense family — port of
 ``repro.models.transformer`` at ``tp = 1``: init, embedding, the tied or
-untied LM head, greedy sampling, the attention and FFN sublayers, and the
-forward over the stacked layers (a Python loop where the reference scans).
+untied LM head, the cross-entropy over it, greedy sampling, the attention
+and FFN sublayers, and the forward over the stacked layers (a Python loop
+where the reference scans).
 
 Every layer's weights are cast to the compute dtype before use, as the
 reference's ``gather_fsdp`` casts them; the embedding and the final norm
-are not.  Other families raise :class:`NotPortedError`.
+are not.  With a gradient to compute, ``run.remat`` recomputes each layer
+in the backward (``torch.utils.checkpoint``, non-reentrant, around the
+layer body as ``jax.checkpoint(body)``) and ``run.remat_attention`` the
+attention call.  Other families raise :class:`NotPortedError`.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.wire.base import NotPortedError
@@ -59,6 +65,18 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
     return pb.params
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _check_no_tf32(t) -> None:
+    """The f32 LM head must run in full f32 on the card, as the reference's
+    ``preferred_element_type=f32`` product does: TF32 off."""
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is set: the f32 LM head "
+                           "would round its inputs to TF32")
+
+
 def embed_tokens(ctx: ShardCtx, params, cfg: ArchConfig, tokens):
     """tokens (B, S) → (B, S, D) embeddings in the compute dtype."""
     return params["embed"][tokens.long()].to(ctx.compute_dtype)
@@ -69,6 +87,39 @@ def lm_head_logits(ctx: ShardCtx, params, cfg: ArchConfig, h):
     inputs summed in f32)."""
     w = params["lm_head"] if not cfg.tie_embeddings else params["embed"]
     return torch.einsum("btd,vd->btv", h.float(), w.to(ctx.compute_dtype).float())
+
+
+def vocab_parallel_ce(ctx: ShardCtx, params, cfg: ArchConfig, h, labels, mask,
+                      chunk: int = 512):
+    """Cross-entropy over the head at ``tp = 1``, in sequence chunks.
+
+    h: (B, S, D) final hidden states; labels, mask: (B, S).  Returns (CE
+    sum f32, token count f32).  Each chunk of ``chunk`` positions (all of
+    the batch) takes f32 logits of the compute-dtype inputs (B, chunk, V)
+    against the whole vocab, never (B, S, V) at once; the row max is a
+    shift under ``detach`` (the reference's ``stop_gradient``)."""
+    w = params["lm_head"] if not cfg.tie_embeddings else params["embed"]
+    wf = w.to(ctx.compute_dtype).float()
+    _check_no_tf32(wf)
+    v = w.shape[0]
+    s = h.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} must be a multiple of the chunk {chunk}")
+    sums, cnts = [], []
+    for c in range(s // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        logits = torch.matmul(h[:, sl].float(), wf.t())                # (B, chunk, V)
+        lmax = logits.amax(-1).detach()
+        lse = torch.log(torch.sum(torch.exp(logits - lmax[..., None]), -1)) + lmax
+        y = labels[:, sl].long()
+        ok = (y >= 0) & (y < v)
+        tgt = torch.gather(logits, -1, y.clamp(0, v - 1)[..., None])[..., 0]
+        m = mask[:, sl].float()
+        tok_loss = (lse - torch.where(ok, tgt, 0.0)) * m
+        sums.append(tok_loss.sum())
+        cnts.append(m.sum())
+    return torch.stack(sums).sum(), torch.stack(cnts).sum()
 
 
 def greedy_sample(ctx: ShardCtx, logits):
@@ -83,13 +134,17 @@ def _attn_sublayer(ctx, cfg: ArchConfig, run: RunConfig, p, x, positions, dims):
     q, k, v = attn_lib.project_qkv(ctx, sub(p, "attn"), h, dims, cfg.qk_norm, positions,
                                    cfg.rope_theta)
     if run.attn_impl == "flash":
-        o = fa_ops.flash_attention(q, k, v, causal=True, window=cfg.window,
-                                   block_q=run.attn_chunk_q, block_k=run.attn_chunk_k)
+        attn_fn = functools.partial(fa_ops.flash_attention, causal=True, window=cfg.window,
+                                    block_q=run.attn_chunk_q, block_k=run.attn_chunk_k)
     elif run.attn_impl == "xla":
-        o = attn_lib.chunked_attention(q, k, v, causal=True, window=cfg.window,
-                                       chunk_q=run.attn_chunk_q, chunk_k=run.attn_chunk_k)
+        attn_fn = functools.partial(attn_lib.chunked_attention, causal=True, window=cfg.window,
+                                    chunk_q=run.attn_chunk_q, chunk_k=run.attn_chunk_k)
     else:
         raise ValueError(f"attn_impl must be 'flash' or 'xla', got {run.attn_impl!r}")
+    if run.remat_attention and _needs_grad(q, k, v):
+        o = checkpoint(attn_fn, q, k, v, use_reentrant=False)
+    else:
+        o = attn_fn(q, k, v)
     o = attn_lib.output_proj(ctx, sub(p, "attn"), o)
     return x + o, (k, v)
 
@@ -108,12 +163,20 @@ def forward(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, x, positions
     check_family(cfg)
     dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, ctx.tp)
     lp = sub(params, "layers")
+
+    def body(x, i: int):
+        layer = take_layer(lp, i, ctx.compute_dtype)
+        x, kv = _attn_sublayer(ctx, cfg, run, layer, x, positions, dims)
+        return _ffn_sublayer(ctx, cfg, run, layer, x), kv
+
+    remat = run.remat and _needs_grad(x, *lp.values())
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for i in range(cfg.num_layers):
-        layer = take_layer(lp, i, ctx.compute_dtype)
-        x, (k, v) = _attn_sublayer(ctx, cfg, run, layer, x, positions, dims)
-        x = _ffn_sublayer(ctx, cfg, run, layer, x)
+        if remat:
+            x, (k, v) = checkpoint(body, x, i, use_reentrant=False)
+        else:
+            x, (k, v) = body(x, i)
         if want_cache:
             ks.append(k)
             vs.append(v)

@@ -1,12 +1,13 @@
 """Gradient bucketing: few flat collectives instead of one per leaf — port
 of ``repro.train.bucketing`` (the post-backward schedule).
 
-* :func:`build_plan` — a static partition of the grad tree (global leaf
-  shapes + sharding specs) into fixed-capacity f32 buckets, grouped by sync
-  signature and packed first-fit in sorted name order.  Small leaves ride
-  "exact" buckets; a leaf larger than the capacity gets its own oversize
-  bucket.  The plan is a pure function of its inputs and equals the
-  reference's (ids, kinds, slots, offsets, readiness).
+* :func:`build_plan` (:func:`plan_for_run` for the train step) — a
+  static partition of the grad tree (global leaf shapes + sharding specs)
+  into fixed-capacity f32 buckets, grouped by sync signature and packed
+  first-fit in sorted name order.  Small leaves ride "exact" buckets; a
+  leaf larger than the capacity gets its own oversize bucket.  The plan is
+  a pure function of its inputs and equals the reference's (ids, kinds,
+  slots, offsets, readiness).
 * :func:`pack_bucket` / :func:`unpack_bucket` — flatten a bucket's leaves
   into one f32 vector per local rank and scatter a result back.
 * :func:`sync_grads_bucketed` — per bucket, the exact mean or one
@@ -149,6 +150,15 @@ def build_plan(shapes: Mapping[str, Sequence[int]], specs: Mapping[str, tuple],
     for sig in list(open_slots):
         close(sig)
     return BucketPlan(tuple(buckets), tuple(passthrough))
+
+
+def plan_for_run(shapes: Mapping[str, Sequence[int]], specs: Mapping[str, tuple],
+                 mesh_axes: Sequence[str], mesh_sizes: Mapping[str, int],
+                 cmp: t.CompressionConfig) -> Optional[BucketPlan]:
+    """The plan the train step uses, or None when bucketing is disabled."""
+    if not cmp.bucket.enabled:
+        return None
+    return build_plan(shapes, specs, mesh_axes, mesh_sizes, cmp)
 
 
 def pack_bucket(grads: Mapping[str, torch.Tensor], bucket: Bucket) -> torch.Tensor:

@@ -1,14 +1,16 @@
-"""Synthetic seeded gradients, and the gradient sync they drive.
+"""The main paths on the card, defined once for ``chip_smoke.py`` and the
+``launch/profile_*`` scripts, and synthetic seeded gradients for the sync.
 
-The model forward and backward are not ported yet, so the sync is driven
-with gradients made from a seed: per leaf, a component shared by all ranks,
-a per-rank component and a per-rank offset (so the node centers μ_i
-differ), drawn with a seeded ``torch.Generator`` on the target device.
-
-The main path this drives — one step's bucketed sync of the qwen3-4b
-gradient at full width, ``LAYERS`` of its 36 layers, ``N`` ranks stacked
-on one device, under each of ``PRESETS`` — is defined here once, for
-``chip_smoke.py`` and ``launch/profile_sync.py``.
+* The sync path: one step's bucketed sync of the qwen3-4b gradient at full
+  width, ``LAYERS`` of its 36 layers, ``N`` ranks stacked on one device,
+  under each of ``PRESETS``, driven with gradients made from a seed (per
+  leaf, a component shared by all ranks, a per-rank component and a
+  per-rank offset, so the node centers μ_i differ) drawn with a seeded
+  ``torch.Generator`` on the target device: every preset in seconds,
+  without the model.
+* The training path (:func:`train_main_path`): the same model, depth and
+  ranks, one ``train_4k`` sequence per rank, the real forward and backward
+  feeding the same sync under ``fixed_k_1bit``, then AdamW.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Dict, Mapping, Sequence
 import torch
 
 from repro_torch import random as prandom
+from repro_torch.configs.base import SHAPES, RunConfig
 from repro_torch.configs.registry import compression_preset, get_config, param_shapes
 from repro_torch.core import types as t
 from repro_torch.core.collectives import StackedComm
@@ -26,6 +29,8 @@ from repro_torch.train import bucketing
 MODEL = "qwen3-4b"
 LAYERS = 4          # of 36: depth is cut, width is not
 N = 8               # data-parallel ranks, stacked on one device
+TRAIN_PRESET = "fixed_k_1bit"   # the reference's default train compression
+TRAIN_STEPS = 4
 PRESETS = ("fixed_k_1bit", "bernoulli_seed_1bit", "binary_packed", "ternary_packed",
            "ternary_opt", "rotated_binary", "rotated_fixed_k")
 
@@ -67,3 +72,13 @@ def main_path(cmp: t.CompressionConfig, device):
 def step_key(step: int):
     """The sync key of training step ``step``."""
     return prandom.fold_in(prandom.PRNGKey(0), step)
+
+
+def train_main_path():
+    """(cfg, run, shape) of the training path: ``MODEL`` at full width and
+    ``LAYERS`` layers; the reference's defaults (bf16 compute, flash
+    attention, remat) with ``TRAIN_PRESET`` over the data axis; ``train_4k``
+    sequences, one per rank (global batch ``N``, not 256)."""
+    cfg = dataclasses.replace(get_config(MODEL), num_layers=LAYERS)
+    run = RunConfig(compression=preset(TRAIN_PRESET))
+    return cfg, run, dataclasses.replace(SHAPES["train_4k"], global_batch=N)

@@ -1,0 +1,200 @@
+"""Data-parallel train step, n ranks stacked on one device — port of
+``repro.train.train_step``.
+
+The reference runs the step per device inside ``shard_map``.  Here the n
+ranks of the ``data`` axis run one after another on one device: each rank's
+forward and backward run on its own slice of the global batch (the rows the
+reference's ``P("data")`` batch sharding gives it) against the same
+replicated parameters, and its f32 gradients go into row r of an
+(n, *shape) stack per leaf, the layout :class:`StackedComm` takes.  Each
+rank's loss is its local CE sum over the *global* token count
+(``model.train_loss``), so the synced mean is 1/n of the global batch's
+gradient, as in the reference; the step's loss is the sum over ranks, as
+``psum`` over the batch axis gives it.
+
+Then, once, the gradient sync (DESIGN.md §4): bucketed
+(:func:`repro_torch.train.bucketing.sync_grads_bucketed`) when
+``cmp.bucket.enabled``, else the per-leaf :func:`sync_grads`, with the key
+``fold_in(PRNGKey(base_seed), step)``; the global gradient norm; AdamW.
+
+Issue schedule: the port runs the post-backward schedule whatever
+``cmp.bucket.overlap`` says.  The reference defines its backward-pipelined
+schedule as bit-identical to it (``core/types.py``), and with every rank on
+one device there is nothing for it to overlap; it comes with ``DistComm``
+over NCCL.  ``microbatches > 1`` accumulates each rank's microbatch
+gradients in f32, then syncs once.  Error feedback, FSDP and tensor
+parallelism raise :class:`NotPortedError`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+import torch
+
+from repro_torch import random as prandom
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig, RunConfig, ShapeSpec
+from repro_torch.configs.registry import param_shapes
+from repro_torch.core import collectives as coll
+from repro_torch.core import types as core_types
+from repro_torch.core.wire.base import NotPortedError
+from repro_torch.models import model as model_lib
+from repro_torch.models import transformer as tfm
+from repro_torch.optim import optimizers as opt_lib
+from repro_torch.train import bucketing
+
+log = logging.getLogger("repro_torch.train_step")
+
+AXIS = "data"
+
+
+def grad_sync_plan(run: RunConfig, shapes, specs, mesh_sizes: Mapping[str, int]):
+    """The BucketPlan the train step syncs with (None = per-leaf path)."""
+    return bucketing.plan_for_run(shapes, specs, tuple(mesh_sizes), mesh_sizes, run.compression)
+
+
+def overlap_enabled(plan, run: RunConfig) -> bool:
+    """The reference's eligibility rule for its backward-pipelined schedule
+    (bucketed sync, the overlap knob, one microbatch).  The port runs the
+    bit-identical post-backward schedule either way."""
+    return (plan is not None and run.compression.bucket.overlap
+            and run.microbatches == 1)
+
+
+def batch_axes_for(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec,
+                   mesh_sizes: Mapping[str, int]) -> Tuple[str, ...]:
+    """Largest prefix of candidate axes whose product divides global_batch."""
+    if run.model_parallel:
+        cands = [a for a in ("pod", "data") if a in mesh_sizes]
+    else:
+        cands = [a for a in ("data", "model") if a in mesh_sizes]
+    chosen = []
+    prod = 1
+    for a in cands:
+        if shape.global_batch % (prod * mesh_sizes[a]) == 0:
+            chosen.append(a)
+            prod *= mesh_sizes[a]
+    return tuple(chosen)
+
+
+def sync_grads(grads, specs, mesh_axes, cmp: core_types.CompressionConfig, key, comm):
+    """Per-leaf sync of (n, *shape) stacks (the ``bucket.enabled = False``
+    path): the leaf in sorted-name position i takes one compressed-mean
+    round with key ``fold_in(key, i)`` over the compression axes when its
+    per-rank size reaches ``min_compress_size``, else the exact mean.
+    Returns the synced (*shape) leaves; a leaf whose spec covers every
+    mesh axis comes back as given."""
+    out = {}
+    for i, (name, g) in enumerate(sorted(grads.items())):
+        axes = bucketing.leaf_sync_axes(specs[name], mesh_axes)
+        if not axes:
+            out[name] = g
+            continue
+        caxes = tuple(a for a in axes if a in cmp.axes)
+        if caxes and len(axes) > 1:
+            raise NotPortedError(f"{name} syncs over {axes}: multi-axis meshes are not ported "
+                                 "yet (ROADMAP.md, queue 1)")
+        if caxes and cmp.mode != "none" and g[0].numel() >= cmp.min_compress_size:
+            lcfg = dataclasses.replace(cmp, axes=caxes, error_feedback=False)
+            out[name] = coll.compressed_mean(g, prandom.fold_in(key, i), lcfg, comm)
+        else:
+            out[name] = coll.exact_mean(g, comm)
+    return out
+
+
+def _rows(batch: Dict[str, torch.Tensor], part: int, parts: int) -> Dict[str, torch.Tensor]:
+    """Part ``part`` of ``parts`` equal slices of every leaf's rows."""
+    rows = next(iter(batch.values())).shape[0] // parts
+    return {k: v[part * rows:(part + 1) * rows] for k, v in batch.items()}
+
+
+def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: int,
+                     opt_cfg: Optional[opt_lib.AdamWConfig] = None, base_seed: int = 0,
+                     device=None, on_phase: Optional[Callable[..., None]] = None):
+    """Returns (step_fn, init_fn, plan) on ``device`` (the card unless given).
+
+    ``step_fn(params, opt_state, batch, step) -> (params, opt_state,
+    metrics)`` with metrics ``loss``, ``grad_norm`` and ``lr`` (f32 device
+    scalars); ``batch`` is the global batch (``SyntheticLM.batch``).
+    ``init_fn(seed) -> (params, opt_state)``.  ``plan`` is the BucketPlan
+    the step syncs with (None = per-leaf path).
+
+    ``on_phase(name, **state)``, when given, is called as a step starts
+    (``"start"``, with ``step``) and after each of its phases:
+    ``"backward"`` (``grads``: the (n, *shape) stacks), ``"sync"``
+    (``grads``, ``synced``, ``key`` and the communicator ``comm``) and
+    ``"update"`` (``params``) — for diagnostics and timing; the step does
+    not depend on it.
+    """
+    dev = resolve_device(device)
+    tfm.check_family(cfg)
+    if run.compression.error_feedback:
+        raise NotPortedError("error feedback in the train step is not ported yet "
+                             "(ROADMAP.md, queue 1, item 8)")
+    opt_cfg = opt_cfg or opt_lib.AdamWConfig()
+    msizes = {AXIS: n}
+    ctx = model_lib.make_ctx(cfg, run, msizes)
+    shapes, specs = param_shapes(cfg)
+    if batch_axes_for(cfg, run, shape, msizes) != (AXIS,):
+        raise NotPortedError(f"a global batch of {shape.global_batch} does not split over "
+                             f"{n} ranks: replicated batches are not ported")
+    if (shape.global_batch // n) % run.microbatches:
+        raise ValueError(f"{shape.global_batch // n} rows per rank do not split into "
+                         f"{run.microbatches} microbatches")
+    global_tokens = float(shape.global_batch * shape.seq_len)
+    plan = grad_sync_plan(run, shapes, specs, msizes)
+    if plan is not None:
+        n_cmp = sum(1 for b in plan.buckets if b.kind == "compressed")
+        log.info("grad sync: %d buckets (%d compressed), schedule=%s, post-backward "
+                 "(the reference's overlap rule: %s)", len(plan.buckets), n_cmp,
+                 plan.schedule(), overlap_enabled(plan, run))
+    comm = coll.StackedComm(n, dev)
+    key0 = prandom.PRNGKey(base_seed)
+    names = sorted(shapes)
+    notify = on_phase or (lambda name, **state: None)
+
+    def step_fn(params, opt_state, batch, step):
+        notify("start", step=int(step))
+        key = prandom.fold_in(key0, int(step))
+        leaves = {k: params[k].detach().requires_grad_() for k in names}
+        stacks = {k: torch.empty((n,) + tuple(shapes[k]), dtype=torch.float32, device=dev)
+                  for k in names}
+        loss_all = torch.zeros((), dtype=torch.float32, device=dev)
+        for r in range(n):
+            rank_batch = _rows(batch, r, n)
+            loss_r = torch.zeros((), dtype=torch.float32, device=dev)
+            for mb in range(run.microbatches):
+                loss, _ = model_lib.train_loss(ctx, leaves, cfg, run,
+                                               _rows(rank_batch, mb, run.microbatches),
+                                               global_tokens)
+                grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+                for k, g in zip(names, grads):
+                    if mb == 0:
+                        stacks[k][r].copy_(g)
+                    else:
+                        stacks[k][r].add_(g)
+                loss_r = loss_r + loss.detach()
+                del grads, loss
+            loss_all = loss_all + loss_r
+        notify("backward", grads=stacks)
+        if plan is not None:
+            synced = bucketing.sync_grads_bucketed(stacks, plan, run.compression, key, comm)
+        else:
+            synced = sync_grads(stacks, specs, (AXIS,), run.compression, key, comm)
+        notify("sync", grads=stacks, synced=synced, key=key, comm=comm)
+        del stacks
+        gnorm = opt_lib.global_norm(synced)
+        params, opt_state = opt_lib.adamw_update(opt_cfg, synced, opt_state, params,
+                                                 grad_norm=gnorm)
+        notify("update", params=params)
+        metrics = {"loss": loss_all, "grad_norm": gnorm,
+                   "lr": opt_lib.lr_at(opt_cfg, opt_state.step - 1)}
+        return params, opt_state, metrics
+
+    def init_fn(seed: int):
+        params = model_lib.init(seed, cfg, device=dev)
+        return params, opt_lib.adamw_init(params)
+
+    return step_fn, init_fn, plan

@@ -16,6 +16,8 @@ from repro_torch.core import collectives as tcoll
 from repro_torch.kernels import backend
 from repro_torch.models import model
 from repro_torch.serving import engine
+from repro_torch.train import train_step
+from repro_torch.train.trainer import Trainer, TrainerConfig
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -56,6 +58,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         engine.build_serve_fns(cfg, run, ShapeSpec("serve", "decode", 64, 4))
     assert model.init(0, cfg, device="cpu")["embed"].device == torch.device("cpu")
+    shape = ShapeSpec("train", "train", 64, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_step.build_train_step(cfg, run, shape, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, run, shape, TrainerConfig(), 2)
 
 
 def test_dispatch_rule():
@@ -94,3 +101,8 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fak.flash_attention_fwd(torch.zeros(1, 64, 2, 64), torch.zeros(1, 64, 1, 64),
                                 torch.zeros(1, 64, 1, 64))
+    q, kv, lse = torch.zeros(1, 64, 2, 64), torch.zeros(1, 64, 1, 64), torch.zeros(1, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        fak.flash_attention_bwd_dkv(q, kv, kv, q, lse, lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        fak.flash_attention_bwd_dq(q, kv, kv, q, lse, lse)

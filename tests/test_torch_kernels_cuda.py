@@ -7,10 +7,14 @@ present (decided in a fixture, never at import).  On a card:
 
 ``chip_smoke.py`` runs the same comparisons at the main path's shapes.
 """
+import dataclasses
+
 import pytest
 import torch
 
 from repro_torch import random as R
+from repro_torch.configs.base import ArchConfig, RunConfig, ShapeSpec
+from repro_torch.configs.registry import compression_preset
 from repro_torch.core import bitplane as cbp
 from repro_torch.core import comm_cost
 from repro_torch.core import rotation
@@ -29,6 +33,8 @@ from repro_torch.kernels.hadamard import ref as hr
 from repro_torch.kernels.rotated_encode import kernel as rek
 from repro_torch.kernels.rotated_encode import ops as reo
 from repro_torch.kernels.rotated_encode import ref as rer
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.train.train_step import build_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -205,3 +211,95 @@ def test_flash_attention_ops_launches_the_kernel_on_a_card(dev, monkeypatch):
     torch.cuda.synchronize()
     assert backend.launches["flash_attention_fwd"] == before + 1
     assert out.shape == q.shape and out.dtype == q.dtype
+
+
+# flash-attention backward: kernels 12 (dK/dV) and 13 (dQ) against the plain
+# blockwise backward on the same inputs.  f32: |Δ| ≤ 2e-3 + 2e-3·|ref| (the
+# forward's tolerance); bf16: relative Frobenius error of each of dq, dk, dv
+# ≤ 1e-2 (p and ds enter the products as bf16 hi + lo pairs, and the sums
+# run in another order).
+BWD_REL = 1e-2
+
+
+def _bwd_inputs(dev, b, sq, sk, hq, hkv, hd, dtype, causal, window, q_offset):
+    q, k, v = _qkv(dev, b, sq, sk, hq, hkv, hd, dtype)
+    g = torch.Generator(dev).manual_seed(sq + hd)
+    do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+    o, lse = fak.flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    delta = torch.sum(do.float() * o.float(), -1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta
+
+
+def _rel(got, want):
+    return float(torch.linalg.vector_norm(got.double() - want.double())
+                 / torch.linalg.vector_norm(want.double()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal,window,q_offset", [
+    (1, 256, 256, 4, 1, 64, True, None, 0),       # g = 4
+    (2, 100, 100, 4, 4, 128, False, None, 0),     # ragged tiles, g = 1, not causal
+    (1, 128, 512, 4, 2, 128, True, 96, 256),      # window and q offset
+])
+def test_flash_attention_bwd_kernels_within_tolerance_of_plain(dev, dtype, b, sq, sk, hq, hkv,
+                                                               hd, causal, window, q_offset):
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    q, k, v, do, lse, delta = _bwd_inputs(dev, b, sq, sk, hq, hkv, hd, dtype, **mask)
+    dk, dv = fak.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **mask)
+    dq = fak.flash_attention_bwd_dq(q, k, v, do, lse, delta, **mask)
+    torch.cuda.synchronize()
+    want = far.flash_attention_bwd(q, k, v, do, lse, delta, **mask, block_q=sq, block_k=sk)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == torch.float32 and got.shape == w.shape, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, w, atol=2e-3, rtol=2e-3, msg=name)
+        else:
+            assert _rel(got, w) <= BWD_REL, (name, _rel(got, w))
+
+
+def test_flash_attention_backward_launches_the_kernels_on_a_card(dev, monkeypatch):
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(far, "flash_attention_bwd", plain)
+    q, k, v = (t.requires_grad_() for t in _qkv(dev, 1, 128, 128, 4, 2, 128, torch.bfloat16))
+    backend.reset_launches()
+    out = fao.flash_attention(q, k, v, causal=True)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert dict(backend.launches) == {"flash_attention_fwd": 1, "flash_attention_bwd_dkv": 1,
+                                      "flash_attention_bwd_dq": 1}
+    assert q.grad.dtype == torch.bfloat16 and k.grad.shape == k.shape
+    assert all(bool(torch.isfinite(t.grad.float()).all()) for t in (q, k, v))
+
+
+def test_training_step_flash_matches_xla_on_a_card(dev):
+    """One training step (2 ranks, fixed-k sync) with the flash kernels
+    against attn_impl="xla": the same loss and synced gradients within the
+    flash-vs-xla limits of chip_smoke.py (loss 1e-3 relative, per-leaf
+    relative Frobenius error 5e-2), and the launches remat implies."""
+    cfg = ArchConfig(name="narrow-hd128", family="dense", num_layers=2, d_model=256,
+                     num_heads=8, num_kv_heads=2, head_dim=128, d_ff=512, vocab_size=1024,
+                     qk_norm=True, rope_theta=1e6, tie_embeddings=True)
+    shape = ShapeSpec("train", "train", 256, 2)
+    cmp = dataclasses.replace(compression_preset("fixed_k_1bit", axes=("data",)),
+                              min_compress_size=1024)
+    out = {}
+    for impl in ("flash", "xla"):
+        seen = {}
+        run = RunConfig(attn_chunk_q=128, attn_chunk_k=128, attn_impl=impl, compression=cmp)
+        step_fn, init_fn, _ = build_train_step(
+            cfg, run, shape, 2, device=dev,
+            on_phase=lambda name, **st: seen.update(st) if name == "sync" else None)
+        params, opt = init_fn(0)
+        backend.reset_launches()
+        _, _, metrics = step_fn(params, opt, SyntheticLM(cfg, shape).batch(0, dev), 0)
+        torch.cuda.synchronize()
+        out[impl] = (float(metrics["loss"]), seen["synced"], dict(backend.launches))
+    (lf, gf, nf), (lx, gx, nx) = out["flash"], out["xla"]
+    assert nf["flash_attention_fwd"] == 2 * 2 * 2          # remat: forward + recompute
+    assert nf["flash_attention_bwd_dkv"] == nf["flash_attention_bwd_dq"] == 2 * 2
+    assert not any(k.startswith("flash") for k in nx)
+    assert abs(lf - lx) <= 1e-3 * abs(lx)
+    for k in gx:
+        assert _rel(gf[k], gx[k]) <= 5e-2, (k, _rel(gf[k], gx[k]))
