@@ -73,14 +73,15 @@ class RunConfig:
     forward in the backward (``torch.utils.checkpoint``), ``remat_attention``
     the attention call's; neither has an effect without a gradient.
     ``microbatches`` splits each rank's batch for f32 gradient accumulation;
-    ``compression`` configures the gradient sync.  ``model_parallel`` and
-    ``seq_shard`` act only with a model axis above 1, which raises
+    ``compression`` configures the gradient sync.  ``model_parallel`` acts
+    only with a model axis above 1, which raises
     (:func:`repro_torch.models.model.make_ctx`); ``fsdp=True`` raises here.
+    The reference's ``seq_shard`` (the sequence-parallel residual stream,
+    read only at tp > 1) comes with tensor parallelism.
     """
     microbatches: int = 1
     fsdp: bool = False
     model_parallel: bool = True
-    seq_shard: bool = True
     attn_chunk_q: int = 1024
     attn_chunk_k: int = 1024
     remat: bool = True

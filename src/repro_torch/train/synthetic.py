@@ -10,7 +10,10 @@
   without the model.
 * The training path (:func:`train_main_path`): the same model, depth and
   ranks, one ``train_4k`` sequence per rank, the real forward and backward
-  feeding the same sync under ``fixed_k_1bit``, then AdamW.
+  feeding the same sync under ``fixed_k_1bit``, then AdamW; and one
+  rank's gradients before the sync (:func:`rank_loss_and_grads`), which
+  ``chip_smoke.py`` and ``launch/compare_attn_grads.py`` compare across
+  attention paths (:func:`grad_rel_errs`).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from repro_torch.configs.base import SHAPES, RunConfig
 from repro_torch.configs.registry import compression_preset, get_config, param_shapes
 from repro_torch.core import types as t
 from repro_torch.core.collectives import StackedComm
+from repro_torch.models import model
 from repro_torch.train import bucketing
 
 MODEL = "qwen3-4b"
@@ -82,3 +86,20 @@ def train_main_path():
     cfg = dataclasses.replace(get_config(MODEL), num_layers=LAYERS)
     run = RunConfig(compression=preset(TRAIN_PRESET))
     return cfg, run, dataclasses.replace(SHAPES["train_4k"], global_batch=N)
+
+
+def rank_loss_and_grads(cfg, run, params, batch, global_tokens: float):
+    """(loss, {leaf: gradient}) of one rank's ``train_loss`` at ``params``
+    (over ``global_tokens``, as in the step), before any sync."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss, _ = model.train_loss(model.make_ctx(cfg, run), leaves, cfg, run, batch, global_tokens)
+    names = sorted(leaves)
+    grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def grad_rel_errs(got: Mapping[str, torch.Tensor],
+                  want: Mapping[str, torch.Tensor]) -> Dict[str, float]:
+    """Per leaf ‖got − want‖ / ‖want‖, in f64."""
+    return {k: float(torch.linalg.vector_norm(got[k].double() - want[k].double())
+                     / torch.linalg.vector_norm(want[k].double())) for k in want}

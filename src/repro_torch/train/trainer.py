@@ -25,9 +25,7 @@ log = logging.getLogger("repro_torch.trainer")
 @dataclasses.dataclass
 class TrainerConfig:
     steps: int = 100
-    ckpt_dir: Optional[str] = None
-    ckpt_every: int = 50
-    keep_last: int = 3
+    ckpt_dir: Optional[str] = None      # raises: checkpointing is not ported
     log_every: int = 10
     seed: int = 0
 

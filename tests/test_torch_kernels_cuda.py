@@ -216,9 +216,10 @@ def test_flash_attention_ops_launches_the_kernel_on_a_card(dev, monkeypatch):
 # flash-attention backward: kernels 12 (dK/dV) and 13 (dQ) against the plain
 # blockwise backward on the same inputs.  f32: |Δ| ≤ 2e-3 + 2e-3·|ref| (the
 # forward's tolerance); bf16: relative Frobenius error of each of dq, dk, dv
-# ≤ 1e-2 (p and ds enter the products as bf16 hi + lo pairs, and the sums
-# run in another order).
-BWD_REL = 1e-2
+# ≤ 2e-4.  p and ds enter the products as bf16 hi + lo pairs (2⁻¹⁶ relative)
+# and the sums run in another order: chip_smoke.py read ≤ 1.1e-5 at small
+# shapes on an H100, while rounding p and ds to bf16 once gives about 1e-3.
+BWD_REL = 2e-4
 
 
 def _bwd_inputs(dev, b, sq, sk, hq, hkv, hd, dtype, causal, window, q_offset):
