@@ -30,7 +30,13 @@ Phases, each printing its own lines:
    bf16: ‖Δ‖/‖ref‖ ≤ 2e-4 for each of dq, dk, dv) at g = 4 and 1, causal and
    not, a window, a q offset, ragged S = 1000, hd 64 and 128, and the
    training path's (1, 4096, 32/8, 128) bf16 causal, where kernels, plain
-   sweeps and SDPA's backward are timed;
+   sweeps and SDPA's backward are timed; then hold the hash-PRNG encoders
+   (kernel 14, the dense Bernoulli encode, and kernel 15, binary
+   quantization with its packing) bit-equal to their plain versions at
+   ``SIZES`` and at the embed bucket, f32 and bf16, aligned and not, with
+   Δ = 0 and the vmin padding of a ragged length, and time them there; and
+   check that the decodes divide by n exactly: one round of each of
+   ``DIVIDE_CASES`` at n = 3 on the card equals the CPU's bit for bit;
 3. the sync path: ``sync_grads_bucketed`` over the qwen3-4b gradient tree
    (full width, 4 of 36 layers, 792,657,920 compressed coordinates per
    rank) on ``StackedComm(8, "cuda")`` for each preset of
@@ -66,7 +72,17 @@ Phases, each printing its own lines:
    the communicator's bytes against the accounting, the sync's error over
    the stacked real gradients against the closed form (within 10%), step
    ms split into forward+backward, sync and optimizer, tokens/s, peak
-   memory.
+   memory;
+6. the encode path (``launch/bench_encode_speed.py``: kernels 14 and 15,
+   the fixed-k gather and the FWHT at d = 2^16, 2^20, 2^24 and the
+   388,956,160-coordinate embed bucket) and the single-host stack:
+   ``MeanEstimator.estimate`` and ``empirical_mse`` on the card for the
+   quickstart's seven protocols at n = 16, d = 2^22, budget d, 4 rounds
+   each, the squared error within 10% of ``expected_mse`` (the identity's
+   exactly 0) and the measured bits equal to ``expected_bits`` (within 1%
+   for the Bernoulli protocols, whose support size is random); then the
+   federated example's straggler round at n = 32, d = 2^20, each error
+   within 10% of its closed form.
 
 Then one JSON line with every kernel's numbers and, last, the device line.
 Exits nonzero, and prints no result, when there is no CUDA card, when the
@@ -106,6 +122,12 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores, NVIDIA data sheet
 # j + ceil(d/2)), so a full draw needs ceil(d/2) calls; a shard window's
 # coordinates pair with coordinates of other shards and need one call each.
 OPS_PER_CALL = 72
+# the hash PRNG of kernels 14-15 (csrc/prng.cuh): 3 multiplies, 1 add, 3
+# shifts, 3 xors, the top-24-bit shift and conversion, the index: 13 integer
+# operations a coordinate.  One IEEE f32 division is a reciprocal, its
+# refinement and a residual correction: counted as 6 f32 operations.
+HASH_OPS = 13
+F32_DIV_OPS = 6
 
 REPLACES = {
     "bernoulli_encode": "src/repro/kernels/bernoulli_wire/kernel.py:184",
@@ -122,6 +144,8 @@ REPLACES = {
     "flash_attention_fwd": "src/repro/kernels/flash_attention/flash_attention.py:121",
     "flash_attention_bwd_dkv": "src/repro/kernels/flash_attention/flash_attention.py:280",
     "flash_attention_bwd_dq": "src/repro/kernels/flash_attention/flash_attention.py:318",
+    "bernoulli_encode_2d": "src/repro/kernels/bernoulli_encode/bernoulli_encode.py:53",
+    "binary_encode_2d": "src/repro/kernels/binary_quant/binary_quant.py:54",
 }
 SOURCE = {
     "bernoulli_encode": "src/repro_torch/csrc/bernoulli_wire.cu",
@@ -138,6 +162,8 @@ SOURCE = {
     "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_dkv": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "flash_attention_bwd_dq": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "bernoulli_encode_2d": "src/repro_torch/csrc/bernoulli_encode.cu",
+    "binary_encode_2d": "src/repro_torch/csrc/binary_quant.cu",
 }
 
 
@@ -202,7 +228,8 @@ def same_bits(a, b) -> bool:
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
     if a.dtype.is_floating_point:
-        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+        w = torch.int32 if a.element_size() == 4 else torch.int16
+        return torch.equal(a.contiguous().view(w), b.contiguous().view(w))
     return torch.equal(a, b)
 
 
@@ -560,6 +587,100 @@ def check_rotation(main_rows: int, records: dict) -> None:
            OPS_PER_CALL * -(-n // 2), 3 * n)
     print(f"  encode_pack dp={n}: bit-equal, kernel {ms:.3f} ms plain {pms:.3f} ms", flush=True)
     del z, got, want
+
+
+def check_hash_encoders(sizes, main_d: int, records: dict) -> None:
+    """Bit-equality of kernels 14 (dense Bernoulli encode) and 15 (binary
+    quantization + pack) with their plain versions on the card, in f32 and
+    bf16 at ``sizes`` and at ``main_d`` (the encode path's largest size),
+    plus an unaligned view, kernel 15 at Δ = 0 and the vmin padding of a
+    ragged length; kernel and plain version timed at ``main_d`` in f32
+    (p = 1/16, μ = 0, seed 7: the encode path's arguments)."""
+    import torch
+    from repro_torch.kernels.bernoulli_encode import bernoulli_encode as bek
+    from repro_torch.kernels.bernoulli_encode import ref as ber
+    from repro_torch.kernels.binary_quant import binary_quant as bqk
+    from repro_torch.kernels.binary_quant import ops as bqo
+    from repro_torch.kernels.binary_quant import ref as bqr
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    p, mu, seed = 1.0 / 16, 0.0, 7
+    for d in (*sizes, main_d):
+        for dtype in (torch.float32, torch.bfloat16):
+            gen.manual_seed(d + 9)
+            x = torch.randn(d + 1, generator=gen, device=dev).to(dtype)
+            for v in (x[:d], x[1:]):            # 16-byte aligned, and not
+                got = bek.encode(v, p, mu, seed)
+                want = ber.bernoulli_encode(v, p, mu, seed)
+                need(same_bits(got, want), f"bernoulli_encode_2d d={d} {dtype}: kernel != plain")
+                del got, want
+                vmin, vmax = v.amin().float(), v.amax().float()
+                padded = d + (-d) % bqo.TILE
+                got = bqk.encode(v, vmin, vmax, seed, padded)
+                flat = torch.cat([v, vmin.to(dtype).expand(padded - d)])
+                want = bqr.pack_bytes(bqr.encode_bits(flat, vmin, vmax, seed))
+                need(torch.equal(got, want), f"binary_encode_2d d={d} {dtype}: kernel != plain")
+                tail = (padded - d) // 8
+                need(tail == 0 or not bool(got[-tail:].any()),
+                     f"binary_encode_2d d={d}: a bit set in the vmin padding")
+                del got, want, flat
+            zero = bqk.encode(x[:d], vmax, vmax, seed, padded)
+            need(not bool(zero.any()), f"binary_encode_2d d={d} {dtype}: a bit set at delta = 0")
+            if d == main_d and dtype == torch.float32:
+                v = x[:d]
+                got = bek.encode(v, p, mu, seed)
+                sent = int((got != mu).sum())
+                ms = cuda_ms(lambda: bek.encode(v, p, mu, seed), reps=10)
+                pms = cuda_ms(lambda: ber.bernoulli_encode(v, p, mu, seed), reps=1)
+                record(records, "bernoulli_encode_2d", 0.0, ms, pms, 8 * d, HASH_OPS * d,
+                       2 * d + (F32_DIV_OPS + 1) * sent)
+                del got
+                bms = cuda_ms(lambda: bqk.encode(v, vmin, vmax, seed, padded), reps=10)
+                bpms = cuda_ms(lambda: bqr.pack_bytes(bqr.encode_bits(
+                    torch.cat([v, vmin.expand(padded - d)]), vmin, vmax, seed)), reps=1)
+                record(records, "binary_encode_2d", 0.0, bms, bpms, 4 * d + padded // 8,
+                       HASH_OPS * d, (F32_DIV_OPS + 3) * d)
+                print(f"  bernoulli_encode_2d d={d} f32: kernel {ms:.3f} ms plain {pms:.3f} ms "
+                      f"bound {records['bernoulli_encode_2d']['bound_ms']:.3f} ms; "
+                      f"binary_encode_2d: kernel {bms:.3f} ms plain {bpms:.3f} ms bound "
+                      f"{records['binary_encode_2d']['bound_ms']:.3f} ms", flush=True)
+            del x, v, zero
+        print(f"  bernoulli_encode_2d + binary_encode_2d d={d} f32, bf16, aligned and not, "
+              "delta = 0, vmin padding: bit-equal", flush=True)
+
+
+# (preset, mode override) of the divide check: a psum round, the scatter
+# decodes of Bernoulli and the bit plane, the fixed-k gather decode with its
+# mean of the centers, the dense simulation and the exact mean
+DIVIDE_CASES = (("fixed_k_1bit", None), ("bernoulli_seed_1bit", None), ("binary_packed", None),
+                ("hier_fixed_k", None), ("bernoulli_seed_1bit", "dense_sim"),
+                ("fixed_k_1bit", "none"))
+
+
+def check_divide(n: int) -> None:
+    """Decodes divide by n exactly on the card: one round of each of
+    ``DIVIDE_CASES`` on ``StackedComm(n)`` on the card equals the same round
+    on the CPU bit for bit, same keys and inputs.  The inputs lie on a 2^-6
+    grid at d = 2^16, so every sum is exact and the node centers agree on
+    both devices whatever their summation order."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.configs.registry import compression_preset
+    from repro_torch.core import collectives as coll
+
+    d = 1 << 16
+    x = torch.round(torch.randn(n, d, generator=torch.Generator().manual_seed(n)) * 32) / 64
+    key = R.fold_in(R.PRNGKey(17), n)
+    for preset, mode in DIVIDE_CASES:
+        cfg = dataclasses.replace(compression_preset(preset, axes=("data",)), min_compress_size=1)
+        if mode is not None:
+            cfg = dataclasses.replace(cfg, mode=mode, scatter_decode=False)
+        got = coll.compressed_mean(x.cuda(), key, cfg, coll.StackedComm(n, "cuda"))
+        want = coll.compressed_mean(x, key, cfg, coll.StackedComm(n, "cpu"))
+        need(same_bits(got.cpu(), want), f"divide check n={n} {preset} {mode}: card != CPU")
+    print(f"  decodes at n={n} (fixed_k_1bit, bernoulli_seed_1bit, binary_packed, fixed-k "
+          "gather, dense simulation, exact mean): card == CPU bit for bit", flush=True)
 
 
 # (b, sq, sk, hq, hkv, hd, causal, window, q_offset, dtypes); the last is the
@@ -1278,6 +1399,104 @@ def run_training(launches_total) -> dict:
             "launches_per_step": dict(per_step), **agree}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 6: the encode path and the single-host stack.
+# --------------------------------------------------------------------------- #
+
+ENCODE_PATH_KERNELS = ("bernoulli_encode_2d", "fixed_k_gather", "binary_encode_2d", "fwht")
+SINGLE_HOST_N, SINGLE_HOST_D, SINGLE_HOST_ROUNDS = 16, 1 << 22, 4
+FEDERATED_N, FEDERATED_D = 32, 1 << 20
+# realized squared error against the closed form, and measured bits of a
+# Bernoulli round against the expected (|S_i| is random)
+MSE_RTOL, BITS_RTOL = 0.10, 0.01
+
+
+def run_encode_path(launches_total) -> dict:
+    """``launch/bench_encode_speed.py`` as a user runs it: every size, every
+    encoder, timed on the card; each of its kernels launched."""
+    import torch
+    from repro_torch.kernels import backend
+    from repro_torch.launch import bench_encode_speed
+
+    torch.cuda.empty_cache()
+    backend.reset_launches()
+    rows = bench_encode_speed.rows(torch.device("cuda"))
+    counts = dict(backend.launches)
+    launches_total.update(counts)
+    need(all(r["check"] for r in rows), "encode path: a row failed its check")
+    for k in ENCODE_PATH_KERNELS:
+        need(counts.get(k, 0) > 0, f"encode path: {k} never launched ({counts})")
+    torch.cuda.empty_cache()
+    return {"rows": [{k: r[k] for k in ("name", "us_per_call", "derived", "check", "ms")}
+                     for r in rows], "launches": counts}
+
+
+def run_single_host() -> dict:
+    """``MeanEstimator`` on the card for the quickstart's seven protocols at
+    n = 16, d = 2^22, budget d: ``SINGLE_HOST_ROUNDS`` rounds of
+    ``estimate`` and ``empirical_mse`` over as many trials, each held to its
+    closed form; then the federated example's straggler round at n = 32,
+    d = 2^20."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.core import decoders
+    from repro_torch.core.protocol import MeanEstimator, empirical_mse
+    from repro_torch.examples import federated_mean, quickstart
+
+    dev = torch.device("cuda")
+    n, d = SINGLE_HOST_N, SINGLE_HOST_D
+    xs = torch.randn(n, d, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    x_true = decoders.averaging_decoder(xs)
+    out = {"n": n, "d": d, "protocols": []}
+    for name, enc, comm in quickstart.configs():
+        t0 = time.perf_counter()
+        est = MeanEstimator(enc, comm, budget=float(d))
+        errs, bits = [], []
+        for r in range(SINGLE_HOST_ROUNDS):
+            rep = est.estimate(R.fold_in(R.PRNGKey(1), r), xs)
+            need(tuple(rep.estimate.shape) == (d,) and bool(torch.isfinite(rep.estimate).all()),
+                 f"single host {name}: estimate not finite or of shape {tuple(rep.estimate.shape)}")
+            errs.append(float(torch.sum((rep.estimate - x_true) ** 2, dtype=torch.float64)))
+            bits.append(rep.bits)
+        emp = float(empirical_mse(R.PRNGKey(2), xs, est, trials=SINGLE_HOST_ROUNDS))
+        torch.cuda.synchronize()
+        expected, exp_bits = rep.expected_mse, rep.expected_bits
+        if enc.kind == "identity":
+            need(errs == [0.0] * len(errs) and emp == 0.0 and expected == 0.0,
+                 f"single host {name}: identity error {errs}, {emp} not exactly 0")
+        else:
+            for what, v in (("estimate", sum(errs) / len(errs)), ("empirical_mse", emp)):
+                need(abs(v / expected - 1.0) <= MSE_RTOL,
+                     f"single host {name}: {what} error {v:.6g} vs closed form {expected:.6g}")
+        random_bits = enc.kind == "bernoulli"
+        for b in bits:
+            need(abs(b / exp_bits - 1.0) <= BITS_RTOL if random_bits else b == exp_bits,
+                 f"single host {name}: measured bits {b} vs expected {exp_bits}")
+        out["protocols"].append({
+            "protocol": name, "expected_mse": expected, "err": errs, "empirical_mse": emp,
+            "err_over_closed_form": (sum(errs) / len(errs) / expected) if expected else 0.0,
+            "expected_bits": exp_bits, "bits": bits,
+            "bits_per_coord": exp_bits / (n * d), "s": time.perf_counter() - t0})
+    del xs, x_true
+
+    t0 = time.perf_counter()
+    xs = federated_mean.make_data(FEDERATED_N, FEDERATED_D, dev)
+    fed = federated_mean.straggler_round(xs, R.PRNGKey(0))
+    torch.cuda.synchronize()
+    need(fed["sum_p"] <= fed["budget"] * (1 + 1e-4), f"federated: Σp {fed['sum_p']} over budget")
+    need(abs(fed["err"] / fed["mse_closed"] - 1.0) <= MSE_RTOL,
+         f"federated: one-round error {fed['err']:.6g} vs closed form {fed['mse_closed']:.6g}")
+    need(abs(fed["err_partial"] / fed["mse_closed_partial"] - 1.0) <= MSE_RTOL,
+         f"federated: straggler error {fed['err_partial']:.6g} vs closed form "
+         f"{fed['mse_closed_partial']:.6g}")
+    need(fed["elastic_bits"] == fed["elastic_expected_bits"],
+         f"federated: elastic bits {fed['elastic_bits']} != {fed['elastic_expected_bits']}")
+    out["federated"] = {**fed, "s": time.perf_counter() - t0}
+    del xs
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     setup()
     import torch
@@ -1309,8 +1528,11 @@ def main() -> int:
     check_rotation(rotation.padded_dim(main_d) >> 20, records)
     check_flash(records)
     check_flash_bwd(records)
-    print(f"[2] wire kernels bit-equal to their plain versions, flash attention forward and "
-          f"backward within tolerance ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check_hash_encoders(SIZES, main_d, records)
+    check_divide(3)
+    print(f"[2] wire and encoder kernels bit-equal to their plain versions, flash attention "
+          f"forward and backward within tolerance, decodes at n = 3 equal to the CPU's "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     bern = synthetic.preset("bernoulli_seed_1bit")
     runs = [(name, synthetic.preset(name), STEPS) for name in synthetic.PRESETS]
@@ -1330,6 +1552,12 @@ def main() -> int:
     t0 = time.perf_counter()
     summary = run_training(total)
     print(f"[5] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    summary = run_encode_path(total)
+    print(f"[6] encode path {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    summary = run_single_host()
+    print(f"[6] single host {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     launches = dict(total)
     for k in REPLACES:
         need(launches.get(k, 0) > 0, f"kernel {k} was never launched on the main path")
@@ -1342,7 +1570,7 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    print(f"[6] total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[7] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

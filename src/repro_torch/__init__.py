@@ -17,7 +17,11 @@ unpack and binary accumulate, the FWHT and the rotated encode.  Slice 5
 serves the dense family (qwen3-4b): ``serving.engine.build_serve_fns`` →
 ``models.model.prefill`` / ``decode_step`` → ``models.transformer.forward``
 → the flash-attention forward kernel, then ``serving.engine.generate``.
-The kernels are in ``src/repro_torch/csrc``.
+Slice 6 trains it (``train.trainer.Trainer``) with the flash-attention
+backward kernels.  Slice 7 adds the hash-PRNG encoders of the §1.1 encode
+benchmark (``launch.bench_encode_speed``) and the single-host stack
+(``core.protocol.MeanEstimator``, the §6 solvers, ``examples``).  The
+kernels are in ``src/repro_torch/csrc``.
 
 Entry points run on the CUDA card unless the caller passes a CPU device;
 with no card and no device given they raise (:func:`resolve_device`).

@@ -117,7 +117,7 @@ def exact_mean(x, comm):
     """The exact mean over ranks of the (L, *shape) stack (f32 psum / n)."""
     shape, dtype = x.shape[1:], x.dtype
     flat = x.reshape(x.shape[0], -1).to(torch.float32)
-    return (comm.psum(flat) / comm.size).reshape(shape).to(dtype)
+    return wire_base.divide(comm.psum(flat), comm.size).reshape(shape).to(dtype)
 
 
 def compressed_mean(x, key, cfg: t.CompressionConfig, comm, drop_mask=None):

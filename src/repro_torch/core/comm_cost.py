@@ -1,24 +1,69 @@
-"""Communication-cost models β (§4) — the parts of ``repro.core.comm_cost``
-that the ported codecs need: naive f32, the §4.4 seed trick, and the §4.5 /
-§7.1 binary and ternary planes as word-padded wire buffers.  All costs are in
-bits for the full n-node round.
+"""Communication-cost models β (§4) — port of ``repro.core.comm_cost``.
+
+* analytic expected costs C_{α,β} as closed forms in the protocol
+  parameters (§4.1–§4.5, §7.1), the quantities of the paper's Table 1,
+  dispatched by :func:`cost`, and the word-padded and capacity-padded wire
+  realizations the codecs ship; :func:`cost_config` charges what the
+  registry's codec for a config ships;
+* the realized cost of one sampled round, :func:`measure_bits`.
+
+All costs are in bits for the full n-node round.
 """
 from __future__ import annotations
 
 import math
 
+import torch
+
 from repro_torch.core.types import CommSpec
 
+
+def ceil_log2(d: int) -> int:
+    return max(1, math.ceil(math.log2(d)))
+
+
+# --- analytic expected costs (§4) ---------------------------------------- #
 
 def cost_naive(n: int, d: int, spec: CommSpec) -> float:
     """§4.1:  C = n·d·r."""
     return float(n * d * spec.r_bits)
 
 
+def cost_varying_length(probs, spec: CommSpec) -> float:
+    """§4.2:  C = n·r̄ + Σ_ij (1 + r·p_ij).   probs: (n, d)."""
+    n = probs.shape[0]
+    return float(n * spec.rbar_bits + torch.sum(1.0 + spec.r_bits * probs))
+
+
+def cost_sparse(probs, spec: CommSpec, d: int) -> float:
+    """§4.3 Eq. (8):  C = n·r̄ + (⌈log d⌉ + r)·Σ_ij p_ij."""
+    n = probs.shape[0]
+    return float(n * spec.rbar_bits + (ceil_log2(d) + spec.r_bits) * torch.sum(probs))
+
+
 def cost_sparse_seed_fixed_k(n: int, k: int, spec: CommSpec) -> float:
     """§4.4 Eq. (9) (fixed-size support):  C = n(r̄ + r̄_s) + n·k·r."""
     return float(n * (spec.rbar_bits + spec.rseed_bits) + n * k * spec.r_bits)
 
+
+def cost_sparse_seed_uniform_p(n: int, d: int, p: float, spec: CommSpec) -> float:
+    """§4.4 Eq. (10) (uniform-p variable support):  C = n(r̄ + r̄_s) + n·d·p·r."""
+    return float(n * (spec.rbar_bits + spec.rseed_bits) + n * d * p * spec.r_bits)
+
+
+def cost_binary(n: int, d: int, spec: CommSpec) -> float:
+    """§4.5 Eq. (11):  C = 2·n·r + n·d   (two scalars + 1 bit a coordinate)."""
+    return float(n * 2 * spec.r_bits + n * d)
+
+
+def cost_ternary(n: int, d: int, p_pass: float, spec: CommSpec) -> float:
+    """§7.1 analogue of Eq. (11):  C = 2·n·r + 2·n·d + n·d·p_pass·r — two
+    centers, a 2-bit branch index a coordinate and the expected p_pass·d
+    pass-through values of Eq. (21)."""
+    return float(n * 2 * spec.r_bits + n * 2 * d + n * d * p_pass * spec.r_bits)
+
+
+# --- §4.4 and the planes as static wire buffers --------------------------- #
 
 def bernoulli_capacity(d: int, p: float, slack_sigmas: float = 6.0) -> int:
     """Wire-buffer slots for the seed-trick Bernoulli protocol:
@@ -53,23 +98,76 @@ def cost_ternary_packed(n: int, d: int, cap: int, spec: CommSpec) -> float:
                       + _pad_words(2 * spec.r_bits)))
 
 
-def cost(spec: CommSpec, *, n: int, d: int, k=None, cap=None, packed: bool = False) -> float:
-    """Dispatch on ``spec.protocol`` over the cost models of the ported
-    codecs: naive; the §4.4 seed trick with ``cap`` (capacity-padded
-    Bernoulli) or ``k`` (fixed-k Eq. (9)); the word-padded binary and
-    ternary planes (``packed``; ternary needs ``cap``).  The ideal §4.5 /
-    §7.1 forms and the varying-length and sparse models arrive with
-    slice 7."""
+def cost(spec: CommSpec, *, n: int, d: int, probs=None, k=None, p=None, cap=None,
+         packed: bool = False) -> float:
+    """Dispatch on ``spec.protocol`` to the per-protocol models.
+
+    ``packed=True`` selects the word-padded planes (ternary needs ``cap``),
+    the ideal §4.5 / §7.1 forms otherwise.  For ``sparse_seed``, ``cap``
+    selects the capacity-padded realization, ``k`` the fixed-k Eq. (9) and
+    ``p`` the uniform-p Eq. (10); ``varying`` and ``sparse`` need ``probs``.
+    """
     if spec.protocol == "naive":
         return cost_naive(n, d, spec)
-    if spec.protocol == "sparse_seed" and cap is not None:
-        return cost_sparse_seed_capacity(n, cap, spec)
-    if spec.protocol == "sparse_seed" and k is not None:
-        return cost_sparse_seed_fixed_k(n, k, spec)
-    if spec.protocol == "binary" and packed:
-        return cost_binary_packed(n, d, spec)
-    if spec.protocol == "ternary" and packed and cap is not None:
-        return cost_ternary_packed(n, d, cap, spec)
-    raise NotImplementedError(
-        f"cost model {spec.protocol!r} (k={k}, cap={cap}, packed={packed}) is "
-        "not ported yet: it comes with its codec's slice (ROADMAP.md, queue 1)")
+    if spec.protocol == "varying":
+        return cost_varying_length(_need(probs, "probs", spec), spec)
+    if spec.protocol == "sparse":
+        return cost_sparse(_need(probs, "probs", spec), spec, d)
+    if spec.protocol == "sparse_seed":
+        if cap is not None:
+            return cost_sparse_seed_capacity(n, cap, spec)
+        if k is not None:
+            return cost_sparse_seed_fixed_k(n, k, spec)
+        return cost_sparse_seed_uniform_p(n, d, _need(p, "p", spec), spec)
+    if spec.protocol == "binary":
+        return cost_binary_packed(n, d, spec) if packed else cost_binary(n, d, spec)
+    if spec.protocol == "ternary":
+        if packed:
+            return cost_ternary_packed(n, d, _need(cap, "cap", spec), spec)
+        return cost_ternary(n, d, _need(p, "p", spec), spec)
+    raise ValueError(spec.protocol)
+
+
+def _need(v, name: str, spec: CommSpec):
+    if v is None:
+        raise ValueError(f"the {spec.protocol!r} cost model needs {name}")
+    return v
+
+
+def cost_config(cfg, *, n: int, d: int) -> float:
+    """Analytic cost of the wire codec the registry resolves for ``cfg``: its
+    payload, seed bits and flat scatter-decode bits,
+    ``codec.comm_cost_bits + codec.scatter_bits`` at n nodes.  Hierarchical
+    configs (``cfg.inner_axes``) raise NotPortedError."""
+    from repro_torch.core import wire  # local import: wire consumes this module
+    if cfg.inner_axes:
+        raise wire.NotPortedError(
+            f"cost_config of a hierarchical config (inner_axes={cfg.inner_axes}) is not "
+            "ported yet: it arrives with the hierarchical-collectives slice (ROADMAP.md, "
+            "queue 1)")
+    codec = wire.resolve(cfg)
+    return float(codec.comm_cost_bits(n, d, cfg) + codec.scatter_bits(n, d, cfg))
+
+
+# --- realized cost of one encoded round ----------------------------------- #
+
+def measure_bits(encoded, spec: CommSpec, d: int) -> float:
+    """Bits one sampled round uses under ``spec``; ``encoded`` is a batched
+    :class:`~repro_torch.core.encoders.Encoded` (leading node axis).  Its
+    expectation over the encoder's randomness is :func:`cost`."""
+    n = encoded.y.shape[0]
+    nsent = int(torch.sum(encoded.nsent))
+    if spec.protocol == "naive":
+        return float(n * d * spec.r_bits)
+    if spec.protocol == "varying":
+        return float(n * spec.rbar_bits + n * d + spec.r_bits * nsent)
+    if spec.protocol == "sparse":
+        return float(n * spec.rbar_bits + (ceil_log2(d) + spec.r_bits) * nsent)
+    if spec.protocol == "sparse_seed":
+        return float(n * (spec.rbar_bits + spec.rseed_bits) + spec.r_bits * nsent)
+    if spec.protocol == "binary":
+        return float(n * 2 * spec.r_bits + n * d)
+    if spec.protocol == "ternary":
+        # 2 centers, the 2-bit plane and r bits a realized pass-through value
+        return float(n * 2 * spec.r_bits + n * 2 * d + spec.r_bits * nsent)
+    raise ValueError(spec.protocol)

@@ -1,8 +1,9 @@
-"""Closed-form MSE of the encoding protocols — the parts of
-``repro.core.mse`` the ported codecs need: Lemma 3.2 at uniform p, Lemma
-3.4 and the shared-support fixed-k form, Example 4 (binary) with its
-bound, the corrected Lemma 7.2 (ternary), and the §7.2 rotation's
-composition rule.
+"""Closed-form MSE of the encoding protocols — port of ``repro.core.mse``:
+Lemma 3.2 (Bernoulli, at a uniform p or per-coordinate probabilities with
+the Remark 1 semantics), Lemma 3.4 and the shared-support fixed-k form,
+Example 4 (binary) with its bound, the corrected Lemma 7.2 (ternary), the
+§7.2 rotation's composition rule, and the Theorem 6.1 forms with R and the
+heterogeneity term.  The trimmed-decode bounds come with robust decode.
 
 Conventions: xs is (n, d); mus (n,).  The sums run one node row at a time,
 so a full-width bucket needs one (d,) temporary, not an (n, d) one.
@@ -14,12 +15,32 @@ import torch
 from repro_torch.core import rotation
 
 
-def mse_bernoulli(xs, p: float, mus):
-    """Lemma 3.2 at uniform probabilities p:
-    MSE = (1/n²) Σ_ij (1/p − 1)(X_i(j) − μ_i)²."""
+def r_factor(xs, mus):
+    """R = (1/n) Σ_i ‖X_i − μ_i·1‖²  (§5.2 / Thm 6.1)."""
     n = xs.shape[0]
-    total = sum(torch.sum((xs[i] - mus[i]) ** 2) for i in range(n))
-    return (1.0 / p - 1.0) * total / n ** 2
+    return sum(torch.sum((xs[i] - mus[i]) ** 2) for i in range(n)) / n
+
+
+def mse_bernoulli(xs, probs, mus):
+    """Lemma 3.2:  MSE = (1/n²) Σ_ij (1/p_ij − 1)(X_i(j) − μ_i)².
+
+    ``probs`` is a scalar p, (d,) or (n, d).  p_ij = 0 contributes 0 where
+    X_i(j) = μ_i and ∞ elsewhere (Remark 1: the optimal solutions of §6.1
+    assign p = 0 only where X_i(j) = μ_i).
+    """
+    n = xs.shape[0]
+    p = torch.as_tensor(probs, dtype=xs.dtype).to(xs.device)
+    total = 0.0
+    for i in range(n):
+        dev2 = (xs[i] - mus[i]) ** 2
+        pi = p[i] if p.dim() == 2 else p
+        if pi.dim() == 0 and bool(pi > 0):      # one factor, no (d,) temporaries
+            total = total + (1.0 / pi - 1.0) * torch.sum(dev2)
+            continue
+        psafe = torch.where(pi > 0, pi, torch.ones_like(pi))
+        never = torch.where(dev2 > 0, torch.full_like(dev2, float("inf")), torch.zeros_like(dev2))
+        total = total + torch.sum(torch.where(pi > 0, (1.0 / psafe - 1.0) * dev2, never))
+    return total / n ** 2
 
 
 def mse_fixed_k(xs, k, mus):
@@ -100,3 +121,28 @@ def mse_rotated_fixed_k(xs, k, krot):
     each rank's center the mean of its rotated vector."""
     zs = rotation.rotate(krot, xs)
     return mse_fixed_k(zs, k, torch.mean(zs, dim=-1))
+
+
+# --- Theorem 6.1 --------------------------------------------------------- #
+
+def heterogeneity(xs):
+    """Σ_i ‖X_i − X̄‖², the data-dispersion term."""
+    xbar = torch.mean(xs, dim=0)
+    return sum(torch.sum((x - xbar) ** 2) for x in xs)
+
+
+def thm61_bounds(xs, mus, B):
+    """MSE bounds of the optimal protocol under budget B (Thm 6.1, Eq. 19):
+    (1/B − 1)·R/n ≤ MSE* ≤ (|S|/B − 1)·R/n, S = {(i, j): X_i(j) ≠ μ_i}."""
+    n = xs.shape[0]
+    R = r_factor(xs, mus)
+    S = sum(torch.sum(xs[i] != mus[i]) for i in range(n))
+    return (1.0 / B - 1.0) * R / n, (S / B - 1.0) * R / n
+
+
+def thm61_exact_low_budget(xs, mus, B):
+    """Eq. (20): the exact optimal MSE W²/(n²B) − R/n when
+    B ≤ Σ a_ij / max a_ij, with a_ij = |X_i(j) − μ_i| and W = Σ a_ij."""
+    n = xs.shape[0]
+    W = sum(torch.sum(torch.abs(xs[i] - mus[i])) for i in range(n))
+    return W ** 2 / (n ** 2 * B) - r_factor(xs, mus) / n

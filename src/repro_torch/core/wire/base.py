@@ -49,6 +49,17 @@ def axis_rank_size(comm):
     return tuple(comm.local_ranks), int(comm.size)
 
 
+def divide(x, n: int):
+    """``x / n`` as a true f32 division on every device.
+
+    On a CUDA tensor, PyTorch computes ``x / n`` (or ``x /`` a 0-dim CPU
+    tensor) as a multiply by the f32 reciprocal, which differs from the
+    division unless n is a power of two; the divisor is therefore a 0-dim
+    f32 tensor on ``x``'s device.
+    """
+    return x / torch.full((), float(n), dtype=torch.float32, device=x.device)
+
+
 def gather_nested(local, comm):
     """all_gather of the local rows over the communicator's ranks."""
     return comm.all_gather(local)
@@ -183,7 +194,7 @@ class WireCodec:
         acc = torch.zeros(d, dtype=torch.float32, device=rows.device)
         for i in range(n):
             acc = acc + self.unpack(rows[i], i, key, cfg, d)
-        return acc / n
+        return divide(acc, n)
 
     def decode_gathered_shard(self, rows, key, cfg: t.CompressionConfig,
                               d: int, n: int, shard: int, nshards: int):
@@ -221,7 +232,7 @@ class WireCodec:
         ranks, n = axis_rank_size(comm)
         bufs = torch.stack([self.pack(x[i], key, r, cfg) for i, r in enumerate(ranks)])
         if self.reduce == "psum":
-            wire = (comm.psum(bufs) / n).to(bufs.dtype)
+            wire = divide(comm.psum(bufs), n).to(bufs.dtype)
             return self.decode_reduced(wire, key, cfg, d)
         return self.gather_decode(bufs, key, cfg, d, comm)
 

@@ -27,6 +27,7 @@ import torch
 from repro_torch import random as prandom
 from repro_torch.core import bitplane
 from repro_torch.core import comm_cost
+from repro_torch.core import decoders
 from repro_torch.core import encoders
 from repro_torch.core import types as t
 from repro_torch.core.wire import base
@@ -117,7 +118,7 @@ class FixedKGatherCodec(base.WireCodec):
         for i in range(n):
             ids_i = fk.sample_blocks(prandom.fold_in(key, i), nb, kb, rows.device)
             acc.index_add_(0, ids_i, all_vals[i])
-        return (acc / n + torch.mean(all_mu)).reshape(-1)[:d]
+        return (base.divide(acc, n) + decoders.averaging_decoder(all_mu)).reshape(-1)[:d]
 
     def decode_gathered_shard(self, rows, key, cfg, d, n, shard, nshards):
         # accumulate only the blocks of this shard's ⌈nb/nshards⌉-block
@@ -136,7 +137,7 @@ class FixedKGatherCodec(base.WireCodec):
             loc = ids_i - lo
             loc = torch.where((loc >= 0) & (loc < nb_s), loc, torch.full_like(loc, nb_s))
             acc.index_add_(0, loc, all_vals[i])
-        return (acc[:nb_s] / n + torch.mean(all_mu)).reshape(-1)
+        return (base.divide(acc[:nb_s], n) + decoders.averaging_decoder(all_mu)).reshape(-1)
 
     def scatter_bits(self, n, d, cfg):
         # flat scatter adds one collective: the decoded f32 shard all_gather
@@ -242,7 +243,7 @@ class BernoulliCodec(base.WireCodec):
         rows = rows.to(torch.float32)
         total = bw_ops.decode_sum(rows[:, :-1], rows[:, -1].contiguous(),
                                   _peer_keys(key, n), p, cap, d)
-        return total / n
+        return base.divide(total, n)
 
     def decode_shards(self, rows, key, cfg, d, n, shards, comm):
         # §12 reduce-scatter decode.  Support ranks are global, so each
@@ -262,7 +263,8 @@ class BernoulliCodec(base.WireCodec):
         allc = base.gather_nested(counts, comm).reshape(n, n)
         prior = torch.cumsum(allc, 0, dtype=torch.int32) - allc
         return torch.stack([
-            bw_ops.decode_sum_shard(bufs, mus, sup, prior[s].contiguous(), cap=cap) / n
+            base.divide(bw_ops.decode_sum_shard(bufs, mus, sup, prior[s].contiguous(),
+                                                cap=cap), n)
             for s, sup in zip(shards, sups)])
 
     def scatter_bits(self, n, d, cfg):
@@ -308,7 +310,7 @@ class BinaryCodec(base.WireCodec):
         # unpack + select + accumulate folds the n peers' word windows
         ds = base.scatter_shard_len(d, nshards, bitplane.BINARY_ALIGN)
         total = bitplane.binary_decode_shard(rows, d, cfg.wire_dtype, shard * ds, ds, nshards)
-        return total / n
+        return base.divide(total, n)
 
     def scatter_bits(self, n, d, cfg):
         # flat scatter adds one collective: the decoded f32 shard all_gather
@@ -363,8 +365,8 @@ class TernaryCodec(base.WireCodec):
         allc = base.gather_nested(counts, comm).reshape(n, n)
         prior = torch.cumsum(allc, 0, dtype=torch.int32) - allc
         return torch.stack([
-            bitplane.ternary_decode_shard(rows, sy, prior[s], d, cap, cfg.wire_dtype,
-                                          s * ds) / n
+            base.divide(bitplane.ternary_decode_shard(rows, sy, prior[s], d, cap,
+                                                      cfg.wire_dtype, s * ds), n)
             for s, sy in zip(shards, syms)])
 
     def scatter_bits(self, n, d, cfg):

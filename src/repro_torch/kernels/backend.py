@@ -34,8 +34,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 # one shared library per source file; kernels.<pkg> wrappers name theirs
-SOURCES = ("bernoulli_wire", "bitplane", "fixed_k_encode", "flash_attention",
-           "flash_attention_bwd", "hadamard", "rotated_encode")
+SOURCES = ("bernoulli_encode", "bernoulli_wire", "binary_quant", "bitplane", "fixed_k_encode",
+           "flash_attention", "flash_attention_bwd", "hadamard", "rotated_encode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

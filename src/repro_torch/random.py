@@ -1,4 +1,5 @@
-"""The ``jax.random`` calls the wire path makes, bit-exact, in PyTorch.
+"""The ``jax.random`` calls the wire path and the single-host stack make,
+bit-exact, in PyTorch.
 
 Keys are raw Threefry key data: an int64 tensor of shape (2,) on the CPU
 holding two uint32 words, the same words ``jax.random.key_data`` returns for
@@ -34,6 +35,13 @@ def fold_in(key, data: int) -> torch.Tensor:
     k0, k1 = (int(w) & _MASK for w in torch.as_tensor(key).reshape(2))
     o0, o1 = tf.threefry2x32(k0, k1, 0, int(data) & _MASK)
     return torch.tensor([o0, o1], dtype=torch.int64)
+
+
+def split(key, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` key data, (num, 2): the Threefry bits
+    of the counter ``arange(2·num)`` (the non-partitionable layout), two
+    words a key."""
+    return tf.random_bits(key, 2 * num).reshape(num, 2)
 
 
 def uniform(key, shape, device=None) -> torch.Tensor:

@@ -115,7 +115,7 @@ def _reference_style_center(x, policy):
     return torch.sum(x) * torch.tensor(np.float32(1.0) / np.float32(x.numel()))
 
 
-@pytest.mark.parametrize("n", (2, 8))
+@pytest.mark.parametrize("n", (2, 5, 8))
 @pytest.mark.parametrize("name", sorted(_configs()))
 def test_stacked_round_equals_reference(name, n, monkeypatch):
     jcfg = _configs()[name]

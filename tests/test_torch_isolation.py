@@ -13,7 +13,9 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import RunConfig, ShapeSpec
 from repro_torch.configs.registry import smoke_config
 from repro_torch.core import collectives as tcoll
+from repro_torch.examples import federated_mean, quickstart
 from repro_torch.kernels import backend
+from repro_torch.launch import bench_encode_speed
 from repro_torch.models import model
 from repro_torch.serving import engine
 from repro_torch.train import train_step
@@ -63,6 +65,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         train_step.build_train_step(cfg, run, shape, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, run, shape, TrainerConfig(), 2)
+    for entry in (quickstart.main, federated_mean.main, bench_encode_speed.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry([])
 
 
 def test_dispatch_rule():
@@ -73,7 +78,9 @@ def test_dispatch_rule():
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
+    from repro_torch.kernels.bernoulli_encode import bernoulli_encode as bek
     from repro_torch.kernels.bernoulli_wire import kernel as bwk
+    from repro_torch.kernels.binary_quant import binary_quant as bqk
     from repro_torch.kernels.bitplane import bitplane as bpk
     from repro_torch.kernels.fixed_k_encode import fixed_k_encode as fkk
     from repro_torch.kernels.flash_attention import kernel as fak
@@ -106,3 +113,7 @@ def test_kernel_wrappers_reject_cpu_tensors():
         fak.flash_attention_bwd_dkv(q, kv, kv, q, lse, lse)
     with pytest.raises(ValueError, match="CUDA"):
         fak.flash_attention_bwd_dq(q, kv, kv, q, lse, lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        bek.encode(x, 0.5, 0.0, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        bqk.encode(x, torch.tensor(0.0), torch.tensor(1.0), 1, 2048)

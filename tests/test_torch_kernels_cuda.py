@@ -18,7 +18,13 @@ from repro_torch.configs.registry import compression_preset
 from repro_torch.core import bitplane as cbp
 from repro_torch.core import comm_cost
 from repro_torch.core import rotation
+from repro_torch.core import collectives as tcoll
+from repro_torch.kernels.bernoulli_encode import bernoulli_encode as bek
+from repro_torch.kernels.bernoulli_encode import ref as ber
 from repro_torch.kernels.bernoulli_wire import kernel as bwk
+from repro_torch.kernels.binary_quant import binary_quant as bqk
+from repro_torch.kernels.binary_quant import ops as bqo
+from repro_torch.kernels.binary_quant import ref as bqr
 from repro_torch.kernels.bernoulli_wire import ref as bwr
 from repro_torch.kernels.bitplane import bitplane as bpk
 from repro_torch.kernels.bitplane import ref as bpr
@@ -304,3 +310,84 @@ def test_training_step_flash_matches_xla_on_a_card(dev):
     assert abs(lf - lx) <= 1e-3 * abs(lx)
     for k in gx:
         assert _rel(gf[k], gx[k]) <= 5e-2, (k, _rel(gf[k], gx[k]))
+
+
+# --------------------------------------------------------------------------- #
+# The hash-PRNG encoders (kernels 14, 15): bit-equal to the plain versions.
+# --------------------------------------------------------------------------- #
+
+def _same_any(a, b):
+    """Same dtype and shape, same bits (any float width)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        w = torch.int32 if a.element_size() == 4 else torch.int16
+        return torch.equal(a.view(w), b.view(w))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,p,mu,offset", [(1, 0.5, 0.0, 0), (65_536, 1 / 16, 0.0, 0),
+                                           (70_001, 0.3, 0.1, 0), (70_001, 1 / 16, -0.2, 1),
+                                           (1_048_583, 1.0, 0.5, 3)])
+def test_bernoulli_encode_kernel_equals_plain(dev, dtype, d, p, mu, offset):
+    g = torch.Generator(dev).manual_seed(d + offset)
+    base = torch.randn(d + offset, generator=g, device=dev).to(dtype)
+    x = base[offset:]                    # offset > 0: not 16-byte aligned
+    got = bek.encode(x, p, mu, 0xDEADBEEF)
+    assert _same_any(got, ber.bernoulli_encode(x, p, mu, 0xDEADBEEF))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,offset", [(1, 0), (65_536, 0), (70_001, 0), (70_001, 1),
+                                      (1_048_583, 3)])
+def test_binary_encode_kernel_equals_plain(dev, dtype, d, offset):
+    g = torch.Generator(dev).manual_seed(d * 3 + offset)
+    x = torch.randn(d + offset, generator=g, device=dev).to(dtype)[offset:]
+    got, vmin, vmax = bqo.binary_encode(x, 42)
+    padded = got.numel() * 8
+    flat = torch.cat([x, vmin.to(dtype).expand(padded - d)])
+    want = bqr.pack_bytes(bqr.encode_bits(flat, vmin, vmax, 42))
+    assert got.dtype == torch.uint8 and padded % bqo.TILE == 0
+    assert torch.equal(got, want)
+    tail = (padded - d) // 8             # whole bytes of vmin padding: no bit set
+    assert tail == 0 or not bool(got[-tail:].any())
+    zero = bqk.encode(x.contiguous(), vmax, vmax, 42, padded)     # Δ = 0: no bit set
+    assert not bool(zero.any())
+
+
+def test_hash_encoders_count_their_launches(dev):
+    x = torch.randn(4096, device=dev)
+    backend.reset_launches()
+    bek.encode(x, 0.5, 0.0, 1)
+    bqo.binary_encode(x, 1)
+    assert dict(backend.launches) == {"bernoulli_encode_2d": 1, "binary_encode_2d": 1}
+
+
+# --------------------------------------------------------------------------- #
+# Decodes divide by n exactly: the card's round equals the CPU's, bit for bit,
+# at rank counts that are not powers of two.
+# --------------------------------------------------------------------------- #
+
+def _grid_stack(n, d, seed):
+    """Values on a 2^-6 grid, |x| small: every partial sum is exact in f32,
+    and d = 2^16 makes the mean a power-of-two division, so the node centers
+    are the same on both devices whatever the summation order."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.round(torch.randn(n, d, generator=g) * 32) / 64
+
+
+@pytest.mark.parametrize("n", (3, 5, 6, 7))
+@pytest.mark.parametrize("preset,mode", [("fixed_k_1bit", None), ("bernoulli_seed_1bit", None),
+                                         ("binary_packed", None), ("hier_fixed_k", None),
+                                         ("bernoulli_seed_1bit", "dense_sim"),
+                                         ("fixed_k_1bit", "none")])
+def test_round_on_card_equals_cpu(dev, n, preset, mode):
+    cfg = dataclasses.replace(compression_preset(preset, axes=("data",)), min_compress_size=1)
+    if mode is not None:
+        cfg = dataclasses.replace(cfg, mode=mode, scatter_decode=False)
+    x = _grid_stack(n, 1 << 16, n)
+    key = R.fold_in(R.PRNGKey(17), n)
+    got = tcoll.compressed_mean(x.to(dev), key, cfg, tcoll.StackedComm(n, dev))
+    want = tcoll.compressed_mean(x, key, cfg, tcoll.StackedComm(n, "cpu"))
+    assert _same(got.cpu(), want)
