@@ -7,7 +7,10 @@ Phases, each printing its own lines:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 1. build every kernel of the path from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source, all started together), and beside them kernel 11's
+   source with ``-Xptxas -v``: its bf16 kernel's registers, spills (none
+   allowed) and dynamic shared memory, and ``HGMMA`` and ``UTMALDG`` in its
+   SASS (``cuobjdump -sass``);
 2. hold each wire kernel bit-equal against its plain PyTorch version on the card,
    at d = 70,001 and 16,777,217 (n = 8 peers, keys folded per rank from
    ``PRNGKey(seed)``), with a forced-small-cap overflow case and shard
@@ -22,9 +25,14 @@ Phases, each printing its own lines:
    its own kernel (f32: atol = rtol = 2e-3 on o; bf16: atol 3e-2 on o;
    lse within 1e-3) against its plain blockwise version and the full-softmax
    oracle, at (1, 256, 4/2, 64) causal and not, a window of 128, q_offset
-   256 (Sq 128, Sk 512), (1, 8192, 32/8, 128) bf16 and the serving path's
-   (8, 2048, 32/8, 128) bf16 causal; time kernel, plain version and
-   ``F.scaled_dot_product_attention`` (the library yardstick); then hold the
+   256 (Sq 128, Sk 512), the bf16 kernel's tile edges (ragged S = 1000 at
+   hd 128 and 64, S = 100, a window of 200 across 128-key tiles, q_offset
+   200 with Sk 512; g = 4 and 1), (1, 8192, 32/8, 128) bf16, the training
+   path's (1, 4096, 32/8, 128) and the serving path's (8, 2048, 32/8, 128)
+   bf16 causal; at the last two time the kernel and
+   ``F.scaled_dot_product_attention`` (the library yardstick), with TFLOP/s
+   and the share of the bound, and at the serving shape the plain version
+   too; then hold the
    flash-attention backward kernels (dK/dV and dQ sweeps) against the plain
    blockwise backward on the same inputs (f32: |Δ| ≤ 2e-3 + 2e-3·|ref|;
    bf16: ‖Δ‖/‖ref‖ ≤ 2e-4 for each of dq, dk, dv) at g = 4 and 1, causal and
@@ -62,7 +70,7 @@ Phases, each printing its own lines:
    full width and 4 layers, 8 ranks stacked, one 4096-token sequence each,
    ``fixed_k_1bit``.  Step 0's rank-0 loss and gradients with the flash
    kernels, every flash call held against the plain blockwise version in
-   the kernels' 64 × 64 tiles on its own inputs; the whole model's
+   64 × 64 tiles on its own inputs; the whole model's
    gradients against the plain flash and against ``attn_impl="xla"``
    (``TRAIN_LOSS_RTOL``, ``TRAIN_GRAD_TOL``), and in f32 compute against
    the plain flash (``TRAIN_F32_LOSS_RTOL``, ``TRAIN_F32_GRAD_TOL``); then
@@ -90,6 +98,7 @@ port's package is not beside this script, or when any check fails.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -242,6 +251,65 @@ def record(records: dict, name: str, err, ms, plain_ms, nbytes, int_ops, f32_ops
 
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+# --------------------------------------------------------------------------- #
+# Phase 1: what the compiler made of kernel 11.
+# --------------------------------------------------------------------------- #
+
+def start_flash_cubin():
+    """``nvcc -Xptxas -v`` of kernel 11's source into a cubin, started
+    beside phase 1's build; returns (process, cubin path)."""
+    from repro_torch.kernels import backend
+
+    cubin = backend.BUILD_DIR / "flash_attention.cubin"
+    cubin.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [backend.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-Xptxas", "-v", "-cubin", "-I", str(backend.CSRC), "-o", str(cubin),
+           str(backend.CSRC / "flash_attention.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), cubin
+
+
+def check_flash_cubin(proc, cubin) -> None:
+    """Kernel 11's bf16 kernel (``fa_fwd_wgmma``): registers and spills as
+    ptxas reports them, its dynamic shared memory, and its SASS holding
+    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), by ``cuobjdump -sass``."""
+    import ctypes
+    from repro_torch.kernels import backend
+
+    log, _ = proc.communicate()
+    need(proc.returncode == 0, f"nvcc -Xptxas -v of flash_attention.cu failed:\n{log}")
+    props, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("spill" in line or "Used" in line):
+            props.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    sass = subprocess.run([str(pathlib.Path(backend.nvcc_path()).parent / "cuobjdump"),
+                           "-sass", str(cubin)], capture_output=True, text=True, check=True)
+    counts, name = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = collections.Counter()
+        elif name:
+            for op in ("HGMMA", "UTMALDG", "UTMASTG"):
+                counts[name][op] += op in line
+    smem = backend.lib("flash_attention").fa_fwd_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int64], ctypes.c_int
+    wgmma = sorted(n for n in props if "fa_fwd_wgmma" in n)
+    need(len(wgmma) == 2, f"expected fa_fwd_wgmma at hd 64 and 128 in ptxas' report: {wgmma}")
+    for n in wgmma:
+        hd = 128 if "ILi128E" in n else 64
+        need(" 0 bytes spill stores, 0 bytes spill loads" in " ".join(props[n]),
+             f"fa_fwd_wgmma<{hd}> spills: {props[n]}")
+        c = counts.get(n, {})
+        need(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0,
+             f"fa_fwd_wgmma<{hd}>: no HGMMA or UTMALDG in its SASS ({dict(c)})")
+        print(f"  fa_fwd_wgmma<{hd}>: {'; '.join(props[n])}; dynamic shared memory "
+              f"{smem(hd)} B; SASS: {c['HGMMA']} HGMMA, {c['UTMALDG']} UTMALDG, "
+              f"{c['UTMASTG']} UTMASTG", flush=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -683,16 +751,27 @@ def check_divide(n: int) -> None:
           "gather, dense simulation, exact mean): card == CPU bit for bit", flush=True)
 
 
-# (b, sq, sk, hq, hkv, hd, causal, window, q_offset, dtypes); the last is the
-# serving path's prefill (8 prompts of 2048 tokens, qwen3-4b's heads)
+# (b, sq, sk, hq, hkv, hd, causal, window, q_offset, dtypes); the last two
+# are the training path's sequence and the serving path's prefill (8
+# prompts of 2048 tokens), at qwen3-4b's heads
 FLASH_CASES = [
     (1, 256, 256, 4, 2, 64, True, None, 0, ("float32", "bfloat16")),
     (1, 256, 256, 4, 2, 64, False, None, 0, ("float32", "bfloat16")),
     (1, 512, 512, 2, 1, 64, True, 128, 0, ("float32", "bfloat16")),
     (1, 128, 512, 2, 2, 64, True, None, 256, ("float32", "bfloat16")),
+    # the bf16 kernel's 128-row q tiles and 128-key tiles at their edges
+    (1, 1000, 1000, 4, 1, 128, True, None, 0, ("float32", "bfloat16")),   # ragged, g = 4
+    (1, 1000, 1000, 4, 4, 64, True, None, 0, ("float32", "bfloat16")),    # ragged, hd 64, g = 1
+    (2, 100, 100, 8, 2, 128, True, None, 0, ("float32", "bfloat16")),     # less than one tile
+    (1, 1024, 1024, 4, 1, 128, True, 200, 0, ("bfloat16",)),   # a window straddling key tiles
+    (1, 256, 512, 4, 2, 128, True, None, 200, ("bfloat16",)),  # a q offset no multiple of 128
     (1, 8192, 8192, 32, 8, 128, True, None, 0, ("bfloat16",)),
+    (1, 4096, 4096, 32, 8, 128, True, None, 0, ("bfloat16",)),
     (8, 2048, 2048, 32, 8, 128, True, None, 0, ("bfloat16",)),
 ]
+# the shapes at which kernel 11 is timed against SDPA: (b, sq) -> path; the
+# serving one is the kernel's row of the last JSON line
+FLASH_TIMED = {(8, 2048): "serving", (1, 4096): "training"}
 # (atol, rtol) on o: the reference's own for its kernel (tests/test_kernel_flash.py)
 FLASH_TOL = {"float32": (2e-3, 2e-3), "bfloat16": (3e-2, 0.0)}
 LSE_TOL = 1e-3
@@ -715,8 +794,10 @@ def within(a, b, atol: float, rtol: float) -> bool:
 def check_flash(records: dict) -> None:
     """The flash-attention kernel against its plain blockwise version and the
     full-softmax oracle on the same inputs, within the reference's own
-    tolerances; at the serving path's shape, kernel, plain version and
-    ``F.scaled_dot_product_attention`` (the yardstick) timed."""
+    tolerances; at the serving and training paths' shapes, kernel and
+    ``F.scaled_dot_product_attention`` (the yardstick) timed, with TFLOP/s
+    and the share of the operation bound, and at the serving shape the
+    plain version too."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.kernels.flash_attention import ref as far
@@ -733,7 +814,9 @@ def check_flash(records: dict) -> None:
             kw = dict(causal=causal, window=window, q_offset=q_offset)
             o, lse = fak.flash_attention_fwd(q, k, v, **kw)
             torch.cuda.synchronize()
-            op, lsep = far.flash_attention_fwd(q, k, v, **kw)
+            blocks = dict(block_q=512 if sq % 512 == 0 else sq,
+                          block_k=512 if sk % 512 == 0 else sk)
+            op, lsep = far.flash_attention_fwd(q, k, v, **kw, **blocks)
             oracle = far.attention(q, k, v, **kw)
             atol, rtol = FLASH_TOL[dt]
             tag = (f"flash_attention_fwd ({b}, {sq}/{sk}, {hq}/{hkv}, {hd}) {dt} causal={causal} "
@@ -747,20 +830,24 @@ def check_flash(records: dict) -> None:
             tag += (f": max |o - plain| {err:.3g}, |o - oracle| {max_err(o, oracle):.3g}, "
                     f"|lse - plain| {max_err(lse, lsep):.3g}")
             del oracle
-            if sq == 2048:    # the serving path's shape
+            path = FLASH_TIMED.get((b, sq))
+            if path:
                 ms = cuda_ms(lambda: fak.flash_attention_fwd(q, k, v, **kw), reps=10)
-                pms = cuda_ms(lambda: far.flash_attention_fwd(q, k, v, **kw), reps=1)
                 qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
                 lms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
                 nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
                 flops = 4 * b * hq * hd * live_pairs(sq, sk, causal, window, q_offset)
                 tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
-                records["flash_attention_fwd"] = {
-                    "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": max(tb, tf),
-                    "bound_by": "bytes" if tb >= tf else "operations", "library_ms": lms}
-                tag += (f"; kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {pms:.3f} "
-                        f"ms, sdpa {lms:.3f} ms, bound {max(tb, tf):.3f} ms")
+                tag += (f"; {path} shape: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                        f"{100 * max(tb, tf) / ms:.1f}% of its {max(tb, tf):.3f} ms bound), "
+                        f"sdpa {lms:.3f} ms ({ms / lms:.2f}x)")
+                if path == "serving":
+                    pms = cuda_ms(lambda: far.flash_attention_fwd(q, k, v, **kw), reps=1)
+                    records["flash_attention_fwd"] = {
+                        "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": max(tb, tf),
+                        "bound_by": "bytes" if tb >= tf else "operations", "library_ms": lms}
+                    tag += f", plain {pms:.3f} ms"
             print(f"  {tag}", flush=True)
             del q, k, v, o, lse, op, lsep
 
@@ -1177,9 +1264,10 @@ def run_serving(launches_total) -> dict:
 TRAIN_SEED = 0
 # Step 0, rank 0, on the main path's parameters and batch.
 # (1) bf16, every flash call of the step checked in place: each kernel call
-# is also computed by the plain blockwise version in the kernels' own 64 × 64
-# tiles on the same inputs, within phase 2's limits (FLASH_TOL and LSE_TOL
-# for the forward, BWD_BF16_REL for the two sweeps).
+# is also computed by the plain blockwise version in 64 × 64 tiles (the
+# backward kernels' own; the forward kernel's are 128 × 128) on the same
+# inputs, within phase 2's limits (FLASH_TOL and LSE_TOL for the forward,
+# BWD_BF16_REL for the two sweeps).
 # (2) bf16, the whole model's loss and gradients with the kernels against the
 # plain flash in 64 × 64 tiles and against attn_impl="xla" (plain-torch
 # chunked attention under autograd): per-leaf ‖Δg‖/‖g‖ ≤ TRAIN_GRAD_TOL and
@@ -1273,8 +1361,6 @@ def run_training(launches_total) -> dict:
     then ``Trainer.fit`` for ``TRAIN_STEPS`` steps, every phase checked and
     timed (host clock after a synchronize; the checks run outside the timed
     spans); returns the summary line."""
-    import collections
-
     import torch
     from repro_torch.core import wire
     from repro_torch.data.pipeline import SyntheticLM
@@ -1512,9 +1598,16 @@ def main() -> int:
     from repro_torch.train import synthetic
 
     t0 = time.perf_counter()
-    backend.build()
-    for name in backend.SOURCES:
-        backend.lib(name)
+    proc, cubin = start_flash_cubin()
+    try:
+        backend.build()
+        for name in backend.SOURCES:
+            backend.lib(name)
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    check_flash_cubin(proc, cubin)
     print(f"[1] built {', '.join(backend.SOURCES)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
 

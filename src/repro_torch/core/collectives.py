@@ -9,7 +9,9 @@ compression axes manual.  Here a communicator stands in for the axes:
   runs each rank's pack and each shard's decode in turn; all_gather is the
   stack itself; psum accumulates in f32 in rank order.
 * :class:`DistComm` — the same interface over ``torch.distributed`` (one
-  rank per process): ``all_gather_into_tensor`` and ``all_reduce``.
+  rank per process): ``all_gather_into_tensor`` and ``all_reduce``; its
+  psum of a buffer narrower than f32 gathers the rows and sums them as
+  StackedComm does, so the two give the same bits at every n.
 
 Both count the bytes handed to them, so a run can hold the traffic against
 the codecs' ``wire_bits`` / ``scatter_bits`` accounting.
@@ -60,21 +62,30 @@ class StackedComm:
         rank order."""
         self._check(local)
         self.bytes_reduced += local.numel() * local.element_size()
-        acc = torch.zeros(local.shape[1:], dtype=torch.float32, device=local.device)
-        for r in range(self.size):
-            acc += local[r]
-        return acc
+        return _rank_order_sum(local)
+
+
+def _rank_order_sum(rows):
+    """Σ of the (n, ...) rows in f32, from 0, in rank order."""
+    acc = torch.zeros(rows.shape[1:], dtype=torch.float32, device=rows.device)
+    for r in range(rows.shape[0]):
+        acc += rows[r]
+    return acc
 
 
 class DistComm:
     """One rank per process over ``torch.distributed`` (any backend with
     all_gather_into_tensor and all_reduce: NCCL on cards, gloo on CPUs).
 
-    ``psum`` all-reduces the buffer in its own dtype (bf16 for the fixed-k
-    wire, so the bytes are the accounted ones); the backend picks the
-    summation order, so its bf16 sum can differ from StackedComm's f32
-    rank-order sum in the last bit for n > 2.  ``bytes_*`` count this
-    rank's contributions.
+    ``psum`` of a buffer narrower than f32 (the fixed-k wire's bf16)
+    gathers every rank's buffer and sums the rows in f32 from 0 in rank
+    order, as :meth:`StackedComm.psum` does: the same bits at every n,
+    where a bf16 all-reduce rounds each partial sum in the backend's
+    order.  Each rank then receives (n − 1)·|buf| against a ring
+    all-reduce's 2(n − 1)/n·|buf|.  An f32 buffer (the exact mean, the dense
+    simulation) is all-reduced in f32: gathering n full f32 gradients would
+    cost n× the memory.  ``bytes_*`` count this rank's contributions, the
+    buffer it hands over.
     """
 
     def __init__(self, group=None, device=None):
@@ -93,23 +104,29 @@ class DistComm:
         self.bytes_gathered = 0
         self.bytes_reduced = 0
 
-    def all_gather(self, local):
-        """(1, ...) local row → (n, ...) rows of all ranks in rank order."""
+    def _gather(self, local):
         if local.shape[0] != 1:
             raise ValueError(f"DistComm holds one rank; got {local.shape[0]} rows")
         local = local.contiguous()
         out = torch.empty((self.size,) + tuple(local.shape[1:]), dtype=local.dtype,
                           device=local.device)
         self._dist.all_gather_into_tensor(out, local, group=self.group)
+        return out
+
+    def all_gather(self, local):
+        """(1, ...) local row → (n, ...) rows of all ranks in rank order."""
+        out = self._gather(local)
         self.bytes_gathered += local.numel() * local.element_size()
         return out
 
     def psum(self, local):
         if local.shape[0] != 1:
             raise ValueError(f"DistComm holds one rank; got {local.shape[0]} rows")
+        self.bytes_reduced += local.numel() * local.element_size()
+        if local.element_size() < 4:
+            return _rank_order_sum(self._gather(local))
         buf = local[0].clone()
         self._dist.all_reduce(buf, group=self.group)
-        self.bytes_reduced += buf.numel() * buf.element_size()
         return buf.to(torch.float32)
 
 

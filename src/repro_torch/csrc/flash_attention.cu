@@ -15,43 +15,71 @@
 //   o    = acc / max(l, 1e-30) in q's dtype;  lse = m + log(max(l, 1e-30))
 // q_pos = q_offset + row.  q-head h reads kv head h / (Hq / Hkv) (the
 // reference's kv_map, :118).  A key tile that the reference's _block_live
-// (:41) calls dead for the CTA's 64 rows is not visited.  With the finite
+// (:41) calls dead for a CTA's rows is not visited.  With the finite
 // sentinel a row that is fully masked inside a live tile takes weight 1 per
 // masked key until its first real key, whose corr = exp(-1e30 - m) = 0
-// wipes them: so the result does not depend on the tile sizes, and 64-row
-// tiles here agree with the reference's 512-row blocks.  Keys past the end
-// of a ragged last tile do not exist: they get -inf (p = 0 exactly; m stays
-// finite, it starts at -1e30), and their V rows are zero-filled.
+// wipes them: so the result does not depend on the tile sizes, and 128- or
+// 64-row tiles here agree with the reference's 512-row blocks.  Keys past
+// the end of a ragged last tile do not exist: they get -inf (p = 0 exactly;
+// m stays finite, it starts at -1e30), and their V rows are zero-filled.
 //
 // Layout: q, o (B, Sq, Hq, hd) and k, v (B, Sk, Hkv, hd), contiguous -- the
 // model's layout, read in place (no transposes); lse (B, Hq, Sq) f32.
-// One CTA per (batch * q-head, 64-row q tile), heaviest causal tiles first;
-// K and V tiles of 64 keys staged in shared memory; the online-softmax
-// state in registers.
-//   bf16 (the serving path): fa_fwd_mma, 4 warps of 16 rows each, warp-level
-//     mma.sync m16n8k16 (bf16 in, f32 accumulate) for Q.K^T and P.V; Q's A
-//     fragments stay in registers for the whole sweep; P goes from the S
-//     accumulators to A fragments in registers (rounded to bf16, as the
-//     reference's p.astype(v.dtype)).
-//   f32: fa_fwd_simt, 256 threads, each 4 rows x 4 keys of S and 4 rows x
-//     hd/16 columns of o with f32 FMAs (the reference's f32 products; no
-//     TF32).
+// Heaviest causal tiles first (blockIdx.y counts down the q tiles).
 //
-// Bound (the serving path, bf16, causal): operations -- 4 * B * Hq * hd
-// flops per live (q, k) pair on the tensor cores (989 TFLOP/s dense bf16)
-// against 2 * (|q| + |k| + |v| + |o|) bytes + 4 * |lse| at 3.35 TB/s.  At
-// (8, 2048, 32/8, 128) that is 0.55 TFLOP against 0.18 GB.  This first
-// kernel loads tiles synchronously (no cp.async / TMA pipeline, no wgmma),
-// so it sits well below that bound; the tiles and the schedule are the
-// parts a faster version keeps.
+// bf16 (the serving and training paths): fa_fwd_wgmma.  One CTA per
+// (batch * q head, 128-row q tile), three warpgroups:
+//   - warpgroup 0, the producer, gives up its registers (setmaxnreg 24);
+//     one thread loads Q once and then the live K and V tiles of 128 keys
+//     by TMA into a 2-stage ring, K and V each with a full and an empty
+//     mbarrier per stage (K goes back a P.V earlier than V).  4-D tensor
+//     maps over (hd, H, S, B) read the model's layout in place; boxes of
+//     64 x 1 x 128 x 1 with the 128-byte swizzle (hd 128 is two boxes);
+//     TMA zero-fills rows past S.
+//   - warpgroups 1 and 2, the consumers (setmaxnreg 240), own 64 q rows
+//     each, the native wgmma M.  S = Q.K^T by wgmma m64n128k16 with Q and
+//     K both K-major from shared-memory descriptors; the online softmax on
+//     the accumulators in registers (each warp's 16 rows have the m16n8
+//     C-fragment pattern: row max over quads of lanes), exp2 with
+//     scale * log2(e) folded in, masks only on tiles that cross the
+//     diagonal, the window edge or sk (classified once per tile), l kept as
+//     per-thread partial sums until the end; O += P.V by wgmma m64n{hd}k16
+//     with P from registers (rounded to bf16, as the reference's
+//     p.astype(v.dtype)) and V read from its row-major tile as the MN-major
+//     B operand.  Step i starts S_i and P_{i-1}.V_{i-1} together and runs
+//     tile i's softmax while P.V is in flight (the first and last steps
+//     peeled, so ptxas sees which wgmma groups are outstanding and keeps
+//     them asynchronous); the two consumers take turns to start them (named
+//     barriers), so one's softmax overlaps the other's products.
+//   - epilogue: o normalised, rounded to bf16, written swizzled into the
+//     warpgroup's own rows of the Q tile and stored by TMA (rows past Sq
+//     are clipped); lse by the lanes that own each row.
+//   Shared memory at hd 128: Q 32 KB + 2 stages x (K 32 KB + V 32 KB) =
+//   160 KB (one CTA per SM); half at hd 64.
+// f32: fa_fwd_simt, 64-row tiles, 256 threads, each 4 rows x 4 keys of S
+//   and 4 rows x hd/16 columns of o with f32 FMAs (the reference's f32
+//   products; no TF32).  Neither main path runs it.
+//
+// Bound (bf16, causal): operations -- 4 * B * Hq * hd flops per live (q, k)
+// pair on the tensor cores (989 TFLOP/s dense bf16) against
+// 2 * (|q| + |k| + |v| + |o|) bytes + 4 * |lse| at 3.35 TB/s.  At
+// (8, 2048, 32/8, 128) that is 0.275 TFLOP against 0.18 GB: 0.278 ms by
+// operations.  The design keeps the tensor cores fed: wgmma reads Q, K and
+// V from shared memory with no register staging, the loads run a tile
+// ahead off the consumers' path, and softmax overlaps products within and
+// across warpgroups.  What it leaves: each CTA's prologue (Q and the first
+// K) and epilogue are not overlapped with another tile's work (no
+// persistent CTAs), the diagonal tile's masked half is computed, and each
+// K/V tile is read once per q head of its group (L2 serves the repeats).
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace flash;
 
-constexpr int kBQ = kTile;          // q rows per CTA
-constexpr int kBK = kTile;          // keys per tile
+constexpr int kBQ = kTile;          // q rows per CTA (f32)
+constexpr int kBK = kTile;          // keys per tile (f32)
 
 struct Args {
   const void* q;
@@ -205,149 +233,299 @@ __global__ void __launch_bounds__(256) fa_fwd_simt(Args a) {
   }
 }
 
-// --------------------------------------------------------- bf16 (mma.sync)
+
+// ------------------------------------------------------------ bf16 (wgmma)
+
+constexpr int kRows = 128;                 // q rows per CTA; keys per K/V tile
+constexpr int kStages = 2;                 // depth of the K/V ring
+constexpr int kBoxBytes = kRows * 128;     // one 64-column box of 128 rows
+constexpr int kConsumerWarps = 8;
+constexpr int kTurn = 3;                   // named barriers 3, 4 (1, 2: the epilogue's)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Offsets in the (1024-aligned) dynamic shared memory.
+template <int HD>
+struct Smem {
+  static constexpr int kTileBytes = HD / 64 * kBoxBytes;   // 128 rows of hd
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTileBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBars = kV + kStages * kTileBytes;  // K, V full and empty; Q
+  static constexpr int kBytes = kBars + 128 + 1024;        // + alignment slack
+};
+
+// The first and last key tile _block_live keeps for the CTA's 128 rows.
+struct Span {
+  int lo, hi;
+};
+
+__device__ __forceinline__ Span live_span(const Args& a, int64_t q_start) {
+  int64_t hi = (a.sk + kRows - 1) / kRows - 1, lo = 0;
+  if (a.causal) hi = min(hi, (q_start + kRows - 1) / kRows);
+  if (a.window > 0) {
+    const int64_t x = q_start - a.window - (kRows - 1);   // live iff k_start > x
+    lo = x < 0 ? 0 : x / kRows + 1;
+  }
+  return {static_cast<int>(lo), static_cast<int>(hi)};
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 template <int HD>
-__global__ void __launch_bounds__(128) fa_fwd_mma(Args a) {
-  // Rows of LD bf16: 16-byte aligned (tile loads) and, at LD/2 words, a
-  // stride of 4 banks mod 32, so the 8 x 4 lanes of a fragment load hit 32
-  // distinct banks.
-  constexpr int LD = HD + 8;
-  constexpr int NK = HD / 16;    // k-steps of Q.K^T
-  constexpr int NJ = kBK / 8;    // n-tiles of S
-  constexpr int ND = HD / 8;     // n-tiles of o
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBK * LD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBK * LD];
+__global__ void __launch_bounds__(384, 1)
+    fa_fwd_wgmma(const Args a, const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                 const __grid_constant__ CUtensorMap omap) {
+  using L = Smem<HD>;
+  constexpr int NO = HD / 2;               // o accumulators per thread
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty_k = full_v + kStages;
+  uint64_t* empty_v = empty_k + kStages;
+  uint64_t* qbar = empty_v + kStages;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t bh = blockIdx.x;
-  const int64_t b = bh / a.hq, h = bh % a.hq;
-  const int64_t kvh = h / (a.hq / a.hkv);
-  const int64_t qt = gridDim.y - 1 - blockIdx.y;
-  const int64_t row0 = qt * kBQ;
-  const int64_t q_start = a.q_offset + row0;
-  const int64_t q_stride = a.hq * HD, kv_stride = a.hkv * HD;
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) + (b * a.sq * a.hq + h) * HD;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + (b * a.sk * a.hkv + kvh) * HD;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + (b * a.sk * a.hkv + kvh) * HD;
+  const int bh = blockIdx.x;
+  const int b = bh / static_cast<int>(a.hq), h = bh % static_cast<int>(a.hq);
+  const int kvh = h / static_cast<int>(a.hq / a.hkv);
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int q_start = static_cast<int>(a.q_offset) + row0;
+  const Span span = live_span(a, q_start);
+  const int n = max(0, span.hi - span.lo + 1);
 
-  // Q through shared memory (the K buffer) into A fragments.
-  load_tile<__nv_bfloat16, HD, LD, 128>(Ks, qg, q_stride, row0, a.sq);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full_k[s], 1);
+      hopper::mbar_init(&full_v[s], 1);
+      hopper::mbar_init(&empty_k[s], kConsumerWarps);
+      hopper::mbar_init(&empty_v[s], kConsumerWarps);
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
-  uint32_t qa[NK][4];
-#pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    const __nv_bfloat16* r = Ks + (warp * 16 + g) * LD + kk * 16 + 2 * t;
-    qa[kk][0] = ld32(r);
-    qa[kk][1] = ld32(r + 8 * LD);
-    qa[kk][2] = ld32(r + 8);
-    qa[kk][3] = ld32(r + 8 * LD + 8);
-  }
 
-  // this thread's two rows: warp*16 + g (fragment slots 0, 1) and + 8 (2, 3)
-  const int64_t qp0 = q_start + warp * 16 + g, qp1 = qp0 + 8;
-  float m0 = kMasked, m1 = kMasked, l0 = 0.f, l1 = 0.f;
-  float acc[ND][4];
-#pragma unroll
-  for (int jd = 0; jd < ND; ++jd) acc[jd][0] = acc[jd][1] = acc[jd][2] = acc[jd][3] = 0.f;
-
-  const int64_t nk = (a.sk + kBK - 1) / kBK;
-  for (int64_t kt = 0; kt < nk; ++kt) {
-    const int64_t k_start = kt * kBK;
-    if (!tile_live(a, q_start, k_start)) continue;
-    __syncthreads();   // Q fragments read / the previous tile's readers done
-    load_tile<__nv_bfloat16, HD, LD, 128>(Ks, kg, kv_stride, k_start, a.sk);
-    load_tile<__nv_bfloat16, HD, LD, 128>(Vs, vg, kv_stride, k_start, a.sk);
-    __syncthreads();
-
-    float s[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const __nv_bfloat16* kp = Ks + (8 * j + g) * LD + kk * 16 + 2 * t;
-        mma_bf16(s[j], qa[kk], ld32(kp), ld32(kp + 8));
+  if (threadIdx.x < 128) {
+    // ---- producer: Q once, then K and V of each live tile, each on its
+    // own full / empty barrier pair (K is released a P.V earlier than V)
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_tensormap(&qmap);
+      hopper::prefetch_tensormap(&kmap);
+      hopper::prefetch_tensormap(&vmap);
+      hopper::mbar_expect_tx(qbar, L::kTileBytes);
+      for (int j = 0; j < HD / 64; ++j)
+        hopper::tma_load_4d(base + L::kQ + j * kBoxBytes, &qmap, qbar, 64 * j, h, row0, b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kStages, ks = (span.lo + i) * kRows;
+        const uint32_t parity = (i / kStages - 1) & 1;
+        if (i >= kStages) hopper::mbar_wait(&empty_k[s], parity);
+        hopper::mbar_expect_tx(&full_k[s], L::kTileBytes);
+        for (int j = 0; j < HD / 64; ++j)
+          hopper::tma_load_4d(base + L::kK + s * L::kTileBytes + j * kBoxBytes, &kmap,
+                              &full_k[s], 64 * j, kvh, ks, b);
+        if (i >= kStages) hopper::mbar_wait(&empty_v[s], parity);
+        hopper::mbar_expect_tx(&full_v[s], L::kTileBytes);
+        for (int j = 0; j < HD / 64; ++j)
+          hopper::tma_load_4d(base + L::kV + s * L::kTileBytes + j * kBoxBytes, &vmap,
+                              &full_v[s], 64 * j, kvh, ks, b);
       }
     }
+  } else {
+    // ---- consumers
+    hopper::setmaxnreg_inc<240>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int qw0 = q_start + 64 * c;                 // this warpgroup's first q position
+    const int rr0 = 16 * warp + g, rr1 = rr0 + 8;     // rows within its 64
+    const int qp0 = qw0 + rr0, qp1 = qw0 + rr1;
+    const int sk = static_cast<int>(a.sk), window = static_cast<int>(a.window);
+    const float sl2 = a.scale * kLog2e;
+    unsigned char* qs = base + L::kQ + c * (64 * 128);   // its rows of the first Q box
+    const uint64_t dq = hopper::desc_sw128(qs, 16, 1024);
+    const uint64_t dk = hopper::desc_sw128(base + L::kK, 16, 1024);
+    const uint64_t dv = hopper::desc_sw128(base + L::kV, kBoxBytes, 1024);
 
-    float mx0 = m0, mx1 = m1;
+    float m0 = kMasked, m1 = kMasked, l0 = 0.f, l1 = 0.f, c0 = 1.f, c1 = 1.f;
+    float o[NO], sc[64];
+    uint32_t pa[8][4];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int64_t kp = k_start + 8 * j + 2 * t;
-      s[j][0] = mask_score(a, s[j][0] * a.scale, qp0, kp);
-      s[j][1] = mask_score(a, s[j][1] * a.scale, qp0, kp + 1);
-      s[j][2] = mask_score(a, s[j][2] * a.scale, qp1, kp);
-      s[j][3] = mask_score(a, s[j][3] * a.scale, qp1, kp + 1);
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      s[j][0] = expf(s[j][0] - mx0);
-      s[j][1] = expf(s[j][1] - mx0);
-      s[j][2] = expf(s[j][2] - mx1);
-      s[j][3] = expf(s[j][3] - mx1);
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-    }
-    const float c0 = expf(m0 - mx0), c1 = expf(m1 - mx1);
-    l0 = l0 * c0 + sum0;
-    l1 = l1 * c1 + sum1;
-    m0 = mx0;
-    m1 = mx1;
-#pragma unroll
-    for (int jd = 0; jd < ND; ++jd) {
-      acc[jd][0] *= c0;
-      acc[jd][1] *= c0;
-      acc[jd][2] *= c1;
-      acc[jd][3] *= c1;
-    }
+    for (int j = 0; j < NO; ++j) o[j] = 0.f;
 
+    auto start_s = [&](int i) {   // S_i = Q . K_i^T
+      const int s = i % kStages;
+      hopper::mbar_wait(&full_k[s], (i / kStages) & 1);
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_round(s[2 * kk][0], s[2 * kk][1]),
-                              pack_round(s[2 * kk][2], s[2 * kk][3]),
-                              pack_round(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_round(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* vp = Vs + (16 * kk + 2 * t) * LD + g;
-#pragma unroll
-      for (int jd = 0; jd < ND; ++jd) {
-        const __nv_bfloat16* c = vp + 8 * jd;
-        mma_bf16(acc[jd], pa, pack_raw(c[0], c[LD]), pack_raw(c[8 * LD], c[9 * LD]));
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        hopper::wgmma_m64n128k16_ss(sc, dq + (off >> 4), dk + ((s * L::kTileBytes + off) >> 4),
+                                    kk > 0);
       }
-    }
-  }
+      hopper::wgmma_commit();
+    };
+    auto start_pv = [&](int i) {   // O += P_i . V_i
+      const int s = i % kStages;
+      hopper::mbar_wait(&full_v[s], (i / kStages) & 1);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t d = dv + ((s * L::kTileBytes + kk * 16 * 128) >> 4);
+        if constexpr (HD == 128)
+          hopper::wgmma_m64n128k16_rs_mn(o, pa[kk], d);
+        else
+          hopper::wgmma_m64n64k16_rs_mn(o, pa[kk], d);
+      }
+      hopper::wgmma_commit();
+    };
+    auto softmax = [&](int i) {   // S_i has completed: p in place, m, l, corr
+      if (lane == 0) hopper::mbar_arrive(&empty_k[i % kStages]);
+      // scores in base 2: unmasked tiles fold the scale into the exponent;
+      // tiles across the diagonal, the window edge or sk are scaled and
+      // masked here (mul = 1)
+      const int ks = (span.lo + i) * kRows;
+      float mul = sl2;
+      if (ks + kRows > sk || (a.causal && ks + kRows - 1 > qw0) ||
+          (window > 0 && ks <= qw0 + 63 - window)) {
+        mul = 1.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kp = ks + 8 * j + 2 * t + (e & 1);
+            const int qp = e < 2 ? qp0 : qp1;
+            float x = sc[4 * j + e] * sl2;
+            if (kp >= sk)
+              x = -INFINITY;
+            else if ((a.causal && kp > qp) || (window > 0 && kp <= qp - window))
+              x = kMasked;
+            sc[4 * j + e] = x;
+          }
+      }
+      float r0 = fmaxf(sc[0], sc[1]), r1 = fmaxf(sc[2], sc[3]);
+#pragma unroll
+      for (int j = 1; j < 16; ++j) {
+        r0 = fmaxf(r0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        r1 = fmaxf(r1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, off));
+        r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, off));
+      }
+      const float mx0 = fmaxf(m0, r0 * mul), mx1 = fmaxf(m1, r1 * mul);
+      c0 = ex2(m0 - mx0);
+      c1 = ex2(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        sc[4 * j] = ex2(fmaf(sc[4 * j], mul, -mx0));
+        sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], mul, -mx0));
+        sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], mul, -mx1));
+        sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], mul, -mx1));
+        sum0 += sc[4 * j] + sc[4 * j + 1];
+        sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l0 = l0 * c0 + sum0;
+      l1 = l1 * c1 + sum1;
+    };
+    auto rescale_pack = [&]() {   // O to the new max; P as bf16 A fragments
+#pragma unroll
+      for (int j = 0; j < NO / 4; ++j) {
+        o[4 * j] *= c0;
+        o[4 * j + 1] *= c0;
+        o[4 * j + 2] *= c1;
+        o[4 * j + 3] *= c1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        pa[kk][0] = pack_round(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = pack_round(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_round(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_round(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+    auto release_v = [&](int i) {   // P_i . V_i has completed
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      if (lane == 0) hopper::mbar_arrive(&empty_v[i % kStages]);
+    };
 
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o) + (b * a.sq * a.hq + h) * HD;
-  const int64_t r0 = row0 + warp * 16 + g, r1 = r0 + 8;
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  if (r0 < a.sq) {
+    // The two consumers take turns to start their products (named barriers
+    // kTurn + c, warpgroup 0 first), so one's softmax runs while the
+    // other's products hold the tensor cores.
+    auto my_turn = [&] { hopper::named_barrier_sync(kTurn + c, 256); };
+    auto your_turn = [&] { hopper::named_barrier_arrive(kTurn + 1 - c, 256); };
+
+    hopper::mbar_wait(qbar, 0);
+    if (n > 0) {
+      if (c == 1) your_turn();
+      my_turn();
+      start_s(0);
+      your_turn();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      softmax(0);
+      rescale_pack();
+      // step i: S_i and P_{i-1}.V_{i-1} started together; tile i's softmax
+      // runs while P.V is still in flight
+      for (int i = 1; i < n; ++i) {
+        my_turn();
+        start_s(i);
+        start_pv(i - 1);
+        your_turn();
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(sc);
+        softmax(i);
+        release_v(i - 1);
+        rescale_pack();
+      }
+      my_turn();
+      start_pv(n - 1);
+      your_turn();
+      release_v(n - 1);
+      if (c == 0) my_turn();   // takes warpgroup 1's last turn
+    }
+
+    // ---- epilogue: o through this warpgroup's Q rows, then a TMA store
 #pragma unroll
-    for (int jd = 0; jd < ND; ++jd)
-      *reinterpret_cast<uint32_t*>(og + r0 * q_stride + 8 * jd + 2 * t) =
-          pack_round(acc[jd][0] / d0, acc[jd][1] / d0);
-    if (t == 0) a.lse[bh * a.sq + r0] = m0 + logf(d0);
-  }
-  if (r1 < a.sq) {
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    const float i0 = 1.f / d0, i1 = 1.f / d1;
 #pragma unroll
-    for (int jd = 0; jd < ND; ++jd)
-      *reinterpret_cast<uint32_t*>(og + r1 * q_stride + 8 * jd + 2 * t) =
-          pack_round(acc[jd][2] / d1, acc[jd][3] / d1);
-    if (t == 0) a.lse[bh * a.sq + r1] = m1 + logf(d1);
+    for (int j = 0; j < NO / 4; ++j) {
+      unsigned char* box = qs + (j / 8) * kBoxBytes;
+      const int ch = j % 8;
+      *reinterpret_cast<uint32_t*>(box + rr0 * 128 + ((ch ^ (rr0 & 7)) << 4) + 4 * t) =
+          pack_round(o[4 * j] * i0, o[4 * j + 1] * i0);
+      *reinterpret_cast<uint32_t*>(box + rr1 * 128 + ((ch ^ (rr1 & 7)) << 4) + 4 * t) =
+          pack_round(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
+    }
+    hopper::fence_proxy_async_smem();
+    hopper::named_barrier_sync(1 + c, 128);
+    if (tid == 0) {
+      for (int j = 0; j < HD / 64; ++j)
+        hopper::tma_store_4d(&omap, qs + j * kBoxBytes, 64 * j, h, row0 + 64 * c, b);
+      hopper::tma_store_commit();
+      hopper::tma_store_wait_read();
+    }
+    if (t == 0) {
+      float* lse = a.lse + static_cast<int64_t>(bh) * a.sq + row0 + 64 * c;
+      if (row0 + 64 * c + rr0 < a.sq) lse[rr0] = (m0 == kMasked ? kMasked : m0 * kLn2) + logf(d0);
+      if (row0 + 64 * c + rr1 < a.sq) lse[rr1] = (m1 == kMasked ? kMasked : m1 * kLn2) + logf(d1);
+    }
   }
 }
 
@@ -364,9 +542,28 @@ int launch_simt(const Args& a, int64_t b, cudaStream_t stream) {
 }
 
 template <int HD>
-int launch_mma(const Args& a, int64_t b, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(b * a.hq), static_cast<unsigned>((a.sq + kBQ - 1) / kBQ));
-  fa_fwd_mma<HD><<<grid, 128, 0, stream>>>(a);
+int launch_wgmma(const Args& a, int64_t b, cudaStream_t stream) {
+  using L = Smem<HD>;
+  const uint64_t e = sizeof(__nv_bfloat16);
+  const uint64_t qdims[4] = {HD, static_cast<uint64_t>(a.hq), static_cast<uint64_t>(a.sq),
+                             static_cast<uint64_t>(b)};
+  const uint64_t kdims[4] = {HD, static_cast<uint64_t>(a.hkv), static_cast<uint64_t>(a.sk),
+                             static_cast<uint64_t>(b)};
+  const uint64_t qstrides[3] = {HD * e, a.hq * HD * e, a.sq * a.hq * HD * e};
+  const uint64_t kstrides[3] = {HD * e, a.hkv * HD * e, a.sk * a.hkv * HD * e};
+  const uint32_t box[4] = {64, 1, kRows, 1};
+  const uint32_t obox[4] = {64, 1, 64, 1};   // one consumer warpgroup's rows
+  CUtensorMap qmap, kmap, vmap, omap;
+  if (!hopper::encode_bf16_4d(&qmap, a.q, qdims, qstrides, box) ||
+      !hopper::encode_bf16_4d(&kmap, a.k, kdims, kstrides, box) ||
+      !hopper::encode_bf16_4d(&vmap, a.v, kdims, kstrides, box) ||
+      !hopper::encode_bf16_4d(&omap, a.o, qdims, qstrides, obox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(fa_fwd_wgmma<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(b * a.hq), static_cast<unsigned>((a.sq + kRows - 1) / kRows));
+  fa_fwd_wgmma<HD><<<grid, 384, L::kBytes, stream>>>(a, qmap, kmap, vmap, omap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -375,21 +572,28 @@ int launch_mma(const Args& a, int64_t b, cudaStream_t stream) {
 extern "C" {
 
 // q, o: (b, sq, hq, hd); k, v: (b, sk, hkv, hd), contiguous, of one dtype
-// (0: f32, 1: bf16); lse: (b, hq, sq) f32.  hd is 64 or 128, hq a multiple
-// of hkv, window <= 0 for none.  Returns the cudaError_t of the launch.
+// (0: f32, 1: bf16, whose pointers are 16-byte aligned for TMA); lse:
+// (b, hq, sq) f32.  hd is 64 or 128, hq a multiple of hkv, window <= 0 for
+// none.  Returns the cudaError_t of the launch.
 int fa_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int64_t b,
            int64_t sq, int64_t sk, int64_t hq, int64_t hkv, int64_t hd, int64_t q_offset,
            int causal, int64_t window, float scale, int dtype, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || q_offset < 0 ||
-      b * hq > 0x7fffffff || (sq + kBQ - 1) / kBQ > 65535)
+      b * hq > 0x7fffffff || (sq + kBQ - 1) / kBQ > 65535 || q_offset + sq > 0x7fffffff ||
+      sk > 0x7fffffff || window > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, lse, sq, sk, hq, hkv, q_offset, window, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64) return launch_simt<64>(a, b, s);
   if (dtype == 0 && hd == 128) return launch_simt<128>(a, b, s);
-  if (dtype == 1 && hd == 64) return launch_mma<64>(a, b, s);
-  if (dtype == 1 && hd == 128) return launch_mma<128>(a, b, s);
+  if (dtype == 1 && hd == 64) return launch_wgmma<64>(a, b, s);
+  if (dtype == 1 && hd == 128) return launch_wgmma<128>(a, b, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of one bf16 CTA at head dim hd (64 or 128), else 0.
+int fa_fwd_smem_bytes(int64_t hd) {
+  return hd == 64 ? Smem<64>::kBytes : hd == 128 ? Smem<128>::kBytes : 0;
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Device helpers shared by the flash-attention forward (flash_attention.cu)
 // and backward (flash_attention_bwd.cu) kernels: the reference's finite
-// mask sentinel, the 64-row tile loader, and bf16 mma.sync fragments.
+// mask sentinel, bf16 packing, and, for the f32 forward and the backward,
+// the 64-row tile loader and bf16 mma.sync fragments.
 #pragma once
 #include <cstdint>
 #include <cuda_bf16.h>

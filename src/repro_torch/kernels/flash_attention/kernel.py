@@ -12,9 +12,10 @@ Each is counted under its own name in
 in the model's (B, S, H, hd) layout (the reference kernels take
 (B, H, S, hd)), check them, allocate their outputs with ``torch.empty``,
 launch on PyTorch's current stream and raise on a nonzero
-``cudaGetLastError``.  bf16 runs the ``mma.sync`` kernels, f32 the SIMT
-ones; tiles are 64 × 64 whatever the caller's block sizes.  Design and
-bound are in the sources' header comments.
+``cudaGetLastError``.  In bf16 the forward is the Hopper kernel (TMA tile
+ring, ``wgmma``, 128 × 128 tiles) and the backward the ``mma.sync`` sweeps
+(64 × 64 tiles); f32 runs the SIMT kernels (64 × 64), whatever the caller's
+block sizes.  Design and bound are in the sources' header comments.
 """
 from __future__ import annotations
 
@@ -78,6 +79,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: Optional[int] =
     bf16), hd 64 or 128, Hq % Hkv == 0 → (o (B, Sq, Hq, hd) in q's dtype,
     lse (B, Hq, Sq) f32)."""
     shape = _check(q, k, v, q_offset, window)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("bf16 q, k, v must start on 16-byte boundaries (TMA)")
     b, sq, _, hq = shape[:4]
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)

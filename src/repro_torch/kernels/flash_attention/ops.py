@@ -10,8 +10,8 @@ that needs no gradient runs the forward alone, as the serving path does.
 
 Dispatch (:func:`repro_torch.kernels.backend.use_plain`): CPU tensors take
 the plain blockwise versions (:mod:`.ref`) at the caller's block sizes; CUDA
-tensors take the Hopper kernels (:mod:`.kernel`, their own 64 × 64 tiles)
-or an error.  The reference falls back off the TPU to the model's chunked
+tensors take the Hopper kernels (:mod:`.kernel`, their own tiles) or an
+error.  The reference falls back off the TPU to the model's chunked
 XLA path instead; both are the same online softmax.
 """
 from __future__ import annotations

@@ -19,10 +19,11 @@ sides) and the port's center is computed here the reference's way, sum ×
 * ``fixed_k_1bit`` (psum): equal to the reference's ``decode_reduced`` of
   the rank-order f32 mean of its pack buffers, rounded once to bf16.
 
-``DistComm`` all-reduces the bf16 fixed-k buffer in bf16, in the backend's
-order, where ``StackedComm`` sums in f32 in rank order and rounds once.
-At world size 2 the two agree bit for bit (one add, one rounding); at 4
-the fixed-k round is held to the bound of that bf16 rounding
+``DistComm``'s psum gathers the bf16 fixed-k buffers and sums them in f32
+from 0 in rank order, as ``StackedComm`` does, so the fixed-k round over
+gloo equals the stacked one bit for bit at n = 2, 3 and 4
+(:func:`test_distcomm_gloo_fixed_k_psum_equals_stacked`); the older bound
+of a bf16 all-reduce's rounding still holds at 4
 (:func:`test_distcomm_gloo_world_size_4_fixed_k_within_bf16_rounding`).
 The gather rounds over gloo (Bernoulli, binary and ternary, the latter
 with its pass-through count exchange) equal the stacked ones bit for bit.
@@ -208,12 +209,12 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _gloo_rounds(tmp_path, world):
-    """Runs the worker in ``world`` gloo processes; returns the inputs and,
-    per config, the StackedComm round over the same stack."""
+def _gloo_rounds(tmp_path, world, rounds=GLOO_ROUNDS):
+    """Runs the worker in ``world`` gloo processes over ``rounds``; returns
+    the inputs and, per config, the StackedComm round over the same stack."""
     xs = _xs(world, 20_000, 11)
     np.save(tmp_path / "xs.npy", xs)
-    (tmp_path / "cfgs.json").write_text(json.dumps(GLOO_ROUNDS))
+    (tmp_path / "cfgs.json").write_text(json.dumps(rounds))
     port = str(_free_port())
     procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(ROOT / "src"), str(r),
                                port, str(tmp_path), str(world)],
@@ -222,7 +223,7 @@ def _gloo_rounds(tmp_path, world):
     outs = [p.communicate(timeout=240)[0] for p in procs]
     assert [p.returncode for p in procs] == [0] * world, "\n".join(outs)
     stacked = {}
-    for name, (preset, scatter) in GLOO_ROUNDS.items():
+    for name, (preset, scatter) in rounds.items():
         cfg = dataclasses.replace(tpreset(preset, axes=("data",)), scatter_decode=scatter,
                                   min_compress_size=1)
         comm = tcoll.StackedComm(world, "cpu")
@@ -239,6 +240,18 @@ def test_distcomm_gloo_world_size_2_equals_stacked(tmp_path):
     for name, (_, want, _) in stacked.items():
         for r in range(2):
             np.testing.assert_array_equal(np.load(tmp_path / f"{name}.{r}.npy"), want)
+
+
+@pytest.mark.parametrize("n", [3, 4])
+def test_distcomm_gloo_fixed_k_psum_equals_stacked(tmp_path, n):
+    """The psum round (``fixed_k_1bit``) at n > 2: DistComm gathers the bf16
+    buffers and sums them in f32 in rank order, as StackedComm does, so
+    every rank holds StackedComm's result bit for bit (and hence the
+    reference's, :func:`test_stacked_round_equals_reference`)."""
+    _, stacked = _gloo_rounds(tmp_path, n, {"fixed_k_1bit": GLOO_ROUNDS["fixed_k_1bit"]})
+    for r in range(n):
+        np.testing.assert_array_equal(np.load(tmp_path / f"fixed_k_1bit.{r}.npy"),
+                                      stacked["fixed_k_1bit"][1])
 
 
 def test_distcomm_gloo_world_size_4_fixed_k_within_bf16_rounding(tmp_path):

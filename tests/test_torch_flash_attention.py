@@ -79,14 +79,32 @@ def test_plain_flash_forward_matches_pallas(case, dtype):
         np.testing.assert_allclose(lse.numpy(), want_lse, atol=1e-5, rtol=0)
 
 
-def test_plain_flash_is_independent_of_block_sizes():
+# (b, sq, sk, hq, hkv, hd, window, q_offset), causal
+BLOCK_CASES = [
+    (1, 256, 256, 4, 2, 64, 48, 0),        # a window narrower than a tile
+    (1, 256, 512, 4, 2, 64, None, 200),    # a q offset that is no multiple of 128
+    (1, 200, 200, 2, 1, 64, None, 0),      # a ragged length
+]
+
+
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=lambda c: "sq{}-sk{}-w{}-off{}".format(
+    c[1], c[2], c[6], c[7]))
+def test_plain_flash_is_independent_of_block_sizes(case):
     """The finite sentinel wipes a fully masked block's weights at the first
-    real key, so the blockwise result does not depend on the tiling (the
-    kernel tiles by 64, the reference by 512)."""
-    case = (1, 256, 256, 4, 2, 64, True, 48, 0, 0)
+    real key, so the blockwise result does not depend on the tiling: the
+    bf16 kernel tiles by 128 × 128, the f32 kernel and the backward by 64,
+    the reference by 512, all against the whole sequence as one block.  A
+    ragged length is tiled on inputs zero-padded to a multiple of 128, as
+    the kernel's TMA loads pad them: the padded keys lie after every row's
+    first real key and take weight exp(-1e30 - m) = 0 exactly, as the
+    kernel's -inf past Sk does; the padded rows are dropped."""
+    b, sq, sk, hq, hkv, hd, window, q_offset = case
     q, k, v = (torch.from_numpy(x) for x in _qkv(case, seed=1))
-    outs = [tref.flash_attention_fwd(q, k, v, causal=True, window=48, block_q=bq, block_k=bk)
-            for bq, bk in ((256, 256), (64, 64), (32, 128))]
-    for o, lse in outs[1:]:
-        np.testing.assert_allclose(o.numpy(), outs[0][0].numpy(), atol=1e-6, rtol=1e-6)
-        np.testing.assert_allclose(lse.numpy(), outs[0][1].numpy(), atol=1e-6, rtol=0)
+    mask = dict(causal=True, window=window, q_offset=q_offset)
+    o_whole, lse_whole = tref.flash_attention_fwd(q, k, v, **mask, block_q=sq, block_k=sk)
+    q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, -sq % 128))
+    k, v = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, -sk % 128)) for x in (k, v))
+    for bq, bk in ((128, 128), (64, 64), (32, 128)):
+        o, lse = tref.flash_attention_fwd(q, k, v, **mask, block_q=bq, block_k=bk)
+        np.testing.assert_allclose(o[:, :sq].numpy(), o_whole.numpy(), atol=1e-6, rtol=1e-6)
+        np.testing.assert_allclose(lse[..., :sq].numpy(), lse_whole.numpy(), atol=1e-6, rtol=0)

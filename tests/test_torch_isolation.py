@@ -15,7 +15,7 @@ from repro_torch.configs.registry import smoke_config
 from repro_torch.core import collectives as tcoll
 from repro_torch.examples import federated_mean, quickstart
 from repro_torch.kernels import backend
-from repro_torch.launch import bench_encode_speed
+from repro_torch.launch import bench_encode_speed, bench_flash
 from repro_torch.models import model
 from repro_torch.serving import engine
 from repro_torch.train import train_step
@@ -65,7 +65,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         train_step.build_train_step(cfg, run, shape, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, run, shape, TrainerConfig(), 2)
-    for entry in (quickstart.main, federated_mean.main, bench_encode_speed.main):
+    for entry in (quickstart.main, federated_mean.main, bench_encode_speed.main,
+                  bench_flash.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry([])
 

@@ -192,6 +192,12 @@ def _qkv(dev, b, sq, sk, hq, hkv, hd, dtype):
     (1, 256, 256, 4, 2, 64, True, None, 0),
     (2, 100, 100, 8, 2, 128, False, None, 0),     # ragged tiles, not causal
     (1, 128, 512, 4, 1, 128, True, 96, 256),      # window and q offset
+    # the bf16 kernel's 128-row q tiles and 128-key tiles at their edges
+    (1, 1000, 1000, 4, 1, 128, True, None, 0),    # ragged, causal, g = 4
+    (1, 1000, 1000, 4, 4, 64, True, None, 0),     # ragged, causal, hd 64, g = 1
+    (1, 100, 100, 2, 2, 64, True, None, 0),       # less than one tile
+    (1, 512, 512, 4, 1, 128, True, 200, 0),       # a window straddling key tiles
+    (1, 256, 512, 4, 2, 128, True, None, 200),    # q offset not a multiple of 128
 ])
 def test_flash_attention_kernel_within_tolerance_of_plain(dev, dtype, b, sq, sk, hq, hkv, hd,
                                                           causal, window, q_offset):
