@@ -7,10 +7,11 @@ Phases, each printing its own lines:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 1. build every kernel of the path from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, all started together), and beside them kernel 11's
-   source with ``-Xptxas -v``: its bf16 kernel's registers, spills (none
-   allowed) and dynamic shared memory, and ``HGMMA`` and ``UTMALDG`` in its
-   SASS (``cuobjdump -sass``);
+   ``nvcc`` per source, all started together), and beside them the sources
+   of kernels 11–13 with ``-Xptxas -v``: for each bf16 kernel
+   (``fa_fwd_wgmma``, ``fa_bwd_dkv_wgmma``, ``fa_bwd_dq_wgmma``, each at hd
+   64 and 128) its registers, spills (none allowed) and dynamic shared
+   memory, and ``HGMMA`` and ``UTMALDG`` in its SASS (``cuobjdump -sass``);
 2. hold each wire kernel bit-equal against its plain PyTorch version on the card,
    at d = 70,001 and 16,777,217 (n = 8 peers, keys folded per rank from
    ``PRNGKey(seed)``), with a forced-small-cap overflow case and shard
@@ -36,7 +37,9 @@ Phases, each printing its own lines:
    flash-attention backward kernels (dK/dV and dQ sweeps) against the plain
    blockwise backward on the same inputs (f32: |Δ| ≤ 2e-3 + 2e-3·|ref|;
    bf16: ‖Δ‖/‖ref‖ ≤ 2e-4 for each of dq, dk, dv) at g = 4 and 1, causal and
-   not, a window, a q offset, ragged S = 1000, hd 64 and 128, and the
+   not, a window, a q offset, ragged S = 1000, hd 64 and 128, the bf16
+   kernels' tile edges (ragged S = 1000 at hd 64 with g = 1, a window of 200
+   across 128-key tiles, S = 100, q_offset 200 with Sk 512), and the
    training path's (1, 4096, 32/8, 128) bf16 causal, where kernels, plain
    sweeps and SDPA's backward are timed; then hold the hash-PRNG encoders
    (kernel 14, the dense Bernoulli encode, and kernel 15, binary
@@ -254,62 +257,76 @@ def max_err(a, b) -> float:
 
 
 # --------------------------------------------------------------------------- #
-# Phase 1: what the compiler made of kernel 11.
+# Phase 1: what the compiler made of kernels 11–13.
 # --------------------------------------------------------------------------- #
 
-def start_flash_cubin():
-    """``nvcc -Xptxas -v`` of kernel 11's source into a cubin, started
-    beside phase 1's build; returns (process, cubin path)."""
+# The Hopper (TMA + wgmma) kernels phase 1 inspects, by source: each at hd 64
+# and 128, with the C function that reports its dynamic shared memory.
+CUBIN_KERNELS = {"flash_attention": {"fa_fwd_wgmma": ("fa_fwd_smem_bytes",)},
+                 "flash_attention_bwd": {"fa_bwd_dkv_wgmma": ("fa_bwd_smem_bytes", 0),
+                                         "fa_bwd_dq_wgmma": ("fa_bwd_smem_bytes", 1)}}
+
+
+def start_flash_cubins():
+    """``nvcc -Xptxas -v`` of kernels 11–13's sources into cubins, started
+    beside phase 1's build; returns {source: (process, cubin path)}."""
     from repro_torch.kernels import backend
 
-    cubin = backend.BUILD_DIR / "flash_attention.cubin"
-    cubin.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [backend.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-Xptxas", "-v", "-cubin", "-I", str(backend.CSRC), "-o", str(cubin),
-           str(backend.CSRC / "flash_attention.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True), cubin
+    procs = {}
+    backend.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for src in CUBIN_KERNELS:
+        cubin = backend.BUILD_DIR / f"{src}.cubin"
+        cmd = [backend.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-Xptxas", "-v", "-cubin", "-I", str(backend.CSRC), "-o", str(cubin),
+               str(backend.CSRC / f"{src}.cu")]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True), cubin)
+    return procs
 
 
-def check_flash_cubin(proc, cubin) -> None:
-    """Kernel 11's bf16 kernel (``fa_fwd_wgmma``): registers and spills as
-    ptxas reports them, its dynamic shared memory, and its SASS holding
-    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), by ``cuobjdump -sass``."""
+def check_flash_cubins(procs) -> None:
+    """Each bf16 kernel of ``CUBIN_KERNELS`` at hd 64 and 128: registers and
+    spills (none allowed) as ptxas reports them, its dynamic shared memory,
+    and its SASS holding ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), by
+    ``cuobjdump -sass``."""
     import ctypes
     from repro_torch.kernels import backend
 
-    log, _ = proc.communicate()
-    need(proc.returncode == 0, f"nvcc -Xptxas -v of flash_attention.cu failed:\n{log}")
-    props, name = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-        elif name and ("spill" in line or "Used" in line):
-            props.setdefault(name, []).append(line.split(":", 1)[-1].strip())
-    sass = subprocess.run([str(pathlib.Path(backend.nvcc_path()).parent / "cuobjdump"),
-                           "-sass", str(cubin)], capture_output=True, text=True, check=True)
-    counts, name = {}, None
-    for line in sass.stdout.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            counts[name] = collections.Counter()
-        elif name:
-            for op in ("HGMMA", "UTMALDG", "UTMASTG"):
-                counts[name][op] += op in line
-    smem = backend.lib("flash_attention").fa_fwd_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int64], ctypes.c_int
-    wgmma = sorted(n for n in props if "fa_fwd_wgmma" in n)
-    need(len(wgmma) == 2, f"expected fa_fwd_wgmma at hd 64 and 128 in ptxas' report: {wgmma}")
-    for n in wgmma:
-        hd = 128 if "ILi128E" in n else 64
-        need(" 0 bytes spill stores, 0 bytes spill loads" in " ".join(props[n]),
-             f"fa_fwd_wgmma<{hd}> spills: {props[n]}")
-        c = counts.get(n, {})
-        need(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0,
-             f"fa_fwd_wgmma<{hd}>: no HGMMA or UTMALDG in its SASS ({dict(c)})")
-        print(f"  fa_fwd_wgmma<{hd}>: {'; '.join(props[n])}; dynamic shared memory "
-              f"{smem(hd)} B; SASS: {c['HGMMA']} HGMMA, {c['UTMALDG']} UTMALDG, "
-              f"{c['UTMASTG']} UTMASTG", flush=True)
+    for src, (proc, cubin) in procs.items():
+        log, _ = proc.communicate()
+        need(proc.returncode == 0, f"nvcc -Xptxas -v of {src}.cu failed:\n{log}")
+        props, name = {}, None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+            elif name and ("spill" in line or "Used" in line):
+                props.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+        sass = subprocess.run([str(pathlib.Path(backend.nvcc_path()).parent / "cuobjdump"),
+                               "-sass", str(cubin)], capture_output=True, text=True, check=True)
+        counts, name = {}, None
+        for line in sass.stdout.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                counts[name] = collections.Counter()
+            elif name:
+                for op in ("HGMMA", "UTMALDG", "UTMASTG"):
+                    counts[name][op] += op in line
+        for kernel, (smem_fn, *smem_args) in CUBIN_KERNELS[src].items():
+            smem = getattr(backend.lib(src), smem_fn)
+            smem.argtypes = [ctypes.c_int64] + [ctypes.c_int] * len(smem_args)
+            smem.restype = ctypes.c_int
+            found = sorted(n for n in props if kernel in n)
+            need(len(found) == 2, f"expected {kernel} at hd 64 and 128 in ptxas' report: {found}")
+            for n in found:
+                hd = 128 if "ILi128E" in n else 64
+                need(" 0 bytes spill stores, 0 bytes spill loads" in " ".join(props[n]),
+                     f"{kernel}<{hd}> spills: {props[n]}")
+                c = counts.get(n, {})
+                need(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0,
+                     f"{kernel}<{hd}>: no HGMMA or UTMALDG in its SASS ({dict(c)})")
+                print(f"  {kernel}<{hd}>: {'; '.join(props[n])}; dynamic shared memory "
+                      f"{smem(hd, *smem_args)} B; SASS: {c['HGMMA']} HGMMA, {c['UTMALDG']} "
+                      f"UTMALDG, {c['UTMASTG']} UTMASTG", flush=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -860,6 +877,12 @@ FLASH_BWD_CASES = [
     (1, 512, 512, 2, 1, 64, True, 128, 0, ("float32", "bfloat16")),      # window
     (1, 128, 512, 4, 2, 128, True, None, 256, ("float32", "bfloat16")),   # q offset
     (2, 1000, 1000, 8, 2, 128, True, None, 0, ("float32", "bfloat16")),   # ragged tiles
+    # the bf16 kernels' 128-key / 128-row CTA tiles and 64-row / 64-key ring
+    # tiles at their edges
+    (1, 1000, 1000, 4, 4, 64, True, None, 0, ("float32", "bfloat16")),    # ragged, hd 64, g = 1
+    (1, 1024, 1024, 4, 1, 128, True, 200, 0, ("float32", "bfloat16")),   # a window across tiles
+    (2, 100, 100, 8, 2, 128, True, None, 0, ("float32", "bfloat16")),     # less than one tile
+    (1, 256, 512, 4, 2, 128, True, None, 200, ("float32", "bfloat16")),  # q offset 200, Sk 512
     (1, 4096, 4096, 32, 8, 128, True, None, 0, ("bfloat16",)),
 ]
 # f32: |Δ| ≤ atol + rtol·|ref|, the forward's; bf16: relative Frobenius error
@@ -1264,9 +1287,11 @@ def run_serving(launches_total) -> dict:
 TRAIN_SEED = 0
 # Step 0, rank 0, on the main path's parameters and batch.
 # (1) bf16, every flash call of the step checked in place: each kernel call
-# is also computed by the plain blockwise version in 64 × 64 tiles (the
-# backward kernels' own; the forward kernel's are 128 × 128) on the same
-# inputs, within phase 2's limits (FLASH_TOL and LSE_TOL for the forward,
+# is also computed by the plain blockwise version in 64 × 64 tiles on the
+# same inputs (the kernels tile otherwise: the forward 128 × 128, the dK/dV
+# sweep 128 keys against 64-row q tiles, the dQ sweep 128 q rows against
+# 64-key tiles; for rows that see a key the result does not depend on the
+# tiling), within phase 2's limits (FLASH_TOL and LSE_TOL for the forward,
 # BWD_BF16_REL for the two sweeps).
 # (2) bf16, the whole model's loss and gradients with the kernels against the
 # plain flash in 64 × 64 tiles and against attn_impl="xla" (plain-torch
@@ -1598,16 +1623,17 @@ def main() -> int:
     from repro_torch.train import synthetic
 
     t0 = time.perf_counter()
-    proc, cubin = start_flash_cubin()
+    procs = start_flash_cubins()
     try:
         backend.build()
         for name in backend.SOURCES:
             backend.lib(name)
     except BaseException:
-        proc.kill()
-        proc.wait()
+        for proc, _ in procs.values():
+            proc.kill()
+            proc.wait()
         raise
-    check_flash_cubin(proc, cubin)
+    check_flash_cubins(procs)
     print(f"[1] built {', '.join(backend.SOURCES)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
 

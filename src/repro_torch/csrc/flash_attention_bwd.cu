@@ -22,38 +22,70 @@
 // dtype -- the model's layout, read in place; lse, delta (B, Hq, Sq) f32;
 // outputs dq (B, Sq, Hq, hd), dk, dv (B, Sk, Hkv, hd) in f32.
 //
-// fa_bwd_dkv: one CTA per (batch * kv head, 64-key tile).  K and V tiles
-//   stay in shared memory; dK and dV are summed in f32 registers over the g =
-//   Hq / Hkv q heads of the kv head and, for each, over its live 64-row q
-//   tiles (for a causal mask from the first live one; a window's dead tiles
-//   end the sweep).  This is _bwd_dkv_kernel's grid with the group folded into
-//   the loop: no atomics.
-// fa_bwd_dq: one CTA per (batch * q head, 64-row q tile), Q and dO in shared
-//   memory, dQ in f32 registers, looping over the live key tiles.
-//
-//   bf16 (the training path): 4 warps, warp-level mma.sync m16n8k16 (bf16 in,
-//     f32 accumulate).  Q.K^T and dO.V^T take the bf16 inputs, which the
-//     reference casts to f32 exactly: these products are exact.  The three
-//     products with p or ds (P^T.dO, dS^T.Q, dS.K) have f32 operands in the
-//     reference; here p and ds are split as hi + lo, two bf16 values whose
-//     sum is the f32 value to about 2^-16 relative, and each product is two
-//     mma.sync (hi, then lo) into one f32 sum -- not FlashAttention-2's single
-//     bf16 rounding of p and ds.  P and dS go from the accumulators to the A
-//     fragments in registers.  fa_bwd_dkv warps own 16 keys each and compute
-//     S^T = K.Q^T and dP^T = V.dO^T over a q tile in two halves of 32 columns
-//     (64 accumulator registers for dK and 64 for dV at hd 128).
-//   f32: 256 threads, SIMT f32 FMAs (no TF32): each thread 4 x 4 entries of
-//     S and dP, P and dS through shared memory, then 4 rows x hd/16 columns of
-//     the output sums.
+// bf16 (the training path): warp-specialised wgmma kernels on hopper.cuh,
+// 384 threads, one CTA per SM.  Warpgroup 0 is the producer (setmaxnreg 24);
+// warpgroups 1 and 2 are the consumers (setmaxnreg 240), each owning 64 of
+// the CTA's 128 rows, the native wgmma M.  Q.K^T and dO.V^T take the bf16
+// inputs, which the reference casts to f32 exactly: these products are
+// exact.  The three products with p or ds (P^T.dO, dS^T.Q, dS.K) have f32
+// operands in the reference; here p and ds are split as hi + lo, two bf16
+// values whose sum is the f32 value to about 2^-16 relative, and each
+// product is two wgmma (hi, then lo, A from registers) into one f32 sum --
+// not FlashAttention-2's single bf16 rounding of p and ds.  4-D TMA maps over
+// (hd, H, S, B) read the model's layout in place with the 128-byte swizzle
+// (boxes of 64 columns, rows past S zero-filled); exp is ex2 with log2(e)
+// folded into the scale and lse.
+//   fa_bwd_dkv_wgmma: one CTA per (batch * kv head, 128-key tile), heaviest
+//     causal tiles first.  The producer's thread 0 loads K and V once, then
+//     streams the live 64-row Q and dO tiles of each of the g = Hq / Hkv q
+//     heads of the kv head through a 3-stage ring (a full and an empty
+//     mbarrier per stage).  Each consumer, on its 64 keys and each tile:
+//     S^T = K.Q^T and dP^T = V.dO^T by wgmma m64n64k16, both operands K-major
+//     in shared memory; meanwhile its threads load the tile's lse (times
+//     log2 e) and delta with plain loads (a (B, Hq, Sq) f32 row is 16-byte
+//     aligned only when Sq is a multiple of 4: no TMA) into a buffer of its
+//     own; P^T and dS^T in the accumulators (lse and delta by column, the q
+//     row; masks only on tiles across the diagonal, the window
+//     edge, Sq or Sk; a 64 x 64 block that _block_live calls dead is
+//     skipped); then dV += P^T.dO, started as soon as P^T's fragments
+//     exist, and dK += dS^T.Q by m64n{hd}k16 with the dO and Q tiles read as
+//     the MN-major B.  dK and dV (64 + 64 f32 registers a thread at hd 128)
+//     sum over the group's heads: no atomics.
+//   fa_bwd_dq_wgmma: one CTA per (batch * q head, 128-row q tile), heaviest
+//     causal tiles first.  The producer loads Q and dO once and then the live
+//     64-key K and V tiles through a 3-stage ring, K and V each with a full
+//     and an empty mbarrier (V goes back once dP has read it).  Each
+//     consumer, on its 64 rows and its own live key tiles: S = Q.K^T and dP =
+//     dO.V^T (K-major), dS in registers with lse and delta per row, dQ +=
+//     dS.K with the K tile as the MN-major B.  Step u starts S_u and dP_u
+//     beside dS_{u-1}.K_{u-1} and forms dS_u while that product is in flight
+//     (the first and last steps peeled, so ptxas sees which wgmma groups are
+//     outstanding); the two consumers take turns to start their products
+//     (named barriers), so one's dS runs while the other's products hold the
+//     tensor cores.  64-key tiles keep dQ, S, dP and the hi + lo fragments
+//     in registers (64 + 32 + 32 + 32 a thread at hd 128).
+//   f32: fa_bwd_dkv_simt, one CTA per (batch * kv head, 64-key tile) over the
+//     group's q heads and their live 64-row q tiles, and fa_bwd_dq_simt, one
+//     CTA per (batch * q head, 64-row q tile) over its live 64-key tiles; 256
+//     threads, SIMT f32 FMAs (no TF32): each thread 4 x 4 entries of S and
+//     dP, P and dS through shared memory, then 4 rows x hd/16 columns of the
+//     output sums.  Neither main path runs them.
 //
 // Bound (the training path, bf16, causal): operations.  Per live (q, k) pair
 // fa_bwd_dkv does 4 products of 2 * hd flops (S, dP, dV, dK) and fa_bwd_dq 3
 // (S, dP, dQ), at 989 TFLOP/s dense bf16; bytes (q, k, v, do once, lse,
 // delta, f32 outputs) are a tenth of that time at (1, 4096, 32/8, 128).  The
-// hi + lo split doubles the tensor-core work of the products with p or ds;
-// tiles are loaded synchronously (no cp.async / TMA pipeline, no wgmma): this
-// first version sits well below the bound.
+// hi + lo split makes the kernels issue 12 * hd and 8 * hd flops a pair, so
+// at the tensor cores' peak they reach 67% and 75% of the bound.  What the
+// design leaves: a dK/dV consumer waits for each of its product groups (the
+// registers of dK, dV and the next tile's S^T and dP^T do not fit together
+// at hd 128), so only the other consumer's work overlaps its elementwise
+// pass (turns, as in the dQ kernel, measured slower there and cost a
+// spill); each CTA's prologue and epilogue run alone (no persistent CTAs); each
+// Q and dO tile is read once per 128-key tile and each K and V tile once per
+// 128-row q tile (L2 serves the repeats).
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -114,237 +146,511 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src, int64_t r
   for (int i = threadIdx.x; i < kTile; i += NT) dst[i] = row0 + i < n ? src[row0 + i] : 0.f;
 }
 
-// --------------------------------------------------------- bf16 (mma.sync)
+// ------------------------------------------------------------ bf16 (wgmma)
+
+constexpr int kBlock = 128;          // keys of a dK/dV CTA; q rows of a dQ CTA
+constexpr int kStrip = kTile;        // q rows (dK/dV) or keys (dQ) of a ring tile
+constexpr int kStages = 3;           // depth of the rings
+constexpr int kConsumerWarps = 8;
+constexpr int kTurn = 3;             // dQ: named barriers 3, 4 (dK/dV: 1, 2)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One 64-column TMA box of `rows` rows (128-byte rows, swizzled).
+__host__ __device__ constexpr int box_bytes(int rows) { return rows * 128; }
+
+// Offsets in the (1024-aligned) dynamic shared memory.
+template <int HD>
+struct DkvSmem {
+  static constexpr int kKVTile = HD / 64 * box_bytes(kBlock);   // 128 keys of hd
+  static constexpr int kQTile = HD / 64 * box_bytes(kStrip);    // 64 q rows of hd
+  static constexpr int kK = 0;
+  static constexpr int kV = kKVTile;
+  static constexpr int kQ = 2 * kKVTile;                        // the ring: Q, dO
+  static constexpr int kO = kQ + kStages * kQTile;
+  static constexpr int kRows = kO + kStages * kQTile;           // [lse, delta] x 2 a consumer
+  static constexpr int kBars = kRows + 2 * 2 * 2 * kStrip * 4;  // full, empty per stage; K/V
+  static constexpr int kBytes = kBars + 128 + 1024;             // + alignment slack
+};
+
+template <int HD>
+struct DqSmem {
+  static constexpr int kQTile = HD / 64 * box_bytes(kBlock);    // 128 q rows of hd
+  static constexpr int kKTile = HD / 64 * box_bytes(kStrip);    // 64 keys of hd
+  static constexpr int kQ = 0;
+  static constexpr int kO = kQTile;
+  static constexpr int kK = 2 * kQTile;                         // the ring: K, V
+  static constexpr int kV = kK + kStages * kKTile;
+  static constexpr int kBars = kV + kStages * kKTile;           // K, V full and empty; Q/dO
+  static constexpr int kBytes = kBars + 128 + 1024;
+};
+
+struct Range {
+  int lo, hi;   // empty when lo > hi
+};
+
+// The live 64-row q tiles of a dK/dV CTA's 128 keys from k_start: live for
+// its first 64 keys under a causal mask, for its last 64 under a window.
+__device__ __forceinline__ Range q_span(const Args& a, int64_t k_start) {
+  int64_t lo = 0, hi = (a.sq + kStrip - 1) / kStrip - 1;
+  if (a.causal) {
+    const int64_t need = k_start - a.q_offset - (kStrip - 1);   // q_start >= need
+    lo = need <= 0 ? 0 : (need + kStrip - 1) / kStrip;
+  }
+  if (a.window > 0) {
+    const int64_t x = k_start + kBlock - 1 + a.window - a.q_offset;   // q_start - q_offset < x
+    hi = x <= 0 ? -1 : min(hi, (x - 1) / kStrip);
+  }
+  return {static_cast<int>(lo), static_cast<int>(hi)};
+}
+
+// The live 64-key tiles of `rows` q rows from position q0.
+__device__ __forceinline__ Range key_span(const Args& a, int64_t q0, int rows) {
+  int64_t lo = 0, hi = (a.sk + kStrip - 1) / kStrip - 1;
+  if (a.causal) hi = min(hi, (q0 + rows - 1) / kStrip);
+  if (a.window > 0) {
+    const int64_t x = q0 - a.window - (kStrip - 1);   // live iff k_start > x
+    lo = x < 0 ? 0 : x / kStrip + 1;
+  }
+  return {static_cast<int>(lo), static_cast<int>(hi)};
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // x, y as hi + lo bf16 pairs: hi = bf16(x), lo = bf16(x - hi).
 __device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat16 hx = __float2bfloat16_rn(x), hy = __float2bfloat16_rn(y);
-  hi = pack_raw(hx, hy);
-  lo = pack_round(x - __bfloat162float(hx), y - __bfloat162float(hy));
+  hi = pack_round(x, y);
+  lo = pack_round(x - __uint_as_float(hi << 16), y - __uint_as_float(hi & 0xffff0000u));
 }
 
-// acc[j] (16 x 8 n-tiles j < NJ) += A . B^T for one warp: A the 16 smem rows
-// at a_rows, B the 8 * NJ smem rows at b_rows, both row-major with LD and HD
-// columns.
-template <int HD, int LD, int NJ>
-__device__ __forceinline__ void mma_abt(float (&acc)[NJ][4], const __nv_bfloat16* a_rows,
-                                        const __nv_bfloat16* b_rows) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+// The wgmma A fragments, hi and lo, of a 64 x 64 f32 accumulator tile x:
+// k-step kk takes its n-tiles 2kk and 2kk + 1.
+__device__ __forceinline__ void split_frags(const float (&x)[32], uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split2(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], hi[kk][r], lo[kk][r]);
+}
+
+// acc = A . B^T over hd: A and B 64-row K-major tiles at descriptors a and b,
+// whose 64-column boxes lie a_box and b_box bytes apart.
+template <int HD>
+__device__ __forceinline__ void mma_kmajor(float (&acc)[32], uint64_t a, int a_box, uint64_t b,
+                                           int b_box) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    const __nv_bfloat16* r = a_rows + g * LD + kk * 16 + 2 * t;
-    const uint32_t af[4] = {ld32(r), ld32(r + 8 * LD), ld32(r + 8), ld32(r + 8 * LD + 8)};
+    const int col = (kk % 4) * 32;
+    hopper::wgmma_m64n64k16_ss(acc, a + (((kk / 4) * a_box + col) >> 4),
+                               b + (((kk / 4) * b_box + col) >> 4), kk > 0);
+  }
+}
+
+// d += X . B: X the 64 x 64 tile whose A fragments are hi + lo (two wgmma per
+// k-step into one f32 sum), B 64 rows of hd at descriptor b read MN-major.
+template <int HD>
+__device__ __forceinline__ void mma_mn(float (&d)[HD / 2], const uint32_t (&hi)[4][4],
+                                       const uint32_t (&lo)[4][4], uint64_t b) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const __nv_bfloat16* bp = b_rows + (8 * j + g) * LD + kk * 16 + 2 * t;
-      mma_bf16(acc[j], af, ld32(bp), ld32(bp + 8));
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t bk = b + ((kk * 16 * 128) >> 4);
+    if constexpr (HD == 128) {
+      hopper::wgmma_m64n128k16_rs_mn(d, hi[kk], bk);
+      hopper::wgmma_m64n128k16_rs_mn(d, lo[kk], bk);
+    } else {
+      hopper::wgmma_m64n64k16_rs_mn(d, hi[kk], bk);
+      hopper::wgmma_m64n64k16_rs_mn(d, lo[kk], bk);
     }
   }
 }
 
-// out (16 x HD, n-tiles of 8) += X . B for one warp, X the 16 x (8 * NJ)
-// f32 accumulator tile x (split hi + lo), B the 8 * NJ smem rows at b_rows
-// (row-major, LD, HD columns).
-template <int HD, int LD, int NJ>
-__device__ __forceinline__ void mma_xb(float (&out)[HD / 8][4], float (&x)[NJ][4],
-                                       const __nv_bfloat16* b_rows) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+// Rows (or keys) r0, r0 + 8 of a warp's f32 output tile to global memory,
+// scaled; rows at or past n are not written.
+template <int HD>
+__device__ __forceinline__ void store_rows(float* dst, int64_t stride, const float (&x)[HD / 2],
+                                           int64_t r0, int64_t n, float scale, int t) {
 #pragma unroll
-  for (int kk = 0; kk < NJ / 2; ++kk) {
-    uint32_t hi[4], lo[4];
-    split2(x[2 * kk][0], x[2 * kk][1], hi[0], lo[0]);
-    split2(x[2 * kk][2], x[2 * kk][3], hi[1], lo[1]);
-    split2(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[2], lo[2]);
-    split2(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[3], lo[3]);
-    const __nv_bfloat16* bp = b_rows + (16 * kk + 2 * t) * LD + g;
-#pragma unroll
-    for (int jd = 0; jd < HD / 8; ++jd) {
-      const __nv_bfloat16* c = bp + 8 * jd;
-      const uint32_t b0 = pack_raw(c[0], c[LD]), b1 = pack_raw(c[8 * LD], c[9 * LD]);
-      mma_bf16(out[jd], hi, b0, b1);
-      mma_bf16(out[jd], lo, b0, b1);
-    }
+  for (int j = 0; j < HD / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (r0 < n)
+      *reinterpret_cast<float2*>(dst + r0 * stride + col) =
+          make_float2(x[4 * j] * scale, x[4 * j + 1] * scale);
+    if (r0 + 8 < n)
+      *reinterpret_cast<float2*>(dst + (r0 + 8) * stride + col) =
+          make_float2(x[4 * j + 2] * scale, x[4 * j + 3] * scale);
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(128) fa_bwd_dkv_mma(Args a) {
-  constexpr int LD = HD + 8;     // 16-byte rows, conflict-free fragment loads
-  constexpr int ND = HD / 8;
-  constexpr int QW = 32;         // q columns of S^T per pass (two per q tile)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + kTile * LD;
-  __nv_bfloat16* Qs = Vs + kTile * LD;
-  __nv_bfloat16* Os = Qs + kTile * LD;
-  float* lse_s = reinterpret_cast<float*>(Os + kTile * LD);
-  float* delta_s = lse_s + kTile;
+__global__ void __launch_bounds__(384, 1)
+    fa_bwd_dkv_wgmma(const Args a, const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap omap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap) {
+  using L = DkvSmem<HD>;
+  constexpr int NO = HD / 2;               // dK (and dV) accumulators per thread
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t c = blockIdx.x;
-  const int64_t b = c / a.hkv, kvh = c % a.hkv;
-  const int64_t group = a.hq / a.hkv;
-  const int64_t k_start = static_cast<int64_t>(blockIdx.y) * kTile;
-  const int64_t q_stride = a.hq * HD, kv_stride = a.hkv * HD;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + (b * a.sk * a.hkv + kvh) * HD;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + (b * a.sk * a.hkv + kvh) * HD;
-  load_tile<__nv_bfloat16, HD, LD, 128>(Ks, kg, kv_stride, k_start, a.sk);
-  load_tile<__nv_bfloat16, HD, LD, 128>(Vs, vg, kv_stride, k_start, a.sk);
+  const int b = blockIdx.x / static_cast<int>(a.hkv), kvh = blockIdx.x % static_cast<int>(a.hkv);
+  const int group = static_cast<int>(a.hq / a.hkv);
+  const int k_start = blockIdx.y * kBlock;   // heaviest causal tiles first
+  const Range span = q_span(a, k_start);
+  const int nqt = max(0, span.hi - span.lo + 1);
+  const int n = group * nqt;                 // ring tiles: q tile span.lo + i % nqt of head i / nqt
 
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int jd = 0; jd < ND; ++jd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[jd][e] = dv[jd][e] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumerWarps);
+    }
+    hopper::mbar_init(kvbar, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-  const int64_t kp0 = k_start + warp * 16 + g, kp1 = kp0 + 8;   // this thread's two keys
-  const int64_t nq = (a.sq + kTile - 1) / kTile;
-  for (int64_t j = 0; j < group; ++j) {
-    const int64_t h = kvh * group + j;
-    const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) + (b * a.sq * a.hq + h) * HD;
-    const __nv_bfloat16* og =
-        static_cast<const __nv_bfloat16*>(a.dout) + (b * a.sq * a.hq + h) * HD;
-    const float* lse_g = a.lse + (b * a.hq + h) * a.sq;
-    const float* delta_g = a.delta + (b * a.hq + h) * a.sq;
-    for (int64_t qt = first_q_tile(a, k_start); qt < nq; ++qt) {
-      const int64_t row0 = qt * kTile, q_start = a.q_offset + row0;
-      if (!tile_live(a, q_start, k_start)) {
-        if (window_passed(a, q_start, k_start)) break;
-        continue;
+  if (threadIdx.x < 128) {
+    // ---- producer: K and V once; then, for each head of the group, its live
+    // Q and dO tiles
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_tensormap(&qmap);
+      hopper::prefetch_tensormap(&omap);
+      hopper::mbar_expect_tx(kvbar, 2 * L::kKVTile);
+      for (int j = 0; j < HD / 64; ++j) {
+        hopper::tma_load_4d(base + L::kK + j * box_bytes(kBlock), &kmap, kvbar, 64 * j, kvh,
+                            k_start, b);
+        hopper::tma_load_4d(base + L::kV + j * box_bytes(kBlock), &vmap, kvbar, 64 * j, kvh,
+                            k_start, b);
       }
-      __syncthreads();   // the previous tile's readers are done
-      load_tile<__nv_bfloat16, HD, LD, 128>(Qs, qg, q_stride, row0, a.sq);
-      load_tile<__nv_bfloat16, HD, LD, 128>(Os, og, q_stride, row0, a.sq);
-      load_vec<128>(lse_s, lse_g, row0, a.sq);
-      load_vec<128>(delta_s, delta_g, row0, a.sq);
-      __syncthreads();
-#pragma unroll
-      for (int half = 0; half < kTile / QW; ++half) {
-        const int c0 = half * QW;
-        float s[QW / 8][4], dp[QW / 8][4];
-#pragma unroll
-        for (int jj = 0; jj < QW / 8; ++jj)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.f;
-        mma_abt<HD, LD, QW / 8>(s, Ks + warp * 16 * LD, Qs + c0 * LD);    // S^T
-        mma_abt<HD, LD, QW / 8>(dp, Vs + warp * 16 * LD, Os + c0 * LD);   // dP^T
-#pragma unroll
-        for (int jj = 0; jj < QW / 8; ++jj) {
-          const int qc = c0 + 8 * jj + 2 * t;
-          const int64_t qr = row0 + qc;
-          s[jj][0] = prob(a, s[jj][0], lse_s[qc], qr, kp0);
-          s[jj][1] = prob(a, s[jj][1], lse_s[qc + 1], qr + 1, kp0);
-          s[jj][2] = prob(a, s[jj][2], lse_s[qc], qr, kp1);
-          s[jj][3] = prob(a, s[jj][3], lse_s[qc + 1], qr + 1, kp1);
-          dp[jj][0] = s[jj][0] * (dp[jj][0] - delta_s[qc]);
-          dp[jj][1] = s[jj][1] * (dp[jj][1] - delta_s[qc + 1]);
-          dp[jj][2] = s[jj][2] * (dp[jj][2] - delta_s[qc]);
-          dp[jj][3] = s[jj][3] * (dp[jj][3] - delta_s[qc + 1]);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) hopper::mbar_wait(&empty[s], (i / kStages - 1) & 1);
+        const int h = kvh * group + i / nqt, row0 = (span.lo + i % nqt) * kStrip;
+        hopper::mbar_expect_tx(&full[s], 2 * L::kQTile);
+        for (int j = 0; j < HD / 64; ++j) {
+          const int off = s * L::kQTile + j * box_bytes(kStrip);
+          hopper::tma_load_4d(base + L::kQ + off, &qmap, &full[s], 64 * j, h, row0, b);
+          hopper::tma_load_4d(base + L::kO + off, &omap, &full[s], 64 * j, h, row0, b);
         }
-        mma_xb<HD, LD, QW / 8>(dv, s, Os + c0 * LD);    // dV += P^T . dO
-        mma_xb<HD, LD, QW / 8>(dk, dp, Qs + c0 * LD);   // dK += dS^T . Q
       }
     }
-  }
+  } else {
+    // ---- consumers: 64 keys each
+    hopper::setmaxnreg_inc<240>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int kc = k_start + 64 * c;                    // this warpgroup's first key
+    const int kp0 = kc + 16 * warp + g, kp1 = kp0 + 8;  // this thread's keys
+    const int sq = static_cast<int>(a.sq), sk = static_cast<int>(a.sk);
+    const int q_offset = static_cast<int>(a.q_offset), window = static_cast<int>(a.window);
+    const float sl2 = a.scale * kLog2e;
+    // K-major: this warpgroup's K and V rows as A, the Q and dO tiles as B;
+    // MN-major (LBO: the next box): the Q and dO tiles as B of dS^T.Q and
+    // P^T.dO.  V, dO and the MN-major forms differ from ak and bq by constants.
+    const uint64_t ak = hopper::desc_sw128(base + L::kK + c * box_bytes(64), 16, 1024);
+    const uint64_t bq = hopper::desc_sw128(base + L::kQ, 16, 1024);
+    constexpr uint64_t kToV = (L::kV - L::kK) >> 4, kToO = (L::kO - L::kQ) >> 4;
+    constexpr uint64_t kToMn = static_cast<uint64_t>((box_bytes(kStrip) - 16) >> 4) << 16;
+    // each live tile's lse (times log2 e) and delta, staged by this warpgroup
+    // in two buffers of [lse, delta] taken in turn
+    float* rows_s = reinterpret_cast<float*>(base + L::kRows) + c * 2 * 2 * kStrip;
+    const int64_t head0 = static_cast<int64_t>(b) * a.hq + static_cast<int64_t>(kvh) * group;
+    int live = 0;
 
-  float* dkg = a.dk + (b * a.sk * a.hkv + kvh) * HD;
-  float* dvg = a.dv + (b * a.sk * a.hkv + kvh) * HD;
+    float dk[NO], dv[NO];
 #pragma unroll
-  for (int jd = 0; jd < ND; ++jd) {
-    const int col = 8 * jd + 2 * t;
-    if (kp0 < a.sk) {
-      *reinterpret_cast<float2*>(dkg + kp0 * kv_stride + col) =
-          make_float2(dk[jd][0] * a.scale, dk[jd][1] * a.scale);
-      *reinterpret_cast<float2*>(dvg + kp0 * kv_stride + col) = make_float2(dv[jd][0], dv[jd][1]);
+    for (int j = 0; j < NO; ++j) dk[j] = dv[j] = 0.f;
+    hopper::mbar_wait(kvbar, 0);
+
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kStages;
+      hopper::mbar_wait(&full[s], (i / kStages) & 1);
+      const int row0 = (span.lo + i % nqt) * kStrip, q_start = q_offset + row0;
+      if (tile_live(a, q_start, kc)) {
+        // S^T = K.Q^T and dP^T = V.dO^T: rows are keys, columns q rows
+        float st[32], dpt[32];
+        const uint64_t so = (s * L::kQTile) >> 4;
+        hopper::wgmma_fence();
+        mma_kmajor<HD>(st, ak, box_bytes(kBlock), bq + so, box_bytes(kStrip));
+        mma_kmajor<HD>(dpt, ak + kToV, box_bytes(kBlock), bq + kToO + so, box_bytes(kStrip));
+        hopper::wgmma_commit();
+        // the tile's lse and delta, loaded while the products run
+        float* l2 = rows_s + (live++ & 1) * 2 * kStrip;
+        const float* dl = l2 + kStrip;
+        {
+          const int row = row0 + (tid & (kStrip - 1));
+          const int64_t at = (head0 + i / nqt) * a.sq + row;
+          l2[tid] = row >= sq ? 0.f : tid < kStrip ? a.lse[at] * kLog2e : a.delta[at];
+        }
+        hopper::named_barrier_sync(1 + c, 128);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(st);
+        hopper::fence_regs(dpt);
+        // P^T and dS^T in place; lse and delta by column (the q row).  Masks
+        // only on tiles across the diagonal, the window edge, Sq or Sk.
+        const bool edge = row0 + kStrip > sq || kc + 64 > sk || (a.causal && kc + 63 > q_start) ||
+                          (window > 0 && kc <= q_start + 63 - window);
+        if (!edge) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 lv = *reinterpret_cast<const float2*>(l2 + 8 * j + 2 * t);
+            const float2 dlv = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float p = ex2(fmaf(st[4 * j + e], sl2, (e & 1) ? -lv.y : -lv.x));
+              st[4 * j + e] = p;
+              dpt[4 * j + e] = p * (dpt[4 * j + e] - ((e & 1) ? dlv.y : dlv.x));
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 lv = *reinterpret_cast<const float2*>(l2 + 8 * j + 2 * t);
+            const float2 dlv = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qr = row0 + 8 * j + 2 * t + (e & 1), kp = e < 2 ? kp0 : kp1;
+              const int qp = q_offset + qr;
+              float x = st[4 * j + e] * sl2;
+              if ((a.causal && qp < kp) || (window > 0 && kp <= qp - window)) x = kMasked * kLog2e;
+              const float p = qr >= sq || kp >= sk ? 0.f : ex2(x - ((e & 1) ? lv.y : lv.x));
+              st[4 * j + e] = p;
+              dpt[4 * j + e] = p * (dpt[4 * j + e] - ((e & 1) ? dlv.y : dlv.x));
+            }
+          }
+        }
+        // dV += P^T.dO, started as soon as P^T's fragments exist, and
+        // dK += dS^T.Q, each as hi + lo
+        uint32_t ph[4][4], pl[4][4], dh[4][4], dlo[4][4];
+        split_frags(st, ph, pl);
+        hopper::wgmma_fence();
+        mma_mn<HD>(dv, ph, pl, bq + kToMn + kToO + so);
+        split_frags(dpt, dh, dlo);
+        hopper::wgmma_fence();
+        mma_mn<HD>(dk, dh, dlo, bq + kToMn + so);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dk);
+        hopper::fence_regs(dv);
+      }
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
     }
-    if (kp1 < a.sk) {
-      *reinterpret_cast<float2*>(dkg + kp1 * kv_stride + col) =
-          make_float2(dk[jd][2] * a.scale, dk[jd][3] * a.scale);
-      *reinterpret_cast<float2*>(dvg + kp1 * kv_stride + col) = make_float2(dv[jd][2], dv[jd][3]);
-    }
+
+    const int64_t stride = a.hkv * HD;
+    const int64_t off = (static_cast<int64_t>(b) * a.sk * a.hkv + kvh) * HD;
+    store_rows<HD>(a.dk + off, stride, dk, kp0, sk, a.scale, t);
+    store_rows<HD>(a.dv + off, stride, dv, kp0, sk, 1.f, t);
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(128) fa_bwd_dq_mma(Args a) {
-  constexpr int LD = HD + 8;
-  constexpr int ND = HD / 8;
-  constexpr int NJ = kTile / 8;   // n-tiles of S over a key tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Os = Qs + kTile * LD;
-  __nv_bfloat16* Ks = Os + kTile * LD;
-  __nv_bfloat16* Vs = Ks + kTile * LD;
+__global__ void __launch_bounds__(384, 1)
+    fa_bwd_dq_wgmma(const Args a, const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap omap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap) {
+  using L = DqSmem<HD>;
+  constexpr int NO = HD / 2;               // dQ accumulators per thread
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty_k = full_v + kStages;
+  uint64_t* empty_v = empty_k + kStages;
+  uint64_t* qbar = empty_v + kStages;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t bh = blockIdx.x;
-  const int64_t b = bh / a.hq, h = bh % a.hq;
-  const int64_t kvh = h / (a.hq / a.hkv);
-  // heaviest causal tiles first
-  const int64_t row0 = (static_cast<int64_t>(gridDim.y) - 1 - blockIdx.y) * kTile;
-  const int64_t q_start = a.q_offset + row0;
-  const int64_t q_stride = a.hq * HD, kv_stride = a.hkv * HD;
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) + (b * a.sq * a.hq + h) * HD;
-  const __nv_bfloat16* og = static_cast<const __nv_bfloat16*>(a.dout) + (b * a.sq * a.hq + h) * HD;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + (b * a.sk * a.hkv + kvh) * HD;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + (b * a.sk * a.hkv + kvh) * HD;
-  load_tile<__nv_bfloat16, HD, LD, 128>(Qs, qg, q_stride, row0, a.sq);
-  load_tile<__nv_bfloat16, HD, LD, 128>(Os, og, q_stride, row0, a.sq);
+  const int bh = blockIdx.x;
+  const int b = bh / static_cast<int>(a.hq), h = bh % static_cast<int>(a.hq);
+  const int kvh = h / static_cast<int>(a.hq / a.hkv);
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kBlock;   // heaviest causal tiles first
+  const int q_start = static_cast<int>(a.q_offset) + row0;
+  const Range span = key_span(a, q_start, kBlock);
+  const int n = max(0, span.hi - span.lo + 1);
 
-  const int64_t r0 = row0 + warp * 16 + g, r1 = r0 + 8;   // this thread's two rows
-  const float* lse_g = a.lse + bh * a.sq;
-  const float* delta_g = a.delta + bh * a.sq;
-  const float lse0 = r0 < a.sq ? lse_g[r0] : 0.f, lse1 = r1 < a.sq ? lse_g[r1] : 0.f;
-  const float dl0 = r0 < a.sq ? delta_g[r0] : 0.f, dl1 = r1 < a.sq ? delta_g[r1] : 0.f;
-  float dq[ND][4];
-#pragma unroll
-  for (int jd = 0; jd < ND; ++jd) dq[jd][0] = dq[jd][1] = dq[jd][2] = dq[jd][3] = 0.f;
-
-  const int64_t nk = (a.sk + kTile - 1) / kTile;
-  for (int64_t kt = 0; kt < nk; ++kt) {
-    const int64_t k_start = kt * kTile;
-    if (!tile_live(a, q_start, k_start)) {
-      if (a.causal && k_start > q_start + kTile - 1) break;   // past the diagonal
-      continue;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full_k[s], 1);
+      hopper::mbar_init(&full_v[s], 1);
+      hopper::mbar_init(&empty_k[s], kConsumerWarps);
+      hopper::mbar_init(&empty_v[s], kConsumerWarps);
     }
-    __syncthreads();   // the previous tile's readers are done
-    load_tile<__nv_bfloat16, HD, LD, 128>(Ks, kg, kv_stride, k_start, a.sk);
-    load_tile<__nv_bfloat16, HD, LD, 128>(Vs, vg, kv_stride, k_start, a.sk);
-    __syncthreads();
-    float s[NJ][4], dp[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_abt<HD, LD, NJ>(s, Qs + warp * 16 * LD, Ks);    // S
-    mma_abt<HD, LD, NJ>(dp, Os + warp * 16 * LD, Vs);   // dP
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int64_t kp = k_start + 8 * j + 2 * t;
-      const float p0 = prob(a, s[j][0], lse0, r0, kp), p1 = prob(a, s[j][1], lse0, r0, kp + 1);
-      const float p2 = prob(a, s[j][2], lse1, r1, kp), p3 = prob(a, s[j][3], lse1, r1, kp + 1);
-      s[j][0] = p0 * (dp[j][0] - dl0);
-      s[j][1] = p1 * (dp[j][1] - dl0);
-      s[j][2] = p2 * (dp[j][2] - dl1);
-      s[j][3] = p3 * (dp[j][3] - dl1);
-    }
-    mma_xb<HD, LD, NJ>(dq, s, Ks);   // dQ += dS . K
+    hopper::mbar_init(qbar, 1);
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
 
-  float* dqg = a.dq + (b * a.sq * a.hq + h) * HD;
+  if (threadIdx.x < 128) {
+    // ---- producer: Q and dO once, then K and V of each live key tile, each
+    // on its own full / empty pair (V is released a dS.K earlier than K)
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_tensormap(&kmap);
+      hopper::prefetch_tensormap(&vmap);
+      hopper::mbar_expect_tx(qbar, 2 * L::kQTile);
+      for (int j = 0; j < HD / 64; ++j) {
+        hopper::tma_load_4d(base + L::kQ + j * box_bytes(kBlock), &qmap, qbar, 64 * j, h, row0, b);
+        hopper::tma_load_4d(base + L::kO + j * box_bytes(kBlock), &omap, qbar, 64 * j, h, row0, b);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kStages, ks = (span.lo + i) * kStrip;
+        const uint32_t parity = (i / kStages - 1) & 1;
+        if (i >= kStages) hopper::mbar_wait(&empty_k[s], parity);
+        hopper::mbar_expect_tx(&full_k[s], L::kKTile);
+        for (int j = 0; j < HD / 64; ++j)
+          hopper::tma_load_4d(base + L::kK + s * L::kKTile + j * box_bytes(kStrip), &kmap,
+                              &full_k[s], 64 * j, kvh, ks, b);
+        if (i >= kStages) hopper::mbar_wait(&empty_v[s], parity);
+        hopper::mbar_expect_tx(&full_v[s], L::kKTile);
+        for (int j = 0; j < HD / 64; ++j)
+          hopper::tma_load_4d(base + L::kV + s * L::kKTile + j * box_bytes(kStrip), &vmap,
+                              &full_v[s], 64 * j, kvh, ks, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows each
+    hopper::setmaxnreg_inc<240>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int qw0 = q_start + 64 * c;                       // this warpgroup's first q position
+    const int r0 = row0 + 64 * c + 16 * warp + g, r1 = r0 + 8;   // this thread's rows
+    const int sq = static_cast<int>(a.sq), sk = static_cast<int>(a.sk);
+    const int window = static_cast<int>(a.window);
+    const float sl2 = a.scale * kLog2e;
+    const float* lse_g = a.lse + static_cast<int64_t>(bh) * a.sq;
+    const float* delta_g = a.delta + static_cast<int64_t>(bh) * a.sq;
+    const float l0 = r0 < sq ? lse_g[r0] * kLog2e : 0.f, l1 = r1 < sq ? lse_g[r1] * kLog2e : 0.f;
+    const float dl0 = r0 < sq ? delta_g[r0] : 0.f, dl1 = r1 < sq ? delta_g[r1] : 0.f;
+    // this warpgroup's live key tiles, u0 .. u1 of the ring's 0 .. n - 1
+    const Range mine = key_span(a, qw0, 64);
+    const int u0 = mine.lo - span.lo, u1 = min(mine.hi, span.hi) - span.lo;
+    // K-major: this warpgroup's Q and dO rows as A, the K and V tiles as B;
+    // MN-major: the K tile as B of dS.K
+    const uint64_t aq = hopper::desc_sw128(base + L::kQ + c * box_bytes(64), 16, 1024);
+    const uint64_t ao = hopper::desc_sw128(base + L::kO + c * box_bytes(64), 16, 1024);
+    const uint64_t bk = hopper::desc_sw128(base + L::kK, 16, 1024);
+    const uint64_t bv = hopper::desc_sw128(base + L::kV, 16, 1024);
+    const uint64_t mk = hopper::desc_sw128(base + L::kK, box_bytes(kStrip), 1024);
+
+    float dq[NO], sc[32], dp[32];
+    uint32_t fh[4][4], fl[4][4];
 #pragma unroll
-  for (int jd = 0; jd < ND; ++jd) {
-    const int col = 8 * jd + 2 * t;
-    if (r0 < a.sq)
-      *reinterpret_cast<float2*>(dqg + r0 * q_stride + col) =
-          make_float2(dq[jd][0] * a.scale, dq[jd][1] * a.scale);
-    if (r1 < a.sq)
-      *reinterpret_cast<float2*>(dqg + r1 * q_stride + col) =
-          make_float2(dq[jd][2] * a.scale, dq[jd][3] * a.scale);
+    for (int j = 0; j < NO; ++j) dq[j] = 0.f;
+
+    auto skip = [&](int u) {   // a ring tile this warpgroup does not read
+      const int s = u % kStages;
+      const uint32_t parity = (u / kStages) & 1;
+      hopper::mbar_wait(&full_k[s], parity);
+      if (lane == 0) hopper::mbar_arrive(&empty_k[s]);
+      hopper::mbar_wait(&full_v[s], parity);
+      if (lane == 0) hopper::mbar_arrive(&empty_v[s]);
+    };
+    auto start_sdp = [&](int u) {   // S = Q.K_u^T, dP = dO.V_u^T
+      const int s = u % kStages;
+      const uint32_t parity = (u / kStages) & 1;
+      const int so = s * L::kKTile;
+      hopper::mbar_wait(&full_k[s], parity);
+      hopper::mbar_wait(&full_v[s], parity);
+      hopper::wgmma_fence();
+      mma_kmajor<HD>(sc, aq, box_bytes(kBlock), bk + (so >> 4), box_bytes(kStrip));
+      mma_kmajor<HD>(dp, ao, box_bytes(kBlock), bv + (so >> 4), box_bytes(kStrip));
+      hopper::wgmma_commit();
+    };
+    auto start_dq = [&](int u) {   // dQ += dS_u . K_u, hi then lo
+      hopper::wgmma_fence();
+      mma_mn<HD>(dq, fh, fl, mk + ((u % kStages * L::kKTile) >> 4));
+      hopper::wgmma_commit();
+    };
+    auto form_ds = [&](int u) {   // S and dP of tile u have completed: dS in dp
+      if (lane == 0) hopper::mbar_arrive(&empty_v[u % kStages]);   // V only fed dP
+      const int ks = (span.lo + u) * kStrip;
+      const bool edge = ks + kStrip > sk || (a.causal && ks + 63 > qw0) ||
+                        (window > 0 && ks <= qw0 + 63 - window) || row0 + 64 * c + 64 > sq;
+      if (!edge) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const float p = ex2(fmaf(sc[j], sl2, (j & 2) ? -l1 : -l0));
+          dp[j] = p * (dp[j] - ((j & 2) ? dl1 : dl0));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int kp = ks + 8 * (j / 4) + 2 * t + (j & 1);
+          const int r = (j & 2) ? r1 : r0;
+          const int qp = static_cast<int>(a.q_offset) + r;
+          float x = sc[j] * sl2;
+          if ((a.causal && qp < kp) || (window > 0 && kp <= qp - window)) x = kMasked * kLog2e;
+          const float p = r >= sq || kp >= sk ? 0.f : ex2(x - ((j & 2) ? l1 : l0));
+          dp[j] = p * (dp[j] - ((j & 2) ? dl1 : dl0));
+        }
+      }
+    };
+    auto release_k = [&](int u) {   // dS_u . K_u has completed
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dq);
+      if (lane == 0) hopper::mbar_arrive(&empty_k[u % kStages]);
+    };
+
+    // The two consumers take turns to start their products (named barriers
+    // kTurn + c, warpgroup 0 first), so one's dS runs while the other's
+    // products hold the tensor cores.  Each start is one turn; the
+    // warpgroup with fewer live key tiles pads with empty turns.
+    auto my_turn = [&] { hopper::named_barrier_sync(kTurn + c, 256); };
+    auto your_turn = [&] { hopper::named_barrier_arrive(kTurn + 1 - c, 256); };
+    const Range other = key_span(a, q_start + 64 * (1 - c), 64);
+    const int mine_turns = u1 >= u0 ? u1 - u0 + 2 : 0;
+    const int total = max(mine_turns, other.hi >= other.lo ? other.hi - other.lo + 2 : 0);
+    hopper::mbar_wait(qbar, 0);
+    if (total > 0 && c == 1) your_turn();
+    if (u1 >= u0) {
+      for (int u = 0; u < u0; ++u) skip(u);
+      my_turn();
+      start_sdp(u0);
+      your_turn();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      form_ds(u0);
+      split_frags(dp, fh, fl);
+      // step u: S_u and dP_u started beside dS_{u-1}.K_{u-1}; dS_u is formed
+      // while that product is still in flight
+      for (int u = u0 + 1; u <= u1; ++u) {
+        my_turn();
+        start_sdp(u);
+        start_dq(u - 1);
+        your_turn();
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(sc);
+        hopper::fence_regs(dp);
+        form_ds(u);
+        release_k(u - 1);
+        split_frags(dp, fh, fl);
+      }
+      my_turn();
+      start_dq(u1);
+      your_turn();
+      release_k(u1);
+      for (int u = u1 + 1; u < n; ++u) skip(u);
+    } else {
+      for (int u = 0; u < n; ++u) skip(u);
+    }
+    for (int k = mine_turns; k < total; ++k) {
+      my_turn();
+      your_turn();
+    }
+    if (total > 0 && c == 0) my_turn();   // takes warpgroup 1's last turn
+
+    const int64_t stride = a.hq * HD;
+    store_rows<HD>(a.dq + (static_cast<int64_t>(b) * a.sq * a.hq + h) * HD, stride, dq, r0, sq,
+                   a.scale, t);
   }
 }
 
@@ -566,24 +872,58 @@ __global__ void __launch_bounds__(256) fa_bwd_dq_simt(Args a) {
 
 // ------------------------------------------------------------------ launch
 
-template <typename Kernel>
-int launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Args& a, cudaStream_t s) {
+template <typename Kernel, typename... Maps>
+int launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t s, const Args& a,
+           const Maps&... maps) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, threads, smem, s>>>(a);
+  kernel<<<grid, threads, smem, s>>>(a, maps...);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
-size_t mma_smem() {
-  return 4 * kTile * (HD + 8) * sizeof(__nv_bfloat16) + 2 * kTile * sizeof(float);
+// A 4-D map over a (b, s, h, hd) bf16 tensor: boxes of 64 columns x `rows` rows.
+bool seq_map(CUtensorMap* map, const void* p, int64_t b, int64_t s, int64_t h, int64_t hd,
+             uint32_t rows) {
+  const uint64_t e = sizeof(__nv_bfloat16);
+  const uint64_t dims[4] = {static_cast<uint64_t>(hd), static_cast<uint64_t>(h),
+                            static_cast<uint64_t>(s), static_cast<uint64_t>(b)};
+  const uint64_t strides[3] = {hd * e, h * hd * e, s * h * hd * e};
+  const uint32_t box[4] = {64, 1, rows, 1};
+  return hopper::encode_bf16_4d(map, p, dims, strides, box);
 }
 
-bool bad_shape(int64_t b, int64_t sq, int64_t sk, int64_t hq, int64_t hkv, int64_t q_offset) {
+template <int HD>
+int launch_dkv_wgmma(const Args& a, int64_t b, cudaStream_t s) {
+  CUtensorMap qm, om, km, vm;
+  if (!seq_map(&qm, a.q, b, a.sq, a.hq, HD, kStrip) ||
+      !seq_map(&om, a.dout, b, a.sq, a.hq, HD, kStrip) ||
+      !seq_map(&km, a.k, b, a.sk, a.hkv, HD, kBlock) ||
+      !seq_map(&vm, a.v, b, a.sk, a.hkv, HD, kBlock))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(b * a.hkv),
+                  static_cast<unsigned>((a.sk + kBlock - 1) / kBlock));
+  return launch(fa_bwd_dkv_wgmma<HD>, grid, 384, DkvSmem<HD>::kBytes, s, a, qm, om, km, vm);
+}
+
+template <int HD>
+int launch_dq_wgmma(const Args& a, int64_t b, cudaStream_t s) {
+  CUtensorMap qm, om, km, vm;
+  if (!seq_map(&qm, a.q, b, a.sq, a.hq, HD, kBlock) ||
+      !seq_map(&om, a.dout, b, a.sq, a.hq, HD, kBlock) ||
+      !seq_map(&km, a.k, b, a.sk, a.hkv, HD, kStrip) ||
+      !seq_map(&vm, a.v, b, a.sk, a.hkv, HD, kStrip))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(b * a.hq),
+                  static_cast<unsigned>((a.sq + kBlock - 1) / kBlock));
+  return launch(fa_bwd_dq_wgmma<HD>, grid, 384, DqSmem<HD>::kBytes, s, a, qm, om, km, vm);
+}
+
+bool bad_shape(int64_t b, int64_t sq, int64_t sk, int64_t hq, int64_t hkv, int64_t q_offset,
+               int64_t window) {
   return b < 1 || sq < 1 || sk < 1 || hkv < 1 || hq % hkv != 0 || q_offset < 0 ||
          b * hq > 0x7fffffff || (sq + kTile - 1) / kTile > 65535 ||
-         (sk + kTile - 1) / kTile > 65535;
+         (sk + kTile - 1) / kTile > 65535 || q_offset + sq > 0x7fffffff || window > 0x7fffffff;
 }
 
 }  // namespace
@@ -591,23 +931,25 @@ bool bad_shape(int64_t b, int64_t sq, int64_t sk, int64_t hq, int64_t hkv, int64
 extern "C" {
 
 // q, dout: (b, sq, hq, hd); k, v: (b, sk, hkv, hd), contiguous, of one dtype
-// (0: f32, 1: bf16); lse, delta: (b, hq, sq) f32; dk, dv: (b, sk, hkv, hd)
-// f32, written whole.  hd is 64 or 128, hq a multiple of hkv, window <= 0 for
-// none.  Returns the cudaError_t of the launch.
+// (0: f32, 1: bf16, whose pointers are 16-byte aligned for TMA); lse, delta:
+// (b, hq, sq) f32; dk, dv: (b, sk, hkv, hd) f32, written whole.  hd is 64 or
+// 128, hq a multiple of hkv, window <= 0 for none.  Returns the cudaError_t
+// of the launch.
 int fa_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* delta, float* dk, float* dv, int64_t b, int64_t sq, int64_t sk,
                int64_t hq, int64_t hkv, int64_t hd, int64_t q_offset, int causal, int64_t window,
                float scale, int dtype, void* stream) {
-  if (bad_shape(b, sq, sk, hq, hkv, q_offset)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(b, sq, sk, hq, hkv, q_offset, window))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, sq, sk, hq, hkv, q_offset, window,
                causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(b * hkv), static_cast<unsigned>((sk + kTile - 1) / kTile));
-  if (dtype == 0 && hd == 64) return launch(fa_bwd_dkv_simt<64>, grid, 256, simt_smem<64>(), a, s);
+  if (dtype == 0 && hd == 64) return launch(fa_bwd_dkv_simt<64>, grid, 256, simt_smem<64>(), s, a);
   if (dtype == 0 && hd == 128)
-    return launch(fa_bwd_dkv_simt<128>, grid, 256, simt_smem<128>(), a, s);
-  if (dtype == 1 && hd == 64) return launch(fa_bwd_dkv_mma<64>, grid, 128, mma_smem<64>(), a, s);
-  if (dtype == 1 && hd == 128) return launch(fa_bwd_dkv_mma<128>, grid, 128, mma_smem<128>(), a, s);
+    return launch(fa_bwd_dkv_simt<128>, grid, 256, simt_smem<128>(), s, a);
+  if (dtype == 1 && hd == 64) return launch_dkv_wgmma<64>(a, b, s);
+  if (dtype == 1 && hd == 128) return launch_dkv_wgmma<128>(a, b, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -616,17 +958,26 @@ int fa_bwd_dq(const void* q, const void* k, const void* v, const void* dout, con
               const float* delta, float* dq, int64_t b, int64_t sq, int64_t sk, int64_t hq,
               int64_t hkv, int64_t hd, int64_t q_offset, int causal, int64_t window, float scale,
               int dtype, void* stream) {
-  if (bad_shape(b, sq, sk, hq, hkv, q_offset)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(b, sq, sk, hq, hkv, q_offset, window))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, sq, sk, hq, hkv, q_offset, window,
                causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(b * hq), static_cast<unsigned>((sq + kTile - 1) / kTile));
-  if (dtype == 0 && hd == 64) return launch(fa_bwd_dq_simt<64>, grid, 256, simt_smem<64>(), a, s);
+  if (dtype == 0 && hd == 64) return launch(fa_bwd_dq_simt<64>, grid, 256, simt_smem<64>(), s, a);
   if (dtype == 0 && hd == 128)
-    return launch(fa_bwd_dq_simt<128>, grid, 256, simt_smem<128>(), a, s);
-  if (dtype == 1 && hd == 64) return launch(fa_bwd_dq_mma<64>, grid, 128, mma_smem<64>(), a, s);
-  if (dtype == 1 && hd == 128) return launch(fa_bwd_dq_mma<128>, grid, 128, mma_smem<128>(), a, s);
+    return launch(fa_bwd_dq_simt<128>, grid, 256, simt_smem<128>(), s, a);
+  if (dtype == 1 && hd == 64) return launch_dq_wgmma<64>(a, b, s);
+  if (dtype == 1 && hd == 128) return launch_dq_wgmma<128>(a, b, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of one bf16 CTA of fa_bwd_dkv (dq = 0) or fa_bwd_dq
+// (dq = 1) at head dim hd (64 or 128), else 0.
+int fa_bwd_smem_bytes(int64_t hd, int dq) {
+  if (hd == 64) return dq ? DqSmem<64>::kBytes : DkvSmem<64>::kBytes;
+  if (hd == 128) return dq ? DqSmem<128>::kBytes : DkvSmem<128>::kBytes;
+  return 0;
 }
 
 }  // extern "C"

@@ -12,10 +12,12 @@ Each is counted under its own name in
 in the model's (B, S, H, hd) layout (the reference kernels take
 (B, H, S, hd)), check them, allocate their outputs with ``torch.empty``,
 launch on PyTorch's current stream and raise on a nonzero
-``cudaGetLastError``.  In bf16 the forward is the Hopper kernel (TMA tile
-ring, ``wgmma``, 128 × 128 tiles) and the backward the ``mma.sync`` sweeps
-(64 × 64 tiles); f32 runs the SIMT kernels (64 × 64), whatever the caller's
-block sizes.  Design and bound are in the sources' header comments.
+``cudaGetLastError``.  In bf16 they are the Hopper kernels (TMA tile rings,
+``wgmma``; the forward over 128 × 128 tiles, the dK/dV sweep 128 keys against
+64-row q tiles, the dQ sweep 128 q rows against 64-key tiles), which read q,
+k, v and do by TMA and so refuse tensors that do not start on a 16-byte
+boundary; f32 runs the SIMT kernels (64 × 64), whatever the caller's block
+sizes.  Design and bound are in the sources' header comments.
 """
 from __future__ import annotations
 
@@ -67,6 +69,12 @@ def _check(q, k, v, q_offset: int, window: Optional[int]):
     return b, sq, sk, hq, hkv, hd
 
 
+def _check_aligned(*tensors):
+    """bf16 tensors are read by TMA, which needs 16-byte aligned starts."""
+    if tensors[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("bf16 q, k, v (and do) must start on 16-byte boundaries (TMA)")
+
+
 def _tail(q, shape, q_offset, causal, window):
     hd = shape[-1]
     return (*shape, q_offset, int(bool(causal)), 0 if window is None else window, hd ** -0.5,
@@ -79,8 +87,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: Optional[int] =
     bf16), hd 64 or 128, Hq % Hkv == 0 → (o (B, Sq, Hq, hd) in q's dtype,
     lse (B, Hq, Sq) f32)."""
     shape = _check(q, k, v, q_offset, window)
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("bf16 q, k, v must start on 16-byte boundaries (TMA)")
+    _check_aligned(q, k, v)
     b, sq, _, hq = shape[:4]
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -92,9 +99,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: Optional[int] =
     return o, lse
 
 
-def _check_bwd(q, do, lse, delta):
+def _check_bwd(q, k, v, do, lse, delta):
     b, sq, hq, _ = q.shape
     backend.check(do, "do", q.dtype, q.shape)
+    _check_aligned(q, k, v, do)
     backend.check(lse, "lse", torch.float32, (b, hq, sq))
     backend.check(delta, "delta", torch.float32, (b, hq, sq))
 
@@ -105,7 +113,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     one dtype (f32 or bf16); lse (the forward's) and delta = rowsum(do · o):
     (B, Hq, Sq) f32 → (dk, dv) (B, Sk, Hkv, hd) f32."""
     shape = _check(q, k, v, q_offset, window)
-    _check_bwd(q, do, lse, delta)
+    _check_bwd(q, k, v, do, lse, delta)
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty_like(dk)
     err = _fn("flash_attention_bwd", "fa_bwd_dkv")(
@@ -121,7 +129,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     """The dQ sweep; arguments as :func:`flash_attention_bwd_dkv` → dq
     (B, Sq, Hq, hd) f32."""
     shape = _check(q, k, v, q_offset, window)
-    _check_bwd(q, do, lse, delta)
+    _check_bwd(q, k, v, do, lse, delta)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     err = _fn("flash_attention_bwd", "fa_bwd_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),

@@ -69,6 +69,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                   bench_flash.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry([])
+    # before it builds another revision's kernels
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_flash.main(["--baseline-bwd-source", str(ROOT / "missing" / "bwd.cu")])
 
 
 def test_dispatch_rule():

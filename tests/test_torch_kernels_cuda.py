@@ -253,6 +253,16 @@ def _rel(got, want):
     (1, 256, 256, 4, 1, 64, True, None, 0),       # g = 4
     (2, 100, 100, 4, 4, 128, False, None, 0),     # ragged tiles, g = 1, not causal
     (1, 128, 512, 4, 2, 128, True, 96, 256),      # window and q offset
+    # the bf16 kernels' 128-key / 128-row CTA tiles and 64-row / 64-key ring
+    # tiles at their edges, at hd 64 and 128
+    (1, 1000, 1000, 4, 4, 64, True, None, 0),     # ragged, g = 1
+    (1, 1000, 1000, 4, 4, 128, True, None, 0),
+    (1, 1024, 1024, 4, 1, 64, True, 200, 0),      # a window across key tiles
+    (1, 1024, 1024, 4, 1, 128, True, 200, 0),
+    (2, 100, 100, 8, 2, 64, True, None, 0),       # less than one tile
+    (2, 100, 100, 8, 2, 128, True, None, 0),
+    (1, 256, 512, 4, 2, 64, True, None, 200),     # q offset 200, Sk 512
+    (1, 256, 512, 4, 2, 128, True, None, 200),
 ])
 def test_flash_attention_bwd_kernels_within_tolerance_of_plain(dev, dtype, b, sq, sk, hq, hkv,
                                                                hd, causal, window, q_offset):
