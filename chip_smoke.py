@@ -16,9 +16,12 @@ Phases, each printing its own lines:
    at d = 70,001 and 16,777,217 (n = 8 peers, keys folded per rank from
    ``PRNGKey(seed)``), with a forced-small-cap overflow case and shard
    windows straddling block edges, the bit-plane kernels at every width and
-   on strided word windows, the FWHT and rotate-min/max kernels at row
-   lengths 2^8 .. 2^20 (odd exponents included, where 1/sqrt(c) is not a
-   power of two), the rotated encode-pack at a ragged length and at
+   on strided word windows, the Bernoulli encode's pair chunks at ragged
+   halves (d = 2, 2047, 2049, 2^21 + 3 with a small cap), the FWHT and
+   rotate-min/max kernels at row lengths 2^8 .. 2^20 (odd exponents
+   included, where 1/sqrt(c) is not a power of two; from 2^18 and at the
+   main shape each called twice and the FWHT in place too), the rotated
+   encode-pack at a ragged length and at
    delta = 0, and every kernel at the largest shape the main path gives it;
    time kernel and plain version (and, for the FWHT, the Kronecker matmul
    formulation of the TPU kernel as a yardstick); then hold the
@@ -360,6 +363,10 @@ def check_kernels(sizes, main_d: int, main_shard: int, records: dict) -> None:
     cases = [(d, 1.0 / 16, None) for d in sizes]
     cases.append((sizes[0], 1.0 / 16, 100))      # forced small cap: overflow drops
     cases.append((sizes[0], 0.3, None))          # 1/p not a power of two
+    # the encode's pair chunks (j, j + ceil(d/2)) at ragged halves: one pair,
+    # a partial last low chunk, a high chunk of one coordinate, a small cap
+    cases += [(2, 1.0 / 16, None), (2047, 0.5, None), (2049, 0.5, None),
+              ((1 << 21) + 3, 1.0 / 16, 5000)]
     cases.append((main_d, 1.0 / 16, None))       # the main path's largest bucket
     for d, p, cap in cases:
         cap = comm_cost.bernoulli_capacity(d, p) if cap is None else cap
@@ -576,7 +583,7 @@ def check_bitplane(sizes, main_d: int, records: dict) -> None:
         del rows, win, got, want
 
 
-ROW_LOGS = (8, 13, 14, 17, 20)   # FWHT row lengths 2^m checked, one pass and two
+ROW_LOGS = (8, 13, 14, 17, 18, 19, 20)   # FWHT row lengths 2^m checked, one pass and two
 
 
 def check_rotation(main_rows: int, records: dict) -> None:
@@ -612,6 +619,19 @@ def check_rotation(main_rows: int, records: dict) -> None:
         zp, mmp = rer.rotate_minmax(x, signs, scale)
         need(same_bits(z, zp) and same_bits(mm, mmp), f"rotate_minmax ({b}, {c}): kernel != plain")
         tag = f"({b}, {c})"
+        if m is None or m >= 18:
+            # a second call (its own ticket and row counters) and the
+            # transform in place (out == x)
+            again = hk.fwht(x)
+            z2, mm2 = rek.rotate_minmax(x, signs, scale)
+            y = x.clone()
+            hk.fwht(y, out=y)
+            need(same_bits(again, want) and same_bits(y, want),
+                 f"fwht ({b}, {c}) repeated or in place: kernel != plain")
+            need(same_bits(z2, zp) and same_bits(mm2, mmp),
+                 f"rotate_minmax ({b}, {c}) repeated: kernel != plain")
+            tag += " (repeated, in place)"
+            del again, z2, y
         if m is None:
             n = b * c
             ms = cuda_ms(lambda: hk.fwht(x))

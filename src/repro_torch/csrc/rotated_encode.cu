@@ -11,15 +11,16 @@
 //
 // re_rotate_minmax: per row of c = 2^m coordinates (one MAX_D chunk of the
 //   block-diagonal rotation), z = H (x * signs) / scale and the row's
-//   (min, max) of z.  The butterfly is fwht.cuh's: the signs multiply in at
-//   the first pass's load, the true division by scale = sqrt(c) (not a power
-//   of two for odd m) and the min / max at the last pass's store; each block
-//   writes its tile's (min, max) and one small kernel reduces a row's tiles.
+//   (min, max) of z.  The butterfly is fwht.cuh's (register radix, both
+//   passes of a row in one persistent kernel, the intermediate in L2): the
+//   signs multiply in at the first pass's load, the true division by scale =
+//   sqrt(c) (not a power of two for odd m) and the min / max at the last
+//   pass's store; each last-pass tile writes its (min, max) and one small
+//   kernel reduces a row's tiles (below m = 13 it reduces the stored rows).
 //   min and max are order-free, so the result equals torch.amin / amax,
 //   except that which zero is kept when both signs of zero are the extreme
 //   depends on the order on either side.
-//   Bound: bytes.  12 B a coordinate for one pass (x and signs read, z
-//   written); at c = 2^20 there are two passes, so 20 B are moved.
+//   Bound: bytes.  12 B a coordinate: x and signs read, z written, once.
 //
 // re_encode_pack: the stochastic binary threshold of encoders.encode_binary
 //   with the global (vmin, vmax) already reduced, and the 1-bit plane pack.
@@ -70,16 +71,16 @@ __global__ void encode_pack_kernel(const float* __restrict__ z, int64_t dp,
 
 extern "C" {
 
-// x, signs, z: (rows, c) f32; mm: (rows, 2) f32; partial: scratch of
-// rows * re_partials_per_row(c) float2.
-int re_rotate_minmax(const float* x, const float* signs, float* z, float* mm,
-                     float* partial, int64_t rows, int64_t c, float scale, void* stream) {
+// x, signs, z: (rows, c) f32, 16-byte aligned; mm: (rows, 2) f32; scratch:
+// re_scratch_bytes(rows, c) bytes.
+int re_rotate_minmax(const float* x, const float* signs, float* z, float* mm, void* scratch,
+                     int64_t rows, int64_t c, float scale, void* stream) {
   if (!signs || !mm) return static_cast<int>(cudaErrorInvalidValue);
-  return fwht::launch(x, signs, z, rows, c, scale, reinterpret_cast<float2*>(partial),
-                      reinterpret_cast<float2*>(mm), static_cast<cudaStream_t>(stream));
+  return fwht::launch<true>(x, signs, z, rows, c, scale, reinterpret_cast<float2*>(mm), scratch,
+                            static_cast<cudaStream_t>(stream));
 }
 
-int64_t re_partials_per_row(int64_t c) { return fwht::last_pass_tiles(c); }
+int64_t re_scratch_bytes(int64_t rows, int64_t c) { return fwht::scratch_bytes(rows, c, true); }
 
 // z: (dp,) f32; vmm: (vmin, vmax) f32 on the card; out: ceil(dp/32) words.
 int re_encode_pack(const float* z, int64_t dp, uint32_t k0, uint32_t k1, const float* vmm,

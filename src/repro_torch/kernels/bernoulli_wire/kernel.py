@@ -35,9 +35,10 @@ _SIGS = {
     "bw_support_counts": [_P, ctypes.c_int, _I64, _I64, _I64, ctypes.c_float,
                           _P, _P, _P],
     "bw_scan_rows": [_P, _P, ctypes.c_int, _I64, _P, _P, _P],
-    "bw_encode_write": [_P, _P, _P, _P, _I64, _I64, ctypes.c_float,
-                        ctypes.c_float, _P, _P, _P],
+    "bw_encode": [ctypes.c_uint32, ctypes.c_uint32, _P, _I64, ctypes.c_float, _I64,
+                  ctypes.c_float, ctypes.c_float, _P, _P, _P, _P],
     "bw_decode": [_P, _I64, _P, _P, _P, ctypes.c_int, _I64, _I64, _P, _P],
+    "bw_encode_scratch_bytes": [_I64],
 }
 
 
@@ -45,7 +46,7 @@ def _fn(name: str):
     f = getattr(backend.lib(_LIB), name)
     if f.argtypes is None:
         f.argtypes = _SIGS[name]
-        f.restype = ctypes.c_int
+        f.restype = ctypes.c_int64 if name.endswith("_bytes") else ctypes.c_int
     return f
 
 
@@ -109,14 +110,12 @@ def encode(flat, key, mu, *, p: float, cap: int):
     dev = flat.device
     d = flat.shape[0]
     p32, inv_p, c = ref.coefficients(p)
-    counts, mask = _count(_host_keys(key), 1, 0, d, d, p32, dev)
-    offsets, total = _scan(counts, None, dev)
+    k0, k1 = _host_keys(key)
+    work = torch.empty(_fn("bw_encode_scratch_bytes")(d), dtype=torch.uint8, device=dev)
     out = torch.empty(cap, dtype=torch.float32, device=dev)
-    err = _fn("bw_encode_write")(flat.data_ptr(), mask.data_ptr(),
-                                 offsets.data_ptr(), total.data_ptr(), d, cap,
-                                 inv_p, c, mu.data_ptr(), out.data_ptr(),
-                                 backend.stream_ptr(dev))
-    backend.check_launch(err, "bernoulli encode write")
+    err = _fn("bw_encode")(k0, k1, flat.data_ptr(), d, p32, cap, inv_p, c, mu.data_ptr(),
+                           out.data_ptr(), work.data_ptr(), backend.stream_ptr(dev))
+    backend.check_launch(err, "bernoulli encode")
     backend.launches["bernoulli_encode"] += 1
     return out
 

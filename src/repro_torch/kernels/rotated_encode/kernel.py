@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.hadamard.hadamard import check_rows
+from repro_torch.kernels.hadamard.hadamard import aligned, check_rows, scratch
 
 _LIB = "rotated_encode"
 _P = ctypes.c_void_p
@@ -27,7 +27,7 @@ _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
 _SIGS = {
     "re_rotate_minmax": ([_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float, _P], ctypes.c_int),
-    "re_partials_per_row": ([_I64], _I64),
+    "re_scratch_bytes": ([_I64, _I64], _I64),
     "re_encode_pack": ([_P, _I64, _U32, _U32, _P, _P, _P], ctypes.c_int),
 }
 
@@ -44,12 +44,12 @@ def rotate_minmax(x2, signs2, scale: float):
     (z2 (B, c) f32, mm (B, 2) f32 per-row (min, max) of z2)."""
     b, c = check_rows(x2, "x2")
     backend.check(signs2, "signs2", torch.float32, (b, c))
+    x2, signs2 = aligned(x2), aligned(signs2)
     z = torch.empty_like(x2)
     mm = torch.empty((b, 2), dtype=torch.float32, device=x2.device)
-    partial = torch.empty((b * _fn("re_partials_per_row")(c), 2), dtype=torch.float32,
-                          device=x2.device)
+    work = scratch(_fn("re_scratch_bytes")(b, c), x2.device)
     err = _fn("re_rotate_minmax")(x2.data_ptr(), signs2.data_ptr(), z.data_ptr(), mm.data_ptr(),
-                                  partial.data_ptr(), b, c, float(scale),
+                                  work.data_ptr(), b, c, float(scale),
                                   backend.stream_ptr(x2.device))
     backend.check_launch(err, "rotate_minmax")
     backend.launches["rotate_minmax"] += 1

@@ -1,0 +1,268 @@
+"""Kernels 1, 8 and 9 timed on the card at the main path's shapes, beside
+another build of their sources.
+
+    PYTHONPATH=src python -m repro_torch.launch.bench_wire \
+        [--baseline-dir OLD/src/repro_torch/csrc] [--profile] \
+        [--out chiprun_out/bench_wire.json]
+
+Shapes (:func:`cases`), from the main path's largest bucket (qwen3-4b's
+embedding, 388,956,160 coordinates, ``train/synthetic.py::main_shapes``):
+
+* kernel 1, the seed-trick Bernoulli encode (``kernels/bernoulli_wire``), at
+  d = 388,956,160, p = 1/16, cap = ``bernoulli_capacity(d, p)``;
+* kernel 8, the FWHT (``kernels/hadamard``), at (371, 2²⁰): the bucket's
+  block-diagonal rotation chunks;
+* kernel 9, rotate + (min, max) (``kernels/rotated_encode``), at the same
+  rows with seeded ±1 signs.
+
+Each is timed by CUDA events (20 calls after a warm-up).  With
+``--baseline-dir`` (a ``git archive`` of another revision's
+``src/repro_torch/csrc``, headers included) the same functions of that
+revision's ``bernoulli_wire.cu``, ``hadamard.cu`` and ``rotated_encode.cu``
+are built with the port's ``nvcc`` flags and timed in turns: baseline, new,
+new, baseline; their outputs are held bit-equal to the new ones.  The
+baseline's C entry points are called with the signatures they have: the
+three-launch encode (``bw_support_counts``, ``bw_scan_rows``,
+``bw_encode_write``) and the scratch-free ``hd_fwht`` and ``re_rotate_minmax``
+of the parent revision, or this revision's.  Prints, and writes as JSON,
+the card's name and power limit, each kernel's ms, its bound (bytes over
+3.35 TB/s, int32 operations over 16.75 T/s, as ``chip_smoke.py`` counts
+them) and its share of the bound.  With ``--profile`` it also runs 5 calls
+of each (and of the baseline's) under ``torch.profiler`` and reports the
+device ms per launch of every CUDA kernel they launch, by name: the split
+between a function's kernels.  Exits 1 if a baseline disagrees.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import subprocess
+
+import torch
+
+from repro_torch import random as prandom
+from repro_torch import resolve_device
+from repro_torch.core import comm_cost
+from repro_torch.kernels import backend
+from repro_torch.kernels.bernoulli_wire import kernel as bwk
+from repro_torch.kernels.bernoulli_wire import ref as bwr
+from repro_torch.kernels.hadamard import hadamard as hk
+from repro_torch.kernels.rotated_encode import kernel as rek
+from repro_torch.launch.bench_encode_speed import device_line, time_ms
+
+D = 388_956_160            # qwen3-4b's embedding bucket (the main path's largest)
+ROWS = -(-D // (1 << 20))  # its rotation's rows of 2^20
+P = 1 / 16
+HBM_BYTES_PER_S = 3.35e12                # H100 SXM, NVIDIA data sheet
+INT32_OPS_PER_S = 67e12 * 64 / (128 * 2)  # chip_smoke.py's int32 rate
+OPS_PER_CALL = 72                        # int32 operations of one Threefry call
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+SOURCES = ("bernoulli_wire", "hadamard", "rotated_encode")
+
+
+def bound_ms(nbytes: float, int_ops: float = 0.0):
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = int_ops / INT32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def build_baseline(src_dir: pathlib.Path) -> dict:
+    """lib<name>_baseline.so for each of SOURCES in ``src_dir``, built in
+    parallel with the port's flags (headers from ``src_dir``)."""
+    out_dir = backend.BUILD_DIR.parent / "baseline"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in SOURCES:
+        so = out_dir / f"lib{name}_baseline.so"
+        cmd = [backend.nvcc_path(), *backend.NVCC_FLAGS, "-I", str(src_dir), "-o", str(so),
+               str(src_dir / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the baseline's {name}.cu:\n{log}")
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
+
+
+def _sig(lib, name, argtypes, restype=ctypes.c_int):
+    f = getattr(lib, name)
+    f.argtypes, f.restype = argtypes, restype
+    return f
+
+
+def _check(err, what):
+    backend.check_launch(err, f"baseline {what}")
+
+
+def baseline_encode(lib, x, key, mu, cap):
+    """The baseline's encode of x into a fresh (cap,) buffer, as a call."""
+    dev, d = x.device, x.shape[0]
+    p32, inv_p, c = bwr.coefficients(P)
+    k0, k1 = (int(w) & 0xFFFFFFFF for w in torch.as_tensor(key).reshape(2))
+    out = torch.empty(cap, dtype=torch.float32, device=dev)
+    if hasattr(lib, "bw_encode"):
+        nbytes = _sig(lib, "bw_encode_scratch_bytes", [_I64], _I64)(d)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        fn = _sig(lib, "bw_encode", [ctypes.c_uint32, ctypes.c_uint32, _P, _I64, ctypes.c_float,
+                                     _I64, ctypes.c_float, ctypes.c_float, _P, _P, _P, _P])
+
+        def call():
+            _check(fn(k0, k1, x.data_ptr(), d, p32, cap, inv_p, c, mu.data_ptr(), out.data_ptr(),
+                      work.data_ptr(), backend.stream_ptr(dev)), "bw_encode")
+        return call, out
+    count = _sig(lib, "bw_support_counts", [_P, ctypes.c_int, _I64, _I64, _I64, ctypes.c_float,
+                                            _P, _P, _P])
+    scan = _sig(lib, "bw_scan_rows", [_P, _P, ctypes.c_int, _I64, _P, _P, _P])
+    write = _sig(lib, "bw_encode_write", [_P, _P, _P, _P, _I64, _I64, ctypes.c_float,
+                                          ctypes.c_float, _P, _P, _P])
+    keys = (ctypes.c_uint32 * 2)(k0, k1)
+    nck = bwr.num_chunks(d)
+    counts = torch.empty(nck, dtype=torch.int32, device=dev)
+    mask = torch.empty(nck * bwr.WORDS, dtype=torch.int32, device=dev)
+    offsets = torch.empty_like(counts)
+    total = torch.empty(1, dtype=torch.int32, device=dev)
+
+    def call():
+        s = backend.stream_ptr(dev)
+        _check(count(keys, 1, 0, d, d, p32, counts.data_ptr(), mask.data_ptr(), s), "count")
+        _check(scan(counts.data_ptr(), None, 1, nck, offsets.data_ptr(), total.data_ptr(), s),
+               "scan")
+        _check(write(x.data_ptr(), mask.data_ptr(), offsets.data_ptr(), total.data_ptr(), d, cap,
+                     inv_p, c, mu.data_ptr(), out.data_ptr(), s), "encode write")
+    return call, out
+
+
+def baseline_fwht(lib, x):
+    b, c = x.shape
+    out = torch.empty_like(x)
+    s = backend.stream_ptr(x.device)
+    if hasattr(lib, "hd_scratch_bytes"):
+        work = hk.scratch(_sig(lib, "hd_scratch_bytes", [_I64, _I64], _I64)(b, c), x.device)
+        fn = _sig(lib, "hd_fwht", [_P, _P, _I64, _I64, _P, _P])
+        return (lambda: _check(fn(x.data_ptr(), out.data_ptr(), b, c, work.data_ptr(), s),
+                               "hd_fwht")), out
+    fn = _sig(lib, "hd_fwht", [_P, _P, _I64, _I64, _P])
+    return (lambda: _check(fn(x.data_ptr(), out.data_ptr(), b, c, s), "hd_fwht")), out
+
+
+def baseline_rotate(lib, x, signs, scale):
+    b, c = x.shape
+    z = torch.empty_like(x)
+    mm = torch.empty((b, 2), dtype=torch.float32, device=x.device)
+    s = backend.stream_ptr(x.device)
+    if hasattr(lib, "re_scratch_bytes"):
+        nbytes = _sig(lib, "re_scratch_bytes", [_I64, _I64], _I64)(b, c)
+    else:
+        nbytes = 8 * b * _sig(lib, "re_partials_per_row", [_I64], _I64)(c)
+    work = hk.scratch(nbytes, x.device)
+    fn = _sig(lib, "re_rotate_minmax", [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float, _P])
+    return (lambda: _check(fn(x.data_ptr(), signs.data_ptr(), z.data_ptr(), mm.data_ptr(),
+                              work.data_ptr(), b, c, scale, s), "re_rotate_minmax")), (z, mm)
+
+
+def same_bits(a, b) -> bool:
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def cases(device):
+    """{name: (kernel call, baseline factory, (bound ms, bound by), shape)}
+    at the main path's shapes, on seeded inputs; a factory takes the
+    baseline's libraries and returns (call, its preallocated output(s))."""
+    gen = torch.Generator(device=device).manual_seed(19)
+    flat = torch.randn(D, generator=gen, device=device) * 0.5 + 0.1
+    mu = flat.mean()
+    key = prandom.fold_in(prandom.PRNGKey(7), 3)
+    cap = comm_cost.bernoulli_capacity(D, P)
+    x = torch.randn(ROWS, 1 << 20, generator=gen, device=device) * 0.02
+    signs = prandom.rademacher(prandom.fold_in(prandom.PRNGKey(11), 2), x.shape, device)
+    scale = float(torch.sqrt(torch.tensor(float(1 << 20))))
+    n = x.numel()
+    return {
+        "bernoulli_encode": (lambda: bwk.encode(flat, key, mu, p=P, cap=cap),
+                             lambda lib: baseline_encode(lib["bernoulli_wire"], flat, key, mu, cap),
+                             bound_ms(4 * D + 4 * cap, OPS_PER_CALL * -(-D // 2)),
+                             {"d": D, "p": P, "cap": cap}),
+        "fwht": (lambda: hk.fwht(x), lambda lib: baseline_fwht(lib["hadamard"], x),
+                 bound_ms(8 * n), {"rows": ROWS, "c": 1 << 20}),
+        "rotate_minmax": (lambda: rek.rotate_minmax(x, signs, scale),
+                          lambda lib: baseline_rotate(lib["rotated_encode"], x, signs, scale),
+                          bound_ms(12 * n + 8 * ROWS), {"rows": ROWS, "c": 1 << 20}),
+    }
+
+
+def kernel_split(fn, calls: int = 5) -> dict:
+    """{kernel name: [launches, device ms per launch]} over ``calls`` calls
+    of fn under torch.profiler."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0.0)
+        if t and e.count:
+            split[e.key[:120]] = [e.count, t / e.count / 1e3]
+    return split
+
+
+def flat_outputs(o):
+    return list(o) if isinstance(o, tuple) else [o]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--baseline-dir", type=pathlib.Path, default=None,
+                    help="another revision's src/repro_torch/csrc to time beside this one")
+    ap.add_argument("--profile", action="store_true",
+                    help="also report each kernel's device ms per launch (torch.profiler)")
+    ap.add_argument("--out", default="chiprun_out/bench_wire.json")
+    args = ap.parse_args(argv)
+    dev = resolve_device(None)
+    card = device_line(dev)
+    print(card, flush=True)
+    backend.build(SOURCES)
+    libs = build_baseline(args.baseline_dir) if args.baseline_dir else None
+    result = {"device": card, "torch": torch.__version__,
+              "baseline": str(args.baseline_dir) if args.baseline_dir else None, "rows": []}
+    ok = True
+    for name, (kernel, factory, (bound, by), shape) in cases(dev).items():
+        row = {"kernel": name, **shape, "bound_ms": bound, "bound_by": by}
+        if libs is not None:
+            call, bout = factory(libs)
+            call()
+            got = kernel()
+            torch.cuda.synchronize(dev)
+            row["baseline_bit_equal"] = all(same_bits(a, b) for a, b in
+                                            zip(flat_outputs(bout), flat_outputs(got)))
+            ok &= row["baseline_bit_equal"]
+            del got
+            b1 = time_ms(call, dev)
+            k1, k2 = time_ms(kernel, dev), time_ms(kernel, dev)
+            b2 = time_ms(call, dev)
+            row.update(ms=[k1, k2], baseline_ms=[b1, b2])
+        else:
+            row["ms"] = [time_ms(kernel, dev)]
+        row["share_of_bound"] = bound / (sum(row["ms"]) / len(row["ms"]))
+        if args.profile:
+            row["split"] = kernel_split(kernel)
+            if libs is not None:
+                row["baseline_split"] = kernel_split(call)
+        result["rows"].append(row)
+        print(json.dumps(row), flush=True)
+    path = pathlib.Path(args.out)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(result, indent=1))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -18,6 +18,7 @@ from repro.kernels.bernoulli_wire import ref as jref
 from repro_torch import random as R
 from repro_torch.kernels.bernoulli_wire import ops as tops
 from repro_torch.kernels.bernoulli_wire import ref as tref
+from repro_torch.kernels.threefry import ref as tf_ref
 
 
 # the reference functions, compiled once per static shape instead of op by op
@@ -94,6 +95,55 @@ def test_encode_general_p_within_one_ulp():
     cmu = abs((1.0 - p) / p * 0.1)
     tol = 2.0 ** -23 * (np.abs(scaled) + cmu + np.abs(want))
     assert np.all(np.abs(got - want) <= tol)
+
+
+def _pair_order_encode(x, key, p, cap, mu):
+    """A torch model of the card's encode bookkeeping (``bw_encode`` in
+    csrc/bernoulli_wire.cu): one cipher call per pair (j, j + half) with x0
+    to j and x1 to j + half, chunks of 1024 taken low then high, 32 mask
+    words a chunk, rank = exclusive scan of the chunk counts + the popcount
+    prefix of the chunk's words + the set bits below the lane in its word."""
+    d = x.shape[0]
+    half = (d + 1) // 2
+    nl, nh = -(-half // 1024), -(-(d - half) // 1024)
+    p32, inv_p, c = tref.coefficients(p)
+    k0, k1 = (int(w) & 0xFFFFFFFF for w in key)
+    j = torch.arange(nl * 1024, dtype=torch.int64)
+    c1 = j + half
+    x0, x1 = tf_ref.threefry2x32(k0, k1, j, torch.where(c1 < d, c1, torch.zeros_like(c1)))
+    lo = (j < half) & (tf_ref.bits_to_uniform(x0) < p32)
+    hi = (j < half) & (c1 < d) & (tf_ref.bits_to_uniform(x1) < p32)
+    sent = torch.cat([lo.reshape(nl, 1024), hi.reshape(nl, 1024)[:nh]])
+    coord = torch.cat([j.reshape(nl, 1024), c1.reshape(nl, 1024)[:nh]])
+    words = tref.pack_bits(sent)                                   # (nl + nh, 32)
+    bits = tref.unpack_bits(words).reshape(-1, 32, 32).to(torch.int64)
+    per_word = bits.sum(-1)
+    counts = per_word.sum(-1)
+    offset = torch.cumsum(counts, 0) - counts
+    word_prefix = torch.cumsum(per_word, 1) - per_word
+    below = torch.cumsum(bits, -1) - bits
+    rank = (offset[:, None, None] + word_prefix[..., None] + below).reshape(sent.shape)
+    keep = sent & (rank < cap)
+    out = torch.zeros(cap, dtype=torch.float32)
+    vals = (x[coord[keep]] * torch.tensor(inv_p, dtype=torch.float32)
+            - torch.tensor(c, dtype=torch.float32) * torch.tensor(mu, dtype=torch.float32))
+    out[rank[keep]] = vals
+    return out
+
+
+@pytest.mark.parametrize("d,cap", [(1, None), (2, None), (2047, None), (2049, None),
+                                   (70001, None), (70001, 100), ((1 << 17) + 3, None)])
+def test_pair_order_rank_model_equals_encode(d, cap):
+    """The card's encode order (pairs, low chunks then high) gives the slots
+    of the coordinate-order encode, bit for bit, ragged halves included."""
+    p = 1 / 16
+    cap = cap or comm_cost.bernoulli_capacity(d, p)
+    x = torch.from_numpy((np.random.default_rng(d).standard_normal(d) * 0.5 + 0.1)
+                         .astype(np.float32))
+    key = R.fold_in(R.PRNGKey(7), 3)
+    want = tref.encode(x, key, p, cap, 0.05)
+    got = _pair_order_encode(x, key, p, cap, 0.05)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want.numpy()))
 
 
 def test_rank_select_matches():

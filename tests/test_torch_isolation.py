@@ -15,7 +15,7 @@ from repro_torch.configs.registry import smoke_config
 from repro_torch.core import collectives as tcoll
 from repro_torch.examples import federated_mean, quickstart
 from repro_torch.kernels import backend
-from repro_torch.launch import bench_encode_speed, bench_flash
+from repro_torch.launch import bench_encode_speed, bench_flash, bench_wire
 from repro_torch.models import model
 from repro_torch.serving import engine
 from repro_torch.train import train_step
@@ -66,12 +66,30 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, run, shape, TrainerConfig(), 2)
     for entry in (quickstart.main, federated_mean.main, bench_encode_speed.main,
-                  bench_flash.main):
+                  bench_flash.main, bench_wire.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry([])
     # before it builds another revision's kernels
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench_flash.main(["--baseline-bwd-source", str(ROOT / "missing" / "bwd.cu")])
+
+
+def test_bench_wire_raises_without_a_card_before_building(monkeypatch, tmp_path):
+    """The kernel-1/8/9 bench needs a card: with a baseline it fails before
+    it starts nvcc on another revision's sources."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(bench_wire, "build_baseline", lambda d: pytest.fail("built"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_wire.main(["--baseline-dir", str(tmp_path), "--profile"])
+
+
+def test_fwht_wrapper_checks_out():
+    """fwht into `out` takes only a same-shaped f32 CUDA tensor."""
+    from repro_torch.kernels.hadamard import hadamard as hk
+
+    x = torch.zeros(2, 1024)
+    with pytest.raises(ValueError, match="CUDA"):
+        hk.fwht(x, out=x)
 
 
 def test_dispatch_rule():

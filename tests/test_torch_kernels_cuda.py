@@ -57,7 +57,12 @@ def _same(a, b):
 
 
 @pytest.mark.parametrize("d,p,cap", [(1, 0.5, None), (70001, 1 / 16, None),
-                                     (70001, 1 / 16, 100), (4103, 0.3, None)])
+                                     (70001, 1 / 16, 100), (4103, 0.3, None),
+                                     # pair chunks at ragged halves: one pair, a
+                                     # partial low chunk, a high chunk of one
+                                     (2, 1 / 16, None), (2047, 0.5, None),
+                                     (2049, 0.5, None), ((1 << 21) + 3, 1 / 16, None),
+                                     ((1 << 21) + 3, 1 / 16, 5000)])
 def test_encode_kernel_equals_plain(dev, d, p, cap):
     cap = cap or comm_cost.bernoulli_capacity(d, p)
     x = torch.randn(d, device=dev, generator=torch.Generator(dev).manual_seed(d))
@@ -130,10 +135,11 @@ def test_binary_accum_equals_plain(dev, n, d):
         assert _same(bpk.binary_accum(win, lo, hi, d), want)
 
 
-@pytest.mark.parametrize("b,m", [(1, 0), (3, 1), (2, 5), (3, 8), (2, 13), (3, 14), (2, 17)])
+@pytest.mark.parametrize("b,m", [(1, 0), (3, 1), (2, 5), (3, 8), (2, 13), (3, 14), (2, 17),
+                                 (1, 18), (9, 18), (1, 19), (9, 19), (1, 20), (9, 20)])
 def test_fwht_and_rotate_minmax_equal_plain(dev, b, m):
     """One pass up to 2^13, two beyond; odd m, where sqrt(c) is not a power
-    of two, included."""
+    of two, included; 9 rows of 2^20 (36 MiB) outrun the L2."""
     c = 1 << m
     x = torch.randn(b, c, device=dev, generator=torch.Generator(dev).manual_seed(b * c))
     assert _same(hk.fwht(x), hr.fwht(x))
@@ -142,6 +148,33 @@ def test_fwht_and_rotate_minmax_equal_plain(dev, b, m):
     z, mm = rek.rotate_minmax(x, signs, scale)
     zp, mmp = rer.rotate_minmax(x, signs, scale)
     assert _same(z, zp) and _same(mm, mmp)
+
+
+@pytest.mark.parametrize("b,m", [(3, 12), (2, 17), (5, 20)])
+def test_fwht_in_place_and_repeated_equal_plain(dev, b, m):
+    """out == x, and two calls back to back: each call's ticket and row
+    counters are its own."""
+    x = torch.randn(b, 1 << m, device=dev, generator=torch.Generator(dev).manual_seed(b + m))
+    want = hr.fwht(x)
+    first, second = hk.fwht(x), hk.fwht(x)
+    assert _same(first, want) and _same(second, want)
+    y = x.clone()
+    assert hk.fwht(y, out=y).data_ptr() == y.data_ptr()
+    assert _same(y, want)
+
+
+def test_fwht_on_two_streams_equal_plain(dev):
+    g = torch.Generator(dev).manual_seed(5)
+    xs = [torch.randn(4, 1 << 20, device=dev, generator=g) for _ in range(2)]
+    want = [hr.fwht(x) for x in xs]
+    streams = [torch.cuda.Stream(dev) for _ in xs]
+    torch.cuda.synchronize(dev)
+    got = []
+    for x, st in zip(xs, streams):
+        with torch.cuda.stream(st):
+            got.append(hk.fwht(x))
+    torch.cuda.synchronize(dev)
+    assert all(_same(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("dp", (1, 33, 70001, 131072))
