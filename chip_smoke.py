@@ -17,12 +17,15 @@ Phases, each printing its own lines:
    ``PRNGKey(seed)``), with a forced-small-cap overflow case and shard
    windows straddling block edges, the bit-plane kernels at every width and
    on strided word windows, the Bernoulli encode's pair chunks at ragged
-   halves (d = 2, 2047, 2049, 2^21 + 3 with a small cap), the FWHT and
+   halves (d = 2, 2047, 2049, 2^21 + 3 with a small cap), the flat
+   Bernoulli decode's pair chunks at ragged halves (d = 1, 2, 2047, 2049,
+   70,001, 2^21 + 3 at n = 1, 3, 8, with cap overflow, each equal to the
+   sequential and to the plain decode), the FWHT and
    rotate-min/max kernels at row lengths 2^8 .. 2^20 (odd exponents
    included, where 1/sqrt(c) is not a power of two; from 2^18 and at the
    main shape each called twice and the FWHT in place too), the rotated
-   encode-pack at a ragged length and at
-   delta = 0, and every kernel at the largest shape the main path gives it;
+   encode-pack at ragged lengths (dp = 1, 2, 33, 65, 70,001, 131,083: the
+   high ballots split across words) and at delta = 0, and every kernel at the largest shape the main path gives it;
    time kernel and plain version (and, for the FWHT, the Kronecker matmul
    formulation of the TPU kernel as a yardstick); then hold the
    flash-attention forward within the reference's tolerances for
@@ -459,6 +462,26 @@ def check_kernels(sizes, main_d: int, main_shard: int, records: dict) -> None:
                   f"decode {ms_d:.3f} ms (plain {pms_d:.3f})", flush=True)
         del bufs, parts, sups_k, sups_p
 
+    # the flat decode's pair chunks (j, j + ceil(d/2)) at ragged halves: odd
+    # d, a partial last low chunk, a high chunk of one coordinate, n = 1, 3,
+    # 8 and cap overflow; each equal to the sequential and the plain decode
+    for d, n, p, cap in ((1, 1, 1 / 16, None), (2, 3, 1 / 16, None), (2047, 8, 0.5, None),
+                         (2049, 3, 0.5, None), (70_001, 3, 1 / 16, 1000),
+                         ((1 << 21) + 3, 8, 1 / 16, None)):
+        cap = comm_cost.bernoulli_capacity(d, p) if cap is None else cap
+        gen.manual_seed(d + 5)
+        bufs = torch.randn(n, cap, generator=gen, device=dev)
+        mus = torch.randn(n, generator=gen, device=dev)
+        keys = _keys(d + 9, n)
+        got = bwk.decode_sum(bufs, mus, keys, p=p, cap=cap, d=d)
+        need(same_bits(got, bwr.decode_sum_sequential(bufs, mus, keys, p, cap, d))
+             and same_bits(got, bwr.decode_sum(bufs, mus, keys, p, cap, d)),
+             f"bernoulli_decode_sum d={d} n={n} p={p} cap={cap}: kernel != plain")
+    print("  bernoulli_decode_sum at ragged halves (d = 1, 2, 2047, 2049, 70,001, 2^21 + 3; "
+          "n = 1, 3, 8; cap overflow): bit-equal to the sequential and the plain decode",
+          flush=True)
+    del bufs, mus, got
+
     for d in (*sizes, main_d):
         gen.manual_seed(d + 2)
         flat = torch.randn(d, generator=gen, device=dev)
@@ -669,13 +692,23 @@ def check_rotation(main_rows: int, records: dict) -> None:
         need(same_bits(got, rer.binary_plane(zz, kenc, lo, hi, d)),
              f"encode_pack dp={d} vmin={float(lo)} vmax={float(hi)}: kernel != plain")
     need(not bool(got.any()), "encode_pack with delta = 0 set a bit")
+    # pairs (j, j + ceil(dp/2)) at half % 32 = 1, 1, 17, 1, 25, 6: high
+    # ballots split across words, edge and seam words met by atomicOr
+    for d in (1, 2, 33, 65, 70_001, 2 * ((1 << 16) + 5) + 1):
+        zz = torch.randn(d, generator=gen.manual_seed(d), device=dev)
+        for lo, hi in ((zz.amin(), zz.amax()), (zz[0], zz[0].clone())):
+            got = rek.encode_pack(zz, kenc, lo, hi, d)
+            need(same_bits(got, rer.binary_plane(zz, kenc, lo, hi, d)),
+                 f"encode_pack dp={d} vmin={float(lo)} vmax={float(hi)}: kernel != plain")
+        need(not bool(got.any()), f"encode_pack dp={d} with delta = 0 set a bit")
     for d in (100, 300, 70_001):
         for wire in ("bfloat16", "float32"):
             chain = bitplane.binary_pack(rotation.rotate(rotation.rotation_key(key), flat[:d]),
                                          R.fold_in(key, 1), wire)
             need(same_bits(reo.pack_binary(flat[:d], key, 1, wire), chain),
                  f"pack_binary d={d} {wire}: fused kernels != chain")
-    print(f"  encode_pack dp={dp}, {flat.numel()} (ragged), delta = 0: bit-equal; "
+    print(f"  encode_pack dp={dp}, {flat.numel()}, 1, 2, 33, 65, 131,083 (ragged), delta = 0: "
+          "bit-equal; "
           "fused pack_binary == chain at d = 100, 300, 70,001", flush=True)
     del flat, zr, cases
 

@@ -3,10 +3,12 @@
 // Replace the Pallas TPU kernels of src/repro/kernels/bernoulli_wire/kernel.py:
 //   encode_pallas (:184, _encode_kernel :127)       -> bw_encode (pair count +
 //                                                      look-back write)
-//   decode_sum_pallas (:248, _decode_kernel :193)   -> bw_support_counts +
-//                                                      bw_scan_rows + bw_decode
-//   decode_sum_shard_pallas (:336, :257)            -> the same, on a window
-//                                                      [start, start + ds)
+//   decode_sum_pallas (:248, _decode_kernel :193)   -> bw_decode_sum (pair
+//                                                      count + tile scan +
+//                                                      decode)
+//   decode_sum_shard_pallas (:336, :257)            -> bw_support_counts, then
+//                                                      bw_decode_sum_shard
+//                                                      (tile scan + decode)
 // and are bit-equal to the plain versions in
 // src/repro_torch/kernels/bernoulli_wire/ref.py.
 //
@@ -15,15 +17,19 @@
 // f32; the j-th sent coordinate (support rank j) owns value slot j; ranks >=
 // cap are dropped by encoder and decoder alike.
 //
-// Encode.  One Threefry call serves the coordinate pair (j, j + half), half =
-// ceil(d/2): word x0 is coordinate j's, x1 coordinate j + half's (for odd d
-// the last pair's partner is the zero pad, threefry.cuh::bits_at).  Chunks
-// of 1024 coordinates are taken in the order low chunks [1024k, 1024k +
-// 1024) ∩ [0, half), then high chunks half + [1024k, 1024k + 1024) ∩ [0, d -
-// half): every low coordinate precedes every high one, so the chunk order is
-// the coordinate order and ranks stay in it.
-//   1. pair count: one block per 1024 pairs draws each pair once and writes
-//      the mask words and support counts of low chunk k and high chunk k;
+// Pair chunks.  One Threefry call serves the coordinate pair (j, j + half),
+// half = ceil(d/2): word x0 is coordinate j's, x1 coordinate j + half's (for
+// odd d the last pair's partner is the zero pad, threefry.cuh::bits_at).
+// Chunks of 1024 coordinates are taken in the order low chunks [1024k, 1024k
+// + 1024) ∩ [0, half), then high chunks half + [1024k, 1024k + 1024) ∩ [0, d
+// - half): every low coordinate precedes every high one, so the chunk order
+// is the coordinate order and ranks stay in it.  pair_count_kernel draws
+// each pair once (ceil(d/2) calls a key) and writes the mask words and
+// support counts of low chunk k and high chunk k; encode and flat decode
+// both start with it.
+//
+// Encode.
+//   1. pair count, one key;
 //   2. write: persistent blocks take groups of 16 chunks in order by an
 //      atomic ticket; a group's exclusive rank offset comes by a decoupled
 //      look-back over the groups before it (a warp reads 32 status words at
@@ -40,30 +46,40 @@
 //
 // Decode.  The TPU kernels carry the running support rank in an SMEM
 // counter over a sequential grid.  CUDA blocks run in no order, so the rank
-// is built in three phases instead:
-//   1. count: one block per (1024-coordinate chunk, peer) draws the Threefry
-//      bits, forms the support with __ballot_sync, writes the 32 ballot words
-//      of the chunk (a d-bit support mask) and the chunk's support count;
-//   2. scan: an exclusive scan of the chunk counts per peer, starting from the
-//      peer's prior count (0 for the full decode, the ranks before the shard
-//      for the §12 shard decode);
-//   3. decode: ranks come from the chunk offset, the popcount prefix of the
-//      chunk's mask words and __popc of the lane's own word, so phase 3 reads
-//      the mask and never draws Threefry again.
-// Decode lets each thread own 4 coordinates and loops over the peers in
-// ascending order, adding in f32 into registers from 0 — the accumulation
-// order of ref.decode_sum_sequential, hence bit-equal results.
+// is built in phases instead:
+//   1. count: the flat decode runs the pair count with grid (nl, n), peer i's
+//      key by blockIdx.y: ceil(d/2) calls a peer, both words used.  The shard
+//      decode's count (bw_support_counts, run before the §12 count exchange)
+//      takes coordinate-aligned chunks of its window [start, start + ds),
+//      one call per coordinate and peer: a window's pair partners lie in
+//      other shards.
+//   2. scan: offsets[i, q] = init[i] + the counts of peer i's chunks before q
+//      (init 0, or the shard decode's prior counts), in two kernels over the
+//      card: the sums of tiles of 8192 counts, then each tile scanned from
+//      the sum of the tiles before it, one block per (tile, peer), loads and
+//      stores coalesced through shared memory.
+//   3. decode: one block per chunk takes the peers 8 at a time, one a warp.
+//      Lane k of warp u holds peer u's mask word k and its rank base (the
+//      chunk's offset plus a warp scan of the words' popcounts) in
+//      registers; every thread sets its own 4 coordinates' value slots (32
+//      KB of shared memory for 8 peers) to the peers' centers mu_i; after a
+//      barrier each lane writes the kept values of its word's set bits (rank
+//      < cap) into their slots, a batch of loads before their stores, so a
+//      value is loaded once and no thread works on the unsent 15/16; after a
+//      second barrier each thread adds its slots for i = 0..n-1 in that
+//      order, in f32 from 0 (__fadd_rn): the accumulation order of
+//      ref.decode_sum_sequential, hence bit-equal results.  Chunk q starts
+//      at 1024q (q < nl) or half + 1024(q - nl) and ends at half or ds; the
+//      shard decode's chunks are all low (nl = its chunk count, half = ds).
 //
 // Bound: one Threefry-2x32 call is at least 72 32-bit integer operations
 // (threefry.cuh) and yields the bits of coordinates j and j + ceil(d/2), so
-// a full-length draw needs ceil(d/2) calls per peer and a shard window one
-// call per coordinate and peer (its pair partners lie in other shards).  The
-// encode draws ceil(d/2) calls; the decode's count phase draws one call per
-// coordinate and keeps one word, twice the calls a full-length draw needs.
-// The write and decode phases move d*4 bytes in, cap*4 out (encode) or
-// n*cap*4 in, ds*4 out (decode).  At p = 1/16 the integer work dominates:
-// these kernels are bound by the card's int32 rate (64 lanes per SM), not
-// by HBM.
+// a full-length draw needs ceil(d/2) calls per key and a shard window one
+// call per coordinate and peer.  Encode and flat decode draw ceil(d/2)
+// calls a key.  The write and decode phases move d*4 bytes in, cap*4 out
+// (encode) or n*cap*4 in (the kept values), n*ds/8 of mask in and ds*4 out
+// (decode).  At p = 1/16 the integer work dominates: the drawing kernels
+// are bound by the card's int32 rate (64 lanes per SM), not by HBM.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -77,11 +93,17 @@ constexpr int kPerThread = kChunk / kThreads;
 constexpr int kWords = kChunk / 32;        // mask words per chunk
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPeers = 256;
+constexpr int kPeerGroup = kWarps;         // peers a decode block takes at once
 constexpr int kScanThreads = 1024;
+constexpr int kScanPer = 8;                // counts a scan thread takes
+constexpr int kTile = kScanThreads * kScanPer;
 
-struct Keys {
-  uint32_t w[2 * kMaxPeers];
+// (k0, k1) of up to kMax keys, passed by value in the launch.
+template <int kMax>
+struct KeysN {
+  uint32_t w[2 * kMax];
 };
+using Keys = KeysN<kMaxPeers>;
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
@@ -95,8 +117,14 @@ __device__ __forceinline__ int warp_inclusive_scan(int v) {
   return v;
 }
 
-// Phase 1.  grid (nchunks, n).  Window coordinate l in [0, ds) of peer i is
-// global coordinate start + l; lanes past ds or past d are never sent.
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Shard count.  grid (nchunks, n).  Window coordinate l in [0, ds) of peer
+// i is global coordinate start + l; lanes past ds or past d are never sent.
 // Chunk word k covers window coordinates [32k, 32k + 32): word j*kWarps + w
 // holds the ballot of warp w in sub-step j (coordinates j*256 + w*32 + lane).
 __global__ void support_count_kernel(Keys keys, int64_t start, int64_t ds,
@@ -137,114 +165,29 @@ __global__ void support_count_kernel(Keys keys, int64_t start, int64_t ds,
   }
 }
 
-// Phase 2.  grid (rows,), kScanThreads threads.  offsets[r, c] = init[r] +
-// sum(counts[r, :c]); totals[r] = init[r] + sum(counts[r, :]).  Each thread
-// scans one contiguous segment; a block scan of the segment sums links them.
-__global__ void scan_rows_kernel(const int32_t* __restrict__ counts,
-                                 const int32_t* __restrict__ init, int64_t len,
-                                 int32_t* __restrict__ offsets,
-                                 int32_t* __restrict__ totals) {
-  const int row = blockIdx.x;
-  const int64_t seg = (len + kScanThreads - 1) / kScanThreads;
-  const int64_t lo = min64(static_cast<int64_t>(threadIdx.x) * seg, len);
-  const int64_t hi = min64(lo + seg, len);
-  const int32_t* c = counts + static_cast<int64_t>(row) * len;
-  int32_t* o = offsets + static_cast<int64_t>(row) * len;
-  int s = 0;
-  for (int64_t i = lo; i < hi; ++i) s += c[i];
-
-  __shared__ int warp_sums[kScanThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int incl = warp_inclusive_scan(s);
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int ws = warp_sums[lane];
-    warp_sums[lane] = warp_inclusive_scan(ws) - ws;  // exclusive
-  }
-  __syncthreads();
-  int base = (init ? init[row] : 0) + warp_sums[warp] + incl - s;
-  for (int64_t i = lo; i < hi; ++i) {
-    o[i] = base;
-    base += c[i];
-  }
-  if (threadIdx.x == kScanThreads - 1) totals[row] = base;
-}
-
-// Loads the chunk's 32 mask words into shared memory with their exclusive
-// popcount prefix.  Called by the whole block; ends with a barrier.
-__device__ __forceinline__ void load_chunk_words(const uint32_t* __restrict__ words_in,
-                                                 uint32_t* words, int* prefix) {
-  if (threadIdx.x < kWords) {
-    const uint32_t w = words_in[threadIdx.x];
-    const int c = __popc(w);
-    words[threadIdx.x] = w;
-    prefix[threadIdx.x] = warp_inclusive_scan(c) - c;
-  }
-  __syncthreads();
-}
-
-// Phase 3 of decode.  grid (nchunks,) over the window.  out[l] = sum over
-// peers i = 0..n-1, in that order, of bufs[i, rank] where coordinate l is
-// sent by peer i with rank < cap, else mus[i].
-__global__ void decode_kernel(const float* __restrict__ bufs, int64_t ld,
-                              const float* __restrict__ mus,
-                              const uint32_t* __restrict__ mask,
-                              const int32_t* __restrict__ offsets, int n,
-                              int nchunks, int64_t ds, int64_t cap,
-                              float* __restrict__ out) {
-  const int chunk = blockIdx.x;
-  __shared__ uint32_t words[kWords];
-  __shared__ int prefix[kWords];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const uint32_t below = (1u << lane) - 1u;
-  float acc[kPerThread];
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) acc[j] = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    const int64_t pc = static_cast<int64_t>(i) * nchunks + chunk;
-    load_chunk_words(mask + pc * kWords, words, prefix);
-    const int base = offsets[pc];
-    const float mu = mus[i];
-    const float* row = bufs + static_cast<int64_t>(i) * ld;
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int k = j * kWarps + warp;
-      const uint32_t w = words[k];
-      float r = mu;
-      if ((w >> lane) & 1u) {
-        const int64_t rank = static_cast<int64_t>(base) + prefix[k] + __popc(w & below);
-        if (rank < cap) r = row[rank];
-      }
-      acc[j] = __fadd_rn(acc[j], r);
-    }
-    __syncthreads();  // words/prefix are reloaded for the next peer
-  }
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int64_t l = static_cast<int64_t>(chunk) * kChunk + j * kThreads + threadIdx.x;
-    if (l < ds) out[l] = acc[j];
-  }
-}
-
-// ----------------------------------------------------------------- encode
-
-// Encode phase 1.  grid (nl,): block k draws pairs j in [1024k, 1024k + 1024)
-// ∩ [0, half).  Mask words of chunk q live at mask[32q ..]: low chunk k is
-// q = k, high chunk k is q = nl + k (present for k < nh).  Word j*kWarps + w
-// holds the ballot of warp w in sub-step j, as in support_count_kernel.
-__global__ void pair_count_kernel(uint32_t k0, uint32_t k1, int64_t d, int64_t half,
-                                  int64_t nl, int64_t nh, float p,
-                                  int32_t* __restrict__ counts, uint32_t* __restrict__ mask) {
+// Pair count.  grid (nl, keys): block (k, i) draws pairs j in [1024k, 1024k
+// + 1024) ∩ [0, half) under key i.  Key i's chunk q has count counts[i *
+// chunks + q] and mask words mask[(i * chunks + q) * 32 ..], chunks = nl +
+// nh: low chunk k is q = k, high chunk k is q = nl + k (present for k < nh).
+// Word j*kWarps + w holds the ballot of warp w in sub-step j.  The encode's
+// single key (kMax = 1) is read at a fixed offset of the launch's
+// parameters, so the cipher takes it as constant operands.  u < p is
+// compared on the bits (threefry::uniform_below, thr from p on the host).
+template <int kMax>
+__global__ void pair_count_kernel(KeysN<kMax> keys, int64_t d, int64_t half, int64_t nl,
+                                  int64_t nh, uint32_t thr, int32_t* __restrict__ counts,
+                                  uint32_t* __restrict__ mask) {
   const int64_t k = blockIdx.x;
+  const int peer = kMax == 1 ? 0 : blockIdx.y;
+  const uint32_t k0 = keys.w[2 * peer];
+  const uint32_t k1 = keys.w[2 * peer + 1];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const bool has_high = k < nh;
+  const int64_t row = static_cast<int64_t>(peer) * (nl + nh);
   __shared__ int warp_total[2][kWarps];
-  uint32_t* lo_words = mask + k * kWords;
-  uint32_t* hi_words = mask + (nl + k) * kWords;
+  uint32_t* lo_words = mask + (row + k) * kWords;
+  uint32_t* hi_words = mask + (row + nl + k) * kWords;
   int tl = 0, th = 0;
 #pragma unroll
   for (int j = 0; j < kPerThread; ++j) {
@@ -255,8 +198,8 @@ __global__ void pair_count_kernel(uint32_t k0, uint32_t k1, int64_t d, int64_t h
       uint32_t x0 = static_cast<uint32_t>(c0);
       uint32_t x1 = c1 < d ? static_cast<uint32_t>(c1) : 0u;   // odd-d zero pad
       threefry::threefry2x32(k0, k1, x0, x1);
-      lo = threefry::bits_to_uniform(x0) < p;
-      hi = c1 < d && threefry::bits_to_uniform(x1) < p;
+      lo = threefry::uniform_below(x0, thr);
+      hi = c1 < d && threefry::uniform_below(x1, thr);
     }
     const uint32_t bl = __ballot_sync(0xffffffffu, lo);
     const uint32_t bh = __ballot_sync(0xffffffffu, hi);
@@ -281,10 +224,161 @@ __global__ void pair_count_kernel(uint32_t k0, uint32_t k1, int64_t d, int64_t h
       sl += warp_total[0][w];
       sh += warp_total[1][w];
     }
-    counts[k] = sl;
-    if (has_high) counts[nl + k] = sh;
+    counts[row + k] = sl;
+    if (has_high) counts[row + nl + k] = sh;
   }
 }
+
+// ------------------------------------------------------------------- scan
+
+// Scan, part 1.  grid (tiles, rows): sums[r * tiles + t] = the sum of
+// counts[r, 8192t : 8192t + 8192] (rows of len counts).
+__global__ void tile_sum_kernel(const int32_t* __restrict__ counts, int64_t len, int tiles,
+                                int32_t* __restrict__ sums) {
+  __shared__ int warp_part[kScanThreads / 32];
+  const int row = blockIdx.y;
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int64_t hi = min64(lo + kTile, len);
+  const int32_t* c = counts + static_cast<int64_t>(row) * len;
+  int s = 0;
+  for (int64_t i = lo + threadIdx.x; i < hi; i += kScanThreads) s += c[i];
+  s = warp_sum(s);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_part[warp] = s;
+  __syncthreads();
+  if (warp == 0) {
+    s = warp_sum(warp_part[lane]);
+    if (lane == 0) sums[static_cast<int64_t>(row) * tiles + blockIdx.x] = s;
+  }
+}
+
+// Scan, part 2.  grid (tiles, rows).  offsets[r, c] = init[r] + sum(counts[r,
+// :c]) (init may be null: 0).  The tile's base is init[r] plus the sums of
+// the tiles before it; thread t scans the tile's counts 8t .. 8t + 7, staged
+// through shared memory so that global loads and stores stay coalesced.
+__global__ void scan_tile_kernel(const int32_t* __restrict__ counts,
+                                 const int32_t* __restrict__ sums,
+                                 const int32_t* __restrict__ init, int64_t len, int tiles,
+                                 int32_t* __restrict__ offsets) {
+  __shared__ __align__(16) int vals[kTile];
+  __shared__ int warp_incl[kScanThreads / 32];
+  __shared__ int warp_pre[kScanThreads / 32];
+  __shared__ int base_s;
+  const int row = blockIdx.y;
+  const int tile = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t lo = static_cast<int64_t>(tile) * kTile;
+  const int here = static_cast<int>(min64(kTile, len - lo));
+  const int32_t* c = counts + static_cast<int64_t>(row) * len + lo;
+  int32_t* o = offsets + static_cast<int64_t>(row) * len + lo;
+  for (int i = threadIdx.x; i < kTile; i += kScanThreads) vals[i] = i < here ? c[i] : 0;
+  int pre = 0;
+  for (int t = threadIdx.x; t < tile; t += kScanThreads)
+    pre += sums[static_cast<int64_t>(row) * tiles + t];
+  __syncthreads();
+  const int4* v4 = reinterpret_cast<const int4*>(vals) + 2 * threadIdx.x;
+  const int4 a = v4[0], b = v4[1];
+  const int v[kScanPer] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  int s = 0;
+#pragma unroll
+  for (int k = 0; k < kScanPer; ++k) s += v[k];
+  const int incl = warp_inclusive_scan(s);
+  pre = warp_sum(pre);
+  if (lane == 31) warp_incl[warp] = incl;
+  if (lane == 0) warp_pre[warp] = pre;
+  __syncthreads();
+  if (warp == 0) {
+    const int ws = warp_incl[lane];
+    warp_incl[lane] = warp_inclusive_scan(ws) - ws;   // exclusive
+    const int total = warp_sum(warp_pre[lane]);
+    if (lane == 0) base_s = (init ? init[row] : 0) + total;
+  }
+  __syncthreads();
+  int run = base_s + warp_incl[warp] + incl - s;
+  int e[kScanPer];
+#pragma unroll
+  for (int k = 0; k < kScanPer; ++k) {
+    e[k] = run;
+    run += v[k];
+  }
+  int4* w4 = reinterpret_cast<int4*>(vals) + 2 * threadIdx.x;
+  w4[0] = make_int4(e[0], e[1], e[2], e[3]);
+  w4[1] = make_int4(e[4], e[5], e[6], e[7]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < here; i += kScanThreads) o[i] = vals[i];
+}
+
+// ----------------------------------------------------------------- decode
+
+// Decode.  grid (chunks,).  out[l] = sum over peers i = 0..n-1, in that
+// order, of bufs[i, rank] where coordinate l is sent by peer i with rank <
+// cap, else mus[i] (header, phase 3).  Slot l of a peer is vals[u][l]: the
+// coordinates j*256 + t of thread t are its own, word k of the mask covers
+// slots 32k .. 32k + 31.
+__global__ void decode_kernel(const float* __restrict__ bufs, int64_t ld,
+                              const float* __restrict__ mus,
+                              const uint32_t* __restrict__ mask,
+                              const int32_t* __restrict__ offsets, int n, int64_t chunks,
+                              int64_t nl, int64_t half, int64_t ds, int64_t cap,
+                              float* __restrict__ out) {
+  __shared__ float vals[kPeerGroup][kChunk];
+  const int64_t q = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float acc[kPerThread];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) acc[j] = 0.0f;
+  for (int g0 = 0; g0 < n; g0 += kPeerGroup) {
+    const int gn = n - g0 < kPeerGroup ? n - g0 : kPeerGroup;
+    if (g0) __syncthreads();   // the previous group's slots are read
+#pragma unroll
+    for (int u = 0; u < kPeerGroup; ++u) {
+      if (u < gn) {
+        const float mu = mus[g0 + u];
+#pragma unroll
+        for (int j = 0; j < kPerThread; ++j) vals[u][j * kThreads + threadIdx.x] = mu;
+      }
+    }
+    uint32_t w = 0;
+    int64_t rank = 0;
+    const float* row = bufs;
+    if (warp < gn) {
+      const int64_t pc = static_cast<int64_t>(g0 + warp) * chunks + q;
+      w = mask[pc * kWords + lane];
+      const int c = __popc(w);
+      rank = offsets[pc] + warp_inclusive_scan(c) - c;
+      row = bufs + static_cast<int64_t>(g0 + warp) * ld;
+    }
+    __syncthreads();           // every slot holds its center
+    const int kept = static_cast<int>(min64(__popc(w), cap - rank < 0 ? 0 : cap - rank));
+    float* slot = vals[warp] + 32 * lane;
+#pragma unroll 4
+    for (int t = 0; t < kept; ++t) {
+      slot[__ffs(w) - 1] = row[rank + t];
+      w &= w - 1u;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kPeerGroup; ++u) {
+      if (u < gn) {
+#pragma unroll
+        for (int j = 0; j < kPerThread; ++j)
+          acc[j] = __fadd_rn(acc[j], vals[u][j * kThreads + threadIdx.x]);
+      }
+    }
+  }
+  const int64_t base = q < nl ? q * kChunk : half + (q - nl) * kChunk;
+  const int64_t len = min64((q < nl ? half : ds) - base, kChunk);
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int64_t l = j * kThreads + threadIdx.x;
+    if (l < len) out[base + l] = acc[j];
+  }
+}
+
+// ----------------------------------------------------------------- encode
 
 __device__ __forceinline__ int64_t warp_sum64(int64_t v) {
 #pragma unroll
@@ -395,18 +489,47 @@ __global__ void encode_lookback_kernel(const float* __restrict__ x,
   }
 }
 
-struct EncodeGeometry {
+// Chunk geometry of a full-length (d,) pair draw.
+struct PairGeometry {
   int64_t half, nl, nh;
   int64_t chunks() const { return nl + nh; }
   int64_t groups() const { return (chunks() + kGroup - 1) / kGroup; }
 };
 
-EncodeGeometry encode_geometry(int64_t d) {
+PairGeometry pair_geometry(int64_t d) {
   const int64_t half = (d + 1) / 2;
   return {half, (half + kChunk - 1) / kChunk, (d - half + kChunk - 1) / kChunk};
 }
 
 int64_t num_chunks(int64_t ds) { return (ds + kChunk - 1) / kChunk; }
+
+int64_t num_tiles(int64_t len) { return (len + kTile - 1) / kTile; }
+
+template <int kMax>
+cudaError_t launch_pair_count(const KeysN<kMax>& keys, int n, int64_t d, float p,
+                              int32_t* counts, uint32_t* mask, cudaStream_t s) {
+  const PairGeometry g = pair_geometry(d);
+  pair_count_kernel<kMax><<<dim3(static_cast<unsigned>(g.nl), n), kThreads, 0, s>>>(
+      keys, d, g.half, g.nl, g.nh, threefry::uniform_threshold(p), counts, mask);
+  return cudaGetLastError();
+}
+
+// offsets (rows, len) from counts (rows, len); sums: rows * num_tiles(len).
+cudaError_t launch_scan(const int32_t* counts, const int32_t* init, int rows, int64_t len,
+                        int32_t* sums, int32_t* offsets, cudaStream_t s) {
+  const int tiles = static_cast<int>(num_tiles(len));
+  tile_sum_kernel<<<dim3(tiles, rows), kScanThreads, 0, s>>>(counts, len, tiles, sums);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  scan_tile_kernel<<<dim3(tiles, rows), kScanThreads, 0, s>>>(counts, sums, init, len, tiles,
+                                                               offsets);
+  return cudaGetLastError();
+}
+
+// Scratch of a decode of n rows of `chunks` chunks: offsets, then tile sums.
+int64_t scan_scratch_ints(int n, int64_t chunks) {
+  return static_cast<int64_t>(n) * (chunks + num_tiles(chunks));
+}
 
 }  // namespace
 
@@ -427,18 +550,10 @@ int bw_support_counts(const uint32_t* keys_host, int n, int64_t start,
   return static_cast<int>(cudaGetLastError());
 }
 
-// init may be null (all rows start at 0).
-int bw_scan_rows(const int32_t* counts, const int32_t* init, int rows,
-                 int64_t len, int32_t* offsets, int32_t* totals, void* stream) {
-  scan_rows_kernel<<<rows, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      counts, init, len, offsets, totals);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Scratch bytes of bw_encode at length d: a status word per chunk group and
 // the ticket (zeroed by bw_encode), chunk counts and mask words.
 int64_t bw_encode_scratch_bytes(int64_t d) {
-  const EncodeGeometry g = encode_geometry(d);
+  const PairGeometry g = pair_geometry(d);
   return g.groups() * 8 + 8 + g.chunks() * 4 + g.chunks() * kWords * 4;
 }
 
@@ -448,7 +563,7 @@ int bw_encode(uint32_t k0, uint32_t k1, const float* x, int64_t d, float p, int6
               float inv_p, float c, const float* mu, float* out, void* scratch, void* stream) {
   if (d < 1 || cap < 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const EncodeGeometry g = encode_geometry(d);
+  const PairGeometry g = pair_geometry(d);
   const int64_t q = g.chunks();
   const int64_t groups = g.groups();
   auto* status = static_cast<unsigned long long*>(scratch);
@@ -457,9 +572,7 @@ int bw_encode(uint32_t k0, uint32_t k1, const float* x, int64_t d, float p, int6
   auto* mask = reinterpret_cast<uint32_t*>(counts + q);
   cudaError_t err = cudaMemsetAsync(scratch, 0, (groups + 1) * 8, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pair_count_kernel<<<static_cast<unsigned>(g.nl), kThreads, 0, s>>>(k0, k1, d, g.half, g.nl,
-                                                                      g.nh, p, counts, mask);
-  err = cudaGetLastError();
+  err = launch_pair_count(KeysN<1>{{k0, k1}}, 1, d, p, counts, mask, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   static int per_sm = [] {
     int b = 0;
@@ -475,13 +588,58 @@ int bw_encode(uint32_t k0, uint32_t k1, const float* x, int64_t d, float p, int6
   return static_cast<int>(cudaGetLastError());
 }
 
-int bw_decode(const float* bufs, int64_t ld, const float* mus,
-              const uint32_t* mask, const int32_t* offsets, int n, int64_t ds,
-              int64_t cap, float* out, void* stream) {
-  const int64_t nchunks = num_chunks(ds);
-  decode_kernel<<<static_cast<unsigned>(nchunks), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      bufs, ld, mus, mask, offsets, n, static_cast<int>(nchunks), ds, cap, out);
+// Scratch bytes of bw_decode_sum for n peers at length d: chunk counts,
+// offsets and tile sums, then mask words.
+int64_t bw_decode_scratch_bytes(int n, int64_t d) {
+  const int64_t q = pair_geometry(d).chunks();
+  return 4 * (static_cast<int64_t>(n) * q + scan_scratch_ints(n, q)) +
+         static_cast<int64_t>(n) * q * kWords * 4;
+}
+
+// bufs: (n, cap) f32 rows ld apart; mus: (n,) f32; keys_host: n (k0, k1)
+// pairs in host memory; out: (d,) f32; scratch: bw_decode_scratch_bytes(n,
+// d) bytes, 4-byte aligned.
+int bw_decode_sum(const uint32_t* keys_host, int n, int64_t d, float p, const float* bufs,
+                  int64_t ld, const float* mus, int64_t cap, float* out, void* scratch,
+                  void* stream) {
+  if (n < 1 || n > kMaxPeers || d < 1 || cap < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Keys keys;
+  for (int i = 0; i < 2 * n; ++i) keys.w[i] = keys_host[i];
+  const PairGeometry g = pair_geometry(d);
+  const int64_t q = g.chunks();
+  auto* counts = static_cast<int32_t*>(scratch);
+  int32_t* offsets = counts + n * q;
+  int32_t* sums = offsets + n * q;
+  auto* mask = reinterpret_cast<uint32_t*>(counts + n * q + scan_scratch_ints(n, q));
+  cudaError_t err = launch_pair_count(keys, n, d, p, counts, mask, s);
+  if (err == cudaSuccess) err = launch_scan(counts, nullptr, n, q, sums, offsets, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_kernel<<<static_cast<unsigned>(q), kThreads, 0, s>>>(
+      bufs, ld, mus, mask, offsets, n, q, g.nl, g.half, d, cap, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Scratch bytes of bw_decode_sum_shard for n peers over a window of ds:
+// offsets and tile sums.
+int64_t bw_shard_scratch_bytes(int n, int64_t ds) {
+  return 4 * scan_scratch_ints(n, num_chunks(ds));
+}
+
+// counts, mask: bw_support_counts's over the window; prior: (n,) int32 ranks
+// before it; out: (ds,) f32; scratch: bw_shard_scratch_bytes(n, ds) bytes.
+int bw_decode_sum_shard(const float* bufs, int64_t ld, const float* mus, const int32_t* counts,
+                        const uint32_t* mask, const int32_t* prior, int n, int64_t ds,
+                        int64_t cap, float* out, void* scratch, void* stream) {
+  if (n < 1 || ds < 1 || cap < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t q = num_chunks(ds);
+  auto* offsets = static_cast<int32_t*>(scratch);
+  int32_t* sums = offsets + n * q;
+  cudaError_t err = launch_scan(counts, prior, n, q, sums, offsets, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_kernel<<<static_cast<unsigned>(q), kThreads, 0, s>>>(
+      bufs, ld, mus, mask, offsets, n, q, q, ds, ds, cap, out);
   return static_cast<int>(cudaGetLastError());
 }
 

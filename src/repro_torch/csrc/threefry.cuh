@@ -12,6 +12,7 @@
 // for the counter words and the mantissa fill.  The kernels that call it are
 // bound by the 32-bit integer issue rate.
 #pragma once
+#include <cmath>
 #include <cstdint>
 
 namespace threefry {
@@ -65,6 +66,17 @@ __device__ __forceinline__ uint32_t bits_at(uint32_t k0, uint32_t k1,
 __device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
   const float f = __uint_as_float((bits >> 9) | 0x3F800000u);
   return fmaxf(__fsub_rn(f, 1.0f), 0.0f);
+}
+
+// bits_to_uniform(bits) < p on the integer: u is exactly m * 2^-23 with m =
+// bits >> 9 (the fill minus 1 is exact), so u < p iff m < ceil(p * 2^23).
+inline uint32_t uniform_threshold(float p) {
+  const double t = std::ceil(static_cast<double>(p) * 8388608.0);
+  return t <= 0.0 ? 0u : t >= 8388608.0 ? 8388608u : static_cast<uint32_t>(t);
+}
+
+__device__ __forceinline__ bool uniform_below(uint32_t bits, uint32_t threshold) {
+  return (bits >> 9) < threshold;
 }
 
 __device__ __forceinline__ float uniform_at(uint32_t k0, uint32_t k1,

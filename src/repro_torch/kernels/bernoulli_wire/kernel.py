@@ -34,11 +34,13 @@ _I64 = ctypes.c_int64
 _SIGS = {
     "bw_support_counts": [_P, ctypes.c_int, _I64, _I64, _I64, ctypes.c_float,
                           _P, _P, _P],
-    "bw_scan_rows": [_P, _P, ctypes.c_int, _I64, _P, _P, _P],
     "bw_encode": [ctypes.c_uint32, ctypes.c_uint32, _P, _I64, ctypes.c_float, _I64,
                   ctypes.c_float, ctypes.c_float, _P, _P, _P, _P],
-    "bw_decode": [_P, _I64, _P, _P, _P, ctypes.c_int, _I64, _I64, _P, _P],
+    "bw_decode_sum": [_P, ctypes.c_int, _I64, ctypes.c_float, _P, _I64, _P, _I64, _P, _P, _P],
+    "bw_decode_sum_shard": [_P, _I64, _P, _P, _P, _P, ctypes.c_int, _I64, _I64, _P, _P, _P],
     "bw_encode_scratch_bytes": [_I64],
+    "bw_decode_scratch_bytes": [ctypes.c_int, _I64],
+    "bw_shard_scratch_bytes": [ctypes.c_int, _I64],
 }
 
 
@@ -59,6 +61,11 @@ def _host_keys(keys) -> ctypes.Array:
     return (ctypes.c_uint32 * (2 * n))(*[int(w) & 0xFFFFFFFF for w in k.reshape(-1)])
 
 
+def _scratch(nbytes: int, device):
+    """Per-call scratch of int32 words (the C side writes all it reads)."""
+    return torch.empty(-(-nbytes // 4), dtype=torch.int32, device=device)
+
+
 def _count(keys_host, n, start, ds, d, p32, device):
     nck = num_chunks(ds)
     counts = torch.empty((n, nck), dtype=torch.int32, device=device)
@@ -68,28 +75,6 @@ def _count(keys_host, n, start, ds, d, p32, device):
                                    backend.stream_ptr(device))
     backend.check_launch(err, "bernoulli support count")
     return counts, mask
-
-
-def _scan(counts, init, device):
-    rows, length = counts.shape
-    offsets = torch.empty_like(counts)
-    totals = torch.empty(rows, dtype=torch.int32, device=device)
-    err = _fn("bw_scan_rows")(counts.data_ptr(),
-                              None if init is None else init.data_ptr(),
-                              rows, length, offsets.data_ptr(),
-                              totals.data_ptr(), backend.stream_ptr(device))
-    backend.check_launch(err, "bernoulli rank scan")
-    return offsets, totals
-
-
-def _decode(bufs, mus, mask, offsets, ds, cap, device):
-    n = bufs.shape[0]
-    out = torch.empty(ds, dtype=torch.float32, device=device)
-    err = _fn("bw_decode")(bufs.data_ptr(), bufs.stride(0), mus.data_ptr(),
-                           mask.data_ptr(), offsets.data_ptr(), n, ds, cap,
-                           out.data_ptr(), backend.stream_ptr(device))
-    backend.check_launch(err, "bernoulli decode")
-    return out
 
 
 def _check_bufs(bufs, mus, cap):
@@ -141,23 +126,31 @@ def decode_sum_shard(bufs, mus, support: Support, prior, *, cap: int):
     backend.check(support.counts, "support.counts", torch.int32, (n, nck))
     backend.check(support.mask, "support.mask", torch.int32, (n, nck * ref.WORDS))
     backend.check(prior, "prior", torch.int32, (n,))
-    dev = bufs.device
-    offsets, _ = _scan(support.counts, prior, dev)
-    out = _decode(bufs, mus, support.mask, offsets, support.ds, cap, dev)
+    dev, ds = bufs.device, support.ds
+    work = _scratch(_fn("bw_shard_scratch_bytes")(n, ds), dev)
+    out = torch.empty(ds, dtype=torch.float32, device=dev)
+    err = _fn("bw_decode_sum_shard")(bufs.data_ptr(), bufs.stride(0), mus.data_ptr(),
+                                     support.counts.data_ptr(), support.mask.data_ptr(),
+                                     prior.data_ptr(), n, ds, cap, out.data_ptr(),
+                                     work.data_ptr(), backend.stream_ptr(dev))
+    backend.check_launch(err, "bernoulli shard decode")
     backend.launches["bernoulli_decode_sum_shard"] += 1
     return out
 
 
 def decode_sum(bufs, mus, keys, *, p: float, cap: int, d: int):
-    """Σ_i reconstruction_i as (d,) f32 (count, scan and decode phases)."""
+    """Σ_i reconstruction_i as (d,) f32 (pair count, scan and decode phases)."""
     _check_bufs(bufs, mus, cap)
     dev = bufs.device
     kh = _host_keys(keys)
     n = len(kh) // 2
     if n != bufs.shape[0]:
         raise ValueError(f"{n} keys for {bufs.shape[0]} buffers")
-    counts, mask = _count(kh, n, 0, d, d, ref.coefficients(p)[0], dev)
-    offsets, _ = _scan(counts, None, dev)
-    out = _decode(bufs, mus, mask, offsets, d, cap, dev)
+    work = _scratch(_fn("bw_decode_scratch_bytes")(n, d), dev)
+    out = torch.empty(d, dtype=torch.float32, device=dev)
+    err = _fn("bw_decode_sum")(kh, n, d, ref.coefficients(p)[0], bufs.data_ptr(),
+                               bufs.stride(0), mus.data_ptr(), cap, out.data_ptr(),
+                               work.data_ptr(), backend.stream_ptr(dev))
+    backend.check_launch(err, "bernoulli decode")
     backend.launches["bernoulli_decode_sum"] += 1
     return out

@@ -1,19 +1,27 @@
-"""Kernels 1, 8 and 9 timed on the card at the main path's shapes, beside
-another build of their sources.
+"""Kernels 1, 2, 3 (decode half), 8, 9 and 10 timed on the card at the main
+path's shapes, beside another build of their sources.
 
     PYTHONPATH=src python -m repro_torch.launch.bench_wire \
         [--baseline-dir OLD/src/repro_torch/csrc] [--profile] \
-        [--out chiprun_out/bench_wire.json]
+        [--only KERNEL ...] [--out PATH.json]
 
 Shapes (:func:`cases`), from the main path's largest bucket (qwen3-4b's
 embedding, 388,956,160 coordinates, ``train/synthetic.py::main_shapes``):
 
 * kernel 1, the seed-trick Bernoulli encode (``kernels/bernoulli_wire``), at
   d = 388,956,160, p = 1/16, cap = ``bernoulli_capacity(d, p)``;
+* kernel 2, the flat Bernoulli decode, at the same d, p and cap over n = 8
+  peers (``synthetic.N``): seeded buffers and centers, keys folded per rank
+  as ``chip_smoke.py`` folds them;
+* kernel 3's decode half (the scan and decode of ``decode_sum_shard``) on
+  shard N − 2 of ⌈d/8⌉ coordinates, its support and prior counts from the
+  count phase of this build;
 * kernel 8, the FWHT (``kernels/hadamard``), at (371, 2²⁰): the bucket's
   block-diagonal rotation chunks;
 * kernel 9, rotate + (min, max) (``kernels/rotated_encode``), at the same
-  rows with seeded ±1 signs.
+  rows with seeded ±1 signs;
+* kernel 10, the rotated 1-bit encode-pack, at dp = 371 · 2²⁰ of seeded z,
+  (vmin, vmax) its extremes.
 
 Each is timed by CUDA events (20 calls after a warm-up).  With
 ``--baseline-dir`` (a ``git archive`` of another revision's
@@ -23,14 +31,18 @@ are built with the port's ``nvcc`` flags and timed in turns: baseline, new,
 new, baseline; their outputs are held bit-equal to the new ones.  The
 baseline's C entry points are called with the signatures they have: the
 three-launch encode (``bw_support_counts``, ``bw_scan_rows``,
-``bw_encode_write``) and the scratch-free ``hd_fwht`` and ``re_rotate_minmax``
-of the parent revision, or this revision's.  Prints, and writes as JSON,
-the card's name and power limit, each kernel's ms, its bound (bytes over
-3.35 TB/s, int32 operations over 16.75 T/s, as ``chip_smoke.py`` counts
-them) and its share of the bound.  With ``--profile`` it also runs 5 calls
-of each (and of the baseline's) under ``torch.profiler`` and reports the
-device ms per launch of every CUDA kernel they launch, by name: the split
-between a function's kernels.  Exits 1 if a baseline disagrees.
+``bw_encode_write``) or ``bw_encode``; the three-launch decode
+(``bw_support_counts``, ``bw_scan_rows``, ``bw_decode``) or
+``bw_decode_sum``, and ``bw_scan_rows`` + ``bw_decode`` or
+``bw_decode_sum_shard`` for the shard; the scratch-free ``hd_fwht`` and
+``re_rotate_minmax`` of older revisions, or this revision's.  Prints, and
+writes as JSON, the card's name and power limit, each kernel's ms, its
+bound (bytes over 3.35 TB/s, int32 operations over 16.75 T/s, as
+``chip_smoke.py`` counts them) and its share of the bound.  With
+``--profile`` it also runs 5 calls of each (and of the baseline's) under
+``torch.profiler`` and reports the device ms per launch of every CUDA
+kernel they launch, by name: the split between a function's kernels.
+Exits 1 if a baseline disagrees.
 """
 from __future__ import annotations
 
@@ -51,9 +63,11 @@ from repro_torch.kernels.bernoulli_wire import ref as bwr
 from repro_torch.kernels.hadamard import hadamard as hk
 from repro_torch.kernels.rotated_encode import kernel as rek
 from repro_torch.launch.bench_encode_speed import device_line, time_ms
+from repro_torch.train.synthetic import N
 
 D = 388_956_160            # qwen3-4b's embedding bucket (the main path's largest)
 ROWS = -(-D // (1 << 20))  # its rotation's rows of 2^20
+SHARD = -(-D // N)         # its §12 shard length
 P = 1 / 16
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM, NVIDIA data sheet
 INT32_OPS_PER_S = 67e12 * 64 / (128 * 2)  # chip_smoke.py's int32 rate
@@ -139,6 +153,91 @@ def baseline_encode(lib, x, key, mu, cap):
     return call, out
 
 
+def _offsets_call(lib, counts, init, ds, n):
+    """The parent's row scan of (n, chunks) counts into fresh offsets."""
+    scan = _sig(lib, "bw_scan_rows", [_P, _P, ctypes.c_int, _I64, _P, _P, _P])
+    offsets = torch.empty_like(counts)
+    totals = torch.empty(n, dtype=torch.int32, device=counts.device)
+
+    def call(s):
+        _check(scan(counts.data_ptr(), None if init is None else init.data_ptr(), n,
+                    bwr.num_chunks(ds), offsets.data_ptr(), totals.data_ptr(), s), "scan")
+    return call, offsets
+
+
+def _decode_call(lib, bufs, mus, mask, offsets, ds, cap, out):
+    fn = _sig(lib, "bw_decode", [_P, _I64, _P, _P, _P, ctypes.c_int, _I64, _I64, _P, _P])
+    return lambda s: _check(fn(bufs.data_ptr(), bufs.stride(0), mus.data_ptr(), mask.data_ptr(),
+                               offsets.data_ptr(), bufs.shape[0], ds, cap, out.data_ptr(), s),
+                            "decode")
+
+
+def baseline_decode(lib, bufs, mus, keys, cap):
+    """The baseline's flat decode of (n, cap) buffers into a fresh (D,) sum."""
+    dev, n = bufs.device, bufs.shape[0]
+    p32 = bwr.coefficients(P)[0]
+    kh = (ctypes.c_uint32 * (2 * n))(*[int(w) & 0xFFFFFFFF for w in keys.reshape(-1)])
+    out = torch.empty(D, dtype=torch.float32, device=dev)
+    if hasattr(lib, "bw_decode_sum"):
+        nbytes = _sig(lib, "bw_decode_scratch_bytes", [ctypes.c_int, _I64], _I64)(n, D)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        fn = _sig(lib, "bw_decode_sum", [_P, ctypes.c_int, _I64, ctypes.c_float, _P, _I64, _P,
+                                         _I64, _P, _P, _P])
+
+        def call():
+            _check(fn(kh, n, D, p32, bufs.data_ptr(), bufs.stride(0), mus.data_ptr(), cap,
+                      out.data_ptr(), work.data_ptr(), backend.stream_ptr(dev)), "bw_decode_sum")
+        return call, out
+    count = _sig(lib, "bw_support_counts", [_P, ctypes.c_int, _I64, _I64, _I64, ctypes.c_float,
+                                            _P, _P, _P])
+    nck = bwr.num_chunks(D)
+    counts = torch.empty((n, nck), dtype=torch.int32, device=dev)
+    mask = torch.empty((n, nck * bwr.WORDS), dtype=torch.int32, device=dev)
+    scan, offsets = _offsets_call(lib, counts, None, D, n)
+    decode = _decode_call(lib, bufs, mus, mask, offsets, D, cap, out)
+
+    def call():
+        s = backend.stream_ptr(dev)
+        _check(count(kh, n, 0, D, D, p32, counts.data_ptr(), mask.data_ptr(), s), "count")
+        scan(s)
+        decode(s)
+    return call, out
+
+
+def baseline_decode_shard(lib, bufs, mus, sup, prior, cap):
+    """The baseline's scan and decode of one shard's support."""
+    dev, n = bufs.device, bufs.shape[0]
+    out = torch.empty(sup.ds, dtype=torch.float32, device=dev)
+    if hasattr(lib, "bw_decode_sum_shard"):
+        nbytes = _sig(lib, "bw_shard_scratch_bytes", [ctypes.c_int, _I64], _I64)(n, sup.ds)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        fn = _sig(lib, "bw_decode_sum_shard", [_P, _I64, _P, _P, _P, _P, ctypes.c_int, _I64,
+                                               _I64, _P, _P, _P])
+
+        def call():
+            _check(fn(bufs.data_ptr(), bufs.stride(0), mus.data_ptr(), sup.counts.data_ptr(),
+                      sup.mask.data_ptr(), prior.data_ptr(), n, sup.ds, cap, out.data_ptr(),
+                      work.data_ptr(), backend.stream_ptr(dev)), "bw_decode_sum_shard")
+        return call, out
+    scan, offsets = _offsets_call(lib, sup.counts, prior, sup.ds, n)
+    decode = _decode_call(lib, bufs, mus, sup.mask, offsets, sup.ds, cap, out)
+
+    def call():
+        s = backend.stream_ptr(dev)
+        scan(s)
+        decode(s)
+    return call, out
+
+
+def baseline_encode_pack(lib, z, key, vmm):
+    dp = z.numel()
+    k0, k1 = (int(w) & 0xFFFFFFFF for w in torch.as_tensor(key).reshape(2))
+    out = torch.empty(-(-dp // 32), dtype=torch.int32, device=z.device)
+    fn = _sig(lib, "re_encode_pack", [_P, _I64, ctypes.c_uint32, ctypes.c_uint32, _P, _P, _P])
+    return (lambda: _check(fn(z.data_ptr(), dp, k0, k1, vmm.data_ptr(), out.data_ptr(),
+                              backend.stream_ptr(z.device)), "re_encode_pack")), out
+
+
 def baseline_fwht(lib, x):
     b, c = x.shape
     out = torch.empty_like(x)
@@ -182,20 +281,49 @@ def cases(device):
     mu = flat.mean()
     key = prandom.fold_in(prandom.PRNGKey(7), 3)
     cap = comm_cost.bernoulli_capacity(D, P)
+    bufs = torch.randn(N, cap, generator=gen, device=device) * 0.7
+    mus = torch.randn(N, generator=gen, device=device) * 0.1
+    base = prandom.PRNGKey(D)
+    keys = torch.stack([prandom.fold_in(base, i) for i in range(N)])
+    shard = N - 2
+    sup = bwk.support_counts(keys, p=P, d=D, start=shard * SHARD, ds=SHARD, device=device)
+    before = bwk.support_counts(keys, p=P, d=D, start=0, ds=shard * SHARD, device=device)
+    prior = before.counts.sum(1, dtype=torch.int32)
+    del before
+    nck = sup.counts.shape[1]
+    kept = int((cap - prior.long()).clamp(min=0).clamp(max=sup.counts.sum(1).long()).sum())
     x = torch.randn(ROWS, 1 << 20, generator=gen, device=device) * 0.02
     signs = prandom.rademacher(prandom.fold_in(prandom.PRNGKey(11), 2), x.shape, device)
     scale = float(torch.sqrt(torch.tensor(float(1 << 20))))
     n = x.numel()
+    z = torch.randn(n, generator=gen, device=device)
+    vmm = torch.stack([z.amin(), z.amax()])
+    kenc = prandom.fold_in(prandom.fold_in(prandom.PRNGKey(11), 2), 5)
     return {
         "bernoulli_encode": (lambda: bwk.encode(flat, key, mu, p=P, cap=cap),
                              lambda lib: baseline_encode(lib["bernoulli_wire"], flat, key, mu, cap),
                              bound_ms(4 * D + 4 * cap, OPS_PER_CALL * -(-D // 2)),
                              {"d": D, "p": P, "cap": cap}),
+        "bernoulli_decode_sum": (lambda: bwk.decode_sum(bufs, mus, keys, p=P, cap=cap, d=D),
+                                 lambda lib: baseline_decode(lib["bernoulli_wire"], bufs, mus,
+                                                             keys, cap),
+                                 bound_ms(4 * N * cap + 4 * N + 4 * D,
+                                          OPS_PER_CALL * N * -(-D // 2)),
+                                 {"d": D, "n": N, "p": P, "cap": cap}),
+        "bernoulli_decode_sum_shard": (
+            lambda: bwk.decode_sum_shard(bufs, mus, sup, prior, cap=cap),
+            lambda lib: baseline_decode_shard(lib["bernoulli_wire"], bufs, mus, sup, prior, cap),
+            bound_ms(4 * kept + N * nck * 128 + 4 * N * nck + 4 * N + 4 * SHARD),
+            {"d": D, "n": N, "shard": shard, "ds": SHARD, "cap": cap}),
         "fwht": (lambda: hk.fwht(x), lambda lib: baseline_fwht(lib["hadamard"], x),
                  bound_ms(8 * n), {"rows": ROWS, "c": 1 << 20}),
         "rotate_minmax": (lambda: rek.rotate_minmax(x, signs, scale),
                           lambda lib: baseline_rotate(lib["rotated_encode"], x, signs, scale),
                           bound_ms(12 * n + 8 * ROWS), {"rows": ROWS, "c": 1 << 20}),
+        "encode_pack": (lambda: rek.encode_pack(z, kenc, vmm[0], vmm[1], n),
+                        lambda lib: baseline_encode_pack(lib["rotated_encode"], z, kenc, vmm),
+                        bound_ms(4 * n + 4 * -(-n // 32) + 8, OPS_PER_CALL * -(-n // 2)),
+                        {"dp": n}),
     }
 
 
@@ -224,6 +352,8 @@ def main(argv=None) -> int:
                     help="another revision's src/repro_torch/csrc to time beside this one")
     ap.add_argument("--profile", action="store_true",
                     help="also report each kernel's device ms per launch (torch.profiler)")
+    ap.add_argument("--only", nargs="+", default=None, metavar="KERNEL",
+                    help="time only these of the kernels (names as in the output)")
     ap.add_argument("--out", default="chiprun_out/bench_wire.json")
     args = ap.parse_args(argv)
     dev = resolve_device(None)
@@ -235,6 +365,8 @@ def main(argv=None) -> int:
               "baseline": str(args.baseline_dir) if args.baseline_dir else None, "rows": []}
     ok = True
     for name, (kernel, factory, (bound, by), shape) in cases(dev).items():
+        if args.only and name not in args.only:
+            continue
         row = {"kernel": name, **shape, "bound_ms": bound, "bound_by": by}
         if libs is not None:
             call, bout = factory(libs)

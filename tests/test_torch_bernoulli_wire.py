@@ -146,6 +146,78 @@ def test_pair_order_rank_model_equals_encode(d, cap):
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(want.numpy()))
 
 
+def _pair_order_decode(bufs, mus, keys, p, cap, d):
+    """A torch model of the card's flat decode bookkeeping (``bw_decode_sum``
+    in csrc/bernoulli_wire.cu): per peer, the encode's pair draws (x0 to j,
+    x1 to j + half) in chunks of 1024 taken low then high, 32 mask words a
+    chunk; offsets by a scan of the peer's chunk counts in chunk order; rank
+    = offset + the popcount prefix of the chunk's words + the set bits below
+    the lane in its word; chunk q written back from 1024q (low) or half +
+    1024(q − nl) (high), up to half or d; the peers added in ascending order
+    from 0 in f32."""
+    half = (d + 1) // 2
+    nl, nh = -(-half // 1024), -(-(d - half) // 1024)
+    p32 = tref.coefficients(p)[0]
+    j = torch.arange(nl * 1024, dtype=torch.int64)
+    c1 = j + half
+    coord = torch.cat([j.reshape(nl, 1024), c1.reshape(nl, 1024)[:nh]])
+    real = torch.cat([(j < half).reshape(nl, 1024), (c1 < d).reshape(nl, 1024)[:nh]])
+    acc = torch.zeros(coord.shape, dtype=torch.float32)
+    for i in range(bufs.shape[0]):
+        k0, k1 = (int(w) & 0xFFFFFFFF for w in keys[i])
+        x0, x1 = tf_ref.threefry2x32(k0, k1, j, torch.where(c1 < d, c1, torch.zeros_like(c1)))
+        lo = (j < half) & (tf_ref.bits_to_uniform(x0) < p32)
+        hi = (j < half) & (c1 < d) & (tf_ref.bits_to_uniform(x1) < p32)
+        sent = torch.cat([lo.reshape(nl, 1024), hi.reshape(nl, 1024)[:nh]])
+        bits = tref.unpack_bits(tref.pack_bits(sent)).reshape(-1, 32, 32).to(torch.int64)
+        per_word = bits.sum(-1)
+        counts = per_word.sum(-1)
+        offset = torch.cumsum(counts, 0) - counts
+        word_prefix = torch.cumsum(per_word, 1) - per_word
+        below = torch.cumsum(bits, -1) - bits
+        rank = (offset[:, None, None] + word_prefix[..., None] + below).reshape(sent.shape)
+        valid = sent & (rank < cap)
+        vals = bufs[i][rank.clamp(0, max(cap - 1, 0))] if cap else torch.zeros(())
+        acc = acc + torch.where(valid, vals, mus[i])
+    out = torch.full((d,), float("nan"))
+    out[coord[real]] = acc[real]
+    return out
+
+
+@pytest.mark.parametrize("d,n,p,cap", [
+    (1, 1, 1 / 16, None), (2, 3, 1 / 16, None), (2047, 8, 0.5, None), (2049, 3, 0.5, None),
+    (70001, 8, 1 / 16, None), (70001, 3, 1 / 16, 1000),        # cap overflow
+    ((1 << 21) + 3, 8, 1 / 16, None)])
+def test_pair_order_decode_model_equals_sequential(d, n, p, cap):
+    """The card's flat decode order (pair draws, chunks low then high, a scan
+    of chunk counts in chunk order, peers in ascending order) gives the
+    sequential decode bit for bit: odd d, a partial last low chunk, a high
+    chunk of one coordinate, n = 1, 3, 8 and cap overflow."""
+    cap = cap or comm_cost.bernoulli_capacity(d, p)
+    bufs, mus = _case(d + 5, n, cap)
+    _, tk = _keys(d + 9, n)
+    bufs, mus = torch.from_numpy(bufs), torch.from_numpy(mus)
+    want = tref.decode_sum_sequential(bufs, mus, tk, p, cap, d)
+    got = _pair_order_decode(bufs, mus, tk, p, cap, d)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want.numpy()))
+    if d <= 70001:
+        np.testing.assert_array_equal(
+            _bits(got.numpy()), _bits(tref.decode_sum(bufs, mus, tk, p, cap, d).numpy()))
+
+
+@pytest.mark.parametrize("p", (1 / 16, 0.5, 0.3, 0.1, 1.0, float(np.nextafter(np.float32(1), 0)),
+                               1e-7, 2.0 ** -30, 3e-39, 0.0))
+def test_integer_threshold_equals_uniform_compare(p):
+    """The card's count kernels compare u < p on the bits: u = (bits >> 9)
+    · 2⁻²³ exactly, so u < p iff bits >> 9 < ⌈p · 2²³⌉
+    (``threefry.cuh::uniform_threshold``); every mantissa checked."""
+    p32 = np.float32(p)
+    thr = min(max(int(np.ceil(np.float64(p32) * 2.0 ** 23)), 0), 1 << 23)
+    m = torch.arange(1 << 23, dtype=torch.int64)
+    want = tf_ref.bits_to_uniform(m << 9) < torch.tensor(float(p32), dtype=torch.float32)
+    assert torch.equal(m < thr, want)
+
+
 def test_rank_select_matches():
     rng = np.random.default_rng(3)
     vals = rng.standard_normal(3000).astype(np.float32)

@@ -71,16 +71,23 @@ def test_encode_kernel_equals_plain(dev, d, p, cap):
     assert _same(bwk.encode(x, key, mu, p=p, cap=cap), bwr.encode(x, key, p, cap, mu))
 
 
-@pytest.mark.parametrize("d,n,cap", [(33, 2, None), (70001, 8, None), (5000, 4, 1500)])
+@pytest.mark.parametrize("d,n,cap", [(33, 2, None), (70001, 8, None), (5000, 4, 1500),
+                                     # the flat decode's pair chunks at ragged halves:
+                                     # odd d, a partial last low chunk, a high chunk
+                                     # of one coordinate, n = 1, 3, 8, cap overflow
+                                     (1, 1, None), (2, 3, None), (2047, 8, None),
+                                     (2049, 3, None), ((1 << 21) + 3, 8, None),
+                                     ((1 << 21) + 3, 3, 20_000), (70001, 1, 1000)])
 def test_decode_kernels_equal_plain(dev, d, n, cap):
-    p = 1 / 16 if cap is None else 0.5
+    p = 1 / 16 if cap is None or d > 5000 else 0.5
     cap = cap or comm_cost.bernoulli_capacity(d, p)
     g = torch.Generator(dev).manual_seed(d)
     bufs = torch.randn(n, cap, device=dev, generator=g)
     mus = torch.randn(n, device=dev, generator=g)
     keys = torch.stack([R.fold_in(R.PRNGKey(d), i) for i in range(n)])
     want = bwr.decode_sum_sequential(bufs, mus, keys, p, cap, d)
-    assert _same(bwk.decode_sum(bufs, mus, keys, p=p, cap=cap, d=d), want)
+    got = bwk.decode_sum(bufs, mus, keys, p=p, cap=cap, d=d)
+    assert _same(got, want) and _same(got, bwr.decode_sum(bufs, mus, keys, p, cap, d))
     ds = -(-d // n)
     sups = [bwk.support_counts(keys, p=p, d=d, start=s * ds, ds=ds, device=dev) for s in range(n)]
     allc = torch.stack([s.counts.sum(1, dtype=torch.int32) for s in sups])
@@ -177,8 +184,11 @@ def test_fwht_on_two_streams_equal_plain(dev):
     assert all(_same(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("dp", (1, 33, 70001, 131072))
+@pytest.mark.parametrize("dp", (1, 2, 33, 65, 70001, 131072, 2 * ((1 << 16) + 5) + 1,
+                                371 << 15))
 def test_encode_pack_equals_plain(dev, dp):
+    """Pairs (j, j + ⌈dp/2⌉) at half % 32 ∈ {1, 17, 25, 0, 6}: high ballots
+    split across words, edge and seam words met by atomicOr."""
     z = torch.randn(dp, device=dev, generator=torch.Generator(dev).manual_seed(dp))
     key = R.fold_in(R.PRNGKey(4), 1)
     for lo, hi in ((z.amin(), z.amax()), (z[0], z[0].clone())):   # delta = 0 last

@@ -33,6 +33,7 @@ from repro_torch.core import bitplane as tbp
 from repro_torch.core import rotation as trot
 from repro_torch.kernels.rotated_encode import ops as tro_ops
 from repro_torch.kernels.rotated_encode import ref as tro_ref
+from repro_torch.kernels.threefry import ref as tf_ref
 from test_torch_rotation import jit_butterfly  # noqa: F401  (fixture)
 
 KEY_SEED = 17
@@ -93,6 +94,58 @@ def test_binary_plane_equals_reference(dp):
                                    torch.tensor(hi), dp)
         np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
     assert not want.any()
+
+
+def _pair_order_plane(z, key, vmin, vmax, dp):
+    """A torch model of ``re_encode_pack``'s word placement
+    (csrc/rotated_encode.cu): one cipher call per pair (j, j + half), half =
+    ⌈dp/2⌉; the low ballot of pairs j0 .. j0 + 31 is word j0/32; the high
+    ballot is shifted by r = half % 32 into word (half + j0)/32 and, for r ≠
+    0, its top r bits into the next; the parts meet by OR (their bits are
+    disjoint, so an add), the seam word at coordinate half included."""
+    half = (dp + 1) // 2
+    r = half % 32
+    nb = -(-half // 32)
+    nw = -(-dp // 32)
+    k0, k1 = (int(w) & 0xFFFFFFFF for w in key)
+    j = torch.arange(nb * 32, dtype=torch.int64)
+    c1 = j + half
+    x0, x1 = tf_ref.threefry2x32(k0, k1, j, torch.where(c1 < dp, c1, torch.zeros_like(c1)))
+    delta = vmax - vmin
+    zz = torch.cat([z, torch.zeros(2 * nb * 32 - dp)])
+
+    def vote(v, bits):
+        p = torch.where(delta > 0, (v - vmin) / torch.where(delta > 0, delta, 1.0),
+                        torch.zeros_like(v))
+        return tf_ref.bits_to_uniform(bits) < p
+
+    lo = (j < half) & vote(zz[j], x0)
+    hi = (j < half) & (c1 < dp) & vote(zz[c1], x1)
+    weights = torch.tensor([1 << b for b in range(32)], dtype=torch.int64)
+    bl = (lo.reshape(nb, 32).to(torch.int64) * weights).sum(1)
+    bh = (hi.reshape(nb, 32).to(torch.int64) * weights).sum(1)
+    b = torch.arange(nb)
+    plane = torch.zeros(nw + 2, dtype=torch.int64)
+    plane.index_add_(0, b, bl)
+    plane.index_add_(0, half // 32 + b, (bh << r) & 0xFFFFFFFF)
+    if r:
+        plane.index_add_(0, half // 32 + b + 1, bh >> (32 - r))
+    assert not plane[nw:].any()
+    plane = plane[:nw]
+    return torch.where(plane >= 1 << 31, plane - (1 << 32), plane).to(torch.int32)
+
+
+@pytest.mark.parametrize("dp", (1, 2, 33, 65, 70_001, 131_072, 2 * ((1 << 16) + 5) + 1))
+def test_pair_order_plane_model_equals_binary_plane(dp):
+    """The card's pair-drawing encode-pack places every bit where
+    ``binary_plane`` does: half % 32 ∈ {1, 17, 25, 0, 6}, odd dp; delta = 0
+    sets no bit."""
+    z = torch.from_numpy(_x(dp, 1.0))
+    key = R.fold_in(R.PRNGKey(KEY_SEED), 5)
+    for lo, hi in ((z.min(), z.max()), (z[0], z[0].clone())):     # delta = 0 last
+        got = _pair_order_plane(z, key, lo, hi, dp)
+        assert torch.equal(got, tro_ref.binary_plane(z, key, lo, hi, dp))
+    assert not got.any()
 
 
 @pytest.mark.parametrize("wire", ("bfloat16", "float32"))
