@@ -546,8 +546,21 @@ def check_bitplane(sizes, main_d: int, records: dict) -> None:
               "unaligned starts: bit-equal", flush=True)
         del sym32, syms, words
 
+    # the unpack's 16-byte items at its block edges (one block of 1024 items,
+    # ± 1 symbol, ± 32/w, two blocks + 17), from 4-byte-aligned starts
+    for w in bpr.WIDTHS:
+        blk = 1024 * 16 // bpr.symbol_dtype(w).itemsize
+        for d in (blk, blk - 1, blk + 1, blk - 32 // w, blk + 32 // w, 2 * blk + 17):
+            words = bits32((bpr.num_words(d, w) + 3,))
+            for ww in (words, words[1:], words[3:]):
+                need(same_bits(bpk.unpack_bits(ww, w, d), bpr.unpack_bits(ww, w, d)),
+                     f"bitplane_unpack d={d} w={w} at a block edge: kernel != plain")
+    print("  bitplane_unpack at block edges, every width, unaligned starts: bit-equal",
+          flush=True)
+
     # the main path's planes: the binary support (w = 1) and the ternary
     # branch symbols (w = 2) of the embed bucket, packed and unpacked
+    unpack_ms = {}
     for w, hi in ((1, 2), (2, 3)):
         gen.manual_seed(main_d + w)
         sym = torch.randint(0, hi, (main_d,), generator=gen, device=dev, dtype=torch.uint8)
@@ -569,12 +582,15 @@ def check_bitplane(sizes, main_d: int, records: dict) -> None:
              f"bitplane_unpack d={main_d} w={w}: kernel != plain")
         ms = cuda_ms(lambda: bpk.unpack_bits(got, w, main_d), reps=10)
         pms = cuda_ms(lambda: bpr.unpack_bits(got, w, main_d), reps=1)
+        bound = bound_ms(4 * nw + main_d, 2 * main_d, 0)[0]
         if w == 2:
             record(records, "bitplane_unpack", 0.0, ms, pms, 4 * nw + main_d, 2 * main_d, 0)
+        unpack_ms[w] = ms
         print(f"  bitplane_unpack d={main_d} w={w} (uint8 symbols): bit-equal, kernel {ms:.3f} ms "
-              f"plain {pms:.3f} ms, bound {bound_ms(4 * nw + main_d, 2 * main_d, 0)[0]:.3f} ms",
-              flush=True)
+              f"plain {pms:.3f} ms, bound {bound:.3f} ms ({100 * bound / ms:.1f}%)", flush=True)
         del sym, got, back
+    print(f"  bitplane_unpack d={main_d}: w = 1 {unpack_ms[1]:.4f} ms beside w = 2 "
+          f"{unpack_ms[2]:.4f} ms", flush=True)
 
     # binary accumulate: 8 peers' rows [plane ‖ bf16 centers], the §13
     # word windows of shards as views of the rows
@@ -794,18 +810,22 @@ def check_hash_encoders(sizes, main_d: int, records: dict) -> None:
 DIVIDE_CASES = (("fixed_k_1bit", None), ("bernoulli_seed_1bit", None), ("binary_packed", None),
                 ("hier_fixed_k", None), ("bernoulli_seed_1bit", "dense_sim"),
                 ("fixed_k_1bit", "none"))
+# the presets whose wire carries the node center μ = mean(x)
+CENTER_CASES = ("fixed_k_1bit", "bernoulli_seed_1bit", "rotated_fixed_k")
 
 
 def check_divide(n: int) -> None:
-    """Decodes divide by n exactly on the card: one round of each of
-    ``DIVIDE_CASES`` on ``StackedComm(n)`` on the card equals the same round
-    on the CPU bit for bit, same keys and inputs.  The inputs lie on a 2^-6
-    grid at d = 2^16, so every sum is exact and the node centers agree on
-    both devices whatever their summation order."""
+    """Decodes divide by n exactly, and node centers do not depend on the
+    device: one round of each of ``DIVIDE_CASES`` on ``StackedComm(n)`` on
+    the card equals the same round on the CPU bit for bit, same keys and
+    inputs, on a 2^-6 grid at d = 2^16 (every sum exact); and each of
+    ``CENTER_CASES`` on seeded Gaussian inputs at d = 70,001, where sums
+    round, gives the same wire bytes for every node and the same round."""
     import torch
     from repro_torch import random as R
     from repro_torch.configs.registry import compression_preset
     from repro_torch.core import collectives as coll
+    from repro_torch.core import wire
 
     d = 1 << 16
     x = torch.round(torch.randn(n, d, generator=torch.Generator().manual_seed(n)) * 32) / 64
@@ -819,6 +839,34 @@ def check_divide(n: int) -> None:
         need(same_bits(got.cpu(), want), f"divide check n={n} {preset} {mode}: card != CPU")
     print(f"  decodes at n={n} (fixed_k_1bit, bernoulli_seed_1bit, binary_packed, fixed-k "
           "gather, dense simulation, exact mean): card == CPU bit for bit", flush=True)
+    x = torch.randn(n, 70_001, generator=torch.Generator().manual_seed(n)) * 0.5 + 0.01
+    for preset in CENTER_CASES:
+        cfg = dataclasses.replace(compression_preset(preset, axes=("data",)), min_compress_size=1)
+        codec = wire.resolve(cfg)
+        for r in range(n):
+            got = codec.pack(x[r].cuda(), key, r, cfg).cpu().view(torch.uint8)
+            want = codec.pack(x[r], key, r, cfg).view(torch.uint8)
+            need(torch.equal(got, want), f"center check n={n} {preset} node {r}: wire bytes "
+                 "on the card != on the CPU")
+        got = coll.compressed_mean(x.cuda(), key, cfg, coll.StackedComm(n, "cuda"))
+        want = coll.compressed_mean(x, key, cfg, coll.StackedComm(n, "cpu"))
+        need(same_bits(got.cpu(), want), f"center check n={n} {preset}: round card != CPU")
+    print(f"  mean-center wires at n={n}, d=70001, Gaussian ({', '.join(CENTER_CASES)}): "
+          "wire bytes and round card == CPU bit for bit", flush=True)
+
+
+def time_center(main_d: int) -> None:
+    """The wire's mean center at the embed bucket: ``tree_mean`` (the same
+    adds on every device) beside ``torch.mean``, by CUDA events."""
+    import torch
+    from repro_torch.core.wire import base
+
+    x = torch.randn(main_d, generator=torch.Generator("cuda").manual_seed(5), device="cuda")
+    ms = cuda_ms(lambda: base.center(x, "mean"), reps=10)
+    ref_ms = cuda_ms(lambda: torch.mean(x), reps=10)
+    print(f"  mean center d={main_d}: tree_mean {ms:.4f} ms, torch.mean {ref_ms:.4f} ms",
+          flush=True)
+    del x
 
 
 # (b, sq, sk, hq, hkv, hd, causal, window, q_offset, dtypes); the last two
@@ -1702,6 +1750,7 @@ def main() -> int:
     check_flash_bwd(records)
     check_hash_encoders(SIZES, main_d, records)
     check_divide(3)
+    time_center(main_d)
     print(f"[2] wire and encoder kernels bit-equal to their plain versions, flash attention "
           f"forward and backward within tolerance, decodes at n = 3 equal to the CPU's "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)

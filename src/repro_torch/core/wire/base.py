@@ -108,12 +108,57 @@ def effective_nodes(cfg: t.CompressionConfig, n: int,
     return int(n) // m
 
 
+def tree_sum(x):
+    """Σ x in f32 over a fixed pairwise tree: the same adds on every device.
+
+    x is taken as zero-padded to 2^K ≥ d elements; each level adds the upper
+    half of its nodes onto the lower half, node i taking node i + 2^(k−1),
+    until one node is left.  The padding is never made: a node whose partner
+    lies in it passes through, and the first level's unpaired nodes are read
+    from x by the second level, not copied.  Every step is one elementwise
+    IEEE f32 add, so the CPU and the card give the same bits; ``torch.sum``
+    takes another order on each.
+    """
+    v = x.reshape(-1).to(torch.float32)
+    m = v.numel()
+    if m <= 1:
+        return v.sum()
+    h = 1 << ((m - 1).bit_length() - 1)           # 2^(K−1) < m ≤ 2^K
+    p = m - h                                     # level 1: nodes [0, p) paired
+    lvl = v[:p] + v[h:]                           # ... nodes [p, h) are v[p:h]
+    if h == 1:
+        return lvl[0]
+    h //= 2
+    w = torch.empty(h, dtype=torch.float32, device=v.device)
+    if p >= h:                                    # level 2 over [lvl | v[p:2h]]
+        torch.add(lvl[:p - h], lvl[h:], out=w[:p - h])
+        torch.add(lvl[p - h:h], v[p:2 * h], out=w[p - h:])
+    else:
+        torch.add(lvl, v[h:h + p], out=w[:p])
+        torch.add(v[p:h], v[h + p:2 * h], out=w[p:])
+    while h > 1:
+        h //= 2
+        w[:h] += w[h:2 * h]
+    return w[0]
+
+
+def tree_mean(x):
+    """The mean of x as :func:`tree_sum` times f32(1/d), as ``jnp.mean``
+    scales: the same bits on the CPU and the card.  (``torch.mean`` divides
+    on the CPU and multiplies by the reciprocal on the card, after sums in
+    different orders.)"""
+    inv = torch.full((), 1.0 / x.numel(), dtype=torch.float32, device=x.device)
+    return tree_sum(x) * inv
+
+
 def center(x, policy: str):
-    """The node center μ_i used on the wire, as an f32 0-dim tensor."""
+    """The node center μ_i used on the wire, as an f32 0-dim tensor; the
+    ``mean`` center is :func:`tree_mean`, so a node's wire bytes do not
+    depend on the device it packs on."""
     if policy == "zero":
         return torch.zeros((), dtype=torch.float32, device=x.device)
     if policy == "mean":
-        return torch.mean(x).to(torch.float32)
+        return tree_mean(x)
     if policy == "min":
         return torch.min(x).to(torch.float32)
     raise ValueError(f"center policy {policy!r} not supported on the wire "

@@ -19,9 +19,9 @@ from repro_torch.core.wire import base, codecs, rotated
 
 _CODECS: Dict[str, base.WireCodec] = {}
 
-# the slice of ROADMAP.md queue 1 that brings each codec not ported yet
+# the work of ROADMAP.md queue 1 that brings each codec not ported yet
 PENDING = {
-    "error_feedback": "slice 8 (error feedback)",
+    "error_feedback": "the error-feedback slice",
 }
 
 

@@ -103,10 +103,10 @@ class RotatedCodec(base.WireCodec):
     # ---- hooks of later slices --------------------------------------------- #
 
     def state_shape(self, d, cfg):
-        raise base._not_ported("codec state under rotation", "slice 8 (error feedback)")
+        raise base._not_ported("codec state under rotation", "the error-feedback slice")
 
     def _round_stateful(self, flat, state, key, cfg, comm):
-        raise base._not_ported("codec state under rotation", "slice 8 (error feedback)")
+        raise base._not_ported("codec state under rotation", "the error-feedback slice")
 
     def decode_rows_reduce(self, rows, key, cfg, d, n, drop_mask=None):
-        raise base._not_ported("robust decode under rotation", "slice 9 (robust decode)")
+        raise base._not_ported("robust decode under rotation", "the robust-decode slice")

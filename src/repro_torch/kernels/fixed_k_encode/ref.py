@@ -22,12 +22,16 @@ def sample_blocks(key, num_blocks: int, kb: int, device=None):
     """Uniform kb-subset of block ids (Gumbel top-k), sorted, as int64.
 
     ``lax.top_k`` puts the lower index first among equal values; a stable
-    descending sort does the same.  The port's Gumbel values differ from
-    JAX's by at most one f32 epsilon of max(1, |g|) (``log`` differs by an
-    ulp between libraries), while the Gumbel values of adjacent uniform
-    draws lie more than two such epsilons apart across (0, 1), so both
-    orderings — and the ids — are the same
-    (tests/test_torch_threefry.py, tests/test_torch_fixed_k.py).
+    descending sort does the same.  g = −log(−log u) takes two logs, and
+    ``log`` differs by an ulp between libraries, so the port's Gumbel values
+    differ from JAX's by at most 2⁻²³·(1 + max(1, |g|)).  Uniform draws lie
+    on a 2⁻²³ grid, so adjacent draws are 2⁻²³/(u·(−log u)) apart in g.
+    The kb-th largest value sits near u = 1 − kb/num_blocks; where the gap
+    there exceeds both draws' errors, 2·2⁻²³·(1 + max(1, |g|)), the two
+    orderings — and the ids — agree.  That holds for a boundary above
+    u ≈ 0.72, i.e. kb/num_blocks below 0.28: at the shipped 1/16 the gap is
+    16.5·2⁻²³ against 7.5·2⁻²³; near g = 0 (u ≈ 1/e) it is 2.7·2⁻²³
+    against 4·2⁻²³ (tests/test_torch_threefry.py, tests/test_torch_fixed_k.py).
     """
     g = prandom.gumbel(key, (num_blocks,), device)
     order = torch.sort(g, descending=True, stable=True).indices[:kb]

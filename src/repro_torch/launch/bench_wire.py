@@ -1,5 +1,5 @@
-"""Kernels 1, 2, 3 (decode half), 8, 9 and 10 timed on the card at the main
-path's shapes, beside another build of their sources.
+"""Kernels 1, 2, 3 (decode half), 6, 7, 8, 9 and 10 timed on the card at the
+main path's shapes, beside another build of their sources.
 
     PYTHONPATH=src python -m repro_torch.launch.bench_wire \
         [--baseline-dir OLD/src/repro_torch/csrc] [--profile] \
@@ -16,6 +16,14 @@ embedding, 388,956,160 coordinates, ``train/synthetic.py::main_shapes``):
 * kernel 3's decode half (the scan and decode of ``decode_sum_shard``) on
   shard N − 2 of ⌈d/8⌉ coordinates, its support and prior counts from the
   count phase of this build;
+* kernel 6, the bit-plane unpack (``kernels/bitplane``), of seeded words
+  starting one word into their buffer (4-byte aligned, as a gathered row's
+  plane is): ``bitplane_unpack_w1`` and ``bitplane_unpack_w2`` at d =
+  388,956,160 (the binary and ternary planes), ``bitplane_unpack_w1_rotated``
+  at dp = 371 · 2²⁰ (``rotated_binary``'s decode);
+* kernel 7, the binary accumulate (``bitplane_binary_accum``), over the n =
+  8 peers' word windows of shard N − 2 of ⌈d/8⌉ coordinates, views of
+  seeded rows [plane ‖ one tail word] as the §13 decode passes them;
 * kernel 8, the FWHT (``kernels/hadamard``), at (371, 2²⁰): the bucket's
   block-diagonal rotation chunks;
 * kernel 9, rotate + (min, max) (``kernels/rotated_encode``), at the same
@@ -23,11 +31,12 @@ embedding, 388,956,160 coordinates, ``train/synthetic.py::main_shapes``):
 * kernel 10, the rotated 1-bit encode-pack, at dp = 371 · 2²⁰ of seeded z,
   (vmin, vmax) its extremes.
 
-Each is timed by CUDA events (20 calls after a warm-up).  With
+Only the inputs of the kernels ``--only`` names are made, and only their
+sources built.  Each is timed by CUDA events (20 calls after a warm-up).  With
 ``--baseline-dir`` (a ``git archive`` of another revision's
 ``src/repro_torch/csrc``, headers included) the same functions of that
-revision's ``bernoulli_wire.cu``, ``hadamard.cu`` and ``rotated_encode.cu``
-are built with the port's ``nvcc`` flags and timed in turns: baseline, new,
+revision's ``bernoulli_wire.cu``, ``bitplane.cu``, ``hadamard.cu`` and
+``rotated_encode.cu`` are built with the port's ``nvcc`` flags and timed in turns: baseline, new,
 new, baseline; their outputs are held bit-equal to the new ones.  The
 baseline's C entry points are called with the signatures they have: the
 three-launch encode (``bw_support_counts``, ``bw_scan_rows``,
@@ -35,7 +44,8 @@ three-launch encode (``bw_support_counts``, ``bw_scan_rows``,
 (``bw_support_counts``, ``bw_scan_rows``, ``bw_decode``) or
 ``bw_decode_sum``, and ``bw_scan_rows`` + ``bw_decode`` or
 ``bw_decode_sum_shard`` for the shard; the scratch-free ``hd_fwht`` and
-``re_rotate_minmax`` of older revisions, or this revision's.  Prints, and
+``re_rotate_minmax`` of older revisions, or this revision's; ``bp_unpack``
+and ``bp_binary_accum`` as they are.  Prints, and
 writes as JSON, the card's name and power limit, each kernel's ms, its
 bound (bytes over 3.35 TB/s, int32 operations over 16.75 T/s, as
 ``chip_smoke.py`` counts them) and its share of the bound.  With
@@ -60,6 +70,8 @@ from repro_torch.core import comm_cost
 from repro_torch.kernels import backend
 from repro_torch.kernels.bernoulli_wire import kernel as bwk
 from repro_torch.kernels.bernoulli_wire import ref as bwr
+from repro_torch.kernels.bitplane import bitplane as bpk
+from repro_torch.kernels.bitplane import ref as bpr
 from repro_torch.kernels.hadamard import hadamard as hk
 from repro_torch.kernels.rotated_encode import kernel as rek
 from repro_torch.launch.bench_encode_speed import device_line, time_ms
@@ -75,7 +87,7 @@ OPS_PER_CALL = 72                        # int32 operations of one Threefry call
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
-SOURCES = ("bernoulli_wire", "hadamard", "rotated_encode")
+SOURCES = ("bernoulli_wire", "bitplane", "hadamard", "rotated_encode")
 
 
 def bound_ms(nbytes: float, int_ops: float = 0.0):
@@ -84,13 +96,13 @@ def bound_ms(nbytes: float, int_ops: float = 0.0):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def build_baseline(src_dir: pathlib.Path) -> dict:
-    """lib<name>_baseline.so for each of SOURCES in ``src_dir``, built in
+def build_baseline(src_dir: pathlib.Path, names=SOURCES) -> dict:
+    """lib<name>_baseline.so for each of ``names`` in ``src_dir``, built in
     parallel with the port's flags (headers from ``src_dir``)."""
     out_dir = backend.BUILD_DIR.parent / "baseline"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in SOURCES:
+    for name in names:
         so = out_dir / f"lib{name}_baseline.so"
         cmd = [backend.nvcc_path(), *backend.NVCC_FLAGS, "-I", str(src_dir), "-o", str(so),
                str(src_dir / f"{name}.cu")]
@@ -266,17 +278,29 @@ def baseline_rotate(lib, x, signs, scale):
                               work.data_ptr(), b, c, scale, s), "re_rotate_minmax")), (z, mm)
 
 
+def baseline_unpack(lib, words, width, d):
+    out = torch.empty(d, dtype=bpr.symbol_dtype(width), device=words.device)
+    fn = _sig(lib, "bp_unpack", [_P, _I64, ctypes.c_int, _P, ctypes.c_int, _P])
+    return (lambda: _check(fn(words.data_ptr(), d, width, out.data_ptr(), out.element_size(),
+                              backend.stream_ptr(words.device)), "bp_unpack")), out
+
+
+def baseline_binary_accum(lib, win, lo, hi, d):
+    out = torch.empty(d, dtype=torch.float32, device=win.device)
+    fn = _sig(lib, "bp_binary_accum", [_P, _I64, ctypes.c_int, _P, _P, _I64, _P, _P])
+    return (lambda: _check(fn(win.data_ptr(), win.stride(0), win.shape[0], lo.data_ptr(),
+                              hi.data_ptr(), d, out.data_ptr(), backend.stream_ptr(win.device)),
+                           "bp_binary_accum")), out
+
+
 def same_bits(a, b) -> bool:
     if a.dtype.is_floating_point:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return torch.equal(a, b)
 
 
-def cases(device):
-    """{name: (kernel call, baseline factory, (bound ms, bound by), shape)}
-    at the main path's shapes, on seeded inputs; a factory takes the
-    baseline's libraries and returns (call, its preallocated output(s))."""
-    gen = torch.Generator(device=device).manual_seed(19)
+def bernoulli_cases(device, gen):
+    """Kernels 1, 2 and 3's decode half."""
     flat = torch.randn(D, generator=gen, device=device) * 0.5 + 0.1
     mu = flat.mean()
     key = prandom.fold_in(prandom.PRNGKey(7), 3)
@@ -292,13 +316,6 @@ def cases(device):
     del before
     nck = sup.counts.shape[1]
     kept = int((cap - prior.long()).clamp(min=0).clamp(max=sup.counts.sum(1).long()).sum())
-    x = torch.randn(ROWS, 1 << 20, generator=gen, device=device) * 0.02
-    signs = prandom.rademacher(prandom.fold_in(prandom.PRNGKey(11), 2), x.shape, device)
-    scale = float(torch.sqrt(torch.tensor(float(1 << 20))))
-    n = x.numel()
-    z = torch.randn(n, generator=gen, device=device)
-    vmm = torch.stack([z.amin(), z.amax()])
-    kenc = prandom.fold_in(prandom.fold_in(prandom.PRNGKey(11), 2), 5)
     return {
         "bernoulli_encode": (lambda: bwk.encode(flat, key, mu, p=P, cap=cap),
                              lambda lib: baseline_encode(lib["bernoulli_wire"], flat, key, mu, cap),
@@ -315,6 +332,54 @@ def cases(device):
             lambda lib: baseline_decode_shard(lib["bernoulli_wire"], bufs, mus, sup, prior, cap),
             bound_ms(4 * kept + N * nck * 128 + 4 * N * nck + 4 * N + 4 * SHARD),
             {"d": D, "n": N, "shard": shard, "ds": SHARD, "cap": cap}),
+    }
+
+
+def _bits32(shape, gen, device):
+    return torch.randint(-(1 << 31), 1 << 31, shape, generator=gen, device=device,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def bitplane_cases(device, gen):
+    """Kernel 6 at w = 1 and 2 (d = D) and at w = 1 (dp = 371 · 2²⁰);
+    kernel 7 on shard N − 2 of the binary plane's §13 split."""
+    out = {}
+    for name, width, d in (("bitplane_unpack_w1", 1, D), ("bitplane_unpack_w2", 2, D),
+                           ("bitplane_unpack_w1_rotated", 1, ROWS << 20)):
+        nw = bpr.num_words(d, width)
+        words = _bits32((nw + 1,), gen, device)[1:]
+
+        def call(words=words, width=width, d=d):
+            return bpk.unpack_bits(words, width, d)
+
+        def factory(lib, words=words, width=width, d=d):
+            return baseline_unpack(lib["bitplane"], words, width, d)
+        out[name] = (call, factory, bound_ms(4 * nw + d, 2 * d),
+                     {"d": d, "width": width})
+    ds = -(-SHARD // 32) * 32
+    ws, pw, shard = ds // 32, bpr.num_words(D, 1), N - 2
+    rows = _bits32((N, pw + 1), gen, device)
+    win = rows[:, shard * ws:(shard + 1) * ws]
+    lo = torch.randn(N, generator=gen, device=device)
+    hi = lo + torch.rand(N, generator=gen, device=device)
+    out["bitplane_binary_accum"] = (
+        lambda: bpk.binary_accum(win, lo, hi, ds),
+        lambda lib: baseline_binary_accum(lib["bitplane"], win, lo, hi, ds),
+        bound_ms(4 * N * ws + 8 * N + 4 * ds, N * ds),
+        {"d": D, "n": N, "shard": shard, "ds": ds, "ld": pw + 1})
+    return out
+
+
+def rotation_cases(device, gen):
+    """Kernels 8, 9 and 10 at (371, 2²⁰)."""
+    x = torch.randn(ROWS, 1 << 20, generator=gen, device=device) * 0.02
+    signs = prandom.rademacher(prandom.fold_in(prandom.PRNGKey(11), 2), x.shape, device)
+    scale = float(torch.sqrt(torch.tensor(float(1 << 20))))
+    n = x.numel()
+    z = torch.randn(n, generator=gen, device=device)
+    vmm = torch.stack([z.amin(), z.amax()])
+    kenc = prandom.fold_in(prandom.fold_in(prandom.PRNGKey(11), 2), 5)
+    return {
         "fwht": (lambda: hk.fwht(x), lambda lib: baseline_fwht(lib["hadamard"], x),
                  bound_ms(8 * n), {"rows": ROWS, "c": 1 << 20}),
         "rotate_minmax": (lambda: rek.rotate_minmax(x, signs, scale),
@@ -325,6 +390,39 @@ def cases(device):
                         bound_ms(4 * n + 4 * -(-n // 32) + 8, OPS_PER_CALL * -(-n // 2)),
                         {"dp": n}),
     }
+
+
+# kernel names by the source that holds them, and the function making their
+# inputs
+GROUPS = {
+    "bernoulli_wire": (("bernoulli_encode", "bernoulli_decode_sum",
+                        "bernoulli_decode_sum_shard"), bernoulli_cases),
+    "bitplane": (("bitplane_unpack_w1", "bitplane_unpack_w2", "bitplane_unpack_w1_rotated",
+                  "bitplane_binary_accum"), bitplane_cases),
+    "hadamard": (("fwht",), rotation_cases),
+    "rotated_encode": (("rotate_minmax", "encode_pack"), rotation_cases),
+}
+KERNELS = tuple(k for names, _ in GROUPS.values() for k in names)
+
+
+def sources_for(only) -> tuple:
+    """The sources holding the kernels ``only`` names (all for None)."""
+    return tuple(src for src, (names, _) in GROUPS.items()
+                 if only is None or any(k in only for k in names))
+
+
+def cases(device, only=None):
+    """{name: (kernel call, baseline factory, (bound ms, bound by), shape)}
+    at the main path's shapes, on seeded inputs, for the kernels ``only``
+    names (all for None); a factory takes the baseline's libraries and
+    returns (call, its preallocated output(s))."""
+    gen = torch.Generator(device=device).manual_seed(19)
+    out = {}
+    for src in sources_for(only):
+        make = GROUPS[src][1]
+        if not any(k in out for k in GROUPS[src][0]):
+            out.update(make(device, gen))
+    return {k: v for k, v in out.items() if only is None or k in only}
 
 
 def kernel_split(fn, calls: int = 5) -> dict:
@@ -352,21 +450,20 @@ def main(argv=None) -> int:
                     help="another revision's src/repro_torch/csrc to time beside this one")
     ap.add_argument("--profile", action="store_true",
                     help="also report each kernel's device ms per launch (torch.profiler)")
-    ap.add_argument("--only", nargs="+", default=None, metavar="KERNEL",
+    ap.add_argument("--only", nargs="+", default=None, metavar="KERNEL", choices=KERNELS,
                     help="time only these of the kernels (names as in the output)")
     ap.add_argument("--out", default="chiprun_out/bench_wire.json")
     args = ap.parse_args(argv)
     dev = resolve_device(None)
     card = device_line(dev)
     print(card, flush=True)
-    backend.build(SOURCES)
-    libs = build_baseline(args.baseline_dir) if args.baseline_dir else None
+    names = sources_for(args.only)
+    backend.build(names)
+    libs = build_baseline(args.baseline_dir, names) if args.baseline_dir else None
     result = {"device": card, "torch": torch.__version__,
               "baseline": str(args.baseline_dir) if args.baseline_dir else None, "rows": []}
     ok = True
-    for name, (kernel, factory, (bound, by), shape) in cases(dev).items():
-        if args.only and name not in args.only:
-            continue
+    for name, (kernel, factory, (bound, by), shape) in cases(dev, args.only).items():
         row = {"kernel": name, **shape, "bound_ms": bound, "bound_by": by}
         if libs is not None:
             call, bout = factory(libs)

@@ -34,7 +34,7 @@ class ShardCtx:
         if self.tp != 1:
             raise NotPortedError(
                 f"tensor parallelism (tp={self.tp}) is not ported yet: it arrives with "
-                "slice 6 (the training step) if its multi-card step needs it "
+                "the full-depth training slice if its multi-card step needs it "
                 "(ROADMAP.md, queue 1)")
 
 

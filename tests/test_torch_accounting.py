@@ -19,6 +19,10 @@ from repro_torch.core import comm_cost as tcost
 from repro_torch.core import mse as tmse
 from repro_torch.core import wire as twire
 
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
+
 DS = (1, 1000, 4096, 70_001, 388_956_160)
 
 

@@ -20,6 +20,10 @@ from repro_torch.kernels.bernoulli_wire import ops as tops
 from repro_torch.kernels.bernoulli_wire import ref as tref
 from repro_torch.kernels.threefry import ref as tf_ref
 
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
+
 
 # the reference functions, compiled once per static shape instead of op by op
 _encode = jax.jit(jref.encode, static_argnames=("p", "cap"))

@@ -35,6 +35,10 @@ from repro_torch.core.wire import base as twire_base
 from repro_torch.train import bucketing as tbucketing
 from test_torch_collective import reference_round
 
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
+
 MSIZES = {"data": 8}
 MESH_AXES = ("data",)
 

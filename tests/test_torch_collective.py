@@ -50,6 +50,10 @@ from repro_torch.core import collectives as tcoll
 from repro_torch.core.wire import base as tbase
 from repro_torch.core.wire import registry as tregistry
 
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 D = 20_011
 KEY_SEED = 99

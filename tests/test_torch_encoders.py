@@ -26,6 +26,10 @@ from repro_torch.core import centers as tcenters
 from repro_torch.core import encoders as tenc
 from repro_torch.core import optimal as topt
 
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
+
 DS = (1, 33, 4099, 20_011)
 EPS = 2.0 ** -23
 

@@ -16,6 +16,10 @@ from repro_torch import random as R
 from repro_torch.kernels.fixed_k_encode import ops as tops
 from repro_torch.kernels.fixed_k_encode import ref as tref
 
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
+
 _sample = jax.jit(jref.sample_blocks, static_argnums=(1, 2))
 
 

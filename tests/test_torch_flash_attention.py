@@ -21,6 +21,10 @@ from repro_torch.kernels import backend
 from repro_torch.kernels.flash_attention import ops as tops
 from repro_torch.kernels.flash_attention import ref as tref
 
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
+
 TOL = {"float32": dict(atol=2e-3, rtol=2e-3), "bfloat16": dict(atol=3e-2, rtol=0)}
 LSE_ATOL = 1e-3
 

@@ -28,16 +28,20 @@ from repro_torch.core import wire as twire
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "golden"))
 import regen_golden_wire as regen  # noqa: E402
 
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
+
 PORTED = ("fixed_k_1bit", "bernoulli_seed_1bit", "hier_fixed_k", "hier_bernoulli",
           "binary_packed", "ternary_packed", "ternary_opt", "rotated_binary",
           "rotated_fixed_k")
-# the slice of ROADMAP.md queue 1 each waiting preset arrives with
+# the work of ROADMAP.md queue 1 each waiting preset arrives with
 WAITING = {
-    "ef_rotated_binary": "slice 8 (error feedback)",
-    "ef_fixed_k": "slice 8",
-    "ef_bernoulli": "slice 8",
-    "ef_binary": "slice 8",
-    "ef_ternary": "slice 8",
+    "ef_rotated_binary": "the error-feedback slice",
+    "ef_fixed_k": "error-feedback slice",
+    "ef_bernoulli": "error-feedback slice",
+    "ef_binary": "error-feedback slice",
+    "ef_ternary": "error-feedback slice",
 }
 # the port's buffer dtype for each wire dtype the golden matrix records
 # (packed planes are uint32 words, held as int32 bit patterns)
@@ -87,3 +91,26 @@ def test_waiting_preset_raises_not_ported(name):
     cfg = tregistry.compression_preset(name, axes=("data",))
     with pytest.raises(twire.NotPortedError, match=re.escape(WAITING[name])):
         twire.resolve(cfg)
+
+
+def _padded_tree_sum(x):
+    """Σ x over 2^K zero-padded leaves, each level adding its upper half
+    onto its lower half, a node whose partner is padding passing through; in
+    numpy f32."""
+    v = x.copy()
+    while v.size > 1:
+        h = 1 << ((v.size - 1).bit_length() - 1)
+        v = np.concatenate([v[:v.size - h] + v[h:], v[v.size - h:h]])
+    return v[0]
+
+
+@pytest.mark.parametrize("d", (1, 2, 3, 4, 5, 6, 8, 11, 4097, 6145, 70_001, regen.D))
+def test_mean_center_is_the_padded_pairwise_tree(d):
+    """The wire's ``mean`` center: the tree sum of x zero-padded to a power
+    of two, times f32(1/d); each step one IEEE f32 operation, so the card
+    computes the same bits (``tests/test_torch_kernels_cuda.py -k gauss``)."""
+    x = (np.random.default_rng(d).standard_normal(d) * 0.5 + 0.01).astype(np.float32)
+    got = twire.base.center(torch.from_numpy(x), "mean")
+    assert got.dtype == torch.float32 and got.dim() == 0
+    want = _padded_tree_sum(x) * np.float32(1.0 / d)
+    assert np.float32(got.item()).view(np.uint32) == np.float32(want).view(np.uint32)

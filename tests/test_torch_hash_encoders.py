@@ -31,6 +31,10 @@ from repro_torch.kernels.bernoulli_encode import ref as tbr
 from repro_torch.kernels.binary_quant import ops as tqo
 from repro_torch.kernels.binary_quant import ref as tqr
 
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
+
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 KERNEL_ATOL = {"float32": 1e-6, "bfloat16": 2e-2}
 SEEDS = (0, 7, 0xDEADBEEF, 0xFFFFFFFF)

@@ -23,6 +23,10 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
+
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.path.insert(0, sys.argv[1])

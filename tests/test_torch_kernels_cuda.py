@@ -19,6 +19,7 @@ from repro_torch.core import bitplane as cbp
 from repro_torch.core import comm_cost
 from repro_torch.core import rotation
 from repro_torch.core import collectives as tcoll
+from repro_torch.core import wire as twire
 from repro_torch.kernels.bernoulli_encode import bernoulli_encode as bek
 from repro_torch.kernels.bernoulli_encode import ref as ber
 from repro_torch.kernels.bernoulli_wire import kernel as bwk
@@ -41,6 +42,10 @@ from repro_torch.kernels.rotated_encode import ops as reo
 from repro_torch.kernels.rotated_encode import ref as rer
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.train.train_step import build_train_step
+
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
@@ -140,6 +145,54 @@ def test_binary_accum_equals_plain(dev, n, d):
     for win in (rows[:, :nw].contiguous(), rows[:, 3:3 + nw]):
         want = bpr.binary_accum(win, lo, hi, d)
         assert _same(bpk.binary_accum(win, lo, hi, d), want)
+
+
+# csrc/bitplane.cu: the unpack takes blocks of UNPACK_TILE 16-byte items, the
+# binary accumulate tiles of ACC_TILE words with peers staged ACC_PEERS at a
+# time; the cases below sit on those edges.
+UNPACK_TILE = 256 * 4
+ACC_TILE = 256
+ACC_PEERS = 8
+
+
+def _unpack_edges(width):
+    """d at one unpack block's symbols, ± 1, ± 32/w, and two blocks + 17."""
+    blk = UNPACK_TILE * 16 // bpr.symbol_dtype(width).itemsize
+    per = 32 // width
+    return (blk, blk - 1, blk + 1, blk - per, blk + per, 2 * blk + 17)
+
+
+@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("width", bpr.WIDTHS)
+def test_unpack_kernel_at_block_edges_equals_plain(dev, width, case):
+    d = _unpack_edges(width)[case]
+    nw = bpr.num_words(d, width)
+    g = torch.Generator(dev).manual_seed(d * 5 + width)
+    words = torch.randint(-(1 << 31), 1 << 31, (nw + 3,), generator=g, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+    for off in (0, 1, 3):                         # 4-byte-aligned, not 16, starts
+        win = words[off:]
+        assert torch.equal(bpk.unpack_bits(win, width, d), bpr.unpack_bits(win, width, d))
+
+
+@pytest.mark.parametrize("n", (1, 2, 5, ACC_PEERS, 2 * ACC_PEERS + 1))
+@pytest.mark.parametrize("ds", (32, 4096, 32 * ACC_TILE - 32, 32 * ACC_TILE + 32,
+                                3 * 32 * ACC_TILE + 96, 70001))
+def test_binary_accum_kernel_at_tile_edges_equals_plain(dev, n, ds):
+    """Windows at word offsets 0, 1, 2 and 3 of rows of odd length (4-byte
+    aligned only), ds below one tile, a multiple of 32 but not of the tile,
+    and ragged; n up to three peer chunks."""
+    g = torch.Generator(dev).manual_seed(n * 1000 + ds)
+    nw = bpr.num_words(ds, 1)
+    ld = nw + 5 if nw % 2 == 0 else nw + 4
+    rows = torch.randint(-(1 << 31), 1 << 31, (n, ld), generator=g, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+    lo = torch.randn(n, generator=g, device=dev)
+    hi = lo + torch.rand(n, generator=g, device=dev)
+    for off in (0, 1, 2, 3):
+        win = rows[:, off:off + nw]
+        assert win.stride(0) == ld
+        assert _same(bpk.binary_accum(win, lo, hi, ds), bpr.binary_accum(win, lo, hi, ds))
 
 
 @pytest.mark.parametrize("b,m", [(1, 0), (3, 1), (2, 5), (3, 8), (2, 13), (3, 14), (2, 17),
@@ -436,17 +489,41 @@ def _grid_stack(n, d, seed):
     return torch.round(torch.randn(n, d, generator=g) * 32) / 64
 
 
-@pytest.mark.parametrize("n", (3, 5, 6, 7))
-@pytest.mark.parametrize("preset,mode", [("fixed_k_1bit", None), ("bernoulli_seed_1bit", None),
-                                         ("binary_packed", None), ("hier_fixed_k", None),
-                                         ("bernoulli_seed_1bit", "dense_sim"),
-                                         ("fixed_k_1bit", "none")])
-def test_round_on_card_equals_cpu(dev, n, preset, mode):
+def _gauss_stack(n, d, seed):
+    """Seeded Gaussian gradients-like values at a d that is no power of two:
+    sums round, so the node centers agree only if both devices take the
+    same adds (``core/wire/base.py::tree_mean``)."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(n, d, generator=g) * 0.5 + 0.01
+
+
+ROUND_CASES = [(n, preset, mode, "grid", 1 << 16) for n in (3, 5, 6, 7)
+               for preset, mode in (("fixed_k_1bit", None), ("bernoulli_seed_1bit", None),
+                                    ("binary_packed", None), ("hier_fixed_k", None),
+                                    ("bernoulli_seed_1bit", "dense_sim"),
+                                    ("fixed_k_1bit", "none"))]
+# the mean-center presets, whose wire bytes carry μ and values relative to
+# it; the Bernoulli round's plain decode takes minutes on the CPU at 2^20 + 3
+ROUND_CASES += [(n, preset, None, "gauss", d) for n in (3, 8)
+                for preset, ds in (("fixed_k_1bit", (70_001, (1 << 20) + 3)),
+                                   ("bernoulli_seed_1bit", (70_001,)),
+                                   ("rotated_fixed_k", (70_001, (1 << 20) + 3)))
+                for d in ds]
+
+
+@pytest.mark.parametrize("n,preset,mode,data,d", ROUND_CASES)
+def test_round_on_card_equals_cpu(dev, n, preset, mode, data, d):
     cfg = dataclasses.replace(compression_preset(preset, axes=("data",)), min_compress_size=1)
     if mode is not None:
         cfg = dataclasses.replace(cfg, mode=mode, scatter_decode=False)
-    x = _grid_stack(n, 1 << 16, n)
+    x = (_grid_stack if data == "grid" else _gauss_stack)(n, d, n)
     key = R.fold_in(R.PRNGKey(17), n)
+    if data == "gauss":                           # every node's wire bytes
+        codec = twire.resolve(cfg)
+        for r in range(n):
+            got = codec.pack(x[r].to(dev), key, r, cfg)
+            want = codec.pack(x[r], key, r, cfg)
+            assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8)), r
     got = tcoll.compressed_mean(x.to(dev), key, cfg, tcoll.StackedComm(n, dev))
     want = tcoll.compressed_mean(x, key, cfg, tcoll.StackedComm(n, "cpu"))
     assert _same(got.cpu(), want)

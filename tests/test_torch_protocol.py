@@ -51,6 +51,10 @@ from repro_torch.core.wire import NotPortedError
 from repro_torch.examples import federated_mean, quickstart
 from repro_torch.launch import bench_encode_speed
 
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
+
 N, D = 16, 512
 RNG = np.random.default_rng(0)
 XS = RNG.standard_normal((N, D)).astype(np.float32)

@@ -44,6 +44,10 @@ from repro_torch.core import optimal as topt
 from repro_torch.core import wire as twire
 from test_torch_collective import _xs, reference_round
 
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
+
 D = 20_011
 KEY_SEED = 99
 

@@ -36,6 +36,10 @@ from repro_torch.kernels.rotated_encode import ref as tro_ref
 from repro_torch.kernels.threefry import ref as tf_ref
 from test_torch_rotation import jit_butterfly  # noqa: F401  (fixture)
 
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
+
 KEY_SEED = 17
 
 

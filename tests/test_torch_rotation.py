@@ -28,6 +28,10 @@ from repro_torch.core import rotation as trot
 from repro_torch.kernels.hadamard import ops as thops
 from repro_torch.kernels.hadamard import ref as thref
 
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
+
 KEY_SEED = 5
 _JIT_FWHT = jax.jit(jhops.fwht)
 _JIT_REF_FWHT = jax.jit(jhref.fwht)

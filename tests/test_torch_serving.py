@@ -47,6 +47,10 @@ from repro_torch.models import model as tmodel
 from repro_torch.models import transformer as ttfm
 from repro_torch.serving import engine
 
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
+
 LOGIT_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 CACHE_TOL = 2e-2
 NARROW = JArchConfig(name="narrow-hd128", family="dense", num_layers=2, d_model=256,

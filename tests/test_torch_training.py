@@ -61,6 +61,10 @@ from repro_torch.train import bucketing
 from repro_torch.train import train_step as tts
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
+# one intra-op thread: beside other test workers on a loaded machine, torch's
+# thread pool stalls for tens of seconds
+torch.set_num_threads(1)
+
 JCFG = j_smoke_config("qwen3-4b")
 CFG = smoke_config("qwen3-4b")
 B, S = 4, 32
