@@ -10,7 +10,7 @@ Phases, each printing its own lines:
    ``nvcc`` per source, all started together), and beside them the sources
    of kernels 11–13 with ``-Xptxas -v``: for each bf16 kernel
    (``fa_fwd_wgmma``, ``fa_bwd_dkv_wgmma``, ``fa_bwd_dq_wgmma``, each at hd
-   64 and 128) its registers, spills (none allowed) and dynamic shared
+   32, 64 and 128) its registers, spills (none allowed) and dynamic shared
    memory, and ``HGMMA`` and ``UTMALDG`` in its SASS (``cuobjdump -sass``);
 2. hold each wire kernel bit-equal against its plain PyTorch version on the card,
    at d = 70,001 and 16,777,217 (n = 8 peers, keys folded per rank from
@@ -20,7 +20,11 @@ Phases, each printing its own lines:
    halves (d = 2, 2047, 2049, 2^21 + 3 with a small cap), the flat
    Bernoulli decode's pair chunks at ragged halves (d = 1, 2, 2047, 2049,
    70,001, 2^21 + 3 at n = 1, 3, 8, with cap overflow, each equal to the
-   sequential and to the plain decode), the FWHT and
+   sequential and to the plain decode), the Bernoulli encode's unscaled
+   variant (the error-feedback twin) at every encode case on inputs with
+   −0.0 entries and μ < 0, timed beside the scaled one at the main shape,
+   the flat decode at n = 1 from a −0.0 accumulator (the twin's unpack)
+   against ``decode_one``, the FWHT and
    rotate-min/max kernels at row lengths 2^8 .. 2^20 (odd exponents
    included, where 1/sqrt(c) is not a power of two; from 2^18 and at the
    main shape each called twice and the FWHT in place too), the rotated
@@ -36,24 +40,31 @@ Phases, each printing its own lines:
    hd 128 and 64, S = 100, a window of 200 across 128-key tiles, q_offset
    200 with Sk 512; g = 4 and 1), (1, 8192, 32/8, 128) bf16, the training
    path's (1, 4096, 32/8, 128) and the serving path's (8, 2048, 32/8, 128)
-   bf16 causal; at the last two time the kernel and
+   bf16 causal, and at hd 32 (lm-8m: ragged S = 1000, a window of 200, q
+   offset 200, S = 100 not causal, and the training example's one rank,
+   (4, 128, 8/4, 32)); at the training, serving and example shapes time the
+   kernel and
    ``F.scaled_dot_product_attention`` (the library yardstick), with TFLOP/s
-   and the share of the bound, and at the serving shape the plain version
+   and the share of the bound, and at the serving and example shapes the plain version
    too; then hold the
    flash-attention backward kernels (dK/dV and dQ sweeps) against the plain
    blockwise backward on the same inputs (f32: |Δ| ≤ 2e-3 + 2e-3·|ref|;
    bf16: ‖Δ‖/‖ref‖ ≤ 2e-4 for each of dq, dk, dv) at g = 4 and 1, causal and
    not, a window, a q offset, ragged S = 1000, hd 64 and 128, the bf16
    kernels' tile edges (ragged S = 1000 at hd 64 with g = 1, a window of 200
-   across 128-key tiles, S = 100, q_offset 200 with Sk 512), and the
-   training path's (1, 4096, 32/8, 128) bf16 causal, where kernels, plain
-   sweeps and SDPA's backward are timed; then hold the hash-PRNG encoders
+   across 128-key tiles, S = 100, q_offset 200 with Sk 512), the same
+   edges at hd 32, the training path's (1, 4096, 32/8, 128) bf16 causal and
+   the training example's (4, 128, 8/4, 32), where kernels, plain sweeps and
+   SDPA's backward are timed; then hold the hash-PRNG encoders
    (kernel 14, the dense Bernoulli encode, and kernel 15, binary
    quantization with its packing) bit-equal to their plain versions at
    ``SIZES`` and at the embed bucket, f32 and bf16, aligned and not, with
    Δ = 0 and the vmin padding of a ragged length, and time them there; and
    check that the decodes divide by n exactly: one round of each of
-   ``DIVIDE_CASES`` at n = 3 on the card equals the CPU's bit for bit;
+   ``DIVIDE_CASES`` at n = 3 on the card equals the CPU's bit for bit, and
+   two error-feedback rounds of each of ``EF_CASES`` (the five ``ef_*``
+   presets, ``fixed_k_1bit`` + EF) from the same nonzero residuals give the
+   same estimates and residuals on both;
 3. the sync path: ``sync_grads_bucketed`` over the qwen3-4b gradient tree
    (full width, 4 of 36 layers, 792,657,920 compressed coordinates per
    rank) on ``StackedComm(8, "cuda")`` for each preset of
@@ -66,7 +77,12 @@ Phases, each printing its own lines:
    counts per bucket against each codec's table (``expected_launches``),
    finiteness, the bytes handed to the communicator against the accounting,
    and the squared error against the codec's closed-form MSE (``closed_form``,
-   within 10%);
+   within 10%); then the five ``ef_*`` presets (``EF_PRESETS``), 3 steps
+   each, the residuals carried (8 × 792,657,920 f32 beside the gradients):
+   launches per bucket (``ef_expected_launches``), finiteness, bytes against
+   the accounting (the inner preset's), and the telescoping identity
+   Σ_t est_t = Σ_t x̄_t − ē_T within ``TELESCOPE_RTOL`` (the twins are biased
+   contractive messages: no closed-form MSE applies);
 4. the serving path: qwen3-4b at all 36 layers and full width, parameters
    drawn from a seed and cast to bf16, 8 prompts of 2048 seeded tokens:
    ``engine.generate`` (``build_serve_fns`` → prefill → 32 greedy decode
@@ -89,7 +105,15 @@ Phases, each printing its own lines:
    the communicator's bytes against the accounting, the sync's error over
    the stacked real gradients against the closed form (within 10%), step
    ms split into forward+backward, sync and optimizer, tokens/s, peak
-   memory;
+   memory; then, the first run's state freed, ``Trainer.fit`` for 4 steps
+   with ``fixed_k_1bit`` + error feedback (the reference example's default)
+   at the same shape: finite losses, norms and residuals, the bytes, each
+   bucket's residual norm after step 3 at most twice that after step 1,
+   the step's split and the peak; then the training example as a user runs
+   it (``examples/train_lm_compressed.py``: lm-8m, 8 ranks, the exact mean
+   and ``fixed_k_1bit`` + error feedback, 4 steps each), its attention on
+   the hd-32 flash kernels (L·n launches of each a step), losses, norms
+   and residuals finite;
 6. the encode path (``launch/bench_encode_speed.py``: kernels 14 and 15,
    the fixed-k gather and the FWHT at d = 2^16, 2^20, 2^24 and the
    388,956,160-coordinate embed bucket) and the single-host stack:
@@ -149,7 +173,9 @@ F32_DIV_OPS = 6
 
 REPLACES = {
     "bernoulli_encode": "src/repro/kernels/bernoulli_wire/kernel.py:184",
+    "bernoulli_encode_unscaled": "src/repro/kernels/bernoulli_wire/kernel.py:184",
     "bernoulli_decode_sum": "src/repro/kernels/bernoulli_wire/kernel.py:248",
+    "bernoulli_unpack": "src/repro/kernels/bernoulli_wire/kernel.py:248",
     "bernoulli_support_counts": "src/repro/kernels/bernoulli_wire/kernel.py:336",
     "bernoulli_decode_sum_shard": "src/repro/kernels/bernoulli_wire/kernel.py:336",
     "fixed_k_gather": "src/repro/kernels/fixed_k_encode/fixed_k_encode.py:39",
@@ -162,12 +188,17 @@ REPLACES = {
     "flash_attention_fwd": "src/repro/kernels/flash_attention/flash_attention.py:121",
     "flash_attention_bwd_dkv": "src/repro/kernels/flash_attention/flash_attention.py:280",
     "flash_attention_bwd_dq": "src/repro/kernels/flash_attention/flash_attention.py:318",
+    "flash_attention_fwd_hd32": "src/repro/kernels/flash_attention/flash_attention.py:121",
+    "flash_attention_bwd_dkv_hd32": "src/repro/kernels/flash_attention/flash_attention.py:280",
+    "flash_attention_bwd_dq_hd32": "src/repro/kernels/flash_attention/flash_attention.py:318",
     "bernoulli_encode_2d": "src/repro/kernels/bernoulli_encode/bernoulli_encode.py:53",
     "binary_encode_2d": "src/repro/kernels/binary_quant/binary_quant.py:54",
 }
 SOURCE = {
     "bernoulli_encode": "src/repro_torch/csrc/bernoulli_wire.cu",
+    "bernoulli_encode_unscaled": "src/repro_torch/csrc/bernoulli_wire.cu",
     "bernoulli_decode_sum": "src/repro_torch/csrc/bernoulli_wire.cu",
+    "bernoulli_unpack": "src/repro_torch/csrc/bernoulli_wire.cu",
     "bernoulli_support_counts": "src/repro_torch/csrc/bernoulli_wire.cu",
     "bernoulli_decode_sum_shard": "src/repro_torch/csrc/bernoulli_wire.cu",
     "fixed_k_gather": "src/repro_torch/csrc/fixed_k_encode.cu",
@@ -180,6 +211,9 @@ SOURCE = {
     "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_dkv": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "flash_attention_bwd_dq": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_fwd_hd32": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dkv_hd32": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dq_hd32": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "bernoulli_encode_2d": "src/repro_torch/csrc/bernoulli_encode.cu",
     "binary_encode_2d": "src/repro_torch/csrc/binary_quant.cu",
 }
@@ -266,8 +300,8 @@ def max_err(a, b) -> float:
 # Phase 1: what the compiler made of kernels 11–13.
 # --------------------------------------------------------------------------- #
 
-# The Hopper (TMA + wgmma) kernels phase 1 inspects, by source: each at hd 64
-# and 128, with the C function that reports its dynamic shared memory.
+# The Hopper (TMA + wgmma) kernels phase 1 inspects, by source: each at hd 32,
+# 64 and 128, with the C function that reports its dynamic shared memory.
 CUBIN_KERNELS = {"flash_attention": {"fa_fwd_wgmma": ("fa_fwd_smem_bytes",)},
                  "flash_attention_bwd": {"fa_bwd_dkv_wgmma": ("fa_bwd_smem_bytes", 0),
                                          "fa_bwd_dq_wgmma": ("fa_bwd_smem_bytes", 1)}}
@@ -291,7 +325,7 @@ def start_flash_cubins():
 
 
 def check_flash_cubins(procs) -> None:
-    """Each bf16 kernel of ``CUBIN_KERNELS`` at hd 64 and 128: registers and
+    """Each bf16 kernel of ``CUBIN_KERNELS`` at hd 32, 64 and 128: registers and
     spills (none allowed) as ptxas reports them, its dynamic shared memory,
     and its SASS holding ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), by
     ``cuobjdump -sass``."""
@@ -322,9 +356,10 @@ def check_flash_cubins(procs) -> None:
             smem.argtypes = [ctypes.c_int64] + [ctypes.c_int] * len(smem_args)
             smem.restype = ctypes.c_int
             found = sorted(n for n in props if kernel in n)
-            need(len(found) == 2, f"expected {kernel} at hd 64 and 128 in ptxas' report: {found}")
+            need(len(found) == 3,
+                 f"expected {kernel} at hd 32, 64 and 128 in ptxas' report: {found}")
             for n in found:
-                hd = 128 if "ILi128E" in n else 64
+                hd = next(h for h in (32, 64, 128) if f"ILi{h}E" in n)
                 need(" 0 bytes spill stores, 0 bytes spill loads" in " ".join(props[n]),
                      f"{kernel}<{hd}> spills: {props[n]}")
                 c = counts.get(n, {})
@@ -380,15 +415,33 @@ def check_kernels(sizes, main_d: int, main_shard: int, records: dict) -> None:
         got = bwk.encode(flat, key, mu, p=p, cap=cap)
         want = bwr.encode(flat, key, p, cap, mu)
         need(same_bits(got, want), f"bernoulli_encode d={d} p={p} cap={cap}: kernel != plain")
+        # the unscaled variant (the error-feedback twin) on x with −0.0
+        # entries and μ < 0, where an emulation by 1/p = 1, c = 0 would
+        # ship −0.0 as +0.0
+        flat[1::3] = -0.0
+        neg = -mu.abs() - 0.25
+        got_u = bwk.encode(flat, key, neg, p=p, cap=cap, scaled=False)
+        want_u = bwr.encode(flat, key, p, cap, neg, scaled=False)
+        need(same_bits(got_u, want_u),
+             f"bernoulli_encode_unscaled d={d} p={p} cap={cap}: kernel != plain")
+        need(d < 8 or bool((got_u.view(torch.int32) == -2 ** 31).any()),
+             f"bernoulli_encode_unscaled d={d}: no −0.0 shipped")
         tag = f"d={d} p={p:.4g} cap={cap}"
         if d == main_d:
+            gen.manual_seed(d)
+            flat = torch.randn(d, generator=gen, device=dev) * 0.5 + 0.1
             ms = cuda_ms(lambda: bwk.encode(flat, key, mu, p=p, cap=cap))
             pms = cuda_ms(lambda: bwr.encode(flat, key, p, cap, mu), reps=1)
             record(records, "bernoulli_encode", max_err(got, want), ms, pms,
                    4 * d + 4 * cap, OPS_PER_CALL * -(-d // 2), 2 * cap)
-            tag += f" kernel {ms:.3f} ms plain {pms:.3f} ms"
-        print(f"  bernoulli_encode {tag}: bit-equal", flush=True)
-        del flat, got, want
+            ms_u = cuda_ms(lambda: bwk.encode(flat, key, neg, p=p, cap=cap, scaled=False))
+            pms_u = cuda_ms(lambda: bwr.encode(flat, key, p, cap, neg, scaled=False), reps=1)
+            record(records, "bernoulli_encode_unscaled", max_err(got_u, want_u), ms_u, pms_u,
+                   4 * d + 4 * cap, OPS_PER_CALL * -(-d // 2), 0)
+            tag += (f" kernel {ms:.3f} ms plain {pms:.3f} ms; unscaled kernel {ms_u:.3f} ms "
+                    f"plain {pms_u:.3f} ms")
+        print(f"  bernoulli_encode and bernoulli_encode_unscaled {tag}: bit-equal", flush=True)
+        del flat, got, want, got_u, want_u
 
     # decode: random buffers exercise every rank/cap combination directly
     decode_cases = [(d, None, None) for d in sizes]
@@ -481,6 +534,35 @@ def check_kernels(sizes, main_d: int, main_shard: int, records: dict) -> None:
           "n = 1, 3, 8; cap overflow): bit-equal to the sequential and the plain decode",
           flush=True)
     del bufs, mus, got
+
+    # the error-feedback twin's unpack: the flat decode at n = 1 from a −0.0
+    # accumulator is one peer's reconstruction, −0.0 values and centers kept
+    for d in (1, 2049, *sizes, main_d):
+        p = 1.0 / 16
+        cap = comm_cost.bernoulli_capacity(d, p)
+        gen.manual_seed(d + 7)
+        buf = torch.randn(cap, generator=gen, device=dev)
+        buf[::2] = -0.0
+        key = R.fold_in(R.PRNGKey(9), d % 5)
+        for mu in (-0.0, 0.5):
+            mus = torch.tensor([mu], device=dev)
+            got = bwk.decode_sum(buf[None], mus, key[None], p=p, cap=cap, d=d, acc0=-0.0)
+            need(same_bits(got, bwr.decode_one(buf, key, p, cap, mus, d)),
+                 f"bernoulli unpack (decode at n = 1 from -0.0) d={d} mu={mu}: kernel != plain")
+        if d == main_d:
+            ms = cuda_ms(lambda: bwk.decode_sum(buf[None], mus, key[None], p=p, cap=cap, d=d,
+                                                acc0=-0.0))
+            pms = cuda_ms(lambda: bwr.decode_one(buf, key, p, cap, mus, d), reps=1)
+            # one peer's buffer and center read, the d values written; one
+            # full draw (ceil(d/2) cipher calls) and one add a coordinate
+            record(records, "bernoulli_unpack", 0.0, ms, pms, 4 * cap + 4 + 4 * d,
+                   OPS_PER_CALL * -(-d // 2), d)
+            print(f"  bernoulli_unpack (decode at n = 1 from -0.0) d={d}: kernel {ms:.3f} ms, "
+                  f"plain decode_one {pms:.3f} ms, bound "
+                  f"{records['bernoulli_unpack']['bound_ms']:.3f} ms", flush=True)
+        del buf, got
+    print("  bernoulli unpack at d = 1, 2049, 70,001, 16,777,217 and the main d, mu = -0.0 "
+          "and 0.5: bit-equal to decode_one", flush=True)
 
     for d in (*sizes, main_d):
         gen.manual_seed(d + 2)
@@ -812,6 +894,9 @@ DIVIDE_CASES = (("fixed_k_1bit", None), ("bernoulli_seed_1bit", None), ("binary_
                 ("fixed_k_1bit", "none"))
 # the presets whose wire carries the node center μ = mean(x)
 CENTER_CASES = ("fixed_k_1bit", "bernoulli_seed_1bit", "rotated_fixed_k")
+# error feedback: the five ef_* presets and the training default with it
+EF_CASES = ("ef_fixed_k", "ef_bernoulli", "ef_binary", "ef_ternary", "ef_rotated_binary",
+            "fixed_k_1bit")
 
 
 def check_divide(n: int) -> None:
@@ -853,6 +938,26 @@ def check_divide(n: int) -> None:
         need(same_bits(got.cpu(), want), f"center check n={n} {preset}: round card != CPU")
     print(f"  mean-center wires at n={n}, d=70001, Gaussian ({', '.join(CENTER_CASES)}): "
           "wire bytes and round card == CPU bit for bit", flush=True)
+    # error feedback: two stateful rounds from the same nonzero residuals;
+    # the 2-means sums, the ternary twin's mean and μ are tree sums, so the
+    # estimates and the new residuals are the same bits on both devices
+    e0 = torch.randn(n, 70_001, generator=torch.Generator().manual_seed(n + 1)) * 0.05
+    for preset in EF_CASES:
+        cfg = dataclasses.replace(compression_preset(preset, axes=("data",)),
+                                  min_compress_size=1, error_feedback=True)
+        states = {"cpu": e0.clone(), "cuda": e0.cuda()}
+        for t in range(2):
+            xt = torch.randn(n, 70_001, generator=torch.Generator().manual_seed(n + 10 + t))
+            kt = R.fold_in(key, t)
+            got, states["cuda"] = coll.compressed_mean_stateful(
+                xt.cuda(), states["cuda"], kt, cfg, coll.StackedComm(n, "cuda"))
+            want, states["cpu"] = coll.compressed_mean_stateful(
+                xt, states["cpu"], kt, cfg, coll.StackedComm(n, "cpu"))
+            need(same_bits(got.cpu(), want) and same_bits(states["cuda"].cpu(), states["cpu"]),
+                 f"error feedback n={n} {preset} round {t}: card != CPU")
+    print(f"  error feedback at n={n}, d=70001, Gaussian, two rounds from nonzero residuals "
+          f"({', '.join(EF_CASES[:-1])}, fixed_k_1bit + EF): estimates and residuals card == "
+          "CPU bit for bit", flush=True)
 
 
 def time_center(main_d: int) -> None:
@@ -886,10 +991,18 @@ FLASH_CASES = [
     (1, 8192, 8192, 32, 8, 128, True, None, 0, ("bfloat16",)),
     (1, 4096, 4096, 32, 8, 128, True, None, 0, ("bfloat16",)),
     (8, 2048, 2048, 32, 8, 128, True, None, 0, ("bfloat16",)),
+    # hd 32 (lm-8m), on the hd-64 tiles with columns 32-63 zero-filled: tile
+    # edges, then one rank's attention in the training example
+    (1, 1000, 1000, 4, 2, 32, True, None, 0, ("float32", "bfloat16")),   # ragged, g = 2
+    (1, 512, 512, 4, 1, 32, True, 200, 0, ("bfloat16",)),       # a window across key tiles
+    (1, 256, 512, 4, 2, 32, True, None, 200, ("bfloat16",)),    # a q offset no multiple of 128
+    (2, 100, 100, 8, 4, 32, False, None, 0, ("float32", "bfloat16")),   # less than one tile
+    (4, 128, 128, 8, 4, 32, True, None, 0, ("float32", "bfloat16")),
 ]
-# the shapes at which kernel 11 is timed against SDPA: (b, sq) -> path; the
-# serving one is the kernel's row of the last JSON line
-FLASH_TIMED = {(8, 2048): "serving", (1, 4096): "training"}
+# the shapes at which kernel 11 is timed against SDPA (bf16): (b, sq) ->
+# (path, the name of its row in the last JSON line, or None)
+FLASH_TIMED = {(8, 2048): ("serving", "flash_attention_fwd"), (1, 4096): ("training", None),
+               (4, 128): ("example", "flash_attention_fwd_hd32")}
 # (atol, rtol) on o: the reference's own for its kernel (tests/test_kernel_flash.py)
 FLASH_TOL = {"float32": (2e-3, 2e-3), "bfloat16": (3e-2, 0.0)}
 LSE_TOL = 1e-3
@@ -948,8 +1061,8 @@ def check_flash(records: dict) -> None:
             tag += (f": max |o - plain| {err:.3g}, |o - oracle| {max_err(o, oracle):.3g}, "
                     f"|lse - plain| {max_err(lse, lsep):.3g}")
             del oracle
-            path = FLASH_TIMED.get((b, sq))
-            if path:
+            path, row = FLASH_TIMED.get((b, sq), (None, None))
+            if path and dt == "bfloat16":
                 ms = cuda_ms(lambda: fak.flash_attention_fwd(q, k, v, **kw), reps=10)
                 qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
                 lms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -960,9 +1073,9 @@ def check_flash(records: dict) -> None:
                 tag += (f"; {path} shape: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
                         f"{100 * max(tb, tf) / ms:.1f}% of its {max(tb, tf):.3f} ms bound), "
                         f"sdpa {lms:.3f} ms ({ms / lms:.2f}x)")
-                if path == "serving":
+                if row:
                     pms = cuda_ms(lambda: far.flash_attention_fwd(q, k, v, **kw), reps=1)
-                    records["flash_attention_fwd"] = {
+                    records[row] = {
                         "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": max(tb, tf),
                         "bound_by": "bytes" if tb >= tf else "operations", "library_ms": lms}
                     tag += f", plain {pms:.3f} ms"
@@ -985,7 +1098,17 @@ FLASH_BWD_CASES = [
     (2, 100, 100, 8, 2, 128, True, None, 0, ("float32", "bfloat16")),     # less than one tile
     (1, 256, 512, 4, 2, 128, True, None, 200, ("float32", "bfloat16")),  # q offset 200, Sk 512
     (1, 4096, 4096, 32, 8, 128, True, None, 0, ("bfloat16",)),
+    # hd 32 (lm-8m) on the hd-64 tiles: the edges above, then one rank's
+    # attention in the training example
+    (1, 1000, 1000, 4, 2, 32, True, None, 0, ("float32", "bfloat16")),    # ragged, g = 2
+    (1, 1024, 1024, 4, 1, 32, True, 200, 0, ("float32", "bfloat16")),    # a window across tiles
+    (2, 100, 100, 8, 4, 32, False, None, 0, ("float32", "bfloat16")),    # less than one tile
+    (1, 256, 512, 4, 2, 32, True, None, 200, ("float32", "bfloat16")),   # q offset 200, Sk 512
+    (4, 128, 128, 8, 4, 32, True, None, 0, ("float32", "bfloat16")),
 ]
+# the shapes at which kernels 12-13 are timed (bf16): (b, sq) -> the suffix of
+# their rows in the last JSON line
+FLASH_BWD_TIMED = {(1, 4096): "", (4, 128): "_hd32"}
 # f32: |Δ| ≤ atol + rtol·|ref|, the forward's; bf16: relative Frobenius error
 # of each of dq, dk, dv.  p and ds enter the products as bf16 hi + lo pairs
 # (2⁻¹⁶ relative); on the H100 the readings were ≤ 1.1e-5 at the small shapes
@@ -1050,7 +1173,8 @@ def check_flash_bwd(records: dict) -> None:
                          f"{tag}: {name} relative error {errs[name][1]:.3g} > {BWD_BF16_REL}")
             tag += ": " + ", ".join(f"{n} max |Δ| {e[0]:.3g} rel {e[1]:.3g}"
                                     for n, e in errs.items())
-            if sq == 4096:    # the training path's shape
+            suffix = FLASH_BWD_TIMED.get((b, sq))
+            if suffix is not None and dt == "bfloat16":
                 ms_kv = cuda_ms(lambda: fak.flash_attention_bwd_dkv(*args, **kw), reps=10)
                 ms_q = cuda_ms(lambda: fak.flash_attention_bwd_dq(*args, **kw), reps=10)
                 pms_kv = cuda_ms(lambda: far.flash_attention_bwd_dkv(*args, **kw, **blocks), reps=1)
@@ -1064,9 +1188,9 @@ def check_flash_bwd(records: dict) -> None:
                 pairs = b * hq * live_pairs(sq, sk, causal, window, q_offset)
                 io = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * (lse.numel() + delta.numel())
                 for name, ms, pms, flops, nbytes, err in (
-                        ("flash_attention_bwd_dkv", ms_kv, pms_kv, 8 * hd * pairs,
+                        ("flash_attention_bwd_dkv" + suffix, ms_kv, pms_kv, 8 * hd * pairs,
                          io + 4 * 2 * k.numel(), max(errs["dk"][0], errs["dv"][0])),
-                        ("flash_attention_bwd_dq", ms_q, pms_q, 6 * hd * pairs,
+                        ("flash_attention_bwd_dq" + suffix, ms_q, pms_q, 6 * hd * pairs,
                          io + 4 * q.numel(), errs["dq"][0])):
                     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
                     records[name] = {
@@ -1092,6 +1216,8 @@ def check_flash_bwd(records: dict) -> None:
 # pack, decodes like its inner codec at the padded length, and unrotates
 # the estimate with one more FWHT launch.
 def expected_launches(codec: str, scatter: bool, n: int) -> dict:
+    if codec.startswith("ef_"):
+        return ef_expected_launches(codec[3:], scatter, n)
     if codec == "rotated_binary":
         return {"rotate_minmax": n, "encode_pack": n, "fwht": 1,
                 ("bitplane_binary_accum" if scatter else "bitplane_unpack"): n}
@@ -1112,6 +1238,31 @@ def expected_launches(codec: str, scatter: bool, n: int) -> dict:
     if codec == "dense":
         return {}
     raise CheckFailed(f"no launch table for codec {codec!r}")
+
+
+# Error feedback (``core/wire/ef.py``) packs each rank's contractive twin in
+# the inner codec's format and decodes as the inner codec does.  The twins:
+# fixed-k at scale 1 through the gather kernel, its residual's unpack plain;
+# Bernoulli through the unscaled encode, its unpack through the flat decode at
+# n = 1 from −0.0 (counted as bernoulli_unpack); binary and ternary pack their planes, their reconstructions come
+# from the twin's own mask and centers (no unpack); the rotated twin rotates
+# and unrotates each rank with one FWHT launch each (no fused rotate-encode:
+# the twin is the deterministic 2-means), the estimate with one more.
+def ef_expected_launches(inner: str, scatter: bool, n: int) -> dict:
+    if inner in ("fixed_k", "fixed_k_shared"):
+        return {"fixed_k_gather": n}
+    if inner == "bernoulli":
+        decode = ({"bernoulli_support_counts": n, "bernoulli_decode_sum_shard": n}
+                  if scatter else {"bernoulli_decode_sum": 1})
+        return {"bernoulli_encode_unscaled": n, "bernoulli_unpack": n, **decode}
+    if inner == "binary":
+        return {"bitplane_pack": n,
+                ("bitplane_binary_accum" if scatter else "bitplane_unpack"): n}
+    if inner in ("ternary", "ternary_opt"):
+        return {"bitplane_pack": n, "bitplane_unpack": n}
+    if inner == "rotated_binary":
+        return {"fwht": 2 * n + 1, **ef_expected_launches("binary", scatter, n)}
+    raise CheckFailed(f"no launch table for error feedback over {inner!r}")
 
 
 def closed_form(codec: str, cmp, v, bucket_key) -> float:
@@ -1222,7 +1373,7 @@ def run_main_path(name, cmp, steps, launches_total):
         torch.cuda.synchronize()
         backend.reset_launches()
         t0 = time.perf_counter()
-        out = bucketing.sync_grads_bucketed(grads, plan, cmp, key, comm)
+        out, _ = bucketing.sync_grads_bucketed(grads, plan, cmp, key, comm)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         counts = dict(backend.launches)
@@ -1245,6 +1396,111 @@ def run_main_path(name, cmp, steps, launches_total):
             "compressed_buckets": len(comp), "coords_per_rank": coords,
             "wire_MB": wire_mb, "dense_f32_MB": dense_mb,
             "err_over_closed_form": ratio, "launches_per_bucket": expect}
+
+
+# The telescoping identity of error feedback (core/wire/ef.py): over T
+# rounds from zero residuals, Σ_t est_t = Σ_t x̄_t − ē_T.  The ef_* presets
+# gather rows, so every estimate is the mean of the reconstructions the
+# residuals subtract and only f32 rounding remains: on the CPU (d = 20,011,
+# n = 4, T = 3, tests/test_torch_ef_wire.py) the relative error reads
+# 3.0e-8 to 1.2e-7, and 5.3e-8 to 4.3e-7 over the qwen3-4b smoke tree's
+# 106,496 coordinates at n = 8 (this phase's code); the limit is twenty
+# times the largest.
+TELESCOPE_RTOL = 1e-5
+
+
+def stack_norm(e) -> float:
+    """‖e‖ of an (n, size) residual stack in f64, one row at a time (a
+    whole-stack temporary at the embed bucket would be 12 GB)."""
+    import torch
+
+    return math.sqrt(sum(float(torch.linalg.vector_norm(r, dtype=torch.float64)) ** 2 for r in e))
+
+
+def stack_finite(e) -> bool:
+    """Every value of an (n, size) stack finite, one row at a time."""
+    import torch
+
+    return all(bool(torch.isfinite(r).all()) for r in e)
+
+
+def run_main_path_ef(name, cmp, steps, launches_total):
+    """``steps`` bucketed error-feedback syncs of one ``ef_*`` preset, the
+    residuals carried from step to step; returns its summary line.
+
+    Checks the launches per bucket (``ef_expected_launches``), finiteness,
+    the bytes handed to the communicator against the accounting (the inner
+    preset's own) and the telescoping identity over the steps
+    (``TELESCOPE_RTOL``).  The twins are deliberately biased contractive
+    messages, not the unbiased encoders, so a round's error has no closed
+    form and none is checked."""
+    import torch
+    from repro_torch.core import wire
+    from repro_torch.kernels import backend
+    from repro_torch.train import bucketing
+    from repro_torch.train.synthetic import N, main_path, step_key, synthetic_grads
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    shapes, plan, comm = main_path(cmp, dev)
+    comp = [b for b in plan.buckets if b.kind == "compressed"]
+    codec = wire.resolve(cmp)
+    need(codec.name == name, f"{name}: resolves to {codec.name}")
+    expect = expected_launches(codec.name, cmp.scatter_decode, N)
+    wire_bits, want_bytes = wire_accounting(plan, cmp, N)
+    state = bucketing.init_ef_state(plan, cmp, N, dev)
+    # per bucket Σ_t (est_t − x̄_t) and Σ_t est_t, in f32
+    drift = {b.bid: torch.zeros(b.size, device=dev) for b in comp}
+    est_sum = {b.bid: torch.zeros(b.size, device=dev) for b in comp}
+    times, res_norms = [], []
+    for step in range(steps):
+        grads = synthetic_grads(shapes, N, step, dev)
+        key = step_key(step)
+        comm.reset_bytes()
+        torch.cuda.synchronize()
+        backend.reset_launches()
+        t0 = time.perf_counter()
+        out, state = bucketing.sync_grads_bucketed(grads, plan, cmp, key, comm, state)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = dict(backend.launches)
+        launches_total.update(counts)
+        want = {k: v * len(comp) for k, v in expect.items()}
+        need(counts == want, f"{name} step {step}: launches {counts} != expected {want}")
+        need(all(bool(torch.isfinite(v).all()) for v in out.values())
+             and all(stack_finite(e) for e in state.values()),
+             f"{name} step {step}: non-finite output or residual")
+        check_bytes(name, comm, want_bytes)
+        for b in comp:
+            est = torch.cat([out[s.name].reshape(-1) for s in b.slots])
+            v = bucketing.pack_bucket(grads, b)
+            xbar = torch.zeros(b.size, device=dev)
+            for r in range(N):
+                xbar += v[r]
+            drift[b.bid] += est - xbar / N
+            est_sum[b.bid] += est
+            del est, v, xbar
+        res_norms.append(math.sqrt(sum(stack_norm(e) ** 2 for e in state.values())))
+        del grads, out
+    num = den = 0.0
+    for b in comp:
+        ebar = torch.zeros(b.size, device=dev)
+        for r in range(N):
+            ebar += state[b.bid][r]
+        num += float(torch.linalg.vector_norm(drift[b.bid] + ebar / N, dtype=torch.float64)) ** 2
+        den += float(torch.linalg.vector_norm(est_sum[b.bid], dtype=torch.float64)) ** 2
+        del ebar
+    rel = math.sqrt(num / den)
+    need(rel <= TELESCOPE_RTOL,
+         f"{name}: telescoping identity off by {rel:.3g} relative > {TELESCOPE_RTOL}")
+    del state, drift, est_sum
+    torch.cuda.empty_cache()
+    coords = sum(b.size for b in comp)
+    return {"config": name, "steps": steps, "ms_per_sync": times,
+            "compressed_buckets": len(comp), "coords_per_rank": coords,
+            "wire_MB": sum(wire_bits.values()) / 8 / 1e6, "dense_f32_MB": N * coords * 4 / 1e6,
+            "telescoping_rel": rel, "telescoping_rtol": TELESCOPE_RTOL,
+            "residual_norm_per_step": res_norms, "launches_per_bucket": expect}
 
 
 # --------------------------------------------------------------------------- #
@@ -1488,17 +1744,14 @@ def run_training(launches_total) -> dict:
     timed (host clock after a synchronize; the checks run outside the timed
     spans); returns the summary line."""
     import torch
-    from repro_torch.core import wire
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import backend
     from repro_torch.models import model
     from repro_torch.train import synthetic
-    from repro_torch.train.trainer import Trainer, TrainerConfig
 
     dev = torch.device("cuda")
     cfg, run, shape = synthetic.train_main_path()
     n, steps, L = synthetic.N, synthetic.TRAIN_STEPS, cfg.num_layers
-    cmp = run.compression
     global_tokens = float(shape.global_batch * shape.seq_len)
     torch.cuda.empty_cache()
 
@@ -1537,13 +1790,34 @@ def run_training(launches_total) -> dict:
     del params, batch, rank0, kern, plain, xla, kern32, plain32
     torch.cuda.empty_cache()
 
-    # Trainer.fit: every phase of every step checked, the checks untimed
+    summary = fit_and_check(cfg, run, shape, n, steps, synthetic.TRAIN_PRESET, launches_total)
+    return {**summary, **agree}
+
+
+def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_total) -> dict:
+    """``Trainer.fit`` for ``steps`` steps, every phase of every step checked
+    and timed (host clock after a synchronize; the checks run outside the
+    timed spans): the launches of each phase (flash forward 2·L·n with
+    remat, each backward sweep L·n, the sync's per bucket), the
+    communicator's bytes against the accounting, finite gradients, losses,
+    norms and parameters; without error feedback the sync's error against
+    the closed form (within 10%), with it each bucket's residual norm after
+    every step.  Returns the summary line."""
+    import torch
+    from repro_torch.core import wire
+    from repro_torch.kernels import backend
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    L = cfg.num_layers
+    cmp = run.compression
     codec = wire.resolve(cmp)
     expect = {"start": {}, "update": {},
               "backward": {"flash_attention_fwd": 2 * L * n, "flash_attention_bwd_dkv": L * n,
                            "flash_attention_bwd_dq": L * n}}
     st = {"t": 0.0, "last": collections.Counter(), "err": 0.0, "cf": 0.0, "peak": 0}
     phase_ms = collections.defaultdict(list)
+    res_norms = collections.defaultdict(list)
 
     def on_phase(name, **state):
         torch.cuda.synchronize()
@@ -1560,10 +1834,15 @@ def run_training(launches_total) -> dict:
             state["comm"].reset_bytes()
             need(all(bool(torch.isfinite(v).all()) for v in state["synced"].values()),
                  "training sync: non-finite gradient")
-            err, cf = error_and_closed_form(codec.name, cmp, plan, state["grads"],
-                                            state["synced"], state["key"])
-            st["err"] += err
-            st["cf"] += cf
+            if cmp.error_feedback:
+                for bid, e in state["ef_state"].items():
+                    need(stack_finite(e), f"training sync: residual {bid} not finite")
+                    res_norms[bid].append(stack_norm(e))
+            else:
+                err, cf = error_and_closed_form(codec.name, cmp, plan, state["grads"],
+                                                state["synced"], state["key"])
+                st["err"] += err
+                st["cf"] += cf
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         st["t"] = time.perf_counter()
@@ -1593,22 +1872,98 @@ def run_training(launches_total) -> dict:
     need(int(opt_state.step) == steps, f"training: optimizer step {int(opt_state.step)}")
     need(all(bool(torch.isfinite(v).all()) for v in params.values()),
          "training: non-finite parameters")
-    ratio = st["err"] / st["cf"]
-    need(abs(ratio - 1.0) <= 0.10, f"training: error / closed form = {ratio:.4f}, outside 10%")
-    del params, opt_state
+    out = {}
+    if cmp.error_feedback:
+        # bounded residuals: after step 3 no more than twice what they were
+        # after step 1, per bucket (the steps counted from 0, as logged)
+        need(sorted(res_norms) == sorted(trainer.ef_state) and res_norms,
+             f"training: residuals of {sorted(res_norms)}, state of {sorted(trainer.ef_state)}")
+        for bid, norms in res_norms.items():
+            need(len(norms) == steps and norms[3] <= 2 * norms[1],
+                 f"training: residual of {bid} grows from {norms[1]:.6g} after step 1 to "
+                 f"{norms[3]:.6g} after step 3")
+        out = {"residual_norms": dict(res_norms)}
+    else:
+        ratio = st["err"] / st["cf"]
+        need(abs(ratio - 1.0) <= 0.10, f"training: error / closed form = {ratio:.4f}, outside 10%")
+        out = {"err_over_closed_form": ratio}
+    del params, opt_state, trainer
     torch.cuda.empty_cache()
     step_ms = [sum(phase_ms[p][i] for p in ("backward", "sync", "update")) for i in range(steps)]
     tokens = shape.global_batch * shape.seq_len
     return {"model": cfg.name, "layers": L, "ranks": n, "tokens_per_rank": shape.seq_len,
-            "steps": steps, "preset": synthetic.TRAIN_PRESET,
+            "steps": steps, "preset": preset,
             "loss": [h["loss"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist],
             "lr": [h["lr"] for h in hist], "step_ms": step_ms,
             "fwd_bwd_ms": phase_ms["backward"], "sync_ms": phase_ms["sync"],
             "optimizer_ms": phase_ms["update"],
             "tokens_per_s": [tokens / ms * 1e3 for ms in step_ms],
-            "peak_GiB": st["peak"] / 2**30, "err_over_closed_form": ratio,
+            "peak_GiB": st["peak"] / 2**30, **out,
             "compressed_buckets": len(comp), "wire_MB": sum(wire_bits.values()) / 8 / 1e6,
-            "launches_per_step": dict(per_step), **agree}
+            "launches_per_step": dict(per_step)}
+
+
+def run_training_ef(launches_total) -> dict:
+    """Phase 5's error-feedback run, after the first one's state is freed:
+    ``Trainer.fit`` for ``EF_TRAIN_STEPS`` steps with ``fixed_k_1bit`` plus
+    error feedback, the reference example's default, at the main path's
+    shape.  Its residuals are 8 × 792,657,920 f32 (25.4 GB) beside the
+    first run's 42 GiB peak; ``fit_and_check`` reports the peak."""
+    import torch
+    from repro_torch.train import synthetic
+
+    torch.cuda.empty_cache()
+    cfg, run, shape = synthetic.train_main_path(error_feedback=True)
+    return fit_and_check(cfg, run, shape, synthetic.N, synthetic.EF_TRAIN_STEPS,
+                         synthetic.TRAIN_PRESET + " + error feedback", launches_total)
+
+
+EXAMPLE_STEPS = 4
+EXAMPLE_FLASH = ("flash_attention_fwd_hd32", "flash_attention_bwd_dkv_hd32",
+                 "flash_attention_bwd_dq_hd32")
+
+
+def run_example(launches_total) -> dict:
+    """The training example as a user runs it on the card
+    (``examples/train_lm_compressed.py``: lm-8m, 8 ranks stacked, the exact
+    mean, then ``fixed_k_1bit`` + error feedback), ``EXAMPLE_STEPS`` steps
+    each, attention through the hd-32 flash kernels: finite losses and
+    norms, each flash kernel launched L·n times a step (no remat), the
+    fixed-k gathers of the EF run, finite residuals."""
+    import torch
+    from repro_torch.core import types as core_types
+    from repro_torch.examples import train_lm_compressed as example
+    from repro_torch.kernels import backend
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    want = example.CFG.num_layers * example.N * EXAMPLE_STEPS
+    out = {}
+    for label, cmp in (("exact", core_types.CompressionConfig(mode="none")),
+                       ("fixed_k_1bit + error feedback", example.ef_compression())):
+        backend.reset_launches()
+        t0 = time.perf_counter()
+        hist, tr = example.run(EXAMPLE_STEPS, cmp, label, dev)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = dict(backend.launches)
+        launches_total.update(counts)
+        need({k: counts.get(k, 0) for k in EXAMPLE_FLASH} == dict.fromkeys(EXAMPLE_FLASH, want),
+             f"example {label}: flash launches {counts}, want {want} each")
+        need(len(hist) == EXAMPLE_STEPS and all(
+            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist),
+            f"example {label}: losses or norms not finite: {hist}")
+        res = {}
+        if cmp.error_feedback:
+            need(counts.get("fixed_k_gather", 0) > 0, f"example {label}: no fixed-k gather")
+            need(bool(tr.ef_state) and all(stack_finite(e) for e in tr.ef_state.values()),
+                 f"example {label}: residuals missing or not finite")
+            res = {bid: stack_norm(e) for bid, e in tr.ef_state.items()}
+        out[label] = {"losses": [h["loss"] for h in hist], "sec": sec,
+                      "residual_norms": res, "launches": counts}
+        del tr
+        torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -1767,12 +2122,23 @@ def main() -> int:
         t0 = time.perf_counter()
         summary = run_main_path(name, cmp, steps, total)
         print(f"[3] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    for name in synthetic.EF_PRESETS:
+        t0 = time.perf_counter()
+        summary = run_main_path_ef(name, synthetic.preset(name), STEPS, total)
+        print(f"[3] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     summary = run_serving(total)
     print(f"[4] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     summary = run_training(total)
     print(f"[5] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    summary = run_training_ef(total)
+    print(f"[5] error feedback {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    t0 = time.perf_counter()
+    summary = run_example(total)
+    print(f"[5] example {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     summary = run_encode_path(total)
     print(f"[6] encode path {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)

@@ -13,12 +13,15 @@ side hands over as numpy arrays and plain objects:
   ``repro.configs.base.ArchConfig`` / ``RunConfig`` → the port's (the dense
   family; the run config with its compression config);
 * :func:`adamw_state` — an ``AdamWState``-shaped object (``step``, ``m``,
-  ``v``, numpy leaves) → the port's optimizer state.
+  ``v``, numpy leaves) → the port's optimizer state;
+* :func:`ef_state` — the reference's per-rank error-feedback residuals
+  (each rank holds its own, per bucket id or per leaf) → the port's
+  stacked state, one (n, ...) tensor per key.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -83,3 +86,12 @@ def adamw_state(src, device="cpu") -> AdamWState:
     return AdamWState(step=torch.tensor(int(np.asarray(src.step)), dtype=torch.int32,
                                         device=device),
                       m=tree_to_torch(src.m, device), v=tree_to_torch(src.v, device))
+
+
+def ef_state(per_rank: Mapping[str, Sequence[np.ndarray]], device="cpu") -> Dict[str, torch.Tensor]:
+    """The reference's error-feedback residuals, ``{bucket id or leaf name:
+    the n ranks' arrays in rank order}`` (a list of n arrays of one shape,
+    or one (n, ...) array) → the port's ``{key: (n, ...) f32 tensor}``, row
+    i being rank i's residual."""
+    return {k: torch.from_numpy(np.stack([np.asarray(a, dtype=np.float32) for a in v])).to(device)
+            for k, v in per_rank.items()}

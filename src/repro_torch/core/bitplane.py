@@ -91,6 +91,35 @@ def rank_scatter(values, sent, cap: int):
     return bw_ref.rank_select(values.to(torch.float32), sent, cap)
 
 
+def topcap_mask(scores, cap: int):
+    """(d,) bool membership of the ``cap`` largest of the non-negative f32
+    ``scores`` (ties → lowest index): the set ``top_k`` picks.
+
+    The cap-th largest score is found by an MSB-first bisection on the f32
+    bit patterns, which order like the values for scores ≥ 0.  The
+    reference bisects over all 32 bits of the uint32 pattern; torch has no
+    uint32 compare, so the patterns are compared as int32 and the
+    bisection starts at bit 30.  That is exact: no score has its sign bit
+    set (|v − v̄| is +0.0 or positive), so the reference's step at bit 31
+    counts no pattern ≥ 2³¹ and keeps its threshold 0 (for cap ≥ 1), and
+    every pattern lies in [0, 2³¹), where the int32 order is the uint32
+    order.  (As int32, 1 << 31 is negative: a step there would count every
+    score.)  At cap = 0 both pick nothing.  Ties at the threshold go to the
+    lowest indices by a cumulative count of the patterns equal to it.
+    """
+    bits = scores.to(torch.float32).contiguous().view(torch.int32)
+    thr = 0
+    for b in range(30, -1, -1):
+        cand = thr | (1 << b)
+        if int(torch.count_nonzero(bits >= cand)) >= cap:
+            thr = cand
+    above = bits > thr
+    need_ties = cap - int(torch.count_nonzero(above))
+    is_tie = bits == thr
+    tie_rank = torch.cumsum(is_tie, 0, dtype=torch.int32)
+    return above | (is_tie & (tie_rank <= need_ties))
+
+
 # --------------------------------------------------------------------------- #
 # Binary: 1-bit plane + (vmin, vmax) tail.
 # --------------------------------------------------------------------------- #

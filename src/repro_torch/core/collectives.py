@@ -17,7 +17,9 @@ Both count the bytes handed to them, so a run can hold the traffic against
 the codecs' ``wire_bits`` / ``scatter_bits`` accounting.
 
 Local data is a stack (L, *shape) with one row per local rank; every entry
-point returns the single (*shape) estimate all ranks hold.
+point returns the single (*shape) estimate all ranks hold.  Codec state
+(:func:`compressed_mean_stateful`, the error-feedback residual) is a stack
+of the same layout and stays local.
 """
 from __future__ import annotations
 
@@ -150,6 +152,27 @@ def compressed_mean(x, key, cfg: t.CompressionConfig, comm, drop_mask=None):
     if cfg.mode == "none" or x[0].numel() < cfg.min_compress_size:
         return exact_mean(x, comm)
     return registry.resolve(cfg).mean(x, key, cfg, comm)
+
+
+def compressed_mean_stateful(x, state, key, cfg: t.CompressionConfig, comm):
+    """One stateful round of the resolved codec over the (L, *shape) stack
+    ``x``: returns ((*shape) estimate, new state).
+
+    ``state`` is the (L, ...) local state of the codec (the error-feedback
+    residual, one row per local rank), shaped like ``x`` or flat per row;
+    it is threaded flat through the codec, updated in place where it is
+    already f32 and contiguous, and returned in its own shape.  Stateless
+    codecs, mode "none" and buckets below ``min_compress_size`` pass it
+    through untouched.
+    """
+    if cfg.mode == "none" or x[0].numel() < cfg.min_compress_size:
+        return exact_mean(x, comm), state
+    codec = registry.resolve(cfg)
+    shape, dtype = x.shape[1:], x.dtype
+    flat = x.reshape(x.shape[0], -1).to(torch.float32)
+    st = state.reshape(state.shape[0], -1).to(torch.float32)
+    y, st2 = codec.mean_flat_stateful(flat, st, key, cfg, comm)
+    return y.reshape(shape).to(dtype), st2.reshape(state.shape).to(state.dtype)
 
 
 def partial_mean(x, alive, comm):

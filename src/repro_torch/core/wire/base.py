@@ -19,9 +19,12 @@ estimate, not one per rank.
 
 Ported: the plain averaging decode (``decode_policy="mean"``, no drop
 mask) on one flat compression axis, with and without the §12 scatter
-decode (§13 word-aligned shards for the packed planes).  Robust policies,
-drop masks and hierarchical ``inner_axes`` raise :class:`NotPortedError`
-naming the slice that brings them.
+decode (§13 word-aligned shards for the packed planes), and codec state
+(the error-feedback residual, :mod:`.ef`): a state is an (L, *state_shape)
+stack, one row per local rank beside ``x``'s rows, threaded through
+:meth:`WireCodec.mean_flat_stateful`.  Robust policies, drop masks and
+hierarchical ``inner_axes`` raise :class:`NotPortedError` naming the slice
+that brings them, with state or without.
 
 Accounting contract: ``comm_cost_bits == wire_bits + seed_bits``.
 """
@@ -182,13 +185,16 @@ def check_ported(cfg: t.CompressionConfig, drop_mask=None) -> None:
 class WireCodec:
     """One registered wire format; see the module docstring.
 
-    Codecs are stateless: every parameter comes from the
-    :class:`~repro_torch.core.types.CompressionConfig` passed to each call.
+    Every parameter comes from the
+    :class:`~repro_torch.core.types.CompressionConfig` passed to each call;
+    a ``stateful`` codec (error feedback) also threads a local state that
+    never travels on the wire.
     """
 
     name: str = "?"
     reduce: str = "all_gather"          # "all_gather" | "psum"
     scatter_supported: bool = False
+    stateful: bool = False
 
     # ---- wire geometry & accounting -------------------------------------- #
 
@@ -261,6 +267,33 @@ class WireCodec:
         """Decode the reduced wire buffer of a "psum" codec."""
         raise NotImplementedError
 
+    # ---- codec state (stateless by default; see wire/ef.py) -------------- #
+
+    def state_shape(self, d: int, cfg: t.CompressionConfig):
+        """Shape of one rank's state for a d-vector bucket, or None for a
+        stateless codec.  State never travels on the wire."""
+        return None
+
+    def init_state(self, d: int, cfg: t.CompressionConfig, local: int = 1, device=None):
+        """Zero state for a d-vector bucket: an (local, *state_shape) f32
+        stack, one row per local rank (None for a stateless codec)."""
+        shp = self.state_shape(d, cfg)
+        if shp is None:
+            return None
+        return torch.zeros((local,) + tuple(shp), dtype=torch.float32, device=device)
+
+    def mean_flat_stateful(self, x, state, key, cfg: t.CompressionConfig, comm):
+        """One stateful round over the (L, d) stack ``x`` and its (L, ...)
+        ``state``: returns (the (d,) estimate, the new state).  A stateless
+        codec passes the state through, so every codec is drivable through
+        this one entry point."""
+        check_ported(cfg)
+        return self._round_stateful(x, state, key, cfg, comm)
+
+    def _round_stateful(self, x, state, key, cfg: t.CompressionConfig, comm):
+        """Stateful companion of :meth:`_round`."""
+        return self._round(x, key, cfg, comm), state
+
     # ---- the collective --------------------------------------------------- #
 
     def mean_flat(self, x, key, cfg: t.CompressionConfig, comm):
@@ -273,10 +306,16 @@ class WireCodec:
         """One codec round: pack per local rank, then psum (mean of the
         buffers, rounded once to the wire dtype) and decode the reduced
         buffer, or all_gather and decode the rows."""
-        d = x.shape[1]
-        ranks, n = axis_rank_size(comm)
+        ranks, _ = axis_rank_size(comm)
         bufs = torch.stack([self.pack(x[i], key, r, cfg) for i, r in enumerate(ranks)])
+        return self._reduce_decode(bufs, key, cfg, x.shape[1], comm)
+
+    def _reduce_decode(self, bufs, key, cfg: t.CompressionConfig, d: int, comm):
+        """The tail of every round over the (L, slots) packed ``bufs``: psum
+        (mean of the buffers, rounded once to the wire dtype) and decode the
+        reduced buffer, or all_gather and decode the rows."""
         if self.reduce == "psum":
+            _, n = axis_rank_size(comm)
             wire = divide(comm.psum(bufs), n).to(bufs.dtype)
             return self.decode_reduced(wire, key, cfg, d)
         return self.gather_decode(bufs, key, cfg, d, comm)

@@ -74,7 +74,9 @@ def fixed_k_wire_slots(d: int, fraction: float) -> int:
 def fixed_k_pack(flat, key, cfg, *, scale=None):
     """THE fixed-k wire buffer: [kb·BLOCK values ‖ μ] at the wire dtype.
     ``key`` is the support seed as sampled (the gather codec folds the rank
-    in, the shared codec does not)."""
+    in, the shared codec does not).  ``scale=None`` is the unbiased Eq. (4)
+    rescale, ``scale=1.0`` the error-feedback twin's raw values (same
+    layout: the codecs' unpack and decode take both)."""
     d = flat.shape[0]
     nb = fk.num_blocks(d)
     kb = fixed_k_blocks(d, cfg.encoder.fraction)
@@ -106,6 +108,17 @@ class FixedKGatherCodec(base.WireCodec):
 
     def pack(self, flat, key, rank, cfg):
         return fixed_k_pack(flat, prandom.fold_in(key, rank), cfg)
+
+    def unpack(self, row, peer, key, cfg, d):
+        # the reference's op chain: the values added onto a zero f32
+        # accumulator (so a −0.0 value comes back +0.0), then μ
+        row = row.to(torch.float32)
+        nb = fk.num_blocks(d)
+        kb = fixed_k_blocks(d, cfg.encoder.fraction)
+        ids = fk.sample_blocks(prandom.fold_in(key, peer), nb, kb, row.device)
+        dense = torch.zeros((nb, fk.BLOCK), dtype=torch.float32, device=row.device)
+        dense.index_add_(0, ids, row[:-1].reshape(kb, fk.BLOCK))
+        return dense.reshape(-1)[:d] + row[-1]
 
     def decode_gathered(self, rows, key, cfg, d, n):
         # fused scatter-accumulate: one (nb, BLOCK) accumulator, peers in order
@@ -180,6 +193,11 @@ class FixedKSharedCodec(base.WireCodec):
         gvals = wire[:-1].reshape(-1, fk.BLOCK)
         return fk.fixed_k_decode(gvals, ids, wire[-1], (d,))
 
+    def unpack(self, row, peer, key, cfg, d):
+        # shared support: one node's un-reduced buffer decodes like the
+        # reduced one, whatever the peer
+        return self.decode_reduced(row, key, cfg, d)
+
 
 # --------------------------------------------------------------------------- #
 # Bernoulli (variable-size-support) — the §4.4 seed trick.
@@ -190,20 +208,22 @@ def bernoulli_wire_slots(d: int, fraction: float) -> int:
     return comm_cost.bernoulli_capacity(d, float(fraction)) + 1
 
 
-def bernoulli_pack(flat, key, p: float, cap: int, mu):
+def bernoulli_pack(flat, key, p: float, cap: int, mu, *, scaled=True):
     """The (cap,) f32 Eq. (1) value buffer: sent coordinates at their
-    support rank, overflow ranks dropped (the decoder drops them too)."""
-    return bw_ops.encode(flat, key, p, cap, mu)
+    support rank, overflow ranks dropped (the decoder drops them too).
+    ``scaled=False`` ships the raw values (the error-feedback twin); the
+    layout is the same, so ``BernoulliCodec.unpack`` decodes both."""
+    return bw_ops.encode(flat, key, p, cap, mu, scaled=scaled)
 
 
-def bernoulli_buffer(flat, key, rank, cfg):
+def bernoulli_buffer(flat, key, rank, cfg, *, scaled=True):
     """THE §4.4 Bernoulli wire buffer: [cap value slots ‖ μ] at wire dtype,
-    support from fold_in(key, rank)."""
+    support from fold_in(key, rank); ``scaled`` as in bernoulli_pack."""
     d = flat.shape[0]
     p = float(cfg.encoder.fraction)
     cap = comm_cost.bernoulli_capacity(d, p)
     mu = base.center(flat, cfg.encoder.center)
-    buf = bernoulli_pack(flat, prandom.fold_in(key, rank), p, cap, mu)
+    buf = bernoulli_pack(flat, prandom.fold_in(key, rank), p, cap, mu, scaled=scaled)
     return _with_tail(buf, mu, cfg)
 
 
@@ -234,6 +254,13 @@ class BernoulliCodec(base.WireCodec):
 
     def pack(self, flat, key, rank, cfg):
         return bernoulli_buffer(flat, key, rank, cfg)
+
+    def unpack(self, row, peer, key, cfg, d):
+        # regenerate the peer's support and reconstruct its dense Y_i
+        p = float(cfg.encoder.fraction)
+        cap = comm_cost.bernoulli_capacity(d, p)
+        row = row.to(torch.float32)
+        return bw_ops.unpack(row[:-1], row[-1:], prandom.fold_in(key, peer), p, cap, d)
 
     def decode_gathered(self, rows, key, cfg, d, n):
         # fused regenerate + select + accumulate over all n buffers into one

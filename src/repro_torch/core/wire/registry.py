@@ -6,23 +6,20 @@ is the reference's rule verbatim.  The port has every base codec:
 ``fixed_k``, ``fixed_k_shared``, ``bernoulli``, ``binary``, ``ternary``,
 ``ternary_opt`` and ``dense``, and the §7.2 rotation wrapper
 (:class:`~.rotated.RotatedCodec`, registered as ``rotated_binary`` and
-``rotated_fixed_k``, built on the fly around any other codec); a config
-that asks for error feedback raises :class:`~.base.NotPortedError` naming
-the slice that brings it.  It never falls back to another codec.
+``rotated_fixed_k``, built on the fly around any other codec), and error
+feedback (:class:`~.ef.EFCodec`, outermost: EF∘rotation, so the residual
+stays in model coordinates; the reference's six ``ef_*`` compositions are
+registered, any other is built on the fly).  It never falls back to
+another codec.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
 from repro_torch.core import types as t
-from repro_torch.core.wire import base, codecs, rotated
+from repro_torch.core.wire import base, codecs, ef, rotated
 
 _CODECS: Dict[str, base.WireCodec] = {}
-
-# the work of ROADMAP.md queue 1 that brings each codec not ported yet
-PENDING = {
-    "error_feedback": "the error-feedback slice",
-}
 
 
 def register(codec: base.WireCodec) -> base.WireCodec:
@@ -31,15 +28,7 @@ def register(codec: base.WireCodec) -> base.WireCodec:
     return codec
 
 
-def _pending(name: str) -> base.NotPortedError:
-    return base.NotPortedError(
-        f"wire codec {name!r} is not ported yet: it arrives with "
-        f"{PENDING[name]} (ROADMAP.md, queue 1)")
-
-
 def get(name: str) -> base.WireCodec:
-    if name in PENDING:
-        raise _pending(name)
     if name not in _CODECS:
         raise KeyError(f"unknown wire codec {name!r}; have {names()}")
     return _CODECS[name]
@@ -59,6 +48,9 @@ register(codecs.DenseSimCodec())
 # the shipped rotations get stable names; resolve() builds any other on the fly
 register(rotated.RotatedCodec(get("binary")))
 register(rotated.RotatedCodec(get("fixed_k")))
+# the shipped error-feedback compositions (resolve() builds any other)
+for _name in ("fixed_k", "fixed_k_shared", "bernoulli", "binary", "ternary", "rotated_binary"):
+    register(ef.EFCodec(get(_name)))
 
 
 def gather_kind(cfg: t.CompressionConfig) -> str:
@@ -84,10 +76,10 @@ def resolve(cfg: t.CompressionConfig) -> base.WireCodec:
     """The codec ``compressed_mean`` executes for ``cfg``.
 
     Composition order: base codec → §7.2 rotation (``cfg.encoder.rotation``)
-    → error feedback (not ported).  Raises NotPortedError for wrappers the
-    port does not have, ValueError for modes without a wire codec and for
-    the reference's invalid combinations (scatter decode on a codec that
-    cannot shard, a robust policy on a psum codec).
+    → error feedback (``cfg.error_feedback``).  Raises ValueError for modes
+    without a wire codec and for the reference's invalid combinations
+    (scatter decode on a codec that cannot shard, a robust policy on a psum
+    codec).
     """
     if cfg.mode == "shared_support":
         codec = get("fixed_k_shared")
@@ -100,7 +92,7 @@ def resolve(cfg: t.CompressionConfig) -> base.WireCodec:
     if cfg.encoder.rotation:
         codec = _CODECS.get("rotated_" + codec.name) or rotated.RotatedCodec(codec)
     if cfg.error_feedback:
-        raise _pending("error_feedback")
+        codec = _CODECS.get("ef_" + codec.name) or ef.EFCodec(codec)
     if cfg.scatter_decode and not codec.scatter_supported:
         raise ValueError(
             f"scatter_decode requires a linear gather decode; codec "

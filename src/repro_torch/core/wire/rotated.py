@@ -18,8 +18,11 @@ The round is :meth:`WireCodec._round` unchanged: it packs through
 pair for an inner ``binary``) and decodes through :meth:`gather_decode` or
 :meth:`decode_reduced` (the inner decode at the padded length, the scatter
 decode's shards included, then one unrotate), which is the reference's
-rotated ``_round`` op for op.  Codec state (error feedback) and the robust
-decode hooks arrive with later slices and raise NotPortedError until then.
+rotated ``_round`` op for op.  Codec state is forwarded in the rotated
+basis (:meth:`RotatedCodec._round_stateful`); the production error
+feedback wraps the rotation instead (EF∘rotation, :mod:`.ef`), keeping its
+residual in model coordinates.  The robust decode hooks arrive with a later
+slice and raise NotPortedError until then.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ class RotatedCodec(base.WireCodec):
         # the rotated decode partitions iff the inner one does (the unrotate
         # runs on the reassembled estimate, outside the shards)
         self.scatter_supported = inner.scatter_supported
+        self.stateful = inner.stateful
 
     # ---- geometry & accounting: the inner codec at padded_dim(d) ---------- #
 
@@ -100,13 +104,22 @@ class RotatedCodec(base.WireCodec):
         zbar = self.inner.decode_reduced(wire, key, cfg, rotation.padded_dim(d))
         return rotation.unrotate(rotation.rotation_key(key), zbar, d)
 
-    # ---- hooks of later slices --------------------------------------------- #
+    # ---- codec state: forwarded in the rotated basis ---------------------- #
 
     def state_shape(self, d, cfg):
-        raise base._not_ported("codec state under rotation", "the error-feedback slice")
+        return self.inner.state_shape(rotation.padded_dim(d), cfg)
 
-    def _round_stateful(self, flat, state, key, cfg, comm):
-        raise base._not_ported("codec state under rotation", "the error-feedback slice")
+    def _round_stateful(self, x, state, key, cfg, comm):
+        # the state lives in the (per-step reseeded) rotated basis; the inner
+        # round at dp shards the ROTATED estimate when scatter decode is on,
+        # and one unrotate follows (the reference's rotated._round_stateful)
+        d = x.shape[1]
+        krot = rotation.rotation_key(key)
+        zbar, new_state = self.inner._round_stateful(rotation.rotate(krot, x), state, key,
+                                                     cfg, comm)
+        return rotation.unrotate(krot, zbar, d), new_state
+
+    # ---- hooks of later slices --------------------------------------------- #
 
     def decode_rows_reduce(self, rows, key, cfg, d, n, drop_mask=None):
         raise base._not_ported("robust decode under rotation", "the robust-decode slice")

@@ -39,7 +39,10 @@
 //      x*inv_p - c*mu of each kept coordinate at rank = offset + the counts
 //      of the group's chunks before its own + the popcount prefix of its
 //      mask words (a thread per mask word, visiting only its set bits); the
-//      last group zero-fills the slots [min(total, cap), cap).
+//      last group zero-fills the slots [min(total, cap), cap).  The unscaled
+//      variant (the error-feedback twin, bw_encode_ex's scaled = 0) writes x
+//      itself, -0.0 kept: a template parameter, so the scaled loop is the
+//      same code as before.
 // So x is read once and the Threefry stream drawn once; no row scan.  The
 // pair count runs at the int32 bound (72 operations a call); the write
 // reads the mask and, at p = 1/16, most of x's sectors.
@@ -68,7 +71,11 @@
 //      value is loaded once and no thread works on the unsent 15/16; after a
 //      second barrier each thread adds its slots for i = 0..n-1 in that
 //      order, in f32 from 0 (__fadd_rn): the accumulation order of
-//      ref.decode_sum_sequential, hence bit-equal results.  Chunk q starts
+//      ref.decode_sum_sequential, hence bit-equal results.  bw_decode_sum_from
+//      starts the sums at a given acc0 instead: from -0.0, the additive
+//      identity of IEEE addition (-0 + y = y for every y, -0.0 included),
+//      one peer's sum is its reconstruction bit for bit (ref.decode_one, the
+//      error-feedback twin's unpack).  Chunk q starts
 //      at 1024q (q < nl) or half + 1024(q - nl) and ends at half or ds; the
 //      shard decode's chunks are all low (nl = its chunk count, half = ds).
 //
@@ -321,7 +328,7 @@ __global__ void decode_kernel(const float* __restrict__ bufs, int64_t ld,
                               const float* __restrict__ mus,
                               const uint32_t* __restrict__ mask,
                               const int32_t* __restrict__ offsets, int n, int64_t chunks,
-                              int64_t nl, int64_t half, int64_t ds, int64_t cap,
+                              int64_t nl, int64_t half, int64_t ds, int64_t cap, float acc0,
                               float* __restrict__ out) {
   __shared__ float vals[kPeerGroup][kChunk];
   const int64_t q = blockIdx.x;
@@ -329,7 +336,7 @@ __global__ void decode_kernel(const float* __restrict__ bufs, int64_t ld,
   const int warp = threadIdx.x >> 5;
   float acc[kPerThread];
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < kPerThread; ++j) acc[j] = acc0;
   for (int g0 = 0; g0 < n; g0 += kPeerGroup) {
     const int gn = n - g0 < kPeerGroup ? n - g0 : kPeerGroup;
     if (g0) __syncthreads();   // the previous group's slots are read
@@ -402,10 +409,11 @@ __device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long 
 // status[g] = 1 + inclusive support count of groups 0..g once published, 0
 // before.  Each kept coordinate with rank < cap writes x*inv_p - c*mu at its
 // rank (round-to-nearest products and difference, never contracted into an
-// FMA); a thread takes one mask word (32 coordinates) at a time and visits
-// only its set bits.
+// FMA), or x itself when kScaled is false; a thread takes one mask word (32
+// coordinates) at a time and visits only its set bits.
 constexpr int kGroup = 16;
 
+template <bool kScaled>
 __global__ void encode_lookback_kernel(const float* __restrict__ x,
                                        const uint32_t* __restrict__ mask,
                                        const int32_t* __restrict__ counts,
@@ -419,7 +427,7 @@ __global__ void encode_lookback_kernel(const float* __restrict__ x,
   __shared__ int chunk_offset[kGroup];
   __shared__ int64_t offset_s, total_s;
   __shared__ unsigned int item[2];
-  const float cmu = __fmul_rn(c, *mu);
+  const float cmu = kScaled ? __fmul_rn(c, *mu) : 0.0f;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t groups = (chunks + kGroup - 1) / kGroup;
@@ -480,8 +488,10 @@ __global__ void encode_lookback_kernel(const float* __restrict__ x,
       uint32_t w = words[ci][kw];
       int64_t rank = offset + chunk_offset[ci] + prefix[ci][kw];
       const float* xw = x + base + 32 * kw;
-      for (; w && rank < cap; w &= w - 1u, ++rank)
-        out[rank] = __fsub_rn(__fmul_rn(xw[__ffs(w) - 1], inv_p), cmu);
+      for (; w && rank < cap; w &= w - 1u, ++rank) {
+        const float v = xw[__ffs(w) - 1];
+        out[rank] = kScaled ? __fsub_rn(__fmul_rn(v, inv_p), cmu) : v;
+      }
     }
     if (g == groups - 1) {
       for (int64_t s = min64(total_s, cap) + threadIdx.x; s < cap; s += kThreads) out[s] = 0.0f;
@@ -531,6 +541,38 @@ int64_t scan_scratch_ints(int n, int64_t chunks) {
   return static_cast<int64_t>(n) * (chunks + num_tiles(chunks));
 }
 
+// The encode's two launches (pair count, look-back write) on stream s.
+template <bool kScaled>
+int encode_launch(uint32_t k0, uint32_t k1, const float* x, int64_t d, float p, int64_t cap,
+                  float inv_p, float c, const float* mu, float* out, void* scratch,
+                  void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PairGeometry g = pair_geometry(d);
+  const int64_t q = g.chunks();
+  const int64_t groups = g.groups();
+  auto* status = static_cast<unsigned long long*>(scratch);
+  auto* ticket = reinterpret_cast<unsigned int*>(status + groups);
+  auto* counts = reinterpret_cast<int32_t*>(status + groups + 1);
+  auto* mask = reinterpret_cast<uint32_t*>(counts + q);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, (groups + 1) * 8, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_pair_count(KeysN<1>{{k0, k1}}, 1, d, p, counts, mask, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static int per_sm = [] {
+    int b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, encode_lookback_kernel<kScaled>, kThreads,
+                                                  0);
+    return b > 0 ? b : 1;
+  }();
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t grid = groups < int64_t(sms) * per_sm ? groups : int64_t(sms) * per_sm;
+  encode_lookback_kernel<kScaled><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+      x, mask, counts, status, ticket, g.half, g.nl, q, cap, inv_p, c, mu, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -558,34 +600,22 @@ int64_t bw_encode_scratch_bytes(int64_t d) {
 }
 
 // x: (d,) f32; (k0, k1) the rank-folded key; mu: f32 on the card; out: (cap,)
-// f32; scratch: bw_encode_scratch_bytes(d) bytes, 8-byte aligned.
+// f32; scratch: bw_encode_scratch_bytes(d) bytes, 8-byte aligned.  Writes
+// x*inv_p - c*mu at each kept rank (scaled != 0) or x itself (the
+// error-feedback twin: inv_p, c and mu are not read).
+int bw_encode_ex(uint32_t k0, uint32_t k1, const float* x, int64_t d, float p, int64_t cap,
+                 int scaled, float inv_p, float c, const float* mu, float* out, void* scratch,
+                 void* stream) {
+  if (d < 1 || cap < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return scaled ? encode_launch<true>(k0, k1, x, d, p, cap, inv_p, c, mu, out, scratch, stream)
+                : encode_launch<false>(k0, k1, x, d, p, cap, 0.0f, 0.0f, mu, out, scratch,
+                                       stream);
+}
+
+// bw_encode_ex with scaled = 1.
 int bw_encode(uint32_t k0, uint32_t k1, const float* x, int64_t d, float p, int64_t cap,
               float inv_p, float c, const float* mu, float* out, void* scratch, void* stream) {
-  if (d < 1 || cap < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const PairGeometry g = pair_geometry(d);
-  const int64_t q = g.chunks();
-  const int64_t groups = g.groups();
-  auto* status = static_cast<unsigned long long*>(scratch);
-  auto* ticket = reinterpret_cast<unsigned int*>(status + groups);
-  auto* counts = reinterpret_cast<int32_t*>(status + groups + 1);
-  auto* mask = reinterpret_cast<uint32_t*>(counts + q);
-  cudaError_t err = cudaMemsetAsync(scratch, 0, (groups + 1) * 8, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_pair_count(KeysN<1>{{k0, k1}}, 1, d, p, counts, mask, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  static int per_sm = [] {
-    int b = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, encode_lookback_kernel, kThreads, 0);
-    return b > 0 ? b : 1;
-  }();
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t grid = groups < int64_t(sms) * per_sm ? groups : int64_t(sms) * per_sm;
-  encode_lookback_kernel<<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
-      x, mask, counts, status, ticket, g.half, g.nl, q, cap, inv_p, c, mu, out);
-  return static_cast<int>(cudaGetLastError());
+  return bw_encode_ex(k0, k1, x, d, p, cap, 1, inv_p, c, mu, out, scratch, stream);
 }
 
 // Scratch bytes of bw_decode_sum for n peers at length d: chunk counts,
@@ -597,11 +627,11 @@ int64_t bw_decode_scratch_bytes(int n, int64_t d) {
 }
 
 // bufs: (n, cap) f32 rows ld apart; mus: (n,) f32; keys_host: n (k0, k1)
-// pairs in host memory; out: (d,) f32; scratch: bw_decode_scratch_bytes(n,
-// d) bytes, 4-byte aligned.
-int bw_decode_sum(const uint32_t* keys_host, int n, int64_t d, float p, const float* bufs,
-                  int64_t ld, const float* mus, int64_t cap, float* out, void* scratch,
-                  void* stream) {
+// pairs in host memory; out: (d,) f32, each sum started at acc0; scratch:
+// bw_decode_scratch_bytes(n, d) bytes, 4-byte aligned.
+int bw_decode_sum_from(const uint32_t* keys_host, int n, int64_t d, float p, const float* bufs,
+                       int64_t ld, const float* mus, int64_t cap, float acc0, float* out,
+                       void* scratch, void* stream) {
   if (n < 1 || n > kMaxPeers || d < 1 || cap < 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   Keys keys;
@@ -616,8 +646,15 @@ int bw_decode_sum(const uint32_t* keys_host, int n, int64_t d, float p, const fl
   if (err == cudaSuccess) err = launch_scan(counts, nullptr, n, q, sums, offsets, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_kernel<<<static_cast<unsigned>(q), kThreads, 0, s>>>(
-      bufs, ld, mus, mask, offsets, n, q, g.nl, g.half, d, cap, out);
+      bufs, ld, mus, mask, offsets, n, q, g.nl, g.half, d, cap, acc0, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// bw_decode_sum_from with acc0 = +0.0: Σ_i from 0, the averaging decode.
+int bw_decode_sum(const uint32_t* keys_host, int n, int64_t d, float p, const float* bufs,
+                  int64_t ld, const float* mus, int64_t cap, float* out, void* scratch,
+                  void* stream) {
+  return bw_decode_sum_from(keys_host, n, d, p, bufs, ld, mus, cap, 0.0f, out, scratch, stream);
 }
 
 // Scratch bytes of bw_decode_sum_shard for n peers over a window of ds:
@@ -639,7 +676,7 @@ int bw_decode_sum_shard(const float* bufs, int64_t ld, const float* mus, const i
   cudaError_t err = launch_scan(counts, prior, n, q, sums, offsets, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_kernel<<<static_cast<unsigned>(q), kThreads, 0, s>>>(
-      bufs, ld, mus, mask, offsets, n, q, q, ds, ds, cap, out);
+      bufs, ld, mus, mask, offsets, n, q, q, ds, ds, cap, 0.0f, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -56,6 +56,11 @@
 //     are clipped); lse by the lanes that own each row.
 //   Shared memory at hd 128: Q 32 KB + 2 stages x (K 32 KB + V 32 KB) =
 //   160 KB (one CTA per SM); half at hd 64.
+//   hd 32 (lm-8m) takes the hd-64 tiles: the 4-D maps span the tensor's 32
+//   columns with the same 64-column boxes, so TMA zero-fills columns 32-63
+//   of each Q, K and V tile and clips them from the o store.  S = Q.K^T
+//   runs its 2 k-steps of 16 only; P.V runs at n = 64, half of it on the
+//   zero columns (twice the operations the bound counts for that product).
 // f32: fa_fwd_simt, 64-row tiles, 256 threads, each 4 rows x 4 keys of S
 //   and 4 rows x hd/16 columns of o with f32 FMAs (the reference's f32
 //   products; no TF32).  Neither main path runs it.
@@ -247,7 +252,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 // Offsets in the (1024-aligned) dynamic shared memory.
 template <int HD>
 struct Smem {
-  static constexpr int kTileBytes = HD / 64 * kBoxBytes;   // 128 rows of hd
+  static constexpr int kTileBytes = tile_cols(HD) / 64 * kBoxBytes;   // 128 rows of hd
   static constexpr int kQ = 0;
   static constexpr int kK = kTileBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
@@ -282,7 +287,8 @@ __global__ void __launch_bounds__(384, 1)
                  const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
                  const __grid_constant__ CUtensorMap omap) {
   using L = Smem<HD>;
-  constexpr int NO = HD / 2;               // o accumulators per thread
+  constexpr int TD = tile_cols(HD);
+  constexpr int NO = TD / 2;               // o accumulators per thread
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* full_k = reinterpret_cast<uint64_t*>(base + L::kBars);
@@ -320,19 +326,19 @@ __global__ void __launch_bounds__(384, 1)
       hopper::prefetch_tensormap(&kmap);
       hopper::prefetch_tensormap(&vmap);
       hopper::mbar_expect_tx(qbar, L::kTileBytes);
-      for (int j = 0; j < HD / 64; ++j)
+      for (int j = 0; j < TD / 64; ++j)
         hopper::tma_load_4d(base + L::kQ + j * kBoxBytes, &qmap, qbar, 64 * j, h, row0, b);
       for (int i = 0; i < n; ++i) {
         const int s = i % kStages, ks = (span.lo + i) * kRows;
         const uint32_t parity = (i / kStages - 1) & 1;
         if (i >= kStages) hopper::mbar_wait(&empty_k[s], parity);
         hopper::mbar_expect_tx(&full_k[s], L::kTileBytes);
-        for (int j = 0; j < HD / 64; ++j)
+        for (int j = 0; j < TD / 64; ++j)
           hopper::tma_load_4d(base + L::kK + s * L::kTileBytes + j * kBoxBytes, &kmap,
                               &full_k[s], 64 * j, kvh, ks, b);
         if (i >= kStages) hopper::mbar_wait(&empty_v[s], parity);
         hopper::mbar_expect_tx(&full_v[s], L::kTileBytes);
-        for (int j = 0; j < HD / 64; ++j)
+        for (int j = 0; j < TD / 64; ++j)
           hopper::tma_load_4d(base + L::kV + s * L::kTileBytes + j * kBoxBytes, &vmap,
                               &full_v[s], 64 * j, kvh, ks, b);
       }
@@ -516,7 +522,7 @@ __global__ void __launch_bounds__(384, 1)
     hopper::fence_proxy_async_smem();
     hopper::named_barrier_sync(1 + c, 128);
     if (tid == 0) {
-      for (int j = 0; j < HD / 64; ++j)
+      for (int j = 0; j < TD / 64; ++j)
         hopper::tma_store_4d(&omap, qs + j * kBoxBytes, 64 * j, h, row0 + 64 * c, b);
       hopper::tma_store_commit();
       hopper::tma_store_wait_read();
@@ -573,8 +579,8 @@ extern "C" {
 
 // q, o: (b, sq, hq, hd); k, v: (b, sk, hkv, hd), contiguous, of one dtype
 // (0: f32, 1: bf16, whose pointers are 16-byte aligned for TMA); lse:
-// (b, hq, sq) f32.  hd is 64 or 128, hq a multiple of hkv, window <= 0 for
-// none.  Returns the cudaError_t of the launch.
+// (b, hq, sq) f32.  hd is 32, 64 or 128, hq a multiple of hkv, window <= 0
+// for none.  Returns the cudaError_t of the launch.
 int fa_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int64_t b,
            int64_t sq, int64_t sk, int64_t hq, int64_t hkv, int64_t hd, int64_t q_offset,
            int causal, int64_t window, float scale, int dtype, void* stream) {
@@ -584,16 +590,21 @@ int fa_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, lse, sq, sk, hq, hkv, q_offset, window, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && hd == 32) return launch_simt<32>(a, b, s);
   if (dtype == 0 && hd == 64) return launch_simt<64>(a, b, s);
   if (dtype == 0 && hd == 128) return launch_simt<128>(a, b, s);
+  if (dtype == 1 && hd == 32) return launch_wgmma<32>(a, b, s);
   if (dtype == 1 && hd == 64) return launch_wgmma<64>(a, b, s);
   if (dtype == 1 && hd == 128) return launch_wgmma<128>(a, b, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory of one bf16 CTA at head dim hd (64 or 128), else 0.
+// Dynamic shared memory of one bf16 CTA at head dim hd (32, 64 or 128), else 0.
 int fa_fwd_smem_bytes(int64_t hd) {
-  return hd == 64 ? Smem<64>::kBytes : hd == 128 ? Smem<128>::kBytes : 0;
+  return hd == 32    ? Smem<32>::kBytes
+         : hd == 64  ? Smem<64>::kBytes
+         : hd == 128 ? Smem<128>::kBytes
+                     : 0;
 }
 
 }  // extern "C"

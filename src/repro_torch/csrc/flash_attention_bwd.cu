@@ -64,6 +64,10 @@
 //     (named barriers), so one's dS runs while the other's products hold the
 //     tensor cores.  64-key tiles keep dQ, S, dP and the hi + lo fragments
 //     in registers (64 + 32 + 32 + 32 a thread at hd 128).
+//   hd 32 (lm-8m) takes the hd-64 tiles (flash_common.cuh, tile_cols): TMA
+//   zero-fills columns 32-63 of every Q, dO, K and V tile; S and dP run their
+//   2 k-steps of 16 only, while dV, dK and dQ run at n = 64, half of it on
+//   the zero columns, whose sums are never stored.
 //   f32: fa_bwd_dkv_simt, one CTA per (batch * kv head, 64-key tile) over the
 //     group's q heads and their live 64-row q tiles, and fa_bwd_dq_simt, one
 //     CTA per (batch * q head, 64-row q tile) over its live 64-key tiles; 256
@@ -161,8 +165,8 @@ __host__ __device__ constexpr int box_bytes(int rows) { return rows * 128; }
 // Offsets in the (1024-aligned) dynamic shared memory.
 template <int HD>
 struct DkvSmem {
-  static constexpr int kKVTile = HD / 64 * box_bytes(kBlock);   // 128 keys of hd
-  static constexpr int kQTile = HD / 64 * box_bytes(kStrip);    // 64 q rows of hd
+  static constexpr int kKVTile = tile_cols(HD) / 64 * box_bytes(kBlock);   // 128 keys of hd
+  static constexpr int kQTile = tile_cols(HD) / 64 * box_bytes(kStrip);    // 64 q rows of hd
   static constexpr int kK = 0;
   static constexpr int kV = kKVTile;
   static constexpr int kQ = 2 * kKVTile;                        // the ring: Q, dO
@@ -174,8 +178,8 @@ struct DkvSmem {
 
 template <int HD>
 struct DqSmem {
-  static constexpr int kQTile = HD / 64 * box_bytes(kBlock);    // 128 q rows of hd
-  static constexpr int kKTile = HD / 64 * box_bytes(kStrip);    // 64 keys of hd
+  static constexpr int kQTile = tile_cols(HD) / 64 * box_bytes(kBlock);    // 128 q rows of hd
+  static constexpr int kKTile = tile_cols(HD) / 64 * box_bytes(kStrip);    // 64 keys of hd
   static constexpr int kQ = 0;
   static constexpr int kO = kQTile;
   static constexpr int kK = 2 * kQTile;                         // the ring: K, V
@@ -250,9 +254,10 @@ __device__ __forceinline__ void mma_kmajor(float (&acc)[32], uint64_t a, int a_b
 }
 
 // d += X . B: X the 64 x 64 tile whose A fragments are hi + lo (two wgmma per
-// k-step into one f32 sum), B 64 rows of hd at descriptor b read MN-major.
+// k-step into one f32 sum), B 64 rows of hd at descriptor b read MN-major
+// (at hd 32 the tile's 64 columns, the upper 32 zero).
 template <int HD>
-__device__ __forceinline__ void mma_mn(float (&d)[HD / 2], const uint32_t (&hi)[4][4],
+__device__ __forceinline__ void mma_mn(float (&d)[tile_cols(HD) / 2], const uint32_t (&hi)[4][4],
                                        const uint32_t (&lo)[4][4], uint64_t b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
@@ -268,9 +273,11 @@ __device__ __forceinline__ void mma_mn(float (&d)[HD / 2], const uint32_t (&hi)[
 }
 
 // Rows (or keys) r0, r0 + 8 of a warp's f32 output tile to global memory,
-// scaled; rows at or past n are not written.
+// scaled; rows at or past n, and a 64-column tile's columns past hd, are not
+// written.
 template <int HD>
-__device__ __forceinline__ void store_rows(float* dst, int64_t stride, const float (&x)[HD / 2],
+__device__ __forceinline__ void store_rows(float* dst, int64_t stride,
+                                           const float (&x)[tile_cols(HD) / 2],
                                            int64_t r0, int64_t n, float scale, int t) {
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
@@ -291,7 +298,8 @@ __global__ void __launch_bounds__(384, 1)
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap) {
   using L = DkvSmem<HD>;
-  constexpr int NO = HD / 2;               // dK (and dV) accumulators per thread
+  constexpr int TD = tile_cols(HD);
+  constexpr int NO = TD / 2;               // dK (and dV) accumulators per thread
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
@@ -323,7 +331,7 @@ __global__ void __launch_bounds__(384, 1)
       hopper::prefetch_tensormap(&qmap);
       hopper::prefetch_tensormap(&omap);
       hopper::mbar_expect_tx(kvbar, 2 * L::kKVTile);
-      for (int j = 0; j < HD / 64; ++j) {
+      for (int j = 0; j < TD / 64; ++j) {
         hopper::tma_load_4d(base + L::kK + j * box_bytes(kBlock), &kmap, kvbar, 64 * j, kvh,
                             k_start, b);
         hopper::tma_load_4d(base + L::kV + j * box_bytes(kBlock), &vmap, kvbar, 64 * j, kvh,
@@ -334,7 +342,7 @@ __global__ void __launch_bounds__(384, 1)
         if (i >= kStages) hopper::mbar_wait(&empty[s], (i / kStages - 1) & 1);
         const int h = kvh * group + i / nqt, row0 = (span.lo + i % nqt) * kStrip;
         hopper::mbar_expect_tx(&full[s], 2 * L::kQTile);
-        for (int j = 0; j < HD / 64; ++j) {
+        for (int j = 0; j < TD / 64; ++j) {
           const int off = s * L::kQTile + j * box_bytes(kStrip);
           hopper::tma_load_4d(base + L::kQ + off, &qmap, &full[s], 64 * j, h, row0, b);
           hopper::tma_load_4d(base + L::kO + off, &omap, &full[s], 64 * j, h, row0, b);
@@ -458,7 +466,8 @@ __global__ void __launch_bounds__(384, 1)
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap) {
   using L = DqSmem<HD>;
-  constexpr int NO = HD / 2;               // dQ accumulators per thread
+  constexpr int TD = tile_cols(HD);
+  constexpr int NO = TD / 2;               // dQ accumulators per thread
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* full_k = reinterpret_cast<uint64_t*>(base + L::kBars);
@@ -495,7 +504,7 @@ __global__ void __launch_bounds__(384, 1)
       hopper::prefetch_tensormap(&kmap);
       hopper::prefetch_tensormap(&vmap);
       hopper::mbar_expect_tx(qbar, 2 * L::kQTile);
-      for (int j = 0; j < HD / 64; ++j) {
+      for (int j = 0; j < TD / 64; ++j) {
         hopper::tma_load_4d(base + L::kQ + j * box_bytes(kBlock), &qmap, qbar, 64 * j, h, row0, b);
         hopper::tma_load_4d(base + L::kO + j * box_bytes(kBlock), &omap, qbar, 64 * j, h, row0, b);
       }
@@ -504,12 +513,12 @@ __global__ void __launch_bounds__(384, 1)
         const uint32_t parity = (i / kStages - 1) & 1;
         if (i >= kStages) hopper::mbar_wait(&empty_k[s], parity);
         hopper::mbar_expect_tx(&full_k[s], L::kKTile);
-        for (int j = 0; j < HD / 64; ++j)
+        for (int j = 0; j < TD / 64; ++j)
           hopper::tma_load_4d(base + L::kK + s * L::kKTile + j * box_bytes(kStrip), &kmap,
                               &full_k[s], 64 * j, kvh, ks, b);
         if (i >= kStages) hopper::mbar_wait(&empty_v[s], parity);
         hopper::mbar_expect_tx(&full_v[s], L::kKTile);
-        for (int j = 0; j < HD / 64; ++j)
+        for (int j = 0; j < TD / 64; ++j)
           hopper::tma_load_4d(base + L::kV + s * L::kKTile + j * box_bytes(kStrip), &vmap,
                               &full_v[s], 64 * j, kvh, ks, b);
       }
@@ -932,8 +941,8 @@ extern "C" {
 
 // q, dout: (b, sq, hq, hd); k, v: (b, sk, hkv, hd), contiguous, of one dtype
 // (0: f32, 1: bf16, whose pointers are 16-byte aligned for TMA); lse, delta:
-// (b, hq, sq) f32; dk, dv: (b, sk, hkv, hd) f32, written whole.  hd is 64 or
-// 128, hq a multiple of hkv, window <= 0 for none.  Returns the cudaError_t
+// (b, hq, sq) f32; dk, dv: (b, sk, hkv, hd) f32, written whole.  hd is 32, 64
+// or 128, hq a multiple of hkv, window <= 0 for none.  Returns the cudaError_t
 // of the launch.
 int fa_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* delta, float* dk, float* dv, int64_t b, int64_t sq, int64_t sk,
@@ -945,9 +954,11 @@ int fa_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, co
                causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(b * hkv), static_cast<unsigned>((sk + kTile - 1) / kTile));
+  if (dtype == 0 && hd == 32) return launch(fa_bwd_dkv_simt<32>, grid, 256, simt_smem<32>(), s, a);
   if (dtype == 0 && hd == 64) return launch(fa_bwd_dkv_simt<64>, grid, 256, simt_smem<64>(), s, a);
   if (dtype == 0 && hd == 128)
     return launch(fa_bwd_dkv_simt<128>, grid, 256, simt_smem<128>(), s, a);
+  if (dtype == 1 && hd == 32) return launch_dkv_wgmma<32>(a, b, s);
   if (dtype == 1 && hd == 64) return launch_dkv_wgmma<64>(a, b, s);
   if (dtype == 1 && hd == 128) return launch_dkv_wgmma<128>(a, b, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -964,17 +975,20 @@ int fa_bwd_dq(const void* q, const void* k, const void* v, const void* dout, con
                causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(b * hq), static_cast<unsigned>((sq + kTile - 1) / kTile));
+  if (dtype == 0 && hd == 32) return launch(fa_bwd_dq_simt<32>, grid, 256, simt_smem<32>(), s, a);
   if (dtype == 0 && hd == 64) return launch(fa_bwd_dq_simt<64>, grid, 256, simt_smem<64>(), s, a);
   if (dtype == 0 && hd == 128)
     return launch(fa_bwd_dq_simt<128>, grid, 256, simt_smem<128>(), s, a);
+  if (dtype == 1 && hd == 32) return launch_dq_wgmma<32>(a, b, s);
   if (dtype == 1 && hd == 64) return launch_dq_wgmma<64>(a, b, s);
   if (dtype == 1 && hd == 128) return launch_dq_wgmma<128>(a, b, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Dynamic shared memory of one bf16 CTA of fa_bwd_dkv (dq = 0) or fa_bwd_dq
-// (dq = 1) at head dim hd (64 or 128), else 0.
+// (dq = 1) at head dim hd (32, 64 or 128), else 0.
 int fa_bwd_smem_bytes(int64_t hd, int dq) {
+  if (hd == 32) return dq ? DqSmem<32>::kBytes : DkvSmem<32>::kBytes;
   if (hd == 64) return dq ? DqSmem<64>::kBytes : DkvSmem<64>::kBytes;
   if (hd == 128) return dq ? DqSmem<128>::kBytes : DkvSmem<128>::kBytes;
   return 0;

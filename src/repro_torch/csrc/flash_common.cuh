@@ -12,6 +12,11 @@ namespace flash {
 constexpr float kMasked = -1e30f;   // the reference's NEG_INF (flash_attention.py:27)
 constexpr int kTile = 64;           // rows of a q tile and keys of a key tile
 
+// Columns of a bf16 kernel's shared-memory tile: hd, or one whole 64-column
+// TMA box at hd 32 (the maps span hd columns, so TMA zero-fills columns
+// 32-63 on loads and clips them from stores).
+__host__ __device__ constexpr int tile_cols(int hd) { return hd < 64 ? 64 : hd; }
+
 // Copy rows [row0, row0 + 64) of a (S, stride) row set into smem rows of LD
 // elements; rows at or past n_rows are zero-filled.  16-byte global loads,
 // 4-byte shared stores (LD keeps rows 4-byte aligned, not 16).

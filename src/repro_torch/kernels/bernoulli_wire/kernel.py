@@ -6,8 +6,12 @@ launches on PyTorch's current stream, raises on a nonzero
 ``cudaGetLastError`` after every launch, and adds one to its launch count
 in :data:`repro_torch.kernels.backend.launches`:
 
-* :func:`encode` — ``bernoulli_encode`` (replaces ``encode_pallas``);
+* :func:`encode` — ``bernoulli_encode`` (replaces ``encode_pallas``), the
+  Eq. (1) values, or, counted as ``bernoulli_encode_unscaled``, the raw ones
+  of the error-feedback twin (``scaled=False``);
 * :func:`decode_sum` — ``bernoulli_decode_sum`` (``decode_sum_pallas``);
+  from ``acc0 = -0.0`` at n = 1 it is one peer's reconstruction bit for bit
+  (the twin's unpack), counted as ``bernoulli_unpack``;
 * :func:`support_counts` — ``bernoulli_support_counts``, the count phase of
   the shard decode, run before the §12 count exchange;
 * :func:`decode_sum_shard` — ``bernoulli_decode_sum_shard`` (the rest of
@@ -19,6 +23,7 @@ the source's header comment.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -34,9 +39,10 @@ _I64 = ctypes.c_int64
 _SIGS = {
     "bw_support_counts": [_P, ctypes.c_int, _I64, _I64, _I64, ctypes.c_float,
                           _P, _P, _P],
-    "bw_encode": [ctypes.c_uint32, ctypes.c_uint32, _P, _I64, ctypes.c_float, _I64,
-                  ctypes.c_float, ctypes.c_float, _P, _P, _P, _P],
-    "bw_decode_sum": [_P, ctypes.c_int, _I64, ctypes.c_float, _P, _I64, _P, _I64, _P, _P, _P],
+    "bw_encode_ex": [ctypes.c_uint32, ctypes.c_uint32, _P, _I64, ctypes.c_float, _I64,
+                     ctypes.c_int, ctypes.c_float, ctypes.c_float, _P, _P, _P, _P],
+    "bw_decode_sum_from": [_P, ctypes.c_int, _I64, ctypes.c_float, _P, _I64, _P, _I64,
+                           ctypes.c_float, _P, _P, _P],
     "bw_decode_sum_shard": [_P, _I64, _P, _P, _P, _P, ctypes.c_int, _I64, _I64, _P, _P, _P],
     "bw_encode_scratch_bytes": [_I64],
     "bw_decode_scratch_bytes": [ctypes.c_int, _I64],
@@ -86,8 +92,10 @@ def _check_bufs(bufs, mus, cap):
     backend.check(mus, "mus", torch.float32, (bufs.shape[0],))
 
 
-def encode(flat, key, mu, *, p: float, cap: int):
-    """(d,) f32 + rank-folded (2,) key + device f32 μ → (cap,) f32 buffer."""
+def encode(flat, key, mu, *, p: float, cap: int, scaled: bool = True):
+    """(d,) f32 + rank-folded (2,) key + device f32 μ → (cap,) f32 buffer:
+    ``x·(1/p) − ((1−p)/p)·μ`` at each kept rank, or x itself when
+    ``scaled`` is false (μ then unread)."""
     backend.check(flat, "flat", torch.float32)
     if flat.dim() != 1:
         raise ValueError(f"flat: expected 1-D, got {tuple(flat.shape)}")
@@ -98,10 +106,11 @@ def encode(flat, key, mu, *, p: float, cap: int):
     k0, k1 = _host_keys(key)
     work = torch.empty(_fn("bw_encode_scratch_bytes")(d), dtype=torch.uint8, device=dev)
     out = torch.empty(cap, dtype=torch.float32, device=dev)
-    err = _fn("bw_encode")(k0, k1, flat.data_ptr(), d, p32, cap, inv_p, c, mu.data_ptr(),
-                           out.data_ptr(), work.data_ptr(), backend.stream_ptr(dev))
+    err = _fn("bw_encode_ex")(k0, k1, flat.data_ptr(), d, p32, cap, int(bool(scaled)), inv_p, c,
+                              mu.data_ptr(), out.data_ptr(), work.data_ptr(),
+                              backend.stream_ptr(dev))
     backend.check_launch(err, "bernoulli encode")
-    backend.launches["bernoulli_encode"] += 1
+    backend.launches["bernoulli_encode" if scaled else "bernoulli_encode_unscaled"] += 1
     return out
 
 
@@ -138,8 +147,10 @@ def decode_sum_shard(bufs, mus, support: Support, prior, *, cap: int):
     return out
 
 
-def decode_sum(bufs, mus, keys, *, p: float, cap: int, d: int):
-    """Σ_i reconstruction_i as (d,) f32 (pair count, scan and decode phases)."""
+def decode_sum(bufs, mus, keys, *, p: float, cap: int, d: int, acc0: float = 0.0):
+    """Σ_i reconstruction_i as (d,) f32 (pair count, scan and decode phases),
+    each coordinate's sum started at ``acc0``; a call from ``acc0 = -0.0``
+    (the twin's unpack) is counted as ``bernoulli_unpack``."""
     _check_bufs(bufs, mus, cap)
     dev = bufs.device
     kh = _host_keys(keys)
@@ -148,9 +159,10 @@ def decode_sum(bufs, mus, keys, *, p: float, cap: int, d: int):
         raise ValueError(f"{n} keys for {bufs.shape[0]} buffers")
     work = _scratch(_fn("bw_decode_scratch_bytes")(n, d), dev)
     out = torch.empty(d, dtype=torch.float32, device=dev)
-    err = _fn("bw_decode_sum")(kh, n, d, ref.coefficients(p)[0], bufs.data_ptr(),
-                               bufs.stride(0), mus.data_ptr(), cap, out.data_ptr(),
-                               work.data_ptr(), backend.stream_ptr(dev))
+    err = _fn("bw_decode_sum_from")(kh, n, d, ref.coefficients(p)[0], bufs.data_ptr(),
+                                    bufs.stride(0), mus.data_ptr(), cap, float(acc0),
+                                    out.data_ptr(), work.data_ptr(), backend.stream_ptr(dev))
     backend.check_launch(err, "bernoulli decode")
-    backend.launches["bernoulli_decode_sum"] += 1
+    unpack = acc0 == 0.0 and math.copysign(1.0, acc0) < 0.0
+    backend.launches["bernoulli_unpack" if unpack else "bernoulli_decode_sum"] += 1
     return out

@@ -16,12 +16,25 @@ from repro_torch.kernels.bernoulli_wire import kernel, ref
 from repro_torch.kernels.bernoulli_wire.ref import Support  # noqa: F401  (re-export)
 
 
-def encode(flat, key, p: float, cap: int, mu):
-    """(d,) f32 + rank-folded (2,) key → (cap,) f32 wire value buffer."""
+def encode(flat, key, p: float, cap: int, mu, *, scaled: bool = True):
+    """(d,) f32 + rank-folded (2,) key → (cap,) f32 wire value buffer: the
+    Eq. (1) values, or the raw ones (``scaled=False``, the error-feedback
+    twin)."""
     mu = torch.as_tensor(mu, dtype=torch.float32, device=flat.device)
     if backend.use_plain(flat):
-        return ref.encode(flat, key, p, cap, mu)
-    return kernel.encode(flat, key, mu, p=p, cap=cap)
+        return ref.encode(flat, key, p, cap, mu, scaled=scaled)
+    return kernel.encode(flat, key, mu, p=p, cap=cap, scaled=scaled)
+
+
+def unpack(buf, mu, key, p: float, cap: int, d: int):
+    """One peer's dense (d,) reconstruction from its (cap,) value buffer, its
+    μ (0-dim) and its rank-folded key, bit for bit (signed zeros included):
+    the plain :func:`ref.decode_one` on the CPU, the flat decode kernel at
+    n = 1 from a −0.0 accumulator on the card."""
+    if backend.use_plain(buf, mu):
+        return ref.decode_one(buf, key, p, cap, mu, d)
+    return kernel.decode_sum(buf.reshape(1, -1), mu.reshape(1), torch.as_tensor(key).reshape(1, 2),
+                             p=p, cap=cap, d=d, acc0=-0.0)
 
 
 def decode_sum(bufs, mus, keys, p: float, cap: int, d: int):

@@ -65,14 +65,17 @@ def rank_select(values, sent, cap: int):
     return out
 
 
-def encode(flat, key, p: float, cap: int, mu):
+def encode(flat, key, p: float, cap: int, mu, *, scaled: bool = True):
     """One node's (cap,) Bernoulli value buffer (no μ tail, f32): support
-    from the node key, Eq. (1) rescale, rank-ordered compaction."""
+    from the node key, Eq. (1) rescale (or, ``scaled=False``, the raw values
+    of the error-feedback twin, −0.0 kept), rank-ordered compaction."""
     d = flat.shape[0]
     p32, inv_p, c = coefficients(p)
     dev = flat.device
     u = tf_ref.uniform(key, d, dev)
     sent = u < torch.tensor(p32, dtype=torch.float32, device=dev)
+    if not scaled:
+        return rank_select(flat, sent, cap)
     mu = torch.as_tensor(mu, dtype=torch.float32, device=dev)
     vals = (flat * torch.tensor(inv_p, dtype=torch.float32, device=dev)
             - torch.tensor(c, dtype=torch.float32, device=dev) * mu)
@@ -90,10 +93,12 @@ def decode_one(buf, key, p: float, cap: int, mu, d: int):
     return torch.where(valid, vals, torch.as_tensor(mu, dtype=torch.float32, device=dev))
 
 
-def decode_sum_sequential(bufs, mus, keys, p: float, cap: int, d: int):
-    """Peer-sequential Σ_i reconstruction_i from a zero accumulator — the
-    accumulation order the decode kernel reproduces; caller divides by n."""
-    acc = torch.zeros(d, dtype=torch.float32, device=bufs.device)
+def decode_sum_sequential(bufs, mus, keys, p: float, cap: int, d: int, acc0: float = 0.0):
+    """Peer-sequential Σ_i reconstruction_i from an accumulator of ``acc0``
+    (+0.0: the averaging decode) — the accumulation order the decode kernel
+    reproduces; caller divides by n.  From −0.0 at n = 1 it equals
+    :func:`decode_one` bit for bit (−0 + y = y for every f32 y)."""
+    acc = torch.full((d,), acc0, dtype=torch.float32, device=bufs.device)
     for i in range(bufs.shape[0]):
         acc = acc + decode_one(bufs[i], keys[i], p, cap, mus[i], d)
     return acc

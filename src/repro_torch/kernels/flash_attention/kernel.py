@@ -8,7 +8,10 @@
   ``:280``, dK/dV, and at ``:318``, dQ).
 
 Each is counted under its own name in
-:data:`repro_torch.kernels.backend.launches`.  They take CUDA tensors only,
+:data:`repro_torch.kernels.backend.launches`, and at hd 32 (lm-8m, the
+training example's model) under that name with ``_hd32`` appended: there the
+bf16 kernels run on 64-column tiles whose upper half TMA zero-fills, so
+their time and bound are their own.  They take CUDA tensors only,
 in the model's (B, S, H, hd) layout (the reference kernels take
 (B, H, S, hd)), check them, allocate their outputs with ``torch.empty``,
 launch on PyTorch's current stream and raise on a nonzero
@@ -17,7 +20,8 @@ launch on PyTorch's current stream and raise on a nonzero
 64-row q tiles, the dQ sweep 128 q rows against 64-key tiles), which read q,
 k, v and do by TMA and so refuse tensors that do not start on a 16-byte
 boundary; f32 runs the SIMT kernels (64 × 64), whatever the caller's block
-sizes.  Design and bound are in the sources' header comments.
+sizes.  hd is 32, 64 or 128.  Design and bound are in the sources' header
+comments.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ _SIGS = {("flash_attention", "fa_fwd"): [_P] * 5 + _TAIL,
          ("flash_attention_bwd", "fa_bwd_dkv"): [_P] * 8 + _TAIL,
          ("flash_attention_bwd", "fa_bwd_dq"): [_P] * 7 + _TAIL}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 128)
 
 
 def _fn(lib: str, name: str):
@@ -69,6 +73,11 @@ def _check(q, k, v, q_offset: int, window: Optional[int]):
     return b, sq, sk, hq, hkv, hd
 
 
+def launch_name(base: str, hd: int) -> str:
+    """The name a launch at head dim ``hd`` is counted under."""
+    return f"{base}_hd32" if hd == 32 else base
+
+
 def _check_aligned(*tensors):
     """bf16 tensors are read by TMA, which needs 16-byte aligned starts."""
     if tensors[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
@@ -84,7 +93,7 @@ def _tail(q, shape, q_offset, causal, window):
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                         q_offset: int = 0):
     """q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd), CUDA, one dtype (f32 or
-    bf16), hd 64 or 128, Hq % Hkv == 0 → (o (B, Sq, Hq, hd) in q's dtype,
+    bf16), hd 32, 64 or 128, Hq % Hkv == 0 → (o (B, Sq, Hq, hd) in q's dtype,
     lse (B, Hq, Sq) f32)."""
     shape = _check(q, k, v, q_offset, window)
     _check_aligned(q, k, v)
@@ -94,8 +103,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: Optional[int] =
     err = _fn("flash_attention", "fa_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         *_tail(q, shape, q_offset, causal, window))
-    backend.check_launch(err, "flash_attention_fwd")
-    backend.launches["flash_attention_fwd"] += 1
+    name = launch_name("flash_attention_fwd", shape[-1])
+    backend.check_launch(err, name)
+    backend.launches[name] += 1
     return o, lse
 
 
@@ -119,8 +129,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     err = _fn("flash_attention_bwd", "fa_bwd_dkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_tail(q, shape, q_offset, causal, window))
-    backend.check_launch(err, "flash_attention_bwd_dkv")
-    backend.launches["flash_attention_bwd_dkv"] += 1
+    name = launch_name("flash_attention_bwd_dkv", shape[-1])
+    backend.check_launch(err, name)
+    backend.launches[name] += 1
     return dk, dv
 
 
@@ -134,6 +145,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     err = _fn("flash_attention_bwd", "fa_bwd_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), *_tail(q, shape, q_offset, causal, window))
-    backend.check_launch(err, "flash_attention_bwd_dq")
-    backend.launches["flash_attention_bwd_dq"] += 1
+    name = launch_name("flash_attention_bwd_dq", shape[-1])
+    backend.check_launch(err, name)
+    backend.launches[name] += 1
     return dq

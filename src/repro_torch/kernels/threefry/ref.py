@@ -88,9 +88,29 @@ def bits_to_uniform(bits):
     return torch.clamp_min(u, 0.0)
 
 
+# cipher pairs one pass of :func:`uniform` draws
+UNIFORM_CHUNK = 1 << 24
+
+
 def uniform(key, d: int, device=None):
-    """Bit-exact ``jax.random.uniform(key, (d,), float32)``."""
-    return bits_to_uniform(random_bits(key, d, device))
+    """Bit-exact ``jax.random.uniform(key, (d,), float32)``: the lanes of
+    :func:`random_bits` through :func:`bits_to_uniform`, drawn
+    ``UNIFORM_CHUNK`` cipher pairs at a time into the (d,) f32 result, so
+    the int64 temporaries of a large draw stay a few hundred MB (a whole
+    draw at once holds about eight (d/2,) int64 tensors)."""
+    k0, k1 = _key_words(key)
+    half = (d + 1) // 2
+    out = torch.empty(d, dtype=torch.float32, device=device)
+    for s in range(0, half, UNIFORM_CHUNK):
+        e = min(s + UNIFORM_CHUNK, half)
+        pair = torch.arange(s, e, dtype=torch.int64, device=device)
+        hi = max(0, min(e, d - half) - s)     # pairs whose x1 lane is a coordinate < d
+        c1 = pair + half
+        c1[hi:] = 0                           # odd-d zero pad
+        o0, o1 = threefry2x32(k0, k1, pair, c1)
+        out[s:e] = bits_to_uniform(o0)
+        out[half + s:half + s + hi] = bits_to_uniform(o1[:hi])
+    return out
 
 
 def uniform_at(key, idx, d: int):

@@ -69,9 +69,12 @@ def profile_preset(preset: str):
     cmp = synthetic.preset(preset)
     shapes, plan, comm = synthetic.main_path(cmp, "cuda")
     grads = synthetic.synthetic_grads(shapes, synthetic.N, 0, "cuda")
+    ef = (bucketing.init_ef_state(plan, cmp, synthetic.N, "cuda") if cmp.error_feedback
+          else None)
 
     def step(i):
-        return bucketing.sync_grads_bucketed(grads, plan, cmp, synthetic.step_key(i), comm)
+        return bucketing.sync_grads_bucketed(grads, plan, cmp, synthetic.step_key(i), comm,
+                                             ef)[0]
 
     step(0)
     torch.cuda.synchronize()

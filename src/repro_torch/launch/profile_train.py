@@ -74,15 +74,15 @@ def main(argv=None) -> int:
 
     step_fn, init_fn, _ = build_train_step(cfg, run, shape, synthetic.N, device=dev,
                                            on_phase=on_phase)
-    params, opt_state = init_fn(0)
+    params, opt_state, ef_state = init_fn(0)
     data = SyntheticLM(cfg, shape)
     batches = [data.batch(step, dev) for step in range(4)]
 
     def step(i):
-        nonlocal params, opt_state
+        nonlocal params, opt_state, ef_state
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt_state, _ = step_fn(params, opt_state, batches[i], i)
+        params, opt_state, ef_state, _ = step_fn(params, opt_state, ef_state, batches[i], i)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 

@@ -12,12 +12,13 @@ of ``repro.train.bucketing`` (the post-backward schedule).
   into one f32 vector per local rank and scatter a result back.
 * :func:`sync_grads_bucketed` — per bucket, the exact mean or one
   compressed-mean round, with the bucket key ``fold_in(key, j)`` of its
-  plan position j.
+  plan position j; with error-feedback state (:func:`init_ef_state`) the
+  stateful round of the ``ef_*`` codec.
 
 Gradients are stacks: each leaf is (L, *shape) with one row per local rank
-of the communicator.  The synced result holds one (*shape) tensor per leaf,
-the estimate every rank holds.  The overlapped schedule and error-feedback
-state come with later slices.
+of the communicator, and so is each bucket's residual, (L, size).  The
+synced result holds one (*shape) tensor per leaf, the estimate every rank
+holds.  The overlapped schedule comes with a later slice.
 """
 from __future__ import annotations
 
@@ -190,6 +191,30 @@ def bucket_wire_bits(plan: BucketPlan, cfg: t.CompressionConfig, n: int,
             for b in plan.buckets if b.kind == "compressed"}
 
 
+def ef_state_shapes(plan: BucketPlan, cfg: t.CompressionConfig,
+                    local: int) -> Dict[str, Tuple[int, ...]]:
+    """Codec state shapes per compressed bucket, keyed by bucket id: the
+    resolved codec's ``state_shape`` behind ``local`` rank rows, (local,
+    size) for error feedback.  Empty for stateless configurations."""
+    out = {}
+    for b in plan.buckets:
+        if b.kind != "compressed":
+            continue
+        lcfg = _bucket_cfg(b, cfg, error_feedback=True)
+        shp = wire.resolve(lcfg).state_shape(b.size, lcfg)
+        if shp is not None:
+            out[b.bid] = (int(local),) + tuple(shp)
+    return out
+
+
+def init_ef_state(plan: BucketPlan, cfg: t.CompressionConfig, local: int,
+                  device=None) -> Dict[str, torch.Tensor]:
+    """Zero codec state (the error-feedback residuals), one f32 (local,
+    size) stack per compressed bucket, shapes from :func:`ef_state_shapes`."""
+    return {bid: torch.zeros(shp, dtype=torch.float32, device=device)
+            for bid, shp in ef_state_shapes(plan, cfg, local).items()}
+
+
 def _bucket_cfg(b: Bucket, cmp: t.CompressionConfig, *,
                 error_feedback: bool) -> t.CompressionConfig:
     """The per-bucket codec config: compression axes narrowed to the
@@ -202,30 +227,45 @@ def _bucket_cfg(b: Bucket, cmp: t.CompressionConfig, *,
 
 
 def _bucket_round(grads: Mapping[str, torch.Tensor], b: Bucket, j: int,
-                  cmp: t.CompressionConfig, key, comm) -> Dict[str, torch.Tensor]:
+                  cmp: t.CompressionConfig, key, comm, ef=None):
     """ONE bucket's sync: pack → (exact mean / codec round) → unpack, with
-    the bucket key fold_in(key, j) of its plan position j."""
+    the bucket key fold_in(key, j) of its plan position j.  ``ef`` is the
+    bucket's (L, size) residual (engages the stateful ``ef_*`` codec) or
+    None.  Returns (synced leaf dict, new residual or None)."""
     v = pack_bucket(grads, b)
     if b.kind == "exact":
-        return unpack_bucket(coll.exact_mean(v, comm), b, grads)
-    lcfg = _bucket_cfg(b, cmp, error_feedback=False)
+        return unpack_bucket(coll.exact_mean(v, comm), b, grads), ef
+    lcfg = _bucket_cfg(b, cmp, error_feedback=ef is not None)
     if tuple(a for a in b.eaxes if a not in lcfg.inner_axes):
         raise wire_base.NotPortedError(
             f"bucket {b.bid} also syncs exactly over {b.eaxes}: multi-axis "
             "meshes are not ported yet: they arrive with the "
             "hierarchical-collectives slice (ROADMAP.md, queue 1)")
-    v = coll.compressed_mean(v, prandom.fold_in(key, j), lcfg, comm)
-    return unpack_bucket(v, b, grads)
+    kb = prandom.fold_in(key, j)
+    if ef is not None:
+        v, e = coll.compressed_mean_stateful(v, ef, kb, lcfg, comm)
+        return unpack_bucket(v, b, grads), e
+    v = coll.compressed_mean(v, kb, lcfg, comm)
+    return unpack_bucket(v, b, grads), None
 
 
 def sync_grads_bucketed(grads: Mapping[str, torch.Tensor], plan: BucketPlan,
-                        cmp: t.CompressionConfig, key, comm) -> Dict[str, torch.Tensor]:
+                        cmp: t.CompressionConfig, key, comm,
+                        ef_state: Optional[Mapping[str, torch.Tensor]] = None):
     """Bucketed gradient sync (post-backward schedule).
 
-    ``grads`` maps leaf names to (L, *shape) stacks; returns the synced
-    (*shape) leaves.  Passthrough leaves come back as given.
+    ``grads`` maps leaf names to (L, *shape) stacks.  Returns (the synced
+    (*shape) leaves, the new error-feedback state); the state is None
+    exactly when ``ef_state`` is, and passing it engages the ``ef_*`` codec
+    (each bucket's residual is updated in place and returned).  Passthrough
+    leaves come back as given.
     """
     out = {name: grads[name] for name in plan.passthrough}
+    new_ef = {} if ef_state is not None else None
     for j, b in enumerate(plan.buckets):
-        out.update(_bucket_round(grads, b, j, cmp, key, comm))
-    return out
+        ef = ef_state[b.bid] if ef_state is not None and b.kind == "compressed" else None
+        synced, e = _bucket_round(grads, b, j, cmp, key, comm, ef)
+        if ef is not None:
+            new_ef[b.bid] = e
+        out.update(synced)
+    return out, new_ef

@@ -8,9 +8,15 @@
   per-rank offset, so the node centers μ_i differ) drawn with a seeded
   ``torch.Generator`` on the target device: every preset in seconds,
   without the model.
+* The error-feedback sync path: the same, under each of ``EF_PRESETS``
+  (the reference's five ``ef_*`` presets), the residuals carried from step
+  to step.
 * The training path (:func:`train_main_path`): the same model, depth and
   ranks, one ``train_4k`` sequence per rank, the real forward and backward
-  feeding the same sync under ``fixed_k_1bit``, then AdamW; and one
+  feeding the same sync under ``fixed_k_1bit``, then AdamW; with
+  ``error_feedback=True`` the same under ``fixed_k_1bit`` + error feedback
+  (``EF_TRAIN_STEPS`` steps), the default of the reference's training
+  example (``examples/train_lm_compressed.py``); and one
   rank's gradients before the sync (:func:`rank_loss_and_grads`), which
   ``chip_smoke.py`` and ``launch/compare_attn_grads.py`` compare across
   attention paths (:func:`grad_rel_errs`).
@@ -37,6 +43,8 @@ TRAIN_PRESET = "fixed_k_1bit"   # the reference's default train compression
 TRAIN_STEPS = 4
 PRESETS = ("fixed_k_1bit", "bernoulli_seed_1bit", "binary_packed", "ternary_packed",
            "ternary_opt", "rotated_binary", "rotated_fixed_k")
+EF_PRESETS = ("ef_fixed_k", "ef_bernoulli", "ef_binary", "ef_ternary", "ef_rotated_binary")
+EF_TRAIN_STEPS = 4
 
 
 def synthetic_grads(shapes: Mapping[str, Sequence[int]], n: int, step: int,
@@ -78,13 +86,15 @@ def step_key(step: int):
     return prandom.fold_in(prandom.PRNGKey(0), step)
 
 
-def train_main_path():
+def train_main_path(error_feedback: bool = False):
     """(cfg, run, shape) of the training path: ``MODEL`` at full width and
     ``LAYERS`` layers; the reference's defaults (bf16 compute, flash
-    attention, remat) with ``TRAIN_PRESET`` over the data axis; ``train_4k``
-    sequences, one per rank (global batch ``N``, not 256)."""
+    attention, remat) with ``TRAIN_PRESET`` over the data axis, plus error
+    feedback when asked; ``train_4k`` sequences, one per rank (global batch
+    ``N``, not 256)."""
     cfg = dataclasses.replace(get_config(MODEL), num_layers=LAYERS)
-    run = RunConfig(compression=preset(TRAIN_PRESET))
+    cmp = dataclasses.replace(preset(TRAIN_PRESET), error_feedback=error_feedback)
+    run = RunConfig(compression=cmp)
     return cfg, run, dataclasses.replace(SHAPES["train_4k"], global_batch=N)
 
 

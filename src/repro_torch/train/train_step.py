@@ -16,14 +16,18 @@ Then, once, the gradient sync (DESIGN.md §4): bucketed
 (:func:`repro_torch.train.bucketing.sync_grads_bucketed`) when
 ``cmp.bucket.enabled``, else the per-leaf :func:`sync_grads`, with the key
 ``fold_in(PRNGKey(base_seed), step)``; the global gradient norm; AdamW.
+With ``cmp.error_feedback`` the sync is the stateful ``ef_*`` round and the
+step threads the residuals: per bucket an (n, size) stack
+(:func:`repro_torch.train.bucketing.init_ef_state`), per leaf an (n,
+*shape) one, each row one rank's own residual, updated in place.
 
 Issue schedule: the port runs the post-backward schedule whatever
 ``cmp.bucket.overlap`` says.  The reference defines its backward-pipelined
 schedule as bit-identical to it (``core/types.py``), and with every rank on
 one device there is nothing for it to overlap; it comes with ``DistComm``
 over NCCL.  ``microbatches > 1`` accumulates each rank's microbatch
-gradients in f32, then syncs once.  Error feedback, FSDP and tensor
-parallelism raise :class:`NotPortedError`.
+gradients in f32, then syncs once.  FSDP and tensor parallelism raise
+:class:`NotPortedError`.
 """
 from __future__ import annotations
 
@@ -79,29 +83,43 @@ def batch_axes_for(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec,
     return tuple(chosen)
 
 
-def sync_grads(grads, specs, mesh_axes, cmp: core_types.CompressionConfig, key, comm):
+def sync_grads(grads, specs, mesh_axes, cmp: core_types.CompressionConfig, key, comm,
+               ef_state=None):
     """Per-leaf sync of (n, *shape) stacks (the ``bucket.enabled = False``
     path): the leaf in sorted-name position i takes one compressed-mean
     round with key ``fold_in(key, i)`` over the compression axes when its
-    per-rank size reaches ``min_compress_size``, else the exact mean.
-    Returns the synced (*shape) leaves; a leaf whose spec covers every
-    mesh axis comes back as given."""
+    per-rank size reaches ``min_compress_size`` (the stateful ``ef_*`` round
+    on its (n, *shape) residual when ``ef_state`` is given), else the exact
+    mean.  Returns (the synced (*shape) leaves, the new error-feedback
+    state, None exactly when ``ef_state`` is, with every leaf's state: an
+    uncompressed leaf's passes through); a leaf whose spec covers every mesh
+    axis comes back as given."""
     out = {}
+    new_ef = {} if ef_state is not None else None
     for i, (name, g) in enumerate(sorted(grads.items())):
         axes = bucketing.leaf_sync_axes(specs[name], mesh_axes)
         if not axes:
             out[name] = g
+            if ef_state is not None:
+                new_ef[name] = ef_state[name]
             continue
         caxes = tuple(a for a in axes if a in cmp.axes)
         if caxes and len(axes) > 1:
             raise NotPortedError(f"{name} syncs over {axes}: multi-axis meshes are not ported "
                                  "yet (ROADMAP.md, queue 1)")
         if caxes and cmp.mode != "none" and g[0].numel() >= cmp.min_compress_size:
-            lcfg = dataclasses.replace(cmp, axes=caxes, error_feedback=False)
-            out[name] = coll.compressed_mean(g, prandom.fold_in(key, i), lcfg, comm)
+            kleaf = prandom.fold_in(key, i)
+            lcfg = dataclasses.replace(cmp, axes=caxes, error_feedback=ef_state is not None)
+            if ef_state is not None:
+                out[name], new_ef[name] = coll.compressed_mean_stateful(
+                    g, ef_state[name], kleaf, lcfg, comm)
+            else:
+                out[name] = coll.compressed_mean(g, kleaf, lcfg, comm)
         else:
             out[name] = coll.exact_mean(g, comm)
-    return out
+            if ef_state is not None:
+                new_ef[name] = ef_state[name]
+    return out, new_ef
 
 
 def _rows(batch: Dict[str, torch.Tensor], part: int, parts: int) -> Dict[str, torch.Tensor]:
@@ -115,24 +133,24 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: int,
                      device=None, on_phase: Optional[Callable[..., None]] = None):
     """Returns (step_fn, init_fn, plan) on ``device`` (the card unless given).
 
-    ``step_fn(params, opt_state, batch, step) -> (params, opt_state,
-    metrics)`` with metrics ``loss``, ``grad_norm`` and ``lr`` (f32 device
-    scalars); ``batch`` is the global batch (``SyntheticLM.batch``).
-    ``init_fn(seed) -> (params, opt_state)``.  ``plan`` is the BucketPlan
-    the step syncs with (None = per-leaf path).
+    ``step_fn(params, opt_state, ef_state, batch, step) -> (params,
+    opt_state, ef_state, metrics)`` with metrics ``loss``, ``grad_norm``
+    and ``lr`` (f32 device scalars); ``batch`` is the global batch
+    (``SyntheticLM.batch``).  ``init_fn(seed) -> (params, opt_state,
+    ef_state)``: with error feedback the zero residuals, (n, size) per
+    compressed bucket (bucketed) or (n, *shape) per leaf, else ``{}``.
+    ``plan`` is the BucketPlan the step syncs with (None = per-leaf path).
 
     ``on_phase(name, **state)``, when given, is called as a step starts
     (``"start"``, with ``step``) and after each of its phases:
     ``"backward"`` (``grads``: the (n, *shape) stacks), ``"sync"``
-    (``grads``, ``synced``, ``key`` and the communicator ``comm``) and
-    ``"update"`` (``params``) — for diagnostics and timing; the step does
-    not depend on it.
+    (``grads``, ``synced``, ``key``, the communicator ``comm`` and the new
+    ``ef_state``) and ``"update"`` (``params``) — for diagnostics and
+    timing; the step does not depend on it.
     """
     dev = resolve_device(device)
     tfm.check_family(cfg)
-    if run.compression.error_feedback:
-        raise NotPortedError("error feedback in the train step is not ported yet "
-                             "(ROADMAP.md, queue 1, item 8)")
+    use_ef = run.compression.error_feedback
     opt_cfg = opt_cfg or opt_lib.AdamWConfig()
     msizes = {AXIS: n}
     ctx = model_lib.make_ctx(cfg, run, msizes)
@@ -155,7 +173,7 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: int,
     names = sorted(shapes)
     notify = on_phase or (lambda name, **state: None)
 
-    def step_fn(params, opt_state, batch, step):
+    def step_fn(params, opt_state, ef_state, batch, step):
         notify("start", step=int(step))
         key = prandom.fold_in(key0, int(step))
         leaves = {k: params[k].detach().requires_grad_() for k in names}
@@ -179,11 +197,16 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: int,
                 del grads, loss
             loss_all = loss_all + loss_r
         notify("backward", grads=stacks)
+        ef_in = ef_state if use_ef else None
         if plan is not None:
-            synced = bucketing.sync_grads_bucketed(stacks, plan, run.compression, key, comm)
+            synced, new_ef = bucketing.sync_grads_bucketed(stacks, plan, run.compression, key,
+                                                           comm, ef_in)
         else:
-            synced = sync_grads(stacks, specs, (AXIS,), run.compression, key, comm)
-        notify("sync", grads=stacks, synced=synced, key=key, comm=comm)
+            synced, new_ef = sync_grads(stacks, specs, (AXIS,), run.compression, key, comm,
+                                        ef_in)
+        if use_ef:
+            ef_state = new_ef
+        notify("sync", grads=stacks, synced=synced, key=key, comm=comm, ef_state=ef_state)
         del stacks
         gnorm = opt_lib.global_norm(synced)
         params, opt_state = opt_lib.adamw_update(opt_cfg, synced, opt_state, params,
@@ -191,10 +214,17 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: int,
         notify("update", params=params)
         metrics = {"loss": loss_all, "grad_norm": gnorm,
                    "lr": opt_lib.lr_at(opt_cfg, opt_state.step - 1)}
-        return params, opt_state, metrics
+        return params, opt_state, ef_state, metrics
 
     def init_fn(seed: int):
         params = model_lib.init(seed, cfg, device=dev)
-        return params, opt_lib.adamw_init(params)
+        if use_ef and plan is not None:
+            ef_state = bucketing.init_ef_state(plan, run.compression, n, dev)
+        elif use_ef:
+            ef_state = {k: torch.zeros((n,) + tuple(v.shape), dtype=torch.float32, device=dev)
+                        for k, v in params.items()}
+        else:
+            ef_state = {}
+        return params, opt_lib.adamw_init(params), ef_state
 
     return step_fn, init_fn, plan

@@ -49,21 +49,26 @@ class Trainer:
             on_phase=on_phase)
         self.data = SyntheticLM(cfg, shape, seed=tcfg.seed)
         self.metrics_history = []
+        # the error-feedback state after fit(): per compressed bucket (or
+        # leaf) the (n, size) residuals; examples read their norms here
+        self.ef_state = None
 
     def fit(self):
         """Run ``tcfg.steps`` steps from freshly drawn parameters; returns
-        (params, opt_state, metrics_history).  A step's metrics are logged
-        (as floats, with ``step`` and ``sec``) at the first step and every
-        ``log_every`` steps."""
-        params, opt_state = self.init_fn(self.tcfg.seed)
+        (params, opt_state, metrics_history) and keeps the last
+        error-feedback state in :attr:`ef_state`.  A step's metrics are
+        logged (as floats, with ``step`` and ``sec``) at the first step and
+        every ``log_every`` steps."""
+        params, opt_state, ef = self.init_fn(self.tcfg.seed)
         t0 = time.time()
         for step in range(self.tcfg.steps):
             batch = self.data.batch(step, self.device)
-            params, opt_state, metrics = self.step_fn(params, opt_state, batch, step)
+            params, opt_state, ef, metrics = self.step_fn(params, opt_state, ef, batch, step)
             if (step + 1) % self.tcfg.log_every == 0 or step == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["step"] = step
                 m["sec"] = time.time() - t0
                 self.metrics_history.append(m)
                 log.info("step %d loss %.4f gnorm %.3f", step, m["loss"], m["grad_norm"])
+        self.ef_state = ef
         return params, opt_state, self.metrics_history

@@ -155,8 +155,9 @@ def test_sync_grads_bucketed_equals_reference(preset, monkeypatch):
     tshapes, tspecs = tregistry.param_shapes(_port_cfg(jcfg))
     tplan = tbucketing.build_plan(tshapes, tspecs, MESH_AXES, {"data": 4}, cmp)
     comm = tcoll.StackedComm(n, "cpu")
-    got = tbucketing.sync_grads_bucketed(convert.tree_to_torch(grads), tplan, cmp,
-                                         R.PRNGKey(5), comm)
+    got, ef = tbucketing.sync_grads_bucketed(convert.tree_to_torch(grads), tplan, cmp,
+                                             R.PRNGKey(5), comm)
+    assert ef is None
     assert sorted(got) == sorted(want)
     for name in want:
         np.testing.assert_array_equal(got[name].numpy(), want[name], err_msg=name)

@@ -3,15 +3,14 @@
 ``tests/golden/regen_golden_wire.py::build_matrix`` (D = 4096, 2 ranks,
 x seed 1234, key seed 99).
 
-The ported presets must match byte for byte with μ computed by the port
-itself (the bf16 wire absorbs the last-bit differences of the mean on this
-input; the binary and ternary planes center at min/max, exact on both
-sides).  The other presets need a wrapper the port does not have yet
-(rotation, error feedback) and must say so by raising NotPortedError,
-never by falling back.
+Every preset must match byte for byte with μ computed by the port itself
+(the bf16 wire absorbs the last-bit differences of the mean on this input;
+the binary and ternary planes center at min/max, exact on both sides).
+The ``ef_*`` presets pack their contractive twin at zero residual; the
+2-means centers and the ternary twin's mean are the port's fixed-order sums,
+whose last-bit differences from ``jnp.sum`` the bf16 wire absorbs here too.
 """
 import pathlib
-import re
 import sys
 
 import jax
@@ -34,15 +33,8 @@ torch.set_num_threads(1)
 
 PORTED = ("fixed_k_1bit", "bernoulli_seed_1bit", "hier_fixed_k", "hier_bernoulli",
           "binary_packed", "ternary_packed", "ternary_opt", "rotated_binary",
-          "rotated_fixed_k")
-# the work of ROADMAP.md queue 1 each waiting preset arrives with
-WAITING = {
-    "ef_rotated_binary": "the error-feedback slice",
-    "ef_fixed_k": "error-feedback slice",
-    "ef_bernoulli": "error-feedback slice",
-    "ef_binary": "error-feedback slice",
-    "ef_ternary": "error-feedback slice",
-}
+          "rotated_fixed_k", "ef_fixed_k", "ef_bernoulli", "ef_binary", "ef_ternary",
+          "ef_rotated_binary")
 # the port's buffer dtype for each wire dtype the golden matrix records
 # (packed planes are uint32 words, held as int32 bit patterns)
 BUFFER_DTYPE = {"bfloat16": torch.bfloat16, "uint32": torch.int32}
@@ -63,7 +55,7 @@ def xs():
 
 def test_preset_tables_agree():
     assert sorted(tregistry.COMPRESSION_PRESETS) == sorted(jregistry.COMPRESSION_PRESETS)
-    assert sorted(PORTED + tuple(WAITING)) == sorted(jregistry.COMPRESSION_PRESETS)
+    assert sorted(PORTED) == sorted(jregistry.COMPRESSION_PRESETS)
     for name, cfg in jregistry.COMPRESSION_PRESETS.items():
         assert convert.compression_config(cfg) == tregistry.COMPRESSION_PRESETS[name]
         assert (convert.compression_config(jregistry.compression_preset(name, axes=("data",)))
@@ -84,13 +76,6 @@ def test_ported_preset_bytes_match_golden(name, golden, xs):
     assert (int(golden[f"{name}.slots"]) == codec.wire_slots(regen.D, cfg)
             == rows[0].size // dtype.itemsize)
     np.testing.assert_array_equal(np.stack(rows), golden[f"{name}.bytes"])
-
-
-@pytest.mark.parametrize("name", sorted(WAITING))
-def test_waiting_preset_raises_not_ported(name):
-    cfg = tregistry.compression_preset(name, axes=("data",))
-    with pytest.raises(twire.NotPortedError, match=re.escape(WAITING[name])):
-        twire.resolve(cfg)
 
 
 def _padded_tree_sum(x):

@@ -76,6 +76,43 @@ def test_encode_kernel_equals_plain(dev, d, p, cap):
     assert _same(bwk.encode(x, key, mu, p=p, cap=cap), bwr.encode(x, key, p, cap, mu))
 
 
+@pytest.mark.parametrize("d,p,cap", [(1, 0.5, None), (70001, 1 / 16, None),
+                                     (70001, 1 / 16, 100), (4103, 0.3, None), (2, 1 / 16, None),
+                                     (2047, 0.5, None), (2049, 0.5, None),
+                                     ((1 << 21) + 3, 1 / 16, 5000)])
+def test_unscaled_encode_kernel_equals_plain(dev, d, p, cap):
+    """Kernel 1's unscaled variant (the error-feedback twin) writes x itself,
+    −0.0 kept, whatever μ (here < 0, where 0·μ would be −0.0)."""
+    cap = cap or comm_cost.bernoulli_capacity(d, p)
+    x = torch.randn(d, device=dev, generator=torch.Generator(dev).manual_seed(d + 3))
+    x[1::3] = -0.0
+    key = R.fold_in(R.PRNGKey(1), 5)
+    mu = torch.tensor(-0.25, device=dev)
+    got = bwk.encode(x, key, mu, p=p, cap=cap, scaled=False)
+    assert _same(got, bwr.encode(x, key, p, cap, mu, scaled=False))
+    assert d < 8 or bool((got.view(torch.int32) == -2 ** 31).any())
+    assert _same(bwk.encode(x, key, mu, p=p, cap=cap), bwr.encode(x, key, p, cap, mu))
+
+
+@pytest.mark.parametrize("d,p", [(1, 0.5), (2049, 0.5), (70001, 1 / 16), ((1 << 21) + 3, 1 / 16)])
+def test_unpack_kernel_from_negative_zero_equals_decode_one(dev, d, p):
+    """Kernel 2 at n = 1 from a −0.0 accumulator is one peer's
+    reconstruction bit for bit, −0.0 values and a −0.0 center included."""
+    cap = comm_cost.bernoulli_capacity(d, p)
+    g = torch.Generator(dev).manual_seed(d)
+    buf = torch.randn(cap, device=dev, generator=g)
+    buf[::2] = -0.0
+    key = R.fold_in(R.PRNGKey(d), 4)
+    for mu in (-0.0, 0.5):
+        mus = torch.tensor([mu], device=dev)
+        got = bwk.decode_sum(buf[None], mus, key[None], p=p, cap=cap, d=d, acc0=-0.0)
+        want = bwr.decode_one(buf, key, p, cap, mus, d)
+        assert _same(got, want)
+        assert _same(got, bwr.decode_sum_sequential(buf[None], mus, key[None], p, cap, d,
+                                                    acc0=-0.0))
+        assert d < 8 or bool((got.view(torch.int32) == -2 ** 31).any())
+
+
 @pytest.mark.parametrize("d,n,cap", [(33, 2, None), (70001, 8, None), (5000, 4, 1500),
                                      # the flat decode's pair chunks at ragged halves:
                                      # odd d, a partial last low chunk, a high chunk
@@ -294,6 +331,12 @@ def _qkv(dev, b, sq, sk, hq, hkv, hd, dtype):
     (1, 100, 100, 2, 2, 64, True, None, 0),       # less than one tile
     (1, 512, 512, 4, 1, 128, True, 200, 0),       # a window straddling key tiles
     (1, 256, 512, 4, 2, 128, True, None, 200),    # q offset not a multiple of 128
+    # hd 32 (lm-8m) on the hd-64 tiles, columns 32-63 zero-filled by TMA
+    (1, 1000, 1000, 4, 2, 32, True, None, 0),     # ragged, causal, g = 2
+    (2, 100, 100, 8, 4, 32, False, None, 0),      # less than one tile, not causal
+    (1, 512, 512, 4, 1, 32, True, 200, 0),        # a window straddling key tiles
+    (1, 256, 512, 4, 2, 32, True, None, 200),     # q offset not a multiple of 128
+    (4, 128, 128, 8, 4, 32, True, None, 0),       # one rank of the training example
 ])
 def test_flash_attention_kernel_within_tolerance_of_plain(dev, dtype, b, sq, sk, hq, hkv, hd,
                                                           causal, window, q_offset):
@@ -359,6 +402,12 @@ def _rel(got, want):
     (2, 100, 100, 8, 2, 128, True, None, 0),
     (1, 256, 512, 4, 2, 64, True, None, 200),     # q offset 200, Sk 512
     (1, 256, 512, 4, 2, 128, True, None, 200),
+    # hd 32 (lm-8m) on the hd-64 tiles
+    (1, 1000, 1000, 4, 2, 32, True, None, 0),     # ragged, g = 2
+    (1, 1024, 1024, 4, 1, 32, True, 200, 0),      # a window across key tiles
+    (2, 100, 100, 8, 4, 32, False, None, 0),      # less than one tile, not causal
+    (1, 256, 512, 4, 2, 32, True, None, 200),     # q offset 200, Sk 512
+    (4, 128, 128, 8, 4, 32, True, None, 0),       # one rank of the training example
 ])
 def test_flash_attention_bwd_kernels_within_tolerance_of_plain(dev, dtype, b, sq, sk, hq, hkv,
                                                                hd, causal, window, q_offset):
@@ -376,18 +425,19 @@ def test_flash_attention_bwd_kernels_within_tolerance_of_plain(dev, dtype, b, sq
             assert _rel(got, w) <= BWD_REL, (name, _rel(got, w))
 
 
-def test_flash_attention_backward_launches_the_kernels_on_a_card(dev, monkeypatch):
+@pytest.mark.parametrize("hd,suffix", [(128, ""), (32, "_hd32")])
+def test_flash_attention_backward_launches_the_kernels_on_a_card(dev, monkeypatch, hd, suffix):
     def plain(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached the plain version")
 
     monkeypatch.setattr(far, "flash_attention_bwd", plain)
-    q, k, v = (t.requires_grad_() for t in _qkv(dev, 1, 128, 128, 4, 2, 128, torch.bfloat16))
+    q, k, v = (t.requires_grad_() for t in _qkv(dev, 1, 128, 128, 4, 2, hd, torch.bfloat16))
     backend.reset_launches()
     out = fao.flash_attention(q, k, v, causal=True)
     out.float().square().sum().backward()
     torch.cuda.synchronize()
-    assert dict(backend.launches) == {"flash_attention_fwd": 1, "flash_attention_bwd_dkv": 1,
-                                      "flash_attention_bwd_dq": 1}
+    names = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    assert dict(backend.launches) == {n + suffix: 1 for n in names}
     assert q.grad.dtype == torch.bfloat16 and k.grad.shape == k.shape
     assert all(bool(torch.isfinite(t.grad.float()).all()) for t in (q, k, v))
 
@@ -410,9 +460,9 @@ def test_training_step_flash_matches_xla_on_a_card(dev):
         step_fn, init_fn, _ = build_train_step(
             cfg, run, shape, 2, device=dev,
             on_phase=lambda name, **st: seen.update(st) if name == "sync" else None)
-        params, opt = init_fn(0)
+        params, opt, ef = init_fn(0)
         backend.reset_launches()
-        _, _, metrics = step_fn(params, opt, SyntheticLM(cfg, shape).batch(0, dev), 0)
+        _, _, _, metrics = step_fn(params, opt, ef, SyntheticLM(cfg, shape).batch(0, dev), 0)
         torch.cuda.synchronize()
         out[impl] = (float(metrics["loss"]), seen["synced"], dict(backend.launches))
     (lf, gf, nf), (lx, gx, nx) = out["flash"], out["xla"]
@@ -527,3 +577,32 @@ def test_round_on_card_equals_cpu(dev, n, preset, mode, data, d):
     got = tcoll.compressed_mean(x.to(dev), key, cfg, tcoll.StackedComm(n, dev))
     want = tcoll.compressed_mean(x, key, cfg, tcoll.StackedComm(n, "cpu"))
     assert _same(got.cpu(), want)
+
+
+# the error-feedback presets and the training default with error feedback
+EF_ROUND_CASES = ("ef_fixed_k", "ef_bernoulli", "ef_binary", "ef_ternary", "ef_rotated_binary",
+                  "fixed_k_1bit")
+
+
+@pytest.mark.parametrize("data,d", [("grid", 1 << 16), ("gauss", 70_001)])
+@pytest.mark.parametrize("preset", EF_ROUND_CASES)
+def test_ef_round_on_card_equals_cpu(dev, preset, data, d):
+    """Two stateful rounds at n = 3 from the same nonzero residuals: the
+    card's estimates and residuals equal the CPU's bit for bit (the 2-means
+    sums, the ternary twin's mean and μ are fixed-order tree sums; the
+    Bernoulli twin's unpack is kernel 2 from −0.0 on the card, the plain
+    draw on the CPU)."""
+    n = 3
+    cfg = dataclasses.replace(compression_preset(preset, axes=("data",)), min_compress_size=1,
+                              error_feedback=True)
+    e0 = 0.1 * (_grid_stack if data == "grid" else _gauss_stack)(n, d, 7)
+    states = {"cpu": e0.clone(), "cuda": e0.to(dev)}
+    for t in range(2):
+        x = (_grid_stack if data == "grid" else _gauss_stack)(n, d, n + t)
+        key = R.fold_in(R.PRNGKey(17), t)
+        got, states["cuda"] = tcoll.compressed_mean_stateful(
+            x.to(dev), states["cuda"], key, cfg, tcoll.StackedComm(n, dev))
+        want, states["cpu"] = tcoll.compressed_mean_stateful(
+            x, states["cpu"], key, cfg, tcoll.StackedComm(n, "cpu"))
+        assert _same(got.cpu(), want), t
+        assert _same(states["cuda"].cpu(), states["cpu"]), t

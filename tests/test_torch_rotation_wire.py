@@ -138,7 +138,6 @@ def test_registry_wraps_and_later_slices_raise():
     assert {"rotated_binary", "rotated_fixed_k"} <= set(twire.names())
     with pytest.raises(ValueError, match="does not nest"):
         type(codec)(codec)
-    with pytest.raises(twire.NotPortedError, match="error-feedback slice"):
-        codec.state_shape(D, cfg)
+    assert codec.state_shape(D, cfg) is None and not codec.stateful   # forwarded
     with pytest.raises(twire.NotPortedError, match="robust-decode slice"):
         codec.decode_rows_reduce(None, None, cfg, D, 2)

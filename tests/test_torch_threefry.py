@@ -67,6 +67,18 @@ def test_uniform_equals_jax_random_non_partitionable(seed, d):
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
+@pytest.mark.parametrize("chunk", (1, 3, 4))
+@pytest.mark.parametrize("d", (1, 2, 5, 6, 7, 8, 33, 1001))
+def test_uniform_in_chunks_equals_jax_random(d, chunk, monkeypatch):
+    """The chunked draw at chunk boundaries of every kind (the last chunk's
+    high lanes partly real, the odd-d pad inside a chunk) equals JAX's."""
+    monkeypatch.setattr(tref, "UNIFORM_CHUNK", chunk)
+    with jax.threefry_partitionable(False):
+        want = np.asarray(jax.random.uniform(_jkey(3), (d,), jnp.float32))
+    got = R.uniform(R.PRNGKey(3), d).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
 def test_threefry2x32_words():
     rng = np.random.default_rng(0)
     k0, k1 = (int(v) for v in rng.integers(0, 2**32, 2, dtype=np.uint64))

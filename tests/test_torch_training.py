@@ -257,7 +257,8 @@ def test_two_steps_match_reference(bucketed):
     data = SyntheticLM(CFG, SHAPE)
     lrs = []
     for step in range(2):
-        params, opt, m = step_fn(params, opt, data.batch(step, "cpu"), step)
+        params, opt, ef, m = step_fn(params, opt, {}, data.batch(step, "cpu"), step)
+        assert ef == {}
         np.testing.assert_allclose(float(m["loss"]), want_metrics[step]["loss"],
                                    rtol=LOSS_TOL["bfloat16"])
         np.testing.assert_allclose(float(m["grad_norm"]), want_metrics[step]["grad_norm"],
@@ -298,9 +299,10 @@ def test_stacked_ranks_and_sync_n4(bucketed):
     step_fn, init_fn, plan = tts.build_train_step(
         CFG, run, SHAPE, n, device="cpu",
         on_phase=lambda name, **st: seen.setdefault(name, {k: v for k, v in st.items()}))
-    params, opt = init_fn(0)
+    params, opt, ef = init_fn(0)
+    assert ef == {}
     batch = SyntheticLM(CFG, SHAPE).batch(0, "cpu")
-    step_fn(params, opt, batch, 0)
+    step_fn(params, opt, ef, batch, 0)
     stacks, synced, key = seen["sync"]["grads"], seen["sync"]["synced"], seen["sync"]["key"]
     for r in range(n):
         own = _rank_grads(run, params, {k: v[r:r + 1] for k, v in batch.items()})
@@ -308,10 +310,10 @@ def test_stacked_ranks_and_sync_n4(bucketed):
     comm = StackedComm(n, "cpu")
     if bucketed:
         assert any(b.kind == "compressed" for b in plan.buckets)
-        want = bucketing.sync_grads_bucketed(stacks, plan, run.compression, key, comm)
+        want, _ = bucketing.sync_grads_bucketed(stacks, plan, run.compression, key, comm)
     else:
         _, specs = tts.param_shapes(CFG)
-        want = tts.sync_grads(stacks, specs, ("data",), run.compression, key, comm)
+        want, _ = tts.sync_grads(stacks, specs, ("data",), run.compression, key, comm)
     assert sorted(want) == sorted(synced)
     assert all(torch.equal(synced[k], want[k]) for k in want)
     exact = {k: v.mean(0) for k, v in stacks.items()}
@@ -326,9 +328,9 @@ def test_microbatches_accumulate_the_sum():
     step_fn, init_fn, _ = tts.build_train_step(
         CFG, run, SHAPE, n, device="cpu",
         on_phase=lambda name, **st: seen.setdefault(name, st))
-    params, opt = init_fn(1)
+    params, opt, ef = init_fn(1)
     batch = SyntheticLM(CFG, SHAPE).batch(3, "cpu")
-    _, _, metrics = step_fn(params, opt, batch, 3)
+    _, _, _, metrics = step_fn(params, opt, ef, batch, 3)
     stacks = seen["backward"]["grads"]
     rows = B // n // mbs
     for r in range(n):
@@ -352,9 +354,6 @@ def test_trainer_fit_three_steps():
 def test_unported_options_raise():
     with pytest.raises(NotPortedError):
         Trainer(CFG, RunConfig(), SHAPE, TrainerConfig(ckpt_dir="ckpt"), n=1, device="cpu")
-    ef = dataclasses.replace(_fixed_k(), mode="gather_decode", error_feedback=True)
-    with pytest.raises(NotPortedError):
-        tts.build_train_step(CFG, RunConfig(compression=ef), SHAPE, 1, device="cpu")
     with pytest.raises(NotPortedError):
         RunConfig(fsdp=True)
     with pytest.raises(NotPortedError):
