@@ -64,7 +64,13 @@ Phases, each printing its own lines:
    ``DIVIDE_CASES`` at n = 3 on the card equals the CPU's bit for bit, and
    two error-feedback rounds of each of ``EF_CASES`` (the five ``ef_*``
    presets, ``fixed_k_1bit`` + EF) from the same nonzero residuals give the
-   same estimates and residuals on both;
+   same estimates and residuals on both; and that the robust decode does
+   not depend on the device (``check_robust``, n = 3 and 8): each gather
+   preset under trim(1), median, mean_trim(1) and the masked mean, with a
+   dropped peer and with each Byzantine row mode, ``fixed_k_1bit`` and the
+   ``ef_*`` presets with a mask, and ``reduce_rows`` over ±0.0, ±NaN and
+   ±Inf columns with the mask on the card under the sync debug mode
+   "error" (no host sync);
 3. the sync path: ``sync_grads_bucketed`` over the qwen3-4b gradient tree
    (full width, 4 of 36 layers, 792,657,920 compressed coordinates per
    rank) on ``StackedComm(8, "cuda")`` for each preset of
@@ -123,7 +129,17 @@ Phases, each printing its own lines:
    exactly 0) and the measured bits equal to ``expected_bits`` (within 1%
    for the Bernoulli protocols, whose support size is random); then the
    federated example's straggler round at n = 32, d = 2^20, each error
-   within 10% of its closed form.
+   within 10% of its closed form;
+7. robust decode and fault tolerance (``run_robust``): one
+   ``compressed_mean`` round at the embed bucket (n = 8, d = 388,956,160)
+   of ``bernoulli_seed_1bit``, ``binary_packed`` and ``rotated_binary``
+   under the mean and under trim(1): finite, the same wire bytes, trim(1)'s
+   launches (one unpack, kernel 2 or 6, a peer row), its error within
+   ``mse_trimmed``'s bound, the ``decode_rows`` stack and the reduction
+   timed apart; ``robust_compressed_mean`` with ``FailurePlan(rate=0.25)``
+   over 3 steps, each equal bit for bit to a survivors-only rerun; one
+   bucketed sync of phase 3's tree under ``robust_preset("binary_packed",
+   "trim(1)")``.
 
 Then one JSON line with every kernel's numbers and, last, the device line.
 Exits nonzero, and prints no result, when there is no CUDA card, when the
@@ -958,6 +974,102 @@ def check_divide(n: int) -> None:
     print(f"  error feedback at n={n}, d=70001, Gaussian, two rounds from nonzero residuals "
           f"({', '.join(EF_CASES[:-1])}, fixed_k_1bit + EF): estimates and residuals card == "
           "CPU bit for bit", flush=True)
+
+
+# robust decode: the decode policies of the phase-2 matrix, each with
+# whether its clean round drops a peer; the Byzantine rounds drop none
+ROBUST_POLICIES = (("trim(1)", False), ("median", False), ("mean_trim(1)", False),
+                   ("mean", True))
+ROBUST_D = 8_209
+
+
+def same_or_nan(a, b) -> bool:
+    """:func:`same_bits`, NaN where the other is NaN: a NaN's sign and
+    payload are the platform's (the card returns its canonical NaN, the
+    CPU one operand's)."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (a.shape == b.shape and torch.equal(na, nb)
+            and same_bits(a[~na].contiguous(), b[~nb].contiguous()))
+
+
+def check_robust(n: int) -> None:
+    """The robust decode on the card equals the CPU's: for each gather
+    preset and each of ``ROBUST_POLICIES``, one round with the last peer
+    dropped (the masked mean) or none (the order statistics), and one with
+    each ``corrupt_wire_row`` mode injected into rank 1's gathered wire row
+    (``ByzantineComm``), on Gaussian inputs with a block of ±0.0 columns;
+    the masked psum of ``fixed_k_1bit`` and the five ``ef_*`` presets with
+    a mask (one stateful round from nonzero residuals); and
+    ``robust.reduce_rows`` for every kind over a stack with ±0.0 ties, NaN
+    of both signs and ±Inf columns, masked and not, under
+    ``torch.cuda.set_sync_debug_mode("error")``: the mask on the card
+    causes no host sync."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.configs.registry import (COMPRESSION_PRESETS, compression_preset,
+                                              robust_preset)
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.wire import robust
+    from repro_torch.distributed import fault_tolerance as ft
+
+    d = ROBUST_D
+    x = torch.randn(n, d, generator=torch.Generator().manual_seed(n + 3)) * 0.5 + 0.01
+    x[:, :64] = 0.0
+    x[1::2, :32] = -0.0
+    key = R.fold_in(R.PRNGKey(19), n)
+    mask = torch.ones(n)
+    mask[n - 1] = 0.0
+    presets = sorted(p for p in COMPRESSION_PRESETS if p != "fixed_k_1bit")
+    for preset in presets:
+        for policy, drop in ROBUST_POLICIES:
+            cfg = dataclasses.replace(robust_preset(preset, policy, axes=("data",)),
+                                      min_compress_size=1)
+            for mode in (None,) + ft.CORRUPTION_MODES:
+                out = {}
+                for dev in ("cpu", "cuda"):
+                    comm = coll.StackedComm(n, dev)
+                    if mode is not None:
+                        comm = ft.ByzantineComm(comm, 1, mode)
+                    dm = mask.to(dev) if drop and mode is None else None
+                    out[dev] = coll.compressed_mean(x.to(dev), key, cfg, comm, drop_mask=dm)
+                need(same_or_nan(out["cuda"].cpu(), out["cpu"]),
+                     f"robust n={n} {preset} {policy} {mode or 'dropped peer'}: card != CPU")
+    e0 = torch.randn(n, d, generator=torch.Generator().manual_seed(n + 4)) * 0.05
+    for preset in ("fixed_k_1bit",) + EF_CASES[:-1]:
+        cfg = dataclasses.replace(compression_preset(preset, axes=("data",)), min_compress_size=1)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            res[dev] = coll.compressed_mean_stateful(x.to(dev), e0.clone().to(dev), key, cfg,
+                                                     coll.StackedComm(n, dev), mask.to(dev))
+        need(same_bits(res["cuda"][0].cpu(), res["cpu"][0])
+             and same_bits(res["cuda"][1].cpu(), res["cpu"][1]),
+             f"masked round n={n} {preset}: card != CPU")
+    s = torch.randn(n, 4099, generator=torch.Generator().manual_seed(n))
+    s[:, 0] = 0.0
+    s[1::2, 0] = -0.0
+    s[0, 1], s[1, 1] = float("nan"), -float("nan")
+    s[:, 2] = float("nan")
+    s[0, 3], s[1, 3] = float("inf"), -float("inf")
+    s[:, 4:64] = torch.round(s[:, 4:64])
+    sd = s.cuda()
+    for kind, f in (("mean", 0), ("trim", 1), ("median", 0), ("mean_trim", 1), ("mean_trim", 0)):
+        for m in (None, mask, torch.zeros(n)):
+            md = None if m is None else m.cuda()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = robust.reduce_rows(sd, kind, f, md)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            need(same_or_nan(got.cpu(), robust.reduce_rows(s, kind, f, m)),
+                 f"reduce_rows n={n} {kind}({f}) mask {m}: card != CPU")
+    print(f"  robust decode at n={n}, d={d} ({len(presets)} gather presets x trim(1), median, "
+          "mean_trim(1), the masked mean; a dropped peer and each Byzantine row mode), "
+          "fixed_k_1bit and the ef_* presets masked: card == CPU (NaN for NaN); reduce_rows "
+          "over ±0.0, ±NaN and ±Inf columns with the mask on the card: no host sync, card == "
+          "CPU", flush=True)
 
 
 def time_center(main_d: int) -> None:
@@ -2064,6 +2176,186 @@ def run_single_host() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# Phase 7: robust decode and fault tolerance at full width.
+# --------------------------------------------------------------------------- #
+
+ROBUST_FULL_PRESETS = ("bernoulli_seed_1bit", "binary_packed", "rotated_binary")
+# kernel launches of one trim(1) round at n ranks: the packs as in
+# ``expected_launches``, then one unpack a peer row to build the (n, d)
+# stack (kernel 2 at n = 1 from −0.0, counted as bernoulli_unpack; kernel 6
+# for the plane), and for the rotation one unrotate of the estimate
+ROBUST_LAUNCHES = {
+    "bernoulli_seed_1bit": lambda n: {"bernoulli_encode": n, "bernoulli_unpack": n},
+    "binary_packed": lambda n: {"bitplane_pack": n, "bitplane_unpack": n},
+    "rotated_binary": lambda n: {"rotate_minmax": n, "encode_pack": n, "bitplane_unpack": n,
+                                 "fwht": 1},
+}
+PLAN_RATE, PLAN_STEPS = 0.25, 3
+
+
+def wire_comm(n: int):
+    """``StackedComm(n, "cuda")`` that also records the bytes of its first
+    all_gather: a round's packed wire rows."""
+    from repro_torch.core.collectives import StackedComm
+
+    class WireComm(StackedComm):
+        wire_bytes = None
+
+        def all_gather(self, local):
+            if self.wire_bytes is None:
+                self.wire_bytes = local.numel() * local.element_size()
+            return super().all_gather(local)
+
+    return WireComm(n, "cuda")
+
+
+def sq_err(y, want) -> float:
+    """Σ (y − want)² in f64, 2^24 coordinates at a time."""
+    import torch
+
+    step = 1 << 24
+    return sum(float(torch.sum((y[i:i + step] - want[i:i + step]).double() ** 2))
+               for i in range(0, y.numel(), step))
+
+
+def run_robust(main_d: int, launches_total) -> dict:
+    """The robust decode at the embed bucket (d = ``main_d``, n = 8 stacked):
+    one ``compressed_mean`` round of each of ``ROBUST_FULL_PRESETS`` under
+    the mean and under trim(1): finite, the same wire bytes (the policy
+    never touches the wire), trim(1)'s launches per ``ROBUST_LAUNCHES``, its
+    squared error within ``mse_trimmed``'s bound (Bernoulli, binary); the
+    (n, d) ``decode_rows`` stack and the reduction timed apart by CUDA
+    events on the round's own rows.  Then ``robust_compressed_mean`` of
+    ``bernoulli_seed_1bit`` with ``FailurePlan(rate=0.25)`` over 3 steps,
+    each step's masked mean bit for bit a survivors-only rerun under the
+    original peer indices; then one ``sync_grads_bucketed`` step of phase
+    3's qwen3-4b tree under ``robust_preset("binary_packed", "trim(1)")``:
+    launches, bytes against the accounting, finite, error within the
+    buckets' ``mse_trimmed_binary`` bounds."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.configs.registry import robust_preset
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import mse, rotation
+    from repro_torch.core import wire
+    from repro_torch.core.wire import base, robust
+    from repro_torch.distributed import fault_tolerance as ft
+    from repro_torch.kernels import backend
+    from repro_torch.train import bucketing, synthetic
+
+    torch.cuda.empty_cache()
+    n, d = synthetic.N, main_d
+    dev = torch.device("cuda")
+    x = torch.randn(n, d, generator=torch.Generator(device=dev).manual_seed(23), device=dev)
+    xbar = x.mean(0)
+    key = R.PRNGKey(29)
+    out = {"n": n, "d": d, "presets": {}}
+    for name in ROBUST_FULL_PRESETS:
+        res = {}
+        for policy in ("mean", "trim(1)"):
+            cfg = robust_preset(name, policy, axes=("data",))
+            comm = wire_comm(n)
+            torch.cuda.synchronize()
+            backend.reset_launches()
+            t0 = time.perf_counter()
+            y = coll.compressed_mean(x, key, cfg, comm)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = dict(backend.launches)
+            need(tuple(y.shape) == (d,) and bool(torch.isfinite(y).all()),
+                 f"robust {name} {policy}: estimate not finite or of shape {tuple(y.shape)}")
+            res[policy] = {"round_ms": ms, "wire_bytes": comm.wire_bytes,
+                           "err": sq_err(y, xbar), "launches": counts}
+            del y
+        launches_total.update(res["trim(1)"]["launches"])
+        need(res["trim(1)"]["launches"] == ROBUST_LAUNCHES[name](n),
+             f"robust {name}: launches {res['trim(1)']['launches']} != "
+             f"{ROBUST_LAUNCHES[name](n)}")
+        codec = wire.resolve(cfg)
+        want_bytes = codec.wire_bits(n, d, cfg) / 8
+        need(res["trim(1)"]["wire_bytes"] == res["mean"]["wire_bytes"] == want_bytes,
+             f"robust {name}: wire bytes {res['trim(1)']['wire_bytes']} (trim) "
+             f"{res['mean']['wire_bytes']} (mean) != {want_bytes}")
+        if name != "rotated_binary":
+            bound = float(mse.mse_trimmed_binary(x, 1) if name == "binary_packed" else
+                          mse.mse_trimmed_bernoulli(x, cfg.encoder.fraction, x.mean(1), 1))
+            need(res["trim(1)"]["err"] <= bound,
+                 f"robust {name}: error {res['trim(1)']['err']:.6g} over mse_trimmed {bound:.6g}")
+            res["mse_trimmed"] = bound
+        # the stack and the reduction apart, on the round's rows (rotated: at dp)
+        rows = torch.stack([codec.pack(x[i], key, i, cfg) for i in range(n)])
+        inner, dd = ((codec.inner, rotation.padded_dim(d)) if name == "rotated_binary"
+                     else (codec, d))
+        res["decode_rows_ms"] = cuda_ms(lambda: inner.decode_rows(rows, key, cfg, dd, n), reps=2)
+        stack = inner.decode_rows(rows, key, cfg, dd, n)
+        res["reduce_ms"] = cuda_ms(lambda: robust.reduce_rows(stack, "trim", 1), reps=2)
+        del rows, stack
+        torch.cuda.empty_cache()
+        out["presets"][name] = res
+        print(f"  robust {name} trim(1): {json.dumps(res)}", flush=True)
+
+    plan = ft.FailurePlan(rate=PLAN_RATE, seed=5)
+    cfg = robust_preset("bernoulli_seed_1bit", "mean", axes=("data",))
+    codec = wire.resolve(cfg)
+    out["failure_plan"] = []
+    for step in range(PLAN_STEPS):
+        ks = R.fold_in(key, step)
+        torch.cuda.synchronize()
+        backend.reset_launches()
+        t0 = time.perf_counter()
+        y = ft.robust_compressed_mean(x, ks, cfg, step, plan, coll.StackedComm(n, dev))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(backend.launches)
+        launches_total.update(counts)
+        need(counts == ROBUST_LAUNCHES["bernoulli_seed_1bit"](n),
+             f"failure plan step {step}: launches {counts}")
+        alive = plan.alive_mask(step, n, "cpu").tolist()
+        acc = torch.zeros(d, device=dev)
+        for i in range(n):
+            if alive[i]:
+                acc = acc + codec.unpack(codec.pack(x[i], ks, i, cfg), i, ks, cfg, d)
+        need(same_bits(y, base.divide(acc, sum(alive))),
+             f"failure plan step {step}: masked mean != the survivors-only rerun")
+        out["failure_plan"].append({"alive": alive, "round_ms": ms, "err": sq_err(y, xbar)})
+        del y, acc
+    del x, xbar
+    torch.cuda.empty_cache()
+
+    cmp = robust_preset("binary_packed", "trim(1)", axes=("data",))
+    shapes, bplan, comm = synthetic.main_path(cmp, dev)
+    comp = [b for b in bplan.buckets if b.kind == "compressed"]
+    _, want_bytes = wire_accounting(bplan, cmp, n)
+    grads = synthetic.synthetic_grads(shapes, n, 0, dev)
+    key = synthetic.step_key(0)
+    torch.cuda.synchronize()
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    synced, _ = bucketing.sync_grads_bucketed(grads, bplan, cmp, key, comm)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(backend.launches)
+    launches_total.update(counts)
+    want = {k: v * len(comp) for k, v in ROBUST_LAUNCHES["binary_packed"](n).items()}
+    need(counts == want, f"robust sync: launches {counts} != {want}")
+    need(all(bool(torch.isfinite(v).all()) for v in synced.values()), "robust sync: not finite")
+    check_bytes("robust sync", comm, want_bytes)
+    err = bound = 0.0
+    for b in comp:
+        v = bucketing.pack_bucket(grads, b)
+        y = torch.cat([synced[sl.name].reshape(-1) for sl in b.slots])
+        err += sq_err(y, v.mean(0))
+        bound += float(mse.mse_trimmed_binary(v, 1))
+        del v, y
+    need(err <= bound, f"robust sync: error {err:.6g} over the mse_trimmed bounds {bound:.6g}")
+    out["sync"] = {"preset": "binary_packed trim(1)", "ms": ms, "compressed_buckets": len(comp),
+                   "err": err, "mse_trimmed": bound, "launches": counts}
+    del grads, synced
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     setup()
     import torch
@@ -2105,9 +2397,12 @@ def main() -> int:
     check_flash_bwd(records)
     check_hash_encoders(SIZES, main_d, records)
     check_divide(3)
+    check_robust(3)
+    check_robust(8)
     time_center(main_d)
     print(f"[2] wire and encoder kernels bit-equal to their plain versions, flash attention "
-          f"forward and backward within tolerance, decodes at n = 3 equal to the CPU's "
+          f"forward and backward within tolerance, decodes at n = 3 and robust rounds at n = 3 "
+          f"and 8 equal to the CPU's "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     bern = synthetic.preset("bernoulli_seed_1bit")
@@ -2145,6 +2440,10 @@ def main() -> int:
     t0 = time.perf_counter()
     summary = run_single_host()
     print(f"[6] single host {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    summary = run_robust(main_d, total)
+    print(f"[7] robust decode {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
     launches = dict(total)
     for k in REPLACES:
         need(launches.get(k, 0) > 0, f"kernel {k} was never launched on the main path")
@@ -2157,7 +2456,7 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    print(f"[7] total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[8] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -105,6 +105,16 @@ def compression_preset(name: str,
     return dataclasses.replace(cfg, axes=axes, inner_axes=inner)
 
 
+def robust_preset(name: str, policy: str,
+                  axes: Optional[Tuple[str, ...]] = None) -> core_types.CompressionConfig:
+    """A named preset with the decode policy ``policy`` ("trim(1)",
+    "median", "mean_trim(1)", "mean").  The wire is the base preset's byte
+    for byte: only the decode-time reduction changes.  Deliberately not a
+    new preset: the preset dict is the golden wire matrix's universe.
+    ``wire.resolve`` rejects a robust policy on the psum presets."""
+    return dataclasses.replace(compression_preset(name, axes), decode_policy=policy)
+
+
 def smoke_config(name: str) -> ArchConfig:
     """The reference's reduced smoke variant (``repro.configs.registry
     .smoke_config``): same family and topology, tiny dims.  Dense family

@@ -139,22 +139,37 @@ def exact_mean(x, comm):
     return wire_base.divide(comm.psum(flat), comm.size).reshape(shape).to(dtype)
 
 
+def _masked_exact_mean(x, drop_mask, comm):
+    """The exact mean over the ranks the (n,) ``drop_mask`` keeps: the
+    :func:`partial_mean` contract (NaN when none is kept)."""
+    keep = wire_base.local_keep(drop_mask, comm, x.device).to(x.dtype)
+    xk = x * keep.reshape((-1,) + (1,) * (x.dim() - 1))
+    return partial_mean(xk, keep, comm).to(x.dtype)
+
+
+def _exact(x, comm, drop_mask):
+    return exact_mean(x, comm) if drop_mask is None else _masked_exact_mean(x, drop_mask, comm)
+
+
 def compressed_mean(x, key, cfg: t.CompressionConfig, comm, drop_mask=None):
     """Estimate the mean over the communicator's ranks of the (L, *shape)
     stack ``x`` under the configured protocol; returns (*shape).
 
     Unbiased for every ported codec: E[result] = the exact mean (Lemmas
     3.1/3.3).  Mode "none" and buckets below ``min_compress_size`` take the
-    exact mean.  ``drop_mask`` (decode-time peer exclusion) is not ported.
+    exact mean.  ``drop_mask`` is an optional (n,) 0/1 alive mask over the
+    ranks (1 = keep): dropped peers are left out at decode time and the
+    estimate renormalizes over the survivors (NaN when none survives); the
+    wire payload is unchanged.
     """
     if drop_mask is not None:
-        wire_base.check_ported(cfg, drop_mask)
+        wire_base.check_ported(cfg)
     if cfg.mode == "none" or x[0].numel() < cfg.min_compress_size:
-        return exact_mean(x, comm)
-    return registry.resolve(cfg).mean(x, key, cfg, comm)
+        return _exact(x, comm, drop_mask)
+    return registry.resolve(cfg).mean(x, key, cfg, comm, drop_mask)
 
 
-def compressed_mean_stateful(x, state, key, cfg: t.CompressionConfig, comm):
+def compressed_mean_stateful(x, state, key, cfg: t.CompressionConfig, comm, drop_mask=None):
     """One stateful round of the resolved codec over the (L, *shape) stack
     ``x``: returns ((*shape) estimate, new state).
 
@@ -163,15 +178,19 @@ def compressed_mean_stateful(x, state, key, cfg: t.CompressionConfig, comm):
     it is threaded flat through the codec, updated in place where it is
     already f32 and contiguous, and returned in its own shape.  Stateless
     codecs, mode "none" and buckets below ``min_compress_size`` pass it
-    through untouched.
+    through untouched.  ``drop_mask`` as in :func:`compressed_mean`; a
+    dropped rank's residual is still written and re-enters through its own
+    later messages.
     """
+    if drop_mask is not None:
+        wire_base.check_ported(cfg)
     if cfg.mode == "none" or x[0].numel() < cfg.min_compress_size:
-        return exact_mean(x, comm), state
+        return _exact(x, comm, drop_mask), state
     codec = registry.resolve(cfg)
     shape, dtype = x.shape[1:], x.dtype
     flat = x.reshape(x.shape[0], -1).to(torch.float32)
     st = state.reshape(state.shape[0], -1).to(torch.float32)
-    y, st2 = codec.mean_flat_stateful(flat, st, key, cfg, comm)
+    y, st2 = codec.mean_flat_stateful(flat, st, key, cfg, comm, drop_mask)
     return y.reshape(shape).to(dtype), st2.reshape(state.shape).to(state.dtype)
 
 

@@ -3,7 +3,7 @@ Lemma 3.2 (Bernoulli, at a uniform p or per-coordinate probabilities with
 the Remark 1 semantics), Lemma 3.4 and the shared-support fixed-k form,
 Example 4 (binary) with its bound, the corrected Lemma 7.2 (ternary), the
 §7.2 rotation's composition rule, and the Theorem 6.1 forms with R and the
-heterogeneity term.  The trimmed-decode bounds come with robust decode.
+heterogeneity term, and the §14 bounds of the trimmed decode.
 
 Conventions: xs is (n, d); mus (n,).  The sums run one node row at a time,
 so a full-width bucket needs one (d,) temporary, not an (n, d) one.
@@ -129,6 +129,35 @@ def heterogeneity(xs):
     """Σ_i ‖X_i − X̄‖², the data-dispersion term."""
     xbar = torch.mean(xs, dim=0)
     return sum(torch.sum((x - xbar) ** 2) for x in xs)
+
+
+# --- §14: the robust (trimmed) decode ----------------------------------- #
+
+def mse_trimmed(base_mse, xs, f: int):
+    """Clean-regime bound on the trim(f) decoder's MSE (the reference's
+    docs/DESIGN.md §14): m = n − 2f kept rows a coordinate, Cauchy–Schwarz
+    over the ≤ n active terms gives
+
+        MSE_trim ≤ (n²·MSE_mean + Σ_i ‖X_i − X̄‖²) / (n − 2f),
+
+    valid for any rule keeping n − 2f rows a coordinate.  ``f = 0`` returns
+    ``base_mse`` itself: trim(0) is the averaging decoder."""
+    n = xs.shape[0]
+    if f == 0:
+        return base_mse
+    if n <= 2 * f:
+        raise ValueError(f"trim({f}) undefined for n={n}: needs n > 2f")
+    return (n * n * base_mse + heterogeneity(xs)) / (n - 2 * f)
+
+
+def mse_trimmed_bernoulli(xs, probs, mus, f: int):
+    """:func:`mse_trimmed` over the Lemma 3.2 Bernoulli closed form."""
+    return mse_trimmed(mse_bernoulli(xs, probs, mus), xs, f)
+
+
+def mse_trimmed_binary(xs, f: int):
+    """:func:`mse_trimmed` over the Example 4 binary closed form."""
+    return mse_trimmed(mse_binary(xs), xs, f)
 
 
 def thm61_bounds(xs, mus, B):

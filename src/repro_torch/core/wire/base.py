@@ -17,14 +17,19 @@ Local data is always a stack with one row per local rank.  Decoded results
 are the same on every rank by construction, so a round returns one
 estimate, not one per rank.
 
-Ported: the plain averaging decode (``decode_policy="mean"``, no drop
-mask) on one flat compression axis, with and without the §12 scatter
-decode (§13 word-aligned shards for the packed planes), and codec state
-(the error-feedback residual, :mod:`.ef`): a state is an (L, *state_shape)
+Ported: one flat compression axis, with and without the §12 scatter
+decode (§13 word-aligned shards for the packed planes); codec state (the
+error-feedback residual, :mod:`.ef`): a state is an (L, *state_shape)
 stack, one row per local rank beside ``x``'s rows, threaded through
-:meth:`WireCodec.mean_flat_stateful`.  Robust policies, drop masks and
-hierarchical ``inner_axes`` raise :class:`NotPortedError` naming the slice
-that brings them, with state or without.
+:meth:`WireCodec.mean_flat_stateful`; and the §14 decode policies and the
+decode-time drop mask (:mod:`.robust`).  ``cfg.decode_policy == "mean"``
+with no mask keeps each codec's fused decode; a robust policy or a mask
+builds the (n, d) stack of per-peer reconstructions (:meth:`decode_rows`)
+and reduces it coordinate-wise, in the scatter decode per word-aligned
+shard window.  A mask is an (n,) 0/1 tensor over the codec ranks (1 =
+keep); the dropped peers' rows still travel, and psum codecs take the
+mask-weighted mean of the packed buffers.  Hierarchical ``inner_axes``
+raise :class:`NotPortedError` naming the slice that brings them.
 
 Accounting contract: ``comm_cost_bits == wire_bits + seed_bits``.
 """
@@ -35,6 +40,7 @@ from typing import Mapping, Optional, Sequence
 import torch
 
 from repro_torch.core import types as t
+from repro_torch.core.wire import robust
 
 
 class NotPortedError(NotImplementedError):
@@ -66,6 +72,24 @@ def divide(x, n: int):
 def gather_nested(local, comm):
     """all_gather of the local rows over the communicator's ranks."""
     return comm.all_gather(local)
+
+
+def local_keep(drop_mask, comm, device):
+    """The (L,) f32 entries of the (n,) drop mask for the communicator's
+    local ranks, on ``device`` (basic indexing: no index tensor, no sync)."""
+    m = torch.as_tensor(drop_mask).to(device=device, dtype=torch.float32)
+    return torch.stack([m[r] for r in comm.local_ranks])
+
+
+def shard_window(stack, start: int, ds: int):
+    """Columns [start, start + ds) of the (n, d) stack, zero-padded past d."""
+    n, d = stack.shape
+    win = stack[:, start:start + ds]
+    if win.shape[1] == ds:
+        return win
+    out = torch.zeros((n, ds), dtype=stack.dtype, device=stack.device)
+    out[:, :win.shape[1]] = win
+    return out
 
 
 def scatter_axes(cfg: t.CompressionConfig):
@@ -168,15 +192,8 @@ def center(x, policy: str):
                      "(optimal centers need the §6 solver — reference path only)")
 
 
-def check_ported(cfg: t.CompressionConfig, drop_mask=None) -> None:
+def check_ported(cfg: t.CompressionConfig) -> None:
     """Raise NotPortedError for the round options the port does not have."""
-    if drop_mask is not None:
-        raise _not_ported("decode-time peer exclusion (drop_mask)",
-                          "the robust-decode slice")
-    kind, _ = t.parse_decode_policy(cfg.decode_policy)
-    if kind != "mean":
-        raise _not_ported(f"decode_policy {cfg.decode_policy!r}",
-                          "the robust-decode slice")
     if cfg.inner_axes:
         raise _not_ported(f"the hierarchical schedule (inner_axes={cfg.inner_axes})",
                           "the hierarchical-collectives slice")
@@ -247,6 +264,32 @@ class WireCodec:
             acc = acc + self.unpack(rows[i], i, key, cfg, d)
         return divide(acc, n)
 
+    def decode_rows(self, rows, key, cfg: t.CompressionConfig, d: int, n: int):
+        """The (n, d) f32 stack of per-peer reconstructions: row i is
+        ``unpack(rows[i], i, ...)``, the input of the robust reductions."""
+        out = torch.empty((n, d), dtype=torch.float32, device=rows.device)
+        for i in range(n):
+            out[i] = self.unpack(rows[i], i, key, cfg, d)
+        return out
+
+    def decode_rows_shard(self, rows, key, cfg: t.CompressionConfig, d: int,
+                          n: int, start: int, ds: int, nshards: int):
+        """The (n, ds) window ``decode_rows(...)[:, start:start + ds]``,
+        zero-padded past d (``nshards·ds ≥ d``); a bit-plane codec's caller
+        passes a word-aligned ``ds``."""
+        return shard_window(self.decode_rows(rows, key, cfg, d, n), start, ds)
+
+    def decode_rows_reduce(self, rows, key, cfg: t.CompressionConfig, d: int,
+                           n: int, drop_mask=None):
+        """The flat decode under ``cfg.decode_policy``: the fused
+        :meth:`decode_gathered` for the plain mean without a mask, else
+        :func:`robust.reduce_rows` over :meth:`decode_rows` (the masked mean
+        renormalizes by the kept count, NaN when none is kept)."""
+        kind, f = robust.parse_policy(cfg.decode_policy)
+        if kind == "mean" and drop_mask is None:
+            return self.decode_gathered(rows, key, cfg, d, n)
+        return robust.reduce_rows(self.decode_rows(rows, key, cfg, d, n), kind, f, drop_mask)
+
     def decode_gathered_shard(self, rows, key, cfg: t.CompressionConfig,
                               d: int, n: int, shard: int, nshards: int):
         """Shard ``shard`` of ``nshards`` of :meth:`decode_gathered`."""
@@ -282,65 +325,96 @@ class WireCodec:
             return None
         return torch.zeros((local,) + tuple(shp), dtype=torch.float32, device=device)
 
-    def mean_flat_stateful(self, x, state, key, cfg: t.CompressionConfig, comm):
+    def mean_flat_stateful(self, x, state, key, cfg: t.CompressionConfig, comm,
+                           drop_mask=None):
         """One stateful round over the (L, d) stack ``x`` and its (L, ...)
         ``state``: returns (the (d,) estimate, the new state).  A stateless
         codec passes the state through, so every codec is drivable through
-        this one entry point."""
+        this one entry point.  ``drop_mask`` as in :meth:`mean_flat`."""
         check_ported(cfg)
-        return self._round_stateful(x, state, key, cfg, comm)
+        return self._round_stateful(x, state, key, cfg, comm, drop_mask)
 
-    def _round_stateful(self, x, state, key, cfg: t.CompressionConfig, comm):
+    def _round_stateful(self, x, state, key, cfg: t.CompressionConfig, comm,
+                        drop_mask=None):
         """Stateful companion of :meth:`_round`."""
-        return self._round(x, key, cfg, comm), state
+        return self._round(x, key, cfg, comm, drop_mask), state
 
     # ---- the collective --------------------------------------------------- #
 
-    def mean_flat(self, x, key, cfg: t.CompressionConfig, comm):
+    def mean_flat(self, x, key, cfg: t.CompressionConfig, comm, drop_mask=None):
         """Estimate the mean over the communicator's ranks of the (L, d) f32
-        local stack ``x``; returns the (d,) estimate every rank holds."""
-        check_ported(cfg)
-        return self._round(x, key, cfg, comm)
+        local stack ``x``; returns the (d,) estimate every rank holds.
 
-    def _round(self, x, key, cfg: t.CompressionConfig, comm):
-        """One codec round: pack per local rank, then psum (mean of the
-        buffers, rounded once to the wire dtype) and decode the reduced
-        buffer, or all_gather and decode the rows."""
+        ``drop_mask``: an optional (n,) 0/1 alive mask over the ranks (1 =
+        keep).  The dropped peers' buffers still travel; the decode leaves
+        them out and renormalizes over the kept ones (NaN when none is
+        kept), which equals a decode of the survivors' rows alone under
+        their own peer indices.
+        """
+        check_ported(cfg)
+        return self._round(x, key, cfg, comm, drop_mask)
+
+    def _round(self, x, key, cfg: t.CompressionConfig, comm, drop_mask=None):
+        """One codec round: pack per local rank, then :meth:`_reduce_decode`."""
         ranks, _ = axis_rank_size(comm)
         bufs = torch.stack([self.pack(x[i], key, r, cfg) for i, r in enumerate(ranks)])
-        return self._reduce_decode(bufs, key, cfg, x.shape[1], comm)
+        return self._reduce_decode(bufs, key, cfg, x.shape[1], comm, drop_mask)
 
-    def _reduce_decode(self, bufs, key, cfg: t.CompressionConfig, d: int, comm):
+    def _reduce_decode(self, bufs, key, cfg: t.CompressionConfig, d: int, comm,
+                       drop_mask=None):
         """The tail of every round over the (L, slots) packed ``bufs``: psum
         (mean of the buffers, rounded once to the wire dtype) and decode the
-        reduced buffer, or all_gather and decode the rows."""
+        reduced buffer, or all_gather and decode the rows.  With a mask the
+        psum is the mask-weighted mean Σ keep_i·buf_i / Σ keep_i (the decode
+        is affine in the wire values, so leaving out a buffer leaves out its
+        message); the buffers are masked at the wire dtype, where × 0 and × 1
+        are exact, so the wire keeps its width."""
         if self.reduce == "psum":
-            _, n = axis_rank_size(comm)
-            wire = divide(comm.psum(bufs), n).to(bufs.dtype)
+            if drop_mask is None:
+                _, n = axis_rank_size(comm)
+                wire = divide(comm.psum(bufs), n).to(bufs.dtype)
+            else:
+                keep = local_keep(drop_mask, comm, bufs.device)
+                num = comm.psum(bufs * keep.to(bufs.dtype)[:, None])
+                den = comm.psum(keep[:, None]).reshape(())
+                wire = (num / den).to(bufs.dtype)
             return self.decode_reduced(wire, key, cfg, d)
-        return self.gather_decode(bufs, key, cfg, d, comm)
+        return self.gather_decode(bufs, key, cfg, d, comm, drop_mask)
 
-    def gather_decode(self, bufs, key, cfg: t.CompressionConfig, d: int, comm):
+    def gather_decode(self, bufs, key, cfg: t.CompressionConfig, d: int, comm,
+                      drop_mask=None):
         """all_gather the packed buffers and decode.
 
         With ``cfg.scatter_decode`` (flat mesh, §12) each rank decodes only
         its contiguous shard of all n rows and one all_gather of decoded
         shards reassembles the estimate; shards concatenate in rank order
-        and pads sit past d, so the result equals the flat decode.
+        and pads sit past d, so the result equals the flat decode.  A robust
+        policy or a mask reduces the per-peer stack instead: flat through
+        :meth:`decode_rows_reduce`, scattered per word-aligned shard window
+        of the stack (built once for every local shard: the windows are
+        slices of the same rows), which partitions like the mean.
         """
         ranks, n = axis_rank_size(comm)
         rows = gather_nested(bufs, comm).reshape(n, bufs.shape[1])
         if not cfg.scatter_decode:
-            return self.decode_gathered(rows, key, cfg, d, n)
-        parts = self.decode_shards(rows, key, cfg, d, n, ranks, comm)
+            return self.decode_rows_reduce(rows, key, cfg, d, n, drop_mask)
+        kind, f = robust.parse_policy(cfg.decode_policy)
+        if kind == "mean" and drop_mask is None:
+            parts = self.decode_shards(rows, key, cfg, d, n, ranks, comm)
+        else:
+            ds = scatter_shard_len(d, n, self.scatter_align(cfg))
+            stack = self.decode_rows(rows, key, cfg, d, n)
+            parts = torch.stack([robust.reduce_rows(shard_window(stack, s * ds, ds), kind, f,
+                                                    drop_mask) for s in ranks])
+            del stack
         return gather_nested(parts, comm).reshape(-1)[:d]
 
-    def mean(self, x, key, cfg: t.CompressionConfig, comm):
+    def mean(self, x, key, cfg: t.CompressionConfig, comm, drop_mask=None):
         """Shape/dtype-preserving wrapper: ``x`` is (L, *shape), the result
         (*shape)."""
         shape, dtype = x.shape[1:], x.dtype
         flat = x.reshape(x.shape[0], -1).to(torch.float32)
-        y = self.mean_flat(flat, key, cfg, comm)
+        y = self.mean_flat(flat, key, cfg, comm, drop_mask)
         return y.reshape(shape).to(dtype)
 
     def __repr__(self):

@@ -336,10 +336,15 @@ class EFCodec(base.WireCodec):
     def decode_reduced(self, wire, key, cfg, d):
         return self.inner.decode_reduced(wire, key, cfg, d)
 
-    def gather_decode(self, bufs, key, cfg, d, comm):
+    def gather_decode(self, bufs, key, cfg, d, comm, drop_mask=None):
         # whole delegation: a rotated inner owns its scatter decomposition
-        # (shards in rotated space at the padded length)
-        return self.inner.gather_decode(bufs, key, cfg, d, comm)
+        # (shards in rotated space at the padded length).  Robust policies
+        # and masks delegate the same way; a dropped rank's residual stays
+        # local and re-enters through its own later messages.
+        return self.inner.gather_decode(bufs, key, cfg, d, comm, drop_mask)
+
+    def decode_rows_reduce(self, rows, key, cfg, d, n, drop_mask=None):
+        return self.inner.decode_rows_reduce(rows, key, cfg, d, n, drop_mask)
 
     # ---- the stateful round ----------------------------------------------- #
 
@@ -352,12 +357,13 @@ class EFCodec(base.WireCodec):
         wire; a narrower wire adds its rounding)."""
         return _twin_bound(self.inner, flat, key, cfg)
 
-    def _round_stateful(self, x, state, key, cfg, comm):
+    def _round_stateful(self, x, state, key, cfg, comm, drop_mask=None):
         """One EF round over the (L, d) stack ``x`` and its (L, d) residual
         ``state``: (estimate, state), each row of ``state`` overwritten in
         place by that rank's new residual.  ``state=None`` is the zero
         residual (v = x + 0, as the reference adds its zeros), with nothing
-        written back."""
+        written back.  ``drop_mask`` reaches the decode (the masked psum of
+        a psum inner); every rank's residual is written, dropped or not."""
         ranks, _ = base.axis_rank_size(comm)
         bufs = []
         for i, r in enumerate(ranks):
@@ -367,10 +373,11 @@ class EFCodec(base.WireCodec):
                 torch.sub(v, recon, out=state[i])
             bufs.append(buf)
             del v, recon
-        return self._reduce_decode(torch.stack(bufs), key, cfg, x.shape[1], comm), state
+        return (self._reduce_decode(torch.stack(bufs), key, cfg, x.shape[1], comm, drop_mask),
+                state)
 
-    def _round(self, x, key, cfg, comm):
+    def _round(self, x, key, cfg, comm, drop_mask=None):
         """Stateless round: zero residual, nothing kept; for payload and
         accounting measurements of ``compressed_mean``.  Training threads
         real residuals through ``compressed_mean_stateful``."""
-        return self._round_stateful(x, None, key, cfg, comm)[0]
+        return self._round_stateful(x, None, key, cfg, comm, drop_mask)[0]

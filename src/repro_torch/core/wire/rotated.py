@@ -21,8 +21,10 @@ decode's shards included, then one unrotate), which is the reference's
 rotated ``_round`` op for op.  Codec state is forwarded in the rotated
 basis (:meth:`RotatedCodec._round_stateful`); the production error
 feedback wraps the rotation instead (EF∘rotation, :mod:`.ef`), keeping its
-residual in model coordinates.  The robust decode hooks arrive with a later
-slice and raise NotPortedError until then.
+residual in model coordinates.  Robust decode policies and drop masks
+(:mod:`.robust`) reduce in ROTATED space at the padded length, where the
+rotation has spread any coordinate-aligned outlier, and one unrotate maps
+the robust estimate back.
 """
 from __future__ import annotations
 
@@ -92,12 +94,20 @@ class RotatedCodec(base.WireCodec):
         zbar = self.inner.decode_gathered(rows, key, cfg, rotation.padded_dim(d), n)
         return rotation.unrotate(rotation.rotation_key(key), zbar, d)
 
-    def gather_decode(self, bufs, key, cfg, d, comm):
+    def gather_decode(self, bufs, key, cfg, d, comm, drop_mask=None):
         # the scatter decode runs in ROTATED space: the unrotated estimate is
         # not coordinate-partitionable, so shard decode, reassembling
         # all_gather and truncation run inside the inner codec at dp, and the
-        # single inverse rotation follows
-        zbar = self.inner.gather_decode(bufs, key, cfg, rotation.padded_dim(d), comm)
+        # single inverse rotation follows; robust policies and masks ride the
+        # same delegation
+        zbar = self.inner.gather_decode(bufs, key, cfg, rotation.padded_dim(d), comm,
+                                        drop_mask)
+        return rotation.unrotate(rotation.rotation_key(key), zbar, d)
+
+    def decode_rows_reduce(self, rows, key, cfg, d, n, drop_mask=None):
+        # the collective-free policy decode, in rotated space at dp
+        zbar = self.inner.decode_rows_reduce(rows, key, cfg, rotation.padded_dim(d), n,
+                                             drop_mask)
         return rotation.unrotate(rotation.rotation_key(key), zbar, d)
 
     def decode_reduced(self, wire, key, cfg, d):
@@ -109,17 +119,12 @@ class RotatedCodec(base.WireCodec):
     def state_shape(self, d, cfg):
         return self.inner.state_shape(rotation.padded_dim(d), cfg)
 
-    def _round_stateful(self, x, state, key, cfg, comm):
+    def _round_stateful(self, x, state, key, cfg, comm, drop_mask=None):
         # the state lives in the (per-step reseeded) rotated basis; the inner
         # round at dp shards the ROTATED estimate when scatter decode is on,
         # and one unrotate follows (the reference's rotated._round_stateful)
         d = x.shape[1]
         krot = rotation.rotation_key(key)
         zbar, new_state = self.inner._round_stateful(rotation.rotate(krot, x), state, key,
-                                                     cfg, comm)
+                                                     cfg, comm, drop_mask)
         return rotation.unrotate(krot, zbar, d), new_state
-
-    # ---- hooks of later slices --------------------------------------------- #
-
-    def decode_rows_reduce(self, rows, key, cfg, d, n, drop_mask=None):
-        raise base._not_ported("robust decode under rotation", "the robust-decode slice")

@@ -433,10 +433,24 @@ def test_registry_builds_ef_outermost_and_accounts_as_the_inner_codec():
         tef.EFCodec(twire.rotated.RotatedCodec(twire.get("ef_binary")))
     plain = twire.resolve(convert.compression_config(_cfg("binary")))
     assert plain.state_shape(D, cfg) is None and plain.init_state(D, cfg) is None
-    with pytest.raises(twire.NotPortedError):
-        codec.mean_flat_stateful(torch.zeros(2, 8), torch.zeros(2, 8), R.PRNGKey(0),
-                                 dataclasses.replace(cfg, decode_policy="trim(1)"),
-                                 tcoll.StackedComm(2, "cpu"))
+    # a robust policy (a later slice's, once refused): the over-trimmed n = 2
+    # round is NaN everywhere, as the reference's; at n = 3 the twins'
+    # estimate equals the reference's decode of its twin rows under trim(1)
+    # (the rotated twins' mean center: ROTATED_ATOL)
+    rcfg = dataclasses.replace(cfg, decode_policy="trim(1)")
+    est, _ = codec.mean_flat_stateful(torch.zeros(2, 8), torch.zeros(2, 8), R.PRNGKey(0),
+                                      rcfg, tcoll.StackedComm(2, "cpu"))
+    assert est.shape == (8,) and torch.isnan(est).all()
+    jcfg = dataclasses.replace(_cfg("fixed_k", center="mean", rotation=True, ef=True),
+                               decode_policy="trim(1)")
+    xs = np.stack([_x(D, s, "grid") for s in range(3)])
+    with jax.threefry_partitionable(False):
+        jc = jwire.resolve(jcfg)
+        rows = jnp.stack([jc.pack(jnp.asarray(xs[i]), _jkey(), i, jcfg) for i in range(3)])
+        want = np.asarray(jc.decode_rows_reduce(rows, _jkey(), jcfg, D, 3))
+    est, _ = codec.mean_flat_stateful(torch.from_numpy(xs), torch.zeros(3, D),
+                                      R.PRNGKey(KEY_SEED), rcfg, tcoll.StackedComm(3, "cpu"))
+    np.testing.assert_allclose(est.numpy(), want, rtol=0, atol=ROTATED_ATOL)
 
 
 def test_ef_twin_extension_hook():

@@ -14,12 +14,14 @@ import torch
 
 from repro_torch import random as R
 from repro_torch.configs.base import ArchConfig, RunConfig, ShapeSpec
-from repro_torch.configs.registry import compression_preset
+from repro_torch.configs.registry import COMPRESSION_PRESETS, compression_preset, robust_preset
 from repro_torch.core import bitplane as cbp
 from repro_torch.core import comm_cost
 from repro_torch.core import rotation
 from repro_torch.core import collectives as tcoll
 from repro_torch.core import wire as twire
+from repro_torch.core.wire import robust
+from repro_torch.distributed import fault_tolerance as ft
 from repro_torch.kernels.bernoulli_encode import bernoulli_encode as bek
 from repro_torch.kernels.bernoulli_encode import ref as ber
 from repro_torch.kernels.bernoulli_wire import kernel as bwk
@@ -606,3 +608,91 @@ def test_ef_round_on_card_equals_cpu(dev, preset, data, d):
             x, states["cpu"], key, cfg, tcoll.StackedComm(n, "cpu"))
         assert _same(got.cpu(), want), t
         assert _same(states["cuda"].cpu(), states["cpu"]), t
+
+
+def _same_or_nan(a, b):
+    """Same bits, NaN where the other is NaN: a NaN's sign and payload are
+    the platform's (the card returns its canonical NaN)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na].view(torch.int32),
+                                               b[~nb].view(torch.int32))
+
+
+ROBUST_PRESETS = sorted(p for p in COMPRESSION_PRESETS if p != "fixed_k_1bit")
+# (decode_policy, whether one peer is dropped)
+ROBUST_POLICIES = (("trim(1)", False), ("median", False), ("mean_trim(1)", False),
+                   ("mean", True))
+
+
+def _robust_stack(n, d):
+    """Gaussian rows with a block of ±0.0 columns (ties in the sort)."""
+    x = _gauss_stack(n, d, n + 3)
+    x[:, :64] = 0.0
+    x[1::2, :32] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("n", (3, 8))
+@pytest.mark.parametrize("policy,drop", ROBUST_POLICIES)
+@pytest.mark.parametrize("preset", ROBUST_PRESETS)
+def test_robust_round_on_card_equals_cpu(dev, preset, policy, drop, n):
+    """One round with a dropped peer and one with each Byzantine row mode
+    (rank 1's gathered wire row corrupted): card == CPU, NaN for NaN."""
+    cfg = dataclasses.replace(robust_preset(preset, policy, axes=("data",)),
+                              min_compress_size=1)
+    d = 20_011
+    x = _robust_stack(n, d)
+    key = R.fold_in(R.PRNGKey(19), n)
+    mask = torch.ones(n)
+    mask[n - 1] = 0.0
+    for mode in (None,) + ft.CORRUPTION_MODES:
+        out = {}
+        for where in ("cpu", dev):
+            comm = tcoll.StackedComm(n, where)
+            if mode is not None:
+                comm = ft.ByzantineComm(comm, 1, mode)
+            dm = mask.to(where) if drop or mode is None else None
+            out[str(where)] = tcoll.compressed_mean(x.to(where), key, cfg, comm, drop_mask=dm)
+        assert _same_or_nan(out[str(dev)].cpu(), out["cpu"]), mode
+
+
+@pytest.mark.parametrize("preset", ("fixed_k_1bit",) + EF_ROUND_CASES[:-1])
+def test_masked_round_on_card_equals_cpu(dev, preset):
+    """The masked psum (``fixed_k_1bit``) and the five ``ef_*`` presets with
+    a mask, one stateful round from nonzero residuals at n = 3."""
+    n, d = 3, 70_001
+    cfg = dataclasses.replace(compression_preset(preset, axes=("data",)), min_compress_size=1)
+    e0 = 0.1 * _gauss_stack(n, d, 7)
+    x = _gauss_stack(n, d, 4)
+    mask = torch.tensor([1.0, 0.0, 1.0])
+    got, st = tcoll.compressed_mean_stateful(x.to(dev), e0.clone().to(dev), R.PRNGKey(5), cfg,
+                                             tcoll.StackedComm(n, dev), mask.to(dev))
+    want, want_st = tcoll.compressed_mean_stateful(x, e0.clone(), R.PRNGKey(5), cfg,
+                                                   tcoll.StackedComm(n, "cpu"), mask)
+    assert _same(got.cpu(), want) and _same(st.cpu(), want_st)
+
+
+@pytest.mark.parametrize("n", (3, 8))
+def test_reduce_rows_on_card_equals_cpu_without_sync(dev, n):
+    """Every kind and f over a stack with ±0.0 ties, NaN of both signs and
+    ±Inf columns, masked and not, the mask on the card: no host sync (the
+    sync debug mode raises on one), and card == CPU, NaN for NaN."""
+    s = torch.randn(n, 4099, generator=torch.Generator().manual_seed(n))
+    s[:, 0] = 0.0
+    s[1::2, 0] = -0.0
+    s[0, 1], s[1, 1] = float("nan"), -float("nan")
+    s[:, 2] = float("nan")
+    s[0, 3], s[1, 3] = float("inf"), -float("inf")
+    s[:, 4:64] = torch.round(s[:, 4:64])
+    masks = (None, torch.tensor([1.0, 0.0, 1.0] + [1.0] * (n - 3)), torch.zeros(n))
+    sd = s.to(dev)
+    for kind, f in (("mean", 0), ("trim", 1), ("median", 0), ("mean_trim", 1), ("mean_trim", 0)):
+        for m in masks:
+            md = None if m is None else m.to(dev)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = robust.reduce_rows(sd, kind, f, md)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert _same_or_nan(got.cpu(), robust.reduce_rows(s, kind, f, m)), (kind, f, m)

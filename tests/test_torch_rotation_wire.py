@@ -128,10 +128,14 @@ def test_accounting_equals_reference(name, d):
             codec.wire_bits(n, d, cfg) + codec.seed_bits(n, cfg), rel=1e-12)
 
 
-def test_registry_wraps_and_later_slices_raise():
-    ternary = convert.compression_config(jpreset("ternary_packed", axes=("data",)))
-    cfg = dataclasses.replace(ternary, encoder=dataclasses.replace(ternary.encoder,
-                                                                   rotation=True))
+def test_registry_wraps_and_later_slices_raise(jit_butterfly):
+    """The registry wraps any codec in the rotation; the robust decode under
+    rotation (a later slice's, once refused) reduces in rotated space and
+    equals the reference's bit for bit."""
+    jternary = jpreset("ternary_packed", axes=("data",))
+    jcfg = dataclasses.replace(jternary, encoder=dataclasses.replace(jternary.encoder,
+                                                                     rotation=True))
+    cfg = convert.compression_config(jcfg)
     codec = twire.resolve(cfg)
     assert codec.name == "rotated_ternary" and codec.inner is twire.get("ternary")
     assert codec.scatter_supported and codec.scatter_align(cfg) == 16
@@ -139,5 +143,15 @@ def test_registry_wraps_and_later_slices_raise():
     with pytest.raises(ValueError, match="does not nest"):
         type(codec)(codec)
     assert codec.state_shape(D, cfg) is None and not codec.stateful   # forwarded
-    with pytest.raises(twire.NotPortedError, match="robust-decode slice"):
-        codec.decode_rows_reduce(None, None, cfg, D, 2)
+    n, xs = 3, _xs(3, 5)
+    for policy, mask in (("trim(1)", None), ("median", None), ("mean", [1.0, 0.0, 1.0])):
+        jr = dataclasses.replace(jcfg, decode_policy=policy)
+        with jax.threefry_partitionable(False):
+            jkey, jc = jax.random.PRNGKey(KEY_SEED), jwire.resolve(jr)
+            rows = jnp.stack([jc.pack(jnp.asarray(xs[i]), jkey, i, jr) for i in range(n)])
+            want = jc.decode_rows_reduce(rows, jkey, jr, D, n,
+                                         None if mask is None else jnp.asarray(mask))
+        got = codec.decode_rows_reduce(torch.from_numpy(np.array(rows).view(np.int32)),
+                                       R.PRNGKey(KEY_SEED), convert.compression_config(jr),
+                                       D, n, None if mask is None else torch.tensor(mask))
+        np.testing.assert_array_equal(_bits(got), _bits(want))
