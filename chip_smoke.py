@@ -70,7 +70,13 @@ Phases, each printing its own lines:
    dropped peer and with each Byzantine row mode, ``fixed_k_1bit`` and the
    ``ef_*`` presets with a mask, and ``reduce_rows`` over ±0.0, ±NaN and
    ±Inf columns with the mask on the card under the sync debug mode
-   "error" (no host sync);
+   "error" (no host sync); and the §11 hierarchical rounds on
+   ``StackedComm(mesh=...)`` at (pod 4, data 2) and (pod 2, data 3)
+   (``check_hierarchical``: ``HIER_CASES``, the trimmed one also with a
+   dropped cross-host peer, and ``ef_bernoulli`` over 3 rounds) card ==
+   CPU bit for bit, with the pod-axis bytes equal to the wire bits at
+   n_eff; kernel 3 at n_in = 2 and 3 shards of ragged d against its plain
+   version (``check_inner_shards``);
 3. the sync path: ``sync_grads_bucketed`` over the qwen3-4b gradient tree
    (full width, 4 of 36 layers, 792,657,920 compressed coordinates per
    rank) on ``StackedComm(8, "cuda")`` for each preset of
@@ -88,7 +94,13 @@ Phases, each printing its own lines:
    launches per bucket (``ef_expected_launches``), finiteness, bytes against
    the accounting (the inner preset's), and the telescoping identity
    Σ_t est_t = Σ_t x̄_t − ē_T within ``TELESCOPE_RTOL`` (the twins are biased
-   contractive messages: no closed-form MSE applies);
+   contractive messages: no closed-form MSE applies); then the hierarchical
+   sync: ``hier_fixed_k`` and ``hier_bernoulli`` unflattened on
+   ``synthetic.HIER_MESH`` = (pod 4, data 2), 3 steps each: launches per
+   bucket at n_eff = 4 packs and n_in = 2 shard decodes, the bytes handed
+   to the pod axis against ``bucket_wire_bits(..., mesh_sizes)``, the
+   squared error over the pod means within 10% of the closed form at n_eff
+   = 4, sync ms and the inner (in-pod) MB;
 4. the serving path: qwen3-4b at all 36 layers and full width, parameters
    drawn from a seed and cast to bf16, 8 prompts of 2048 seeded tokens:
    ``engine.generate`` (``build_serve_fns`` → prefill → 32 greedy decode
@@ -115,7 +127,14 @@ Phases, each printing its own lines:
    with ``fixed_k_1bit`` + error feedback (the reference example's default)
    at the same shape: finite losses, norms and residuals, the bytes, each
    bucket's residual norm after step 3 at most twice that after step 1,
-   the step's split and the peak; then the training example as a user runs
+   the step's split and the peak; then the multi-pod run
+   (``run_training_multipod``): ``Trainer.fit`` for 4 steps on (pod 2,
+   data 4) with ``get_run_config("qwen3-4b", "train_4k", multi_pod=True)``
+   (``fixed_k_1bit`` over ``pod``, the exact mean in each pod; cut to 4
+   layers, batch 8, one microbatch): finite losses and norms, the launches,
+   the bytes against the accounting at n_eff = 2, the error over the pod
+   means against ``mse_fixed_k_shared``, the step's split and the peak;
+   then the training example as a user runs
    it (``examples/train_lm_compressed.py``: lm-8m, 8 ranks, the exact mean
    and ``fixed_k_1bit`` + error feedback, 4 steps each), its attention on
    the hd-32 flash kernels (L·n launches of each a step), losses, norms
@@ -1072,6 +1091,129 @@ def check_robust(n: int) -> None:
           "CPU", flush=True)
 
 
+# the hierarchical matrix of phase 2: (label, preset, overrides); every
+# one runs with inner_axes=("data",) on the (pod, data) mesh
+HIER_CASES = (("hier_fixed_k", "hier_fixed_k", {}),
+              ("hier_fixed_k no scatter", "hier_fixed_k", {"scatter_decode": False}),
+              ("hier_bernoulli", "hier_bernoulli", {}),
+              ("rotated_fixed_k", "rotated_fixed_k", {}),
+              ("binary_packed", "binary_packed", {}),
+              ("ternary_packed", "ternary_packed", {}),
+              ("hier_bernoulli trim(1)", "hier_bernoulli", {"decode_policy": "trim(1)"}))
+HIER_MESHES = ({"pod": 4, "data": 2}, {"pod": 2, "data": 3})
+HIER_D = 70_001
+
+
+def hier_cfg(preset: str, **kw):
+    """``preset`` on the (pod, data) mesh: codec over pod, exact in-pod."""
+    from repro_torch.configs.registry import compression_preset
+
+    cfg = compression_preset(preset)
+    return dataclasses.replace(cfg, inner_axes=("data",), min_compress_size=1, **kw)
+
+
+def check_hierarchical(mesh: dict) -> None:
+    """The §11 two-level rounds on the card equal the CPU's bit for bit on
+    ``StackedComm(mesh=...)``: each of ``HIER_CASES`` on seeded Gaussian
+    inputs at d = 70,001 with a block of ±0.0 columns (the in-pod mean's
+    signed zeros), the trimmed one also with a dropped cross-host peer (an
+    n_eff-entry mask); ``ef_bernoulli`` over 3 rounds with the residuals
+    carried (the rows of one pod equal); the bytes handed to the pod axis
+    equal the codec's wire bits at n_eff."""
+    import torch
+    from repro_torch import random as R
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import wire
+
+    n = math.prod(mesh.values())
+    n_eff, n_in = mesh["pod"], mesh["data"]
+    d = HIER_D
+    x = torch.randn(n, d, generator=torch.Generator().manual_seed(n + 5)) * 0.5 + 0.01
+    x[:, :64] = 0.0
+    x[1::2, :32] = -0.0
+    key = R.fold_in(R.PRNGKey(23), n)
+    mask = torch.ones(n_eff)
+    mask[1] = 0.0
+    for label, preset, kw in HIER_CASES:
+        cfg = hier_cfg(preset, **kw)
+        masks = (None, mask) if cfg.decode_policy != "mean" else (None,)
+        for m in masks:
+            out = {}
+            for dev in ("cpu", "cuda"):
+                comm = coll.StackedComm(device=dev, mesh=mesh)
+                out[dev] = coll.compressed_mean(x.to(dev), key, cfg, comm,
+                                                None if m is None else m.to(dev))
+                codec = wire.resolve(cfg)
+                need((comm.bytes_gathered + comm.bytes_reduced) * 8
+                     == codec.wire_bits(n_eff, d, cfg),
+                     f"hierarchical {mesh} {label}: pod-axis bytes != wire bits at n_eff")
+            need(same_or_nan(out["cuda"].cpu(), out["cpu"]),
+                 f"hierarchical {mesh} {label} mask {m}: card != CPU")
+    cfg = hier_cfg("ef_bernoulli")
+    states = {"cpu": torch.zeros(n, d), "cuda": torch.zeros(n, d, device="cuda")}
+    for t in range(3):
+        xt = torch.randn(n, d, generator=torch.Generator().manual_seed(n + 30 + t))
+        for dev in ("cpu", "cuda"):
+            est, states[dev] = coll.compressed_mean_stateful(
+                xt.to(dev), states[dev], R.fold_in(key, t), cfg,
+                coll.StackedComm(device=dev, mesh=mesh))
+            if dev == "cpu":
+                want = est
+        need(same_bits(est.cpu(), want) and same_bits(states["cuda"].cpu(), states["cpu"]),
+             f"hierarchical {mesh} ef_bernoulli round {t}: card != CPU")
+        rows = states["cpu"].reshape(n_eff, n_in, d)
+        need(all(torch.equal(rows[:, 0], rows[:, j]) for j in range(n_in)),
+             f"hierarchical {mesh} ef_bernoulli round {t}: the rows of a pod differ")
+    print(f"  hierarchical rounds on (pod {n_eff}, data {n_in}), d={d}: "
+          f"{', '.join(c[0] for c in HIER_CASES)} (trim(1) also with a dropped cross-host "
+          "peer), ef_bernoulli over 3 rounds: card == CPU bit for bit, pod-axis bytes == "
+          "wire bits at n_eff", flush=True)
+
+
+def check_inner_shards() -> None:
+    """Kernel 3 (the Bernoulli count phase and shard decode) at the
+    hierarchical split, n_in = 2 and 3 shards of ⌈d/n_in⌉ over n_eff = 4
+    peers, at d = 70,001 and 2·32·1024 ± 1: counts and support bits equal
+    the plain version's, each shard's decode too, and the stitched shards
+    the sequential flat decode."""
+    import torch
+    from repro_torch.core import comm_cost
+    from repro_torch.kernels.bernoulli_wire import kernel as bwk
+    from repro_torch.kernels.bernoulli_wire import ref as bwr
+
+    dev = torch.device("cuda")
+    p, peers = 1.0 / 16, 4
+    for d in (70_001, 65_535, 65_537):
+        cap = comm_cost.bernoulli_capacity(d, p)
+        gen = torch.Generator(device=dev).manual_seed(d)
+        bufs = torch.randn(peers, cap, generator=gen, device=dev)
+        mus = torch.randn(peers, generator=gen, device=dev) * 0.1
+        keys = _keys(d, peers)
+        want = bwr.decode_sum_sequential(bufs, mus, keys, p, cap, d)
+        for nshards in (2, 3):
+            ds = -(-d // nshards)
+            sk = [bwk.support_counts(keys, p=p, d=d, start=s * ds, ds=ds, device=dev)
+                  for s in range(nshards)]
+            sp = [bwr.support_counts(keys, p, d, s * ds, ds, dev) for s in range(nshards)]
+            for s in range(nshards):
+                need(torch.equal(sk[s].counts, sp[s].counts)
+                     and torch.equal(sk[s].mask, sp[s].mask),
+                     f"bernoulli_support_counts d={d} shard {s} of {nshards}: kernel != plain")
+            allc = torch.stack([c.counts.sum(1, dtype=torch.int32) for c in sk])
+            prior = torch.cumsum(allc, 0, dtype=torch.int32) - allc
+            parts = []
+            for s in range(nshards):
+                pk = bwk.decode_sum_shard(bufs, mus, sk[s], prior[s].contiguous(), cap=cap)
+                pp = bwr.decode_sum_shard(bufs, mus, sp[s], prior[s].contiguous(), cap)
+                need(same_bits(pk, pp),
+                     f"bernoulli_decode_sum_shard d={d} shard {s} of {nshards}: kernel != plain")
+                parts.append(pk)
+            need(same_bits(torch.cat(parts)[:d], want),
+                 f"stitched {nshards} shards d={d} != sequential decode")
+    print("  bernoulli_support_counts + decode_sum_shard at n_in = 2, 3 shards over 4 peers, "
+          "d = 70001, 65535, 65537: bit-equal, stitched == sequential", flush=True)
+
+
 def time_center(main_d: int) -> None:
     """The wire's mean center at the embed bucket: ``tree_mean`` (the same
     adds on every device) beside ``torch.mean``, by CUDA events."""
@@ -1320,33 +1462,39 @@ def check_flash_bwd(records: dict) -> None:
 # --------------------------------------------------------------------------- #
 
 # Kernel launches per compressed bucket of one round, by codec: the packs
-# (one per rank), then the decode's (one per shard of the §12/§13 scatter
-# decode, one per peer row of a flat bit-plane decode, one for the fused
-# flat Bernoulli decode).  The dense simulation launches no kernel.  A
-# rotated codec packs through the fused rotate-min/max + encode-pack pair
-# (inner binary) or rotates each rank with one FWHT launch before the inner
-# pack, decodes like its inner codec at the padded length, and unrotates
-# the estimate with one more FWHT launch.
-def expected_launches(codec: str, scatter: bool, n: int) -> dict:
+# (one per codec rank), then the decode's (one per shard of the §12/§13
+# scatter decode, one per peer row of a flat bit-plane decode, one for the
+# fused flat Bernoulli decode).  The dense simulation and the fixed-k gather
+# decode (an index_add) launch no kernel.  A rotated codec packs through the
+# fused rotate-min/max + encode-pack pair (inner binary) or rotates each
+# rank with one FWHT launch before the inner pack, decodes like its inner
+# codec at the padded length, and unrotates the estimate with one more FWHT
+# launch.  ``n`` counts the codec ranks and ``nshards`` the scatter shards:
+# n and n on the flat mesh; n_eff = n / n_in and n_in under the
+# hierarchical schedule, where the stacked communicator packs once per
+# codec rank and decodes once per inner shard (every inner rank of a pod
+# holds the same gathered rows).
+def expected_launches(codec: str, scatter: bool, n: int, nshards: Optional[int] = None) -> dict:
+    nshards = n if nshards is None else nshards
     if codec.startswith("ef_"):
-        return ef_expected_launches(codec[3:], scatter, n)
+        return ef_expected_launches(codec[3:], scatter, n, nshards)
     if codec == "rotated_binary":
         return {"rotate_minmax": n, "encode_pack": n, "fwht": 1,
-                ("bitplane_binary_accum" if scatter else "bitplane_unpack"): n}
+                **({"bitplane_binary_accum": nshards} if scatter else {"bitplane_unpack": n})}
     if codec == "rotated_fixed_k":
         return {"fwht": n + 1, "fixed_k_gather": n}
-    if codec == "fixed_k_shared":
+    if codec in ("fixed_k_shared", "fixed_k"):
         return {"fixed_k_gather": n}
     if codec == "bernoulli":
         if scatter:
-            return {"bernoulli_encode": n, "bernoulli_support_counts": n,
-                    "bernoulli_decode_sum_shard": n}
+            return {"bernoulli_encode": n, "bernoulli_support_counts": nshards,
+                    "bernoulli_decode_sum_shard": nshards}
         return {"bernoulli_encode": n, "bernoulli_decode_sum": 1}
     if codec == "binary":
         return {"bitplane_pack": n,
-                ("bitplane_binary_accum" if scatter else "bitplane_unpack"): n}
+                **({"bitplane_binary_accum": nshards} if scatter else {"bitplane_unpack": n})}
     if codec in ("ternary", "ternary_opt"):
-        return {"bitplane_pack": n, "bitplane_unpack": n}
+        return {"bitplane_pack": n, "bitplane_unpack": nshards if scatter else n}
     if codec == "dense":
         return {}
     raise CheckFailed(f"no launch table for codec {codec!r}")
@@ -1360,20 +1508,22 @@ def expected_launches(codec: str, scatter: bool, n: int) -> dict:
 # from the twin's own mask and centers (no unpack); the rotated twin rotates
 # and unrotates each rank with one FWHT launch each (no fused rotate-encode:
 # the twin is the deterministic 2-means), the estimate with one more.
-def ef_expected_launches(inner: str, scatter: bool, n: int) -> dict:
+def ef_expected_launches(inner: str, scatter: bool, n: int,
+                         nshards: Optional[int] = None) -> dict:
+    nshards = n if nshards is None else nshards
     if inner in ("fixed_k", "fixed_k_shared"):
         return {"fixed_k_gather": n}
     if inner == "bernoulli":
-        decode = ({"bernoulli_support_counts": n, "bernoulli_decode_sum_shard": n}
+        decode = ({"bernoulli_support_counts": nshards, "bernoulli_decode_sum_shard": nshards}
                   if scatter else {"bernoulli_decode_sum": 1})
         return {"bernoulli_encode_unscaled": n, "bernoulli_unpack": n, **decode}
     if inner == "binary":
         return {"bitplane_pack": n,
-                ("bitplane_binary_accum" if scatter else "bitplane_unpack"): n}
+                **({"bitplane_binary_accum": nshards} if scatter else {"bitplane_unpack": n})}
     if inner in ("ternary", "ternary_opt"):
-        return {"bitplane_pack": n, "bitplane_unpack": n}
+        return {"bitplane_pack": n, "bitplane_unpack": nshards if scatter else n}
     if inner == "rotated_binary":
-        return {"fwht": 2 * n + 1, **ef_expected_launches("binary", scatter, n)}
+        return {"fwht": 2 * n + 1, **ef_expected_launches("binary", scatter, n, nshards)}
     raise CheckFailed(f"no launch table for error feedback over {inner!r}")
 
 
@@ -1399,6 +1549,12 @@ def closed_form(codec: str, cmp, v, bucket_key) -> float:
     if codec == "fixed_k_shared":
         k = codecs.fixed_k_blocks(v.shape[1], q) * 1024
         return float(mse.mse_fixed_k_shared(v, k, v.mean(1)))
+    if codec == "fixed_k":          # independent block supports: Lemma 3.4 over blocks
+        nb = -(-v.shape[1] // 1024)
+        kb = codecs.fixed_k_blocks(v.shape[1], q)
+        ss = sum(float(torch.sum((v[i] - v[i].mean()) ** 2, dtype=torch.float64))
+                 for i in range(v.shape[0]))
+        return (nb - kb) / kb * ss / v.shape[0] ** 2
     if codec in ("bernoulli", "dense"):
         return float(mse.mse_bernoulli(v, q, v.mean(1)))
     if codec == "binary":
@@ -1417,19 +1573,34 @@ def closed_form(codec: str, cmp, v, bucket_key) -> float:
     raise CheckFailed(f"no closed form for codec {codec!r}")
 
 
-def wire_accounting(plan, cmp, n: int):
+def codec_layout(cmp, n: int, mesh=None):
+    """(codec ranks, scatter shards, the axes averaged exactly before the
+    codec) of one round over ``n`` ranks, flat or laid out as ``mesh``."""
+    if mesh is None:
+        return n, n, ()
+    n_codec = math.prod(mesh[a] for a in cmp.axes)
+    n_in = math.prod(mesh[a] for a in cmp.inner_axes)
+    return n_codec, (n_in if cmp.inner_axes else n_codec), tuple(
+        a for a in mesh if a not in cmp.axes)
+
+
+def wire_accounting(plan, cmp, n: int, mesh=None):
     """(wire bits per compressed bucket, the (gathered, reduced) bytes one
-    round hands the communicator): gather codecs ship ``bucket_wire_bits``
-    and psum the exact buckets; psum codecs reduce their ``wire_bits`` and
-    the exact buckets together."""
+    round hands the codec axes): gather codecs ship ``bucket_wire_bits``
+    (at the effective node count under a mesh) and psum the exact buckets;
+    psum codecs reduce their ``wire_bits`` at the codec ranks and the exact
+    buckets together.  The exact means inside a pod (the hierarchical
+    pre-reduce, the multi-pod in-pod mean) are inner traffic, counted
+    apart."""
     from repro_torch.core import wire
     from repro_torch.train import bucketing
 
     codec = wire.resolve(cmp)
+    n_codec, _, _ = codec_layout(cmp, n, mesh)
     if codec.reduce == "all_gather":
-        wire_bits = bucketing.bucket_wire_bits(plan, cmp, n)
+        wire_bits = bucketing.bucket_wire_bits(plan, cmp, n, mesh)
     else:
-        wire_bits = {b.bid: codec.wire_bits(n, b.size, cmp)
+        wire_bits = {b.bid: codec.wire_bits(n_codec, b.size, cmp)
                      for b in plan.buckets if b.kind == "compressed"}
     sent = sum(wire_bits.values()) / 8
     exact_bytes = sum(n * b.size * 4 for b in plan.buckets if b.kind == "exact")
@@ -1443,18 +1614,23 @@ def check_bytes(name: str, comm, want) -> None:
     need(got == want, f"{name}: communicator bytes (gathered, reduced) {got} != accounting {want}")
 
 
-def error_and_closed_form(codec: str, cmp, plan, stacks, synced, key):
+def error_and_closed_form(codec: str, cmp, plan, stacks, synced, key, mesh=None):
     """(Σ squared error of the synced estimate against the exact mean of the
-    (n, ...) stacks, Σ closed form) over the plan's compressed buckets."""
+    codec's inputs, Σ closed form) over the plan's compressed buckets; on a
+    mesh the codec's inputs are the pod means of the (n, ...) stacks."""
     import torch
     from repro_torch import random as prandom
+    from repro_torch.core.collectives import StackedComm
     from repro_torch.train import bucketing
 
     err = cf = 0.0
+    _, _, pre = codec_layout(cmp, 0, mesh)
     for j, b in enumerate(plan.buckets):
         if b.kind != "compressed":
             continue
         v = bucketing.pack_bucket(stacks, b)
+        if pre:
+            v = StackedComm(device=v.device, mesh=mesh).mean_over(v, pre)
         y = torch.cat([synced[s.name].reshape(-1) for s in b.slots])
         err += float(torch.sum((y - v.mean(0)) ** 2, dtype=torch.float64))
         cf += closed_form(codec, cmp, v, prandom.fold_in(key, j))
@@ -1462,8 +1638,9 @@ def error_and_closed_form(codec: str, cmp, plan, stacks, synced, key):
     return err, cf
 
 
-def run_main_path(name, cmp, steps, launches_total):
-    """``steps`` bucketed syncs of one config; returns its summary line."""
+def run_main_path(name, cmp, steps, launches_total, mesh=None):
+    """``steps`` bucketed syncs of one config, the ranks flat or laid out as
+    ``mesh``; returns its summary line."""
     import torch
     from repro_torch.core import wire
     from repro_torch.kernels import backend
@@ -1471,11 +1648,14 @@ def run_main_path(name, cmp, steps, launches_total):
     from repro_torch.train.synthetic import N, main_path, step_key, synthetic_grads
 
     dev = torch.device("cuda")
-    shapes, plan, comm = main_path(cmp, dev)
+    torch.cuda.empty_cache()
+    shapes, plan, comm = main_path(cmp, dev, mesh)
     comp = [b for b in plan.buckets if b.kind == "compressed"]
     codec = wire.resolve(cmp)
-    expect = expected_launches(codec.name, cmp.scatter_decode, N)
-    wire_bits, want_bytes = wire_accounting(plan, cmp, N)
+    n_codec, nshards, _ = codec_layout(cmp, N, mesh)
+    expect = expected_launches(codec.name, cmp.scatter_decode, n_codec, nshards)
+    wire_bits, want_bytes = wire_accounting(plan, cmp, N, mesh)
+    inner_bytes = []
     err_sum = cf_sum = 0.0
     times = []
     for step in range(steps):
@@ -1495,7 +1675,8 @@ def run_main_path(name, cmp, steps, launches_total):
         need(all(bool(torch.isfinite(v).all()) for v in out.values()),
              f"{name} step {step}: non-finite output")
         check_bytes(name, comm, want_bytes)
-        err, cf = error_and_closed_form(codec.name, cmp, plan, grads, out, key)
+        inner_bytes.append(comm.bytes_inner)
+        err, cf = error_and_closed_form(codec.name, cmp, plan, grads, out, key, mesh)
         err_sum += err
         cf_sum += cf
         del grads, out
@@ -1504,10 +1685,14 @@ def run_main_path(name, cmp, steps, launches_total):
     coords = sum(b.size for b in comp)
     wire_mb = sum(wire_bits.values()) / 8 / 1e6
     dense_mb = N * coords * 4 / 1e6
-    return {"config": name, "steps": steps, "ms_per_sync": times,
-            "compressed_buckets": len(comp), "coords_per_rank": coords,
-            "wire_MB": wire_mb, "dense_f32_MB": dense_mb,
-            "err_over_closed_form": ratio, "launches_per_bucket": expect}
+    out = {"config": name, "steps": steps, "ms_per_sync": times,
+           "compressed_buckets": len(comp), "coords_per_rank": coords,
+           "wire_MB": wire_mb, "dense_f32_MB": dense_mb,
+           "err_over_closed_form": ratio, "launches_per_bucket": expect}
+    if mesh is not None:
+        out.update(mesh=mesh, codec_ranks=n_codec, shards=nshards,
+                   inner_MB=[b / 1e6 for b in inner_bytes])
+    return out
 
 
 # The telescoping identity of error feedback (core/wire/ef.py): over T
@@ -1906,15 +2091,18 @@ def run_training(launches_total) -> dict:
     return {**summary, **agree}
 
 
-def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_total) -> dict:
-    """``Trainer.fit`` for ``steps`` steps, every phase of every step checked
-    and timed (host clock after a synchronize; the checks run outside the
-    timed spans): the launches of each phase (flash forward 2·L·n with
-    remat, each backward sweep L·n, the sync's per bucket), the
-    communicator's bytes against the accounting, finite gradients, losses,
-    norms and parameters; without error feedback the sync's error against
-    the closed form (within 10%), with it each bucket's residual norm after
-    every step.  Returns the summary line."""
+def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_total,
+                  mesh=None) -> dict:
+    """``Trainer.fit`` for ``steps`` steps on ``n`` ranks (flat, or laid out
+    as ``mesh``), every phase of every step checked and timed (host clock
+    after a synchronize; the checks run outside the timed spans): the
+    launches of each phase (flash forward 2·L·n with remat, each backward
+    sweep L·n, the sync's per bucket at the codec ranks), the bytes handed to
+    the codec axes against the accounting, finite gradients, losses, norms
+    and parameters; without error feedback the sync's error against the
+    closed form at the codec ranks (within 10%; on a mesh over the pod
+    means), with it each bucket's residual norm after every step.  Returns
+    the summary line."""
     import torch
     from repro_torch.core import wire
     from repro_torch.kernels import backend
@@ -1952,7 +2140,7 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
                     res_norms[bid].append(stack_norm(e))
             else:
                 err, cf = error_and_closed_form(codec.name, cmp, plan, state["grads"],
-                                                state["synced"], state["key"])
+                                                state["synced"], state["key"], mesh)
                 st["err"] += err
                 st["cf"] += cf
         torch.cuda.synchronize()
@@ -1960,13 +2148,14 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
         st["t"] = time.perf_counter()
 
     trainer = Trainer(cfg, run, shape,
-                      TrainerConfig(steps=steps, log_every=1, seed=TRAIN_SEED), n,
-                      device=dev, on_phase=on_phase)
+                      TrainerConfig(steps=steps, log_every=1, seed=TRAIN_SEED),
+                      n if mesh is None else None, device=dev, on_phase=on_phase, mesh=mesh)
     plan = trainer.sync_plan
     comp = [b for b in plan.buckets if b.kind == "compressed"]
-    expect["sync"] = {k: v * len(comp)
-                      for k, v in expected_launches(codec.name, cmp.scatter_decode, n).items()}
-    wire_bits, want_bytes = wire_accounting(plan, cmp, n)
+    n_codec, nshards, _ = codec_layout(cmp, n, mesh)
+    expect["sync"] = {k: v * len(comp) for k, v in expected_launches(
+        codec.name, cmp.scatter_decode, n_codec, nshards).items()}
+    wire_bits, want_bytes = wire_accounting(plan, cmp, n, mesh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     backend.reset_launches()
@@ -2003,8 +2192,8 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
     torch.cuda.empty_cache()
     step_ms = [sum(phase_ms[p][i] for p in ("backward", "sync", "update")) for i in range(steps)]
     tokens = shape.global_batch * shape.seq_len
-    return {"model": cfg.name, "layers": L, "ranks": n, "tokens_per_rank": shape.seq_len,
-            "steps": steps, "preset": preset,
+    return {"model": cfg.name, "layers": L, "ranks": n, "mesh": mesh,
+            "tokens_per_rank": shape.seq_len, "steps": steps, "preset": preset,
             "loss": [h["loss"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist],
             "lr": [h["lr"] for h in hist], "step_ms": step_ms,
             "fwd_bwd_ms": phase_ms["backward"], "sync_ms": phase_ms["sync"],
@@ -2028,6 +2217,23 @@ def run_training_ef(launches_total) -> dict:
     cfg, run, shape = synthetic.train_main_path(error_feedback=True)
     return fit_and_check(cfg, run, shape, synthetic.N, synthetic.EF_TRAIN_STEPS,
                          synthetic.TRAIN_PRESET + " + error feedback", launches_total)
+
+
+def run_training_multipod(launches_total) -> dict:
+    """Phase 5's multi-pod run (``synthetic.multipod_train_path``):
+    ``Trainer.fit`` for ``TRAIN_STEPS`` steps on the (pod 2, data 4) mesh
+    with the reference's ``get_run_config(..., multi_pod=True)``
+    (``fixed_k_1bit`` over ``pod``, the exact mean inside each pod), cut to
+    4 layers, batch 8 and one microbatch; the sync's error over the pod
+    means against ``mse_fixed_k_shared`` at n_eff = 2."""
+    import torch
+    from repro_torch.train import synthetic
+
+    torch.cuda.empty_cache()
+    cfg, run, shape, mesh = synthetic.multipod_train_path()
+    return fit_and_check(cfg, run, shape, math.prod(mesh.values()), synthetic.TRAIN_STEPS,
+                         "get_run_config(multi_pod=True): fixed_k_1bit over pod",
+                         launches_total, mesh)
 
 
 EXAMPLE_STEPS = 4
@@ -2399,10 +2605,13 @@ def main() -> int:
     check_divide(3)
     check_robust(3)
     check_robust(8)
+    for mesh in HIER_MESHES:
+        check_hierarchical(mesh)
+    check_inner_shards()
     time_center(main_d)
     print(f"[2] wire and encoder kernels bit-equal to their plain versions, flash attention "
-          f"forward and backward within tolerance, decodes at n = 3 and robust rounds at n = 3 "
-          f"and 8 equal to the CPU's "
+          f"forward and backward within tolerance, decodes at n = 3, robust rounds at n = 3 "
+          f"and 8 and hierarchical rounds at (4, 2) and (2, 3) equal to the CPU's "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     bern = synthetic.preset("bernoulli_seed_1bit")
@@ -2421,6 +2630,12 @@ def main() -> int:
         t0 = time.perf_counter()
         summary = run_main_path_ef(name, synthetic.preset(name), STEPS, total)
         print(f"[3] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    from repro_torch.configs.registry import compression_preset
+    for name in synthetic.HIER_PRESETS:
+        t0 = time.perf_counter()
+        summary = run_main_path(name, compression_preset(name), STEPS, total, synthetic.HIER_MESH)
+        print(f"[3] hierarchical {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
     t0 = time.perf_counter()
     summary = run_serving(total)
     print(f"[4] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -2431,6 +2646,9 @@ def main() -> int:
     summary = run_training_ef(total)
     print(f"[5] error feedback {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
+    t0 = time.perf_counter()
+    summary = run_training_multipod(total)
+    print(f"[5] multi-pod {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     summary = run_example(total)
     print(f"[5] example {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)

@@ -76,12 +76,14 @@ class RunConfig:
     ``compression`` configures the gradient sync.  ``model_parallel`` acts
     only with a model axis above 1, which raises
     (:func:`repro_torch.models.model.make_ctx`); ``fsdp=True`` raises here.
-    The reference's ``seq_shard`` (the sequence-parallel residual stream,
-    read only at tp > 1) comes with tensor parallelism.
+    ``seq_shard`` (the reference's sequence-parallel residual stream) is
+    read only at tp > 1, which raises: it is carried so every field of the
+    reference's ``RunConfig`` has its place.
     """
     microbatches: int = 1
     fsdp: bool = False
     model_parallel: bool = True
+    seq_shard: bool = True
     attn_chunk_q: int = 1024
     attn_chunk_k: int = 1024
     remat: bool = True

@@ -3,7 +3,9 @@ shapes — the parts of ``repro.configs.registry`` the port needs.
 
 ``COMPRESSION_PRESETS`` is the reference's table, all 14 entries, so a
 preset name means the same config on both sides; the registry
-(:func:`repro_torch.core.wire.resolve`) says which of them the port can run.
+(:func:`repro_torch.core.wire.resolve`) says which of them the port can run;
+the ``hier_*`` presets run unflattened on a ``(pod, data)`` mesh.
+:func:`get_run_config` is the reference's run configuration.
 :func:`param_shapes` gives the dense family's leaf names, global shapes and
 sharding specs exactly as ``repro.models.transformer.init_lm`` with
 ``init_attention`` / ``init_mlp`` builds them.
@@ -14,7 +16,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 from repro_torch.configs import qwen3_4b
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, ArchConfig, RunConfig
 from repro_torch.core import types as core_types
 from repro_torch.core.wire.base import NotPortedError
 
@@ -113,6 +115,41 @@ def robust_preset(name: str, policy: str,
     new preset: the preset dict is the golden wire matrix's universe.
     ``wire.resolve`` rejects a robust policy on the psum presets."""
     return dataclasses.replace(compression_preset(name, axes), decode_policy=policy)
+
+
+# the reference's microbatch counts for train shapes (dry-run memory sizing)
+_TRAIN_MICROBATCHES = {"qwen3-4b": 4}
+
+
+def get_run_config(arch: str, shape: str, *, multi_pod: bool = False,
+                   compression=None) -> RunConfig:
+    """The reference's run configuration for (arch, shape), field for field
+    (``repro.configs.registry.get_run_config``).
+
+    A train shape compresses by default with ``fixed_k_1bit`` (Example 7)
+    over ``("pod",)`` when ``multi_pod``, exactly averaged inside each pod
+    by the train step (the ``data`` axis is not a compression axis), else
+    over ``("data",)``; a preset name is re-pointed the same way
+    (:func:`compression_preset`).  FSDP (the reference's ≥ 30B set) raises
+    in ``RunConfig``, as do the shapes and families the port lacks."""
+    cfg = get_config(arch)
+    kind = SHAPES[shape].kind
+    if isinstance(compression, str):
+        compression = compression_preset(compression,
+                                          axes=("pod",) if multi_pod else ("data",))
+    mb = _TRAIN_MICROBATCHES.get(arch, 2) if kind == "train" else 1
+    if compression is None:
+        if kind == "train":
+            compression = dataclasses.replace(
+                _TRAIN_COMPRESSION, axes=("pod",) if multi_pod else ("data",))
+        else:
+            compression = core_types.CompressionConfig(mode="none")
+    chunk_q = chunk_k = 1024
+    if SHAPES[shape].seq_len >= 32768 and kind != "decode":
+        chunk_q, chunk_k = 1024, 2048
+    return RunConfig(microbatches=mb, fsdp=False, model_parallel=True, seq_shard=True,
+                     attn_chunk_q=chunk_q, attn_chunk_k=chunk_k, remat=(kind == "train"),
+                     compression=compression)
 
 
 def smoke_config(name: str) -> ArchConfig:

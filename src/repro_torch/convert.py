@@ -16,7 +16,16 @@ side hands over as numpy arrays and plain objects:
   ``v``, numpy leaves) → the port's optimizer state;
 * :func:`ef_state` — the reference's per-rank error-feedback residuals
   (each rank holds its own, per bucket id or per leaf) → the port's
-  stacked state, one (n, ...) tensor per key.
+  stacked state, one (n, ...) tensor per key;
+* :func:`mesh_stack` — per-rank arrays laid out on a named mesh (a
+  ``(pod, data, ...)`` array, as the reference's devices are) → the port's
+  (n, ...) stack in mesh order, row r = (pod r // n_in, data r % n_in), the
+  order of ``StackedComm(mesh=...)`` and the train step's ranks.
+
+A multi-pod run configuration (``get_run_config(..., multi_pod=True)``)
+carries its compression over ``("pod",)``, and a hierarchical preset its
+``inner_axes``, through :func:`run_config` / :func:`compression_config`
+unchanged.
 """
 from __future__ import annotations
 
@@ -91,7 +100,25 @@ def adamw_state(src, device="cpu") -> AdamWState:
 def ef_state(per_rank: Mapping[str, Sequence[np.ndarray]], device="cpu") -> Dict[str, torch.Tensor]:
     """The reference's error-feedback residuals, ``{bucket id or leaf name:
     the n ranks' arrays in rank order}`` (a list of n arrays of one shape,
-    or one (n, ...) array) → the port's ``{key: (n, ...) f32 tensor}``, row
-    i being rank i's residual."""
+    or one (n, ...) array; :func:`mesh_stack` gives that order from arrays
+    laid out on a mesh) → the port's ``{key: (n, ...) f32 tensor}``, row i
+    being rank i's residual."""
     return {k: torch.from_numpy(np.stack([np.asarray(a, dtype=np.float32) for a in v])).to(device)
             for k, v in per_rank.items()}
+
+
+def mesh_stack(per_device: Mapping[str, np.ndarray],
+               mesh: Mapping[str, int]) -> Dict[str, np.ndarray]:
+    """Arrays whose leading axes are the mesh's, in mesh order (``(P, D,
+    ...)`` for ``{"pod": P, "data": D}``) → (n, ...) arrays in rank order,
+    rank r at (pod r // D, data r % D): a row-major flatten of the mesh
+    axes, as the reference's ``Mesh(devices.reshape(P, D), ("pod",
+    "data"))`` numbers its devices."""
+    sizes = tuple(int(v) for v in mesh.values())
+    out = {}
+    for k, v in per_device.items():
+        a = np.asarray(v)
+        if a.shape[:len(sizes)] != sizes:
+            raise ValueError(f"{k}: leading axes {a.shape[:len(sizes)]} are not the mesh's {sizes}")
+        out[k] = a.reshape((-1,) + a.shape[len(sizes):])
+    return out

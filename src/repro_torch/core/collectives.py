@@ -7,14 +7,19 @@ compression axes manual.  Here a communicator stands in for the axes:
 * :class:`StackedComm` — n ranks as the rows of a leading dimension on one
   device: the card's counterpart of the reference's fake CPU devices.  It
   runs each rank's pack and each shard's decode in turn; all_gather is the
-  stack itself; psum accumulates in f32 in rank order.
+  stack itself; psum accumulates in f32 in rank order.  With a ``mesh``
+  (named axes, pod-major) it acts over any subset of its axes
+  (:meth:`StackedComm.over`), which the hierarchical schedule needs: the
+  exact mean over the inner axes, the codec over the cross-host axes.
 * :class:`DistComm` — the same interface over ``torch.distributed`` (one
   rank per process): ``all_gather_into_tensor`` and ``all_reduce``; its
   psum of a buffer narrower than f32 gathers the rows and sums them as
   StackedComm does, so the two give the same bits at every n.
 
 Both count the bytes handed to them, so a run can hold the traffic against
-the codecs' ``wire_bits`` / ``scatter_bits`` accounting.
+the codecs' ``wire_bits`` / ``scatter_bits`` accounting: the codec axes'
+traffic in ``bytes_gathered`` / ``bytes_reduced``, the inner axes' in
+``bytes_inner``.
 
 Local data is a stack (L, *shape) with one row per local rank; every entry
 point returns the single (*shape) estimate all ranks hold.  Codec state
@@ -22,6 +27,9 @@ point returns the single (*shape) estimate all ranks hold.  Codec state
 of the same layout and stays local.
 """
 from __future__ import annotations
+
+import itertools
+import math
 
 import torch
 
@@ -31,23 +39,130 @@ from repro_torch.core.wire import base as wire_base
 from repro_torch.core.wire import registry
 
 
-class StackedComm:
-    """n ranks stacked on one device; see the module docstring.
+def _mesh_pairs(mesh):
+    """((name, size), ...) in mesh order from a mapping or a sequence of pairs."""
+    pairs = tuple(mesh.items()) if hasattr(mesh, "items") else tuple(mesh)
+    out = tuple((str(a), int(s)) for a, s in pairs)
+    if not out or len({a for a, _ in out}) != len(out) or min(s for _, s in out) < 1:
+        raise ValueError(f"a mesh needs distinct axis names and sizes >= 1, got {mesh}")
+    return out
 
-    ``bytes_gathered`` / ``bytes_reduced`` count every byte the ranks hand
-    to all_gather / psum (all n contributions).
+
+def _rank_over(coords, names, axes):
+    """Linear rank over ``axes`` (mesh order) of the rank at ``coords``."""
+    r = 0
+    for (a, s), c in zip(names, coords):
+        if a in axes:
+            r = r * s + c
+    return r
+
+
+def _coords(rank, names):
+    """Mesh coordinates (pod-major: the last axis varies fastest) of ``rank``."""
+    out = []
+    for _, s in reversed(names):
+        out.append(rank % s)
+        rank //= s
+    return tuple(reversed(out))
+
+
+class _Bytes:
+    """Byte counters one communicator shares with its views."""
+
+    def __init__(self):
+        self.gathered = self.reduced = self.inner = 0
+
+
+class _Counted:
+    """Byte counters and the mesh bookkeeping of both communicators.
+
+    ``bytes_gathered`` / ``bytes_reduced`` count what is handed to the
+    all_gather / psum of the codec axes: the cross-host traffic the
+    accounting (``wire_bits + scatter_bits`` at the effective node count)
+    bills.  ``bytes_inner`` counts the inner traffic of the hierarchical
+    schedule (the pre-reduce, the scatter decode's count exchange and shard
+    gather over the inner axes), which the accounting treats as free.
     """
 
-    def __init__(self, n: int, device=None):
-        self.size = int(n)
-        self.local_ranks = tuple(range(self.size))
-        self.device = resolve_device(device)
-        self.bytes_gathered = 0
-        self.bytes_reduced = 0
+    _bytes: _Bytes
+    _inner: bool = False
+
+    @property
+    def bytes_gathered(self) -> int:
+        return self._bytes.gathered
+
+    @property
+    def bytes_reduced(self) -> int:
+        return self._bytes.reduced
+
+    @property
+    def bytes_inner(self) -> int:
+        return self._bytes.inner
 
     def reset_bytes(self) -> None:
-        self.bytes_gathered = 0
-        self.bytes_reduced = 0
+        self._bytes.gathered = self._bytes.reduced = self._bytes.inner = 0
+
+    def _count(self, t, reduced: bool) -> None:
+        nb = t.numel() * t.element_size()
+        if self._inner:
+            self._bytes.inner += nb
+        elif reduced:
+            self._bytes.reduced += nb
+        else:
+            self._bytes.gathered += nb
+
+    def _sub_axes(self, axes):
+        if self.mesh is None:
+            raise ValueError("a flat communicator has no named axes: build it with a mesh")
+        axes = tuple(axes)
+        names = [a for a, _ in self.mesh]
+        if any(a not in names for a in axes) or list(axes) != [a for a in names if a in axes]:
+            raise ValueError(f"axes {axes} are not a subset of the mesh axes {tuple(names)} "
+                             "in mesh order")
+        return axes
+
+    def ranks_over(self, axes):
+        """The linear rank over ``axes`` (mesh order) of each local row: the
+        codec rank of the row under a config whose ``axes`` these are."""
+        if self.mesh is None:
+            return tuple(self.local_ranks)
+        axes = self._sub_axes(axes)
+        return tuple(_rank_over(c, self.mesh, axes) for c in self._local_coords)
+
+
+class StackedComm(_Counted):
+    """All ranks of a mesh stacked on one device; see the module docstring.
+
+    ``StackedComm(n)`` is the flat communicator: one axis that stands for
+    whatever axes a config names.  ``StackedComm(mesh={"pod": 4, "data":
+    2})`` lays the ranks out on named axes in mesh order, pod-major, as the
+    reference's ``Mesh(devices.reshape(n // n_in, n_in), ("pod", "data"))``
+    does: stacked row r is (pod = r // n_in, data = r % n_in).
+
+    A stacked communicator holds one row for each coordinate of its axes.
+    :meth:`over` gives the communicator over a subset of them, whose rows
+    stand for all the ranks that share those coordinates (the caller's data
+    is replicated over the other axes, as after :meth:`mean_over`); so each
+    distinct computation runs once: one pack per codec rank, one shard
+    decode per inner shard.  The byte counters count every contribution
+    (all rows) and are shared with the views.
+    """
+
+    def __init__(self, n: int = None, device=None, *, mesh=None, _bytes=None, _inner=False):
+        if mesh is None:
+            self.mesh = None
+            self.size = int(n)
+        else:
+            self.mesh = _mesh_pairs(mesh)
+            self.size = math.prod(s for _, s in self.mesh)
+            if n is not None and int(n) != self.size:
+                raise ValueError(f"n = {n} != the mesh's {self.size} ranks")
+            self._local_coords = tuple(_coords(r, self.mesh) for r in range(self.size))
+        self.axes = None if self.mesh is None else tuple(a for a, _ in self.mesh)
+        self.local_ranks = tuple(range(self.size))
+        self.device = resolve_device(device)
+        self._bytes = _bytes or _Bytes()
+        self._inner = _inner
 
     def _check(self, local):
         if local.shape[0] != self.size:
@@ -56,15 +171,84 @@ class StackedComm:
     def all_gather(self, local):
         """(n, ...) rows of all ranks → the same (n, ...) stack."""
         self._check(local)
-        self.bytes_gathered += local.numel() * local.element_size()
+        self._count(local, reduced=False)
         return local
 
     def psum(self, local):
         """Σ over ranks of the (n, ...) rows, accumulated in f32 from 0 in
         rank order."""
         self._check(local)
-        self.bytes_reduced += local.numel() * local.element_size()
+        self._count(local, reduced=True)
         return _rank_order_sum(local)
+
+    def over(self, axes, inner: bool = False):
+        """The communicator over ``axes`` (a subset of the mesh axes, in mesh
+        order), sharing the byte counters; ``inner=True`` counts its traffic
+        as inner.  The flat communicator is its own view over any axes."""
+        if self.mesh is None:
+            if inner:
+                raise ValueError("a flat communicator has no inner axes: build it with a mesh")
+            return self
+        axes = self._sub_axes(axes)
+        if axes == self.axes and inner == self._inner:
+            return self
+        sizes = dict(self.mesh)
+        return StackedComm(device=self.device, mesh=[(a, sizes[a]) for a in axes],
+                           _bytes=self._bytes, _inner=inner)
+
+    def _groups(self, axes):
+        """(K, M) row indices: row k of the communicator over the other axes,
+        and its M ranks over ``axes`` in rank order."""
+        axes = self._sub_axes(axes)
+        rest = tuple(a for a in self.axes if a not in axes)
+        k_of = [_rank_over(c, self.mesh, rest) for c in self._local_coords]
+        m_of = [_rank_over(c, self.mesh, axes) for c in self._local_coords]
+        m = math.prod(dict(self.mesh)[a] for a in axes)
+        idx = [[0] * m for _ in range(self.size // m)]
+        for r, (k, j) in enumerate(zip(k_of, m_of)):
+            idx[k][j] = r
+        return idx
+
+    def mean_over(self, x, axes):
+        """The exact mean over ``axes`` of the (n, ...) rows, as the rows of
+        ``over(the other axes)``: per group, an f32 sum from +0.0 over its
+        ranks in rank order, times f32(1/m) (:func:`inner_mean_scale`)."""
+        if not axes:
+            return x
+        self._check(x)
+        idx = self._groups(axes)
+        self._bytes.inner += x.numel() * x.element_size()
+        acc = torch.zeros((len(idx),) + tuple(x.shape[1:]), dtype=torch.float32,
+                          device=x.device)
+        for k, rows in enumerate(idx):
+            for r in rows:
+                acc[k] += x[r]
+        return acc * inner_mean_scale(len(idx[0]), x.device)
+
+    def pick(self, state, axes):
+        """The (K, ...) rows of ``state`` at coordinate 0 of ``axes``, as the
+        rows of ``over(the other axes)`` (a copy; :meth:`spread` writes it
+        back)."""
+        idx = self._groups(axes)
+        return torch.stack([state[rows[0]] for rows in idx])
+
+    def spread(self, rows, state, axes):
+        """Write each of the (K, ...) ``rows`` into every rank of its group
+        over ``axes`` in ``state``, in place: the rows of one group end
+        bit-equal."""
+        for k, group in enumerate(self._groups(axes)):
+            for r in group:
+                state[r].copy_(rows[k])
+
+
+def inner_mean_scale(m: int, device):
+    """f32(1/m) as a 0-dim tensor on ``device``: the inner mean multiplies
+    its rank-order sum by it, as the reference's ``pmean`` over the inner
+    axes does under ``shard_map`` (XLA lowers the mean's ``/ m`` to a
+    multiply by the f32 reciprocal).  At m = 3 that differs from a true
+    division; a tensor multiply gives the same bits on the CPU and the
+    card."""
+    return torch.full((), 1.0 / m, dtype=torch.float32, device=device)
 
 
 def _rank_order_sum(rows):
@@ -75,7 +259,7 @@ def _rank_order_sum(rows):
     return acc
 
 
-class DistComm:
+class DistComm(_Counted):
     """One rank per process over ``torch.distributed`` (any backend with
     all_gather_into_tensor and all_reduce: NCCL on cards, gloo on CPUs).
 
@@ -88,23 +272,60 @@ class DistComm:
     simulation) is all-reduced in f32: gathering n full f32 gradients would
     cost n× the memory.  ``bytes_*`` count this rank's contributions, the
     buffer it hands over.
+
+    ``mesh`` (as for :class:`StackedComm`) lays the world out on named
+    axes, pod-major: process rank r sits at the coordinates StackedComm
+    gives row r.  The groups of every proper subset of the axes are made
+    with ``torch.distributed.new_group`` in the constructor, which every
+    process must therefore call in the same order.  :meth:`mean_over`
+    gathers its group's rows and sums them in rank order, so it gives
+    StackedComm's bits at every group size.
     """
 
-    def __init__(self, group=None, device=None):
+    def __init__(self, group=None, device=None, *, mesh=None, _view=None):
         import torch.distributed as dist
 
         self._dist = dist
-        self.group = group
-        self.size = dist.get_world_size(group)
-        self.rank = dist.get_rank(group)
-        self.local_ranks = (self.rank,)
         self.device = resolve_device(device)
-        self.bytes_gathered = 0
-        self.bytes_reduced = 0
+        if _view is not None:
+            parent, axes, inner = _view
+            self.group = parent._subgroups[axes]
+            self.mesh = tuple(p for p in parent.mesh if p[0] in axes)
+            self.rank = parent.ranks_over(axes)[0]
+            self.size = math.prod(s for _, s in self.mesh)
+            self._local_coords = (tuple(c for p, c in zip(parent.mesh, parent._local_coords[0])
+                                        if p[0] in axes),)
+            self._subgroups, self._bytes, self._inner = parent._subgroups, parent._bytes, inner
+            self._root = parent._root
+        else:
+            self.group = group
+            self.size = dist.get_world_size(group)
+            self.rank = dist.get_rank(group)
+            self.mesh = None if mesh is None else _mesh_pairs(mesh)
+            self._bytes, self._inner, self._subgroups, self._root = _Bytes(), False, {}, self
+            if self.mesh is not None:
+                if math.prod(s for _, s in self.mesh) != self.size:
+                    raise ValueError(f"mesh {mesh} does not hold the {self.size} ranks")
+                self._local_coords = (_coords(self.rank, self.mesh),)
+                self._make_groups()
+        self.axes = None if self.mesh is None else tuple(a for a, _ in self.mesh)
+        self.local_ranks = (self.rank,)
 
-    def reset_bytes(self) -> None:
-        self.bytes_gathered = 0
-        self.bytes_reduced = 0
+    def _make_groups(self):
+        names = tuple(a for a, _ in self.mesh)
+        coords = [_coords(r, self.mesh) for r in range(self.size)]
+        for k in range(1, len(names)):
+            for axes in itertools.combinations(names, k):
+                rest = tuple(a for a in names if a not in axes)
+                groups = {}
+                for r, c in enumerate(coords):
+                    groups.setdefault(_rank_over(c, self.mesh, rest), []).append(r)
+                for ranks in groups.values():
+                    ranks.sort(key=lambda r: _rank_over(coords[r], self.mesh, axes))
+                    g = self._dist.new_group(ranks)
+                    if self.rank in ranks:
+                        self._subgroups[axes] = g
+        self._subgroups[names] = self.group
 
     def _gather(self, local):
         if local.shape[0] != 1:
@@ -118,54 +339,95 @@ class DistComm:
     def all_gather(self, local):
         """(1, ...) local row → (n, ...) rows of all ranks in rank order."""
         out = self._gather(local)
-        self.bytes_gathered += local.numel() * local.element_size()
+        self._count(local, reduced=False)
         return out
 
     def psum(self, local):
         if local.shape[0] != 1:
             raise ValueError(f"DistComm holds one rank; got {local.shape[0]} rows")
-        self.bytes_reduced += local.numel() * local.element_size()
+        self._count(local, reduced=True)
         if local.element_size() < 4:
             return _rank_order_sum(self._gather(local))
         buf = local[0].clone()
         self._dist.all_reduce(buf, group=self.group)
-        return buf.to(torch.float32)
+        return buf.to(torch.float32) + 0.0     # a sum from +0.0 has no −0.0
+
+    def over(self, axes, inner: bool = False):
+        """The communicator over ``axes`` (this process's group of them),
+        sharing the byte counters; see :meth:`StackedComm.over`."""
+        if self.mesh is None:
+            if inner:
+                raise ValueError("a flat communicator has no inner axes: build it with a mesh")
+            return self
+        axes = self._sub_axes(axes)
+        if axes == self.axes and inner == self._inner:
+            return self
+        return DistComm(device=self.device, _view=(self._root, axes, inner))
+
+    def mean_over(self, x, axes):
+        """The exact mean over ``axes`` of the (1, ...) row: the group's rows
+        gathered and summed as :meth:`StackedComm.mean_over` sums them."""
+        if not axes:
+            return x
+        sub = self.over(axes, inner=True)
+        rows = sub._gather(x)
+        self._bytes.inner += x.numel() * x.element_size()
+        return (_rank_order_sum(rows) * inner_mean_scale(sub.size, x.device))[None]
+
+    def pick(self, state, axes):
+        """This process's state row: every rank of its group holds its own."""
+        return state
+
+    def spread(self, rows, state, axes):
+        if rows is not state:
+            state.copy_(rows)
 
 
 def exact_mean(x, comm):
-    """The exact mean over ranks of the (L, *shape) stack (f32 psum / n)."""
+    """The exact mean over all of the communicator's ranks of the (L, *shape)
+    stack (f32 psum / n): over ``cfg.inner_axes + cfg.axes`` for the
+    communicator a round runs on."""
     shape, dtype = x.shape[1:], x.dtype
     flat = x.reshape(x.shape[0], -1).to(torch.float32)
     return wire_base.divide(comm.psum(flat), comm.size).reshape(shape).to(dtype)
 
 
-def _masked_exact_mean(x, drop_mask, comm):
-    """The exact mean over the ranks the (n,) ``drop_mask`` keeps: the
-    :func:`partial_mean` contract (NaN when none is kept)."""
-    keep = wire_base.local_keep(drop_mask, comm, x.device).to(x.dtype)
+def _masked_exact_mean(x, drop_mask, comm, cfg):
+    """The exact mean over the ranks the drop mask keeps: the
+    :func:`partial_mean` contract (NaN when none is kept).  The mask has an
+    entry per codec rank over ``cfg.axes`` (the drop unit is the cross-host
+    peer): each row takes its codec rank's entry, and the partial mean runs
+    over all of the communicator's ranks."""
+    keep = wire_base.local_keep(drop_mask, comm, x.device, cfg.axes).to(x.dtype)
     xk = x * keep.reshape((-1,) + (1,) * (x.dim() - 1))
     return partial_mean(xk, keep, comm).to(x.dtype)
 
 
-def _exact(x, comm, drop_mask):
-    return exact_mean(x, comm) if drop_mask is None else _masked_exact_mean(x, drop_mask, comm)
+def _exact(x, comm, cfg, drop_mask):
+    if drop_mask is None:
+        return exact_mean(x, comm)
+    return _masked_exact_mean(x, drop_mask, comm, cfg)
 
 
 def compressed_mean(x, key, cfg: t.CompressionConfig, comm, drop_mask=None):
     """Estimate the mean over the communicator's ranks of the (L, *shape)
     stack ``x`` under the configured protocol; returns (*shape).
 
+    A communicator with a mesh must span ``cfg.inner_axes + cfg.axes``; a
+    hierarchical config first takes the exact mean over its inner axes and
+    runs the codec over ``cfg.axes`` only (DESIGN.md §11,
+    :meth:`~repro_torch.core.wire.base.WireCodec.mean_flat`).
+
     Unbiased for every ported codec: E[result] = the exact mean (Lemmas
     3.1/3.3).  Mode "none" and buckets below ``min_compress_size`` take the
-    exact mean.  ``drop_mask`` is an optional (n,) 0/1 alive mask over the
-    ranks (1 = keep): dropped peers are left out at decode time and the
-    estimate renormalizes over the survivors (NaN when none survives); the
-    wire payload is unchanged.
+    exact mean.  ``drop_mask`` is an optional 0/1 alive mask over the codec
+    ranks of ``cfg.axes`` (1 = keep): dropped peers are left out at decode
+    time and the estimate renormalizes over the survivors (NaN when none
+    survives); the wire payload is unchanged.
     """
-    if drop_mask is not None:
-        wire_base.check_ported(cfg)
+    wire_base.check_mesh(comm, cfg)
     if cfg.mode == "none" or x[0].numel() < cfg.min_compress_size:
-        return _exact(x, comm, drop_mask)
+        return _exact(x, comm, cfg, drop_mask)
     return registry.resolve(cfg).mean(x, key, cfg, comm, drop_mask)
 
 
@@ -176,16 +438,17 @@ def compressed_mean_stateful(x, state, key, cfg: t.CompressionConfig, comm, drop
     ``state`` is the (L, ...) local state of the codec (the error-feedback
     residual, one row per local rank), shaped like ``x`` or flat per row;
     it is threaded flat through the codec, updated in place where it is
-    already f32 and contiguous, and returned in its own shape.  Stateless
-    codecs, mode "none" and buckets below ``min_compress_size`` pass it
-    through untouched.  ``drop_mask`` as in :func:`compressed_mean`; a
-    dropped rank's residual is still written and re-enters through its own
-    later messages.
+    already f32 and contiguous, and returned in its own shape.  Under a
+    hierarchical config the rows of one inner group end bit-equal
+    (:meth:`~repro_torch.core.wire.base.WireCodec.mean_flat_stateful`).
+    Stateless codecs, mode "none" and buckets below ``min_compress_size``
+    pass it through untouched.  ``drop_mask`` as in
+    :func:`compressed_mean`; a dropped rank's residual is still written and
+    re-enters through its own later messages.
     """
-    if drop_mask is not None:
-        wire_base.check_ported(cfg)
+    wire_base.check_mesh(comm, cfg)
     if cfg.mode == "none" or x[0].numel() < cfg.min_compress_size:
-        return _exact(x, comm, drop_mask), state
+        return _exact(x, comm, cfg, drop_mask), state
     codec = registry.resolve(cfg)
     shape, dtype = x.shape[1:], x.dtype
     flat = x.reshape(x.shape[0], -1).to(torch.float32)

@@ -134,19 +134,19 @@ def _need(v, name: str, spec: CommSpec):
     return v
 
 
-def cost_config(cfg, *, n: int, d: int) -> float:
+def cost_config(cfg, *, n: int, d: int, mesh_sizes=None) -> float:
     """Analytic cost of the wire codec the registry resolves for ``cfg``: its
     payload, seed bits and flat scatter-decode bits,
-    ``codec.comm_cost_bits + codec.scatter_bits`` at n nodes.  Hierarchical
-    configs (``cfg.inner_axes``) raise NotPortedError."""
+    ``codec.comm_cost_bits + codec.scatter_bits`` at the effective node
+    count.  ``n`` is the world size over all compression axes; a
+    hierarchical config (``cfg.inner_axes``) is billed at the cross-host
+    group size :func:`~repro_torch.core.wire.base.effective_nodes`, which
+    needs ``mesh_sizes`` (axis name → size); its shard gather and count
+    exchange ride the inner axes and are not billed (DESIGN.md §11)."""
     from repro_torch.core import wire  # local import: wire consumes this module
-    if cfg.inner_axes:
-        raise wire.NotPortedError(
-            f"cost_config of a hierarchical config (inner_axes={cfg.inner_axes}) is not "
-            "ported yet: it arrives with the hierarchical-collectives slice (ROADMAP.md, "
-            "queue 1)")
+    n_eff = wire.effective_nodes(cfg, n, mesh_sizes)
     codec = wire.resolve(cfg)
-    return float(codec.comm_cost_bits(n, d, cfg) + codec.scatter_bits(n, d, cfg))
+    return float(codec.comm_cost_bits(n_eff, d, cfg) + codec.scatter_bits(n_eff, d, cfg))
 
 
 # --- realized cost of one encoded round ----------------------------------- #

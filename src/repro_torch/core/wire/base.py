@@ -11,14 +11,20 @@ codec and runs over a communicator instead of ``shard_map`` axes
 * ``comm.local_ranks`` — the ranks this process holds (all n for
   ``StackedComm``, one for ``DistComm``);
 * ``comm.all_gather(local)`` — (L, ...) local rows → (n, ...) in rank order;
-* ``comm.psum(local)`` — (L, ...) → the f32 sum over all n ranks.
+* ``comm.psum(local)`` — (L, ...) → the f32 sum over all n ranks;
+* with a mesh, ``comm.over(axes)`` — the communicator over a subset of
+  its axes, and ``comm.mean_over(x, axes)`` — the exact mean over a subset,
+  as the rows of the communicator over the others.
 
 Local data is always a stack with one row per local rank.  Decoded results
 are the same on every rank by construction, so a round returns one
 estimate, not one per rank.
 
-Ported: one flat compression axis, with and without the §12 scatter
-decode (§13 word-aligned shards for the packed planes); codec state (the
+Ported: the flat round over the compression axes and the §11 two-level
+schedule (``cfg.inner_axes``: one exact mean over the inner axes, then the
+codec over ``cfg.axes`` at n_eff = n / Π inner sizes, and a scatter decode
+sharded over the inner axes), with and without the §12 scatter decode
+(§13 word-aligned shards for the packed planes); codec state (the
 error-feedback residual, :mod:`.ef`): a state is an (L, *state_shape)
 stack, one row per local rank beside ``x``'s rows, threaded through
 :meth:`WireCodec.mean_flat_stateful`; and the §14 decode policies and the
@@ -28,8 +34,8 @@ builds the (n, d) stack of per-peer reconstructions (:meth:`decode_rows`)
 and reduces it coordinate-wise, in the scatter decode per word-aligned
 shard window.  A mask is an (n,) 0/1 tensor over the codec ranks (1 =
 keep); the dropped peers' rows still travel, and psum codecs take the
-mask-weighted mean of the packed buffers.  Hierarchical ``inner_axes``
-raise :class:`NotPortedError` naming the slice that brings them.
+mask-weighted mean of the packed buffers.  Under a hierarchical config the
+drop unit is the cross-host peer: the mask has n_eff entries.
 
 Accounting contract: ``comm_cost_bits == wire_bits + seed_bits``.
 """
@@ -48,14 +54,62 @@ class NotPortedError(NotImplementedError):
     the message names the ROADMAP slice that brings it."""
 
 
-def _not_ported(what: str, slice_name: str) -> NotPortedError:
-    return NotPortedError(f"{what} is not ported yet: it arrives with {slice_name} "
-                          "(ROADMAP.md, queue 1)")
+def view(comm, axes, inner: bool = False):
+    """The communicator over ``axes`` (``comm.over``); ``inner=True`` counts
+    its traffic as inner.  A communicator without a mesh (or without
+    ``over``: a test's wrapper) is its own view over any axes."""
+    over = getattr(comm, "over", None)
+    if over is None:
+        if inner:
+            raise ValueError("a flat communicator has no inner axes: build it with a mesh")
+        return comm
+    return over(tuple(axes), inner=inner)
 
 
-def axis_rank_size(comm):
-    """The local ranks this process holds and the node count n."""
-    return tuple(comm.local_ranks), int(comm.size)
+def axis_rank_size(comm, axes=None):
+    """The codec ranks this process holds and the node count: over ``axes``
+    (the config's compression axes) when given, else over the whole
+    communicator."""
+    v = comm if axes is None else view(comm, axes)
+    return tuple(v.local_ranks), int(v.size)
+
+
+def ranks_over(comm, axes=None):
+    """The rank over ``axes`` of each local row of ``comm`` (its codec rank);
+    the local ranks when ``axes`` is None or ``comm`` has no mesh."""
+    fn = getattr(comm, "ranks_over", None)
+    if axes is None or fn is None:
+        return tuple(comm.local_ranks)
+    return tuple(fn(tuple(axes)))
+
+
+def check_mesh(comm, cfg: t.CompressionConfig) -> None:
+    """A communicator with a mesh must span ``cfg.inner_axes + cfg.axes``
+    exactly; a flat one takes no inner axes."""
+    axes = getattr(comm, "axes", None)
+    want = tuple(cfg.inner_axes) + tuple(cfg.axes)
+    if axes is None:
+        if cfg.inner_axes:
+            raise ValueError(f"inner_axes={cfg.inner_axes} need a communicator with a mesh "
+                             "that names them")
+        return
+    if set(axes) != set(want) or len(want) != len(set(want)):
+        raise ValueError(f"the communicator's axes {axes} are not the config's "
+                         f"inner_axes + axes {want}")
+
+
+def inner_mean(x, cfg: t.CompressionConfig, comm):
+    """The (L, d) stack's exact mean over ``cfg.inner_axes``, as the rows of
+    the communicator over ``cfg.axes`` (``comm.mean_over``: an f32 sum from
+    +0.0 in rank order times f32(1/n_in), the reference's ``pmean`` under
+    ``shard_map``); ``x`` itself for a flat config."""
+    return comm.mean_over(x, tuple(cfg.inner_axes)) if cfg.inner_axes else x
+
+
+def scatter_comm(comm, cfg: t.CompressionConfig):
+    """The communicator a scatter decode shards over: the inner axes' when
+    present (their traffic counted as inner), else the compression axes'."""
+    return view(comm, scatter_axes(cfg), inner=bool(cfg.inner_axes))
 
 
 def divide(x, n: int):
@@ -74,11 +128,13 @@ def gather_nested(local, comm):
     return comm.all_gather(local)
 
 
-def local_keep(drop_mask, comm, device):
-    """The (L,) f32 entries of the (n,) drop mask for the communicator's
-    local ranks, on ``device`` (basic indexing: no index tensor, no sync)."""
+def local_keep(drop_mask, comm, device, axes=None):
+    """The (L,) f32 entries of the drop mask for the communicator's local
+    rows, each indexed by its rank over ``axes`` (the codec rank; the local
+    rank when None), on ``device`` (basic indexing: no index tensor, no
+    sync)."""
     m = torch.as_tensor(drop_mask).to(device=device, dtype=torch.float32)
-    return torch.stack([m[r] for r in comm.local_ranks])
+    return torch.stack([m[r] for r in ranks_over(comm, axes)])
 
 
 def shard_window(stack, start: int, ds: int):
@@ -192,13 +248,6 @@ def center(x, policy: str):
                      "(optimal centers need the §6 solver — reference path only)")
 
 
-def check_ported(cfg: t.CompressionConfig) -> None:
-    """Raise NotPortedError for the round options the port does not have."""
-    if cfg.inner_axes:
-        raise _not_ported(f"the hierarchical schedule (inner_axes={cfg.inner_axes})",
-                          "the hierarchical-collectives slice")
-
-
 class WireCodec:
     """One registered wire format; see the module docstring.
 
@@ -296,14 +345,16 @@ class WireCodec:
         raise NotImplementedError(f"codec {self.name!r} does not support scatter_decode")
 
     def decode_shards(self, rows, key, cfg: t.CompressionConfig, d: int,
-                      n: int, shards: Sequence[int], comm):
-        """The local shards' decodes, stacked (L, shard length).
+                      n: int, shards: Sequence[int], nshards: int, comm):
+        """The local shards' decodes (of ``nshards``), stacked (L, shard
+        length).
 
         Default: :meth:`decode_gathered_shard` per local shard.  Codecs whose
         shard decode needs a collective of its own (Bernoulli's rank-offset
-        count exchange) override this and run it over ``comm``.
+        count exchange) override this and run it over ``comm``, the
+        communicator the shards are spread over (:func:`scatter_comm`).
         """
-        return torch.stack([self.decode_gathered_shard(rows, key, cfg, d, n, s, n)
+        return torch.stack([self.decode_gathered_shard(rows, key, cfg, d, n, s, nshards)
                             for s in shards])
 
     def decode_reduced(self, wire, key, cfg: t.CompressionConfig, d: int):
@@ -330,9 +381,25 @@ class WireCodec:
         """One stateful round over the (L, d) stack ``x`` and its (L, ...)
         ``state``: returns (the (d,) estimate, the new state).  A stateless
         codec passes the state through, so every codec is drivable through
-        this one entry point.  ``drop_mask`` as in :meth:`mean_flat`."""
-        check_ported(cfg)
-        return self._round_stateful(x, state, key, cfg, comm, drop_mask)
+        this one entry point.  ``drop_mask`` as in :meth:`mean_flat`.
+
+        Hierarchical configs pre-reduce ``x`` over the inner axes here, once,
+        before any codec layer runs, and the codec's state follows the
+        cross-host message: the round reads the state row of each codec
+        rank's first inner rank (``comm.pick``) and writes the new one to
+        every rank of its inner group (``comm.spread``), so the rows of one
+        inner group stay bit-equal.  On ``StackedComm`` that is one state
+        row per codec rank updated, then copied over its group's other
+        rows; on ``DistComm`` every inner rank computes the same row from
+        the same inputs."""
+        check_mesh(comm, cfg)
+        if not cfg.inner_axes or not self.stateful or state is None:
+            return self._round_stateful(inner_mean(x, cfg, comm), state, key, cfg, comm,
+                                        drop_mask)
+        st = comm.pick(state, tuple(cfg.inner_axes))
+        y, st = self._round_stateful(inner_mean(x, cfg, comm), st, key, cfg, comm, drop_mask)
+        comm.spread(st, state, tuple(cfg.inner_axes))
+        return y, state
 
     def _round_stateful(self, x, state, key, cfg: t.CompressionConfig, comm,
                         drop_mask=None):
@@ -345,18 +412,26 @@ class WireCodec:
         """Estimate the mean over the communicator's ranks of the (L, d) f32
         local stack ``x``; returns the (d,) estimate every rank holds.
 
-        ``drop_mask``: an optional (n,) 0/1 alive mask over the ranks (1 =
-        keep).  The dropped peers' buffers still travel; the decode leaves
-        them out and renormalizes over the kept ones (NaN when none is
-        kept), which equals a decode of the survivors' rows alone under
-        their own peer indices.
+        Two-level schedule (DESIGN.md §11): with ``cfg.inner_axes`` the mean
+        over the inner axes is exact (:func:`inner_mean`, here, once) and
+        the codec round runs only across ``cfg.axes``.  Wrapper codecs
+        override :meth:`_round` / :meth:`_round_stateful`, never this.
+
+        ``drop_mask``: an optional 0/1 alive mask over the codec ranks of
+        ``cfg.axes`` (1 = keep; n_eff entries under a hierarchical config:
+        the drop unit is the cross-host peer).  The dropped peers' buffers
+        still travel; the decode leaves them out and renormalizes over the
+        kept ones (NaN when none is kept), which equals a decode of the
+        survivors' rows alone under their own peer indices.
         """
-        check_ported(cfg)
-        return self._round(x, key, cfg, comm, drop_mask)
+        check_mesh(comm, cfg)
+        return self._round(inner_mean(x, cfg, comm), key, cfg, comm, drop_mask)
 
     def _round(self, x, key, cfg: t.CompressionConfig, comm, drop_mask=None):
-        """One codec round: pack per local rank, then :meth:`_reduce_decode`."""
-        ranks, _ = axis_rank_size(comm)
+        """One codec round across ``cfg.axes`` (``x`` already inner-reduced:
+        one row per local codec rank): pack per codec rank, then
+        :meth:`_reduce_decode`."""
+        ranks, _ = axis_rank_size(comm, cfg.axes)
         bufs = torch.stack([self.pack(x[i], key, r, cfg) for i, r in enumerate(ranks)])
         return self._reduce_decode(bufs, key, cfg, x.shape[1], comm, drop_mask)
 
@@ -370,13 +445,13 @@ class WireCodec:
         message); the buffers are masked at the wire dtype, where × 0 and × 1
         are exact, so the wire keeps its width."""
         if self.reduce == "psum":
+            ccomm = view(comm, cfg.axes)
             if drop_mask is None:
-                _, n = axis_rank_size(comm)
-                wire = divide(comm.psum(bufs), n).to(bufs.dtype)
+                wire = divide(ccomm.psum(bufs), ccomm.size).to(bufs.dtype)
             else:
-                keep = local_keep(drop_mask, comm, bufs.device)
-                num = comm.psum(bufs * keep.to(bufs.dtype)[:, None])
-                den = comm.psum(keep[:, None]).reshape(())
+                keep = local_keep(drop_mask, ccomm, bufs.device)
+                num = ccomm.psum(bufs * keep.to(bufs.dtype)[:, None])
+                den = ccomm.psum(keep[:, None]).reshape(())
                 wire = (num / den).to(bufs.dtype)
             return self.decode_reduced(wire, key, cfg, d)
         return self.gather_decode(bufs, key, cfg, d, comm, drop_mask)
@@ -385,29 +460,35 @@ class WireCodec:
                       drop_mask=None):
         """all_gather the packed buffers and decode.
 
-        With ``cfg.scatter_decode`` (flat mesh, §12) each rank decodes only
-        its contiguous shard of all n rows and one all_gather of decoded
-        shards reassembles the estimate; shards concatenate in rank order
-        and pads sit past d, so the result equals the flat decode.  A robust
+        The gather runs over ``cfg.axes``.  With ``cfg.scatter_decode`` the
+        decode is sharded over :func:`scatter_comm`: the inner axes when
+        present (hierarchical: each inner rank decodes one ⌈d/n_in⌉ shard
+        of the n_eff rows, and the shard gather rides the inner link) or the
+        compression axes themselves (flat mesh, §12: ⌈d/n⌉ shards, the
+        gather billed by :meth:`scatter_bits`); shards concatenate in shard
+        order and pads sit past d, so the result equals the flat decode.  A robust
         policy or a mask reduces the per-peer stack instead: flat through
         :meth:`decode_rows_reduce`, scattered per word-aligned shard window
         of the stack (built once for every local shard: the windows are
         slices of the same rows), which partitions like the mean.
         """
-        ranks, n = axis_rank_size(comm)
-        rows = gather_nested(bufs, comm).reshape(n, bufs.shape[1])
+        ccomm = view(comm, cfg.axes)
+        n = ccomm.size
+        rows = gather_nested(bufs, ccomm).reshape(n, bufs.shape[1])
         if not cfg.scatter_decode:
             return self.decode_rows_reduce(rows, key, cfg, d, n, drop_mask)
+        scomm = scatter_comm(comm, cfg)
+        shards, nshards = tuple(scomm.local_ranks), scomm.size
         kind, f = robust.parse_policy(cfg.decode_policy)
         if kind == "mean" and drop_mask is None:
-            parts = self.decode_shards(rows, key, cfg, d, n, ranks, comm)
+            parts = self.decode_shards(rows, key, cfg, d, n, shards, nshards, scomm)
         else:
-            ds = scatter_shard_len(d, n, self.scatter_align(cfg))
+            ds = scatter_shard_len(d, nshards, self.scatter_align(cfg))
             stack = self.decode_rows(rows, key, cfg, d, n)
             parts = torch.stack([robust.reduce_rows(shard_window(stack, s * ds, ds), kind, f,
-                                                    drop_mask) for s in ranks])
+                                                    drop_mask) for s in shards])
             del stack
-        return gather_nested(parts, comm).reshape(-1)[:d]
+        return gather_nested(parts, scomm).reshape(-1)[:d]
 
     def mean(self, x, key, cfg: t.CompressionConfig, comm, drop_mask=None):
         """Shape/dtype-preserving wrapper: ``x`` is (L, *shape), the result

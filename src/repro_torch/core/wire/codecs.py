@@ -272,22 +272,25 @@ class BernoulliCodec(base.WireCodec):
                                   _peer_keys(key, n), p, cap, d)
         return base.divide(total, n)
 
-    def decode_shards(self, rows, key, cfg, d, n, shards, comm):
-        # §12 reduce-scatter decode.  Support ranks are global, so each
-        # shard needs every peer's support count strictly before its window:
-        # the count phase of every local shard runs first, the per-shard
-        # counts are all_gathered over the ranks and exclusive-cumsummed,
-        # and each shard's decode reuses its count phase's support bits.
+    def decode_shards(self, rows, key, cfg, d, n, shards, nshards, comm):
+        # §12 reduce-scatter decode over ``nshards`` ⌈d/nshards⌉ windows (n
+        # on the flat mesh, n_in under the hierarchical schedule).  Support
+        # ranks are global, so each shard needs every peer's support count
+        # strictly before its window: the count phase of every local shard
+        # runs first, the (nshards, n) table of per-shard counts is
+        # all_gathered over the shards' communicator and exclusive-
+        # cumsummed, and each shard's decode reuses its count phase's
+        # support bits.
         p = float(cfg.encoder.fraction)
         cap = comm_cost.bernoulli_capacity(d, p)
         rows = rows.to(torch.float32)
         bufs, mus = rows[:, :-1], rows[:, -1].contiguous()
         keys = _peer_keys(key, n)
-        ds = base.scatter_shard_len(d, n)
+        ds = base.scatter_shard_len(d, nshards)
         sups = [bw_ops.support_counts(keys, p, d, s * ds, ds, rows.device)
                 for s in shards]
         counts = torch.stack([s.counts.sum(1, dtype=torch.int32) for s in sups])
-        allc = base.gather_nested(counts, comm).reshape(n, n)
+        allc = base.gather_nested(counts, comm).reshape(nshards, n)
         prior = torch.cumsum(allc, 0, dtype=torch.int32) - allc
         return torch.stack([
             base.divide(bw_ops.decode_sum_shard(bufs, mus, sup, prior[s].contiguous(),
@@ -379,17 +382,18 @@ class TernaryCodec(base.WireCodec):
     def scatter_align(self, cfg):
         return bitplane.TERNARY_ALIGN
 
-    def decode_shards(self, rows, key, cfg, d, n, shards, comm):
+    def decode_shards(self, rows, key, cfg, d, n, shards, nshards, comm):
         # §13 with the §12 count exchange: pass-through slots are addressed
         # by global support rank, so every shard needs each peer's
         # pass-through count before its window.  The symbol windows of all
-        # local shards come first, their per-shard counts are all_gathered
-        # over the ranks and exclusive-cumsummed, then each shard decodes.
-        ds = base.scatter_shard_len(d, n, bitplane.TERNARY_ALIGN)
+        # local shards come first, the (nshards, n) table of per-shard counts
+        # is all_gathered over the shards' communicator and
+        # exclusive-cumsummed, then each shard decodes.
+        ds = base.scatter_shard_len(d, nshards, bitplane.TERNARY_ALIGN)
         cap = self._cap(d, cfg)
-        syms = [bitplane.ternary_shard_syms(rows, d, s * ds, ds, n) for s in shards]
+        syms = [bitplane.ternary_shard_syms(rows, d, s * ds, ds, nshards) for s in shards]
         counts = torch.stack([(sy == 2).sum(1, dtype=torch.int32) for sy in syms])
-        allc = base.gather_nested(counts, comm).reshape(n, n)
+        allc = base.gather_nested(counts, comm).reshape(nshards, n)
         prior = torch.cumsum(allc, 0, dtype=torch.int32) - allc
         return torch.stack([
             base.divide(bitplane.ternary_decode_shard(rows, sy, prior[s], d, cap,

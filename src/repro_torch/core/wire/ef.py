@@ -47,7 +47,12 @@ the tolerance).
 State layout: the port's stacked one, an (L, d) residual beside ``x``'s
 (L, d) rows.  A round writes each rank's new residual into its own row of
 the state (``state[i] = v − recon``) and returns that same tensor: no
-second (n, d) stack is made.
+second (n, d) stack is made.  Under the hierarchical schedule the round
+receives the inner-reduced vector (one row per codec rank), so the residual
+tracks the cross-host message, the only lossy step; the state keeps one row
+per local rank, and :meth:`~.base.WireCodec.mean_flat_stateful` reads and
+writes it so that the rows of one inner group stay bit-equal (the stacked
+communicator updates one row per codec rank and copies it over the group).
 
 Accounting delegates verbatim (wire_slots / wire_bits / seed_bits /
 cost_spec / scatter_bits), so ``comm_cost_bits == wire_bits + seed_bits``
@@ -364,7 +369,7 @@ class EFCodec(base.WireCodec):
         residual (v = x + 0, as the reference adds its zeros), with nothing
         written back.  ``drop_mask`` reaches the decode (the masked psum of
         a psum inner); every rank's residual is written, dropped or not."""
-        ranks, _ = base.axis_rank_size(comm)
+        ranks, _ = base.axis_rank_size(comm, cfg.axes)
         bufs = []
         for i, r in enumerate(ranks):
             v = x[i] + (state[i] if state is not None else 0.0)

@@ -18,8 +18,13 @@ The round is :meth:`WireCodec._round` unchanged: it packs through
 pair for an inner ``binary``) and decodes through :meth:`gather_decode` or
 :meth:`decode_reduced` (the inner decode at the padded length, the scatter
 decode's shards included, then one unrotate), which is the reference's
-rotated ``_round`` op for op.  Codec state is forwarded in the rotated
-basis (:meth:`RotatedCodec._round_stateful`); the production error
+rotated ``_round`` op for op.  Under the hierarchical schedule the in-pod
+pre-reduce runs once, in :meth:`WireCodec.mean_flat`, before any rotation:
+the packs rotate the codec ranks' in-pod means, and the scatter decode
+shards the rotated estimate at the padded length over the inner axes (the
+reference delegates to its inner ``_round`` for the same effect; here the
+pack keeps the fused rotate-and-encode kernels).  Codec state is forwarded
+in the rotated basis (:meth:`RotatedCodec._round_stateful`); the production error
 feedback wraps the rotation instead (EF∘rotation, :mod:`.ef`), keeping its
 residual in model coordinates.  Robust decode policies and drop masks
 (:mod:`.robust`) reduce in ROTATED space at the padded length, where the

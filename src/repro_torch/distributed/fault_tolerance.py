@@ -33,6 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.core import comm_cost, rotation
 from repro_torch.core import types as t
 from repro_torch.core.collectives import compressed_mean, partial_mean
+from repro_torch.core.wire import base as wire_base
 from repro_torch.core.wire import codecs as wire_codecs
 from repro_torch.core.wire import ef as wire_ef
 from repro_torch.core.wire import registry as wire_registry
@@ -73,10 +74,13 @@ class FailurePlan:
         :func:`compressed_mean` (1 = keep the peer's row)."""
         return self._draw(step, n, device).to(torch.float32)
 
-    def local_alive(self, step: int, comm, device=None):
-        """The (L,) f32 0/1 entries of the communicator's local ranks."""
-        mask = self.drop_mask(step, comm.size, device)
-        return torch.stack([mask[r] for r in comm.local_ranks])
+    def local_alive(self, step: int, comm, device=None, axes=None):
+        """The (L,) f32 0/1 entries of the communicator's local rows: over
+        ``axes`` (the codec axes: the drop unit is the cross-host peer, each
+        row takes its codec rank's entry) when given, else over all ranks."""
+        _, n = wire_base.axis_rank_size(comm, axes)
+        mask = self.drop_mask(step, n, device)
+        return torch.stack([mask[r] for r in wire_base.ranks_over(comm, axes)])
 
 
 def robust_mean(x, step: int, comm, plan: FailurePlan):
@@ -92,8 +96,8 @@ def robust_compressed_mean(x, key, cfg: t.CompressionConfig, step: int,
     strength, the decode leaves out the peers the plan killed this step and
     renormalizes over the survivors, under whatever ``cfg.decode_policy``
     says (trimming applies to the kept rows)."""
-    return compressed_mean(x, key, cfg, comm,
-                           drop_mask=plan.drop_mask(step, comm.size, x.device))
+    _, n = wire_base.axis_rank_size(comm, cfg.axes)
+    return compressed_mean(x, key, cfg, comm, drop_mask=plan.drop_mask(step, n, x.device))
 
 
 # --------------------------------------------------------------------------- #
@@ -229,22 +233,45 @@ class ByzantineComm:
     """A communicator whose first all_gather — the packed wire rows of a
     round — delivers :func:`corrupt_wire_row` of rank ``rank``'s row to
     every receiver, so the corruption lands between pack and decode.  Every
-    other call, and the byte counters, are ``comm``'s own."""
+    other call, and the byte counters, are ``comm``'s own.
 
-    def __init__(self, comm, rank: int, mode: str):
+    Over a mesh, ``rank`` is a codec rank: the views over the codec axes
+    (:meth:`over`) share the one pending corruption, and the inner axes'
+    traffic (the pre-reduce, the shard gather) stays honest."""
+
+    def __init__(self, comm, rank: int, mode: str, _pending=None):
         if mode not in CORRUPTION_MODES:
             raise ValueError(f"unknown corruption mode {mode!r}; have {CORRUPTION_MODES}")
         self.comm, self.rank, self.mode = comm, int(rank), mode
         self.size, self.local_ranks = comm.size, comm.local_ranks
-        self._pending = True
+        self.axes = getattr(comm, "axes", None)
+        self._pending = _pending if _pending is not None else [True]
 
     def all_gather(self, local):
         out = self.comm.all_gather(local)
-        if self._pending:
-            self._pending = False
+        if self._pending[0]:
+            self._pending[0] = False
             out = out.clone()
             out[self.rank] = corrupt_wire_row(out[self.rank], self.mode)
         return out
 
     def psum(self, local):
         return self.comm.psum(local)
+
+    def over(self, axes, inner: bool = False):
+        sub = wire_base.view(self.comm, axes, inner)
+        if inner:
+            return sub
+        return ByzantineComm(sub, self.rank, self.mode, self._pending)
+
+    def mean_over(self, x, axes):
+        return self.comm.mean_over(x, axes)
+
+    def ranks_over(self, axes):
+        return wire_base.ranks_over(self.comm, axes)
+
+    def pick(self, state, axes):
+        return self.comm.pick(state, axes)
+
+    def spread(self, rows, state, axes):
+        return self.comm.spread(rows, state, axes)

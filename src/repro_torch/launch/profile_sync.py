@@ -1,12 +1,15 @@
 """Where the time of one bucketed gradient sync goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_sync \
-        [--out chiprun_out/profile_sync.json]
+        [--mesh pod=4,data=2] [--out chiprun_out/profile_sync.json]
 
 Drives ``sync_grads_bucketed`` over the main path of ``train/synthetic.py``
 (qwen3-4b at full width, 4 of its 36 layers, 8 ranks stacked on the card,
-synthetic seeded gradients), as ``chip_smoke.py`` does.  Per preset of
-``synthetic.PRESETS``: one warm-up step,
+synthetic seeded gradients), as ``chip_smoke.py`` does.  ``--mesh`` lays
+the ranks out on named axes instead (``pod=4,data=2`` is
+``synthetic.HIER_MESH``) and profiles ``synthetic.HIER_PRESETS`` unflattened
+(the §11 two-level sync).  Per preset (``synthetic.PRESETS`` without a
+mesh): one warm-up step,
 two steps timed by the host clock around a synchronize, then one step under
 ``torch.profiler`` (CPU and CUDA activity).  Prints and writes as JSON: the
 step's wall time, the time the card was busy (the union of its kernel,
@@ -58,7 +61,16 @@ def time_draw(draw, d: int):
             "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
 
 
-def profile_preset(preset: str):
+def parse_mesh(text: str):
+    """``"pod=4,data=2"`` → {"pod": 4, "data": 2} in the order given."""
+    out = {}
+    for part in text.split(","):
+        name, _, size = part.partition("=")
+        out[name.strip()] = int(size)
+    return out
+
+
+def profile_preset(preset: str, mesh=None):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -66,8 +78,10 @@ def profile_preset(preset: str):
     from repro_torch.kernels import backend
     from repro_torch.train import bucketing, synthetic
 
-    cmp = synthetic.preset(preset)
-    shapes, plan, comm = synthetic.main_path(cmp, "cuda")
+    from repro_torch.configs.registry import compression_preset
+
+    cmp = synthetic.preset(preset) if mesh is None else compression_preset(preset)
+    shapes, plan, comm = synthetic.main_path(cmp, "cuda", mesh)
     grads = synthetic.synthetic_grads(shapes, synthetic.N, 0, "cuda")
     ef = (bucketing.init_ef_state(plan, cmp, synthetic.N, "cuda") if cmp.error_feedback
           else None)
@@ -108,7 +122,7 @@ def profile_preset(preset: str):
     own = [r for r in device
            if not any(t in r[0] for t in ("at::native", "at_cuda_detail", "Memcpy", "Memset"))]
     return {
-        "preset": preset, "layers": synthetic.LAYERS, "n": synthetic.N,
+        "preset": preset, "layers": synthetic.LAYERS, "n": synthetic.N, "mesh": mesh,
         "wall_ms": walls, "profiled_wall_ms": prof_wall,
         "device_busy_ms": busy, "idle_share": 1.0 - busy / prof_wall,
         "device_events": len(on_card),
@@ -122,7 +136,9 @@ def profile_preset(preset: str):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out/profile_sync.json")
+    ap.add_argument("--mesh", default=None, help="named axes, e.g. pod=4,data=2")
     args = ap.parse_args(argv)
+    mesh = parse_mesh(args.mesh) if args.mesh else None
 
     import torch
 
@@ -146,8 +162,9 @@ def main(argv=None) -> int:
     out["sign_draw"] = time_draw(prandom.rademacher, rotation.padded_dim(d))
     print(f"uniform draw: {json.dumps(out['uniform_draw'])}", flush=True)
     print(f"sign draw: {json.dumps(out['sign_draw'])}", flush=True)
-    for preset in synthetic.PRESETS:
-        r = profile_preset(preset)
+    presets = synthetic.PRESETS if mesh is None else synthetic.HIER_PRESETS
+    for preset in presets:
+        r = profile_preset(preset, mesh)
         out["results"].append(r)
         print(json.dumps({k: r[k] for k in ("preset", "wall_ms", "profiled_wall_ms",
                                              "device_busy_ms", "idle_share",

@@ -16,7 +16,8 @@ of ``repro.train.bucketing`` (the post-backward schedule).
   stateful round of the ``ef_*`` codec.
 
 Gradients are stacks: each leaf is (L, *shape) with one row per local rank
-of the communicator, and so is each bucket's residual, (L, size).  The
+of the communicator (on a mesh, in mesh order), and so is each bucket's
+residual, (L, size).  The
 synced result holds one (*shape) tensor per leaf, the estimate every rank
 holds.  The overlapped schedule comes with a later slice.
 """
@@ -31,7 +32,6 @@ from repro_torch import random as prandom
 from repro_torch.core import collectives as coll
 from repro_torch.core import types as t
 from repro_torch.core import wire
-from repro_torch.core.wire import base as wire_base
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,8 +180,11 @@ def unpack_bucket(vec: torch.Tensor, bucket: Bucket,
 def bucket_wire_bits(plan: BucketPlan, cfg: t.CompressionConfig, n: int,
                      mesh_sizes: Optional[Mapping[str, int]] = None) -> Dict[str, float]:
     """Gathered wire bits per compressed bucket and round, keyed by bid —
-    ``wire_bits + scatter_bits`` of the resolved codec.  Only defined for
-    gather_decode wire paths; other modes return {} (as the reference)."""
+    ``wire_bits + scatter_bits`` of the resolved codec at the effective node
+    count: ``n`` is the world size over the compression axes, and a
+    hierarchical config is billed at n / Π inner sizes, which needs
+    ``mesh_sizes``.  Only defined for gather_decode wire paths; other modes
+    return {} (as the reference)."""
     if cfg.mode != "gather_decode":
         return {}
     n_eff = wire.effective_nodes(cfg, n, mesh_sizes)
@@ -231,21 +234,37 @@ def _bucket_round(grads: Mapping[str, torch.Tensor], b: Bucket, j: int,
     """ONE bucket's sync: pack → (exact mean / codec round) → unpack, with
     the bucket key fold_in(key, j) of its plan position j.  ``ef`` is the
     bucket's (L, size) residual (engages the stateful ``ef_*`` codec) or
-    None.  Returns (synced leaf dict, new residual or None)."""
+    None.  Returns (synced leaf dict, new residual or None).
+
+    On a mesh, the bucket's exact axes that are codec inner axes ride the
+    codec round (it pre-reduces them, and its scatter decode shards over
+    them); the other exact axes (the ``data`` axis under a compression over
+    ``pod`` alone) get their own exact mean first (``comm.mean_over``),
+    and the round runs on the communicator over the remaining axes.  The
+    residual follows, as in :meth:`~repro_torch.core.wire.base.WireCodec
+    .mean_flat_stateful`: one row per group over those axes, written back
+    to every rank of the group.  Flat configs take the one-axis path."""
     v = pack_bucket(grads, b)
     if b.kind == "exact":
+        axes = getattr(comm, "axes", None)
+        if axes is not None and set(axes) != set(b.eaxes):
+            raise ValueError(f"bucket {b.bid} syncs over {b.eaxes}, not over every axis of "
+                             f"the communicator's mesh {axes}")
         return unpack_bucket(coll.exact_mean(v, comm), b, grads), ef
     lcfg = _bucket_cfg(b, cmp, error_feedback=ef is not None)
-    if tuple(a for a in b.eaxes if a not in lcfg.inner_axes):
-        raise wire_base.NotPortedError(
-            f"bucket {b.bid} also syncs exactly over {b.eaxes}: multi-axis "
-            "meshes are not ported yet: they arrive with the "
-            "hierarchical-collectives slice (ROADMAP.md, queue 1)")
+    pre = tuple(a for a in b.eaxes if a not in lcfg.inner_axes)
+    sub = comm
+    if pre:
+        v = comm.mean_over(v, pre)
+        sub = comm.over(tuple(a for a in comm.axes if a not in pre))
     kb = prandom.fold_in(key, j)
     if ef is not None:
-        v, e = coll.compressed_mean_stateful(v, ef, kb, lcfg, comm)
-        return unpack_bucket(v, b, grads), e
-    v = coll.compressed_mean(v, kb, lcfg, comm)
+        st = comm.pick(ef, pre) if pre else ef
+        v, st = coll.compressed_mean_stateful(v, st, kb, lcfg, sub)
+        if pre:
+            comm.spread(st, ef, pre)
+        return unpack_bucket(v, b, grads), ef
+    v = coll.compressed_mean(v, kb, lcfg, sub)
     return unpack_bucket(v, b, grads), None
 
 

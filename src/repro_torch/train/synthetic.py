@@ -11,6 +11,14 @@
 * The error-feedback sync path: the same, under each of ``EF_PRESETS``
   (the reference's five ``ef_*`` presets), the residuals carried from step
   to step.
+* The hierarchical sync path: the same tree and ranks laid out as
+  ``HIER_MESH`` = (pod 4, data 2), under each of ``HIER_PRESETS`` (the
+  reference's §11 two-level presets, unflattened: the exact mean inside
+  each pod, the codec across the 4 pods).
+* The multi-pod training path (:func:`multipod_train_path`): the same model
+  and depth on ``MULTIPOD_MESH`` = (pod 2, data 4), with the reference's
+  ``get_run_config(MODEL, "train_4k", multi_pod=True)``: ``fixed_k_1bit``
+  over ``pod``, the exact mean inside each pod.
 * The training path (:func:`train_main_path`): the same model, depth and
   ranks, one ``train_4k`` sequence per rank, the real forward and backward
   feeding the same sync under ``fixed_k_1bit``, then AdamW; with
@@ -24,13 +32,15 @@
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Mapping, Sequence
 
 import torch
 
 from repro_torch import random as prandom
 from repro_torch.configs.base import SHAPES, RunConfig
-from repro_torch.configs.registry import compression_preset, get_config, param_shapes
+from repro_torch.configs.registry import (compression_preset, get_config, get_run_config,
+                                          param_shapes)
 from repro_torch.core import types as t
 from repro_torch.core.collectives import StackedComm
 from repro_torch.models import model
@@ -45,6 +55,9 @@ PRESETS = ("fixed_k_1bit", "bernoulli_seed_1bit", "binary_packed", "ternary_pack
            "ternary_opt", "rotated_binary", "rotated_fixed_k")
 EF_PRESETS = ("ef_fixed_k", "ef_bernoulli", "ef_binary", "ef_ternary", "ef_rotated_binary")
 EF_TRAIN_STEPS = 4
+HIER_MESH = {"pod": 4, "data": 2}
+HIER_PRESETS = ("hier_fixed_k", "hier_bernoulli")
+MULTIPOD_MESH = {"pod": 2, "data": 4}
 
 
 def synthetic_grads(shapes: Mapping[str, Sequence[int]], n: int, step: int,
@@ -74,11 +87,16 @@ def preset(name: str) -> t.CompressionConfig:
     return compression_preset(name, axes=("data",))
 
 
-def main_path(cmp: t.CompressionConfig, device):
-    """(shapes, bucket plan, communicator) of the main path under ``cmp``."""
+def main_path(cmp: t.CompressionConfig, device, mesh=None):
+    """(shapes, bucket plan, communicator) of the main path under ``cmp``:
+    the ``N`` ranks on the flat data axis, or laid out as ``mesh`` (axis →
+    size in mesh order, ``N`` ranks in all)."""
     shapes, specs = main_shapes()
-    plan = bucketing.build_plan(shapes, specs, ("data",), {"data": N}, cmp)
-    return shapes, plan, StackedComm(N, device)
+    if mesh is None:
+        plan = bucketing.build_plan(shapes, specs, ("data",), {"data": N}, cmp)
+        return shapes, plan, StackedComm(N, device)
+    plan = bucketing.build_plan(shapes, specs, tuple(mesh), dict(mesh), cmp)
+    return shapes, plan, StackedComm(device=device, mesh=mesh)
 
 
 def step_key(step: int):
@@ -96,6 +114,19 @@ def train_main_path(error_feedback: bool = False):
     cmp = dataclasses.replace(preset(TRAIN_PRESET), error_feedback=error_feedback)
     run = RunConfig(compression=cmp)
     return cfg, run, dataclasses.replace(SHAPES["train_4k"], global_batch=N)
+
+
+def multipod_train_path():
+    """(cfg, run, shape, mesh) of the multi-pod training path: ``MODEL`` at
+    full width and ``LAYERS`` layers; the reference's
+    ``get_run_config(MODEL, "train_4k", multi_pod=True)`` (``fixed_k_1bit``
+    over ``pod``) with one microbatch, not 4: a rank's one sequence does not
+    split; ``train_4k`` sequences, one per rank of ``MULTIPOD_MESH``."""
+    cfg = dataclasses.replace(get_config(MODEL), num_layers=LAYERS)
+    run = dataclasses.replace(get_run_config(MODEL, "train_4k", multi_pod=True),
+                              microbatches=1)
+    n = math.prod(MULTIPOD_MESH.values())
+    return cfg, run, dataclasses.replace(SHAPES["train_4k"], global_batch=n), dict(MULTIPOD_MESH)
 
 
 def rank_loss_and_grads(cfg, run, params, batch, global_tokens: float):

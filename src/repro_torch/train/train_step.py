@@ -2,9 +2,11 @@
 ``repro.train.train_step``.
 
 The reference runs the step per device inside ``shard_map``.  Here the n
-ranks of the ``data`` axis run one after another on one device: each rank's
+ranks of the mesh (the ``data`` axis, or ``(pod, data)`` with the
+multi-pod compression over ``pod``) run one after another on one device,
+in mesh order: each rank's
 forward and backward run on its own slice of the global batch (the rows the
-reference's ``P("data")`` batch sharding gives it) against the same
+reference's ``P(("pod", "data"))`` batch sharding gives it) against the same
 replicated parameters, and its f32 gradients go into row r of an
 (n, *shape) stack per leaf, the layout :class:`StackedComm` takes.  Each
 rank's loss is its local CE sum over the *global* token count
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
@@ -51,7 +54,13 @@ from repro_torch.train import bucketing
 
 log = logging.getLogger("repro_torch.train_step")
 
-AXIS = "data"
+def resolve_mesh(n: Optional[int] = None,
+                 mesh: Optional[Mapping[str, int]] = None) -> Dict[str, int]:
+    """The mesh as {axis: size} in mesh order: ``mesh``, or the flat
+    shorthand ``{"data": n}``."""
+    if (n is None) == (mesh is None):
+        raise ValueError("give either n (the flat data axis) or mesh")
+    return {"data": int(n)} if mesh is None else {str(a): int(s) for a, s in dict(mesh).items()}
 
 
 def grad_sync_plan(run: RunConfig, shapes, specs, mesh_sizes: Mapping[str, int]):
@@ -83,42 +92,66 @@ def batch_axes_for(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec,
     return tuple(chosen)
 
 
+def _exact_leaf(g, eaxes, caxes, comm):
+    """The reference's exact sync of a leaf: the mean over ``eaxes``, then
+    over ``caxes`` (one mean over the whole mesh when either is empty)."""
+    if eaxes and caxes:
+        return coll.exact_mean(comm.mean_over(g, eaxes), comm.over(caxes))
+    return coll.exact_mean(g, comm)
+
+
 def sync_grads(grads, specs, mesh_axes, cmp: core_types.CompressionConfig, key, comm,
                ef_state=None):
     """Per-leaf sync of (n, *shape) stacks (the ``bucket.enabled = False``
-    path): the leaf in sorted-name position i takes one compressed-mean
-    round with key ``fold_in(key, i)`` over the compression axes when its
+    path), the reference's rule: a leaf's sync axes split into the
+    compression axes it spans (caxes) and the others (eaxes); the eaxes get
+    an exact mean, then the leaf in sorted-name position i takes one
+    compressed-mean round over caxes with key ``fold_in(key, i)`` when its
     per-rank size reaches ``min_compress_size`` (the stateful ``ef_*`` round
     on its (n, *shape) residual when ``ef_state`` is given), else the exact
-    mean.  Returns (the synced (*shape) leaves, the new error-feedback
-    state, None exactly when ``ef_state`` is, with every leaf's state: an
-    uncompressed leaf's passes through); a leaf whose spec covers every mesh
-    axis comes back as given."""
+    mean over caxes.  As in the reference, a hierarchical config's inner
+    axes among the eaxes are averaged before the round and again inside it
+    (``comm.mean_over``, then the round's inner mean): over an inner group
+    of 2 that is the same bits, over 3 it is not always.  Returns (the
+    synced (*shape) leaves, the new error-feedback state, None exactly when
+    ``ef_state`` is, with every leaf's state: an uncompressed leaf's passes
+    through); a leaf whose spec covers every mesh axis comes back as
+    given."""
     out = {}
     new_ef = {} if ef_state is not None else None
     for i, (name, g) in enumerate(sorted(grads.items())):
         axes = bucketing.leaf_sync_axes(specs[name], mesh_axes)
-        if not axes:
-            out[name] = g
-            if ef_state is not None:
-                new_ef[name] = ef_state[name]
-            continue
+        st = ef_state[name] if ef_state is not None else None
         caxes = tuple(a for a in axes if a in cmp.axes)
-        if caxes and len(axes) > 1:
-            raise NotPortedError(f"{name} syncs over {axes}: multi-axis meshes are not ported "
-                                 "yet (ROADMAP.md, queue 1)")
-        if caxes and cmp.mode != "none" and g[0].numel() >= cmp.min_compress_size:
-            kleaf = prandom.fold_in(key, i)
-            lcfg = dataclasses.replace(cmp, axes=caxes, error_feedback=ef_state is not None)
+        eaxes = tuple(a for a in axes if a not in cmp.axes)
+        if not (caxes and cmp.mode != "none" and g[0].numel() >= cmp.min_compress_size):
+            out[name] = _exact_leaf(g, eaxes, caxes, comm) if axes else g
             if ef_state is not None:
-                out[name], new_ef[name] = coll.compressed_mean_stateful(
-                    g, ef_state[name], kleaf, lcfg, comm)
+                new_ef[name] = st
+            continue
+        kleaf = prandom.fold_in(key, i)
+        lcfg = dataclasses.replace(cmp, axes=caxes, error_feedback=ef_state is not None)
+        pre = tuple(a for a in eaxes if a not in lcfg.inner_axes)
+        again = tuple(a for a in eaxes if a in lcfg.inner_axes)
+        sub = comm
+        if eaxes:
+            sub = comm.over(tuple(a for a in comm.axes if a not in pre))
+            rows = comm.mean_over(g, eaxes)
+            if again:
+                g = torch.empty((sub.size,) + tuple(rows.shape[1:]), dtype=rows.dtype,
+                                device=rows.device)
+                sub.spread(rows, g, again)
             else:
-                out[name] = coll.compressed_mean(g, kleaf, lcfg, comm)
-        else:
-            out[name] = coll.exact_mean(g, comm)
-            if ef_state is not None:
-                new_ef[name] = ef_state[name]
+                g = rows
+            del rows
+        if ef_state is None:
+            out[name] = coll.compressed_mean(g, kleaf, lcfg, sub)
+            continue
+        stp = comm.pick(st, pre) if pre else st
+        out[name], stp = coll.compressed_mean_stateful(g, stp, kleaf, lcfg, sub)
+        if pre:
+            comm.spread(stp, st, pre)
+        new_ef[name] = st
     return out, new_ef
 
 
@@ -128,10 +161,17 @@ def _rows(batch: Dict[str, torch.Tensor], part: int, parts: int) -> Dict[str, to
     return {k: v[part * rows:(part + 1) * rows] for k, v in batch.items()}
 
 
-def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: int,
+def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optional[int] = None,
                      opt_cfg: Optional[opt_lib.AdamWConfig] = None, base_seed: int = 0,
-                     device=None, on_phase: Optional[Callable[..., None]] = None):
+                     device=None, on_phase: Optional[Callable[..., None]] = None,
+                     *, mesh: Optional[Mapping[str, int]] = None):
     """Returns (step_fn, init_fn, plan) on ``device`` (the card unless given).
+
+    ``mesh`` maps axis names to sizes in mesh order, pod-major (``{"pod":
+    2, "data": 4}``); ``n`` is the flat shorthand ``{"data": n}``.  Every
+    mesh axis must carry the batch (``batch_axes_for``): rank r, row r of
+    the stacks, takes slice r of the global batch, as the reference's
+    ``P(("pod", "data"))`` batch sharding gives it.
 
     ``step_fn(params, opt_state, ef_state, batch, step) -> (params,
     opt_state, ef_state, metrics)`` with metrics ``loss``, ``grad_norm``
@@ -152,12 +192,14 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: int,
     tfm.check_family(cfg)
     use_ef = run.compression.error_feedback
     opt_cfg = opt_cfg or opt_lib.AdamWConfig()
-    msizes = {AXIS: n}
+    msizes = resolve_mesh(n, mesh)
+    n = math.prod(msizes.values())
+    mesh_axes = tuple(msizes)
     ctx = model_lib.make_ctx(cfg, run, msizes)
     shapes, specs = param_shapes(cfg)
-    if batch_axes_for(cfg, run, shape, msizes) != (AXIS,):
+    if batch_axes_for(cfg, run, shape, msizes) != mesh_axes:
         raise NotPortedError(f"a global batch of {shape.global_batch} does not split over "
-                             f"{n} ranks: replicated batches are not ported")
+                             f"the mesh {msizes}: replicated batches are not ported")
     if (shape.global_batch // n) % run.microbatches:
         raise ValueError(f"{shape.global_batch // n} rows per rank do not split into "
                          f"{run.microbatches} microbatches")
@@ -168,7 +210,7 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: int,
         log.info("grad sync: %d buckets (%d compressed), schedule=%s, post-backward "
                  "(the reference's overlap rule: %s)", len(plan.buckets), n_cmp,
                  plan.schedule(), overlap_enabled(plan, run))
-    comm = coll.StackedComm(n, dev)
+    comm = coll.StackedComm(device=dev, mesh=msizes)
     key0 = prandom.PRNGKey(base_seed)
     names = sorted(shapes)
     notify = on_phase or (lambda name, **state: None)
@@ -202,7 +244,7 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: int,
             synced, new_ef = bucketing.sync_grads_bucketed(stacks, plan, run.compression, key,
                                                            comm, ef_in)
         else:
-            synced, new_ef = sync_grads(stacks, specs, (AXIS,), run.compression, key, comm,
+            synced, new_ef = sync_grads(stacks, specs, mesh_axes, run.compression, key, comm,
                                         ef_in)
         if use_ef:
             ef_state = new_ef

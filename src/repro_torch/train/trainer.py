@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Callable, Optional
+from typing import Callable, Mapping, Optional
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, RunConfig, ShapeSpec
@@ -31,13 +31,16 @@ class TrainerConfig:
 
 
 class Trainer:
-    """``n`` data-parallel ranks stacked on ``device`` (the card unless
-    given); ``on_phase`` as in :func:`~repro_torch.train.train_step
-    .build_train_step`."""
+    """The ranks of ``mesh`` (axis → size in mesh order, pod-major), or
+    ``n`` data-parallel ranks (the flat shorthand ``{"data": n}``), stacked
+    on ``device`` (the card unless given); ``on_phase`` as in
+    :func:`~repro_torch.train.train_step.build_train_step`."""
 
     def __init__(self, cfg: ArchConfig, run: RunConfig, shape: ShapeSpec,
-                 tcfg: TrainerConfig, n: int, opt_cfg: Optional[AdamWConfig] = None,
-                 device=None, on_phase: Optional[Callable[..., None]] = None):
+                 tcfg: TrainerConfig, n: Optional[int] = None,
+                 opt_cfg: Optional[AdamWConfig] = None, device=None,
+                 on_phase: Optional[Callable[..., None]] = None, *,
+                 mesh: Optional[Mapping[str, int]] = None):
         if tcfg.ckpt_dir is not None:
             raise NotPortedError("checkpointing (TrainerConfig.ckpt_dir) is not ported yet "
                                  "(ROADMAP.md, queue 1)")
@@ -46,7 +49,8 @@ class Trainer:
         # sync_plan is THE grad-sync plan the step executes (None = per-leaf)
         self.step_fn, self.init_fn, self.sync_plan = ts.build_train_step(
             cfg, run, shape, n, opt_cfg, base_seed=tcfg.seed, device=self.device,
-            on_phase=on_phase)
+            on_phase=on_phase, mesh=mesh)
+        self.mesh = ts.resolve_mesh(n, mesh)
         self.data = SyntheticLM(cfg, shape, seed=tcfg.seed)
         self.metrics_history = []
         # the error-feedback state after fit(): per compressed bucket (or

@@ -47,7 +47,6 @@ from repro_torch.core import mse as tmse
 from repro_torch.core import optimal as topt
 from repro_torch.core import protocol as tproto
 from repro_torch.core import types as tt
-from repro_torch.core.wire import NotPortedError
 from repro_torch.examples import federated_mean, quickstart
 from repro_torch.launch import bench_encode_speed
 
@@ -220,9 +219,18 @@ def test_cost_config_equals_reference_for_flat_configs(name):
 
 
 def test_cost_config_raises_for_hierarchical_configs():
-    cfg = convert.compression_config(jpreset("hier_fixed_k"))
+    """A hierarchical config's cost at its effective node count equals the
+    reference's, and needs the mesh sizes as the reference's does.  (The
+    name is the one this test had while the port raised here.)"""
+    jcfg = jpreset("hier_fixed_k")
+    cfg = convert.compression_config(jcfg)
     assert cfg.inner_axes
-    with pytest.raises(NotPortedError, match="hierarchical"):
+    for mesh in ({"pod": 4, "data": 2}, {"pod": 2, "data": 3}):
+        n = mesh["pod"] * mesh["data"]
+        for d in (4096, 70_001):
+            assert (tcost.cost_config(cfg, n=n, d=d, mesh_sizes=mesh)
+                    == jcost.cost_config(jcfg, n=n, d=d, mesh_sizes=mesh))
+    with pytest.raises(ValueError, match="mesh_sizes"):
         tcost.cost_config(cfg, n=8, d=4096)
 
 

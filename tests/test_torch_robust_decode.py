@@ -27,7 +27,8 @@ butterfly (tests/test_torch_rotation.py::jit_butterfly).
   sign_flip, the plain mean past 10× under nan, inf and boost; the masked
   output bit for bit the same when the dropped peers' inputs are poisoned;
 * the ``DistComm`` robust rounds over gloo at n = 3 and 4 equal to
-  ``StackedComm``'s; ``inner_axes`` still raising, with a mask or without;
+  ``StackedComm``'s; the hierarchical robust round (``inner_axes``: an
+  n_eff-entry mask over the cross-host peers) against the reference's;
   a policy on the training compression reaching each bucket's and each
   leaf's round.
 """
@@ -381,21 +382,52 @@ class _FirstGather:
 
 
 def test_inner_axes_still_raise_with_a_mask_or_without():
-    cfg = convert.compression_config(jrobust_preset("hier_bernoulli", "trim(1)"))
-    assert cfg.inner_axes
-    x = torch.zeros(N, 100)
-    comm = tcoll.StackedComm(N, "cpu")
-    for mask in (None, torch.tensor(MASK)):
-        with pytest.raises(twire.NotPortedError, match="hierarchical"):
-            tcoll.compressed_mean(x, R.PRNGKey(0), dataclasses.replace(cfg, min_compress_size=1),
-                                  comm, mask)
-        with pytest.raises(twire.NotPortedError, match="hierarchical"):
-            tcoll.compressed_mean_stateful(x, torch.zeros(N, 100), R.PRNGKey(0),
-                                           dataclasses.replace(cfg, min_compress_size=1),
-                                           comm, mask)
-    with pytest.raises(twire.NotPortedError, match="hierarchical"):
-        tcoll.compressed_mean(x, R.PRNGKey(0), dataclasses.replace(cfg, mode="none"), comm,
-                              torch.tensor(MASK))
+    """The hierarchical robust round (``hier_bernoulli`` on a stacked (pod
+    4, data 2) mesh) under trim(1) and under the masked mean with an
+    (n_eff,) mask over the cross-host peers: equal to the reference's
+    ``decode_rows_reduce`` of the same codec rows (the packs of the in-pod
+    means, the port's bytes); a dropped cross-host peer equals a rerun over
+    the survivors' pods only; the exact path's mask drops whole pods.  (The
+    name is the one this test had while the schedule raised.)"""
+    mesh, n_eff = {"pod": 4, "data": 2}, 4
+    mask = (1.0, 0.0, 1.0, 1.0)
+    key = R.PRNGKey(KEY_SEED)
+    x = torch.from_numpy(_grid())
+    comm = tcoll.StackedComm(device="cpu", mesh=mesh)
+    v = comm.mean_over(x, ("data",))
+    jbase = jrobust_preset("hier_bernoulli", "mean")
+    codec = twire.resolve(convert.compression_config(jbase))
+    rows = torch.stack([codec.pack(v[r], key, r, convert.compression_config(jbase))
+                        for r in range(n_eff)])
+    for policy, m in (("trim(1)", None), ("mean", mask)):
+        jcfg = dataclasses.replace(jrobust_preset("hier_bernoulli", policy), min_compress_size=1)
+        with jax.threefry_partitionable(False):
+            want = np.asarray(jwire.resolve(jcfg).decode_rows_reduce(
+                _to_jax(rows), jax.random.PRNGKey(KEY_SEED), jcfg, D, n_eff, _mask(m, "jax")))
+        cfg = convert.compression_config(jcfg)
+        for c in (cfg, dataclasses.replace(cfg, scatter_decode=False)):
+            assert_same(tcoll.compressed_mean(x, key, c, tcoll.StackedComm(device="cpu",
+                                                                            mesh=mesh),
+                                              _mask(m, "torch")), want)
+    cfg = convert.compression_config(dataclasses.replace(
+        jrobust_preset("hier_bernoulli", "mean"), min_compress_size=1))
+    got = tcoll.compressed_mean(x, key, cfg, tcoll.StackedComm(device="cpu", mesh=mesh),
+                                torch.tensor(mask))
+    flat = dataclasses.replace(cfg, inner_axes=(), scatter_decode=False)
+    # the survivors' rows alone, under their own peer indices (the decode
+    # regenerates each support from fold_in(key, peer)), from +0.0 in order
+    acc = torch.zeros(D)
+    for r in (r for r in range(n_eff) if mask[r]):
+        acc = acc + codec.unpack(rows[r], r, key, flat, D)
+    assert_same(got, tbase.divide(acc, int(sum(mask))))
+    exact = dataclasses.replace(cfg, mode="none")
+    y = tcoll.compressed_mean(x, key, exact, tcoll.StackedComm(device="cpu", mesh=mesh),
+                              torch.tensor(mask))
+    alive = [r for r in range(N) if mask[r // 2]]
+    acc = torch.zeros(D)
+    for r in alive:
+        acc += x[r]
+    assert_same(y, acc / len(alive))
 
 
 def test_decode_policy_reaches_every_bucket_and_leaf():
