@@ -10,7 +10,7 @@ Phases, each printing its own lines:
    ``nvcc`` per source, all started together), and beside them the sources
    of kernels 11–13 with ``-Xptxas -v``: for each bf16 kernel
    (``fa_fwd_wgmma``, ``fa_bwd_dkv_wgmma``, ``fa_bwd_dq_wgmma``, each at hd
-   32, 64 and 128) its registers, spills (none allowed) and dynamic shared
+   16, 32, 64 and 128) its registers, spills (none allowed) and dynamic shared
    memory, and ``HGMMA`` and ``UTMALDG`` in its SASS (``cuobjdump -sass``);
 2. hold each wire kernel bit-equal against its plain PyTorch version on the card,
    at d = 70,001 and 16,777,217 (n = 8 peers, keys folded per rank from
@@ -42,20 +42,23 @@ Phases, each printing its own lines:
    path's (1, 4096, 32/8, 128) and the serving path's (8, 2048, 32/8, 128)
    bf16 causal, and at hd 32 (lm-8m: ragged S = 1000, a window of 200, q
    offset 200, S = 100 not causal, and the training example's one rank,
-   (4, 128, 8/4, 32)); at the training, serving and example shapes time the
-   kernel and
+   (4, 128, 8/4, 32)), and at hd 16 (the smoke configs: the same edges, one
+   rank of the training CLI's smoke run, (4, 128, 4/2, 16), and the serving
+   example's prefill, (4, 16, 4/2, 16)); at the training, serving, example,
+   CLI and serving-example shapes time the kernel and
    ``F.scaled_dot_product_attention`` (the library yardstick), with TFLOP/s
-   and the share of the bound, and at the serving and example shapes the plain version
-   too; then hold the
+   and the share of the bound, and at the serving, example, CLI and
+   serving-example shapes the plain version too; then hold the
    flash-attention backward kernels (dK/dV and dQ sweeps) against the plain
    blockwise backward on the same inputs (f32: |Δ| ≤ 2e-3 + 2e-3·|ref|;
    bf16: ‖Δ‖/‖ref‖ ≤ 2e-4 for each of dq, dk, dv) at g = 4 and 1, causal and
    not, a window, a q offset, ragged S = 1000, hd 64 and 128, the bf16
    kernels' tile edges (ragged S = 1000 at hd 64 with g = 1, a window of 200
    across 128-key tiles, S = 100, q_offset 200 with Sk 512), the same
-   edges at hd 32, the training path's (1, 4096, 32/8, 128) bf16 causal and
-   the training example's (4, 128, 8/4, 32), where kernels, plain sweeps and
-   SDPA's backward are timed; then hold the hash-PRNG encoders
+   edges at hd 32 and 16, the training path's (1, 4096, 32/8, 128) bf16
+   causal, the training example's (4, 128, 8/4, 32) and the training CLI's
+   (4, 128, 4/2, 16), where kernels, plain sweeps and SDPA's backward are
+   timed; then hold the hash-PRNG encoders
    (kernel 14, the dense Bernoulli encode, and kernel 15, binary
    quantization with its packing) bit-equal to their plain versions at
    ``SIZES`` and at the embed bucket, f32 and bf16, aligned and not, with
@@ -76,7 +79,10 @@ Phases, each printing its own lines:
    dropped cross-host peer, and ``ef_bernoulli`` over 3 rounds) card ==
    CPU bit for bit, with the pod-axis bytes equal to the wire bits at
    n_eff; kernel 3 at n_in = 2 and 3 shards of ragged d against its plain
-   version (``check_inner_shards``);
+   version (``check_inner_shards``).  Every collective here and below runs
+   on ``StackedComm``, the ranks stacked on the card: the link is
+   simulated, and ``DistComm`` (one rank per process) is not run on the
+   card;
 3. the sync path: ``sync_grads_bucketed`` over the qwen3-4b gradient tree
    (full width, 4 of 36 layers, 792,657,920 compressed coordinates per
    rank) on ``StackedComm(8, "cuda")`` for each preset of
@@ -138,7 +144,17 @@ Phases, each printing its own lines:
    it (``examples/train_lm_compressed.py``: lm-8m, 8 ranks, the exact mean
    and ``fixed_k_1bit`` + error feedback, 4 steps each), its attention on
    the hd-32 flash kernels (L·n launches of each a step), losses, norms
-   and residuals finite;
+   and residuals finite.  Checkpoint and restart at full width
+   (``run_restart``, after the first run): in a temporary directory,
+   ``Trainer(steps=2, ckpt_every=2)`` then ``Trainer(steps=4,
+   ckpt_every=3)`` from it, the end state bit for bit against the first
+   run's (parameters, m, v, step, the losses of steps 2–3), with the bytes
+   of a checkpoint, each save's and the restore's ms and the step that
+   overlaps an asynchronous save against those that do not.  The training
+   CLI (``launch/train.py --smoke --devices 4 --steps 4 --ckpt-every 2``,
+   then ``--steps 6``, resuming at step 4; kernels 11–13 at hd 16 and 4)
+   and the serving example (``examples/serve_lm.py``: tokens in range,
+   kernel 11 at hd 16 once a layer);
 6. the encode path (``launch/bench_encode_speed.py``: kernels 14 and 15,
    the fixed-k gather and the FWHT at d = 2^16, 2^20, 2^24 and the
    388,956,160-coordinate embed bucket) and the single-host stack:
@@ -226,6 +242,9 @@ REPLACES = {
     "flash_attention_fwd_hd32": "src/repro/kernels/flash_attention/flash_attention.py:121",
     "flash_attention_bwd_dkv_hd32": "src/repro/kernels/flash_attention/flash_attention.py:280",
     "flash_attention_bwd_dq_hd32": "src/repro/kernels/flash_attention/flash_attention.py:318",
+    "flash_attention_fwd_hd16": "src/repro/kernels/flash_attention/flash_attention.py:121",
+    "flash_attention_bwd_dkv_hd16": "src/repro/kernels/flash_attention/flash_attention.py:280",
+    "flash_attention_bwd_dq_hd16": "src/repro/kernels/flash_attention/flash_attention.py:318",
     "bernoulli_encode_2d": "src/repro/kernels/bernoulli_encode/bernoulli_encode.py:53",
     "binary_encode_2d": "src/repro/kernels/binary_quant/binary_quant.py:54",
 }
@@ -249,6 +268,9 @@ SOURCE = {
     "flash_attention_fwd_hd32": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_dkv_hd32": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "flash_attention_bwd_dq_hd32": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_fwd_hd16": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dkv_hd16": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dq_hd16": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "bernoulli_encode_2d": "src/repro_torch/csrc/bernoulli_encode.cu",
     "binary_encode_2d": "src/repro_torch/csrc/binary_quant.cu",
 }
@@ -335,8 +357,9 @@ def max_err(a, b) -> float:
 # Phase 1: what the compiler made of kernels 11–13.
 # --------------------------------------------------------------------------- #
 
-# The Hopper (TMA + wgmma) kernels phase 1 inspects, by source: each at hd 32,
-# 64 and 128, with the C function that reports its dynamic shared memory.
+# The Hopper (TMA + wgmma) kernels phase 1 inspects, by source: each at hd 16,
+# 32, 64 and 128, with the C function that reports its dynamic shared memory.
+CUBIN_HEAD_DIMS = (16, 32, 64, 128)
 CUBIN_KERNELS = {"flash_attention": {"fa_fwd_wgmma": ("fa_fwd_smem_bytes",)},
                  "flash_attention_bwd": {"fa_bwd_dkv_wgmma": ("fa_bwd_smem_bytes", 0),
                                          "fa_bwd_dq_wgmma": ("fa_bwd_smem_bytes", 1)}}
@@ -360,7 +383,7 @@ def start_flash_cubins():
 
 
 def check_flash_cubins(procs) -> None:
-    """Each bf16 kernel of ``CUBIN_KERNELS`` at hd 32, 64 and 128: registers and
+    """Each bf16 kernel of ``CUBIN_KERNELS`` at hd 16, 32, 64 and 128: registers and
     spills (none allowed) as ptxas reports them, its dynamic shared memory,
     and its SASS holding ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), by
     ``cuobjdump -sass``."""
@@ -391,10 +414,10 @@ def check_flash_cubins(procs) -> None:
             smem.argtypes = [ctypes.c_int64] + [ctypes.c_int] * len(smem_args)
             smem.restype = ctypes.c_int
             found = sorted(n for n in props if kernel in n)
-            need(len(found) == 3,
-                 f"expected {kernel} at hd 32, 64 and 128 in ptxas' report: {found}")
+            need(len(found) == len(CUBIN_HEAD_DIMS),
+                 f"expected {kernel} at hd {CUBIN_HEAD_DIMS} in ptxas' report: {found}")
             for n in found:
-                hd = next(h for h in (32, 64, 128) if f"ILi{h}E" in n)
+                hd = next(h for h in CUBIN_HEAD_DIMS if f"ILi{h}E" in n)
                 need(" 0 bytes spill stores, 0 bytes spill loads" in " ".join(props[n]),
                      f"{kernel}<{hd}> spills: {props[n]}")
                 c = counts.get(n, {})
@@ -1252,11 +1275,23 @@ FLASH_CASES = [
     (1, 256, 512, 4, 2, 32, True, None, 200, ("bfloat16",)),    # a q offset no multiple of 128
     (2, 100, 100, 8, 4, 32, False, None, 0, ("float32", "bfloat16")),   # less than one tile
     (4, 128, 128, 8, 4, 32, True, None, 0, ("float32", "bfloat16")),
+    # hd 16 (the smoke configs), on the hd-64 tiles with columns 16-63
+    # zero-filled: tile edges, then one rank's attention in the training CLI's
+    # smoke run (--batch 16 --devices 4) and the serving example's prefill
+    (1, 1000, 1000, 4, 2, 16, True, None, 0, ("float32", "bfloat16")),   # ragged, g = 2
+    (1, 512, 512, 4, 1, 16, True, 200, 0, ("bfloat16",)),       # a window across key tiles
+    (1, 256, 512, 4, 2, 16, True, None, 200, ("bfloat16",)),    # a q offset no multiple of 128
+    (2, 100, 100, 4, 4, 16, False, None, 0, ("float32", "bfloat16")),   # less than one tile
+    (4, 128, 128, 4, 2, 16, True, None, 0, ("float32", "bfloat16")),
+    (4, 16, 16, 4, 2, 16, True, None, 0, ("bfloat16",)),
 ]
-# the shapes at which kernel 11 is timed against SDPA (bf16): (b, sq) ->
+# the shapes at which kernel 11 is timed against SDPA (bf16): (b, sq, hd) ->
 # (path, the name of its row in the last JSON line, or None)
-FLASH_TIMED = {(8, 2048): ("serving", "flash_attention_fwd"), (1, 4096): ("training", None),
-               (4, 128): ("example", "flash_attention_fwd_hd32")}
+FLASH_TIMED = {(8, 2048, 128): ("serving", "flash_attention_fwd"),
+               (1, 4096, 128): ("training", None),
+               (4, 128, 32): ("example", "flash_attention_fwd_hd32"),
+               (4, 128, 16): ("training CLI", "flash_attention_fwd_hd16"),
+               (4, 16, 16): ("serving example", None)}
 # (atol, rtol) on o: the reference's own for its kernel (tests/test_kernel_flash.py)
 FLASH_TOL = {"float32": (2e-3, 2e-3), "bfloat16": (3e-2, 0.0)}
 LSE_TOL = 1e-3
@@ -1315,7 +1350,7 @@ def check_flash(records: dict) -> None:
             tag += (f": max |o - plain| {err:.3g}, |o - oracle| {max_err(o, oracle):.3g}, "
                     f"|lse - plain| {max_err(lse, lsep):.3g}")
             del oracle
-            path, row = FLASH_TIMED.get((b, sq), (None, None))
+            path, row = FLASH_TIMED.get((b, sq, hd), (None, None))
             if path and dt == "bfloat16":
                 ms = cuda_ms(lambda: fak.flash_attention_fwd(q, k, v, **kw), reps=10)
                 qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -1327,12 +1362,13 @@ def check_flash(records: dict) -> None:
                 tag += (f"; {path} shape: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
                         f"{100 * max(tb, tf) / ms:.1f}% of its {max(tb, tf):.3f} ms bound), "
                         f"sdpa {lms:.3f} ms ({ms / lms:.2f}x)")
-                if row:
+                if row or path == "serving example":
                     pms = cuda_ms(lambda: far.flash_attention_fwd(q, k, v, **kw), reps=1)
+                    tag += f", plain {pms:.3f} ms"
+                if row:
                     records[row] = {
                         "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": max(tb, tf),
                         "bound_by": "bytes" if tb >= tf else "operations", "library_ms": lms}
-                    tag += f", plain {pms:.3f} ms"
             print(f"  {tag}", flush=True)
             del q, k, v, o, lse, op, lsep
 
@@ -1359,10 +1395,17 @@ FLASH_BWD_CASES = [
     (2, 100, 100, 8, 4, 32, False, None, 0, ("float32", "bfloat16")),    # less than one tile
     (1, 256, 512, 4, 2, 32, True, None, 200, ("float32", "bfloat16")),   # q offset 200, Sk 512
     (4, 128, 128, 8, 4, 32, True, None, 0, ("float32", "bfloat16")),
+    # hd 16 (the smoke configs) on the hd-64 tiles: the edges above, then one
+    # rank's attention in the training CLI's smoke run
+    (1, 1000, 1000, 4, 2, 16, True, None, 0, ("float32", "bfloat16")),    # ragged, g = 2
+    (1, 1024, 1024, 4, 1, 16, True, 200, 0, ("float32", "bfloat16")),    # a window across tiles
+    (2, 100, 100, 4, 4, 16, False, None, 0, ("float32", "bfloat16")),    # less than one tile
+    (1, 256, 512, 4, 2, 16, True, None, 200, ("float32", "bfloat16")),   # q offset 200, Sk 512
+    (4, 128, 128, 4, 2, 16, True, None, 0, ("float32", "bfloat16")),
 ]
-# the shapes at which kernels 12-13 are timed (bf16): (b, sq) -> the suffix of
-# their rows in the last JSON line
-FLASH_BWD_TIMED = {(1, 4096): "", (4, 128): "_hd32"}
+# the shapes at which kernels 12-13 are timed (bf16): (b, sq, hd) -> the
+# suffix of their rows in the last JSON line
+FLASH_BWD_TIMED = {(1, 4096, 128): "", (4, 128, 32): "_hd32", (4, 128, 16): "_hd16"}
 # f32: |Δ| ≤ atol + rtol·|ref|, the forward's; bf16: relative Frobenius error
 # of each of dq, dk, dv.  p and ds enter the products as bf16 hi + lo pairs
 # (2⁻¹⁶ relative); on the H100 the readings were ≤ 1.1e-5 at the small shapes
@@ -1427,7 +1470,7 @@ def check_flash_bwd(records: dict) -> None:
                          f"{tag}: {name} relative error {errs[name][1]:.3g} > {BWD_BF16_REL}")
             tag += ": " + ", ".join(f"{n} max |Δ| {e[0]:.3g} rel {e[1]:.3g}"
                                     for n, e in errs.items())
-            suffix = FLASH_BWD_TIMED.get((b, sq))
+            suffix = FLASH_BWD_TIMED.get((b, sq, hd))
             if suffix is not None and dt == "bfloat16":
                 ms_kv = cuda_ms(lambda: fak.flash_attention_bwd_dkv(*args, **kw), reps=10)
                 ms_q = cuda_ms(lambda: fak.flash_attention_bwd_dq(*args, **kw), reps=10)
@@ -2034,12 +2077,13 @@ def _agreement(got, want, grad_tol: float, loss_rtol: float, what: str) -> dict:
             "worst_rel": errs[worst], "rel": errs}
 
 
-def run_training(launches_total) -> dict:
+def run_training(launches_total, keep: Optional[dict] = None) -> dict:
     """qwen3-4b at full width and 4 layers, 8 stacked ranks of one
     4096-token sequence, ``fixed_k_1bit``: the agreement checks of step 0,
     then ``Trainer.fit`` for ``TRAIN_STEPS`` steps, every phase checked and
     timed (host clock after a synchronize; the checks run outside the timed
-    spans); returns the summary line."""
+    spans); returns the summary line and leaves the run's end state in
+    ``keep`` (as ``fit_and_check``)."""
     import torch
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import backend
@@ -2087,12 +2131,13 @@ def run_training(launches_total) -> dict:
     del params, batch, rank0, kern, plain, xla, kern32, plain32
     torch.cuda.empty_cache()
 
-    summary = fit_and_check(cfg, run, shape, n, steps, synthetic.TRAIN_PRESET, launches_total)
+    summary = fit_and_check(cfg, run, shape, n, steps, synthetic.TRAIN_PRESET, launches_total,
+                            keep=keep)
     return {**summary, **agree}
 
 
 def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_total,
-                  mesh=None) -> dict:
+                  mesh=None, keep: Optional[dict] = None) -> dict:
     """``Trainer.fit`` for ``steps`` steps on ``n`` ranks (flat, or laid out
     as ``mesh``), every phase of every step checked and timed (host clock
     after a synchronize; the checks run outside the timed spans): the
@@ -2102,7 +2147,8 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
     and parameters; without error feedback the sync's error against the
     closed form at the codec ranks (within 10%; on a mesh over the pod
     means), with it each bucket's residual norm after every step.  Returns
-    the summary line."""
+    the summary line; ``keep``, when given, receives the end state
+    (``params``, ``opt_state``, ``hist``)."""
     import torch
     from repro_torch.core import wire
     from repro_torch.kernels import backend
@@ -2188,6 +2234,8 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
         ratio = st["err"] / st["cf"]
         need(abs(ratio - 1.0) <= 0.10, f"training: error / closed form = {ratio:.4f}, outside 10%")
         out = {"err_over_closed_form": ratio}
+    if keep is not None:
+        keep.update(params=params, opt_state=opt_state, hist=hist)
     del params, opt_state, trainer
     torch.cuda.empty_cache()
     step_ms = [sum(phase_ms[p][i] for p in ("backward", "sync", "update")) for i in range(steps)]
@@ -2282,6 +2330,244 @@ def run_example(launches_total) -> dict:
         del tr
         torch.cuda.empty_cache()
     return out
+
+
+# Checkpoint and restart at full width (phase 5).  The uninterrupted run is
+# run_training's 4 steps; the restarted one runs 2 steps that save at step 2
+# (asynchronously, then synchronously at its end, as the reference does), then
+# resumes to step 4 from that directory.  The resumed run saves asynchronously
+# at step 3, so its step 3 overlaps a save (the device → host copy on a side
+# stream, the file write on a thread) and its step 2 does not.  keep_last = 1
+# holds at most two checkpoints on disk (the one being written and the last).
+RESTART_KEEP_LAST = 1
+
+
+def _state_max_diff(params, opt_state, ref: dict) -> float:
+    """Largest |Δ| over every leaf of the parameters, m and v against the
+    uninterrupted run's."""
+    out = 0.0
+    for k in ref["params"]:
+        for got, want in ((params[k], ref["params"][k]), (opt_state.m[k], ref["opt_state"].m[k]),
+                          (opt_state.v[k], ref["opt_state"].v[k])):
+            out = max(out, max_err(got, want))
+    return out
+
+
+def _same_state(params, opt_state, hist, ref: dict, first: int) -> bool:
+    """Bit-equal parameters, m, v and step, and the losses and norms of the
+    steps from ``first`` on, to the uninterrupted run's."""
+    want = ref["hist"][first:]
+    return (sorted(params) == sorted(ref["params"])
+            and all(same_bits(params[k], ref["params"][k])
+                    and same_bits(opt_state.m[k], ref["opt_state"].m[k])
+                    and same_bits(opt_state.v[k], ref["opt_state"].v[k]) for k in ref["params"])
+            and same_bits(opt_state.step, ref["opt_state"].step)
+            and [(h["step"], h["loss"], h["grad_norm"]) for h in hist]
+            == [(h["step"], h["loss"], h["grad_norm"]) for h in want])
+
+
+def run_restart(ref: dict, launches_total) -> dict:
+    """Phase 5's checkpoint and restart on the training path (qwen3-4b at
+    full width and 4 layers, 8 stacked ranks, ``fixed_k_1bit``): in a
+    temporary directory, removed at the end, ``Trainer(steps=2,
+    ckpt_every=2)`` and then ``Trainer(steps=4, ckpt_every=3)`` from it; the
+    end state held bit for bit against ``ref``, run_training's
+    uninterrupted run (parameters, m, v, step, the losses and norms of steps
+    2–3).  Were the card's step not bit-reproducible run to run, a second
+    uninterrupted run measures that difference and the resumed run is held
+    to it.  Reports the bytes of a checkpoint, each save's ms from the
+    trainers' ``ckpt.history`` (the enqueue, the device → host copy and the
+    file write; each trainer's last save is its synchronous one), the ms
+    from ``fit()`` to its first step (the fresh draw; the draw and the
+    restore: their difference is the restore's ms), and each step's ms
+    (compute stream), step 3 overlapping a save."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import checkpointing as ckpt
+    from repro_torch.kernels import backend
+    from repro_torch.train import synthetic
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    cfg, run, shape = synthetic.train_main_path()
+    n, steps, L = synthetic.N, synthetic.TRAIN_STEPS, cfg.num_layers
+    half = steps // 2
+    step_ms, setup_ms, mark = {}, {}, {}
+
+    def on_phase(name, **state):
+        # the compute stream only: the checkpoint's copies run on their own
+        if name == "start":
+            torch.cuda.current_stream().synchronize()
+            t = time.perf_counter()
+            if "fit" in mark:       # a fit's first step: init_or_restore ran before it
+                setup_ms[state["step"]] = (t - mark.pop("fit")) * 1e3
+            mark.update(step=state["step"], t=t)
+        elif name == "update":
+            torch.cuda.current_stream().synchronize()
+            step_ms[mark["step"]] = (time.perf_counter() - mark["t"]) * 1e3
+
+    def trainer(last: int, every: int):
+        tcfg = TrainerConfig(steps=last, ckpt_dir=d, ckpt_every=every,
+                             keep_last=RESTART_KEEP_LAST, log_every=1, seed=TRAIN_SEED)
+        return Trainer(cfg, run, shape, tcfg, n, device=dev, on_phase=on_phase)
+
+    def fit(tr):
+        torch.cuda.synchronize()
+        mark["fit"] = time.perf_counter()
+        return tr.fit()
+
+    torch.cuda.empty_cache()
+    backend.reset_launches()
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        first = trainer(half, half)
+        fit(first)
+        need(ckpt.latest_step(d) == half, f"restart: no checkpoint at step {half}")
+        saves = list(first.ckpt.history)
+        del first
+        torch.cuda.empty_cache()
+        second = trainer(steps, half + 1)
+        params, opt_state, hist = fit(second)
+        torch.cuda.synchronize()
+        saves += second.ckpt.history
+        kept = sorted(os.listdir(d))
+        need(kept == [f"step-{steps:08d}"], f"restart: {kept} under the directory")
+        nbytes = os.path.getsize(os.path.join(d, kept[0], "arrays.npz"))
+        del second
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    counts = dict(backend.launches)
+    launches_total.update(counts)
+    flash = {"flash_attention_fwd": 2 * L * n * steps, "flash_attention_bwd_dkv": L * n * steps,
+             "flash_attention_bwd_dq": L * n * steps}
+    need({k: counts.get(k, 0) for k in flash} == flash and counts.get("fixed_k_gather", 0) > 0,
+         f"restart: launches {counts}, flash {flash}")
+    need([h["step"] for h in hist] == list(range(half, steps))
+         and all(math.isfinite(h["loss"]) for h in hist), f"restart: history {hist}")
+    need(int(opt_state.step) == steps, f"restart: optimizer step {int(opt_state.step)}")
+
+    out = {"bit_equal": _same_state(params, opt_state, hist, ref, half)}
+    if not out["bit_equal"]:
+        # the card's step is not reproducible run to run: measure by how much
+        torch.cuda.empty_cache()
+        again = Trainer(cfg, run, shape, TrainerConfig(steps=steps, log_every=1, seed=TRAIN_SEED),
+                        n, device=dev)
+        p2, o2, h2 = again.fit()
+        run_to_run = _state_max_diff(p2, o2, ref)
+        loss_run_to_run = max(abs(a["loss"] - b["loss"]) for a, b in zip(h2, ref["hist"]))
+        del again, p2, o2
+        resumed = _state_max_diff(params, opt_state, ref)
+        loss_resumed = max(abs(a["loss"] - b["loss"]) for a, b in zip(hist, ref["hist"][half:]))
+        out.update(run_to_run_max_abs=run_to_run, resumed_max_abs=resumed,
+                   run_to_run_loss=loss_run_to_run, resumed_loss=loss_resumed)
+        need(run_to_run > 0 and resumed <= run_to_run and loss_resumed <= loss_run_to_run,
+             f"restart: resumed state off by {resumed:.3g} (losses {loss_resumed:.3g}), "
+             f"two uninterrupted runs by {run_to_run:.3g} ({loss_run_to_run:.3g})")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    need([h["step"] for h in saves] == [half, half, half + 1, steps],
+         f"restart: saves {saves}")
+    return {"model": cfg.name, "layers": L, "ranks": n, "preset": synthetic.TRAIN_PRESET,
+            "steps": f"{half} + {steps - half}", "keep_last": RESTART_KEEP_LAST,
+            "GB_per_checkpoint": nbytes / 1e9, "checkpoints_written": len(saves),
+            "GB_written": len(saves) * nbytes / 1e9, "saves": saves,
+            "fit_to_first_step_ms": setup_ms, "restore_ms": setup_ms[half] - setup_ms[0],
+            "step_ms": step_ms, "step_overlapping_a_save": half + 1,
+            "losses": [h["loss"] for h in hist], **out}
+
+
+# The training CLI's smoke run on the card, then the same command resumed:
+# the reference's --smoke at --devices 4 (4 stacked ranks of 4 sequences of
+# 128 tokens: kernels 11-13 at hd 16, (4, 128, 4/2, 16) a rank).
+CLI_ARGS = ("--smoke", "--devices", "4", "--ckpt-every", "2")
+CLI_RUNS = ((4, (0, 1, 2, 3)), (6, (4, 5)))
+CLI_FLASH = ("flash_attention_fwd_hd16", "flash_attention_bwd_dkv_hd16",
+             "flash_attention_bwd_dq_hd16")
+
+
+def run_cli(launches_total) -> dict:
+    """``python -m repro_torch.launch.train --smoke --devices 4 --steps 4
+    --ckpt-every 2 --ckpt-dir D``, then ``--steps 6``, in process
+    (``main(argv)``, its output captured): the printed steps, finite losses,
+    the checkpoint steps, the resume at step 4, each hd-16 flash kernel
+    launched L·n times a step (no remat in the smoke run) and kernel 4 (the
+    fixed-k gather of the compressed error-feedback sync)."""
+    import io
+    import re
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import checkpointing as ckpt
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.kernels import backend
+    from repro_torch.launch import train as train_cli
+
+    step_line = re.compile(r"^step +(\d+)  loss (\S+)  gnorm (\S+)  lr (\S+)$")
+    per_step = smoke_config("qwen3-4b").num_layers * 4
+    torch.cuda.empty_cache()
+    d = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    out = {}
+    try:
+        for last, want_steps in CLI_RUNS:
+            backend.reset_launches()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = train_cli.main([*CLI_ARGS, "--steps", str(last), "--ckpt-dir", d])
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = dict(backend.launches)
+            launches_total.update(counts)
+            rows = [step_line.match(line) for line in buf.getvalue().strip().splitlines()]
+            need(rc == 0 and rows and all(rows), f"cli --steps {last}: output {buf.getvalue()!r}")
+            got = [(int(m[1]), float(m[2])) for m in rows]
+            need(tuple(s for s, _ in got) == want_steps and all(math.isfinite(l) for _, l in got),
+                 f"cli --steps {last}: steps and losses {got}, want steps {want_steps}")
+            need(ckpt.latest_step(d) == last, f"cli --steps {last}: newest checkpoint "
+                                              f"{ckpt.latest_step(d)}")
+            want = dict.fromkeys(CLI_FLASH, per_step * len(want_steps))
+            fk = counts.get("fixed_k_gather", 0)
+            need({k: counts.get(k, 0) for k in CLI_FLASH} == want
+                 and fk > 0 and fk % len(want_steps) == 0,
+                 f"cli --steps {last}: launches {counts}, want {want} and fixed-k gathers")
+            out[f"--steps {last}"] = {"steps": [s for s, _ in got],
+                                      "losses": [l for _, l in got], "sec": sec,
+                                      "launches": counts}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def run_serve_example(launches_total) -> dict:
+    """``python -m repro_torch.examples.serve_lm`` in process: 4 prompts of
+    16 tokens and 16 greedy tokens on the smoke qwen3-4b; every printed
+    token in range, and the prefill through kernel 11 at hd 16 (one launch
+    a layer)."""
+    import io
+    import torch
+    from repro_torch.examples import serve_lm
+    from repro_torch.kernels import backend
+
+    backend.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_lm.main([])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = dict(backend.launches)
+    launches_total.update(counts)
+    rows = [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.strip().startswith("[")]
+    vocab = serve_lm.CFG.vocab_size
+    need(rc == 0 and len(rows) == serve_lm.SHAPE.global_batch
+         and all(len(r) == 1 + serve_lm.STEPS and all(0 <= t < vocab for t in r) for r in rows),
+         f"serve example: output {buf.getvalue()!r}")
+    need(counts == {"flash_attention_fwd_hd16": serve_lm.CFG.num_layers},
+         f"serve example: launches {counts}")
+    return {"tokens": rows, "sec": sec, "launches": counts}
 
 
 # --------------------------------------------------------------------------- #
@@ -2609,6 +2895,9 @@ def main() -> int:
         check_hierarchical(mesh)
     check_inner_shards()
     time_center(main_d)
+    print("[2] every collective below runs on StackedComm, the ranks stacked on this card: "
+          "the link is simulated, and DistComm (one rank per process) is not run here",
+          flush=True)
     print(f"[2] wire and encoder kernels bit-equal to their plain versions, flash attention "
           f"forward and backward within tolerance, decodes at n = 3, robust rounds at n = 3 "
           f"and 8 and hierarchical rounds at (4, 2) and (2, 3) equal to the CPU's "
@@ -2640,8 +2929,14 @@ def main() -> int:
     summary = run_serving(total)
     print(f"[4] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
-    summary = run_training(total)
+    kept = {}
+    summary = run_training(total, kept)
     print(f"[5] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    summary = run_restart(kept, total)
+    del kept
+    print(f"[5] checkpoint and restart {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
     t0 = time.perf_counter()
     summary = run_training_ef(total)
     print(f"[5] error feedback {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",
@@ -2652,6 +2947,14 @@ def main() -> int:
     t0 = time.perf_counter()
     summary = run_example(total)
     print(f"[5] example {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    summary = run_cli(total)
+    print(f"[5] training CLI {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    t0 = time.perf_counter()
+    summary = run_serve_example(total)
+    print(f"[5] serving example {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
     t0 = time.perf_counter()
     summary = run_encode_path(total)
     print(f"[6] encode path {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)

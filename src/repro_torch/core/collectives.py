@@ -12,9 +12,9 @@ compression axes manual.  Here a communicator stands in for the axes:
   (:meth:`StackedComm.over`), which the hierarchical schedule needs: the
   exact mean over the inner axes, the codec over the cross-host axes.
 * :class:`DistComm` — the same interface over ``torch.distributed`` (one
-  rank per process): ``all_gather_into_tensor`` and ``all_reduce``; its
-  psum of a buffer narrower than f32 gathers the rows and sums them as
-  StackedComm does, so the two give the same bits at every n.
+  rank per process): ``all_gather_into_tensor``; its psum gathers the rows
+  and sums them as StackedComm does, so the two give the same bits at every
+  n.
 
 Both count the bytes handed to them, so a run can hold the traffic against
 the codecs' ``wire_bits`` / ``scatter_bits`` accounting: the codec axes'
@@ -261,17 +261,17 @@ def _rank_order_sum(rows):
 
 class DistComm(_Counted):
     """One rank per process over ``torch.distributed`` (any backend with
-    all_gather_into_tensor and all_reduce: NCCL on cards, gloo on CPUs).
+    all_gather_into_tensor: NCCL on cards, gloo on CPUs).
 
-    ``psum`` of a buffer narrower than f32 (the fixed-k wire's bf16)
-    gathers every rank's buffer and sums the rows in f32 from 0 in rank
-    order, as :meth:`StackedComm.psum` does: the same bits at every n,
-    where a bf16 all-reduce rounds each partial sum in the backend's
-    order.  Each rank then receives (n − 1)·|buf| against a ring
-    all-reduce's 2(n − 1)/n·|buf|.  An f32 buffer (the exact mean, the dense
-    simulation) is all-reduced in f32: gathering n full f32 gradients would
-    cost n× the memory.  ``bytes_*`` count this rank's contributions, the
-    buffer it hands over.
+    ``psum`` gathers every rank's buffer and sums the rows in f32 from +0.0
+    in rank order, as :meth:`StackedComm.psum` does: the same bits at every
+    n, for the fixed-k wire's bf16 (where a bf16 all-reduce rounds each
+    partial sum in the backend's order) and for f32 buffers (the exact
+    mean, the dense simulation, the f32-wire rounds), where an all-reduce
+    adds in the backend's order.  Each rank then receives (n − 1)·|buf|
+    against a ring all-reduce's 2(n − 1)/n·|buf|, and holds the n rows at
+    once.  ``bytes_*`` count this rank's contributions, the buffer it hands
+    over.
 
     ``mesh`` (as for :class:`StackedComm`) lays the world out on named
     axes, pod-major: process rank r sits at the coordinates StackedComm
@@ -346,11 +346,7 @@ class DistComm(_Counted):
         if local.shape[0] != 1:
             raise ValueError(f"DistComm holds one rank; got {local.shape[0]} rows")
         self._count(local, reduced=True)
-        if local.element_size() < 4:
-            return _rank_order_sum(self._gather(local))
-        buf = local[0].clone()
-        self._dist.all_reduce(buf, group=self.group)
-        return buf.to(torch.float32) + 0.0     # a sum from +0.0 has no −0.0
+        return _rank_order_sum(self._gather(local))
 
     def over(self, axes, inner: bool = False):
         """The communicator over ``axes`` (this process's group of them),

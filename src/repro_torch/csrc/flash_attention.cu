@@ -56,11 +56,13 @@
 //     are clipped); lse by the lanes that own each row.
 //   Shared memory at hd 128: Q 32 KB + 2 stages x (K 32 KB + V 32 KB) =
 //   160 KB (one CTA per SM); half at hd 64.
-//   hd 32 (lm-8m) takes the hd-64 tiles: the 4-D maps span the tensor's 32
-//   columns with the same 64-column boxes, so TMA zero-fills columns 32-63
-//   of each Q, K and V tile and clips them from the o store.  S = Q.K^T
-//   runs its 2 k-steps of 16 only; P.V runs at n = 64, half of it on the
-//   zero columns (twice the operations the bound counts for that product).
+//   hd 32 (lm-8m) and hd 16 (the smoke configs) take the hd-64 tiles: the
+//   4-D maps span the tensor's 32 (16) columns with the same 64-column boxes
+//   (rows of 64 (32) bytes, within TMA's 16-byte rule), so TMA zero-fills
+//   the other columns of each Q, K and V tile and clips them from the o
+//   store.  S = Q.K^T runs its 2 (1) real k-steps of 16 only; P.V runs at
+//   n = 64, half (three quarters) of it on the zero columns (2x (4x) the
+//   operations the bound counts for that product).
 // f32: fa_fwd_simt, 64-row tiles, 256 threads, each 4 rows x 4 keys of S
 //   and 4 rows x hd/16 columns of o with f32 FMAs (the reference's f32
 //   products; no TF32).  Neither main path runs it.
@@ -579,7 +581,7 @@ extern "C" {
 
 // q, o: (b, sq, hq, hd); k, v: (b, sk, hkv, hd), contiguous, of one dtype
 // (0: f32, 1: bf16, whose pointers are 16-byte aligned for TMA); lse:
-// (b, hq, sq) f32.  hd is 32, 64 or 128, hq a multiple of hkv, window <= 0
+// (b, hq, sq) f32.  hd is 16, 32, 64 or 128, hq a multiple of hkv, window <= 0
 // for none.  Returns the cudaError_t of the launch.
 int fa_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int64_t b,
            int64_t sq, int64_t sk, int64_t hq, int64_t hkv, int64_t hd, int64_t q_offset,
@@ -590,18 +592,21 @@ int fa_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, lse, sq, sk, hq, hkv, q_offset, window, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && hd == 16) return launch_simt<16>(a, b, s);
   if (dtype == 0 && hd == 32) return launch_simt<32>(a, b, s);
   if (dtype == 0 && hd == 64) return launch_simt<64>(a, b, s);
   if (dtype == 0 && hd == 128) return launch_simt<128>(a, b, s);
+  if (dtype == 1 && hd == 16) return launch_wgmma<16>(a, b, s);
   if (dtype == 1 && hd == 32) return launch_wgmma<32>(a, b, s);
   if (dtype == 1 && hd == 64) return launch_wgmma<64>(a, b, s);
   if (dtype == 1 && hd == 128) return launch_wgmma<128>(a, b, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory of one bf16 CTA at head dim hd (32, 64 or 128), else 0.
+// Dynamic shared memory of one bf16 CTA at head dim hd (16, 32, 64 or 128), else 0.
 int fa_fwd_smem_bytes(int64_t hd) {
-  return hd == 32    ? Smem<32>::kBytes
+  return hd == 16    ? Smem<16>::kBytes
+         : hd == 32  ? Smem<32>::kBytes
          : hd == 64  ? Smem<64>::kBytes
          : hd == 128 ? Smem<128>::kBytes
                      : 0;

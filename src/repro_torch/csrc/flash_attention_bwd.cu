@@ -64,10 +64,11 @@
 //     (named barriers), so one's dS runs while the other's products hold the
 //     tensor cores.  64-key tiles keep dQ, S, dP and the hi + lo fragments
 //     in registers (64 + 32 + 32 + 32 a thread at hd 128).
-//   hd 32 (lm-8m) takes the hd-64 tiles (flash_common.cuh, tile_cols): TMA
-//   zero-fills columns 32-63 of every Q, dO, K and V tile; S and dP run their
-//   2 k-steps of 16 only, while dV, dK and dQ run at n = 64, half of it on
-//   the zero columns, whose sums are never stored.
+//   hd 32 (lm-8m) and hd 16 (the smoke configs) take the hd-64 tiles
+//   (flash_common.cuh, tile_cols): TMA zero-fills columns hd-63 of every Q,
+//   dO, K and V tile; S and dP run their 2 (1) real k-steps of 16 only, while
+//   dV, dK and dQ run at n = 64, half (three quarters) of it on the zero
+//   columns, whose sums are never stored (store_rows writes hd columns).
 //   f32: fa_bwd_dkv_simt, one CTA per (batch * kv head, 64-key tile) over the
 //     group's q heads and their live 64-row q tiles, and fa_bwd_dq_simt, one
 //     CTA per (batch * q head, 64-row q tile) over its live 64-key tiles; 256
@@ -941,8 +942,8 @@ extern "C" {
 
 // q, dout: (b, sq, hq, hd); k, v: (b, sk, hkv, hd), contiguous, of one dtype
 // (0: f32, 1: bf16, whose pointers are 16-byte aligned for TMA); lse, delta:
-// (b, hq, sq) f32; dk, dv: (b, sk, hkv, hd) f32, written whole.  hd is 32, 64
-// or 128, hq a multiple of hkv, window <= 0 for none.  Returns the cudaError_t
+// (b, hq, sq) f32; dk, dv: (b, sk, hkv, hd) f32, written whole.  hd is 16, 32,
+// 64 or 128, hq a multiple of hkv, window <= 0 for none.  Returns the cudaError_t
 // of the launch.
 int fa_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* delta, float* dk, float* dv, int64_t b, int64_t sq, int64_t sk,
@@ -954,10 +955,12 @@ int fa_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, co
                causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(b * hkv), static_cast<unsigned>((sk + kTile - 1) / kTile));
+  if (dtype == 0 && hd == 16) return launch(fa_bwd_dkv_simt<16>, grid, 256, simt_smem<16>(), s, a);
   if (dtype == 0 && hd == 32) return launch(fa_bwd_dkv_simt<32>, grid, 256, simt_smem<32>(), s, a);
   if (dtype == 0 && hd == 64) return launch(fa_bwd_dkv_simt<64>, grid, 256, simt_smem<64>(), s, a);
   if (dtype == 0 && hd == 128)
     return launch(fa_bwd_dkv_simt<128>, grid, 256, simt_smem<128>(), s, a);
+  if (dtype == 1 && hd == 16) return launch_dkv_wgmma<16>(a, b, s);
   if (dtype == 1 && hd == 32) return launch_dkv_wgmma<32>(a, b, s);
   if (dtype == 1 && hd == 64) return launch_dkv_wgmma<64>(a, b, s);
   if (dtype == 1 && hd == 128) return launch_dkv_wgmma<128>(a, b, s);
@@ -975,10 +978,12 @@ int fa_bwd_dq(const void* q, const void* k, const void* v, const void* dout, con
                causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(b * hq), static_cast<unsigned>((sq + kTile - 1) / kTile));
+  if (dtype == 0 && hd == 16) return launch(fa_bwd_dq_simt<16>, grid, 256, simt_smem<16>(), s, a);
   if (dtype == 0 && hd == 32) return launch(fa_bwd_dq_simt<32>, grid, 256, simt_smem<32>(), s, a);
   if (dtype == 0 && hd == 64) return launch(fa_bwd_dq_simt<64>, grid, 256, simt_smem<64>(), s, a);
   if (dtype == 0 && hd == 128)
     return launch(fa_bwd_dq_simt<128>, grid, 256, simt_smem<128>(), s, a);
+  if (dtype == 1 && hd == 16) return launch_dq_wgmma<16>(a, b, s);
   if (dtype == 1 && hd == 32) return launch_dq_wgmma<32>(a, b, s);
   if (dtype == 1 && hd == 64) return launch_dq_wgmma<64>(a, b, s);
   if (dtype == 1 && hd == 128) return launch_dq_wgmma<128>(a, b, s);
@@ -986,8 +991,9 @@ int fa_bwd_dq(const void* q, const void* k, const void* v, const void* dout, con
 }
 
 // Dynamic shared memory of one bf16 CTA of fa_bwd_dkv (dq = 0) or fa_bwd_dq
-// (dq = 1) at head dim hd (32, 64 or 128), else 0.
+// (dq = 1) at head dim hd (16, 32, 64 or 128), else 0.
 int fa_bwd_smem_bytes(int64_t hd, int dq) {
+  if (hd == 16) return dq ? DqSmem<16>::kBytes : DkvSmem<16>::kBytes;
   if (hd == 32) return dq ? DqSmem<32>::kBytes : DkvSmem<32>::kBytes;
   if (hd == 64) return dq ? DqSmem<64>::kBytes : DkvSmem<64>::kBytes;
   if (hd == 128) return dq ? DqSmem<128>::kBytes : DkvSmem<128>::kBytes;

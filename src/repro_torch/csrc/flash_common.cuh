@@ -13,8 +13,8 @@ constexpr float kMasked = -1e30f;   // the reference's NEG_INF (flash_attention.
 constexpr int kTile = 64;           // rows of a q tile and keys of a key tile
 
 // Columns of a bf16 kernel's shared-memory tile: hd, or one whole 64-column
-// TMA box at hd 32 (the maps span hd columns, so TMA zero-fills columns
-// 32-63 on loads and clips them from stores).
+// TMA box at hd 16 and 32 (the maps span hd columns, so TMA zero-fills
+// columns hd-63 on loads and clips them from stores).
 __host__ __device__ constexpr int tile_cols(int hd) { return hd < 64 ? 64 : hd; }
 
 // Copy rows [row0, row0 + 64) of a (S, stride) row set into smem rows of LD

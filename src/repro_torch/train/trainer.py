@@ -1,9 +1,19 @@
-"""Trainer: the step loop — port of ``repro.train.trainer`` without
-checkpointing.
+"""Trainer: the step loop with checkpoint and restart — port of
+``repro.train.trainer``.
 
-Batches come from :class:`~repro_torch.data.pipeline.SyntheticLM`, a pure
-function of (seed, step), as in the reference.  Checkpoint and restart
-(``ckpt_dir``) raise :class:`NotPortedError`.
+The reference's fault-tolerance contract:
+
+* every ``ckpt_every`` steps the parameters, the optimizer state and the
+  step are saved with an atomic commit, the file write overlapping the next
+  steps (:class:`~repro_torch.checkpoint.checkpointing.AsyncCheckpointer`);
+* on (re)start the trainer resumes from the newest committed checkpoint;
+  batches come from :class:`~repro_torch.data.pipeline.SyntheticLM`, a pure
+  function of (seed, step), and the sync keys from the step, so the stream
+  realigns exactly;
+* a checkpoint restores at any rank count (the port keeps no sharding).
+
+As in the reference, the error-feedback residuals are not saved: a
+restarted run starts them at ``init_fn``'s zeros.
 """
 from __future__ import annotations
 
@@ -13,8 +23,9 @@ import time
 from typing import Callable, Mapping, Optional
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import checkpointing as ckpt
 from repro_torch.configs.base import ArchConfig, RunConfig, ShapeSpec
-from repro_torch.core.wire.base import NotPortedError
+from repro_torch.configs.registry import param_shapes
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.optim.optimizers import AdamWConfig
 from repro_torch.train import train_step as ts
@@ -25,7 +36,9 @@ log = logging.getLogger("repro_torch.trainer")
 @dataclasses.dataclass
 class TrainerConfig:
     steps: int = 100
-    ckpt_dir: Optional[str] = None      # raises: checkpointing is not ported
+    ckpt_dir: Optional[str] = None      # save there, and resume from its newest step
+    ckpt_every: int = 50
+    keep_last: int = 3
     log_every: int = 10
     seed: int = 0
 
@@ -41,9 +54,6 @@ class Trainer:
                  opt_cfg: Optional[AdamWConfig] = None, device=None,
                  on_phase: Optional[Callable[..., None]] = None, *,
                  mesh: Optional[Mapping[str, int]] = None):
-        if tcfg.ckpt_dir is not None:
-            raise NotPortedError("checkpointing (TrainerConfig.ckpt_dir) is not ported yet "
-                                 "(ROADMAP.md, queue 1)")
         self.cfg, self.run, self.shape, self.tcfg = cfg, run, shape, tcfg
         self.device = resolve_device(device)
         # sync_plan is THE grad-sync plan the step executes (None = per-leaf)
@@ -51,28 +61,59 @@ class Trainer:
             cfg, run, shape, n, opt_cfg, base_seed=tcfg.seed, device=self.device,
             on_phase=on_phase, mesh=mesh)
         self.mesh = ts.resolve_mesh(n, mesh)
+        self.specs = param_shapes(cfg)[1]
         self.data = SyntheticLM(cfg, shape, seed=tcfg.seed)
+        # every save of fit() goes through it: ckpt.history times each one
+        self.ckpt = ckpt.AsyncCheckpointer()
         self.metrics_history = []
         # the error-feedback state after fit(): per compressed bucket (or
         # leaf) the (n, size) residuals; examples read their norms here
         self.ef_state = None
 
-    def fit(self):
-        """Run ``tcfg.steps`` steps from freshly drawn parameters; returns
-        (params, opt_state, metrics_history) and keeps the last
-        error-feedback state in :attr:`ef_state`.  A step's metrics are
-        logged (as floats, with ``step`` and ``sec``) at the first step and
-        every ``log_every`` steps."""
+    def init_or_restore(self):
+        """(start step, params, opt_state, ef_state): freshly drawn, then the
+        parameters and optimizer state of the newest checkpoint under
+        ``ckpt_dir`` when there is one; the error-feedback state stays
+        ``init_fn``'s zeros, as in the reference."""
         params, opt_state, ef = self.init_fn(self.tcfg.seed)
+        start = 0
+        last = ckpt.latest_step(self.tcfg.ckpt_dir) if self.tcfg.ckpt_dir else None
+        if last is not None:
+            template = opt_state._replace(m={}, v={})   # the drawn state is freed first
+            del params, opt_state
+            start, params, opt_state, _ = ckpt.restore(self.tcfg.ckpt_dir, self.specs, template,
+                                                       device=self.device)
+            log.info("restored checkpoint at step %d", start)
+        return start, params, opt_state, ef
+
+    def fit(self):
+        """Run from the start step (0, or the restored one) to ``tcfg.steps``;
+        returns (params, opt_state, metrics_history) and keeps the last
+        error-feedback state in :attr:`ef_state`.  A step's metrics are
+        logged (as floats, with ``step`` and ``sec``) at the start step and
+        every ``log_every`` steps.  With ``ckpt_dir``, the state after every
+        ``ckpt_every`` steps is saved asynchronously, and after the last save
+        has landed the state at ``tcfg.steps`` synchronously: through the same
+        checkpointer, waited for (a second save when ``steps`` is a multiple
+        of ``ckpt_every``, as in the reference)."""
+        start, params, opt_state, ef = self.init_or_restore()
         t0 = time.time()
-        for step in range(self.tcfg.steps):
+        for step in range(start, self.tcfg.steps):
             batch = self.data.batch(step, self.device)
             params, opt_state, ef, metrics = self.step_fn(params, opt_state, ef, batch, step)
-            if (step + 1) % self.tcfg.log_every == 0 or step == 0:
+            if (step + 1) % self.tcfg.log_every == 0 or step == start:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["step"] = step
                 m["sec"] = time.time() - t0
                 self.metrics_history.append(m)
                 log.info("step %d loss %.4f gnorm %.3f", step, m["loss"], m["grad_norm"])
+            if self.tcfg.ckpt_dir and (step + 1) % self.tcfg.ckpt_every == 0:
+                self.ckpt.save(self.tcfg.ckpt_dir, step + 1, params, opt_state, self.specs,
+                               extra={"arch": self.cfg.name}, keep_last=self.tcfg.keep_last)
+        self.ckpt.wait()
         self.ef_state = ef
+        if self.tcfg.ckpt_dir:
+            self.ckpt.save(self.tcfg.ckpt_dir, self.tcfg.steps, params, opt_state, self.specs,
+                           extra={"arch": self.cfg.name}, keep_last=self.tcfg.keep_last)
+            self.ckpt.wait()
         return params, opt_state, self.metrics_history

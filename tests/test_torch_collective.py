@@ -19,10 +19,12 @@ sides) and the port's center is computed here the reference's way, sum ×
 * ``fixed_k_1bit`` (psum): equal to the reference's ``decode_reduced`` of
   the rank-order f32 mean of its pack buffers, rounded once to bf16.
 
-``DistComm``'s psum gathers the bf16 fixed-k buffers and sums them in f32
-from 0 in rank order, as ``StackedComm`` does, so the fixed-k round over
-gloo equals the stacked one bit for bit at n = 2, 3 and 4
-(:func:`test_distcomm_gloo_fixed_k_psum_equals_stacked`); the older bound
+``DistComm``'s psum gathers the buffers and sums them in f32 from 0 in
+rank order, as ``StackedComm`` does, so the fixed-k round over gloo equals
+the stacked one bit for bit at n = 2, 3 and 4
+(:func:`test_distcomm_gloo_fixed_k_psum_equals_stacked`), and so do the f32
+psums of an exact bucket and of the dense simulation on Gaussian inputs at
+n = 3 and 4 (:func:`test_distcomm_gloo_f32_psum_equals_stacked`); the older bound
 of a bf16 all-reduce's rounding still holds at 4
 (:func:`test_distcomm_gloo_world_size_4_fixed_k_within_bf16_rounding`).
 The gather rounds over gloo (Bernoulli, binary and ternary, the latter
@@ -187,9 +189,11 @@ rank, port, out, world = int(sys.argv[2]), sys.argv[3], sys.argv[4], int(sys.arg
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
                         rank=rank)
 xs = torch.from_numpy(np.load(out + "/xs.npy"))
-for name, (preset, scatter) in json.load(open(out + "/cfgs.json")).items():
+for name, (preset, scatter, *mode) in json.load(open(out + "/cfgs.json")).items():
     cfg = dataclasses.replace(compression_preset(preset, axes=("data",)),
                               scatter_decode=scatter, min_compress_size=1)
+    if mode:
+        cfg = dataclasses.replace(cfg, mode=mode[0])
     comm = DistComm(device="cpu")
     y = compressed_mean(xs[rank:rank + 1], R.PRNGKey(7), cfg, comm)
     np.save(f"{out}/{name}.{rank}.npy", y.numpy())
@@ -213,10 +217,25 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _gloo_rounds(tmp_path, world, rounds=GLOO_ROUNDS):
-    """Runs the worker in ``world`` gloo processes over ``rounds``; returns
-    the inputs and, per config, the StackedComm round over the same stack."""
-    xs = _xs(world, 20_000, 11)
+# f32 psums on Gaussian inputs, where every partial sum rounds and the order
+# of the adds shows: an exact bucket (mode "none") and the dense simulation
+# (an f32 wire); name -> (preset, scatter_decode, mode)
+F32_ROUNDS = {"exact": ("fixed_k_1bit", False, "none"),
+              "dense_sim": ("bernoulli_seed_1bit", False, "dense_sim")}
+
+
+def _round_cfg(preset, scatter, mode=None):
+    cfg = dataclasses.replace(tpreset(preset, axes=("data",)), scatter_decode=scatter,
+                              min_compress_size=1)
+    return cfg if mode is None else dataclasses.replace(cfg, mode=mode)
+
+
+def _gloo_rounds(tmp_path, world, rounds=GLOO_ROUNDS, gauss=False):
+    """Runs the worker in ``world`` gloo processes over ``rounds`` (on
+    2⁻⁶-grid inputs, or Gaussian ones); returns the inputs and, per config,
+    the StackedComm round over the same stack."""
+    xs = (np.random.default_rng(13).standard_normal((world, 20_000)).astype(np.float32)
+          if gauss else _xs(world, 20_000, 11))
     np.save(tmp_path / "xs.npy", xs)
     (tmp_path / "cfgs.json").write_text(json.dumps(rounds))
     port = str(_free_port())
@@ -227,9 +246,8 @@ def _gloo_rounds(tmp_path, world, rounds=GLOO_ROUNDS):
     outs = [p.communicate(timeout=240)[0] for p in procs]
     assert [p.returncode for p in procs] == [0] * world, "\n".join(outs)
     stacked = {}
-    for name, (preset, scatter) in rounds.items():
-        cfg = dataclasses.replace(tpreset(preset, axes=("data",)), scatter_decode=scatter,
-                                  min_compress_size=1)
+    for name, spec in rounds.items():
+        cfg = _round_cfg(*spec)
         comm = tcoll.StackedComm(world, "cpu")
         want = tcoll.compressed_mean(torch.from_numpy(xs), R.PRNGKey(7), cfg, comm).numpy()
         stacked[name] = (cfg, want, comm)
@@ -256,6 +274,30 @@ def test_distcomm_gloo_fixed_k_psum_equals_stacked(tmp_path, n):
     for r in range(n):
         np.testing.assert_array_equal(np.load(tmp_path / f"fixed_k_1bit.{r}.npy"),
                                       stacked["fixed_k_1bit"][1])
+
+
+@pytest.fixture(scope="module", params=[3, 4], ids=lambda n: f"n{n}")
+def f32_gloo(request, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp(f"f32_gloo_{request.param}")
+    xs, stacked = _gloo_rounds(tmp, request.param, F32_ROUNDS, gauss=True)
+    return request.param, tmp, xs, stacked
+
+
+@pytest.mark.parametrize("name", sorted(F32_ROUNDS))
+def test_distcomm_gloo_f32_psum_equals_stacked(f32_gloo, name):
+    """An f32 psum over gloo (the exact mean of an exact bucket, the dense
+    simulation's f32 wire) on Gaussian inputs: DistComm gathers the rows and
+    sums them in rank order from +0.0, so every rank holds StackedComm's
+    result bit for bit.  The inputs make the order matter: the reverse
+    order's sum differs."""
+    n, tmp, xs, stacked = f32_gloo
+    want = stacked[name][1]
+    for r in range(n):
+        np.testing.assert_array_equal(np.load(tmp / f"{name}.{r}.npy"), want)
+    if name == "exact":
+        x = torch.from_numpy(xs)
+        backwards = tcoll._rank_order_sum(x.flip(0))
+        assert not torch.equal(backwards, tcoll._rank_order_sum(x))
 
 
 def test_distcomm_gloo_world_size_4_fixed_k_within_bf16_rounding(tmp_path):

@@ -35,6 +35,7 @@ CASES = [
     (1, 256, 256, 2, 1, 64, True, 96, 0, 64),
     (1, 128, 512, 2, 2, 64, True, None, 256, 128),
     (2, 128, 128, 8, 2, 128, True, None, 0, 64),
+    (2, 64, 64, 4, 2, 16, True, None, 0, 32),       # hd 16: the smoke configs' heads
 ]
 
 

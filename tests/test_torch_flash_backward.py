@@ -41,6 +41,7 @@ CASES = [
     (1, 256, 256, 4, 2, 64, False, None, 0, 128),
     (1, 256, 256, 2, 1, 64, True, 96, 0, 64),
     (1, 128, 512, 4, 2, 64, True, None, 256, 128),
+    (2, 64, 64, 4, 2, 16, True, None, 0, 32),       # hd 16: the smoke configs' heads
 ]
 
 
@@ -85,7 +86,7 @@ def test_plain_backward_matches_pallas(case, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", [CASES[0], CASES[2], CASES[3]], ids=_case_id)
+@pytest.mark.parametrize("case", [CASES[0], CASES[2], CASES[3], CASES[4]], ids=_case_id)
 def test_autograd_function_matches_jax_grad(case, dtype):
     q, k, v, do = _inputs(case, seed=1)
     causal, window, q_offset, block = case[6:]

@@ -339,6 +339,13 @@ def _qkv(dev, b, sq, sk, hq, hkv, hd, dtype):
     (1, 512, 512, 4, 1, 32, True, 200, 0),        # a window straddling key tiles
     (1, 256, 512, 4, 2, 32, True, None, 200),     # q offset not a multiple of 128
     (4, 128, 128, 8, 4, 32, True, None, 0),       # one rank of the training example
+    # hd 16 (the smoke configs) on the hd-64 tiles, columns 16-63 zero-filled
+    (1, 1000, 1000, 4, 2, 16, True, None, 0),     # ragged, causal, g = 2
+    (2, 100, 100, 4, 4, 16, False, None, 0),      # less than one tile, not causal
+    (1, 512, 512, 4, 1, 16, True, 200, 0),        # a window straddling key tiles
+    (1, 256, 512, 4, 2, 16, True, None, 200),     # q offset not a multiple of 128
+    (4, 128, 128, 4, 2, 16, True, None, 0),       # one rank of the training CLI's smoke run
+    (4, 16, 16, 4, 2, 16, True, None, 0),         # the serving example's prefill
 ])
 def test_flash_attention_kernel_within_tolerance_of_plain(dev, dtype, b, sq, sk, hq, hkv, hd,
                                                           causal, window, q_offset):
@@ -410,6 +417,12 @@ def _rel(got, want):
     (2, 100, 100, 8, 4, 32, False, None, 0),      # less than one tile, not causal
     (1, 256, 512, 4, 2, 32, True, None, 200),     # q offset 200, Sk 512
     (4, 128, 128, 8, 4, 32, True, None, 0),       # one rank of the training example
+    # hd 16 (the smoke configs) on the hd-64 tiles
+    (1, 1000, 1000, 4, 2, 16, True, None, 0),     # ragged, g = 2
+    (1, 1024, 1024, 4, 1, 16, True, 200, 0),      # a window across key tiles
+    (2, 100, 100, 4, 4, 16, False, None, 0),      # less than one tile, not causal
+    (1, 256, 512, 4, 2, 16, True, None, 200),     # q offset 200, Sk 512
+    (4, 128, 128, 4, 2, 16, True, None, 0),       # one rank of the training CLI's smoke run
 ])
 def test_flash_attention_bwd_kernels_within_tolerance_of_plain(dev, dtype, b, sq, sk, hq, hkv,
                                                                hd, causal, window, q_offset):
@@ -427,7 +440,7 @@ def test_flash_attention_bwd_kernels_within_tolerance_of_plain(dev, dtype, b, sq
             assert _rel(got, w) <= BWD_REL, (name, _rel(got, w))
 
 
-@pytest.mark.parametrize("hd,suffix", [(128, ""), (32, "_hd32")])
+@pytest.mark.parametrize("hd,suffix", [(128, ""), (32, "_hd32"), (16, "_hd16")])
 def test_flash_attention_backward_launches_the_kernels_on_a_card(dev, monkeypatch, hd, suffix):
     def plain(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached the plain version")
@@ -442,6 +455,31 @@ def test_flash_attention_backward_launches_the_kernels_on_a_card(dev, monkeypatc
     assert dict(backend.launches) == {n + suffix: 1 for n in names}
     assert q.grad.dtype == torch.bfloat16 and k.grad.shape == k.shape
     assert all(bool(torch.isfinite(t.grad.float()).all()) for t in (q, k, v))
+
+
+def test_async_checkpoint_on_a_card_writes_the_saved_values(dev, tmp_path):
+    """The asynchronous save copies on a side stream into pinned buffers and
+    marks the saved tensors as used by that stream: freeing them right after
+    ``save`` and filling new tensors of their size (which may take their
+    memory) does not reach the checkpoint."""
+    from repro_torch.checkpoint import checkpointing as ckpt
+    from repro_torch.optim import optimizers as topt
+
+    g = torch.Generator(dev).manual_seed(5)
+    params = {"w": torch.randn(1 << 22, generator=g, device=dev),
+              "b": torch.randn(7, 3, generator=g, device=dev)}
+    st = topt.adamw_init(params)
+    want = {k: v.cpu() for k, v in params.items()}
+    specs = {k: (None,) * v.dim() for k, v in params.items()}
+    ac = ckpt.AsyncCheckpointer()
+    ac.save(str(tmp_path), 1, params, st, specs)
+    del params
+    junk = [torch.full((1 << 22,), float("nan"), device=dev) for _ in range(4)]
+    ac.wait()
+    _, got, got_st, _ = ckpt.restore(str(tmp_path), specs, st, device=dev)
+    assert all(torch.equal(got[k].cpu(), want[k]) and got[k].is_cuda for k in want)
+    assert int(got_st.step) == 0 and ac.history[0]["copy_ms"] > 0
+    del junk
 
 
 def test_training_step_flash_matches_xla_on_a_card(dev):

@@ -353,8 +353,6 @@ def test_trainer_fit_three_steps():
 
 def test_unported_options_raise():
     with pytest.raises(NotPortedError):
-        Trainer(CFG, RunConfig(), SHAPE, TrainerConfig(ckpt_dir="ckpt"), n=1, device="cpu")
-    with pytest.raises(NotPortedError):
         RunConfig(fsdp=True)
     with pytest.raises(NotPortedError):
         convert.run_config(_jrun(fsdp=True))
