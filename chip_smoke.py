@@ -123,9 +123,11 @@ Phases, each printing its own lines:
    gradients against the plain flash and against ``attn_impl="xla"``
    (``TRAIN_LOSS_RTOL``, ``TRAIN_GRAD_TOL``), and in f32 compute against
    the plain flash (``TRAIN_F32_LOSS_RTOL``, ``TRAIN_F32_GRAD_TOL``); then
-   ``Trainer.fit`` for 4 steps: finite losses and norms, the launches of
-   every phase of every step (flash forward 2·L·n with remat, each
-   backward sweep L·n, the fixed-k gathers per bucket),
+   ``Trainer.fit`` for 4 steps under the backward-pipelined bucket sync
+   (the reference's default schedule): finite losses and norms, the
+   launches of every phase of every step (flash forward 2·L·n with remat,
+   each backward sweep L·n, the fixed-k gathers per bucket: in the
+   backward, where the sync points launch them),
    the communicator's bytes against the accounting, the sync's error over
    the stacked real gradients against the closed form (within 10%), step
    ms split into forward+backward, sync and optimizer, tokens/s, peak
@@ -154,7 +156,15 @@ Phases, each printing its own lines:
    CLI (``launch/train.py --smoke --devices 4 --steps 4 --ckpt-every 2``,
    then ``--steps 6``, resuming at step 4; kernels 11–13 at hd 16 and 4)
    and the serving example (``examples/serve_lm.py``: tokens in range,
-   kernel 11 at hd 16 once a layer);
+   kernel 11 at hd 16 once a layer).  The training, error-feedback and
+   multi-pod runs are each followed by a post-backward twin
+   (``run_twin``: ``TWIN_STEPS`` steps from the same start with
+   ``BucketSpec.overlap = False``), held bit for bit to the overlapped
+   run's first steps (parameters, m, v and residuals by
+   ``step_report.state_digest``; losses and norms); a line per cell sets
+   the schedules side by side: each bucket's issue order and its issue
+   and end against the backward's end beside ``plan.schedule()``, the
+   exposed sync ms, the step ms, the peaks and the allocator's calls;
 6. the encode path (``launch/bench_encode_speed.py``: kernels 14 and 15,
    the fixed-k gather and the FWHT at d = 2^16, 2^20, 2^24 and the
    388,956,160-coordinate embed bucket) and the single-host stack:
@@ -2132,26 +2142,33 @@ def run_training(launches_total, keep: Optional[dict] = None) -> dict:
     torch.cuda.empty_cache()
 
     summary = fit_and_check(cfg, run, shape, n, steps, synthetic.TRAIN_PRESET, launches_total,
-                            keep=keep)
+                            keep=keep, digest_step=TWIN_STEPS - 1)
     return {**summary, **agree}
 
 
 def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_total,
-                  mesh=None, keep: Optional[dict] = None) -> dict:
+                  mesh=None, keep: Optional[dict] = None,
+                  digest_step: Optional[int] = None) -> dict:
     """``Trainer.fit`` for ``steps`` steps on ``n`` ranks (flat, or laid out
     as ``mesh``), every phase of every step checked and timed (host clock
     after a synchronize; the checks run outside the timed spans): the
     launches of each phase (flash forward 2·L·n with remat, each backward
-    sweep L·n, the sync's per bucket at the codec ranks), the bytes handed to
-    the codec axes against the accounting, finite gradients, losses, norms
-    and parameters; without error feedback the sync's error against the
-    closed form at the codec ranks (within 10%; on a mesh over the pod
-    means), with it each bucket's residual norm after every step.  Returns
-    the summary line; ``keep``, when given, receives the end state
-    (``params``, ``opt_state``, ``hist``)."""
+    sweep L·n, the sync's per bucket at the codec ranks: in the backward
+    under the backward-pipelined schedule, in the sync phase after it), the
+    bytes handed to the codec axes against the accounting, finite
+    gradients, losses, norms and parameters; without error feedback the
+    sync's error against the closed form at the codec ranks (within 10%; on
+    a mesh over the pod means), with it each bucket's residual norm after
+    every step.  Each step's bucket rounds are read from their events
+    (``step_report.sync_timeline``: issue order, issue and end against the
+    backward's end, the exposed sync ms).  Returns the summary line, with
+    ``digest``, the state after step ``digest_step`` (parameters, m, v,
+    residuals; ``step_report.state_digest``), when asked; ``keep``, when
+    given, receives the end state (``params``, ``opt_state``, ``hist``)."""
     import torch
     from repro_torch.core import wire
     from repro_torch.kernels import backend
+    from repro_torch.launch.step_report import state_digest, sync_timeline
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     dev = torch.device("cuda")
@@ -2161,14 +2178,22 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
     expect = {"start": {}, "update": {},
               "backward": {"flash_attention_fwd": 2 * L * n, "flash_attention_bwd_dkv": L * n,
                            "flash_attention_bwd_dq": L * n}}
-    st = {"t": 0.0, "last": collections.Counter(), "err": 0.0, "cf": 0.0, "peak": 0}
+    st = {"t": 0.0, "last": collections.Counter(), "err": 0.0, "cf": 0.0, "peak": 0,
+          "step": -1, "events": {}}
     phase_ms = collections.defaultdict(list)
     res_norms = collections.defaultdict(list)
+    timeline = []
+    digest = {}
 
     def on_phase(name, **state):
+        if name in ("start", "backward"):        # the compute stream's position
+            st["events"][name] = torch.cuda.Event(enable_timing=True)
+            st["events"][name].record()
         torch.cuda.synchronize()
         now = time.perf_counter()
-        if name != "start":
+        if name == "start":
+            st["step"] = state["step"]
+        else:
             phase_ms[name].append((now - st["t"]) * 1e3)
         st["peak"] = max(st["peak"], torch.cuda.max_memory_allocated())
         counts = collections.Counter(backend.launches)
@@ -2176,6 +2201,10 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
         st["last"] = counts
         need(got == expect[name], f"training {name}: launches {got} != {expect[name]}")
         if name == "sync":
+            need(state["schedule"] == schedule, f"training: schedule {state['schedule']}")
+            timeline.append({"issued": list(state["rounds"].issued),
+                             **sync_timeline(st["events"]["start"], st["events"]["backward"],
+                                             state["rounds"])})
             check_bytes("training sync", state["comm"], want_bytes)
             state["comm"].reset_bytes()
             need(all(bool(torch.isfinite(v).all()) for v in state["synced"].values()),
@@ -2184,11 +2213,17 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
                 for bid, e in state["ef_state"].items():
                     need(stack_finite(e), f"training sync: residual {bid} not finite")
                     res_norms[bid].append(stack_norm(e))
+                if st["step"] == digest_step:
+                    digest["ef"] = state_digest(state["ef_state"])
             else:
                 err, cf = error_and_closed_form(codec.name, cmp, plan, state["grads"],
                                                 state["synced"], state["key"], mesh)
                 st["err"] += err
                 st["cf"] += cf
+        if name == "update" and st["step"] == digest_step:
+            digest.update(params=state_digest(state["params"]),
+                          m=state_digest(state["opt_state"].m),
+                          v=state_digest(state["opt_state"].v))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         st["t"] = time.perf_counter()
@@ -2197,16 +2232,27 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
                       TrainerConfig(steps=steps, log_every=1, seed=TRAIN_SEED),
                       n if mesh is None else None, device=dev, on_phase=on_phase, mesh=mesh)
     plan = trainer.sync_plan
+    schedule = "backward-pipelined" if trainer.overlap else "post-backward"
     comp = [b for b in plan.buckets if b.kind == "compressed"]
     n_codec, nshards, _ = codec_layout(cmp, n, mesh)
-    expect["sync"] = {k: v * len(comp) for k, v in expected_launches(
+    sync = {k: v * len(comp) for k, v in expected_launches(
         codec.name, cmp.scatter_decode, n_codec, nshards).items()}
+    if trainer.overlap:         # the rounds launch from inside the backward
+        expect["backward"] = dict(collections.Counter(expect["backward"]) + collections.Counter(sync))
+        expect["sync"] = {}
+    else:
+        expect["sync"] = sync
     wire_bits, want_bytes = wire_accounting(plan, cmp, n, mesh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     backend.reset_launches()
+    mem0 = torch.cuda.memory_stats()
     params, opt_state, hist = trainer.fit()
     torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_stats()
+    # the caching allocator's cudaMalloc calls and its frees-and-retries
+    allocator = {k: mem1.get(k, 0) - mem0.get(k, 0)
+                 for k in ("num_device_alloc", "num_alloc_retries")}
     counts = dict(backend.launches)
     launches_total.update(counts)
     per_step = collections.Counter()
@@ -2219,6 +2265,8 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
     need(int(opt_state.step) == steps, f"training: optimizer step {int(opt_state.step)}")
     need(all(bool(torch.isfinite(v).all()) for v in params.values()),
          "training: non-finite parameters")
+    need(all(t["issued"] == timeline[0]["issued"] for t in timeline),
+         f"training: the rounds' issue order changed from step to step: {timeline}")
     out = {}
     if cmp.error_feedback:
         # bounded residuals: after step 3 no more than twice what they were
@@ -2226,14 +2274,17 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
         need(sorted(res_norms) == sorted(trainer.ef_state) and res_norms,
              f"training: residuals of {sorted(res_norms)}, state of {sorted(trainer.ef_state)}")
         for bid, norms in res_norms.items():
-            need(len(norms) == steps and norms[3] <= 2 * norms[1],
+            need(len(norms) == steps and (steps < 4 or norms[3] <= 2 * norms[1]),
                  f"training: residual of {bid} grows from {norms[1]:.6g} after step 1 to "
-                 f"{norms[3]:.6g} after step 3")
+                 f"{norms[-1]:.6g} after step {steps - 1}")
         out = {"residual_norms": dict(res_norms)}
     else:
         ratio = st["err"] / st["cf"]
         need(abs(ratio - 1.0) <= 0.10, f"training: error / closed form = {ratio:.4f}, outside 10%")
         out = {"err_over_closed_form": ratio}
+    if digest_step is not None:
+        need(len(digest) == (4 if cmp.error_feedback else 3), f"training: digest {sorted(digest)}")
+        out["digest"] = digest
     if keep is not None:
         keep.update(params=params, opt_state=opt_state, hist=hist)
     del params, opt_state, trainer
@@ -2247,9 +2298,57 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
             "fwd_bwd_ms": phase_ms["backward"], "sync_ms": phase_ms["sync"],
             "optimizer_ms": phase_ms["update"],
             "tokens_per_s": [tokens / ms * 1e3 for ms in step_ms],
-            "peak_GiB": st["peak"] / 2**30, **out,
+            "peak_GiB": st["peak"] / 2**30, "allocator": allocator, **out,
+            "schedule": schedule,
+            "plan_schedule": list(plan.schedule()), "issued": timeline[0]["issued"],
+            "exposed_sync_ms": [t.get("exposed_sync_ms") for t in timeline],
+            "rounds_ms": timeline[-1].get("rounds_ms"),
             "compressed_buckets": len(comp), "wire_MB": sum(wire_bits.values()) / 8 / 1e6,
             "launches_per_step": dict(per_step)}
+
+
+# The post-backward twin of each overlapped phase-5 cell: TWIN_STEPS steps
+# from the same start with BucketSpec.overlap = False, held bit for bit to
+# the overlapped run's first TWIN_STEPS steps (parameters, m, v, residuals by
+# digest, losses and norms exactly).
+TWIN_STEPS = 2
+
+
+def run_twin(label: str, main: dict, cfg, run, shape, n: int, launches_total,
+             mesh=None) -> dict:
+    """The post-backward twin of the overlapped cell ``main`` (a
+    ``fit_and_check`` summary with ``digest`` after step TWIN_STEPS − 1):
+    ``fit_and_check`` again with ``overlap=False`` for TWIN_STEPS steps, the
+    same checks and timing.  Fails unless the end states are bit-equal.
+    Returns the line that sets the two schedules side by side: each
+    bucket's issue order and points against ``plan.schedule()``, the
+    exposed sync ms and the step ms of both."""
+    import torch
+
+    cmp = run.compression
+    off = dataclasses.replace(run, compression=dataclasses.replace(
+        cmp, bucket=dataclasses.replace(cmp.bucket, overlap=False)))
+    torch.cuda.empty_cache()
+    twin = fit_and_check(cfg, off, shape, n, TWIN_STEPS, main["preset"], launches_total, mesh,
+                         digest_step=TWIN_STEPS - 1)
+    need(main["schedule"] == "backward-pipelined" and twin["schedule"] == "post-backward",
+         f"{label}: schedules {main['schedule']}, {twin['schedule']}")
+    k = TWIN_STEPS
+    need(twin["digest"] == main["digest"] and twin["loss"] == main["loss"][:k]
+         and twin["grad_norm"] == main["grad_norm"][:k],
+         f"{label}: the overlapped run and its post-backward twin differ after {k} steps "
+         f"(losses {main['loss'][:k]} against {twin['loss']}; digests differ in "
+         f"{sorted(g for g in main['digest'] if main['digest'][g] != twin['digest'].get(g))})")
+    both = ("backward-pipelined", "post-backward")
+    return {"cell": label, "bit_equal_after_steps": k, "plan_schedule": main["plan_schedule"],
+            "issued": {s: r["issued"] for s, r in zip(both, (main, twin))},
+            "rounds_ms_from_backward_end": {s: r["rounds_ms"] for s, r in zip(both, (main, twin))},
+            "exposed_sync_ms": {s: r["exposed_sync_ms"] for s, r in zip(both, (main, twin))},
+            "step_ms": {s: r["step_ms"] for s, r in zip(both, (main, twin))},
+            "fwd_bwd_ms": {s: r["fwd_bwd_ms"] for s, r in zip(both, (main, twin))},
+            "sync_ms": {s: r["sync_ms"] for s, r in zip(both, (main, twin))},
+            "peak_GiB": {s: r["peak_GiB"] for s, r in zip(both, (main, twin))},
+            "allocator": {s: r["allocator"] for s, r in zip(both, (main, twin))}}
 
 
 def run_training_ef(launches_total) -> dict:
@@ -2264,7 +2363,8 @@ def run_training_ef(launches_total) -> dict:
     torch.cuda.empty_cache()
     cfg, run, shape = synthetic.train_main_path(error_feedback=True)
     return fit_and_check(cfg, run, shape, synthetic.N, synthetic.EF_TRAIN_STEPS,
-                         synthetic.TRAIN_PRESET + " + error feedback", launches_total)
+                         synthetic.TRAIN_PRESET + " + error feedback", launches_total,
+                         digest_step=TWIN_STEPS - 1)
 
 
 def run_training_multipod(launches_total) -> dict:
@@ -2281,7 +2381,8 @@ def run_training_multipod(launches_total) -> dict:
     cfg, run, shape, mesh = synthetic.multipod_train_path()
     return fit_and_check(cfg, run, shape, math.prod(mesh.values()), synthetic.TRAIN_STEPS,
                          "get_run_config(multi_pod=True): fixed_k_1bit over pod",
-                         launches_total, mesh)
+                         launches_total, mesh,
+                         digest_step=TWIN_STEPS - 1)
 
 
 EXAMPLE_STEPS = 4
@@ -2932,18 +3033,35 @@ def main() -> int:
     kept = {}
     summary = run_training(total, kept)
     print(f"[5] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    main_cells = {"training": summary}
     t0 = time.perf_counter()
     summary = run_restart(kept, total)
     del kept
     print(f"[5] checkpoint and restart {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     t0 = time.perf_counter()
+    summary = run_twin("training", main_cells.pop("training"), *synthetic.train_main_path(),
+                       synthetic.N, total)
+    print(f"[5] overlapped vs post-backward {json.dumps(summary)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
     summary = run_training_ef(total)
     print(f"[5] error feedback {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     t0 = time.perf_counter()
+    summary = run_twin("error feedback", summary,
+                       *synthetic.train_main_path(error_feedback=True), synthetic.N, total)
+    print(f"[5] overlapped vs post-backward {json.dumps(summary)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
     summary = run_training_multipod(total)
     print(f"[5] multi-pod {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    cfg, run, shape, mesh = synthetic.multipod_train_path()
+    summary = run_twin("multi-pod", summary, cfg, run, shape, math.prod(mesh.values()), total,
+                       mesh)
+    print(f"[5] overlapped vs post-backward {json.dumps(summary)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     summary = run_example(total)
     print(f"[5] example {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)

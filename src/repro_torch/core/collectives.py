@@ -374,6 +374,15 @@ class DistComm(_Counted):
         """This process's state row: every rank of its group holds its own."""
         return state
 
+    def rank_sum(self, x):
+        """Σ over all ranks of each rank's f32 ``x`` from +0.0 in rank order
+        (the sum :class:`StackedComm`'s rows give), off the byte counters:
+        the train step's loss, as the reference's psum over the batch axes."""
+        return _rank_order_sum(self._gather(x.reshape((1,) + tuple(x.shape))))
+
+    def barrier(self) -> None:
+        self._dist.barrier(group=self.group)
+
     def spread(self, rows, state, axes):
         if rows is not state:
             state.copy_(rows)

@@ -1,13 +1,14 @@
 """Where the time of a qwen3-4b training step goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
-        [--out build/profile_train.json]
+        [--out build/profile_train.json] [--no-overlap]
 
 Builds the training path of ``chip_smoke.py`` phase 5
 (``train/synthetic.py::train_main_path``: qwen3-4b at full width and 4
 layers, 8 ranks stacked on the card, one 4096-token sequence each,
-``fixed_k_1bit``, bf16 compute, flash attention, remat), runs one step to
-warm up, times 2 steps by the host clock (a synchronize at each phase
+``fixed_k_1bit``, bf16 compute, flash attention, remat; the
+backward-pipelined sync, or the post-backward one with ``--no-overlap``),
+runs one step to warm up, times 2 steps by the host clock (a synchronize at each phase
 boundary: forward+backward over the ranks, sync, optimizer), then profiles
 one step under ``torch.profiler`` (CPU and CUDA activity).  Prints and
 writes as JSON: the step's wall time, the time the card was busy (the union
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -43,6 +45,8 @@ def _kind(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/profile_train.json")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="the post-backward sync instead of the backward-pipelined one")
     args = ap.parse_args(argv)
 
     import torch
@@ -62,6 +66,10 @@ def main(argv=None) -> int:
     backend.build()
     dev = torch.device("cuda")
     cfg, run, shape = synthetic.train_main_path()
+    if args.no_overlap:
+        cmp = run.compression
+        run = dataclasses.replace(run, compression=dataclasses.replace(
+            cmp, bucket=dataclasses.replace(cmp.bucket, overlap=False)))
     phase_ms = collections.defaultdict(list)
     clock = {"t": 0.0}
 
@@ -92,7 +100,8 @@ def main(argv=None) -> int:
     step_ms = [step(1), step(2)]
     out = {"card": card, "torch": torch.__version__, "model": cfg.name,
            "layers": cfg.num_layers, "ranks": synthetic.N, "tokens_per_rank": shape.seq_len,
-           "preset": synthetic.TRAIN_PRESET, "step_ms": step_ms,
+           "preset": synthetic.TRAIN_PRESET, "overlap": not args.no_overlap,
+           "step_ms": step_ms,
            "phase_ms": {k: list(v) for k, v in phase_ms.items()},
            "peak_GiB": torch.cuda.max_memory_allocated() / 2**30}
     backend.reset_launches()

@@ -16,18 +16,46 @@ counterpart of the reference's N simulated host devices; ``--data`` times
 ``--model`` must be N (a ``ValueError`` otherwise).  ``--model`` above
 1 is tensor parallelism, which raises :class:`NotPortedError`.  The run is
 on the card unless ``--device cpu``.
+
+``--dist {gloo,nccl}`` runs one rank per process over
+``torch.distributed`` (:class:`DistComm`) instead, the ranks and the
+rendezvous taken from ``torchrun``'s environment (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``); the mesh
+is the world, ``--data`` × ``--model`` of it::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --dist nccl \
+        --main-path --steps 2 --report chiprun_out/nccl.json
+
+``nccl`` runs on the cards (one a process, ``cuda:LOCAL_RANK``), ``gloo``
+on the CPU (``--device cpu``); only rank 0 prints and writes checkpoints.
+``--main-path`` trains ``chip_smoke.py`` phase 5's training cell
+(``train/synthetic.py::train_main_path``: qwen3-4b at full width and 4
+layers, one ``train_4k`` sequence a rank, ``fixed_k_1bit``); ``--report``
+writes each step's phase ms, exposed sync ms, bucket rounds and wire bytes
+and a digest of the end state (:mod:`repro_torch.launch.step_report`).
+The sync runs the backward-pipelined schedule by the reference's rule
+unless ``--no-overlap``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
+import pathlib
 import sys
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import SHAPES, RunConfig, ShapeSpec
 from repro_torch.configs.registry import get_config, get_run_config, smoke_config
 from repro_torch.core import types as core_types
+from repro_torch.core.collectives import DistComm
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.step_report import StepTimer, state_digest
 from repro_torch.optim.optimizers import AdamWConfig
+from repro_torch.train import synthetic
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
@@ -51,24 +79,71 @@ def _parse(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--no-compress", action="store_true")
     ap.add_argument("--no-overlap", action="store_true",
-                    help="set BucketSpec.overlap=False, as the reference does; the port's "
-                         "step runs the post-backward schedule either way")
+                    help="set BucketSpec.overlap=False, as the reference does: the sync runs "
+                         "after the backward (the post-backward schedule) instead of in it")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the ranks run (default: the card)")
+    ap.add_argument("--dist", choices=("gloo", "nccl"), default=None,
+                    help="one rank per process over torch.distributed, from torchrun's "
+                         "environment (nccl: the cards; gloo: the CPU)")
+    ap.add_argument("--main-path", action="store_true",
+                    help="chip_smoke.py phase 5's training cell: qwen3-4b at full width and "
+                         "4 layers, one train_4k sequence a rank, fixed_k_1bit")
+    ap.add_argument("--report", default=None,
+                    help="write each step's phase ms, exposed sync ms, bucket rounds, wire "
+                         "bytes and a digest of the end state to this JSON file (rank 0)")
     return ap.parse_args(argv)
+
+
+def _init_dist(args):
+    """(rank, world, device) of this process, its process group started
+    from torchrun's environment."""
+    if args.devices > 1:
+        raise ValueError("--dist runs one rank per process; --devices N stacks N ranks on "
+                         "one device: give one or the other")
+    env = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                                          "MASTER_PORT")}
+    missing = [k for k, v in env.items() if v is None]
+    if missing:
+        raise ValueError(f"--dist takes its ranks from torchrun's environment; {missing} "
+                         "not set")
+    rank, world, local = int(env["RANK"]), int(env["WORLD_SIZE"]), int(env["LOCAL_RANK"])
+    if args.dist == "nccl":
+        if args.device != "cuda":
+            raise ValueError("--dist nccl runs on the cards: --device cuda")
+        if not torch.cuda.is_available():
+            raise RuntimeError("--dist nccl: no CUDA device is available")
+        torch.cuda.set_device(local)
+        device = torch.device("cuda", local)
+    else:
+        if args.device != "cpu":
+            raise ValueError("--dist gloo runs on the CPU: --device cpu")
+        device = torch.device("cpu")
+    dist.init_process_group(args.dist, init_method=f"tcp://{env['MASTER_ADDR']}:"
+                                                   f"{env['MASTER_PORT']}",
+                            world_size=world, rank=rank)
+    return rank, world, device
 
 
 def main(argv=None) -> int:
     args = _parse(argv)
-    n = args.devices or 1
+    rank, device = 0, args.device
+    if args.dist:
+        rank, n, device = _init_dist(args)
+    else:
+        n = args.devices or 1
     data = args.data or max(1, n // max(1, args.model or 1))
     model = args.model or (n // data)
     if data * model != n:
         raise ValueError(f"a mesh of data {data} x model {model} does not hold {n} ranks "
-                         "(--devices)")
+                         f"({'the world' if args.dist else '--devices'})")
     mesh = mesh_lib.data_parallel(mesh_lib.make_debug_mesh(data, model))
+    comm = DistComm(device=device, mesh=mesh) if args.dist else None
 
-    if args.smoke:
+    if args.main_path:
+        cfg, run, shape = synthetic.train_main_path()
+        shape = dataclasses.replace(shape, global_batch=n)
+    elif args.smoke:
         cfg = smoke_config(args.arch)
         shape = ShapeSpec("cli", "train", args.seq, args.batch)
         comp = (core_types.CompressionConfig(mode="none") if args.no_compress
@@ -91,13 +166,35 @@ def main(argv=None) -> int:
 
     tcfg = TrainerConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
                          ckpt_every=args.ckpt_every, log_every=max(1, args.steps // 20))
+    timer = StepTimer(device) if args.report else None
     tr = Trainer(cfg, run, shape, tcfg, opt_cfg=AdamWConfig(lr=args.lr, total_steps=args.steps),
-                 device=args.device, mesh=mesh)
-    _, _, hist = tr.fit()
-    for h in hist:
-        print(f"step {h['step']:5d}  loss {h['loss']:.4f}  "
-              f"gnorm {h['grad_norm']:.3f}  lr {h['lr']:.2e}")
+                 device=device, on_phase=timer, mesh=None if comm else mesh, comm=comm)
+    params, opt_state, hist = tr.fit()
+    if rank == 0:
+        for h in hist:
+            print(f"step {h['step']:5d}  loss {h['loss']:.4f}  "
+                  f"gnorm {h['grad_norm']:.3f}  lr {h['lr']:.2e}")
+    if args.report and rank == 0:
+        _write_report(args, tr, n, device, timer, params, opt_state, hist)
+    if args.dist:
+        dist.destroy_process_group()
     return 0
+
+
+def _write_report(args, tr, n, device, timer, params, opt_state, hist) -> None:
+    dev = torch.device(device)
+    report = {
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "dist": args.dist, "ranks": n, "mesh": tr.mesh, "model": tr.cfg.name,
+        "layers": tr.cfg.num_layers, "seq": tr.shape.seq_len,
+        "global_batch": tr.shape.global_batch, "overlap": tr.overlap,
+        "plan_schedule": list(tr.sync_plan.schedule()) if tr.sync_plan else None,
+        "steps": timer.steps, "history": hist,
+        "digest": {"params": state_digest(params), "m": state_digest(opt_state.m),
+                   "v": state_digest(opt_state.v)}}
+    path = pathlib.Path(args.report)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(report, indent=1))
 
 
 if __name__ == "__main__":

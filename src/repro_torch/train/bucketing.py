@@ -1,5 +1,5 @@
 """Gradient bucketing: few flat collectives instead of one per leaf — port
-of ``repro.train.bucketing`` (the post-backward schedule).
+of ``repro.train.bucketing``, both issue schedules.
 
 * :func:`build_plan` (:func:`plan_for_run` for the train step) — a
   static partition of the grad tree (global leaf shapes + sharding specs)
@@ -10,16 +10,22 @@ of ``repro.train.bucketing`` (the post-backward schedule).
   slots, offsets, readiness).
 * :func:`pack_bucket` / :func:`unpack_bucket` — flatten a bucket's leaves
   into one f32 vector per local rank and scatter a result back.
-* :func:`sync_grads_bucketed` — per bucket, the exact mean or one
-  compressed-mean round, with the bucket key ``fold_in(key, j)`` of its
-  plan position j; with error-feedback state (:func:`init_ef_state`) the
-  stateful round of the ``ef_*`` codec.
+* :func:`sync_grads_bucketed` — the post-backward schedule: per bucket,
+  the exact mean or one compressed-mean round, with the bucket key
+  ``fold_in(key, j)`` of its plan position j; with error-feedback state
+  (:func:`init_ef_state`) the stateful round of the ``ef_*`` codec.
+* :func:`overlap_params` — the backward-pipelined schedule
+  (``BucketSpec.overlap``, DESIGN.md §9): per-bucket sync points whose
+  backward runs the same round (:func:`_bucket_round`) as soon as the
+  bucket's cotangents exist, on a side stream on the card.  Same bits as
+  the post-backward schedule: each round depends only on its bucket's
+  rows, its key and its own residual, whatever order the buckets finish in.
 
 Gradients are stacks: each leaf is (L, *shape) with one row per local rank
 of the communicator (on a mesh, in mesh order), and so is each bucket's
 residual, (L, size).  The
 synced result holds one (*shape) tensor per leaf, the estimate every rank
-holds.  The overlapped schedule comes with a later slice.
+holds.
 """
 from __future__ import annotations
 
@@ -268,23 +274,198 @@ def _bucket_round(grads: Mapping[str, torch.Tensor], b: Bucket, j: int,
     return unpack_bucket(v, b, grads), None
 
 
+def _timing_event(t: torch.Tensor):
+    """A timing CUDA event recorded on the current stream of ``t``'s card,
+    or None on the CPU."""
+    if not t.is_cuda:
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(t.device))
+    return ev
+
+
 def sync_grads_bucketed(grads: Mapping[str, torch.Tensor], plan: BucketPlan,
                         cmp: t.CompressionConfig, key, comm,
-                        ef_state: Optional[Mapping[str, torch.Tensor]] = None):
+                        ef_state: Optional[Mapping[str, torch.Tensor]] = None,
+                        rounds: Optional["RoundLog"] = None):
     """Bucketed gradient sync (post-backward schedule).
 
     ``grads`` maps leaf names to (L, *shape) stacks.  Returns (the synced
     (*shape) leaves, the new error-feedback state); the state is None
     exactly when ``ef_state`` is, and passing it engages the ``ef_*`` codec
     (each bucket's residual is updated in place and returned).  Passthrough
-    leaves come back as given.
+    leaves come back as given.  ``rounds``, when given, logs each round
+    (:class:`RoundLog`): here in plan order, on the current stream.
     """
     out = {name: grads[name] for name in plan.passthrough}
     new_ef = {} if ef_state is not None else None
     for j, b in enumerate(plan.buckets):
         ef = ef_state[b.bid] if ef_state is not None and b.kind == "compressed" else None
+        start = _timing_event(grads[b.slots[0].name]) if rounds is not None else None
         synced, e = _bucket_round(grads, b, j, cmp, key, comm, ef)
+        if rounds is not None:
+            rounds.add(b.bid, start, _timing_event(grads[b.slots[0].name]))
         if ef is not None:
             new_ef[b.bid] = e
         out.update(synced)
     return out, new_ef
+
+
+class RoundLog:
+    """The bucket rounds of one step in the order they were issued
+    (``issued``, bucket ids) and, on the card, a pair of timing events per
+    bucket (``events[bid] = (issued, done)``): ``issued`` is recorded once
+    the round's inputs are enqueued, ``done`` after its last kernel, on the
+    stream the round ran on."""
+
+    def __init__(self):
+        self.issued = []
+        self.events = {}
+
+    def add(self, bid: str, start, done) -> None:
+        self.issued.append(bid)
+        if done is not None:
+            self.events[bid] = (start, done)
+
+
+class _SyncPoint(torch.autograd.Function):
+    """The identity on one bucket's leaves; its backward receives exactly
+    those leaves' cotangents, once all of them are complete, and runs the
+    bucket's round (:meth:`OverlapSync._fire`).  It hands no gradient on to
+    the leaves: the synced gradient is the round's output."""
+
+    @staticmethod
+    def forward(ctx, sync, j, *leaves):
+        ctx.sync, ctx.j = sync, j
+        return tuple(x.view_as(x) for x in leaves)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        ctx.sync._fire(ctx.j, cots)
+        return (None, None) + (None,) * len(cots)
+
+
+class OverlapSync:
+    """One step's backward-pipelined bucket sync (the reference's
+    ``_sync_point`` / ``overlap_params``; DESIGN.md §9).
+
+    ``stacks`` are the step's (L, *shape) f32 gradient stacks, one row per
+    local rank of ``comm``; rows other than ``row`` must hold their ranks'
+    gradients before the backward that carries the sync points runs.
+    :meth:`params` tags the parameters of rank ``row``'s forward: per
+    bucket, one sync point over its leaves (passthrough leaves stay
+    untagged).  In that rank's backward, once a bucket's last cotangent is
+    complete, its sync point writes the cotangents into row ``row`` and runs
+    the bucket's round, :func:`_bucket_round` with the plan position j and
+    ``fold_in(key, j)``, the post-backward schedule's own code; with
+    ``ef_state`` the bucket's residual is updated in place.  Buckets finish
+    in the order the backward completes them, not in ``plan.schedule()``
+    order (:attr:`rounds` logs it); each round touches only its own leaves
+    and its own residual, so the bits are the post-backward schedule's.
+
+    On the card each round runs on ``stream``: it waits on an event the
+    compute stream records after the cotangents are written, and its output
+    is handed back through :meth:`finish`, never through autograd, so the
+    rest of the backward does not queue behind it.  ``record_stream`` keeps
+    the allocator from reusing early what the side stream reads (the stacks,
+    the residual) and what the compute stream reads of its output.  The
+    rounds are launched from the thread that runs the backward, between its
+    kernels.
+
+    With ``StackedComm`` every round needs all ranks' rows, so only the last
+    local rank's backward (``row`` = L − 1) carries the sync points and can
+    hide a round: ranks 0 … L − 2 run forward and backward first.  With
+    ``DistComm`` (one rank per process) every process's backward carries
+    them and each round is a collective; every process issues the rounds in
+    the order its backward completes the buckets, which is the same on every
+    rank for the same graph (the tests check :attr:`rounds` across ranks).
+    """
+
+    def __init__(self, plan: BucketPlan, cmp: t.CompressionConfig, key, comm,
+                 stacks: Mapping[str, torch.Tensor], row: int,
+                 ef_state: Optional[Mapping[str, torch.Tensor]] = None, stream=None):
+        self.plan, self.cmp, self.key, self.comm = plan, cmp, key, comm
+        self.stacks, self.row, self.ef_state, self.stream = stacks, row, ef_state, stream
+        self.synced: Dict[str, torch.Tensor] = {}
+        self.rounds = RoundLog()
+
+    def params(self, params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``params`` with every bucketed leaf replaced by its sync point's
+        output (the same values)."""
+        tagged = dict(params)
+        for j, b in enumerate(self.plan.buckets):
+            names = [s.name for s in b.slots]
+            tagged.update(zip(names, _SyncPoint.apply(self, j, *(params[k] for k in names))))
+        return tagged
+
+    def _fire(self, j: int, cots) -> None:
+        b = self.plan.buckets[j]
+        for s, g in zip(b.slots, cots):
+            self.stacks[s.name][self.row].copy_(g)
+        ef = (self.ef_state[b.bid]
+              if self.ef_state is not None and b.kind == "compressed" else None)
+        if self.stream is None:
+            synced, _ = _bucket_round(self.stacks, b, j, self.cmp, self.key, self.comm, ef)
+            self.rounds.add(b.bid, None, None)
+        else:
+            compute = torch.cuda.current_stream(self.stream.device)
+            ready = _timing_event(self.stacks[b.slots[0].name])
+            self.stream.wait_event(ready)
+            with torch.cuda.stream(self.stream):
+                synced, _ = _bucket_round(self.stacks, b, j, self.cmp, self.key, self.comm, ef)
+                done = _timing_event(self.stacks[b.slots[0].name])
+            for s in b.slots:
+                self.stacks[s.name].record_stream(self.stream)
+            if ef is not None:
+                ef.record_stream(self.stream)
+            for v in synced.values():
+                v.record_stream(compute)
+            self.rounds.add(b.bid, ready, done)
+        self.synced.update(synced)
+
+    def finish(self):
+        """(synced leaves, new error-feedback state or None), as
+        :func:`sync_grads_bucketed` returns them, once the backward has
+        returned; on the card the current stream first waits on every
+        bucket's round.  Raises if a bucket's sync point never ran (its
+        leaves took no part in the loss)."""
+        missing = [b.bid for b in self.plan.buckets if b.bid not in self.rounds.issued]
+        if missing:
+            raise RuntimeError(f"the sync points of buckets {missing} did not run in the "
+                               "backward: their leaves take no part in the loss")
+        if self.stream is not None:
+            compute = torch.cuda.current_stream(self.stream.device)
+            for _, done in self.rounds.events.values():
+                compute.wait_event(done)
+        out = {name: self.stacks[name] for name in self.plan.passthrough}
+        out.update(self.synced)
+        new_ef = None
+        if self.ef_state is not None:
+            new_ef = {b.bid: self.ef_state[b.bid] for b in self.plan.buckets
+                      if b.kind == "compressed"}
+        return out, new_ef
+
+
+def overlap_params(params: Mapping[str, torch.Tensor], plan: BucketPlan,
+                   cmp: t.CompressionConfig, key, comm, stacks: Mapping[str, torch.Tensor],
+                   row: int, ef_state: Optional[Mapping[str, torch.Tensor]] = None,
+                   stream=None):
+    """Wrap the parameter tree with per-bucket sync points (the overlapped
+    schedule); returns (tagged params, the :class:`OverlapSync`).
+
+    Differentiating a loss of the tagged params runs each bucket's round
+    inside the backward, and ``sync.finish()`` then returns the same synced
+    gradients and residuals as :func:`sync_grads_bucketed` over the same
+    stacks, bit for bit::
+
+        tagged, sync = bucketing.overlap_params(leaves, plan, cmp, key, comm,
+                                                stacks, row, ef_state, stream)
+        torch.autograd.grad(loss_fn(tagged), list(leaves.values()), allow_unused=True)
+        synced, new_ef = sync.finish()
+
+    The bucketed leaves' own gradients come back as None (the sync points
+    hand none on); passthrough leaves' come back as usual and are the
+    caller's to write into row ``row``.
+    """
+    sync = OverlapSync(plan, cmp, key, comm, stacks, row, ef_state, stream)
+    return sync.params(params), sync

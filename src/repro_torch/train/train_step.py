@@ -1,35 +1,38 @@
-"""Data-parallel train step, n ranks stacked on one device — port of
-``repro.train.train_step``.
+"""Data-parallel train step — port of ``repro.train.train_step``: the n
+ranks stacked on one device, or one rank per process.
 
-The reference runs the step per device inside ``shard_map``.  Here the n
+The reference runs the step per device inside ``shard_map``.  Here the
 ranks of the mesh (the ``data`` axis, or ``(pod, data)`` with the
-multi-pod compression over ``pod``) run one after another on one device,
-in mesh order: each rank's
-forward and backward run on its own slice of the global batch (the rows the
-reference's ``P(("pod", "data"))`` batch sharding gives it) against the same
-replicated parameters, and its f32 gradients go into row r of an
-(n, *shape) stack per leaf, the layout :class:`StackedComm` takes.  Each
-rank's loss is its local CE sum over the *global* token count
+multi-pod compression over ``pod``) are the local ranks of a communicator:
+with :class:`StackedComm` (the default) all n run one after another on one
+device, in mesh order; with :class:`DistComm` each process holds one.  Each
+rank's forward and backward run on its own slice of the global batch (the
+rows the reference's ``P(("pod", "data"))`` batch sharding gives it)
+against the same replicated parameters, and its f32 gradients go into its
+row of an (L, *shape) stack per leaf, L the local rank count.  Each rank's
+loss is its local CE sum over the *global* token count
 (``model.train_loss``), so the synced mean is 1/n of the global batch's
-gradient, as in the reference; the step's loss is the sum over ranks, as
-``psum`` over the batch axis gives it.
+gradient, as in the reference; the step's loss is the f32 sum over ranks
+from 0 in rank order, as ``psum`` over the batch axis gives it.
 
-Then, once, the gradient sync (DESIGN.md §4): bucketed
-(:func:`repro_torch.train.bucketing.sync_grads_bucketed`) when
+Then the gradient sync (DESIGN.md §4): bucketed when
 ``cmp.bucket.enabled``, else the per-leaf :func:`sync_grads`, with the key
 ``fold_in(PRNGKey(base_seed), step)``; the global gradient norm; AdamW.
 With ``cmp.error_feedback`` the sync is the stateful ``ef_*`` round and the
-step threads the residuals: per bucket an (n, size) stack
-(:func:`repro_torch.train.bucketing.init_ef_state`), per leaf an (n,
+step threads the residuals: per bucket an (L, size) stack
+(:func:`repro_torch.train.bucketing.init_ef_state`), per leaf an (L,
 *shape) one, each row one rank's own residual, updated in place.
 
-Issue schedule: the port runs the post-backward schedule whatever
-``cmp.bucket.overlap`` says.  The reference defines its backward-pipelined
-schedule as bit-identical to it (``core/types.py``), and with every rank on
-one device there is nothing for it to overlap; it comes with ``DistComm``
-over NCCL.  ``microbatches > 1`` accumulates each rank's microbatch
-gradients in f32, then syncs once.  FSDP and tensor parallelism raise
-:class:`NotPortedError`.
+Issue schedule, by the reference's rule (:func:`overlap_enabled`):
+bucketed sync, ``cmp.bucket.overlap`` and one microbatch select the
+backward-pipelined schedule (:func:`repro_torch.train.bucketing
+.overlap_params`): the last local rank's backward carries one sync point
+per bucket, each running the bucket's round (on a side stream on the card)
+once its cotangents are complete.  Otherwise the post-backward schedule
+(:func:`repro_torch.train.bucketing.sync_grads_bucketed` after the
+backward).  The two give the same bits.  ``microbatches > 1`` accumulates
+each rank's microbatch gradients in f32, then syncs once.  FSDP and tensor
+parallelism raise :class:`NotPortedError`.
 """
 from __future__ import annotations
 
@@ -69,9 +72,9 @@ def grad_sync_plan(run: RunConfig, shapes, specs, mesh_sizes: Mapping[str, int])
 
 
 def overlap_enabled(plan, run: RunConfig) -> bool:
-    """The reference's eligibility rule for its backward-pipelined schedule
-    (bucketed sync, the overlap knob, one microbatch).  The port runs the
-    bit-identical post-backward schedule either way."""
+    """THE eligibility rule for the backward-pipelined issue schedule, the
+    reference's: bucketed sync, the overlap knob and a single backward
+    (accumulated microbatches sync once, after the last)."""
     return (plan is not None and run.compression.bucket.overlap
             and run.microbatches == 1)
 
@@ -138,8 +141,8 @@ def sync_grads(grads, specs, mesh_axes, cmp: core_types.CompressionConfig, key, 
             sub = comm.over(tuple(a for a in comm.axes if a not in pre))
             rows = comm.mean_over(g, eaxes)
             if again:
-                g = torch.empty((sub.size,) + tuple(rows.shape[1:]), dtype=rows.dtype,
-                                device=rows.device)
+                g = torch.empty((len(sub.local_ranks),) + tuple(rows.shape[1:]),
+                                dtype=rows.dtype, device=rows.device)
                 sub.spread(rows, g, again)
             else:
                 g = rows
@@ -161,39 +164,62 @@ def _rows(batch: Dict[str, torch.Tensor], part: int, parts: int) -> Dict[str, to
     return {k: v[part * rows:(part + 1) * rows] for k, v in batch.items()}
 
 
+def comm_mesh(comm) -> Dict[str, int]:
+    """A communicator's mesh as {axis: size}: its named axes, or the flat
+    ``{"data": size}``."""
+    return dict(comm.mesh) if comm.mesh is not None else {"data": comm.size}
+
+
 def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optional[int] = None,
                      opt_cfg: Optional[opt_lib.AdamWConfig] = None, base_seed: int = 0,
                      device=None, on_phase: Optional[Callable[..., None]] = None,
-                     *, mesh: Optional[Mapping[str, int]] = None):
+                     *, mesh: Optional[Mapping[str, int]] = None, comm=None):
     """Returns (step_fn, init_fn, plan) on ``device`` (the card unless given).
 
     ``mesh`` maps axis names to sizes in mesh order, pod-major (``{"pod":
     2, "data": 4}``); ``n`` is the flat shorthand ``{"data": n}``.  Every
-    mesh axis must carry the batch (``batch_axes_for``): rank r, row r of
-    the stacks, takes slice r of the global batch, as the reference's
-    ``P(("pod", "data"))`` batch sharding gives it.
+    mesh axis must carry the batch (``batch_axes_for``): rank r takes slice
+    r of the global batch, as the reference's ``P(("pod", "data"))`` batch
+    sharding gives it.  ``comm`` is the communicator: None stacks the ranks
+    on ``device`` (:class:`StackedComm`, L = n rows); a :class:`DistComm`
+    makes the step hold its one rank (L = 1), the mesh being the
+    communicator's (``n`` and ``mesh``, if given, must match it).
 
     ``step_fn(params, opt_state, ef_state, batch, step) -> (params,
     opt_state, ef_state, metrics)`` with metrics ``loss``, ``grad_norm``
     and ``lr`` (f32 device scalars); ``batch`` is the global batch
     (``SyntheticLM.batch``).  ``init_fn(seed) -> (params, opt_state,
-    ef_state)``: with error feedback the zero residuals, (n, size) per
-    compressed bucket (bucketed) or (n, *shape) per leaf, else ``{}``.
+    ef_state)``: with error feedback the zero residuals, (L, size) per
+    compressed bucket (bucketed) or (L, *shape) per leaf, else ``{}``.
     ``plan`` is the BucketPlan the step syncs with (None = per-leaf path).
 
     ``on_phase(name, **state)``, when given, is called as a step starts
     (``"start"``, with ``step``) and after each of its phases:
-    ``"backward"`` (``grads``: the (n, *shape) stacks), ``"sync"``
-    (``grads``, ``synced``, ``key``, the communicator ``comm`` and the new
-    ``ef_state``) and ``"update"`` (``params``) — for diagnostics and
-    timing; the step does not depend on it.
+    ``"backward"`` once the last backward kernel is enqueued (``grads``:
+    the (L, *shape) stacks; under the overlapped schedule the rounds are
+    enqueued by then too), ``"sync"`` once the current stream waits on
+    every round (``grads``, ``synced``, ``key``, the communicator ``comm``,
+    the new ``ef_state``, ``schedule`` — ``"backward-pipelined"`` or
+    ``"post-backward"`` — and ``rounds``, the
+    :class:`~repro_torch.train.bucketing.RoundLog` of a bucketed sync, else
+    None) and ``"update"`` (``params``, ``opt_state``) — for diagnostics
+    and timing; the step does not depend on it.
     """
     dev = resolve_device(device)
     tfm.check_family(cfg)
     use_ef = run.compression.error_feedback
     opt_cfg = opt_cfg or opt_lib.AdamWConfig()
-    msizes = resolve_mesh(n, mesh)
+    if comm is None:
+        msizes = resolve_mesh(n, mesh)
+        comm = coll.StackedComm(device=dev, mesh=msizes)
+    else:
+        msizes = comm_mesh(comm)
+        if (n, mesh) != (None, None) and resolve_mesh(n, mesh) != msizes:
+            raise ValueError(f"the communicator's mesh {msizes} is not {resolve_mesh(n, mesh)}")
     n = math.prod(msizes.values())
+    local = tuple(comm.local_ranks)
+    rows = len(local)
+    dist = isinstance(comm, coll.DistComm)
     mesh_axes = tuple(msizes)
     ctx = model_lib.make_ctx(cfg, run, msizes)
     shapes, specs = param_shapes(cfg)
@@ -205,12 +231,14 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
                          f"{run.microbatches} microbatches")
     global_tokens = float(shape.global_batch * shape.seq_len)
     plan = grad_sync_plan(run, shapes, specs, msizes)
+    use_overlap = overlap_enabled(plan, run)
+    schedule = "backward-pipelined" if use_overlap else "post-backward"
     if plan is not None:
         n_cmp = sum(1 for b in plan.buckets if b.kind == "compressed")
-        log.info("grad sync: %d buckets (%d compressed), schedule=%s, post-backward "
-                 "(the reference's overlap rule: %s)", len(plan.buckets), n_cmp,
-                 plan.schedule(), overlap_enabled(plan, run))
-    comm = coll.StackedComm(device=dev, mesh=msizes)
+        log.info("grad sync: %d buckets (%d compressed), schedule=%s, overlap=%s",
+                 len(plan.buckets), n_cmp, plan.schedule(), schedule)
+    # the overlapped rounds' stream on the card
+    side = torch.cuda.Stream(device=dev) if use_overlap and dev.type == "cuda" else None
     key0 = prandom.PRNGKey(base_seed)
     names = sorted(shapes)
     notify = on_phase or (lambda name, **state: None)
@@ -219,41 +247,59 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
         notify("start", step=int(step))
         key = prandom.fold_in(key0, int(step))
         leaves = {k: params[k].detach().requires_grad_() for k in names}
-        stacks = {k: torch.empty((n,) + tuple(shapes[k]), dtype=torch.float32, device=dev)
+        stacks = {k: torch.empty((rows,) + tuple(shapes[k]), dtype=torch.float32, device=dev)
                   for k in names}
+        ef_in = ef_state if use_ef else None
+        sync = None
         loss_all = torch.zeros((), dtype=torch.float32, device=dev)
-        for r in range(n):
+        for i, r in enumerate(local):
             rank_batch = _rows(batch, r, n)
             loss_r = torch.zeros((), dtype=torch.float32, device=dev)
+            tagged = leaves
+            if use_overlap and i == rows - 1:
+                tagged, sync = bucketing.overlap_params(leaves, plan, run.compression, key,
+                                                        comm, stacks, i, ef_in, side)
             for mb in range(run.microbatches):
-                loss, _ = model_lib.train_loss(ctx, leaves, cfg, run,
+                loss, _ = model_lib.train_loss(ctx, tagged, cfg, run,
                                                _rows(rank_batch, mb, run.microbatches),
                                                global_tokens)
-                grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+                grads = torch.autograd.grad(loss, [leaves[k] for k in names],
+                                            allow_unused=sync is not None)
                 for k, g in zip(names, grads):
+                    if g is None:          # bucketed: its sync point wrote the row
+                        continue
                     if mb == 0:
-                        stacks[k][r].copy_(g)
+                        stacks[k][i].copy_(g)
                     else:
-                        stacks[k][r].add_(g)
+                        stacks[k][i].add_(g)
                 loss_r = loss_r + loss.detach()
                 del grads, loss
             loss_all = loss_all + loss_r
+        del tagged
         notify("backward", grads=stacks)
-        ef_in = ef_state if use_ef else None
-        if plan is not None:
+        rounds = None
+        if sync is not None:
+            synced, new_ef = sync.finish()
+            rounds = sync.rounds
+            del sync
+        elif plan is not None:
+            rounds = bucketing.RoundLog()
             synced, new_ef = bucketing.sync_grads_bucketed(stacks, plan, run.compression, key,
-                                                           comm, ef_in)
+                                                           comm, ef_in, rounds)
         else:
             synced, new_ef = sync_grads(stacks, specs, mesh_axes, run.compression, key, comm,
                                         ef_in)
         if use_ef:
             ef_state = new_ef
-        notify("sync", grads=stacks, synced=synced, key=key, comm=comm, ef_state=ef_state)
+        notify("sync", grads=stacks, synced=synced, key=key, comm=comm, ef_state=ef_state,
+               schedule=schedule, rounds=rounds)
         del stacks
         gnorm = opt_lib.global_norm(synced)
         params, opt_state = opt_lib.adamw_update(opt_cfg, synced, opt_state, params,
                                                  grad_norm=gnorm)
-        notify("update", params=params)
+        notify("update", params=params, opt_state=opt_state)
+        if dist:
+            loss_all = comm.rank_sum(loss_all)
         metrics = {"loss": loss_all, "grad_norm": gnorm,
                    "lr": opt_lib.lr_at(opt_cfg, opt_state.step - 1)}
         return params, opt_state, ef_state, metrics
@@ -261,9 +307,9 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
     def init_fn(seed: int):
         params = model_lib.init(seed, cfg, device=dev)
         if use_ef and plan is not None:
-            ef_state = bucketing.init_ef_state(plan, run.compression, n, dev)
+            ef_state = bucketing.init_ef_state(plan, run.compression, rows, dev)
         elif use_ef:
-            ef_state = {k: torch.zeros((n,) + tuple(v.shape), dtype=torch.float32, device=dev)
+            ef_state = {k: torch.zeros((rows,) + tuple(v.shape), dtype=torch.float32, device=dev)
                         for k, v in params.items()}
         else:
             ef_state = {}

@@ -10,7 +10,10 @@ The reference's fault-tolerance contract:
   batches come from :class:`~repro_torch.data.pipeline.SyntheticLM`, a pure
   function of (seed, step), and the sync keys from the step, so the stream
   realigns exactly;
-* a checkpoint restores at any rank count (the port keeps no sharding).
+* a checkpoint restores at any rank count (the port keeps no sharding);
+* with one rank per process (``comm``, a :class:`DistComm`) rank 0 writes
+  the checkpoints, every rank waits at a barrier after the last save, and
+  every rank restores from the same directory.
 
 As in the reference, the error-feedback residuals are not saved: a
 restarted run starts them at ``init_fn``'s zeros.
@@ -26,6 +29,7 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import checkpointing as ckpt
 from repro_torch.configs.base import ArchConfig, RunConfig, ShapeSpec
 from repro_torch.configs.registry import param_shapes
+from repro_torch.core.collectives import DistComm
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.optim.optimizers import AdamWConfig
 from repro_torch.train import train_step as ts
@@ -46,21 +50,27 @@ class TrainerConfig:
 class Trainer:
     """The ranks of ``mesh`` (axis → size in mesh order, pod-major), or
     ``n`` data-parallel ranks (the flat shorthand ``{"data": n}``), stacked
-    on ``device`` (the card unless given); ``on_phase`` as in
-    :func:`~repro_torch.train.train_step.build_train_step`."""
+    on ``device`` (the card unless given); or, with ``comm`` a
+    :class:`DistComm`, this process's one rank of the communicator's mesh.
+    ``on_phase`` as in
+    :func:`~repro_torch.train.train_step.build_train_step`; :attr:`overlap`
+    says whether the step runs the backward-pipelined schedule."""
 
     def __init__(self, cfg: ArchConfig, run: RunConfig, shape: ShapeSpec,
                  tcfg: TrainerConfig, n: Optional[int] = None,
                  opt_cfg: Optional[AdamWConfig] = None, device=None,
                  on_phase: Optional[Callable[..., None]] = None, *,
-                 mesh: Optional[Mapping[str, int]] = None):
+                 mesh: Optional[Mapping[str, int]] = None, comm=None):
         self.cfg, self.run, self.shape, self.tcfg = cfg, run, shape, tcfg
         self.device = resolve_device(device)
         # sync_plan is THE grad-sync plan the step executes (None = per-leaf)
         self.step_fn, self.init_fn, self.sync_plan = ts.build_train_step(
             cfg, run, shape, n, opt_cfg, base_seed=tcfg.seed, device=self.device,
-            on_phase=on_phase, mesh=mesh)
-        self.mesh = ts.resolve_mesh(n, mesh)
+            on_phase=on_phase, mesh=mesh, comm=comm)
+        self.overlap = ts.overlap_enabled(self.sync_plan, run)
+        self.mesh = ts.resolve_mesh(n, mesh) if comm is None else ts.comm_mesh(comm)
+        self.dist = comm if isinstance(comm, DistComm) else None
+        self.writes = self.dist is None or self.dist.rank == 0
         self.specs = param_shapes(cfg)[1]
         self.data = SyntheticLM(cfg, shape, seed=tcfg.seed)
         # every save of fit() goes through it: ckpt.history times each one
@@ -107,13 +117,15 @@ class Trainer:
                 m["sec"] = time.time() - t0
                 self.metrics_history.append(m)
                 log.info("step %d loss %.4f gnorm %.3f", step, m["loss"], m["grad_norm"])
-            if self.tcfg.ckpt_dir and (step + 1) % self.tcfg.ckpt_every == 0:
+            if self.writes and self.tcfg.ckpt_dir and (step + 1) % self.tcfg.ckpt_every == 0:
                 self.ckpt.save(self.tcfg.ckpt_dir, step + 1, params, opt_state, self.specs,
                                extra={"arch": self.cfg.name}, keep_last=self.tcfg.keep_last)
         self.ckpt.wait()
         self.ef_state = ef
-        if self.tcfg.ckpt_dir:
+        if self.writes and self.tcfg.ckpt_dir:
             self.ckpt.save(self.tcfg.ckpt_dir, self.tcfg.steps, params, opt_state, self.specs,
                            extra={"arch": self.cfg.name}, keep_last=self.tcfg.keep_last)
             self.ckpt.wait()
+        if self.dist is not None and self.tcfg.ckpt_dir:
+            self.dist.barrier()
         return params, opt_state, self.metrics_history
