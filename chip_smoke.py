@@ -115,6 +115,19 @@ Phases, each printing its own lines:
    the 2080 tokens, and the flash prefill against the ``attn_impl="xla"``
    one (``SERVE_TOL``); prefill ms, decode ms per token, tokens/s, peak
    memory;
+4b. serving the MoE family (``run_serving_moe``): olmoe-1b-7b at all 16
+   layers and full width (6,919,096,320 parameters, bf16), then
+   qwen2-moe-a2.7b at full width and 4 of 24 layers with its shared
+   experts, as phase 4 (8 prompts of 2048 seeded tokens, 32 greedy steps,
+   one flash launch a layer per prefill); the teacher-forced check on one
+   prompt at capacity factor E/k (nothing dropped: the block drops pairs
+   past its capacity, the decode never does); flash against
+   ``attn_impl="xla"`` over every prompt position; each comparison on the
+   first computation's routes (the second one's rerouted share per layer
+   printed: routing is discrete and a random-init MoE model amplifies one
+   rerouted token layer by layer); two flash forwards bit-equal; the share
+   of (token, choice) pairs dropped per layer at the configured factor
+   1.25;
 5. the training path (``train/synthetic.py::train_main_path``): qwen3-4b at
    full width and 4 layers, 8 ranks stacked, one 4096-token sequence each,
    ``fixed_k_1bit``.  Step 0's rank-0 loss and gradients with the flash
@@ -156,7 +169,16 @@ Phases, each printing its own lines:
    CLI (``launch/train.py --smoke --devices 4 --steps 4 --ckpt-every 2``,
    then ``--steps 6``, resuming at step 4; kernels 11–13 at hd 16 and 4)
    and the serving example (``examples/serve_lm.py``: tokens in range,
-   kernel 11 at hd 16 once a layer).  The training, error-feedback and
+   kernel 11 at hd 16 once a layer).  5b: the MoE training path
+   (``run_training_moe``, ``synthetic.moe_train_path``): olmoe-1b-7b at full
+   width and 2 of 16 layers, 8 ranks of one 4096-token sequence stacked,
+   ``get_run_config("olmoe-1b-7b", "train_4k")`` (``fixed_k_1bit``) with
+   one microbatch: step 0's rank-0 loss and gradients with the kernels
+   against ``attn_impl="xla"`` (phase 5's limits; where a token's routes
+   differ, the xla run repeated on the flash run's routes), then
+   ``fit_and_check`` for 2 steps and its post-backward twin, the states
+   bit-equal after each step, the aux loss finite and nonzero.  The
+   training, error-feedback and
    multi-pod runs are each followed by a post-backward twin
    (``run_twin``: ``TWIN_STEPS`` steps from the same start with
    ``BucketSpec.overlap = False``), held bit for bit to the overlapped
@@ -203,7 +225,7 @@ import subprocess
 import sys
 import time
 import types
-from typing import Optional
+from typing import Optional, Tuple
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -1278,6 +1300,10 @@ FLASH_CASES = [
     (1, 8192, 8192, 32, 8, 128, True, None, 0, ("bfloat16",)),
     (1, 4096, 4096, 32, 8, 128, True, None, 0, ("bfloat16",)),
     (8, 2048, 2048, 32, 8, 128, True, None, 0, ("bfloat16",)),
+    # olmoe-1b-7b's heads (16/16, g = 1): its serving prefill and one rank's
+    # training sequence
+    (8, 2048, 2048, 16, 16, 128, True, None, 0, ("bfloat16",)),
+    (1, 4096, 4096, 16, 16, 128, True, None, 0, ("bfloat16",)),
     # hd 32 (lm-8m), on the hd-64 tiles with columns 32-63 zero-filled: tile
     # edges, then one rank's attention in the training example
     (1, 1000, 1000, 4, 2, 32, True, None, 0, ("float32", "bfloat16")),   # ragged, g = 2
@@ -1295,13 +1321,15 @@ FLASH_CASES = [
     (4, 128, 128, 4, 2, 16, True, None, 0, ("float32", "bfloat16")),
     (4, 16, 16, 4, 2, 16, True, None, 0, ("bfloat16",)),
 ]
-# the shapes at which kernel 11 is timed against SDPA (bf16): (b, sq, hd) ->
-# (path, the name of its row in the last JSON line, or None)
-FLASH_TIMED = {(8, 2048, 128): ("serving", "flash_attention_fwd"),
-               (1, 4096, 128): ("training", None),
-               (4, 128, 32): ("example", "flash_attention_fwd_hd32"),
-               (4, 128, 16): ("training CLI", "flash_attention_fwd_hd16"),
-               (4, 16, 16): ("serving example", None)}
+# the shapes at which kernel 11 is timed against SDPA (bf16): (b, sq, hq,
+# hkv, hd) -> (path, the name of its row in the last JSON line, or None)
+FLASH_TIMED = {(8, 2048, 32, 8, 128): ("serving", "flash_attention_fwd"),
+               (1, 4096, 32, 8, 128): ("training", None),
+               (8, 2048, 16, 16, 128): ("olmoe serving", None),
+               (1, 4096, 16, 16, 128): ("olmoe training", None),
+               (4, 128, 8, 4, 32): ("example", "flash_attention_fwd_hd32"),
+               (4, 128, 4, 2, 16): ("training CLI", "flash_attention_fwd_hd16"),
+               (4, 16, 4, 2, 16): ("serving example", None)}
 # (atol, rtol) on o: the reference's own for its kernel (tests/test_kernel_flash.py)
 FLASH_TOL = {"float32": (2e-3, 2e-3), "bfloat16": (3e-2, 0.0)}
 LSE_TOL = 1e-3
@@ -1360,7 +1388,7 @@ def check_flash(records: dict) -> None:
             tag += (f": max |o - plain| {err:.3g}, |o - oracle| {max_err(o, oracle):.3g}, "
                     f"|lse - plain| {max_err(lse, lsep):.3g}")
             del oracle
-            path, row = FLASH_TIMED.get((b, sq, hd), (None, None))
+            path, row = FLASH_TIMED.get((b, sq, hq, hkv, hd), (None, None))
             if path and dt == "bfloat16":
                 ms = cuda_ms(lambda: fak.flash_attention_fwd(q, k, v, **kw), reps=10)
                 qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -1372,7 +1400,7 @@ def check_flash(records: dict) -> None:
                 tag += (f"; {path} shape: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
                         f"{100 * max(tb, tf) / ms:.1f}% of its {max(tb, tf):.3f} ms bound), "
                         f"sdpa {lms:.3f} ms ({ms / lms:.2f}x)")
-                if row or path == "serving example":
+                if row or path in ("serving example", "olmoe serving", "olmoe training"):
                     pms = cuda_ms(lambda: far.flash_attention_fwd(q, k, v, **kw), reps=1)
                     tag += f", plain {pms:.3f} ms"
                 if row:
@@ -1398,6 +1426,7 @@ FLASH_BWD_CASES = [
     (2, 100, 100, 8, 2, 128, True, None, 0, ("float32", "bfloat16")),     # less than one tile
     (1, 256, 512, 4, 2, 128, True, None, 200, ("float32", "bfloat16")),  # q offset 200, Sk 512
     (1, 4096, 4096, 32, 8, 128, True, None, 0, ("bfloat16",)),
+    (1, 4096, 4096, 16, 16, 128, True, None, 0, ("bfloat16",)),      # olmoe's heads, g = 1
     # hd 32 (lm-8m) on the hd-64 tiles: the edges above, then one rank's
     # attention in the training example
     (1, 1000, 1000, 4, 2, 32, True, None, 0, ("float32", "bfloat16")),    # ragged, g = 2
@@ -1413,9 +1442,10 @@ FLASH_BWD_CASES = [
     (1, 256, 512, 4, 2, 16, True, None, 200, ("float32", "bfloat16")),   # q offset 200, Sk 512
     (4, 128, 128, 4, 2, 16, True, None, 0, ("float32", "bfloat16")),
 ]
-# the shapes at which kernels 12-13 are timed (bf16): (b, sq, hd) -> the
-# suffix of their rows in the last JSON line
-FLASH_BWD_TIMED = {(1, 4096, 128): "", (4, 128, 32): "_hd32", (4, 128, 16): "_hd16"}
+# the shapes at which kernels 12-13 are timed (bf16): (b, sq, hq, hkv, hd) ->
+# the suffix of their rows in the last JSON line, or None (printed only)
+FLASH_BWD_TIMED = {(1, 4096, 32, 8, 128): "", (1, 4096, 16, 16, 128): None,
+                   (4, 128, 8, 4, 32): "_hd32", (4, 128, 4, 2, 16): "_hd16"}
 # f32: |Δ| ≤ atol + rtol·|ref|, the forward's; bf16: relative Frobenius error
 # of each of dq, dk, dv.  p and ds enter the products as bf16 hi + lo pairs
 # (2⁻¹⁶ relative); on the H100 the readings were ≤ 1.1e-5 at the small shapes
@@ -1480,8 +1510,9 @@ def check_flash_bwd(records: dict) -> None:
                          f"{tag}: {name} relative error {errs[name][1]:.3g} > {BWD_BF16_REL}")
             tag += ": " + ", ".join(f"{n} max |Δ| {e[0]:.3g} rel {e[1]:.3g}"
                                     for n, e in errs.items())
-            suffix = FLASH_BWD_TIMED.get((b, sq, hd))
-            if suffix is not None and dt == "bfloat16":
+            timed = (b, sq, hq, hkv, hd) in FLASH_BWD_TIMED
+            suffix = FLASH_BWD_TIMED.get((b, sq, hq, hkv, hd))
+            if timed and dt == "bfloat16":
                 ms_kv = cuda_ms(lambda: fak.flash_attention_bwd_dkv(*args, **kw), reps=10)
                 ms_q = cuda_ms(lambda: fak.flash_attention_bwd_dq(*args, **kw), reps=10)
                 pms_kv = cuda_ms(lambda: far.flash_attention_bwd_dkv(*args, **kw, **blocks), reps=1)
@@ -1495,14 +1526,17 @@ def check_flash_bwd(records: dict) -> None:
                 pairs = b * hq * live_pairs(sq, sk, causal, window, q_offset)
                 io = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * (lse.numel() + delta.numel())
                 for name, ms, pms, flops, nbytes, err in (
-                        ("flash_attention_bwd_dkv" + suffix, ms_kv, pms_kv, 8 * hd * pairs,
-                         io + 4 * 2 * k.numel(), max(errs["dk"][0], errs["dv"][0])),
-                        ("flash_attention_bwd_dq" + suffix, ms_q, pms_q, 6 * hd * pairs,
+                        ("flash_attention_bwd_dkv" + (suffix or ""), ms_kv, pms_kv,
+                         8 * hd * pairs, io + 4 * 2 * k.numel(),
+                         max(errs["dk"][0], errs["dv"][0])),
+                        ("flash_attention_bwd_dq" + (suffix or ""), ms_q, pms_q, 6 * hd * pairs,
                          io + 4 * q.numel(), errs["dq"][0])):
                     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
-                    records[name] = {
-                        "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": max(tb, tf),
-                        "bound_by": "bytes" if tb >= tf else "operations", "library_ms": lms}
+                    if suffix is not None:
+                        records[name] = {
+                            "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                            "bound_ms": max(tb, tf),
+                            "bound_by": "bytes" if tb >= tf else "operations", "library_ms": lms}
                     tag += (f"; {name} {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, bound "
                             f"{max(tb, tf):.3f} ms), plain {pms:.3f} ms")
                 tag += f"; sdpa backward {lms:.3f} ms"
@@ -1873,19 +1907,38 @@ SERVE_TOL, SERVE_MEAN_TOL = 0.75, 0.1
 def agreement(name: str, got, want) -> dict:
     """Max and mean |got - want| within the serving tolerances, and greedy
     tokens equal wherever ``want``'s top-2 margin exceeds SERVE_TOL."""
+    return agreement_over(name, [(got, want)])
+
+
+def agreement_over(name: str, pairs) -> dict:
+    """:func:`agreement` over the positions of several (got, want) pairs of
+    (..., V) logits, taken one pair at a time."""
     import torch
 
-    diff = (got - want).abs()
-    top2 = torch.topk(want, 2, dim=-1).values
-    decided = (top2[..., 0] - top2[..., 1]) > SERVE_TOL
-    same = torch.argmax(got, -1) == torch.argmax(want, -1)
-    out = {"max_abs": float(diff.max()), "mean_abs": float(diff.mean()),
-           "positions": int(decided.numel()), "compared": int(decided.sum()),
-           "argmax_equal_all": int(same.sum())}
+    out = {"max_abs": 0.0, "mean_abs": 0.0, "positions": 0, "compared": 0,
+           "argmax_equal_all": 0}
+    total, count, differ = 0.0, 0, 0
+    for got, want in pairs:
+        if not want.numel():
+            continue
+        diff = (got - want).abs()
+        top2 = torch.topk(want, 2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) > SERVE_TOL
+        same = torch.argmax(got, -1) == torch.argmax(want, -1)
+        out["max_abs"] = max(out["max_abs"], float(diff.max()))
+        total += float(diff.double().sum())
+        count += diff.numel()
+        out["positions"] += int(decided.numel())
+        out["compared"] += int(decided.sum())
+        out["argmax_equal_all"] += int(same.sum())
+        differ += int((decided & ~same).sum())
+        del diff
+    out["mean_abs"] = total / max(count, 1)
     need(out["max_abs"] <= SERVE_TOL and out["mean_abs"] <= SERVE_MEAN_TOL,
          f"{name}: max / mean |diff| {out['max_abs']:.4g} / {out['mean_abs']:.4g} over "
          f"{SERVE_TOL} / {SERVE_MEAN_TOL}")
-    need(bool(same[decided].all()), f"{name}: greedy tokens differ where the margin > {SERVE_TOL}")
+    need(differ == 0, f"{name}: greedy tokens differ at {differ} positions where the margin > "
+                      f"{SERVE_TOL}")
     return out
 
 
@@ -1932,7 +1985,7 @@ def run_serving(launches_total) -> dict:
         dec.append(logits)
     del cache
     x = model.embed_inputs(ctx, params, cfg, {"tokens": tokens})
-    h, _ = transformer.forward(ctx, params, cfg, run, x, torch.arange(total, device=dev))
+    h, _, _ = transformer.forward(ctx, params, cfg, run, x, torch.arange(total, device=dev))
     full = transformer.lm_head_logits(ctx, params, cfg, h[:, SERVE_PROMPT:])
     del x, h
     teacher = agreement("teacher-forced decode vs prefill of 2080",
@@ -1985,6 +2038,248 @@ def run_serving(launches_total) -> dict:
             "flash_launches_per_prefill": counts["flash_attention_fwd"],
             "teacher_forced": teacher, "flash_vs_xla": xla, "init_peak_GiB": init_peak,
             "serve_peak_GiB": peak}
+
+
+# --------------------------------------------------------------------------- #
+# Phase 4b: serving the MoE family.
+# --------------------------------------------------------------------------- #
+
+# (arch, layers or None for all): olmoe-1b-7b whole; qwen2-moe-a2.7b (14.3 B
+# parameters at 24 layers) at full width and 4 layers, with its shared experts
+MOE_SERVE = (("olmoe-1b-7b", None), ("qwen2-moe-a2.7b", 4))
+
+
+@contextlib.contextmanager
+def moe_routes(log: list, force: Optional[list] = None):
+    """Within the span every MoE call (``moe.route``, then in the block
+    ``moe.capacity_slots``) appends its routing to ``log``, on the card:
+    ``ids`` the k experts of each token sorted, ``order`` as chosen,
+    ``keep`` the (t, k) keep mask (None in the decode).  With ``force``, a
+    log of the same calls in the same order, each call takes that log's
+    experts in their order, gated by its own probabilities (renormalized)."""
+    import torch
+    from repro_torch.models import moe
+
+    route, slots = moe.route, moe.capacity_slots
+    calls = iter(force) if force is not None else None
+
+    def routed(router, x, cfg):
+        probs, gates, ids = route(router, x, cfg)
+        if calls is not None:
+            ids = next(calls)["order"]
+            gates = probs.gather(1, ids)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        log.append({"ids": torch.sort(ids, dim=-1).values, "order": ids, "keep": None})
+        return probs, gates, ids
+
+    def slotted(flat_e, ep, cap):
+        slot, keep = slots(flat_e, ep, cap)
+        log[-1]["keep"] = keep.reshape(log[-1]["ids"].shape)
+        return slot, keep
+
+    moe.route, moe.capacity_slots = routed, slotted
+    try:
+        yield log
+    finally:
+        moe.route, moe.capacity_slots = route, slots
+
+
+def flipped_tokens(a: list, b: list):
+    """(t,) bool: the tokens whose experts or keep mask differ in any call
+    of two logs of the same calls."""
+    need(len(a) == len(b) and len(a) > 0, f"route logs of {len(a)} and {len(b)} calls")
+    out = None
+    for x, y in zip(a, b):
+        f = (x["ids"] != y["ids"]).any(-1)
+        if x["keep"] is not None:
+            f |= (x["keep"] != y["keep"]).any(-1)
+        out = f if out is None else out | f
+    return out
+
+
+def rerouted(a: list, b: list) -> dict:
+    """How far two logs of the same calls part: the share of tokens whose
+    experts or keep mask differ in each call, and in any."""
+    per_call = [float(flipped_tokens([x], [y]).float().mean()) for x, y in zip(a, b)]
+    return {"share_by_call": per_call, "share_any": float(flipped_tokens(a, b).float().mean())}
+
+
+def run_serving_moe(arch: str, layers: Optional[int], launches_total) -> dict:
+    """An MoE model at full width (``layers`` of its layers, all if None):
+    the user's entry points, checked and timed, as phase 4; returns the
+    summary line.
+
+    Routing is discrete: two bf16 computations of the same function route
+    some tokens differently at near-ties, and in a random-init MoE model
+    one rerouted token moves its own later layers by O(1), the other tokens
+    of its sequence through attention and, past capacity, the keep mask of
+    later pairs, so the rerouted share grows layer by layer.  Each
+    comparison therefore records the first computation's routes, runs the
+    second one as is (its rerouted share per layer reported) and again with
+    the first one's experts forced (``moe_routes(force=)``), and holds the
+    forced run's logits to the serving tolerances at every position.
+    Capacity drops make the forward and the decode differ by design (the
+    block drops pairs past ``cap``, the decode runs every expert), so the
+    teacher-forced check runs one prompt at capacity factor E/k (cap = t:
+    nothing dropped).  Flash against ``attn_impl="xla"``: one forward over
+    the 8 prompts each, every position's logits; the flash forward run
+    twice gives the same routes and bits (each forward timed: the main
+    path's prefill is the first call at its shapes, these come after it).
+    The share of (token, choice)
+    pairs dropped at the configured factor is read per layer from the
+    flash run."""
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import backend
+    from repro_torch.models import model, transformer
+    from repro_torch.serving import engine
+
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    L, m = cfg.num_layers, cfg.moe
+    run = RunConfig()                     # flash attention, bf16 compute
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SERVE_SEED, cfg, device=dev)          # f32, then bf16 leaf by leaf
+    for name in list(params):
+        params[name] = params[name].to(torch.bfloat16)
+    n_params = sum(v.numel() for v in params.values())
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    total = SERVE_PROMPT + SERVE_STEPS
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, total), generator=gen, device=dev)
+    prompt = {"tokens": tokens[:, :SERVE_PROMPT]}
+    prefill_fn, decode_fn = engine.build_serve_fns(
+        cfg, run, ShapeSpec("serve", "decode", total, SERVE_BATCH), device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+
+    # teacher-forced on one prompt with nothing dropped (this also warms up):
+    # one forward over the 2080 tokens, then prefill + decode as is and on
+    # the forward's routes
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.padded(1) / m.top_k))
+    ctx = model.make_ctx(nodrop, run)
+    one = tokens[:1]
+    fwd_log = []
+    with moe_routes(fwd_log):
+        x = model.embed_inputs(ctx, params, nodrop, {"tokens": one})
+        h, _, _ = transformer.forward(ctx, params, nodrop, run, x,
+                                      torch.arange(total, device=dev))
+    full = transformer.lm_head_logits(ctx, params, nodrop, h[:, SERVE_PROMPT:])
+    del x, h
+    need(len(fwd_log) == L and all(bool(e["keep"].all()) for e in fwd_log),
+         "teacher-forced: a pair was dropped at capacity factor E/k")
+    # the forward's routes as the prefill's and each decode step's calls
+    want = ([{"order": e["order"][:SERVE_PROMPT], "ids": e["ids"][:SERVE_PROMPT],
+              "keep": e["keep"][:SERVE_PROMPT]} for e in fwd_log]
+            + [{"order": e["order"][p:p + 1], "ids": e["ids"][p:p + 1], "keep": None}
+               for p in range(SERVE_PROMPT, total) for e in fwd_log])
+
+    def teacher_forced(log, force=None):
+        dec = []
+        with moe_routes(log, force=force):
+            cache, _ = model.prefill(ctx, params, nodrop, run,
+                                     {"tokens": one[:, :SERVE_PROMPT]}, s_max=total)
+            for i in range(SERVE_STEPS):
+                pos = SERVE_PROMPT + i
+                _, logits, cache = model.decode_step(ctx, params, nodrop, run, cache,
+                                                     one[:, pos:pos + 1], pos)
+                dec.append(logits)
+        return torch.cat(dec, dim=1)
+
+    as_is = []
+    teacher_forced(as_is)
+    moved = rerouted(as_is, want)
+    teacher = agreement(f"{arch}: teacher-forced decode on the forward's routes vs forward of "
+                        f"{total}, no drops", teacher_forced([], force=want), full)
+    steps_moved = sum(1 for i in range(SERVE_STEPS)
+                      if any(moved["share_by_call"][L * (1 + i) + li] for li in range(L)))
+    teacher.update(prompt_rerouted_share=rerouted(as_is[:L], want[:L])["share_any"],
+                   decode_steps_rerouted=steps_moved)
+    del full, fwd_log, want, as_is
+
+    # the main path, as a user drives it; every count zeroed just before it
+    times = {"prefill": [], "decode": []}
+    seen = {}
+
+    def timed(fn, key):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t) * 1e3)
+            seen[key] = out
+            return out
+        return call
+
+    backend.reset_launches()
+    out = engine.generate(timed(prefill_fn, "prefill"), timed(decode_fn, "decode"), params,
+                          prompt, SERVE_STEPS)
+    counts = dict(backend.launches)
+    launches_total.update(counts)
+    need(counts == {"flash_attention_fwd": L},
+         f"{arch} serving: launches {counts} != one flash forward per layer ({L})")
+    need(tuple(out.shape) == (SERVE_BATCH, SERVE_STEPS), f"{arch} serving: tokens {out.shape}")
+    need(bool(((out >= 0) & (out < cfg.vocab_size)).all()), f"{arch} serving: token out of range")
+    need(bool(torch.isfinite(seen["prefill"][1]).all()), f"{arch} serving: non-finite logits")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del seen
+
+    # flash against xla: one forward over the prompts each, routes recorded;
+    # flash twice, xla as is and on flash's routes
+    ctx = model.make_ctx(cfg, run)
+    logs, hs, forward_ms = {}, {}, {}
+    for label, impl, force in (("flash", "flash", None), ("again", "flash", None),
+                               ("xla", "xla", None), ("forced", "xla", "flash")):
+        logs[label] = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with moe_routes(logs[label], force=logs[force] if force else None):
+            x = model.embed_inputs(ctx, params, cfg, prompt)
+            hs[label], _, _ = transformer.forward(ctx, params, cfg,
+                                                  dataclasses.replace(run, attn_impl=impl), x,
+                                                  torch.arange(SERVE_PROMPT, device=dev))
+        torch.cuda.synchronize()
+        forward_ms[label] = (time.perf_counter() - t) * 1e3
+        del x
+    need(same_bits(hs["flash"], hs["again"]) and not bool(flipped_tokens(
+        logs["flash"], logs["again"]).any()), f"{arch}: two flash forwards differ")
+    moved = rerouted(logs["xla"], logs["flash"])
+    dropped = [float(1.0 - e["keep"].float().mean()) for e in logs["flash"]]
+    del logs, hs["again"], hs["xla"]
+
+    def pairs():
+        for r in range(SERVE_BATCH):
+            yield (transformer.lm_head_logits(ctx, params, cfg, hs["flash"][r:r + 1])[0],
+                   transformer.lm_head_logits(ctx, params, cfg, hs["forced"][r:r + 1])[0])
+
+    xla = agreement_over(f"{arch}: flash vs xla forward on flash's routes, every position",
+                         pairs())
+    xla.update(rerouted_share_by_layer=moved["share_by_call"],
+               rerouted_share_any_layer=moved["share_any"])
+    del params, hs
+    torch.cuda.empty_cache()
+
+    prefill_ms = times["prefill"][0]
+    decode_ms = sum(times["decode"]) / len(times["decode"])
+    return {"model": arch, "layers": L, "params": n_params, "experts": m.num_experts,
+            "top_k": m.top_k, "shared": m.num_shared, "capacity_factor": m.capacity_factor,
+            "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "decode_steps": SERVE_STEPS,
+            "setup_s": setup_s, "prefill_ms": prefill_ms,
+            "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3,
+            "forward_ms_after_it": forward_ms,
+            "decode_ms_per_token": decode_ms, "decode_ms": times["decode"],
+            "decode_tokens_per_s": SERVE_BATCH / decode_ms * 1e3,
+            "flash_launches_per_prefill": counts.get("flash_attention_fwd", 0),
+            "dropped_pair_share_per_layer": dropped, "teacher_forced_no_drop": teacher,
+            "flash_vs_xla": xla, "init_peak_GiB": init_peak, "serve_peak_GiB": peak}
 
 
 # --------------------------------------------------------------------------- #
@@ -2142,13 +2437,13 @@ def run_training(launches_total, keep: Optional[dict] = None) -> dict:
     torch.cuda.empty_cache()
 
     summary = fit_and_check(cfg, run, shape, n, steps, synthetic.TRAIN_PRESET, launches_total,
-                            keep=keep, digest_step=TWIN_STEPS - 1)
+                            keep=keep, digest_steps=(TWIN_STEPS - 1,))
     return {**summary, **agree}
 
 
 def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_total,
                   mesh=None, keep: Optional[dict] = None,
-                  digest_step: Optional[int] = None) -> dict:
+                  digest_steps: Tuple[int, ...] = ()) -> dict:
     """``Trainer.fit`` for ``steps`` steps on ``n`` ranks (flat, or laid out
     as ``mesh``), every phase of every step checked and timed (host clock
     after a synchronize; the checks run outside the timed spans): the
@@ -2162,7 +2457,7 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
     every step.  Each step's bucket rounds are read from their events
     (``step_report.sync_timeline``: issue order, issue and end against the
     backward's end, the exposed sync ms).  Returns the summary line, with
-    ``digest``, the state after step ``digest_step`` (parameters, m, v,
+    ``digest``, the state after each of ``digest_steps`` (parameters, m, v,
     residuals; ``step_report.state_digest``), when asked; ``keep``, when
     given, receives the end state (``params``, ``opt_state``, ``hist``)."""
     import torch
@@ -2213,15 +2508,15 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
                 for bid, e in state["ef_state"].items():
                     need(stack_finite(e), f"training sync: residual {bid} not finite")
                     res_norms[bid].append(stack_norm(e))
-                if st["step"] == digest_step:
-                    digest["ef"] = state_digest(state["ef_state"])
+                if st["step"] in digest_steps:
+                    digest.setdefault(st["step"], {})["ef"] = state_digest(state["ef_state"])
             else:
                 err, cf = error_and_closed_form(codec.name, cmp, plan, state["grads"],
                                                 state["synced"], state["key"], mesh)
                 st["err"] += err
                 st["cf"] += cf
-        if name == "update" and st["step"] == digest_step:
-            digest.update(params=state_digest(state["params"]),
+        if name == "update" and st["step"] in digest_steps:
+            digest.setdefault(st["step"], {}).update(params=state_digest(state["params"]),
                           m=state_digest(state["opt_state"].m),
                           v=state_digest(state["opt_state"].v))
         torch.cuda.synchronize()
@@ -2282,9 +2577,13 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
         ratio = st["err"] / st["cf"]
         need(abs(ratio - 1.0) <= 0.10, f"training: error / closed form = {ratio:.4f}, outside 10%")
         out = {"err_over_closed_form": ratio}
-    if digest_step is not None:
-        need(len(digest) == (4 if cmp.error_feedback else 3), f"training: digest {sorted(digest)}")
+    if digest_steps:
+        need(sorted(digest) == sorted(digest_steps)
+             and all(len(d) == (4 if cmp.error_feedback else 3) for d in digest.values()),
+             f"training: digests of steps {sorted(digest)}, want {sorted(digest_steps)}")
         out["digest"] = digest
+    if "aux" in hist[0]:
+        out["aux"] = [h["aux"] for h in hist]
     if keep is not None:
         keep.update(params=params, opt_state=opt_state, hist=hist)
     del params, opt_state, trainer
@@ -2317,7 +2616,8 @@ TWIN_STEPS = 2
 def run_twin(label: str, main: dict, cfg, run, shape, n: int, launches_total,
              mesh=None) -> dict:
     """The post-backward twin of the overlapped cell ``main`` (a
-    ``fit_and_check`` summary with ``digest`` after step TWIN_STEPS − 1):
+    ``fit_and_check`` summary with ``digest`` after some of its first
+    TWIN_STEPS steps; the twin's are taken after the same steps):
     ``fit_and_check`` again with ``overlap=False`` for TWIN_STEPS steps, the
     same checks and timing.  Fails unless the end states are bit-equal.
     Returns the line that sets the two schedules side by side: each
@@ -2330,12 +2630,13 @@ def run_twin(label: str, main: dict, cfg, run, shape, n: int, launches_total,
         cmp, bucket=dataclasses.replace(cmp.bucket, overlap=False)))
     torch.cuda.empty_cache()
     twin = fit_and_check(cfg, off, shape, n, TWIN_STEPS, main["preset"], launches_total, mesh,
-                         digest_step=TWIN_STEPS - 1)
+                         digest_steps=tuple(main["digest"]))
     need(main["schedule"] == "backward-pipelined" and twin["schedule"] == "post-backward",
          f"{label}: schedules {main['schedule']}, {twin['schedule']}")
     k = TWIN_STEPS
     need(twin["digest"] == main["digest"] and twin["loss"] == main["loss"][:k]
-         and twin["grad_norm"] == main["grad_norm"][:k],
+         and twin["grad_norm"] == main["grad_norm"][:k]
+         and twin.get("aux") == (main["aux"][:k] if "aux" in main else None),
          f"{label}: the overlapped run and its post-backward twin differ after {k} steps "
          f"(losses {main['loss'][:k]} against {twin['loss']}; digests differ in "
          f"{sorted(g for g in main['digest'] if main['digest'][g] != twin['digest'].get(g))})")
@@ -2364,7 +2665,7 @@ def run_training_ef(launches_total) -> dict:
     cfg, run, shape = synthetic.train_main_path(error_feedback=True)
     return fit_and_check(cfg, run, shape, synthetic.N, synthetic.EF_TRAIN_STEPS,
                          synthetic.TRAIN_PRESET + " + error feedback", launches_total,
-                         digest_step=TWIN_STEPS - 1)
+                         digest_steps=(TWIN_STEPS - 1,))
 
 
 def run_training_multipod(launches_total) -> dict:
@@ -2382,7 +2683,67 @@ def run_training_multipod(launches_total) -> dict:
     return fit_and_check(cfg, run, shape, math.prod(mesh.values()), synthetic.TRAIN_STEPS,
                          "get_run_config(multi_pod=True): fixed_k_1bit over pod",
                          launches_total, mesh,
-                         digest_step=TWIN_STEPS - 1)
+                         digest_steps=(TWIN_STEPS - 1,))
+
+
+MOE_TRAIN_STEPS = 2
+
+
+def run_training_moe(launches_total) -> dict:
+    """Phase 5b (``synthetic.moe_train_path``): olmoe-1b-7b at full width
+    and 2 layers, 8 ranks of one 4096-token sequence stacked, the
+    reference's ``get_run_config`` (``fixed_k_1bit``).  Step 0's rank-0
+    loss and gradients with the flash kernels against ``attn_impl="xla"``
+    (phase 5's limits), the routes of both recorded: where any token's
+    differ, the xla run is repeated on the flash run's routes and that is
+    compared (the rerouted share per layer is printed).  Then ``Trainer.fit`` for
+    MOE_TRAIN_STEPS steps under the backward-pipelined schedule
+    (``fit_and_check``: launches, bytes, the error against the closed form,
+    the step's split and peak) with the state digested after every step,
+    and its post-backward twin from the same start, bit-equal after every
+    step; the aux loss finite and nonzero in every step."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model
+    from repro_torch.train import synthetic
+
+    dev = torch.device("cuda")
+    cfg, run, shape = synthetic.moe_train_path()
+    n, L = synthetic.N, cfg.num_layers
+    global_tokens = float(shape.global_batch * shape.seq_len)
+    torch.cuda.empty_cache()
+    params = model.init(TRAIN_SEED, cfg, device=dev)
+    batch = SyntheticLM(cfg, shape, seed=TRAIN_SEED).batch(0, dev)
+    rank0 = {k: v[:shape.global_batch // n] for k, v in batch.items()}
+    flash_log, xla_log = [], []
+    with moe_routes(flash_log):
+        kern = synthetic.rank_loss_and_grads(cfg, run, params, rank0, global_tokens)
+    xla_run = dataclasses.replace(run, attn_impl="xla")
+    with moe_routes(xla_log):
+        xla = synthetic.rank_loss_and_grads(cfg, xla_run, params, rank0, global_tokens)
+    # with remat each layer routes in the forward and again in the backward
+    need(len(flash_log) == len(xla_log) == 2 * L,
+         f"step 0, rank 0: {len(flash_log)} and {len(xla_log)} MoE calls for {L} layers")
+    moved = rerouted(xla_log[:L], flash_log[:L])
+    if moved["share_any"]:
+        del xla
+        with moe_routes([], force=flash_log):
+            xla = synthetic.rank_loss_and_grads(cfg, xla_run, params, rank0, global_tokens)
+    agree = _agreement(kern, xla, TRAIN_GRAD_TOL, TRAIN_LOSS_RTOL,
+                       f"{cfg.name} flash kernels vs xla")
+    agree.update(rerouted_share_by_layer=moved["share_by_call"],
+                 xla_on_flash_routes=bool(moved["share_any"]))
+    del params, batch, rank0, kern, xla, flash_log, xla_log
+    torch.cuda.empty_cache()
+
+    summary = fit_and_check(cfg, run, shape, n, MOE_TRAIN_STEPS,
+                            "get_run_config: fixed_k_1bit, one microbatch", launches_total,
+                            digest_steps=tuple(range(MOE_TRAIN_STEPS)))
+    need(all(math.isfinite(a) and a > 0 for a in summary["aux"]),
+         f"{cfg.name}: aux loss {summary['aux']}")
+    twin = run_twin(cfg.name, summary, cfg, run, shape, n, launches_total)
+    summary["digest"] = f"bit-equal to the post-backward twin after steps {sorted(summary['digest'])}"
+    return {**summary, "step0_flash_vs_xla": agree, "twin": twin}
 
 
 EXAMPLE_STEPS = 4
@@ -3029,6 +3390,10 @@ def main() -> int:
     t0 = time.perf_counter()
     summary = run_serving(total)
     print(f"[4] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    for arch, layers in MOE_SERVE:
+        t0 = time.perf_counter()
+        summary = run_serving_moe(arch, layers, total)
+        print(f"[4b] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     kept = {}
     summary = run_training(total, kept)
@@ -3062,6 +3427,9 @@ def main() -> int:
                        mesh)
     print(f"[5] overlapped vs post-backward {json.dumps(summary)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    summary = run_training_moe(total)
+    print(f"[5b] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     summary = run_example(total)
     print(f"[5] example {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)

@@ -2,8 +2,9 @@
 ``repro.configs.base``.
 
 :class:`ArchConfig` and :class:`ShapeSpec` are field for field the
-reference's dataclasses (the MoE and SSM sub-configs kept as opaque values
-until their model families are ported).  :class:`RunConfig` has the fields
+reference's dataclasses (the MoE sub-config is the port's
+:class:`~repro_torch.models.moe.MoECfg`; the SSM one stays an opaque value
+until its model family is ported).  :class:`RunConfig` has the fields
 the serving path and the training step read, with the reference's defaults.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Any, Optional
 
 from repro_torch.core import types as core_types
 from repro_torch.core.wire.base import NotPortedError
+from repro_torch.models.moe import MoECfg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +43,7 @@ class ArchConfig:
     window: Optional[int] = None      # sliding-window attention width
     rope_theta: float = 1e4
     tie_embeddings: bool = False
-    moe: Optional[Any] = None
+    moe: Optional[MoECfg] = None
     ssm: Optional[Any] = None
     attn_every: Optional[int] = None
     attn_offset: int = 0

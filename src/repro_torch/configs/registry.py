@@ -6,21 +6,22 @@ preset name means the same config on both sides; the registry
 (:func:`repro_torch.core.wire.resolve`) says which of them the port can run;
 the ``hier_*`` presets run unflattened on a ``(pod, data)`` mesh.
 :func:`get_run_config` is the reference's run configuration.
-:func:`param_shapes` gives the dense family's leaf names, global shapes and
-sharding specs exactly as ``repro.models.transformer.init_lm`` with
-``init_attention`` / ``init_mlp`` builds them.
+:func:`param_shapes` gives the dense and MoE families' leaf names, global
+shapes and sharding specs exactly as ``repro.models.transformer.init_lm``
+with ``init_attention`` / ``init_mlp`` / ``init_moe`` builds them.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-from repro_torch.configs import qwen3_4b
+from repro_torch.configs import olmoe_1b_7b, qwen2_moe_a2_7b, qwen3_4b
 from repro_torch.configs.base import SHAPES, ArchConfig, RunConfig
 from repro_torch.core import types as core_types
 from repro_torch.core.wire.base import NotPortedError
+from repro_torch.models.moe import MoECfg
 
-_ARCHS = {m.CONFIG.name: m.CONFIG for m in (qwen3_4b,)}
+_ARCHS = {m.CONFIG.name: m.CONFIG for m in (qwen3_4b, qwen2_moe_a2_7b, olmoe_1b_7b)}
 
 
 def list_archs():
@@ -118,7 +119,9 @@ def robust_preset(name: str, policy: str,
 
 
 # the reference's microbatch counts for train shapes (dry-run memory sizing)
-_TRAIN_MICROBATCHES = {"qwen3-4b": 4}
+_TRAIN_MICROBATCHES = {"qwen3-4b": 4, "qwen2-moe-a2.7b": 4, "olmoe-1b-7b": 2}
+# the reference's FSDP set among the port's archs (> 8B parameters)
+_BIG = {"qwen2-moe-a2.7b"}
 
 
 def get_run_config(arch: str, shape: str, *, multi_pod: bool = False,
@@ -147,25 +150,33 @@ def get_run_config(arch: str, shape: str, *, multi_pod: bool = False,
     chunk_q = chunk_k = 1024
     if SHAPES[shape].seq_len >= 32768 and kind != "decode":
         chunk_q, chunk_k = 1024, 2048
-    return RunConfig(microbatches=mb, fsdp=False, model_parallel=True, seq_shard=True,
+    return RunConfig(microbatches=mb, fsdp=cfg.name in _BIG, model_parallel=True, seq_shard=True,
                      attn_chunk_q=chunk_q, attn_chunk_k=chunk_k, remat=(kind == "train"),
                      compression=compression)
 
 
 def smoke_config(name: str) -> ArchConfig:
     """The reference's reduced smoke variant (``repro.configs.registry
-    .smoke_config``): same family and topology, tiny dims.  Dense family
-    only; the others arrive with their model families."""
+    .smoke_config``): same family and topology, tiny dims; an MoE config
+    gets 4 experts, top-2, expert ff 64, and 2 shared of ff 64 where the
+    full config has shared experts.  Dense and MoE families only; the
+    others arrive with their model families."""
     cfg = get_config(name)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotPortedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP.md, queue 1)")
+    moe = None
+    if cfg.moe is not None:
+        moe = MoECfg(num_experts=4, top_k=2, d_ff_expert=64,
+                     num_shared=(2 if cfg.moe.num_shared else 0),
+                     d_ff_shared=(64 if cfg.moe.num_shared else 0),
+                     every_n=cfg.moe.every_n)
     return ArchConfig(
         name=cfg.name + "-smoke", family=cfg.family,
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
         d_ff=128, vocab_size=512, qk_norm=cfg.qk_norm,
         window=16 if cfg.window else None, rope_theta=cfg.rope_theta,
-        tie_embeddings=cfg.tie_embeddings, sub_quadratic=cfg.sub_quadratic)
+        tie_embeddings=cfg.tie_embeddings, moe=moe, sub_quadratic=cfg.sub_quadratic)
 
 
 def _ceil_to(a: int, b: int) -> int:
@@ -174,9 +185,9 @@ def _ceil_to(a: int, b: int) -> int:
 
 def param_shapes(cfg: ArchConfig, tp: int = 1, fsdp: Optional[str] = None):
     """(shapes, specs): the global shape and sharding spec of every leaf of
-    a dense-family model, named and built as ``init_lm`` builds them (``tp``
-    the model-axis size, ``fsdp`` the FSDP axis or None)."""
-    if cfg.family not in ("dense", "vlm"):
+    a dense- or MoE-family model, named and built as ``init_lm`` builds them
+    (``tp`` the model-axis size, ``fsdp`` the FSDP axis or None)."""
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotPortedError(
             f"parameter shapes of the {cfg.family!r} family are not ported "
             "yet: they arrive with the models slice (ROADMAP.md, queue 1)")
@@ -203,9 +214,19 @@ def param_shapes(cfg: ArchConfig, tp: int = 1, fsdp: Optional[str] = None):
     if cfg.qk_norm:
         add("layers.attn.q_norm", (L, hd), (None, None))
         add("layers.attn.k_norm", (L, hd), (None, None))
-    add("layers.mlp.w_up", (L, d, cfg.d_ff), (None, fsdp, "model"))
-    add("layers.mlp.w_gate", (L, d, cfg.d_ff), (None, fsdp, "model"))
-    add("layers.mlp.w_down", (L, cfg.d_ff, d), (None, "model", fsdp))
+    if cfg.family == "moe":
+        m, ep = cfg.moe, cfg.moe.padded(tp)
+        add("layers.moe.router", (L, d, ep), (None, None, None))
+        add("layers.moe.w_up", (L, ep, d, m.d_ff_expert), (None, "model", fsdp, None))
+        add("layers.moe.w_gate", (L, ep, d, m.d_ff_expert), (None, "model", fsdp, None))
+        add("layers.moe.w_down", (L, ep, m.d_ff_expert, d), (None, "model", None, fsdp))
+        ffn = [("layers.moe.shared", m.d_ff_shared)] if m.num_shared else []
+    else:
+        ffn = [("layers.mlp", cfg.d_ff)]
+    for prefix, f in ffn:
+        add(f"{prefix}.w_up", (L, d, f), (None, fsdp, "model"))
+        add(f"{prefix}.w_gate", (L, d, f), (None, fsdp, "model"))
+        add(f"{prefix}.w_down", (L, f, d), (None, "model", fsdp))
     add("layers.norm1", (L, d), (None, None))
     add("layers.norm2", (L, d), (None, None))
     if cfg.family == "vlm":

@@ -30,11 +30,11 @@ SHAPE = ShapeSpec("serve", "decode", seq_len=64, global_batch=4)
 PROMPT_LEN, STEPS = 16, 16
 
 
-def serve(params, prompt, device=None):
-    """Greedy generation from ``prompt`` (B, S) ints with ``params`` (on
-    ``device``, the card unless given): the token the prefill's logits pick,
-    then ``STEPS`` decoded tokens → (B, 1 + STEPS) int32."""
-    prefill_fn, decode_fn = engine.build_serve_fns(CFG, RUN, SHAPE, device)
+def serve(params, prompt, device=None, cfg=CFG):
+    """Greedy generation from ``prompt`` (B, S) ints with ``params`` of
+    ``cfg`` (on ``device``, the card unless given): the token the prefill's
+    logits pick, then ``STEPS`` decoded tokens → (B, 1 + STEPS) int32."""
+    prefill_fn, decode_fn = engine.build_serve_fns(cfg, RUN, SHAPE, device)
     cache, logits = prefill_fn(params, {"tokens": prompt})
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     out = [tok]

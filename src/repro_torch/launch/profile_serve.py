@@ -1,11 +1,12 @@
-"""Where the time of serving qwen3-4b goes, on the card.
+"""Where the time of serving a model goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--out build/profile_serve.json]
+        [--arch qwen3-4b] [--layers N] [--out build/profile_serve.json]
 
-Builds the serving path of ``chip_smoke.py`` phase 4 (qwen3-4b at all 36
-layers and full width, parameters drawn from seed 0 and cast to bf16, 8
-prompts of 2048 seeded tokens, flash attention, bf16 compute), runs one
+Builds the serving path of ``chip_smoke.py`` phases 4 and 4b (``--arch``
+at full width, all its layers or the first ``--layers``, parameters drawn
+from seed 0 and cast to bf16, 8 prompts of 2048 seeded tokens, flash
+attention, bf16 compute; qwen3-4b by default), runs one
 prefill and 4 decode steps to warm up, times 2 prefills and 8 decode steps
 by the host clock around a synchronize, then profiles one prefill and, in a
 second window, 4 decode steps under ``torch.profiler`` (CPU and CUDA
@@ -20,6 +21,7 @@ card; fails without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -67,6 +69,8 @@ def _window(prof, wall_ms: float, kind=_kind) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--layers", type=int, default=None, help="the first N layers (all by default)")
     ap.add_argument("--out", default="build/profile_serve.json")
     args = ap.parse_args(argv)
 
@@ -87,7 +91,9 @@ def main(argv=None) -> int:
 
     backend.build()
     dev = torch.device("cuda")
-    cfg = get_config("qwen3-4b")
+    cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     params = model.init(0, cfg, device=dev)
     for name in list(params):
         params[name] = params[name].to(torch.bfloat16)

@@ -67,6 +67,14 @@ class ParamBuilder:
         self.params[name] = torch.ones(tuple(shape), device=self.gen.device)
 
 
+def check_no_tf32(t, what: str) -> None:
+    """An f32 product (the LM head, the MoE router) must run in full f32 on
+    the card, as the reference's f32 products do: TF32 off."""
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(f"torch.backends.cuda.matmul.allow_tf32 is set: {what} would round "
+                           "its inputs to TF32")
+
+
 def rms_norm(x, scale, eps: float = 1e-6):
     """RMSNorm in f32, cast back to the input dtype."""
     xf = x.float()

@@ -1,5 +1,5 @@
-"""Model facade, dense family — port of ``repro.models.model`` at
-``tp = 1``: context, init, input embedding, the train loss, the decode
+"""Model facade, dense and MoE families — port of ``repro.models.model``
+at ``tp = 1``: context, init, input embedding, the train loss, the decode
 cache, prefill and the decode step.
 
 The reference runs these per shard inside ``shard_map``; the port runs them
@@ -17,6 +17,8 @@ from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.wire.base import NotPortedError
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import common
+from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import ShardCtx
 from repro_torch.models.transformer import sub
@@ -43,8 +45,7 @@ def embed_inputs(ctx: ShardCtx, params, cfg: ArchConfig, batch):
 
 
 def _labels_local(batch):
-    """(labels, mask) of a dense-family batch; the mask defaults to ones
-    (f32)."""
+    """(labels, mask) of a token batch; the mask defaults to ones (f32)."""
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:
@@ -54,24 +55,28 @@ def _labels_local(batch):
 
 def train_loss(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
                global_token_count: float):
-    """Returns (loss, metrics): loss = local CE sum / global token count, so
-    that the ranks' gradients sum (or, n times, average) to the global
-    batch's.  The division is by an f32 tensor on the device, a true
-    division as in the reference.  (The reference adds the MoE aux loss over
-    the layer count, always 0 for the dense family.)"""
+    """Returns (loss, metrics): loss = local CE sum / global token count +
+    the layers' summed MoE aux loss / the layer count, so that the ranks'
+    gradients sum (or, n times, average) to the global batch's.  Both
+    divisions are by f32 tensors on the device, true divisions as in the
+    reference.  Metrics: ``ce_sum``, ``count``, ``aux`` (the layer sum; 0
+    for the dense family)."""
     tfm.check_family(cfg)
     x = embed_inputs(ctx, params, cfg, batch)
     positions = torch.arange(batch["tokens"].shape[1], device=x.device)
-    h, _ = tfm.forward(ctx, params, cfg, run, x, positions)
+    h, aux, _ = tfm.forward(ctx, params, cfg, run, x, positions)
     labels, mask = _labels_local(batch)
     ce_sum, cnt = tfm.vocab_parallel_ce(ctx, params, cfg, h, labels, mask)
-    loss = ce_sum / torch.tensor(global_token_count, dtype=torch.float32, device=ce_sum.device)
-    return loss, {"ce_sum": ce_sum, "count": cnt}
+    dev = ce_sum.device
+    loss = (ce_sum / torch.tensor(global_token_count, dtype=torch.float32, device=dev)
+            + aux / torch.tensor(max(1, cfg.num_layers), dtype=torch.float32, device=dev))
+    return loss, {"ce_sum": ce_sum, "count": cnt, "aux": aux}
 
 
 def make_cache(ctx: ShardCtx, cfg: ArchConfig, b_local: int, s_max: int,
                dtype=torch.bfloat16, device=None):
-    """Zeroed decode cache {"k", "v"}: (L, B, s_max, Hkv, hd) each."""
+    """Zeroed decode cache {"k", "v"}: (L, B, s_max, Hkv, hd) each (the MoE
+    family's attention cache is the dense family's)."""
     tfm.check_family(cfg)
     if cfg.window is not None:
         s_max = min(s_max, cfg.window)
@@ -98,6 +103,14 @@ def _attn_decode_layer(ctx, cfg, p, x, kcs, vcs, li: int, pos: int, dims):
     return x + attn_lib.output_proj(ctx, sub(p, "attn"), o)
 
 
+def _ffn_decode(ctx, cfg, p, x, kind: str):
+    """norm → the gated MLP or :func:`moe_decode` (no capacity) → residual."""
+    h = common.rms_norm(x, p["norm2"])
+    if kind == "mlp":
+        return x + mlp_lib.mlp(ctx, sub(p, "mlp"), h)
+    return x + moe_lib.moe_decode(ctx, sub(p, "moe"), h, cfg.moe)
+
+
 def decode_step(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, cache, tok, pos: int):
     """tok: (B, 1) ints; pos: the current length.  Returns (next_token
     (B, 1), logits (B, 1, V) f32, cache) — the cache updated in place."""
@@ -105,10 +118,11 @@ def decode_step(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, cache, t
     dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, ctx.tp)
     x = tfm.embed_tokens(ctx, params, cfg, tok)
     lp = sub(params, "layers")
+    kind = tfm.ffn_kind(cfg)
     for li in range(cfg.num_layers):
         layer = tfm.take_layer(lp, li, ctx.compute_dtype)
         x = _attn_decode_layer(ctx, cfg, layer, x, cache["k"], cache["v"], li, pos, dims)
-        x = tfm._ffn_sublayer(ctx, cfg, run, layer, x)
+        x = _ffn_decode(ctx, cfg, layer, x, kind)
     h = common.rms_norm(x, params["final_norm"])
     logits = tfm.lm_head_logits(ctx, params, cfg, h)
     return tfm.greedy_sample(ctx, logits), logits, cache
@@ -121,7 +135,7 @@ def prefill(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
     in bf16, zero-padded to ``s_max`` when given."""
     x = embed_inputs(ctx, params, cfg, batch)
     positions = torch.arange(batch["tokens"].shape[1], device=x.device)
-    h, (k, v) = tfm.forward(ctx, params, cfg, run, x, positions, want_cache=True)
+    h, _, (k, v) = tfm.forward(ctx, params, cfg, run, x, positions, want_cache=True)
     logits = tfm.lm_head_logits(ctx, params, cfg, h[:, -1:])
     s = k.shape[2]
     cache = make_cache(ctx, cfg, k.shape[1], max(s, s_max or s), device=k.device)

@@ -1,8 +1,9 @@
-"""Decoder-only LM assembly, dense family — port of
+"""Decoder-only LM assembly, dense and MoE families — port of
 ``repro.models.transformer`` at ``tp = 1``: init, embedding, the tied or
 untied LM head, the cross-entropy over it, greedy sampling, the attention
-and FFN sublayers, and the forward over the stacked layers (a Python loop
-where the reference scans).
+and FFN sublayers (the gated MLP, or the MoE block with its aux loss), and
+the forward over the stacked layers (a Python loop where the reference
+scans).
 
 Every layer's weights are cast to the compute dtype before use, as the
 reference's ``gather_fsdp`` casts them; the embedding and the final norm
@@ -25,6 +26,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import common
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import ShardCtx
 
 
@@ -38,17 +40,24 @@ def take_layer(p: Dict[str, Any], i: int, dtype: torch.dtype) -> Dict[str, Any]:
     return {k: v[i].to(dtype) for k, v in p.items()}
 
 
+FAMILIES = ("dense", "moe")
+
+
 def check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotPortedError(
-            f"the {cfg.family!r} family is not ported yet: the port serves the dense "
-            "family (ROADMAP.md, queue 1)")
+            f"the {cfg.family!r} family is not ported yet: the port runs the "
+            f"{' and '.join(FAMILIES)} families (ROADMAP.md, queue 1)")
+
+
+def ffn_kind(cfg: ArchConfig) -> str:
+    return "moe" if cfg.family == "moe" else "mlp"
 
 
 def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
-    """The dense family's f32 parameters on ``gen``'s device, drawn from
-    ``gen``: the names and shapes of ``configs.registry.param_shapes`` and
-    the reference's scales."""
+    """The f32 parameters on ``gen``'s device, drawn from ``gen``: the names
+    and shapes of ``configs.registry.param_shapes`` and the reference's
+    scales, leaf by leaf in its order."""
     check_family(cfg)
     pb = common.ParamBuilder(gen)
     d = cfg.d_model
@@ -59,7 +68,10 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
     pb.ones("final_norm", (d,))
     L = cfg.num_layers
     attn_lib.init_attention(pb, "layers.attn", L, d, dims, cfg.qk_norm)
-    mlp_lib.init_mlp(pb, "layers.mlp", L, d, cfg.d_ff)
+    if cfg.family == "moe":
+        moe_lib.init_moe(pb, "layers.moe", L, d, cfg.moe)
+    else:
+        mlp_lib.init_mlp(pb, "layers.mlp", L, d, cfg.d_ff)
     pb.ones("layers.norm1", (L, d))
     pb.ones("layers.norm2", (L, d))
     return pb.params
@@ -67,14 +79,6 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
 
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
-def _check_no_tf32(t) -> None:
-    """The f32 LM head must run in full f32 on the card, as the reference's
-    ``preferred_element_type=f32`` product does: TF32 off."""
-    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is set: the f32 LM head "
-                           "would round its inputs to TF32")
 
 
 def embed_tokens(ctx: ShardCtx, params, cfg: ArchConfig, tokens):
@@ -100,7 +104,7 @@ def vocab_parallel_ce(ctx: ShardCtx, params, cfg: ArchConfig, h, labels, mask,
     shift under ``detach`` (the reference's ``stop_gradient``)."""
     w = params["lm_head"] if not cfg.tie_embeddings else params["embed"]
     wf = w.to(ctx.compute_dtype).float()
-    _check_no_tf32(wf)
+    common.check_no_tf32(wf, "the f32 LM head")
     v = w.shape[0]
     s = h.shape[1]
     chunk = min(chunk, s)
@@ -149,36 +153,46 @@ def _attn_sublayer(ctx, cfg: ArchConfig, run: RunConfig, p, x, positions, dims):
     return x + o, (k, v)
 
 
-def _ffn_sublayer(ctx, cfg, run, p, x):
+def _ffn_sublayer(ctx, cfg, run, p, x, kind: str):
+    """norm → the gated MLP (``kind`` "mlp") or the MoE block ("moe") →
+    residual.  Returns (x, the aux loss: 0.0 for the MLP)."""
     h = common.rms_norm(x, p["norm2"])
-    return x + mlp_lib.mlp(ctx, sub(p, "mlp"), h)
+    if kind == "mlp":
+        return x + mlp_lib.mlp(ctx, sub(p, "mlp"), h), 0.0
+    out, aux = moe_lib.moe_block(ctx, sub(p, "moe"), h, cfg.moe)
+    return x + out, aux
 
 
 def forward(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, x, positions,
-            want_cache: bool = False) -> Tuple[torch.Tensor, Optional[Tuple]]:
-    """Run all blocks.  x: (B, S, D).  Returns (final-normed h, caches):
-    caches are the stacked (L, B, S, Hkv, hd) k and v in the compute dtype
-    when ``want_cache``, else None.  (The reference also returns the MoE
-    aux loss, always 0 for the dense family.)"""
+            want_cache: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tuple]]:
+    """Run all blocks.  x: (B, S, D).  Returns (final-normed h, aux, caches):
+    aux is the f32 sum of the layers' MoE aux losses (0 for the dense
+    family), caches the stacked (L, B, S, Hkv, hd) k and v in the compute
+    dtype when ``want_cache``, else None."""
     check_family(cfg)
     dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, ctx.tp)
     lp = sub(params, "layers")
+    kind = ffn_kind(cfg)
 
     def body(x, i: int):
         layer = take_layer(lp, i, ctx.compute_dtype)
         x, kv = _attn_sublayer(ctx, cfg, run, layer, x, positions, dims)
-        return _ffn_sublayer(ctx, cfg, run, layer, x), kv
+        x, a = _ffn_sublayer(ctx, cfg, run, layer, x, kind)
+        return x, a, kv
 
     remat = run.remat and _needs_grad(x, *lp.values())
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for i in range(cfg.num_layers):
         if remat:
-            x, (k, v) = checkpoint(body, x, i, use_reentrant=False)
+            x, a, (k, v) = checkpoint(body, x, i, use_reentrant=False)
         else:
-            x, (k, v) = body(x, i)
+            x, a, (k, v) = body(x, i)
+        aux = aux + a
         if want_cache:
             ks.append(k)
             vs.append(v)
     caches = (torch.stack(ks), torch.stack(vs)) if want_cache else None
-    return common.rms_norm(x, params["final_norm"]), caches
+    return common.rms_norm(x, params["final_norm"]), aux, caches

@@ -19,6 +19,11 @@
   and depth on ``MULTIPOD_MESH`` = (pod 2, data 4), with the reference's
   ``get_run_config(MODEL, "train_4k", multi_pod=True)``: ``fixed_k_1bit``
   over ``pod``, the exact mean inside each pod.
+* The MoE training path (:func:`moe_train_path`): ``MOE_MODEL`` at full
+  width and ``MOE_LAYERS`` of its 16 layers, ``N`` ranks of one
+  ``train_4k`` sequence, the reference's
+  ``get_run_config(MOE_MODEL, "train_4k")`` (``fixed_k_1bit`` over
+  ``data``) with one microbatch.
 * The training path (:func:`train_main_path`): the same model, depth and
   ranks, one ``train_4k`` sequence per rank, the real forward and backward
   feeding the same sync under ``fixed_k_1bit``, then AdamW; with
@@ -58,6 +63,8 @@ EF_TRAIN_STEPS = 4
 HIER_MESH = {"pod": 4, "data": 2}
 HIER_PRESETS = ("hier_fixed_k", "hier_bernoulli")
 MULTIPOD_MESH = {"pod": 2, "data": 4}
+MOE_MODEL = "olmoe-1b-7b"
+MOE_LAYERS = 2      # of 16
 
 
 def synthetic_grads(shapes: Mapping[str, Sequence[int]], n: int, step: int,
@@ -127,6 +134,18 @@ def multipod_train_path():
                               microbatches=1)
     n = math.prod(MULTIPOD_MESH.values())
     return cfg, run, dataclasses.replace(SHAPES["train_4k"], global_batch=n), dict(MULTIPOD_MESH)
+
+
+def moe_train_path():
+    """(cfg, run, shape) of the MoE training path: ``MOE_MODEL`` at full
+    width and ``MOE_LAYERS`` layers; the reference's
+    ``get_run_config(MOE_MODEL, "train_4k")`` (``fixed_k_1bit`` over
+    ``data``; not in its FSDP set) with one microbatch, not 2: a rank's one
+    sequence does not split; ``train_4k`` sequences, one per rank (global
+    batch ``N``)."""
+    cfg = dataclasses.replace(get_config(MOE_MODEL), num_layers=MOE_LAYERS)
+    run = dataclasses.replace(get_run_config(MOE_MODEL, "train_4k"), microbatches=1)
+    return cfg, run, dataclasses.replace(SHAPES["train_4k"], global_batch=N)
 
 
 def rank_loss_and_grads(cfg, run, params, batch, global_tokens: float):

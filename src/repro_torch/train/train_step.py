@@ -187,7 +187,10 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
 
     ``step_fn(params, opt_state, ef_state, batch, step) -> (params,
     opt_state, ef_state, metrics)`` with metrics ``loss``, ``grad_norm``
-    and ``lr`` (f32 device scalars); ``batch`` is the global batch
+    and ``lr`` (f32 device scalars), and for the MoE family ``aux``, the
+    layers' summed aux loss averaged over ranks and microbatches (the
+    loss holds it over the layer count, per rank and microbatch); ``batch``
+    is the global batch
     (``SyntheticLM.batch``).  ``init_fn(seed) -> (params, opt_state,
     ef_state)``: with error feedback the zero residuals, (L, size) per
     compressed bucket (bucketed) or (L, *shape) per leaf, else ``{}``.
@@ -252,6 +255,7 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
         ef_in = ef_state if use_ef else None
         sync = None
         loss_all = torch.zeros((), dtype=torch.float32, device=dev)
+        aux_all = torch.zeros((), dtype=torch.float32, device=dev)
         for i, r in enumerate(local):
             rank_batch = _rows(batch, r, n)
             loss_r = torch.zeros((), dtype=torch.float32, device=dev)
@@ -260,9 +264,10 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
                 tagged, sync = bucketing.overlap_params(leaves, plan, run.compression, key,
                                                         comm, stacks, i, ef_in, side)
             for mb in range(run.microbatches):
-                loss, _ = model_lib.train_loss(ctx, tagged, cfg, run,
-                                               _rows(rank_batch, mb, run.microbatches),
-                                               global_tokens)
+                loss, lm = model_lib.train_loss(ctx, tagged, cfg, run,
+                                                _rows(rank_batch, mb, run.microbatches),
+                                                global_tokens)
+                aux_all = aux_all + lm["aux"].detach()
                 grads = torch.autograd.grad(loss, [leaves[k] for k in names],
                                             allow_unused=sync is not None)
                 for k, g in zip(names, grads):
@@ -273,7 +278,7 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
                     else:
                         stacks[k][i].add_(g)
                 loss_r = loss_r + loss.detach()
-                del grads, loss
+                del grads, loss, lm
             loss_all = loss_all + loss_r
         del tagged
         notify("backward", grads=stacks)
@@ -302,6 +307,11 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
             loss_all = comm.rank_sum(loss_all)
         metrics = {"loss": loss_all, "grad_norm": gnorm,
                    "lr": opt_lib.lr_at(opt_cfg, opt_state.step - 1)}
+        if cfg.family == "moe":
+            if dist:
+                aux_all = comm.rank_sum(aux_all)
+            metrics["aux"] = aux_all / torch.tensor(float(n * run.microbatches),
+                                                    dtype=torch.float32, device=dev)
         return params, opt_state, ef_state, metrics
 
     def init_fn(seed: int):

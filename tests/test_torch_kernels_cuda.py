@@ -14,7 +14,8 @@ import torch
 
 from repro_torch import random as R
 from repro_torch.configs.base import ArchConfig, RunConfig, ShapeSpec
-from repro_torch.configs.registry import COMPRESSION_PRESETS, compression_preset, robust_preset
+from repro_torch.configs.registry import (COMPRESSION_PRESETS, compression_preset, robust_preset,
+                                          smoke_config)
 from repro_torch.core import bitplane as cbp
 from repro_torch.core import comm_cost
 from repro_torch.core import rotation
@@ -43,6 +44,8 @@ from repro_torch.kernels.rotated_encode import kernel as rek
 from repro_torch.kernels.rotated_encode import ops as reo
 from repro_torch.kernels.rotated_encode import ref as rer
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.models import common as mcommon
+from repro_torch.models import moe as tmoe
 from repro_torch.train.train_step import build_train_step
 
 # one intra-op thread: beside other test workers on a loaded machine, torch's
@@ -734,3 +737,66 @@ def test_reduce_rows_on_card_equals_cpu_without_sync(dev, n):
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             assert _same_or_nan(got.cpu(), robust.reduce_rows(s, kind, f, m)), (kind, f, m)
+
+
+# --------------------------------------------------------------------------- #
+# The MoE block (plain torch: no kernel of its own) on the card against the
+# CPU: the same routing, outputs within the dtype's tolerance, and a backward
+# that gives the same bits twice (the train step's two issue schedules are
+# held bit for bit on the card).
+# --------------------------------------------------------------------------- #
+
+def _moe_case(arch, capacity_factor, dtype, dev):
+    cfg = dataclasses.replace(smoke_config(arch).moe, capacity_factor=capacity_factor)
+    e, f, d = cfg.num_experts, cfg.d_ff_expert, 64
+    g = torch.Generator().manual_seed(7)
+    p = {"router": torch.randn(d, e, generator=g) * 0.1,
+         "w_up": torch.randn(e, d, f, generator=g) * d ** -0.5,
+         "w_gate": torch.randn(e, d, f, generator=g) * d ** -0.5,
+         "w_down": torch.randn(e, f, d, generator=g) * f ** -0.5}
+    if cfg.num_shared:
+        fs = cfg.d_ff_shared
+        p.update({"shared.w_up": torch.randn(d, fs, generator=g) * d ** -0.5,
+                  "shared.w_gate": torch.randn(d, fs, generator=g) * d ** -0.5,
+                  "shared.w_down": torch.randn(fs, d, generator=g) * fs ** -0.5})
+    x = torch.randn(4, 64, d, generator=g).to(getattr(torch, dtype))
+    return cfg, p, x, mcommon.ShardCtx(compute_dtype=getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-moe-a2.7b"])
+def test_moe_block_on_card_equals_cpu(dev, arch, capacity_factor, dtype):
+    cfg, p, x, ctx = _moe_case(arch, capacity_factor, dtype, dev)
+    t = x.shape[0] * x.shape[1]
+    routes = {}
+    for where in ("cpu", dev):
+        probs, _, ids = tmoe.route(p["router"].to(where), x.reshape(t, -1).to(where), cfg)
+        top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+        margin = top[:, cfg.top_k - 1] - top[:, cfg.top_k]
+        routes[str(where)] = (ids.cpu(), margin.cpu())
+    assert float(routes["cpu"][1].min()) > 1e-5             # no near-tie at these inputs
+    assert torch.equal(routes["cpu"][0], routes[str(dev)][0])
+    want, want_aux = tmoe.moe_block(ctx, p, x, cfg)
+    got, got_aux = tmoe.moe_block(ctx, {k: v.to(dev) for k, v in p.items()}, x.to(dev), cfg)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == "float32" else dict(atol=2e-2, rtol=1e-2)
+    torch.testing.assert_close(got.cpu().float(), want.float(), **tol)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, atol=0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-moe-a2.7b"])
+def test_moe_backward_on_card_is_reproducible(dev, arch, dtype):
+    """Capacity factor 0.5: dropped pairs collide on each expert's last
+    slot in the combine's gather; two backward passes give the same bits."""
+    cfg, p, x, ctx = _moe_case(arch, 0.5, dtype, dev)
+    grads = []
+    for _ in range(2):
+        leaves = {k: v.to(dev).requires_grad_() for k, v in p.items()}
+        xd = x.to(dev).requires_grad_()
+        y, aux = tmoe.moe_block(ctx, leaves, xd, cfg)
+        (y.float().square().sum() + aux).backward()
+        grads.append([xd.grad] + [leaves[k].grad for k in sorted(leaves)])
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in grads[0])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))

@@ -297,7 +297,7 @@ def test_decode_consistent_with_prefill():
     got, _, _ = _port_run(cfg, run, params, toks.numpy(), "float32")
     ctx = tmodel.make_ctx(cfg, run)
     x = tmodel.embed_inputs(ctx, params, cfg, {"tokens": toks})
-    h, _ = ttfm.forward(ctx, params, cfg, run, x, torch.arange(S))
+    h, _, _ = ttfm.forward(ctx, params, cfg, run, x, torch.arange(S))
     want = ttfm.lm_head_logits(ctx, params, cfg, h[:, S0 - 1:])
     got = torch.cat(got, 1).numpy()
     np.testing.assert_allclose(got, want.numpy(), atol=CACHE_TOL, rtol=0)
@@ -338,4 +338,4 @@ def test_unported_options_raise():
     with pytest.raises(NotPortedError):
         convert.run_config(JRunConfig(fsdp=True))
     with pytest.raises(NotPortedError):
-        convert.arch_config(j_smoke_config("olmoe-1b-7b"))
+        convert.arch_config(j_smoke_config("mamba2-130m"))
