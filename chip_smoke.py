@@ -128,6 +128,19 @@ Phases, each printing its own lines:
    rerouted token layer by layer); two flash forwards bit-equal; the share
    of (token, choice) pairs dropped per layer at the configured factor
    1.25;
+4c. serving the SSM family (``run_serving_ssm``): mamba2-130m whole (24
+   layers, full width, 128,940,480 parameters drawn from a seed): one
+   2048-token prompt's forward in f32 compute on the card against the same
+   code on the CPU (``SSM_F32_H_RTOL``, ``SSM_F32_LOGIT_TOL``); then in
+   bf16 one prompt teacher-forced for 256 decode steps against one forward
+   over 2304 tokens (the chunked scan against the decode recurrence, the
+   serving tolerances); ``engine.generate`` on 8 prompts of 2048 seeded
+   tokens with 32 greedy steps (no kernel: the family has no attention),
+   finite logits, the cache's bytes (19,132,416 a sequence: the conv
+   windows in bf16 and the f32 states, whatever the prompt's length); one
+   prompt of 32,768 tokens (the reference's prefill_32k length) at batch 1,
+   its cache the same bytes a sequence; prefill ms, decode ms per token,
+   tokens/s, peaks;
 5. the training path (``train/synthetic.py::train_main_path``): qwen3-4b at
    full width and 4 layers, 8 ranks stacked, one 4096-token sequence each,
    ``fixed_k_1bit``.  Step 0's rank-0 loss and gradients with the flash
@@ -177,8 +190,15 @@ Phases, each printing its own lines:
    against ``attn_impl="xla"`` (phase 5's limits; where a token's routes
    differ, the xla run repeated on the flash run's routes), then
    ``fit_and_check`` for 2 steps and its post-backward twin, the states
-   bit-equal after each step, the aux loss finite and nonzero.  The
-   training, error-feedback and
+   bit-equal after each step, the aux loss finite and nonzero.  5c: the SSM
+   training path (``run_training_ssm``, ``synthetic.ssm_train_path``):
+   mamba2-130m whole (24 layers), 8 ranks of one 4096-token sequence
+   stacked, ``get_run_config("mamba2-130m", "train_4k")`` as it is
+   (``fixed_k_1bit``, one microbatch): step 0's rank-0 loss and gradients
+   in bf16 against f32 compute (``SSM_GRAD_TOL``, ``SSM_LOSS_RTOL``), then
+   ``fit_and_check`` for 4 steps (kernel 4 n times a compressed bucket, no
+   flash kernel) and its post-backward twin, bit-equal after steps 0 and
+   1.  The training, error-feedback and
    multi-pod runs are each followed by a post-backward twin
    (``run_twin``: ``TWIN_STEPS`` steps from the same start with
    ``BucketSpec.overlap = False``), held bit for bit to the overlapped
@@ -2283,6 +2303,196 @@ def run_serving_moe(arch: str, layers: Optional[int], launches_total) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# Phase 4c: serving the SSM family.
+# --------------------------------------------------------------------------- #
+
+# One prompt of SERVE_PROMPT tokens, then SSM_TEACHER teacher-forced decode
+# steps against one forward over the SERVE_PROMPT + SSM_TEACHER tokens (a
+# multiple of the 256-token chunk: the scan never pads), under the serving
+# tolerances (SERVE_TOL, SERVE_MEAN_TOL).  This holds the chunked scan
+# against the decode recurrence.  Rehearsed on the CPU at full width and 24
+# layers, bf16, a 256-token prompt and 256 steps: max / mean |diff| 0.209 /
+# 0.024 (logits' std 0.55), step 0 at 7e-7.
+SSM_TEACHER = 256
+# One prompt's forward in f32 compute on the card against the same code on
+# the CPU: ‖Δh‖/‖h‖ of the final hidden states ≤ SSM_F32_H_RTOL and the last
+# position's logits within SSM_F32_LOGIT_TOL.  Two f32 computations differ by
+# their sums' orders, amplified through the 24 layers: rehearsed on the CPU
+# (full width, 24 layers, one 256-token sequence), f32 against f64 read
+# 4.9e-4 on h and 1.6e-3 on the logits (std 0.55).  A wrong chunk carry or a
+# TF32 product is off by 1e-2 or more.
+SSM_F32_H_RTOL, SSM_F32_LOGIT_TOL = 5e-3, 1e-2
+# the reference's prefill_32k length, at batch 1
+SSM_LONG_PROMPT = 32768
+
+
+def ssm_cache_bytes(cache: dict) -> int:
+    return sum(v.numel() * v.element_size() for v in cache.values())
+
+
+def run_serving_ssm(launches_total) -> dict:
+    """mamba2-130m whole (24 layers, full width), parameters drawn from a seed:
+    one prompt's f32 forward on the card against the CPU; then in bf16 the
+    teacher-forced check, the user's entry points (``engine.generate``, 8
+    prompts of 2048 tokens, 32 greedy steps: no kernel, the family has no
+    attention), and one 32,768-token prompt at batch 1 whose cache takes the
+    bytes of a 2048-token prompt's; returns the summary line."""
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import backend
+    from repro_torch.models import model, transformer
+    from repro_torch.serving import engine
+    from repro_torch.train import synthetic
+
+    dev = torch.device("cuda")
+    cfg = get_config(synthetic.SSM_MODEL)
+    s = cfg.ssm
+    run = RunConfig()                     # bf16 compute
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SERVE_SEED, cfg, device=dev)          # f32
+    n_params = sum(v.numel() for v in params.values())
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    total = SERVE_PROMPT + SSM_TEACHER
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, total), generator=gen, device=dev)
+    prompt = {"tokens": tokens[:, :SERVE_PROMPT]}
+
+    # one prompt in f32 compute, on the card and on the CPU
+    f32 = dataclasses.replace(run, compute_dtype="float32")
+    ctx32 = model.make_ctx(cfg, f32)
+    one = {"tokens": tokens[:1, :SERVE_PROMPT]}
+    outs = {}
+    for where in ("card", "cpu"):
+        p = params if where == "card" else {k: v.cpu() for k, v in params.items()}
+        b = {k: (v if where == "card" else v.cpu()) for k, v in one.items()}
+        t = time.perf_counter()
+        with torch.no_grad():
+            x = model.embed_inputs(ctx32, p, cfg, b)
+            h, _, _ = transformer.forward(ctx32, p, cfg, f32, x, None)
+            logits = transformer.lm_head_logits(ctx32, p, cfg, h[:, -1:])
+        outs[where] = (h.cpu(), logits.cpu(), (time.perf_counter() - t) * 1e3)
+        del p, x, h, logits
+    (hc, lc, ms_card), (hh, lh, ms_cpu) = outs["card"], outs["cpu"]
+    f32_check = {"h_rel": float((hc.double() - hh.double()).norm() / hh.double().norm()),
+                 "last_logits_max_abs": float((lc - lh).abs().max()),
+                 "logits_std": float(lh.std()), "card_ms": ms_card, "cpu_ms": ms_cpu}
+    need(bool(torch.isfinite(hc).all()), "mamba2 f32 forward on the card: not finite")
+    need(f32_check["h_rel"] <= SSM_F32_H_RTOL and
+         f32_check["last_logits_max_abs"] <= SSM_F32_LOGIT_TOL,
+         f"mamba2 f32 forward, card vs CPU: {f32_check} over {SSM_F32_H_RTOL} / "
+         f"{SSM_F32_LOGIT_TOL}")
+    del outs, hc, lc, hh, lh
+
+    for name in list(params):                                 # then bf16 leaf by leaf
+        params[name] = params[name].to(torch.bfloat16)
+    prefill_fn, decode_fn = engine.build_serve_fns(
+        cfg, run, ShapeSpec("serve", "decode", SERVE_PROMPT + SERVE_STEPS, SERVE_BATCH),
+        device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+
+    # teacher-forced on one prompt: decode the known continuation after a
+    # prefill, against one forward over all its tokens (this also warms up)
+    ctx = model.make_ctx(cfg, run)
+    seq = tokens[:1]
+    cache, _ = model.prefill(ctx, params, cfg, run, {"tokens": seq[:, :SERVE_PROMPT]})
+    dec = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(SSM_TEACHER):
+        pos = SERVE_PROMPT + i
+        _, logits, cache = model.decode_step(ctx, params, cfg, run, cache, seq[:, pos:pos + 1],
+                                             pos)
+        dec.append(logits)
+    torch.cuda.synchronize()
+    batch1_decode_ms = (time.perf_counter() - t) * 1e3 / SSM_TEACHER
+    del cache
+    x = model.embed_inputs(ctx, params, cfg, {"tokens": seq})
+    h, _, _ = transformer.forward(ctx, params, cfg, run, x, None)
+    full = transformer.lm_head_logits(ctx, params, cfg, h[:, SERVE_PROMPT:])
+    del x, h
+    dec = torch.cat(dec, dim=1)
+    teacher = agreement(f"mamba2: teacher-forced decode vs forward of {total}", dec, full)
+    teacher["step0_max_abs"] = float((dec[:, 0] - full[:, 0]).abs().max())
+    del dec, full
+
+    # the main path, as a user drives it; every count zeroed just before it
+    times = {"prefill": [], "decode": []}
+    seen = {}
+
+    def timed(fn, key):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t) * 1e3)
+            seen[key] = out
+            return out
+        return call
+
+    backend.reset_launches()
+    out = engine.generate(timed(prefill_fn, "prefill"), timed(decode_fn, "decode"), params,
+                          prompt, SERVE_STEPS)
+    counts = dict(backend.launches)
+    launches_total.update(counts)
+    need(counts == {}, f"mamba2 serving: launches {counts}; the SSM family launches no kernel")
+    need(tuple(out.shape) == (SERVE_BATCH, SERVE_STEPS), f"mamba2 serving: tokens {out.shape}")
+    need(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "mamba2 serving: token out of range")
+    cache, logits = seen["prefill"]
+    need(bool(torch.isfinite(logits).all()), "mamba2 serving: non-finite prefill logits")
+    cache_bytes = ssm_cache_bytes(cache)
+    per_seq = (s.conv_width - 1) * (s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state) * 2 \
+        + s.nheads(cfg.d_model) * s.head_dim * s.d_state * 4
+    need(cache_bytes == SERVE_BATCH * cfg.num_layers * per_seq,
+         f"mamba2 serving: cache of {cache_bytes} B, not {SERVE_BATCH} x {cfg.num_layers} x "
+         f"{per_seq}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del seen, cache, logits
+
+    # one prompt of the reference's prefill_32k length, batch 1: the same
+    # cache bytes a sequence as the 2048-token prompts'
+    long = torch.randint(0, cfg.vocab_size, (1, SSM_LONG_PROMPT), generator=gen, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    long_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lcache, llogits = model.prefill(ctx, params, cfg, run, {"tokens": long})
+        torch.cuda.synchronize()
+        long_ms.append((time.perf_counter() - t) * 1e3)
+    need(bool(torch.isfinite(llogits).all()), "mamba2 32k prefill: non-finite logits")
+    long_bytes = ssm_cache_bytes(lcache)
+    need(long_bytes * SERVE_BATCH == cache_bytes,
+         f"mamba2: the 32k prompt's cache {long_bytes} B != a 2048-token prompt's "
+         f"{cache_bytes // SERVE_BATCH} B")
+    long_peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, lcache, llogits
+    torch.cuda.empty_cache()
+
+    prefill_ms = times["prefill"][0]
+    decode_ms = sum(times["decode"]) / len(times["decode"])
+    return {"model": cfg.name, "layers": cfg.num_layers, "params": n_params,
+            "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "decode_steps": SERVE_STEPS,
+            "setup_s": setup_s, "prefill_ms": prefill_ms,
+            "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3,
+            "decode_ms_per_token": decode_ms, "decode_ms": times["decode"],
+            "decode_tokens_per_s": SERVE_BATCH / decode_ms * 1e3,
+            "batch1_decode_ms_per_token": batch1_decode_ms,
+            "cache_bytes": cache_bytes, "cache_bytes_per_sequence": cache_bytes // SERVE_BATCH,
+            "long_prompt": SSM_LONG_PROMPT, "long_prefill_ms": long_ms,
+            "long_prefill_tokens_per_s": SSM_LONG_PROMPT / min(long_ms) * 1e3,
+            "long_cache_bytes": long_bytes, "long_peak_GiB": long_peak,
+            "teacher_forced": teacher, "f32_card_vs_cpu": f32_check,
+            "init_peak_GiB": init_peak, "serve_peak_GiB": peak}
+
+
+# --------------------------------------------------------------------------- #
 # Phase 5: the training path.
 # --------------------------------------------------------------------------- #
 
@@ -2447,8 +2657,8 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
     """``Trainer.fit`` for ``steps`` steps on ``n`` ranks (flat, or laid out
     as ``mesh``), every phase of every step checked and timed (host clock
     after a synchronize; the checks run outside the timed spans): the
-    launches of each phase (flash forward 2·L·n with remat, each backward
-    sweep L·n, the sync's per bucket at the codec ranks: in the backward
+    launches of each phase (where the model has attention flash forward
+    2·L·n with remat, each backward sweep L·n; the sync's per bucket at the codec ranks: in the backward
     under the backward-pipelined schedule, in the sync phase after it), the
     bytes handed to the codec axes against the accounting, finite
     gradients, losses, norms and parameters; without error feedback the
@@ -2470,9 +2680,10 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
     L = cfg.num_layers
     cmp = run.compression
     codec = wire.resolve(cmp)
-    expect = {"start": {}, "update": {},
-              "backward": {"flash_attention_fwd": 2 * L * n, "flash_attention_bwd_dkv": L * n,
-                           "flash_attention_bwd_dq": L * n}}
+    flash = ({} if cfg.family == "ssm" else
+             {"flash_attention_fwd": 2 * L * n, "flash_attention_bwd_dkv": L * n,
+              "flash_attention_bwd_dq": L * n})
+    expect = {"start": {}, "update": {}, "backward": flash}
     st = {"t": 0.0, "last": collections.Counter(), "err": 0.0, "cf": 0.0, "peak": 0,
           "step": -1, "events": {}}
     phase_ms = collections.defaultdict(list)
@@ -2744,6 +2955,72 @@ def run_training_moe(launches_total) -> dict:
     twin = run_twin(cfg.name, summary, cfg, run, shape, n, launches_total)
     summary["digest"] = f"bit-equal to the post-backward twin after steps {sorted(summary['digest'])}"
     return {**summary, "step0_flash_vs_xla": agree, "twin": twin}
+
+
+# Phase 5c: mamba2-130m whole.  Step 0's rank-0 loss and gradients in bf16
+# against f32 compute: the model's own bf16 noise, not a kernel's (the
+# family has none); rehearsed on the CPU at full width and 24 layers, one
+# 256-token sequence: per leaf ‖Δg‖/‖g‖ up to 0.47 (D; the norms, embed,
+# A_log and dt_bias 0.26–0.35), loss 2.4e-4 relative (0.080 and 4.1e-5 at 2
+# layers, 0.163 and 2.3e-4 at 6).  The f32 code is held to the CPU in phase
+# 4c and to the reference in the CPU tests; these limits catch a bf16 path
+# that drops what f32 keeps.
+SSM_GRAD_TOL, SSM_LOSS_RTOL = 0.75, 2e-3
+SSM_TRAIN_STEPS = 4
+
+
+def run_training_ssm(launches_total) -> dict:
+    """Phase 5c (``synthetic.ssm_train_path``): mamba2-130m at full width and
+    all 24 layers, 8 ranks of one 4096-token sequence stacked, the
+    reference's ``get_run_config`` (``fixed_k_1bit``, one microbatch, no
+    model axis, remat).  Step 0's rank-0 loss and gradients in bf16 against
+    f32 compute; then ``Trainer.fit`` for SSM_TRAIN_STEPS steps under the
+    backward-pipelined schedule (``fit_and_check``: kernel 4's launches per
+    compressed bucket, the bytes, the error against ``mse_fixed_k_shared``,
+    the step's split and peak), digested after steps 0 and 1, and its
+    post-backward twin, bit-equal after them."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model
+    from repro_torch.train import synthetic
+
+    dev = torch.device("cuda")
+    cfg, run, shape = synthetic.ssm_train_path()
+    n = synthetic.N
+    global_tokens = float(shape.global_batch * shape.seq_len)
+    torch.cuda.empty_cache()
+    params = model.init(TRAIN_SEED, cfg, device=dev)
+    batch = SyntheticLM(cfg, shape, seed=TRAIN_SEED).batch(0, dev)
+    rank0 = {k: v[:shape.global_batch // n] for k, v in batch.items()}
+    rank_ms = {}
+    got = {}
+    for dt in ("bfloat16", "float32"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got[dt] = synthetic.rank_loss_and_grads(cfg, dataclasses.replace(run, compute_dtype=dt),
+                                                params, rank0, global_tokens)
+        torch.cuda.synchronize()
+        rank_ms[dt] = (time.perf_counter() - t) * 1e3
+    agree = _agreement(got["bfloat16"], got["float32"], SSM_GRAD_TOL, SSM_LOSS_RTOL,
+                       f"{cfg.name} bf16 vs f32 compute")
+    gb, gf = got["bfloat16"][1], got["float32"][1]
+    agree["all_leaves_rel"] = math.sqrt(
+        sum(float((gb[k].double() - gf[k].double()).square().sum()) for k in gf)
+        / sum(float(gf[k].double().square().sum()) for k in gf))
+    agree["rank0_loss_and_grads_ms"] = rank_ms
+    del params, batch, rank0, got, gb, gf
+    torch.cuda.empty_cache()
+
+    summary = fit_and_check(cfg, run, shape, n, SSM_TRAIN_STEPS,
+                            "get_run_config: fixed_k_1bit, one microbatch", launches_total,
+                            digest_steps=tuple(range(TWIN_STEPS)))
+    per_bucket = summary["launches_per_step"].get("fixed_k_gather", 0) / summary[
+        "compressed_buckets"]
+    need(per_bucket == n, f"{cfg.name}: {per_bucket} fixed-k launches a compressed bucket, not {n}")
+    twin = run_twin(cfg.name, summary, cfg, run, shape, n, launches_total)
+    summary["digest"] = f"bit-equal to the post-backward twin after steps {sorted(summary['digest'])}"
+    return {**summary, "fixed_k_gather_per_compressed_bucket": per_bucket,
+            "step0_bf16_vs_f32": agree, "twin": twin}
 
 
 EXAMPLE_STEPS = 4
@@ -3395,6 +3672,9 @@ def main() -> int:
         summary = run_serving_moe(arch, layers, total)
         print(f"[4b] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
+    summary = run_serving_ssm(total)
+    print(f"[4c] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
     kept = {}
     summary = run_training(total, kept)
     print(f"[5] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -3430,6 +3710,9 @@ def main() -> int:
     t0 = time.perf_counter()
     summary = run_training_moe(total)
     print(f"[5b] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    summary = run_training_ssm(total)
+    print(f"[5c] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     summary = run_example(total)
     print(f"[5] example {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)

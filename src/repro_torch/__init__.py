@@ -22,7 +22,8 @@ backward kernels.  Slice 7 adds the hash-PRNG encoders of the §1.1 encode
 benchmark (``launch.bench_encode_speed``) and the single-host stack
 (``core.protocol.MeanEstimator``, the §6 solvers, ``examples``).  The
 Mixture-of-Experts family (``models.moe``: olmoe-1b-7b, qwen2-moe-a2.7b)
-is served and trained on the same paths.  The kernels are in
+and the SSM family (``models.ssm``: mamba2-130m) are served and trained on
+the same paths.  The kernels are in
 ``src/repro_torch/csrc``.
 
 Entry points run on the CUDA card unless the caller passes a CPU device;

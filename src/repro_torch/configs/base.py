@@ -2,19 +2,20 @@
 ``repro.configs.base``.
 
 :class:`ArchConfig` and :class:`ShapeSpec` are field for field the
-reference's dataclasses (the MoE sub-config is the port's
-:class:`~repro_torch.models.moe.MoECfg`; the SSM one stays an opaque value
-until its model family is ported).  :class:`RunConfig` has the fields
+reference's dataclasses (the MoE and SSM sub-configs are the port's
+:class:`~repro_torch.models.moe.MoECfg` and
+:class:`~repro_torch.models.ssm.SSMCfg`).  :class:`RunConfig` has the fields
 the serving path and the training step read, with the reference's defaults.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 from repro_torch.core import types as core_types
 from repro_torch.core.wire.base import NotPortedError
 from repro_torch.models.moe import MoECfg
+from repro_torch.models.ssm import SSMCfg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +45,7 @@ class ArchConfig:
     rope_theta: float = 1e4
     tie_embeddings: bool = False
     moe: Optional[MoECfg] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMCfg] = None
     attn_every: Optional[int] = None
     attn_offset: int = 0
     encoder_layers: int = 0

@@ -6,22 +6,25 @@ preset name means the same config on both sides; the registry
 (:func:`repro_torch.core.wire.resolve`) says which of them the port can run;
 the ``hier_*`` presets run unflattened on a ``(pod, data)`` mesh.
 :func:`get_run_config` is the reference's run configuration.
-:func:`param_shapes` gives the dense and MoE families' leaf names, global
-shapes and sharding specs exactly as ``repro.models.transformer.init_lm``
-with ``init_attention`` / ``init_mlp`` / ``init_moe`` builds them.
+:func:`param_shapes` gives the dense, MoE and SSM families' leaf names,
+global shapes and sharding specs exactly as
+``repro.models.transformer.init_lm`` with ``init_attention`` /
+``init_mlp`` / ``init_moe`` / ``init_ssm`` builds them.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-from repro_torch.configs import olmoe_1b_7b, qwen2_moe_a2_7b, qwen3_4b
+from repro_torch.configs import mamba2_130m, olmoe_1b_7b, qwen2_moe_a2_7b, qwen3_4b
 from repro_torch.configs.base import SHAPES, ArchConfig, RunConfig
 from repro_torch.core import types as core_types
 from repro_torch.core.wire.base import NotPortedError
 from repro_torch.models.moe import MoECfg
+from repro_torch.models.ssm import SSMCfg
 
-_ARCHS = {m.CONFIG.name: m.CONFIG for m in (qwen3_4b, qwen2_moe_a2_7b, olmoe_1b_7b)}
+_ARCHS = {m.CONFIG.name: m.CONFIG
+          for m in (qwen3_4b, qwen2_moe_a2_7b, olmoe_1b_7b, mamba2_130m)}
 
 
 def list_archs():
@@ -119,7 +122,8 @@ def robust_preset(name: str, policy: str,
 
 
 # the reference's microbatch counts for train shapes (dry-run memory sizing)
-_TRAIN_MICROBATCHES = {"qwen3-4b": 4, "qwen2-moe-a2.7b": 4, "olmoe-1b-7b": 2}
+_TRAIN_MICROBATCHES = {"qwen3-4b": 4, "qwen2-moe-a2.7b": 4, "olmoe-1b-7b": 2,
+                       "mamba2-130m": 1}
 # the reference's FSDP set among the port's archs (> 8B parameters)
 _BIG = {"qwen2-moe-a2.7b"}
 
@@ -133,8 +137,11 @@ def get_run_config(arch: str, shape: str, *, multi_pod: bool = False,
     over ``("pod",)`` when ``multi_pod``, exactly averaged inside each pod
     by the train step (the ``data`` axis is not a compression axis), else
     over ``("data",)``; a preset name is re-pointed the same way
-    (:func:`compression_preset`).  FSDP (the reference's ≥ 30B set) raises
-    in ``RunConfig``, as do the shapes and families the port lacks."""
+    (:func:`compression_preset`).  mamba2-130m runs without a model axis
+    (``model_parallel`` and ``seq_shard`` False: the reference folds the
+    model axis into data parallelism).  FSDP (the reference's ≥ 30B set)
+    raises in ``RunConfig``, as do the shapes and families the port
+    lacks."""
     cfg = get_config(arch)
     kind = SHAPES[shape].kind
     if isinstance(compression, str):
@@ -150,7 +157,9 @@ def get_run_config(arch: str, shape: str, *, multi_pod: bool = False,
     chunk_q = chunk_k = 1024
     if SHAPES[shape].seq_len >= 32768 and kind != "decode":
         chunk_q, chunk_k = 1024, 2048
-    return RunConfig(microbatches=mb, fsdp=cfg.name in _BIG, model_parallel=True, seq_shard=True,
+    sharded = cfg.name != "mamba2-130m"
+    return RunConfig(microbatches=mb, fsdp=cfg.name in _BIG, model_parallel=sharded,
+                     seq_shard=sharded,
                      attn_chunk_q=chunk_q, attn_chunk_k=chunk_k, remat=(kind == "train"),
                      compression=compression)
 
@@ -159,10 +168,11 @@ def smoke_config(name: str) -> ArchConfig:
     """The reference's reduced smoke variant (``repro.configs.registry
     .smoke_config``): same family and topology, tiny dims; an MoE config
     gets 4 experts, top-2, expert ff 64, and 2 shared of ff 64 where the
-    full config has shared experts.  Dense and MoE families only; the
-    others arrive with their model families."""
+    full config has shared experts; an SSM config ``SSMCfg(d_state=16,
+    head_dim=16, expand=2, conv_width=4, chunk=16)``.  Dense, MoE and SSM
+    families only; the others arrive with their model families."""
     cfg = get_config(name)
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotPortedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP.md, queue 1)")
     moe = None
@@ -171,23 +181,44 @@ def smoke_config(name: str) -> ArchConfig:
                      num_shared=(2 if cfg.moe.num_shared else 0),
                      d_ff_shared=(64 if cfg.moe.num_shared else 0),
                      every_n=cfg.moe.every_n)
+    ssm = None
+    if cfg.ssm is not None:
+        ssm = SSMCfg(d_state=16, head_dim=16, expand=2, conv_width=4, chunk=16)
     return ArchConfig(
         name=cfg.name + "-smoke", family=cfg.family,
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
         d_ff=128, vocab_size=512, qk_norm=cfg.qk_norm,
         window=16 if cfg.window else None, rope_theta=cfg.rope_theta,
-        tie_embeddings=cfg.tie_embeddings, moe=moe, sub_quadratic=cfg.sub_quadratic)
+        tie_embeddings=cfg.tie_embeddings, moe=moe, ssm=ssm,
+        sub_quadratic=cfg.sub_quadratic)
 
 
 def _ceil_to(a: int, b: int) -> int:
     return -(-a // b) * b
 
 
+def _ssm_shapes(add, cfg: ArchConfig, tp: int, fsdp) -> None:
+    """The ``layers.ssm`` leaves of ``repro.models.ssm.init_ssm``, in its
+    order."""
+    s, d, L = cfg.ssm, cfg.d_model, cfg.num_layers
+    m = "model" if tp > 1 else None
+    din, nh, gn, w = s.d_inner(d), s.nheads(d), s.n_groups * s.d_state, s.conv_width
+    for name, shape, spec in (
+            ("w_z", (d, din), (fsdp, m)), ("w_x", (d, din), (fsdp, m)),
+            ("w_B", (d, gn), (fsdp, None)), ("w_C", (d, gn), (fsdp, None)),
+            ("w_dt", (d, nh), (fsdp, m)), ("conv_x", (w, din), (None, m)),
+            ("conv_B", (w, gn), (None, None)), ("conv_C", (w, gn), (None, None)),
+            ("A_log", (nh,), (m,)), ("D", (nh,), (m,)), ("dt_bias", (nh,), (m,)),
+            ("norm", (din,), (m,)), ("w_out", (din, d), (m, fsdp))):
+        add(f"layers.ssm.{name}", (L,) + shape, (None,) + spec)
+
+
 def param_shapes(cfg: ArchConfig, tp: int = 1, fsdp: Optional[str] = None):
     """(shapes, specs): the global shape and sharding spec of every leaf of
-    a dense- or MoE-family model, named and built as ``init_lm`` builds them
-    (``tp`` the model-axis size, ``fsdp`` the FSDP axis or None)."""
-    if cfg.family not in ("dense", "vlm", "moe"):
+    a dense-, MoE- or SSM-family model, named and built as ``init_lm``
+    builds them (``tp`` the model-axis size, ``fsdp`` the FSDP axis or
+    None)."""
+    if cfg.family not in ("dense", "vlm", "moe", "ssm"):
         raise NotPortedError(
             f"parameter shapes of the {cfg.family!r} family are not ported "
             "yet: they arrive with the models slice (ROADMAP.md, queue 1)")
@@ -204,6 +235,10 @@ def param_shapes(cfg: ArchConfig, tp: int = 1, fsdp: Optional[str] = None):
     if not cfg.tie_embeddings:
         add("lm_head", (cfg.vocab_padded(tp), d), (vshard, None))
     add("final_norm", (d,), (None,))
+    if cfg.family == "ssm":
+        _ssm_shapes(add, cfg, tp, fsdp)
+        add("layers.norm1", (L, d), (None, None))
+        return shapes, specs
 
     q_heads = _ceil_to(cfg.num_heads, tp)
     kv_spec = None if cfg.num_kv_heads < tp else "model"

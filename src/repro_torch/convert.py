@@ -11,8 +11,8 @@ side hands over as numpy arrays and plain objects:
   ``repro.core.types.CompressionConfig`` → the port's config;
 * :func:`arch_config` / :func:`run_config` — objects with the fields of
   ``repro.configs.base.ArchConfig`` / ``RunConfig`` → the port's (the dense
-  and MoE families, the MoE sub-config as the port's ``MoECfg``; the run
-  config with its compression config);
+  MoE and SSM families, the MoE and SSM sub-configs as the port's
+  ``MoECfg`` and ``SSMCfg``; the run config with its compression config);
 * :func:`adamw_state` — an ``AdamWState``-shaped object (``step``, ``m``,
   ``v``, numpy leaves) → the port's optimizer state;
 * :func:`ef_state` — the reference's per-rank error-feedback residuals
@@ -38,8 +38,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core import types as t
-from repro_torch.core.wire.base import NotPortedError
 from repro_torch.models.moe import MoECfg
+from repro_torch.models.ssm import SSMCfg
 from repro_torch.optim.optimizers import AdamWState
 
 
@@ -76,13 +76,12 @@ def compression_config(src) -> t.CompressionConfig:
 
 
 def arch_config(src) -> ArchConfig:
-    """An ArchConfig-shaped object → the port's ArchConfig, an MoE
-    sub-config copied field for field into :class:`MoECfg`.  SSM
-    sub-configs are not ported yet."""
-    if src.ssm is not None:
-        raise NotPortedError(f"{src.name}: SSM configs are not ported yet "
-                             "(ROADMAP.md, queue 1)")
-    return _copy(ArchConfig, src, moe=None if src.moe is None else _copy(MoECfg, src.moe))
+    """An ArchConfig-shaped object → the port's ArchConfig, an MoE or SSM
+    sub-config copied field for field into :class:`MoECfg` or
+    :class:`SSMCfg`.  A family the port lacks converts; its model raises
+    (``models.transformer.check_family``)."""
+    return _copy(ArchConfig, src, moe=None if src.moe is None else _copy(MoECfg, src.moe),
+                 ssm=None if src.ssm is None else _copy(SSMCfg, src.ssm))
 
 
 def run_config(src) -> RunConfig:

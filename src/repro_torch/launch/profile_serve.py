@@ -3,10 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         [--arch qwen3-4b] [--layers N] [--out build/profile_serve.json]
 
-Builds the serving path of ``chip_smoke.py`` phases 4 and 4b (``--arch``
-at full width, all its layers or the first ``--layers``, parameters drawn
-from seed 0 and cast to bf16, 8 prompts of 2048 seeded tokens, flash
-attention, bf16 compute; qwen3-4b by default), runs one
+Builds the serving path of ``chip_smoke.py`` phases 4, 4b and 4c
+(``--arch`` at full width, all its layers or the first ``--layers``,
+parameters drawn from seed 0 and cast to bf16, 8 prompts of 2048 seeded
+tokens, flash attention where the model has attention, bf16 compute;
+qwen3-4b by default; mamba2-130m is the SSM family's), runs one
 prefill and 4 decode steps to warm up, times 2 prefills and 8 decode steps
 by the host clock around a synchronize, then profiles one prefill and, in a
 second window, 4 decode steps under ``torch.profiler`` (CPU and CUDA

@@ -1,13 +1,15 @@
-"""Where the time of a qwen3-4b training step goes, on the card.
+"""Where the time of a training step goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
-        [--out build/profile_train.json] [--no-overlap]
+        [--arch qwen3-4b] [--out build/profile_train.json] [--no-overlap]
 
-Builds the training path of ``chip_smoke.py`` phase 5
-(``train/synthetic.py::train_main_path``: qwen3-4b at full width and 4
-layers, 8 ranks stacked on the card, one 4096-token sequence each,
-``fixed_k_1bit``, bf16 compute, flash attention, remat; the
-backward-pipelined sync, or the post-backward one with ``--no-overlap``),
+Builds the training path of ``chip_smoke.py`` phase 5, 5b or 5c by
+``--arch`` (``train/synthetic.py``: qwen3-4b by ``train_main_path``, at
+full width and 4 layers, ``fixed_k_1bit``, flash attention; olmoe-1b-7b by
+``moe_train_path``, 2 layers; mamba2-130m by ``ssm_train_path``, all 24
+layers; each with 8 ranks stacked on the card, one 4096-token sequence
+each, bf16 compute, remat; the backward-pipelined sync, or the
+post-backward one with ``--no-overlap``),
 runs one step to warm up, times 2 steps by the host clock (a synchronize at each phase
 boundary: forward+backward over the ranks, sync, optimizer), then profiles
 one step under ``torch.profiler`` (CPU and CUDA activity).  Prints and
@@ -17,7 +19,11 @@ class — the flash-attention forward (``fa_fwd_*``) and backward
 (``fa_bwd_*``) kernels, the fixed-k gather, matrix products (cuBLAS /
 CUTLASS kernels), and everything else (PyTorch's elementwise and reduction
 kernels, copies) — and the top kernels by device time and operations by
-host time.  Needs a CUDA card; fails without one.
+host time.  Last, the cost of ``models/transformer.py::take_layer`` alone
+(one rank's layer slices cast to bf16, then the backward of those slices
+with unit cotangents: the select backward writes a full (L, …) f32 tensor
+per layer for autograd to add up), timed by CUDA events.  Needs a CUDA
+card; fails without one.
 """
 from __future__ import annotations
 
@@ -42,8 +48,42 @@ def _kind(name: str) -> str:
     return _serve_kind(name)
 
 
+def _paths():
+    from repro_torch.train import synthetic
+    return {synthetic.MODEL: synthetic.train_main_path, synthetic.MOE_MODEL: synthetic.moe_train_path,
+            synthetic.SSM_MODEL: synthetic.ssm_train_path}
+
+
+def take_layer_ms(cfg, params, dtype, reps: int = 3) -> dict:
+    """ms of one rank's ``take_layer`` over all layers (forward: the slices
+    and casts) and of their backward with unit cotangents, CUDA events,
+    after a warm-up: the min of ``reps``."""
+    import torch
+    from repro_torch.models import transformer as tfm
+
+    lp = {k: v.detach().requires_grad_() for k, v in tfm.sub(params, "layers").items()}
+    names = sorted(lp)
+    fwd, bwd = [], []
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        outs = [t for i in range(cfg.num_layers)
+                for t in tfm.take_layer(lp, i, dtype).values()]
+        ones = [torch.ones_like(t) for t in outs]
+        ev[1].record()
+        torch.autograd.grad(outs, [lp[k] for k in names], grad_outputs=ones)
+        ev[2].record()
+        torch.cuda.synchronize()
+        fwd.append(ev[0].elapsed_time(ev[1]))
+        bwd.append(ev[1].elapsed_time(ev[2]))
+        del outs, ones
+    return {"forward_ms": min(fwd[1:]), "backward_ms": min(bwd[1:]),
+            "stacked_f32_bytes": sum(v.numel() * 4 for v in lp.values())}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen3-4b", choices=sorted(_paths()))
     ap.add_argument("--out", default="build/profile_train.json")
     ap.add_argument("--no-overlap", action="store_true",
                     help="the post-backward sync instead of the backward-pipelined one")
@@ -65,7 +105,7 @@ def main(argv=None) -> int:
 
     backend.build()
     dev = torch.device("cuda")
-    cfg, run, shape = synthetic.train_main_path()
+    cfg, run, shape = _paths()[args.arch]()
     if args.no_overlap:
         cmp = run.compression
         run = dataclasses.replace(run, compression=dataclasses.replace(
@@ -109,8 +149,12 @@ def main(argv=None) -> int:
         wall = step(3)
     out["step"] = _window(prof, wall, kind=_kind)
     out["step"]["wrapper_launches"] = dict(backend.launches)
+    out["take_layer"] = take_layer_ms(cfg, params, getattr(torch, run.compute_dtype))
+    out["take_layer"]["per_step_ms"] = synthetic.N * (out["take_layer"]["forward_ms"]
+                                                      + out["take_layer"]["backward_ms"])
 
-    print(json.dumps({k: out[k] for k in ("step_ms", "phase_ms", "peak_GiB")}), flush=True)
+    print(json.dumps({k: out[k] for k in ("step_ms", "phase_ms", "peak_GiB", "take_layer")}),
+          flush=True)
     r = out["step"]
     print(json.dumps({k: r[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
                                         "device_events", "device_ms_by_kind")}), flush=True)

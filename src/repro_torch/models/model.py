@@ -1,6 +1,6 @@
-"""Model facade, dense and MoE families — port of ``repro.models.model``
-at ``tp = 1``: context, init, input embedding, the train loss, the decode
-cache, prefill and the decode step.
+"""Model facade, dense, MoE and SSM families — port of
+``repro.models.model`` at ``tp = 1``: context, init, input embedding, the
+train loss, the decode cache, prefill and the decode step.
 
 The reference runs these per shard inside ``shard_map``; the port runs them
 on one device with no mesh.  A mesh with a model axis above 1 raises
@@ -19,6 +19,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import common
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import ShardCtx
 from repro_torch.models.transformer import sub
@@ -60,7 +61,7 @@ def train_loss(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
     gradients sum (or, n times, average) to the global batch's.  Both
     divisions are by f32 tensors on the device, true divisions as in the
     reference.  Metrics: ``ce_sum``, ``count``, ``aux`` (the layer sum; 0
-    for the dense family)."""
+    for the dense and SSM families)."""
     tfm.check_family(cfg)
     x = embed_inputs(ctx, params, cfg, batch)
     positions = torch.arange(batch["tokens"].shape[1], device=x.device)
@@ -76,14 +77,47 @@ def train_loss(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
 def make_cache(ctx: ShardCtx, cfg: ArchConfig, b_local: int, s_max: int,
                dtype=torch.bfloat16, device=None):
     """Zeroed decode cache {"k", "v"}: (L, B, s_max, Hkv, hd) each (the MoE
-    family's attention cache is the dense family's)."""
+    family's attention cache is the dense family's).  The SSM family's
+    (:func:`ssm_cache`) does not grow with ``s_max``."""
     tfm.check_family(cfg)
+    if cfg.family == "ssm":
+        return ssm_cache(cfg, b_local, dtype, device)
     if cfg.window is not None:
         s_max = min(s_max, cfg.window)
     shape = (cfg.num_layers, b_local, s_max, cfg.num_kv_heads, cfg.hd)
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def ssm_cache(cfg: ArchConfig, b_local: int, dtype=torch.bfloat16, device=None):
+    """Zeroed SSM decode cache, the reference's layout: the conv windows
+    ``conv_x`` (L, B, W−1, d_inner), ``conv_B`` and ``conv_C`` (L, B, W−1,
+    n) in ``dtype``; ``state`` (L, B, h, p, n) f32."""
+    s, L, dev = cfg.ssm, cfg.num_layers, resolve_device(device)
+    w, gn = s.conv_width - 1, s.n_groups * s.d_state
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    return {"conv_x": zeros(L, b_local, w, s.d_inner(cfg.d_model)),
+            "conv_B": zeros(L, b_local, w, gn), "conv_C": zeros(L, b_local, w, gn),
+            "state": zeros(L, b_local, s.nheads(cfg.d_model), s.head_dim, s.d_state,
+                           dt=torch.float32)}
+
+
+def _ssm_decode_layer(ctx, cfg, p, x, cache, li: int):
+    """norm → ``mamba_decode`` → residual, writing layer ``li``'s conv
+    windows and state in place (the reference's
+    ``dynamic_update_index_in_dim`` on the carry)."""
+    h = common.rms_norm(x, p["norm1"])
+    conv = {"x": cache["conv_x"][li], "B": cache["conv_B"][li], "C": cache["conv_C"][li]}
+    out, (conv, st) = ssm_lib.mamba_decode(ctx, sub(p, "ssm"), h, cfg.ssm, conv,
+                                           cache["state"][li])
+    for k in ("x", "B", "C"):
+        cache[f"conv_{k}"][li] = conv[k].to(cache[f"conv_{k}"].dtype)
+    cache["state"][li] = st
+    return x + out
 
 
 def _attn_decode_layer(ctx, cfg, p, x, kcs, vcs, li: int, pos: int, dims):
@@ -121,6 +155,9 @@ def decode_step(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, cache, t
     kind = tfm.ffn_kind(cfg)
     for li in range(cfg.num_layers):
         layer = tfm.take_layer(lp, li, ctx.compute_dtype)
+        if cfg.family == "ssm":
+            x = _ssm_decode_layer(ctx, cfg, layer, x, cache, li)
+            continue
         x = _attn_decode_layer(ctx, cfg, layer, x, cache["k"], cache["v"], li, pos, dims)
         x = _ffn_decode(ctx, cfg, layer, x, kind)
     h = common.rms_norm(x, params["final_norm"])
@@ -132,11 +169,18 @@ def prefill(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
             s_max: Optional[int] = None):
     """Run the prompt through the model; returns (cache, last-position logits
     (B, 1, V) f32).  The cache (:func:`make_cache`) holds the prompt's K/V
-    in bf16, zero-padded to ``s_max`` when given."""
+    in bf16, zero-padded to ``s_max`` when given; the SSM family's the
+    final conv windows in bf16 and states in f32, whatever ``s_max``."""
     x = embed_inputs(ctx, params, cfg, batch)
     positions = torch.arange(batch["tokens"].shape[1], device=x.device)
-    h, _, (k, v) = tfm.forward(ctx, params, cfg, run, x, positions, want_cache=True)
+    h, _, caches = tfm.forward(ctx, params, cfg, run, x, positions, want_cache=True)
     logits = tfm.lm_head_logits(ctx, params, cfg, h[:, -1:])
+    if cfg.family == "ssm":
+        conv, st = caches
+        cache = {f"conv_{k}": conv[k].to(torch.bfloat16) for k in ("x", "B", "C")}
+        cache["state"] = st
+        return cache, logits
+    k, v = caches
     s = k.shape[2]
     cache = make_cache(ctx, cfg, k.shape[1], max(s, s_max or s), device=k.device)
     if cache["k"].shape[2] < s:

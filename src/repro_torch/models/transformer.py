@@ -1,9 +1,9 @@
-"""Decoder-only LM assembly, dense and MoE families — port of
+"""Decoder-only LM assembly, dense, MoE and SSM families — port of
 ``repro.models.transformer`` at ``tp = 1``: init, embedding, the tied or
 untied LM head, the cross-entropy over it, greedy sampling, the attention
-and FFN sublayers (the gated MLP, or the MoE block with its aux loss), and
-the forward over the stacked layers (a Python loop where the reference
-scans).
+and FFN sublayers (the gated MLP, or the MoE block with its aux loss), the
+SSM family's norm → Mamba-2 block → residual, and the forward over the
+stacked layers (a Python loop where the reference scans).
 
 Every layer's weights are cast to the compute dtype before use, as the
 reference's ``gather_fsdp`` casts them; the embedding and the final norm
@@ -27,6 +27,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import common
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import ShardCtx
 
 
@@ -40,14 +41,14 @@ def take_layer(p: Dict[str, Any], i: int, dtype: torch.dtype) -> Dict[str, Any]:
     return {k: v[i].to(dtype) for k, v in p.items()}
 
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm")
 
 
 def check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotPortedError(
             f"the {cfg.family!r} family is not ported yet: the port runs the "
-            f"{' and '.join(FAMILIES)} families (ROADMAP.md, queue 1)")
+            f"{', '.join(FAMILIES[:-1])} and {FAMILIES[-1]} families (ROADMAP.md, queue 1)")
 
 
 def ffn_kind(cfg: ArchConfig) -> str:
@@ -67,6 +68,10 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
         pb.add("lm_head", (cfg.vocab_padded(1), d), scale=d ** -0.5)
     pb.ones("final_norm", (d,))
     L = cfg.num_layers
+    if cfg.family == "ssm":
+        ssm_lib.init_ssm(pb, "layers.ssm", L, d, cfg.ssm)
+        pb.ones("layers.norm1", (L, d))
+        return pb.params
     attn_lib.init_attention(pb, "layers.attn", L, d, dims, cfg.qk_norm)
     if cfg.family == "moe":
         moe_lib.init_moe(pb, "layers.moe", L, d, cfg.moe)
@@ -167,10 +172,14 @@ def forward(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, x, positions
             want_cache: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tuple]]:
     """Run all blocks.  x: (B, S, D).  Returns (final-normed h, aux, caches):
-    aux is the f32 sum of the layers' MoE aux losses (0 for the dense
-    family), caches the stacked (L, B, S, Hkv, hd) k and v in the compute
-    dtype when ``want_cache``, else None."""
+    aux is the f32 sum of the layers' MoE aux losses (0 for the dense and
+    SSM families), caches when ``want_cache`` (else None) the stacked (L,
+    B, S, Hkv, hd) k and v in the compute dtype, or for the SSM family
+    ({"x", "B", "C"} conv windows (L, B, W−1, C) in the compute dtype, the
+    final states (L, B, h, p, n) f32)."""
     check_family(cfg)
+    if cfg.family == "ssm":
+        return _forward_ssm(ctx, params, cfg, run, x, want_cache)
     dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, ctx.tp)
     lp = sub(params, "layers")
     kind = ffn_kind(cfg)
@@ -195,4 +204,30 @@ def forward(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, x, positions
             ks.append(k)
             vs.append(v)
     caches = (torch.stack(ks), torch.stack(vs)) if want_cache else None
+    return common.rms_norm(x, params["final_norm"]), aux, caches
+
+
+def _forward_ssm(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, x, want_cache: bool):
+    """The SSM family's forward: per layer norm1 → ``mamba_block`` →
+    residual, remat per layer as the other families'."""
+    lp = sub(params, "layers")
+
+    def body(x, i: int):
+        layer = take_layer(lp, i, ctx.compute_dtype)
+        h = common.rms_norm(x, layer["norm1"])
+        if want_cache:
+            out, st = ssm_lib.mamba_block(ctx, sub(layer, "ssm"), h, cfg.ssm, return_state=True)
+            return x + out, st
+        return x + ssm_lib.mamba_block(ctx, sub(layer, "ssm"), h, cfg.ssm), None
+
+    remat = run.remat and _needs_grad(x, *lp.values())
+    states = []
+    for i in range(cfg.num_layers):
+        x, st = checkpoint(body, x, i, use_reentrant=False) if remat else body(x, i)
+        states.append(st)
+    caches = None
+    if want_cache:
+        conv = {k: torch.stack([c[k] for c, _ in states]) for k in ("x", "B", "C")}
+        caches = (conv, torch.stack([f for _, f in states]))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return common.rms_norm(x, params["final_norm"]), aux, caches

@@ -24,6 +24,11 @@
   ``train_4k`` sequence, the reference's
   ``get_run_config(MOE_MODEL, "train_4k")`` (``fixed_k_1bit`` over
   ``data``) with one microbatch.
+* The SSM training path (:func:`ssm_train_path`): ``SSM_MODEL``
+  (mamba2-130m) at full width and all 24 layers, ``N`` ranks of one
+  ``train_4k`` sequence, the reference's ``get_run_config(SSM_MODEL,
+  "train_4k")`` as it is (``fixed_k_1bit`` over ``data``, one microbatch,
+  no model axis, remat).
 * The training path (:func:`train_main_path`): the same model, depth and
   ranks, one ``train_4k`` sequence per rank, the real forward and backward
   feeding the same sync under ``fixed_k_1bit``, then AdamW; with
@@ -65,6 +70,7 @@ HIER_PRESETS = ("hier_fixed_k", "hier_bernoulli")
 MULTIPOD_MESH = {"pod": 2, "data": 4}
 MOE_MODEL = "olmoe-1b-7b"
 MOE_LAYERS = 2      # of 16
+SSM_MODEL = "mamba2-130m"      # all 24 layers: 8 f32 gradient stacks take 4.13 GB
 
 
 def synthetic_grads(shapes: Mapping[str, Sequence[int]], n: int, step: int,
@@ -146,6 +152,16 @@ def moe_train_path():
     cfg = dataclasses.replace(get_config(MOE_MODEL), num_layers=MOE_LAYERS)
     run = dataclasses.replace(get_run_config(MOE_MODEL, "train_4k"), microbatches=1)
     return cfg, run, dataclasses.replace(SHAPES["train_4k"], global_batch=N)
+
+
+def ssm_train_path():
+    """(cfg, run, shape) of the SSM training path: ``SSM_MODEL`` whole (full
+    width, all its layers); the reference's ``get_run_config(SSM_MODEL,
+    "train_4k")`` unchanged (``fixed_k_1bit`` over ``data``, its one
+    microbatch); ``train_4k`` sequences, one per rank (global batch
+    ``N``)."""
+    run = get_run_config(SSM_MODEL, "train_4k")
+    return get_config(SSM_MODEL), run, dataclasses.replace(SHAPES["train_4k"], global_batch=N)
 
 
 def rank_loss_and_grads(cfg, run, params, batch, global_tokens: float):

@@ -46,6 +46,7 @@ from repro_torch.kernels.rotated_encode import ref as rer
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.models import common as mcommon
 from repro_torch.models import moe as tmoe
+from repro_torch.models import ssm as tssm
 from repro_torch.train.train_step import build_train_step
 
 # one intra-op thread: beside other test workers on a loaded machine, torch's
@@ -800,3 +801,84 @@ def test_moe_backward_on_card_is_reproducible(dev, arch, dtype):
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(g).all()) for g in grads[0])
     assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+# --------------------------------------------------------------------------- #
+# The Mamba-2 block (plain torch: no kernel of its own) on the card against
+# the CPU at the smoke SSM config in f32, its decode, a backward that gives
+# the same bits twice, and TF32 refused for the scan's f32 products.
+# --------------------------------------------------------------------------- #
+
+def _ssm_case(seed: int = 21):
+    cfg = smoke_config("mamba2-130m")
+    s, d = cfg.ssm, cfg.d_model
+    din, nh, n, w = s.d_inner(d), s.nheads(d), s.d_state, s.conv_width
+    g = torch.Generator().manual_seed(seed)
+    shapes = {"w_z": (d, din), "w_x": (d, din), "w_B": (d, n), "w_C": (d, n), "w_dt": (d, nh),
+              "conv_x": (w, din), "conv_B": (w, n), "conv_C": (w, n), "A_log": (nh,),
+              "D": (nh,), "dt_bias": (nh,), "norm": (din,), "w_out": (din, d)}
+    p = {k: torch.randn(v, generator=g) * (v[0] ** -0.5 if len(v) > 1 else 1.0)
+         for k, v in shapes.items()}
+    x = torch.randn(2, 64, d, generator=g)
+    return s, p, x, mcommon.ShardCtx(compute_dtype=torch.float32)
+
+
+def _ssm_close(got, want):
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5 * scale, rtol=1e-5)
+
+
+def test_mamba_block_on_card_equals_cpu(dev):
+    cfg, p, x, ctx = _ssm_case()
+    want, (wconv, wst) = tssm.mamba_block(ctx, p, x, cfg, return_state=True)
+    got, (gconv, gst) = tssm.mamba_block(ctx, {k: v.to(dev) for k, v in p.items()}, x.to(dev),
+                                         cfg, return_state=True)
+    _ssm_close(got, want)
+    _ssm_close(gst, wst)
+    for k in wconv:                  # the windows hold the projections' last outputs
+        _ssm_close(gconv[k], wconv[k])
+
+
+def test_mamba_decode_on_card_equals_cpu(dev):
+    cfg, p, x, ctx = _ssm_case(22)
+    _, (conv, st) = tssm.mamba_block(ctx, p, x, cfg, return_state=True)
+    conv = {k: v.to(torch.bfloat16) for k, v in conv.items()}
+    tok = x[:, -1:] * 0.5
+    want, (wconv, wst) = tssm.mamba_decode(ctx, p, tok, cfg, conv, st)
+    got, (gconv, gst) = tssm.mamba_decode(ctx, {k: v.to(dev) for k, v in p.items()}, tok.to(dev),
+                                          cfg, {k: v.to(dev) for k, v in conv.items()},
+                                          st.to(dev))
+    _ssm_close(got, want)
+    _ssm_close(gst, wst)
+    for k in wconv:
+        _ssm_close(gconv[k], wconv[k])
+
+
+def test_mamba_backward_on_card_is_reproducible(dev):
+    cfg, p, x, ctx = _ssm_case(23)
+    grads = []
+    for _ in range(2):
+        leaves = {k: v.to(dev).requires_grad_() for k, v in p.items()}
+        xd = x.to(dev).requires_grad_()
+        tssm.mamba_block(ctx, leaves, xd, cfg).square().sum().backward()
+        grads.append([xd.grad] + [leaves[k].grad for k in sorted(leaves)])
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in grads[0])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+def test_ssm_refuses_tf32(dev):
+    cfg, p, x, ctx = _ssm_case()
+    pd = {k: v.to(dev) for k, v in p.items()}
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            tssm.mamba_block(ctx, pd, x.to(dev), cfg)
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            tssm.ssd_decode_step(torch.zeros(2, 8, 16, 16, device=dev),
+                                 torch.zeros(2, 8, 16, device=dev), torch.zeros(2, 16, device=dev),
+                                 torch.zeros(2, 16, device=dev), torch.zeros(2, 8, device=dev),
+                                 torch.zeros(2, 8, device=dev))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

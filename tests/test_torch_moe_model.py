@@ -547,10 +547,15 @@ def test_serve_example_core(arch):
 
 
 def test_other_families_still_raise():
-    for name in ("mamba2-130m", "jamba-v0.1-52b"):           # an SSM sub-config
-        with pytest.raises(NotPortedError):
-            convert.arch_config(j_smoke_config(name))
-    for family in ("ssm", "hybrid", "encdec"):
+    # jamba's config converts (its MoE and SSM sub-configs are the port's);
+    # its hybrid family does not run
+    jamba = convert.arch_config(j_smoke_config("jamba-v0.1-52b"))
+    assert jamba.family == "hybrid" and jamba.moe is not None and jamba.ssm is not None
+    with pytest.raises(NotPortedError):
+        ttfm.check_family(jamba)
+    with pytest.raises(NotPortedError):
+        param_shapes(jamba)
+    for family in ("hybrid", "encdec"):
         other = ArchConfig(name="x", family=family, num_layers=1, d_model=8, num_heads=1,
                            num_kv_heads=1, d_ff=8, vocab_size=8)
         with pytest.raises(NotPortedError):

@@ -337,5 +337,3 @@ def test_unported_options_raise():
         tcommon.ShardCtx(tp=2)
     with pytest.raises(NotPortedError):
         convert.run_config(JRunConfig(fsdp=True))
-    with pytest.raises(NotPortedError):
-        convert.arch_config(j_smoke_config("mamba2-130m"))
