@@ -40,15 +40,17 @@ Phases, each printing its own lines:
    hd 128 and 64, S = 100, a window of 200 across 128-key tiles, q_offset
    200 with Sk 512; g = 4 and 1), (1, 8192, 32/8, 128) bf16, the training
    path's (1, 4096, 32/8, 128) and the serving path's (8, 2048, 32/8, 128)
-   bf16 causal, and at hd 32 (lm-8m: ragged S = 1000, a window of 200, q
+   bf16 causal, the hybrid's 32,768-token prompt (1, 32768, 32/8, 128)
+   against the plain version only (its full-softmax oracle would take
+   137 GB), and at hd 32 (lm-8m: ragged S = 1000, a window of 200, q
    offset 200, S = 100 not causal, and the training example's one rank,
    (4, 128, 8/4, 32)), and at hd 16 (the smoke configs: the same edges, one
    rank of the training CLI's smoke run, (4, 128, 4/2, 16), and the serving
    example's prefill, (4, 16, 4/2, 16)); at the training, serving, example,
    CLI and serving-example shapes time the kernel and
    ``F.scaled_dot_product_attention`` (the library yardstick), with TFLOP/s
-   and the share of the bound, and at the serving, example, CLI and
-   serving-example shapes the plain version too; then hold the
+   and the share of the bound, and at the serving, example, CLI,
+   serving-example and 32k shapes the plain version too; then hold the
    flash-attention backward kernels (dK/dV and dQ sweeps) against the plain
    blockwise backward on the same inputs (f32: |Δ| ≤ 2e-3 + 2e-3·|ref|;
    bf16: ‖Δ‖/‖ref‖ ≤ 2e-4 for each of dq, dk, dv) at g = 4 and 1, causal and
@@ -141,6 +143,20 @@ Phases, each printing its own lines:
    prompt of 32,768 tokens (the reference's prefill_32k length) at batch 1,
    its cache the same bytes a sequence; prefill ms, decode ms per token,
    tokens/s, peaks;
+4d. serving the hybrid family (``run_serving_hybrid``): first the smoke
+   hybrid at two periods (``num_layers=8``) in f32 compute on the card
+   against the CPU, on the card's routes (phase 4c's ``SSM_F32_H_RTOL``,
+   ``SSM_F32_LOGIT_TOL``); then jamba-v0.1-52b at full width, one of its
+   four periods (8 of 32 layers, 13,267,598,848 parameters drawn in f32 and
+   cast to bf16 leaf by leaf): the teacher-forced check on one prompt at
+   capacity factor E/k, ``engine.generate`` on 8 prompts of 2048 seeded
+   tokens with 32 greedy steps (one flash launch per prefill: the period's
+   one attention layer), the cache's bytes against the exact count (the
+   attention K/V at s_max, the 7 mixers' windows and states), flash against
+   ``attn_impl="xla"`` on flash's routes (the rerouted share per MoE layer
+   printed), one 32,768-token prompt at batch 1 (its flash launch, its
+   cache's bytes, its peak); prefill ms, decode ms per token, tokens/s,
+   peaks;
 5. the training path (``train/synthetic.py::train_main_path``): qwen3-4b at
    full width and 4 layers, 8 ranks stacked, one 4096-token sequence each,
    ``fixed_k_1bit``.  Step 0's rank-0 loss and gradients with the flash
@@ -180,9 +196,14 @@ Phases, each printing its own lines:
    of a checkpoint, each save's and the restore's ms and the step that
    overlaps an asynchronous save against those that do not.  The training
    CLI (``launch/train.py --smoke --devices 4 --steps 4 --ckpt-every 2``,
-   then ``--steps 6``, resuming at step 4; kernels 11–13 at hd 16 and 4)
-   and the serving example (``examples/serve_lm.py``: tokens in range,
-   kernel 11 at hd 16 once a layer).  5b: the MoE training path
+   then ``--steps 6``, resuming at step 4; kernels 11–13 at hd 16 and 4;
+   then the same with ``--arch jamba-v0.1-52b`` (``run_cli_hybrid``: the
+   hybrid smoke config, one attention layer; its losses within
+   ``CLI_CPU_LOSS_RTOL`` of the same run on the CPU from the same drawn
+   parameters; with ``--no-compress`` a resumed run bit for bit an
+   uninterrupted one's checkpoint and losses) and the serving example
+   (``examples/serve_lm.py``: tokens in range, kernel 11 at hd 16 once a
+   layer).  5b: the MoE training path
    (``run_training_moe``, ``synthetic.moe_train_path``): olmoe-1b-7b at full
    width and 2 of 16 layers, 8 ranks of one 4096-token sequence stacked,
    ``get_run_config("olmoe-1b-7b", "train_4k")`` (``fixed_k_1bit``) with
@@ -1320,6 +1341,8 @@ FLASH_CASES = [
     (1, 8192, 8192, 32, 8, 128, True, None, 0, ("bfloat16",)),
     (1, 4096, 4096, 32, 8, 128, True, None, 0, ("bfloat16",)),
     (8, 2048, 2048, 32, 8, 128, True, None, 0, ("bfloat16",)),
+    # jamba-v0.1-52b's 32,768-token prompt (its heads are qwen3-4b's)
+    (1, 32768, 32768, 32, 8, 128, True, None, 0, ("bfloat16",)),
     # olmoe-1b-7b's heads (16/16, g = 1): its serving prefill and one rank's
     # training sequence
     (8, 2048, 2048, 16, 16, 128, True, None, 0, ("bfloat16",)),
@@ -1346,6 +1369,7 @@ FLASH_CASES = [
 FLASH_TIMED = {(8, 2048, 32, 8, 128): ("serving", "flash_attention_fwd"),
                (1, 4096, 32, 8, 128): ("training", None),
                (8, 2048, 16, 16, 128): ("olmoe serving", None),
+               (1, 32768, 32, 8, 128): ("hybrid 32k prompt", None),
                (1, 4096, 16, 16, 128): ("olmoe training", None),
                (4, 128, 8, 4, 32): ("example", "flash_attention_fwd_hd32"),
                (4, 128, 4, 2, 16): ("training CLI", "flash_attention_fwd_hd16"),
@@ -1353,6 +1377,9 @@ FLASH_TIMED = {(8, 2048, 32, 8, 128): ("serving", "flash_attention_fwd"),
 # (atol, rtol) on o: the reference's own for its kernel (tests/test_kernel_flash.py)
 FLASH_TOL = {"float32": (2e-3, 2e-3), "bfloat16": (3e-2, 0.0)}
 LSE_TOL = 1e-3
+# the full-softmax oracle's f32 scores above this many elements (16 GiB) are
+# not formed: the 32k prompt's would take 137 GB; the plain version holds it
+ORACLE_MAX_SCORES = 1 << 32
 
 
 def live_pairs(sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
@@ -1395,7 +1422,8 @@ def check_flash(records: dict) -> None:
             blocks = dict(block_q=512 if sq % 512 == 0 else sq,
                           block_k=512 if sk % 512 == 0 else sk)
             op, lsep = far.flash_attention_fwd(q, k, v, **kw, **blocks)
-            oracle = far.attention(q, k, v, **kw)
+            oracle = (far.attention(q, k, v, **kw) if b * hq * sq * sk <= ORACLE_MAX_SCORES
+                      else op)
             atol, rtol = FLASH_TOL[dt]
             tag = (f"flash_attention_fwd ({b}, {sq}/{sk}, {hq}/{hkv}, {hd}) {dt} causal={causal} "
                    f"window={window} q_offset={q_offset}")
@@ -1405,22 +1433,29 @@ def check_flash(records: dict) -> None:
                  f"({max_err(o, op):.3g}, {max_err(o, oracle):.3g})")
             need(within(lse, lsep, LSE_TOL, 0.0), f"{tag}: lse off by {max_err(lse, lsep):.3g}")
             err = max_err(o, op)
-            tag += (f": max |o - plain| {err:.3g}, |o - oracle| {max_err(o, oracle):.3g}, "
+            vs_oracle = f"{max_err(o, oracle):.3g}" if oracle is not op else "not formed"
+            tag += (f": max |o - plain| {err:.3g}, |o - oracle| {vs_oracle}, "
                     f"|lse - plain| {max_err(lse, lsep):.3g}")
             del oracle
             path, row = FLASH_TIMED.get((b, sq, hq, hkv, hd), (None, None))
             if path and dt == "bfloat16":
                 ms = cuda_ms(lambda: fak.flash_attention_fwd(q, k, v, **kw), reps=10)
                 qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-                lms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+                try:        # a backend without GQA at 32k would form 137 GB of scores
+                    lms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+                except torch.cuda.OutOfMemoryError:
+                    lms = None
+                    torch.cuda.empty_cache()
                 nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
                 flops = 4 * b * hq * hd * live_pairs(sq, sk, causal, window, q_offset)
                 tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
                 tag += (f"; {path} shape: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
                         f"{100 * max(tb, tf) / ms:.1f}% of its {max(tb, tf):.3f} ms bound), "
-                        f"sdpa {lms:.3f} ms ({ms / lms:.2f}x)")
-                if row or path in ("serving example", "olmoe serving", "olmoe training"):
+                        "sdpa " + (f"{lms:.3f} ms ({ms / lms:.2f}x)" if lms else
+                                   "out of memory"))
+                if row or path in ("serving example", "olmoe serving", "olmoe training",
+                                   "hybrid 32k prompt"):
                     pms = cuda_ms(lambda: far.flash_attention_fwd(q, k, v, **kw), reps=1)
                     tag += f", plain {pms:.3f} ms"
                 if row:
@@ -1968,7 +2003,6 @@ def run_serving(launches_total) -> dict:
     import torch
     from repro_torch.configs.base import RunConfig, ShapeSpec
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import backend
     from repro_torch.models import model, transformer
     from repro_torch.serving import engine
 
@@ -2013,25 +2047,8 @@ def run_serving(launches_total) -> dict:
     del dec, full
 
     # the main path, as a user drives it; every count zeroed just before it
-    times = {"prefill": [], "decode": []}
-    seen = {}
-
-    def timed(fn, key):
-        def call(*args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            times[key].append((time.perf_counter() - t) * 1e3)
-            seen[key] = out
-            return out
-        return call
-
-    backend.reset_launches()
-    out = engine.generate(timed(prefill_fn, "prefill"), timed(decode_fn, "decode"), params,
-                          prompt, SERVE_STEPS)
-    counts = dict(backend.launches)
-    launches_total.update(counts)
+    out, times, seen, counts = serve_main_path(prefill_fn, decode_fn, params, prompt,
+                                               launches_total)
     need(counts == {"flash_attention_fwd": cfg.num_layers},
          f"serving: launches {counts} != one flash forward per layer ({cfg.num_layers})")
     need(tuple(out.shape) == (SERVE_BATCH, SERVE_STEPS), f"serving: tokens {tuple(out.shape)}")
@@ -2124,6 +2141,146 @@ def rerouted(a: list, b: list) -> dict:
     return {"share_by_call": per_call, "share_any": float(flipped_tokens(a, b).float().mean())}
 
 
+def serve_main_path(prefill_fn, decode_fn, params, prompt, launches_total):
+    """``engine.generate`` as a user drives it (``SERVE_STEPS`` greedy
+    steps), every launch count zeroed just before it and added to
+    ``launches_total`` after it, each prefill and decode call timed (host
+    clock around a synchronize).  Returns (tokens, {"prefill": [ms],
+    "decode": [ms]}, the last output of each, the launch counts)."""
+    import torch
+    from repro_torch.kernels import backend
+    from repro_torch.serving import engine
+
+    times = {"prefill": [], "decode": []}
+    seen = {}
+
+    def timed(fn, key):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t) * 1e3)
+            seen[key] = out
+            return out
+        return call
+
+    backend.reset_launches()
+    out = engine.generate(timed(prefill_fn, "prefill"), timed(decode_fn, "decode"), params,
+                          prompt, SERVE_STEPS)
+    counts = dict(backend.launches)
+    launches_total.update(counts)
+    return out, times, seen, counts
+
+
+def moe_teacher_forced(name: str, params, cfg, run, one, prompt_len: int, moe_calls: int):
+    """The teacher-forced check of an MoE model on one sequence ``one`` (1,
+    T) at capacity factor E/k (cap = t: nothing dropped; at the configured
+    factor the block drops pairs and the decode, which runs every expert,
+    never does): one forward over the T tokens, its ``moe_calls`` MoE calls'
+    routes recorded; then the prefill of ``prompt_len`` tokens and a decode
+    step a token up to T, as they route and on the forward's routes; the
+    forced run's logits against the forward's within the serving
+    tolerances.  Returns the agreement with the prompt's rerouted share, the
+    decode steps that rerouted and the forced run's ms a decode step."""
+    import torch
+    from repro_torch.models import model, transformer
+
+    m = cfg.moe
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.padded(1) / m.top_k))
+    ctx = model.make_ctx(nodrop, run)
+    total = one.shape[1]
+    fwd_log = []
+    with moe_routes(fwd_log):
+        x = model.embed_inputs(ctx, params, nodrop, {"tokens": one})
+        h, _, _ = transformer.forward(ctx, params, nodrop, run, x,
+                                      torch.arange(total, device=one.device))
+    full = transformer.lm_head_logits(ctx, params, nodrop, h[:, prompt_len:])
+    del x, h
+    need(len(fwd_log) == moe_calls and all(bool(e["keep"].all()) for e in fwd_log),
+         f"{name} teacher-forced: a pair was dropped at capacity factor E/k")
+    # the forward's routes as the prefill's and each decode step's calls
+    want = ([{"order": e["order"][:prompt_len], "ids": e["ids"][:prompt_len],
+              "keep": e["keep"][:prompt_len]} for e in fwd_log]
+            + [{"order": e["order"][p:p + 1], "ids": e["ids"][p:p + 1], "keep": None}
+               for p in range(prompt_len, total) for e in fwd_log])
+
+    def teacher_forced(log, force=None):
+        dec = []
+        with moe_routes(log, force=force):
+            cache, _ = model.prefill(ctx, params, nodrop, run,
+                                     {"tokens": one[:, :prompt_len]}, s_max=total)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for pos in range(prompt_len, total):
+                _, logits, cache = model.decode_step(ctx, params, nodrop, run, cache,
+                                                     one[:, pos:pos + 1], pos)
+                dec.append(logits)
+            torch.cuda.synchronize()
+        return torch.cat(dec, dim=1), (time.perf_counter() - t) * 1e3 / (total - prompt_len)
+
+    as_is = []
+    teacher_forced(as_is)
+    moved = rerouted(as_is, want)
+    dec, decode_ms = teacher_forced([], force=want)
+    teacher = agreement(f"{name}: teacher-forced decode on the forward's routes vs forward of "
+                        f"{total}, no drops", dec, full)
+    steps_moved = sum(1 for i in range(total - prompt_len)
+                      if any(moved["share_by_call"][moe_calls * (1 + i) + li]
+                             for li in range(moe_calls)))
+    teacher.update(step0_max_abs=float((dec[:, 0] - full[:, 0]).abs().max()),
+                   prompt_rerouted_share=rerouted(as_is[:moe_calls], want[:moe_calls])["share_any"],
+                   decode_steps_rerouted=steps_moved)
+    return teacher, decode_ms
+
+
+def moe_flash_vs_xla(name: str, params, cfg, run, prompt):
+    """Flash against ``attn_impl="xla"`` on an MoE model: one forward over
+    the prompts each, routes recorded; flash twice (the same bits and
+    routes), xla as it routes and on flash's routes; the logits of flash and
+    of xla on flash's routes at every position within the serving
+    tolerances.  Returns (the agreement with xla's rerouted share per MoE
+    call and in any, the share of (token, choice) pairs dropped per MoE
+    call in the flash run, each forward's ms: the main path's prefill is the
+    first call at its shapes, these come after it)."""
+    import torch
+    from repro_torch.models import model, transformer
+
+    ctx = model.make_ctx(cfg, run)
+    s = prompt["tokens"].shape[1]
+    logs, hs, forward_ms = {}, {}, {}
+    for label, impl, force in (("flash", "flash", None), ("again", "flash", None),
+                               ("xla", "xla", None), ("forced", "xla", "flash")):
+        logs[label] = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with moe_routes(logs[label], force=logs[force] if force else None):
+            x = model.embed_inputs(ctx, params, cfg, prompt)
+            hs[label], _, _ = transformer.forward(ctx, params, cfg,
+                                                  dataclasses.replace(run, attn_impl=impl), x,
+                                                  torch.arange(s, device=x.device))
+        torch.cuda.synchronize()
+        forward_ms[label] = (time.perf_counter() - t) * 1e3
+        del x
+    need(same_bits(hs["flash"], hs["again"]) and not bool(flipped_tokens(
+        logs["flash"], logs["again"]).any()), f"{name}: two flash forwards differ")
+    moved = rerouted(logs["xla"], logs["flash"])
+    dropped = [float(1.0 - e["keep"].float().mean()) for e in logs["flash"]]
+    del logs, hs["again"], hs["xla"]
+
+    def pairs():
+        for r in range(hs["flash"].shape[0]):
+            yield (transformer.lm_head_logits(ctx, params, cfg, hs["flash"][r:r + 1])[0],
+                   transformer.lm_head_logits(ctx, params, cfg, hs["forced"][r:r + 1])[0])
+
+    xla = agreement_over(f"{name}: flash vs xla forward on flash's routes, every position",
+                         pairs())
+    xla.update(rerouted_share_by_layer=moved["share_by_call"],
+               rerouted_share_any_layer=moved["share_any"])
+    return xla, dropped, forward_ms
+
+
 def run_serving_moe(arch: str, layers: Optional[int], launches_total) -> dict:
     """An MoE model at full width (``layers`` of its layers, all if None):
     the user's entry points, checked and timed, as phase 4; returns the
@@ -2151,8 +2308,7 @@ def run_serving_moe(arch: str, layers: Optional[int], launches_total) -> dict:
     import torch
     from repro_torch.configs.base import RunConfig, ShapeSpec
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import backend
-    from repro_torch.models import model, transformer
+    from repro_torch.models import model
     from repro_torch.serving import engine
 
     dev = torch.device("cuda")
@@ -2179,71 +2335,11 @@ def run_serving_moe(arch: str, layers: Optional[int], launches_total) -> dict:
     init_peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
 
-    # teacher-forced on one prompt with nothing dropped (this also warms up):
-    # one forward over the 2080 tokens, then prefill + decode as is and on
-    # the forward's routes
-    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
-        m, capacity_factor=m.padded(1) / m.top_k))
-    ctx = model.make_ctx(nodrop, run)
-    one = tokens[:1]
-    fwd_log = []
-    with moe_routes(fwd_log):
-        x = model.embed_inputs(ctx, params, nodrop, {"tokens": one})
-        h, _, _ = transformer.forward(ctx, params, nodrop, run, x,
-                                      torch.arange(total, device=dev))
-    full = transformer.lm_head_logits(ctx, params, nodrop, h[:, SERVE_PROMPT:])
-    del x, h
-    need(len(fwd_log) == L and all(bool(e["keep"].all()) for e in fwd_log),
-         "teacher-forced: a pair was dropped at capacity factor E/k")
-    # the forward's routes as the prefill's and each decode step's calls
-    want = ([{"order": e["order"][:SERVE_PROMPT], "ids": e["ids"][:SERVE_PROMPT],
-              "keep": e["keep"][:SERVE_PROMPT]} for e in fwd_log]
-            + [{"order": e["order"][p:p + 1], "ids": e["ids"][p:p + 1], "keep": None}
-               for p in range(SERVE_PROMPT, total) for e in fwd_log])
+    # teacher-forced on one prompt with nothing dropped (this also warms up)
+    teacher, _ = moe_teacher_forced(arch, params, cfg, run, tokens[:1], SERVE_PROMPT, L)
 
-    def teacher_forced(log, force=None):
-        dec = []
-        with moe_routes(log, force=force):
-            cache, _ = model.prefill(ctx, params, nodrop, run,
-                                     {"tokens": one[:, :SERVE_PROMPT]}, s_max=total)
-            for i in range(SERVE_STEPS):
-                pos = SERVE_PROMPT + i
-                _, logits, cache = model.decode_step(ctx, params, nodrop, run, cache,
-                                                     one[:, pos:pos + 1], pos)
-                dec.append(logits)
-        return torch.cat(dec, dim=1)
-
-    as_is = []
-    teacher_forced(as_is)
-    moved = rerouted(as_is, want)
-    teacher = agreement(f"{arch}: teacher-forced decode on the forward's routes vs forward of "
-                        f"{total}, no drops", teacher_forced([], force=want), full)
-    steps_moved = sum(1 for i in range(SERVE_STEPS)
-                      if any(moved["share_by_call"][L * (1 + i) + li] for li in range(L)))
-    teacher.update(prompt_rerouted_share=rerouted(as_is[:L], want[:L])["share_any"],
-                   decode_steps_rerouted=steps_moved)
-    del full, fwd_log, want, as_is
-
-    # the main path, as a user drives it; every count zeroed just before it
-    times = {"prefill": [], "decode": []}
-    seen = {}
-
-    def timed(fn, key):
-        def call(*args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            times[key].append((time.perf_counter() - t) * 1e3)
-            seen[key] = out
-            return out
-        return call
-
-    backend.reset_launches()
-    out = engine.generate(timed(prefill_fn, "prefill"), timed(decode_fn, "decode"), params,
-                          prompt, SERVE_STEPS)
-    counts = dict(backend.launches)
-    launches_total.update(counts)
+    out, times, seen, counts = serve_main_path(prefill_fn, decode_fn, params, prompt,
+                                               launches_total)
     need(counts == {"flash_attention_fwd": L},
          f"{arch} serving: launches {counts} != one flash forward per layer ({L})")
     need(tuple(out.shape) == (SERVE_BATCH, SERVE_STEPS), f"{arch} serving: tokens {out.shape}")
@@ -2252,39 +2348,8 @@ def run_serving_moe(arch: str, layers: Optional[int], launches_total) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     del seen
 
-    # flash against xla: one forward over the prompts each, routes recorded;
-    # flash twice, xla as is and on flash's routes
-    ctx = model.make_ctx(cfg, run)
-    logs, hs, forward_ms = {}, {}, {}
-    for label, impl, force in (("flash", "flash", None), ("again", "flash", None),
-                               ("xla", "xla", None), ("forced", "xla", "flash")):
-        logs[label] = []
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with moe_routes(logs[label], force=logs[force] if force else None):
-            x = model.embed_inputs(ctx, params, cfg, prompt)
-            hs[label], _, _ = transformer.forward(ctx, params, cfg,
-                                                  dataclasses.replace(run, attn_impl=impl), x,
-                                                  torch.arange(SERVE_PROMPT, device=dev))
-        torch.cuda.synchronize()
-        forward_ms[label] = (time.perf_counter() - t) * 1e3
-        del x
-    need(same_bits(hs["flash"], hs["again"]) and not bool(flipped_tokens(
-        logs["flash"], logs["again"]).any()), f"{arch}: two flash forwards differ")
-    moved = rerouted(logs["xla"], logs["flash"])
-    dropped = [float(1.0 - e["keep"].float().mean()) for e in logs["flash"]]
-    del logs, hs["again"], hs["xla"]
-
-    def pairs():
-        for r in range(SERVE_BATCH):
-            yield (transformer.lm_head_logits(ctx, params, cfg, hs["flash"][r:r + 1])[0],
-                   transformer.lm_head_logits(ctx, params, cfg, hs["forced"][r:r + 1])[0])
-
-    xla = agreement_over(f"{arch}: flash vs xla forward on flash's routes, every position",
-                         pairs())
-    xla.update(rerouted_share_by_layer=moved["share_by_call"],
-               rerouted_share_any_layer=moved["share_any"])
-    del params, hs
+    xla, dropped, forward_ms = moe_flash_vs_xla(arch, params, cfg, run, prompt)
+    del params
     torch.cuda.empty_cache()
 
     prefill_ms = times["prefill"][0]
@@ -2340,7 +2405,6 @@ def run_serving_ssm(launches_total) -> dict:
     import torch
     from repro_torch.configs.base import RunConfig, ShapeSpec
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import backend
     from repro_torch.models import model, transformer
     from repro_torch.serving import engine
     from repro_torch.train import synthetic
@@ -2421,25 +2485,8 @@ def run_serving_ssm(launches_total) -> dict:
     del dec, full
 
     # the main path, as a user drives it; every count zeroed just before it
-    times = {"prefill": [], "decode": []}
-    seen = {}
-
-    def timed(fn, key):
-        def call(*args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            times[key].append((time.perf_counter() - t) * 1e3)
-            seen[key] = out
-            return out
-        return call
-
-    backend.reset_launches()
-    out = engine.generate(timed(prefill_fn, "prefill"), timed(decode_fn, "decode"), params,
-                          prompt, SERVE_STEPS)
-    counts = dict(backend.launches)
-    launches_total.update(counts)
+    out, times, seen, counts = serve_main_path(prefill_fn, decode_fn, params, prompt,
+                                               launches_total)
     need(counts == {}, f"mamba2 serving: launches {counts}; the SSM family launches no kernel")
     need(tuple(out.shape) == (SERVE_BATCH, SERVE_STEPS), f"mamba2 serving: tokens {out.shape}")
     need(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "mamba2 serving: token out of range")
@@ -2489,6 +2536,199 @@ def run_serving_ssm(launches_total) -> dict:
             "long_prefill_tokens_per_s": SSM_LONG_PROMPT / min(long_ms) * 1e3,
             "long_cache_bytes": long_bytes, "long_peak_GiB": long_peak,
             "teacher_forced": teacher, "f32_card_vs_cpu": f32_check,
+            "init_peak_GiB": init_peak, "serve_peak_GiB": peak}
+
+
+# --------------------------------------------------------------------------- #
+# Phase 4d: serving the hybrid family.
+# --------------------------------------------------------------------------- #
+
+HYBRID_MODEL = "jamba-v0.1-52b"
+# one of its four periods: 8 of 32 layers at full width (the whole model's
+# 51.5 B parameters take 103 GB in bf16; one period's f32 init 53 GB)
+HYBRID_LAYERS = 8
+HYBRID_PARAMS = 13_267_598_848
+# the smoke hybrid at two periods, one batch of prompts in f32 on the card and
+# on the CPU, on the card's routes, held to phase 4c's limits (two f32
+# computations differ by their sums' orders; a wrong period row or cache
+# regroup is off by far more)
+HYBRID_F32_PERIODS, HYBRID_F32_BATCH, HYBRID_F32_PROMPT = 2, 4, 256
+# the reference's prefill_32k length, at batch 1 (jamba is sub-quadratic)
+HYBRID_LONG_PROMPT = 32768
+# teacher-forced decode steps after the 2048-token prompt: the forward over
+# the prompt and them must be a multiple of the 256-token SSD chunk (the
+# scan never pads), as in phase 4c
+HYBRID_TEACHER = SSM_TEACHER
+
+
+def hybrid_cache_bytes(cache: dict) -> int:
+    return sum(v.numel() * v.element_size() for part in cache.values() for v in part.values())
+
+
+def check_hybrid_f32_card_vs_cpu() -> dict:
+    """The smoke hybrid at two periods (the reference's smoke config has
+    one), f32 compute, one batch of prompts: the card's forward (the flash
+    kernel at hd 16, f32) against the CPU's (the plain version) on the
+    card's routes."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import model, transformer
+
+    cfg = dataclasses.replace(smoke_config(HYBRID_MODEL), num_layers=4 * HYBRID_F32_PERIODS)
+    run = RunConfig(remat=False, compute_dtype="float32")
+    ctx = model.make_ctx(cfg, run)
+    params = model.init(SERVE_SEED, cfg, device="cpu")
+    gen = torch.Generator().manual_seed(SERVE_SEED + 2)
+    tokens = torch.randint(0, cfg.vocab_size, (HYBRID_F32_BATCH, HYBRID_F32_PROMPT), generator=gen)
+    outs, log = {}, []
+    for where in ("card", "cpu"):
+        dev = torch.device("cuda") if where == "card" else torch.device("cpu")
+        force = None if where == "card" else [
+            {k: (None if v is None else v.cpu()) for k, v in e.items()} for e in log]
+        t = time.perf_counter()
+        with torch.no_grad(), moe_routes([] if force else log, force=force):
+            p = {k: v.to(dev) for k, v in params.items()}
+            x = model.embed_inputs(ctx, p, cfg, {"tokens": tokens.to(dev)})
+            h, aux, _ = transformer.forward(ctx, p, cfg, run, x,
+                                            torch.arange(HYBRID_F32_PROMPT, device=dev))
+            logits = transformer.lm_head_logits(ctx, p, cfg, h[:, -1:])
+        outs[where] = (h.cpu(), logits.cpu(), float(aux), (time.perf_counter() - t) * 1e3)
+        del p, x, h, logits
+    (hc, lc, ac, ms_card), (hh, lh, ah, ms_cpu) = outs["card"], outs["cpu"]
+    out = {"layers": cfg.num_layers, "moe_calls": len(log),
+           "h_rel": float((hc.double() - hh.double()).norm() / hh.double().norm()),
+           "last_logits_max_abs": float((lc - lh).abs().max()), "logits_std": float(lh.std()),
+           "aux_card": ac, "aux_cpu": ah, "card_ms": ms_card, "cpu_ms": ms_cpu}
+    need(len(log) == 2 * HYBRID_F32_PERIODS, f"hybrid f32: {len(log)} MoE calls recorded")
+    need(bool(torch.isfinite(hc).all()), "hybrid f32 forward on the card: not finite")
+    need(out["h_rel"] <= SSM_F32_H_RTOL and out["last_logits_max_abs"] <= SSM_F32_LOGIT_TOL,
+         f"hybrid f32 forward at {HYBRID_F32_PERIODS} periods, card vs CPU: {out} over "
+         f"{SSM_F32_H_RTOL} / {SSM_F32_LOGIT_TOL}")
+    return out
+
+
+def run_serving_hybrid(launches_total) -> dict:
+    """jamba-v0.1-52b at full width, one of its four periods (8 of 32
+    layers: every sublayer kind in the period's exact layout), parameters
+    drawn in f32 on the card and cast to bf16 leaf by leaf: the checks and
+    the user's entry points of phase 4b (the teacher-forced decode on one
+    prompt at capacity factor E/k on the forward's routes; flash against
+    ``attn_impl="xla"`` on flash's routes), the cache's bytes against the
+    exact count, and one 32,768-token prompt at batch 1; after the smoke
+    hybrid's two-period f32 forward on the card against the CPU.  Returns
+    the summary line."""
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeSpec
+    from repro_torch.configs.registry import get_config, hybrid_layout
+    from repro_torch.kernels import backend
+    from repro_torch.models import model
+    from repro_torch.serving import engine
+
+    f32_check = check_hybrid_f32_card_vs_cpu()
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(HYBRID_MODEL), num_layers=HYBRID_LAYERS)
+    per, np_, nm, n_moe, _ = hybrid_layout(cfg)
+    m, s = cfg.moe, cfg.ssm
+    L_moe = np_ * n_moe
+    run = RunConfig()                     # flash attention, bf16 compute
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SERVE_SEED, cfg, device=dev)          # f32, then bf16 leaf by leaf
+    for name in list(params):
+        params[name] = params[name].to(torch.bfloat16)
+    n_params = sum(v.numel() for v in params.values())
+    need(n_params == HYBRID_PARAMS, f"jamba: {n_params} parameters in one period, not "
+                                    f"{HYBRID_PARAMS}")
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    total, tf_total = SERVE_PROMPT + SERVE_STEPS, SERVE_PROMPT + HYBRID_TEACHER
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, max(total, tf_total)),
+                           generator=gen, device=dev)
+    prompt = {"tokens": tokens[:, :SERVE_PROMPT]}
+    prefill_fn, decode_fn = engine.build_serve_fns(
+        cfg, run, ShapeSpec("serve", "decode", total, SERVE_BATCH), device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+
+    # teacher-forced on one prompt with nothing dropped (this also warms up)
+    teacher, batch1_decode_ms = moe_teacher_forced(
+        "jamba", params, cfg, run, tokens[:1, :tf_total], SERVE_PROMPT, L_moe)
+
+    out, times, seen, counts = serve_main_path(prefill_fn, decode_fn, params, prompt,
+                                               launches_total)
+    need(counts == {"flash_attention_fwd": np_},
+         f"jamba serving: launches {counts} != one flash forward per period ({np_})")
+    need(tuple(out.shape) == (SERVE_BATCH, SERVE_STEPS), f"jamba serving: tokens {out.shape}")
+    need(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "jamba serving: token out of range")
+    cache, logits = seen["prefill"]
+    need(bool(torch.isfinite(logits).all()), "jamba serving: non-finite prefill logits")
+    kv_seq = np_ * total * cfg.num_kv_heads * cfg.hd * 2 * 2          # k and v, bf16
+    mixer_seq = (s.conv_width - 1) * (s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state) * 2 \
+        + s.nheads(cfg.d_model) * s.head_dim * s.d_state * 4
+    cache_bytes = hybrid_cache_bytes(cache)
+    need(cache_bytes == SERVE_BATCH * (kv_seq + np_ * nm * mixer_seq),
+         f"jamba serving: cache of {cache_bytes} B, not {SERVE_BATCH} x ({kv_seq} + "
+         f"{np_ * nm} x {mixer_seq})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del seen, cache, logits
+
+    xla, dropped, forward_ms = moe_flash_vs_xla("jamba", params, cfg, run, prompt)
+    ctx = model.make_ctx(cfg, run)
+
+    # one prompt of the reference's prefill_32k length, batch 1
+    long = torch.randint(0, cfg.vocab_size, (1, HYBRID_LONG_PROMPT), generator=gen, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    long_ms, long_out = [], {}
+    try:
+        for _ in range(2):
+            backend.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.no_grad():
+                lcache, llogits = model.prefill(ctx, params, cfg, run, {"tokens": long})
+            torch.cuda.synchronize()
+            long_ms.append((time.perf_counter() - t) * 1e3)
+            long_launches = dict(backend.launches)
+        need(long_launches == {"flash_attention_fwd": np_},
+             f"jamba 32k prefill: launches {long_launches}")
+        need(bool(torch.isfinite(llogits).all()), "jamba 32k prefill: non-finite logits")
+        long_bytes = hybrid_cache_bytes(lcache)
+        want_bytes = np_ * HYBRID_LONG_PROMPT * cfg.num_kv_heads * cfg.hd * 2 * 2 \
+            + np_ * nm * mixer_seq
+        need(long_bytes == want_bytes, f"jamba 32k prefill: cache {long_bytes} B, not "
+                                       f"{want_bytes}")
+        long_out = {"long_prefill_ms": long_ms,
+                    "long_prefill_tokens_per_s": HYBRID_LONG_PROMPT / min(long_ms) * 1e3,
+                    "long_cache_bytes": long_bytes, "long_flash_launches": long_launches}
+        del lcache, llogits
+    except torch.cuda.OutOfMemoryError as e:
+        long_out = {"long_prefill": f"out of memory: {str(e).splitlines()[0]}"}
+    long_out["long_peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    torch.cuda.empty_cache()
+
+    prefill_ms = times["prefill"][0]
+    decode_ms = sum(times["decode"]) / len(times["decode"])
+    return {"model": cfg.name, "layers": cfg.num_layers,
+            "of_layers": get_config(HYBRID_MODEL).num_layers, "params": n_params, "period": per,
+            "attn_offset": cfg.attn_offset,
+            "experts": m.num_experts, "top_k": m.top_k, "capacity_factor": m.capacity_factor,
+            "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "decode_steps": SERVE_STEPS,
+            "setup_s": setup_s, "prefill_ms": prefill_ms,
+            "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3,
+            "forward_ms_after_it": forward_ms,
+            "decode_ms_per_token": decode_ms, "decode_ms": times["decode"],
+            "decode_tokens_per_s": SERVE_BATCH / decode_ms * 1e3,
+            "batch1_decode_ms_per_token": batch1_decode_ms,
+            "flash_launches_per_prefill": counts.get("flash_attention_fwd", 0),
+            "cache_bytes": cache_bytes, "cache_bytes_per_sequence": cache_bytes // SERVE_BATCH,
+            "long_prompt": HYBRID_LONG_PROMPT, **long_out,
+            "dropped_pair_share_per_moe_layer": dropped, "teacher_forced_no_drop": teacher,
+            "flash_vs_xla": xla, "f32_card_vs_cpu": f32_check,
             "init_peak_GiB": init_peak, "serve_peak_GiB": peak}
 
 
@@ -3279,6 +3519,118 @@ def run_cli(launches_total) -> dict:
     return out
 
 
+# The hybrid through the same CLI (--arch jamba-v0.1-52b --smoke: one period
+# of 4 layers, attention at position 1; 4 ranks of 4 x 128 tokens): 4 steps
+# then resumed for 2, as qwen3-4b's run; the same 4 steps on the CPU from the
+# same parameters (the card's draw, saved by a run of 0 steps: the card's and
+# the CPU's generators draw differently); and a run resumed at step 4 against
+# an uninterrupted one, bit for bit.  The smoke run's error-feedback
+# residuals are not saved (the reference's contract), so a resumed
+# compressed run restarts them at zero and parts from an uninterrupted one by
+# design: that pair runs with --no-compress.  Card and CPU compute the same
+# bf16 function with their own sum orders (and a near-tie may route a token
+# apart): each loss within CLI_CPU_LOSS_RTOL of the CPU's (one rerouted token
+# of the 2048 a step moves the loss by about 5e-4 relative; bf16 rounding by
+# less).
+HYBRID_CLI_ARGS = ("--arch", HYBRID_MODEL, "--smoke", "--devices", "4", "--ckpt-every", "2")
+CLI_CPU_LOSS_RTOL = 5e-3
+
+
+def run_cli_hybrid(launches_total) -> dict:
+    """``python -m repro_torch.launch.train --arch jamba-v0.1-52b --smoke
+    --devices 4 --ckpt-every 2`` in process, its output captured: ``--steps
+    0 --ckpt-dir D`` (the drawn parameters saved), ``--steps 4`` (from them),
+    then ``--steps 6`` (resumed at step 4), each hd-16 flash kernel
+    launched once per rank a step (one attention layer, no remat) and
+    kernel 4; ``--steps 4 --device cpu`` from a copy of the step-0
+    checkpoint, its losses against the card's; with ``--no-compress`` 4 + 2
+    steps into another directory against ``--steps 6`` uninterrupted: the
+    step-6 checkpoints bit-equal and the printed losses of steps 4–5 the
+    same."""
+    import io
+    import re
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import checkpointing as ckpt
+    from repro_torch.configs.registry import hybrid_layout, smoke_config
+    from repro_torch.kernels import backend
+    from repro_torch.launch import train as train_cli
+
+    step_line = re.compile(r"^step +(\d+)  loss (\S+)  gnorm (\S+)  lr (\S+)$")
+    per_step = hybrid_layout(smoke_config(HYBRID_MODEL))[1] * 4
+    torch.cuda.empty_cache()
+    base = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    dirs = {k: str(pathlib.Path(base) / k) for k in ("card", "cpu", "exact", "whole")}
+    # (label, extra arguments, checkpoint directory, steps printed)
+    runs = (("drawn", [], dirs["card"], 0, ()),
+            ("card", [], dirs["card"], 4, (0, 1, 2, 3)),
+            ("card resumed", [], dirs["card"], 6, (4, 5)),
+            ("cpu", ["--device", "cpu"], dirs["cpu"], 4, (0, 1, 2, 3)),
+            ("exact", ["--no-compress"], dirs["exact"], 4, (0, 1, 2, 3)),
+            ("exact resumed", ["--no-compress"], dirs["exact"], 6, (4, 5)),
+            ("exact uninterrupted", ["--no-compress"], dirs["whole"], 6, (0, 1, 2, 3, 4, 5)))
+    out, losses = {}, {}
+    try:
+        for label, extra, d, last, want_steps in runs:
+            args = [*HYBRID_CLI_ARGS, *extra, "--steps", str(last), "--ckpt-dir", d]
+            backend.reset_launches()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = train_cli.main(args)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = dict(backend.launches)
+            lines = buf.getvalue().strip().splitlines()
+            rows = [step_line.match(line) for line in lines]
+            need(rc == 0 and all(rows) and len(rows) == len(want_steps),
+                 f"hybrid cli {args}: output {buf.getvalue()!r}")
+            got = [(int(m[1]), m[2]) for m in rows]
+            print(f"  hybrid cli {label}: {got} ({sec:.1f} s, launches {counts})", flush=True)
+            need(tuple(s for s, _ in got) == want_steps
+                 and all(math.isfinite(float(l)) for _, l in got),
+                 f"hybrid cli {args}: steps and losses {got}, want steps {want_steps}")
+            need(ckpt.latest_step(d) == last, f"hybrid cli {args}: newest checkpoint "
+                                              f"{ckpt.latest_step(d)}")
+            losses[label] = dict(got)
+            if label == "drawn":          # the CPU run starts from the card's draw
+                shutil.copytree(pathlib.Path(d) / "step-00000000",
+                                pathlib.Path(dirs["cpu"]) / "step-00000000")
+            if label == "cpu":
+                need(not counts, f"hybrid cli on the CPU: launches {counts}")
+            else:
+                launches_total.update(counts)
+                want = dict.fromkeys(CLI_FLASH, per_step * len(want_steps))
+                fk = counts.get("fixed_k_gather", 0)
+                need({k: counts.get(k, 0) for k in CLI_FLASH} == want
+                     and (fk == 0 if extra or not want_steps else
+                          fk > 0 and fk % len(want_steps) == 0),
+                     f"hybrid cli {args}: launches {counts}, want {want} and fixed-k gathers "
+                     "where it compresses")
+            out[label] = {"steps": [s for s, _ in got], "losses": [float(l) for _, l in got],
+                          "sec": sec, "launches": counts}
+        need(all(losses["exact resumed"][s] == losses["exact uninterrupted"][s] for s in (4, 5)),
+             f"hybrid cli: resumed losses {losses['exact resumed']} != uninterrupted "
+             f"{losses['exact uninterrupted']}")
+        a, b = (np.load(pathlib.Path(dirs[k]) / "step-00000006" / "arrays.npz")
+                for k in ("exact", "whole"))
+        need(sorted(a.files) == sorted(b.files) and all(
+            a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes() for k in a.files),
+            "hybrid cli: the resumed run's checkpoint at step 6 differs from the uninterrupted "
+            "run's")
+        card, cpu = losses["card"], losses["cpu"]
+        rel = [abs(float(card[s]) - float(cpu[s])) / abs(float(cpu[s])) for s in range(4)]
+        need(max(rel) <= CLI_CPU_LOSS_RTOL,
+             f"hybrid cli: card losses {card} vs CPU {cpu}: {rel} over {CLI_CPU_LOSS_RTOL}")
+        out["resumed_equals_uninterrupted"] = {"arrays": len(a.files), "bit_equal": True}
+        out["card_vs_cpu_loss_rel"] = rel
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
 def run_serve_example(launches_total) -> dict:
     """``python -m repro_torch.examples.serve_lm`` in process: 4 prompts of
     16 tokens and 16 greedy tokens on the smoke qwen3-4b; every printed
@@ -3675,6 +4027,9 @@ def main() -> int:
     summary = run_serving_ssm(total)
     print(f"[4c] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
+    summary = run_serving_hybrid(total)
+    print(f"[4d] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
     kept = {}
     summary = run_training(total, kept)
     print(f"[5] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -3719,6 +4074,10 @@ def main() -> int:
     t0 = time.perf_counter()
     summary = run_cli(total)
     print(f"[5] training CLI {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    t0 = time.perf_counter()
+    summary = run_cli_hybrid(total)
+    print(f"[5] training CLI, hybrid {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     t0 = time.perf_counter()
     summary = run_serve_example(total)

@@ -21,8 +21,9 @@ Slice 6 trains it (``train.trainer.Trainer``) with the flash-attention
 backward kernels.  Slice 7 adds the hash-PRNG encoders of the §1.1 encode
 benchmark (``launch.bench_encode_speed``) and the single-host stack
 (``core.protocol.MeanEstimator``, the §6 solvers, ``examples``).  The
-Mixture-of-Experts family (``models.moe``: olmoe-1b-7b, qwen2-moe-a2.7b)
-and the SSM family (``models.ssm``: mamba2-130m) are served and trained on
+Mixture-of-Experts family (``models.moe``: olmoe-1b-7b, qwen2-moe-a2.7b),
+the SSM family (``models.ssm``: mamba2-130m) and the hybrid family that
+interleaves them with attention (jamba-v0.1-52b) are served and trained on
 the same paths.  The kernels are in
 ``src/repro_torch/csrc``.
 

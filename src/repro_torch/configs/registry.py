@@ -6,8 +6,8 @@ preset name means the same config on both sides; the registry
 (:func:`repro_torch.core.wire.resolve`) says which of them the port can run;
 the ``hier_*`` presets run unflattened on a ``(pod, data)`` mesh.
 :func:`get_run_config` is the reference's run configuration.
-:func:`param_shapes` gives the dense, MoE and SSM families' leaf names,
-global shapes and sharding specs exactly as
+:func:`param_shapes` gives the dense, MoE, SSM and hybrid families' leaf
+names, global shapes and sharding specs exactly as
 ``repro.models.transformer.init_lm`` with ``init_attention`` /
 ``init_mlp`` / ``init_moe`` / ``init_ssm`` builds them.
 """
@@ -16,7 +16,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-from repro_torch.configs import mamba2_130m, olmoe_1b_7b, qwen2_moe_a2_7b, qwen3_4b
+from repro_torch.configs import (jamba_v01_52b, mamba2_130m, olmoe_1b_7b, qwen2_moe_a2_7b,
+                                 qwen3_4b)
 from repro_torch.configs.base import SHAPES, ArchConfig, RunConfig
 from repro_torch.core import types as core_types
 from repro_torch.core.wire.base import NotPortedError
@@ -24,7 +25,7 @@ from repro_torch.models.moe import MoECfg
 from repro_torch.models.ssm import SSMCfg
 
 _ARCHS = {m.CONFIG.name: m.CONFIG
-          for m in (qwen3_4b, qwen2_moe_a2_7b, olmoe_1b_7b, mamba2_130m)}
+          for m in (qwen3_4b, qwen2_moe_a2_7b, olmoe_1b_7b, mamba2_130m, jamba_v01_52b)}
 
 
 def list_archs():
@@ -123,9 +124,9 @@ def robust_preset(name: str, policy: str,
 
 # the reference's microbatch counts for train shapes (dry-run memory sizing)
 _TRAIN_MICROBATCHES = {"qwen3-4b": 4, "qwen2-moe-a2.7b": 4, "olmoe-1b-7b": 2,
-                       "mamba2-130m": 1}
+                       "mamba2-130m": 1, "jamba-v0.1-52b": 8}
 # the reference's FSDP set among the port's archs (> 8B parameters)
-_BIG = {"qwen2-moe-a2.7b"}
+_BIG = {"qwen2-moe-a2.7b", "jamba-v0.1-52b"}
 
 
 def get_run_config(arch: str, shape: str, *, multi_pod: bool = False,
@@ -169,10 +170,12 @@ def smoke_config(name: str) -> ArchConfig:
     .smoke_config``): same family and topology, tiny dims; an MoE config
     gets 4 experts, top-2, expert ff 64, and 2 shared of ff 64 where the
     full config has shared experts; an SSM config ``SSMCfg(d_state=16,
-    head_dim=16, expand=2, conv_width=4, chunk=16)``.  Dense, MoE and SSM
-    families only; the others arrive with their model families."""
+    head_dim=16, expand=2, conv_width=4, chunk=16)``; a hybrid config one
+    period of 4 layers (``attn_every`` 4, attention at position 1) with
+    both.  Dense, MoE, SSM and hybrid families only; the others arrive with
+    their model families."""
     cfg = get_config(name)
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotPortedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP.md, queue 1)")
     moe = None
@@ -184,12 +187,14 @@ def smoke_config(name: str) -> ArchConfig:
     ssm = None
     if cfg.ssm is not None:
         ssm = SSMCfg(d_state=16, head_dim=16, expand=2, conv_width=4, chunk=16)
+    hybrid = cfg.family == "hybrid"
     return ArchConfig(
         name=cfg.name + "-smoke", family=cfg.family,
-        num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+        num_layers=4 if hybrid else 2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
         d_ff=128, vocab_size=512, qk_norm=cfg.qk_norm,
         window=16 if cfg.window else None, rope_theta=cfg.rope_theta,
         tie_embeddings=cfg.tie_embeddings, moe=moe, ssm=ssm,
+        attn_every=4 if hybrid else None, attn_offset=1 if hybrid else 0,
         sub_quadratic=cfg.sub_quadratic)
 
 
@@ -197,10 +202,10 @@ def _ceil_to(a: int, b: int) -> int:
     return -(-a // b) * b
 
 
-def _ssm_shapes(add, cfg: ArchConfig, tp: int, fsdp) -> None:
-    """The ``layers.ssm`` leaves of ``repro.models.ssm.init_ssm``, in its
-    order."""
-    s, d, L = cfg.ssm, cfg.d_model, cfg.num_layers
+def _ssm_shapes(add, prefix: str, n: int, cfg: ArchConfig, tp: int, fsdp) -> None:
+    """The ``n`` stacked leaves of ``repro.models.ssm.init_ssm`` under
+    ``prefix``, in its order."""
+    s, d = cfg.ssm, cfg.d_model
     m = "model" if tp > 1 else None
     din, nh, gn, w = s.d_inner(d), s.nheads(d), s.n_groups * s.d_state, s.conv_width
     for name, shape, spec in (
@@ -210,15 +215,72 @@ def _ssm_shapes(add, cfg: ArchConfig, tp: int, fsdp) -> None:
             ("conv_B", (w, gn), (None, None)), ("conv_C", (w, gn), (None, None)),
             ("A_log", (nh,), (m,)), ("D", (nh,), (m,)), ("dt_bias", (nh,), (m,)),
             ("norm", (din,), (m,)), ("w_out", (din, d), (m, fsdp))):
-        add(f"layers.ssm.{name}", (L,) + shape, (None,) + spec)
+        add(f"{prefix}.{name}", (n,) + shape, (None,) + spec)
+
+
+def _attn_shapes(add, prefix: str, n: int, cfg: ArchConfig, tp: int, fsdp) -> None:
+    """``repro.models.attention.init_attention``'s ``n`` stacked leaves."""
+    d, hd = cfg.d_model, cfg.hd
+    q_heads = _ceil_to(cfg.num_heads, tp)
+    kv_spec = None if cfg.num_kv_heads < tp else "model"
+    add(f"{prefix}.wq", (n, d, q_heads, hd), (None, fsdp, "model", None))
+    add(f"{prefix}.wk", (n, d, cfg.num_kv_heads, hd), (None, fsdp, kv_spec, None))
+    add(f"{prefix}.wv", (n, d, cfg.num_kv_heads, hd), (None, fsdp, kv_spec, None))
+    add(f"{prefix}.wo", (n, q_heads, hd, d), (None, "model", None, fsdp))
+    if cfg.qk_norm:
+        add(f"{prefix}.q_norm", (n, hd), (None, None))
+        add(f"{prefix}.k_norm", (n, hd), (None, None))
+
+
+def _mlp_shapes(add, prefix: str, n: int, d: int, f: int, fsdp) -> None:
+    """``repro.models.mlp.init_mlp``'s ``n`` stacked leaves (gated)."""
+    add(f"{prefix}.w_up", (n, d, f), (None, fsdp, "model"))
+    add(f"{prefix}.w_gate", (n, d, f), (None, fsdp, "model"))
+    add(f"{prefix}.w_down", (n, f, d), (None, "model", fsdp))
+
+
+def _moe_shapes(add, prefix: str, n: int, cfg: ArchConfig, tp: int, fsdp) -> None:
+    """``repro.models.moe.init_moe``'s ``n`` stacked leaves, the shared
+    experts' MLP last."""
+    d, m = cfg.d_model, cfg.moe
+    ep = m.padded(tp)
+    add(f"{prefix}.router", (n, d, ep), (None, None, None))
+    add(f"{prefix}.w_up", (n, ep, d, m.d_ff_expert), (None, "model", fsdp, None))
+    add(f"{prefix}.w_gate", (n, ep, d, m.d_ff_expert), (None, "model", fsdp, None))
+    add(f"{prefix}.w_down", (n, ep, m.d_ff_expert, d), (None, "model", None, fsdp))
+    if m.num_shared:
+        _mlp_shapes(add, f"{prefix}.shared", n, d, m.d_ff_shared, fsdp)
+
+
+def hybrid_layout(cfg: ArchConfig):
+    """The hybrid family's period: (period length, number of periods, Mamba
+    mixers a period, MoE FFNs a period, the positions whose FFN is the MoE
+    block).  Attention sits at ``attn_offset``, a mixer at every other
+    position; the FFN at position i is the MoE block where ``i % every_n ==
+    1 % every_n`` (``repro.models.transformer._forward_hybrid``), else the
+    gated MLP."""
+    per = cfg.attn_every
+    if not per or cfg.num_layers % per or not 0 <= cfg.attn_offset < per:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not split into periods of "
+                         f"{per} with attention at {cfg.attn_offset}")
+    every = cfg.moe.every_n
+    n_moe = per // every
+    moe_at = tuple(i for i in range(per) if n_moe > 0 and i % every == 1 % every)
+    if len(moe_at) != n_moe:
+        raise ValueError(f"{cfg.name}: {len(moe_at)} MoE positions in a period of {per}, "
+                         f"not {n_moe}")
+    return per, cfg.num_layers // per, per - 1, n_moe, moe_at
 
 
 def param_shapes(cfg: ArchConfig, tp: int = 1, fsdp: Optional[str] = None):
     """(shapes, specs): the global shape and sharding spec of every leaf of
-    a dense-, MoE- or SSM-family model, named and built as ``init_lm``
-    builds them (``tp`` the model-axis size, ``fsdp`` the FSDP axis or
-    None)."""
-    if cfg.family not in ("dense", "vlm", "moe", "ssm"):
+    a dense-, MoE-, SSM- or hybrid-family model, named and built as
+    ``init_lm`` builds them (``tp`` the model-axis size, ``fsdp`` the FSDP
+    axis or None).  The hybrid's ``periods.*`` leaves stack each sublayer
+    kind over all periods: attention (periods), Mamba mixers (periods ×
+    (period − 1)), MoE and MLP FFNs (periods × their count a period), both
+    norms (layers)."""
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise NotPortedError(
             f"parameter shapes of the {cfg.family!r} family are not ported "
             "yet: they arrive with the models slice (ROADMAP.md, queue 1)")
@@ -229,39 +291,31 @@ def param_shapes(cfg: ArchConfig, tp: int = 1, fsdp: Optional[str] = None):
         shapes[name] = tuple(shape)
         specs[name] = tuple(spec)
 
-    d, L, hd = cfg.d_model, cfg.num_layers, cfg.hd
+    d, L = cfg.d_model, cfg.num_layers
     vshard = "model" if tp > 1 else None
     add("embed", (cfg.vocab_padded(tp), d), (vshard, None))
     if not cfg.tie_embeddings:
         add("lm_head", (cfg.vocab_padded(tp), d), (vshard, None))
     add("final_norm", (d,), (None,))
     if cfg.family == "ssm":
-        _ssm_shapes(add, cfg, tp, fsdp)
+        _ssm_shapes(add, "layers.ssm", L, cfg, tp, fsdp)
         add("layers.norm1", (L, d), (None, None))
         return shapes, specs
+    if cfg.family == "hybrid":
+        per, np_, nm, n_moe, _ = hybrid_layout(cfg)
+        _attn_shapes(add, "periods.attn", np_, cfg, tp, fsdp)
+        _ssm_shapes(add, "periods.ssm", np_ * nm, cfg, tp, fsdp)
+        _moe_shapes(add, "periods.moe", np_ * n_moe, cfg, tp, fsdp)
+        _mlp_shapes(add, "periods.mlp", np_ * (per - n_moe), d, cfg.d_ff, fsdp)
+        add("periods.norm1", (L, d), (None, None))
+        add("periods.norm2", (L, d), (None, None))
+        return shapes, specs
 
-    q_heads = _ceil_to(cfg.num_heads, tp)
-    kv_spec = None if cfg.num_kv_heads < tp else "model"
-    add("layers.attn.wq", (L, d, q_heads, hd), (None, fsdp, "model", None))
-    add("layers.attn.wk", (L, d, cfg.num_kv_heads, hd), (None, fsdp, kv_spec, None))
-    add("layers.attn.wv", (L, d, cfg.num_kv_heads, hd), (None, fsdp, kv_spec, None))
-    add("layers.attn.wo", (L, q_heads, hd, d), (None, "model", None, fsdp))
-    if cfg.qk_norm:
-        add("layers.attn.q_norm", (L, hd), (None, None))
-        add("layers.attn.k_norm", (L, hd), (None, None))
+    _attn_shapes(add, "layers.attn", L, cfg, tp, fsdp)
     if cfg.family == "moe":
-        m, ep = cfg.moe, cfg.moe.padded(tp)
-        add("layers.moe.router", (L, d, ep), (None, None, None))
-        add("layers.moe.w_up", (L, ep, d, m.d_ff_expert), (None, "model", fsdp, None))
-        add("layers.moe.w_gate", (L, ep, d, m.d_ff_expert), (None, "model", fsdp, None))
-        add("layers.moe.w_down", (L, ep, m.d_ff_expert, d), (None, "model", None, fsdp))
-        ffn = [("layers.moe.shared", m.d_ff_shared)] if m.num_shared else []
+        _moe_shapes(add, "layers.moe", L, cfg, tp, fsdp)
     else:
-        ffn = [("layers.mlp", cfg.d_ff)]
-    for prefix, f in ffn:
-        add(f"{prefix}.w_up", (L, d, f), (None, fsdp, "model"))
-        add(f"{prefix}.w_gate", (L, d, f), (None, fsdp, "model"))
-        add(f"{prefix}.w_down", (L, f, d), (None, "model", fsdp))
+        _mlp_shapes(add, "layers.mlp", L, d, cfg.d_ff, fsdp)
     add("layers.norm1", (L, d), (None, None))
     add("layers.norm2", (L, d), (None, None))
     if cfg.family == "vlm":

@@ -1,5 +1,5 @@
 """Deterministic synthetic data — port of ``repro.data.pipeline`` (the dense,
-MoE and SSM families' token batches).
+MoE, SSM and hybrid families' token batches).
 
 :meth:`SyntheticLM.host_batch` is the reference's numpy code, copied, so
 its batches are bit-equal to the reference's for the same seed and step;
@@ -43,7 +43,7 @@ class SyntheticLM:
         return np.concatenate(out, axis=1).astype(np.int32)
 
     def host_batch(self, step: int) -> Dict[str, np.ndarray]:
-        if self.cfg.family not in ("dense", "moe", "ssm"):
+        if self.cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotPortedError(f"synthetic batches of the {self.cfg.family!r} family are "
                                  "not ported yet (ROADMAP.md, queue 1)")
         rng = self._rng(step)

@@ -3,11 +3,13 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         [--arch qwen3-4b] [--layers N] [--out build/profile_serve.json]
 
-Builds the serving path of ``chip_smoke.py`` phases 4, 4b and 4c
+Builds the serving path of ``chip_smoke.py`` phases 4, 4b, 4c and 4d
 (``--arch`` at full width, all its layers or the first ``--layers``,
 parameters drawn from seed 0 and cast to bf16, 8 prompts of 2048 seeded
 tokens, flash attention where the model has attention, bf16 compute;
-qwen3-4b by default; mamba2-130m is the SSM family's), runs one
+qwen3-4b by default; mamba2-130m is the SSM family's; jamba-v0.1-52b the
+hybrid's, with ``--layers`` a multiple of its 8-layer period: ``--layers
+8`` is one period, 13.3 B parameters), runs one
 prefill and 4 decode steps to warm up, times 2 prefills and 8 decode steps
 by the host clock around a synchronize, then profiles one prefill and, in a
 second window, 4 decode steps under ``torch.profiler`` (CPU and CUDA

@@ -1,4 +1,4 @@
-"""Model facade, dense, MoE and SSM families — port of
+"""Model facade, dense, MoE, SSM and hybrid families — port of
 ``repro.models.model`` at ``tp = 1``: context, init, input embedding, the
 train loss, the decode cache, prefill and the decode step.
 
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.configs.registry import hybrid_layout
 from repro_torch.core.wire.base import NotPortedError
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import common
@@ -61,7 +62,8 @@ def train_loss(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
     gradients sum (or, n times, average) to the global batch's.  Both
     divisions are by f32 tensors on the device, true divisions as in the
     reference.  Metrics: ``ce_sum``, ``count``, ``aux`` (the layer sum; 0
-    for the dense and SSM families)."""
+    for the dense and SSM families).  The aux term is over all layers,
+    also in the hybrid family, whose MoE FFNs are every ``every_n``-th."""
     tfm.check_family(cfg)
     x = embed_inputs(ctx, params, cfg, batch)
     positions = torch.arange(batch["tokens"].shape[1], device=x.device)
@@ -78,23 +80,39 @@ def make_cache(ctx: ShardCtx, cfg: ArchConfig, b_local: int, s_max: int,
                dtype=torch.bfloat16, device=None):
     """Zeroed decode cache {"k", "v"}: (L, B, s_max, Hkv, hd) each (the MoE
     family's attention cache is the dense family's).  The SSM family's
-    (:func:`ssm_cache`) does not grow with ``s_max``."""
+    (:func:`ssm_cache`) does not grow with ``s_max``; the hybrid's is
+    {"attn": {"k", "v"} (periods, B, s_max, Hkv, hd), "ssm": the SSM cache
+    of its periods × (period − 1) mixers}."""
     tfm.check_family(cfg)
     if cfg.family == "ssm":
         return ssm_cache(cfg, b_local, dtype, device)
+    if cfg.family == "hybrid":
+        per, np_, nm, _, _ = hybrid_layout(cfg)
+        return {"attn": attn_cache(cfg, np_, b_local, s_max, dtype, device),
+                "ssm": ssm_cache(cfg, b_local, dtype, device, layers=np_ * nm)}
+    return attn_cache(cfg, cfg.num_layers, b_local, s_max, dtype, device)
+
+
+def attn_cache(cfg: ArchConfig, layers: int, b_local: int, s_max: int, dtype=torch.bfloat16,
+               device=None):
+    """Zeroed attention cache {"k", "v"}: (layers, B, s_max, Hkv, hd) each,
+    ``s_max`` cut to a sliding window's width."""
     if cfg.window is not None:
         s_max = min(s_max, cfg.window)
-    shape = (cfg.num_layers, b_local, s_max, cfg.num_kv_heads, cfg.hd)
+    shape = (layers, b_local, s_max, cfg.num_kv_heads, cfg.hd)
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def ssm_cache(cfg: ArchConfig, b_local: int, dtype=torch.bfloat16, device=None):
+def ssm_cache(cfg: ArchConfig, b_local: int, dtype=torch.bfloat16, device=None,
+              layers: Optional[int] = None):
     """Zeroed SSM decode cache, the reference's layout: the conv windows
     ``conv_x`` (L, B, W−1, d_inner), ``conv_B`` and ``conv_C`` (L, B, W−1,
-    n) in ``dtype``; ``state`` (L, B, h, p, n) f32."""
-    s, L, dev = cfg.ssm, cfg.num_layers, resolve_device(device)
+    n) in ``dtype``; ``state`` (L, B, h, p, n) f32.  L is ``layers``, by
+    default the config's layer count."""
+    s, dev = cfg.ssm, resolve_device(device)
+    L = cfg.num_layers if layers is None else layers
     w, gn = s.conv_width - 1, s.n_groups * s.d_state
 
     def zeros(*shape, dt=dtype):
@@ -151,6 +169,9 @@ def decode_step(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, cache, t
     tfm.check_family(cfg)
     dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, ctx.tp)
     x = tfm.embed_tokens(ctx, params, cfg, tok)
+    if cfg.family == "hybrid":
+        return _finish_decode(ctx, params, cfg,
+                              _decode_hybrid(ctx, params, cfg, cache, x, pos, dims), cache)
     lp = sub(params, "layers")
     kind = tfm.ffn_kind(cfg)
     for li in range(cfg.num_layers):
@@ -160,9 +181,33 @@ def decode_step(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, cache, t
             continue
         x = _attn_decode_layer(ctx, cfg, layer, x, cache["k"], cache["v"], li, pos, dims)
         x = _ffn_decode(ctx, cfg, layer, x, kind)
+    return _finish_decode(ctx, params, cfg, x, cache)
+
+
+def _finish_decode(ctx, params, cfg, x, cache):
     h = common.rms_norm(x, params["final_norm"])
     logits = tfm.lm_head_logits(ctx, params, cfg, h)
     return tfm.greedy_sample(ctx, logits), logits, cache
+
+
+def _decode_hybrid(ctx, params, cfg, cache, x, pos: int, dims):
+    """The hybrid's decode step over its periods (the reference's
+    ``_decode_hybrid``): attention reads and writes period ``pi``'s K/V,
+    mixer ``mi`` of period ``pi`` row ``pi·(period − 1) + mi`` of the SSM
+    cache, both in place; then the position's MoE (``moe_decode``) or MLP
+    FFN."""
+    per, np_, nm, _, moe_at = hybrid_layout(cfg)
+    a_cache, s_cache = cache["attn"], cache["ssm"]
+    for pi in range(np_):
+        mi = 0
+        for i, p in enumerate(tfm.period_layers(params, cfg, pi, ctx.compute_dtype)):
+            if i == cfg.attn_offset:
+                x = _attn_decode_layer(ctx, cfg, p, x, a_cache["k"], a_cache["v"], pi, pos, dims)
+            else:
+                x = _ssm_decode_layer(ctx, cfg, p, x, s_cache, pi * nm + mi)
+                mi += 1
+            x = _ffn_decode(ctx, cfg, p, x, "moe" if i in moe_at else "mlp")
+    return x
 
 
 def prefill(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
@@ -170,22 +215,53 @@ def prefill(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
     """Run the prompt through the model; returns (cache, last-position logits
     (B, 1, V) f32).  The cache (:func:`make_cache`) holds the prompt's K/V
     in bf16, zero-padded to ``s_max`` when given; the SSM family's the
-    final conv windows in bf16 and states in f32, whatever ``s_max``."""
+    final conv windows in bf16 and states in f32, whatever ``s_max``; the
+    hybrid's both (:func:`regroup_hybrid_caches`)."""
     x = embed_inputs(ctx, params, cfg, batch)
     positions = torch.arange(batch["tokens"].shape[1], device=x.device)
     h, _, caches = tfm.forward(ctx, params, cfg, run, x, positions, want_cache=True)
+    del x
     logits = tfm.lm_head_logits(ctx, params, cfg, h[:, -1:])
     if cfg.family == "ssm":
         conv, st = caches
         cache = {f"conv_{k}": conv[k].to(torch.bfloat16) for k in ("x", "B", "C")}
         cache["state"] = st
         return cache, logits
-    k, v = caches
+    if cfg.family == "hybrid":
+        k, v, conv, st = regroup_hybrid_caches(caches, cfg)
+    else:
+        k, v = caches
     s = k.shape[2]
     cache = make_cache(ctx, cfg, k.shape[1], max(s, s_max or s), device=k.device)
-    if cache["k"].shape[2] < s:
+    kv = cache["attn"] if cfg.family == "hybrid" else cache
+    if kv["k"].shape[2] < s:
         raise NotPortedError(f"a prompt of {s} tokens is longer than the sliding window's "
-                             f"cache ({cache['k'].shape[2]})")
-    cache["k"][:, :, :s] = k
-    cache["v"][:, :, :s] = v
+                             f"cache ({kv['k'].shape[2]})")
+    kv["k"][:, :, :s] = k
+    kv["v"][:, :, :s] = v
+    if cfg.family == "hybrid":
+        for n in ("x", "B", "C"):
+            cache["ssm"][f"conv_{n}"].copy_(conv[n])
+        cache["ssm"]["state"].copy_(st)
     return cache, logits
+
+
+def regroup_hybrid_caches(caches, cfg: ArchConfig):
+    """The hybrid forward's caches (one entry a period position, each
+    stacked over the periods) → (k, v) (periods, B, S, Hkv, hd) and the
+    mixers' ({"x", "B", "C"} windows, states) with rows ``pi·(period − 1)
+    + mi``: the reference's ``_regroup_hybrid_caches``."""
+    k = v = None
+    mixers = []
+    for i, c in enumerate(caches):
+        if i == cfg.attn_offset:
+            k, v = c
+        else:
+            mixers.append(c)
+
+    def pack(parts):
+        arr = torch.stack(parts, dim=1)              # (periods, mixers, ...)
+        return arr.reshape((-1,) + arr.shape[2:])
+
+    conv = {n: pack([c[n] for c, _ in mixers]) for n in ("x", "B", "C")}
+    return k, v, conv, pack([s for _, s in mixers])

@@ -1,16 +1,18 @@
-"""Decoder-only LM assembly, dense, MoE and SSM families — port of
+"""Decoder-only LM assembly, dense, MoE, SSM and hybrid families — port of
 ``repro.models.transformer`` at ``tp = 1``: init, embedding, the tied or
 untied LM head, the cross-entropy over it, greedy sampling, the attention
 and FFN sublayers (the gated MLP, or the MoE block with its aux loss), the
-SSM family's norm → Mamba-2 block → residual, and the forward over the
-stacked layers (a Python loop where the reference scans).
+SSM family's norm → Mamba-2 block → residual, the hybrid family's periods
+(:func:`_forward_hybrid`), and the forward over the stacked layers (a
+Python loop where the reference scans).
 
 Every layer's weights are cast to the compute dtype before use, as the
 reference's ``gather_fsdp`` casts them; the embedding and the final norm
 are not.  With a gradient to compute, ``run.remat`` recomputes each layer
 in the backward (``torch.utils.checkpoint``, non-reentrant, around the
-layer body as ``jax.checkpoint(body)``) and ``run.remat_attention`` the
-attention call.  Other families raise :class:`NotPortedError`.
+layer body as ``jax.checkpoint(body)``; the hybrid's around a whole
+period) and ``run.remat_attention`` the attention call.  Other families
+raise :class:`NotPortedError`.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.configs.registry import hybrid_layout
 from repro_torch.core.wire.base import NotPortedError
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn_lib
@@ -41,7 +44,7 @@ def take_layer(p: Dict[str, Any], i: int, dtype: torch.dtype) -> Dict[str, Any]:
     return {k: v[i].to(dtype) for k, v in p.items()}
 
 
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -68,6 +71,15 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
         pb.add("lm_head", (cfg.vocab_padded(1), d), scale=d ** -0.5)
     pb.ones("final_norm", (d,))
     L = cfg.num_layers
+    if cfg.family == "hybrid":
+        per, np_, nm, n_moe, _ = hybrid_layout(cfg)
+        attn_lib.init_attention(pb, "periods.attn", np_, d, dims, cfg.qk_norm)
+        ssm_lib.init_ssm(pb, "periods.ssm", np_ * nm, d, cfg.ssm)
+        moe_lib.init_moe(pb, "periods.moe", np_ * n_moe, d, cfg.moe)
+        mlp_lib.init_mlp(pb, "periods.mlp", np_ * (per - n_moe), d, cfg.d_ff)
+        pb.ones("periods.norm1", (L, d))
+        pb.ones("periods.norm2", (L, d))
+        return pb.params
     if cfg.family == "ssm":
         ssm_lib.init_ssm(pb, "layers.ssm", L, d, cfg.ssm)
         pb.ones("layers.norm1", (L, d))
@@ -176,10 +188,13 @@ def forward(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, x, positions
     SSM families), caches when ``want_cache`` (else None) the stacked (L,
     B, S, Hkv, hd) k and v in the compute dtype, or for the SSM family
     ({"x", "B", "C"} conv windows (L, B, W−1, C) in the compute dtype, the
-    final states (L, B, h, p, n) f32)."""
+    final states (L, B, h, p, n) f32), or for the hybrid family one entry a
+    period position, each stacked over the periods (:func:`_forward_hybrid`)."""
     check_family(cfg)
     if cfg.family == "ssm":
         return _forward_ssm(ctx, params, cfg, run, x, want_cache)
+    if cfg.family == "hybrid":
+        return _forward_hybrid(ctx, params, cfg, run, x, positions, want_cache)
     dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, ctx.tp)
     lp = sub(params, "layers")
     kind = ffn_kind(cfg)
@@ -230,4 +245,92 @@ def _forward_ssm(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, x, want
         conv = {k: torch.stack([c[k] for c, _ in states]) for k in ("x", "B", "C")}
         caches = (conv, torch.stack([f for _, f in states]))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return common.rms_norm(x, params["final_norm"]), aux, caches
+
+
+def period_layers(params, cfg: ArchConfig, pi: int, dtype: torch.dtype):
+    """Period ``pi``'s sublayers of the hybrid's ``periods.*`` leaves, one
+    dict a position: ``norm1`` and ``norm2`` (f32, as the reference takes
+    them outside ``gather_fsdp``), then ``attn.*`` at ``attn_offset``,
+    ``ssm.*`` elsewhere, ``moe.*`` or ``mlp.*`` by the position's FFN, each
+    cast to ``dtype``.  Row ``pi·n + j`` of a stack of n sublayers a period
+    is the j-th of period ``pi``: the reference's ``reshape_stack``."""
+    per, _, nm, n_moe, moe_at = hybrid_layout(cfg)
+    pp = sub(params, "periods")
+    groups = {g: sub(pp, g) for g in ("attn", "ssm", "moe", "mlp")}
+
+    def row(group, j):
+        return {f"{group}.{k}": v[j].to(dtype) for k, v in groups[group].items()}
+
+    out = []
+    mi = fi_moe = fi_mlp = 0
+    for i in range(per):
+        p = {"norm1": pp["norm1"][pi * per + i], "norm2": pp["norm2"][pi * per + i]}
+        if i == cfg.attn_offset:
+            p.update(row("attn", pi))
+        else:
+            p.update(row("ssm", pi * nm + mi))
+            mi += 1
+        if i in moe_at:
+            p.update(row("moe", pi * n_moe + fi_moe))
+            fi_moe += 1
+        else:
+            p.update(row("mlp", pi * (per - n_moe) + fi_mlp))
+            fi_mlp += 1
+        out.append(p)
+    return out
+
+
+def _forward_hybrid(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, x, positions,
+                    want_cache: bool):
+    """The hybrid family's forward (the reference's ``_forward_hybrid``):
+    each period's positions in turn, attention (norm1 → attention →
+    residual) at ``attn_offset`` and norm1 → ``mamba_block`` → residual
+    elsewhere, then norm2 → the MoE block or the gated MLP → residual.  aux
+    sums the MoE sublayers' aux losses.  Remat wraps one whole period, as
+    ``jax.checkpoint(body)`` over the reference's period scan.  With
+    ``want_cache`` the caches are a tuple over the period's positions, each
+    stacked over the periods: (k, v) (periods, B, S, Hkv, hd) at
+    ``attn_offset``, ({"x", "B", "C"} conv windows, final states) with a
+    leading periods axis elsewhere."""
+    per, np_, _, _, moe_at = hybrid_layout(cfg)
+    dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, ctx.tp)
+
+    def body(x, aux, pi: int):
+        slots = []
+        for i, p in enumerate(period_layers(params, cfg, pi, ctx.compute_dtype)):
+            if i == cfg.attn_offset:
+                x, kv = _attn_sublayer(ctx, cfg, run, p, x, positions, dims)
+                slots.append(kv)
+            else:
+                h = common.rms_norm(x, p["norm1"])
+                if want_cache:
+                    out, st = ssm_lib.mamba_block(ctx, sub(p, "ssm"), h, cfg.ssm,
+                                                  return_state=True)
+                else:
+                    out, st = ssm_lib.mamba_block(ctx, sub(p, "ssm"), h, cfg.ssm), None
+                x = x + out
+                slots.append(st)
+            x, a = _ffn_sublayer(ctx, cfg, run, p, x, "moe" if i in moe_at else "mlp")
+            aux = aux + a
+        return x, aux, tuple(slots) if want_cache else None
+
+    remat = run.remat and _needs_grad(x, *params.values())
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    per_period = []
+    for pi in range(np_):
+        x, aux, slots = (checkpoint(body, x, aux, pi, use_reentrant=False) if remat
+                         else body(x, aux, pi))
+        per_period.append(slots)
+    caches = None
+    if want_cache:
+        caches = []
+        for i in range(per):
+            got = [slots[i] for slots in per_period]
+            if i == cfg.attn_offset:
+                caches.append((torch.stack([k for k, _ in got]), torch.stack([v for _, v in got])))
+            else:
+                conv = {k: torch.stack([c[k] for c, _ in got]) for k in ("x", "B", "C")}
+                caches.append((conv, torch.stack([s for _, s in got])))
+        caches = tuple(caches)
     return common.rms_norm(x, params["final_norm"]), aux, caches

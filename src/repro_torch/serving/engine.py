@@ -16,7 +16,8 @@ def build_serve_fns(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, device=No
 
     prefill_fn(params, batch) -> (cache, logits (B, 1, V) f32), the cache
         padded to ``shape.seq_len`` (a window's width when smaller; the SSM
-        family's conv windows and states do not grow with it);
+        family's conv windows and states do not grow with it, and of the
+        hybrid's cache only the attention K/V does);
     decode_fn(params, cache, tok, pos) -> (next_tok (B, 1), cache), the
         cache updated in place (the reference donates it).
 

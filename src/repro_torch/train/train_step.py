@@ -187,7 +187,8 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
 
     ``step_fn(params, opt_state, ef_state, batch, step) -> (params,
     opt_state, ef_state, metrics)`` with metrics ``loss``, ``grad_norm``
-    and ``lr`` (f32 device scalars), and for the MoE family ``aux``, the
+    and ``lr`` (f32 device scalars), and for a config with an MoE
+    sub-config (the MoE and hybrid families) ``aux``, the
     layers' summed aux loss averaged over ranks and microbatches (the
     loss holds it over the layer count, per rank and microbatch); ``batch``
     is the global batch
@@ -307,7 +308,7 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
             loss_all = comm.rank_sum(loss_all)
         metrics = {"loss": loss_all, "grad_norm": gnorm,
                    "lr": opt_lib.lr_at(opt_cfg, opt_state.step - 1)}
-        if cfg.family == "moe":
+        if cfg.moe is not None:
             if dist:
                 aux_all = comm.rank_sum(aux_all)
             metrics["aux"] = aux_all / torch.tensor(float(n * run.microbatches),

@@ -71,6 +71,13 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
         train_cli.main(CLI + ["--model", "2"])
 
 
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-v0.1-52b"])
+def test_cli_refuses_the_fsdp_archs_without_smoke(arch):
+    # the reference trains them with FSDP; --smoke trains their reduced configs
+    with pytest.raises(NotPortedError, match="FSDP"):
+        train_cli.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
+
+
 @pytest.mark.parametrize("axes", [["--devices", "4", "--data", "3"], ["--data", "4"]])
 def test_cli_rejects_a_mesh_that_does_not_hold_the_ranks(axes):
     # data * model must equal --devices, as the reference's make_mesh requires

@@ -11,7 +11,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import RunConfig, ShapeSpec
-from repro_torch.configs.registry import smoke_config
+from repro_torch.configs.registry import list_archs, smoke_config
 from repro_torch.core import collectives as tcoll
 from repro_torch.examples import federated_mean, quickstart
 from repro_torch.kernels import backend
@@ -76,6 +76,28 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     # before it builds another revision's kernels
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench_flash.main(["--baseline-bwd-source", str(ROOT / "missing" / "bwd.cu")])
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_every_arch_runs_on_the_card_unless_asked(arch, monkeypatch):
+    """Each registered arch's smoke model (the dense, MoE, SSM and hybrid
+    families) refuses to run without a card unless a device is given."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, run = smoke_config(arch), RunConfig()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(0, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.build_serve_fns(cfg, run, ShapeSpec("serve", "decode", 64, 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_step.build_train_step(cfg, run, ShapeSpec("train", "train", 64, 4), 2)
+    params = model.init(0, cfg, device="cpu")
+    assert all(v.device == torch.device("cpu") for v in params.values())
+    cache = model.make_cache(model.make_ctx(cfg, run), cfg, 2, 64, device="cpu")
+    leaves = [v for part in cache.values() for v in (part.values() if isinstance(part, dict)
+                                                      else [part])]
+    assert leaves and all(v.device == torch.device("cpu") for v in leaves)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.make_cache(model.make_ctx(cfg, run), cfg, 2, 64)
 
 
 def test_bench_wire_raises_without_a_card_before_building(monkeypatch, tmp_path):

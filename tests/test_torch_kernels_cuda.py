@@ -882,3 +882,62 @@ def test_ssm_refuses_tf32(dev):
                                  torch.zeros(2, 8, device=dev))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+# --------------------------------------------------------------------------- #
+# The hybrid family (jamba-v0.1-52b): kernel 11 at its 32,768-token prompt
+# (batch 1, 32/8 heads of 128), held to the plain version in 2048-row
+# blocks (one block of 32k rows would take 137 GB of scores); the smoke
+# model at two periods, f32, on the card against the CPU on the card's
+# routes (the flash kernel at hd 16 there).
+# --------------------------------------------------------------------------- #
+
+def test_flash_attention_kernel_at_the_hybrid_long_prompt(dev):
+    q, k, v = _qkv(dev, 1, 32768, 32768, 32, 8, 128, torch.bfloat16)
+    before = backend.launches["flash_attention_fwd"]
+    o = fao.flash_attention(q, k, v, causal=True)
+    assert backend.launches["flash_attention_fwd"] == before + 1
+    _, lse = fak.flash_attention_fwd(q, k, v, causal=True)
+    op, lsep = far.flash_attention_fwd(q, k, v, causal=True, block_q=2048, block_k=2048)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o.float()).all())
+    torch.testing.assert_close(o.float(), op.float(), atol=FLASH_TOL[torch.bfloat16], rtol=0)
+    torch.testing.assert_close(lse, lsep, atol=1e-3, rtol=0)
+
+
+def test_hybrid_forward_on_card_equals_cpu(dev):
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import transformer as ttfm
+
+    cfg = dataclasses.replace(smoke_config("jamba-v0.1-52b"), num_layers=8)
+    run = RunConfig(attn_chunk_q=16, attn_chunk_k=16, remat=False, compute_dtype="float32")
+    ctx = tmodel.make_ctx(cfg, run)
+    params = tmodel.init(0, cfg, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(5))
+    route, log = tmoe.route, []
+
+    def recorded(router, x, mcfg):
+        out = route(router, x, mcfg)
+        log.append(out[2].cpu())
+        return out
+
+    def forced(router, x, mcfg):
+        probs, _, _ = route(router, x, mcfg)
+        ids = log.pop(0)
+        gates = probs.gather(1, ids)
+        return probs, gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9), ids
+
+    out = {}
+    for where, fn in ((dev, recorded), ("cpu", forced)):
+        tmoe.route = fn
+        try:
+            p = {k: v.to(where) for k, v in params.items()}
+            x = tmodel.embed_inputs(ctx, p, cfg, {"tokens": toks.to(where)})
+            h, aux, _ = ttfm.forward(ctx, p, cfg, run, x, torch.arange(64, device=where))
+            out[str(where)] = (h.cpu(), aux.cpu())
+        finally:
+            tmoe.route = route
+    assert not log
+    (hc, ac), (hh, ah) = out[str(dev)], out["cpu"]
+    assert float((hc.double() - hh.double()).norm() / hh.double().norm()) <= 5e-3
+    torch.testing.assert_close(ac, ah, atol=0, rtol=1e-5)
