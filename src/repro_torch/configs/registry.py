@@ -6,9 +6,10 @@ preset name means the same config on both sides; the registry
 (:func:`repro_torch.core.wire.resolve`) says which of them the port can run;
 the ``hier_*`` presets run unflattened on a ``(pod, data)`` mesh.
 :func:`get_run_config` is the reference's run configuration.
-:func:`param_shapes` gives the dense, MoE, SSM and hybrid families' leaf
-names, global shapes and sharding specs exactly as
-``repro.models.transformer.init_lm`` with ``init_attention`` /
+:func:`param_shapes` gives the dense, MoE, SSM, hybrid and
+encoder–decoder families' leaf names, global shapes and sharding specs
+exactly as ``repro.models.transformer.init_lm`` (or
+``repro.models.encdec.init_encdec``) with ``init_attention`` /
 ``init_mlp`` / ``init_moe`` / ``init_ssm`` builds them.
 """
 from __future__ import annotations
@@ -17,7 +18,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 from repro_torch.configs import (jamba_v01_52b, mamba2_130m, olmoe_1b_7b, qwen2_moe_a2_7b,
-                                 qwen3_4b)
+                                 qwen3_4b, whisper_medium)
 from repro_torch.configs.base import SHAPES, ArchConfig, RunConfig
 from repro_torch.core import types as core_types
 from repro_torch.core.wire.base import NotPortedError
@@ -25,7 +26,8 @@ from repro_torch.models.moe import MoECfg
 from repro_torch.models.ssm import SSMCfg
 
 _ARCHS = {m.CONFIG.name: m.CONFIG
-          for m in (qwen3_4b, qwen2_moe_a2_7b, olmoe_1b_7b, mamba2_130m, jamba_v01_52b)}
+          for m in (qwen3_4b, qwen2_moe_a2_7b, olmoe_1b_7b, mamba2_130m, jamba_v01_52b,
+                    whisper_medium)}
 
 
 def list_archs():
@@ -124,7 +126,7 @@ def robust_preset(name: str, policy: str,
 
 # the reference's microbatch counts for train shapes (dry-run memory sizing)
 _TRAIN_MICROBATCHES = {"qwen3-4b": 4, "qwen2-moe-a2.7b": 4, "olmoe-1b-7b": 2,
-                       "mamba2-130m": 1, "jamba-v0.1-52b": 8}
+                       "mamba2-130m": 1, "jamba-v0.1-52b": 8, "whisper-medium": 1}
 # the reference's FSDP set among the port's archs (> 8B parameters)
 _BIG = {"qwen2-moe-a2.7b", "jamba-v0.1-52b"}
 
@@ -140,8 +142,8 @@ def get_run_config(arch: str, shape: str, *, multi_pod: bool = False,
     over ``("data",)``; a preset name is re-pointed the same way
     (:func:`compression_preset`).  mamba2-130m runs without a model axis
     (``model_parallel`` and ``seq_shard`` False: the reference folds the
-    model axis into data parallelism).  FSDP (the reference's ≥ 30B set)
-    raises in ``RunConfig``, as do the shapes and families the port
+    model axis into data parallelism).  FSDP (the reference's set of
+    archs above 8B parameters) raises in ``RunConfig``, as do the shapes and families the port
     lacks."""
     cfg = get_config(arch)
     kind = SHAPES[shape].kind
@@ -172,10 +174,10 @@ def smoke_config(name: str) -> ArchConfig:
     full config has shared experts; an SSM config ``SSMCfg(d_state=16,
     head_dim=16, expand=2, conv_width=4, chunk=16)``; a hybrid config one
     period of 4 layers (``attn_every`` 4, attention at position 1) with
-    both.  Dense, MoE, SSM and hybrid families only; the others arrive with
-    their model families."""
+    both; an encoder–decoder config 2 encoder layers and 24 frames.  Not
+    the VLM family, which the port lacks."""
     cfg = get_config(name)
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec"):
         raise NotPortedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP.md, queue 1)")
     moe = None
@@ -187,7 +189,7 @@ def smoke_config(name: str) -> ArchConfig:
     ssm = None
     if cfg.ssm is not None:
         ssm = SSMCfg(d_state=16, head_dim=16, expand=2, conv_width=4, chunk=16)
-    hybrid = cfg.family == "hybrid"
+    hybrid, encdec = cfg.family == "hybrid", cfg.family == "encdec"
     return ArchConfig(
         name=cfg.name + "-smoke", family=cfg.family,
         num_layers=4 if hybrid else 2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
@@ -195,6 +197,7 @@ def smoke_config(name: str) -> ArchConfig:
         window=16 if cfg.window else None, rope_theta=cfg.rope_theta,
         tie_embeddings=cfg.tie_embeddings, moe=moe, ssm=ssm,
         attn_every=4 if hybrid else None, attn_offset=1 if hybrid else 0,
+        encoder_layers=2 if encdec else 0, encoder_seq=24 if encdec else 0,
         sub_quadratic=cfg.sub_quadratic)
 
 
@@ -232,10 +235,12 @@ def _attn_shapes(add, prefix: str, n: int, cfg: ArchConfig, tp: int, fsdp) -> No
         add(f"{prefix}.k_norm", (n, hd), (None, None))
 
 
-def _mlp_shapes(add, prefix: str, n: int, d: int, f: int, fsdp) -> None:
-    """``repro.models.mlp.init_mlp``'s ``n`` stacked leaves (gated)."""
+def _mlp_shapes(add, prefix: str, n: int, d: int, f: int, fsdp, gated: bool = True) -> None:
+    """``repro.models.mlp.init_mlp``'s ``n`` stacked leaves (``w_gate``
+    only when ``gated``)."""
     add(f"{prefix}.w_up", (n, d, f), (None, fsdp, "model"))
-    add(f"{prefix}.w_gate", (n, d, f), (None, fsdp, "model"))
+    if gated:
+        add(f"{prefix}.w_gate", (n, d, f), (None, fsdp, "model"))
     add(f"{prefix}.w_down", (n, f, d), (None, "model", fsdp))
 
 
@@ -274,13 +279,16 @@ def hybrid_layout(cfg: ArchConfig):
 
 def param_shapes(cfg: ArchConfig, tp: int = 1, fsdp: Optional[str] = None):
     """(shapes, specs): the global shape and sharding spec of every leaf of
-    a dense-, MoE-, SSM- or hybrid-family model, named and built as
-    ``init_lm`` builds them (``tp`` the model-axis size, ``fsdp`` the FSDP
-    axis or None).  The hybrid's ``periods.*`` leaves stack each sublayer
-    kind over all periods: attention (periods), Mamba mixers (periods ×
-    (period − 1)), MoE and MLP FFNs (periods × their count a period), both
-    norms (layers)."""
-    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
+    a dense-, MoE-, SSM-, hybrid- or encoder–decoder-family model, named
+    and built as ``init_lm`` (``init_encdec``) builds them (``tp`` the
+    model-axis size, ``fsdp`` the FSDP axis or None).  The hybrid's
+    ``periods.*`` leaves stack each sublayer kind over all periods:
+    attention (periods), Mamba mixers (periods × (period − 1)), MoE and MLP
+    FFNs (periods × their count a period), both norms (layers).  The
+    encoder–decoder's ``enc.*`` leaves stack over the encoder layers, its
+    ``dec.*`` leaves (self-attention, cross-attention ``dec.xattn``, the
+    GELU MLP, three norms) over the decoder layers."""
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "encdec"):
         raise NotPortedError(
             f"parameter shapes of the {cfg.family!r} family are not ported "
             "yet: they arrive with the models slice (ROADMAP.md, queue 1)")
@@ -297,6 +305,19 @@ def param_shapes(cfg: ArchConfig, tp: int = 1, fsdp: Optional[str] = None):
     if not cfg.tie_embeddings:
         add("lm_head", (cfg.vocab_padded(tp), d), (vshard, None))
     add("final_norm", (d,), (None,))
+    if cfg.family == "encdec":
+        le = cfg.encoder_layers
+        add("enc_final_norm", (d,), (None,))
+        _attn_shapes(add, "enc.attn", le, cfg, tp, fsdp)
+        _mlp_shapes(add, "enc.mlp", le, d, cfg.d_ff, fsdp, gated=False)
+        add("enc.norm1", (le, d), (None, None))
+        add("enc.norm2", (le, d), (None, None))
+        _attn_shapes(add, "dec.attn", L, cfg, tp, fsdp)
+        _attn_shapes(add, "dec.xattn", L, cfg, tp, fsdp)
+        _mlp_shapes(add, "dec.mlp", L, d, cfg.d_ff, fsdp, gated=False)
+        for i in (1, 2, 3):
+            add(f"dec.norm{i}", (L, d), (None, None))
+        return shapes, specs
     if cfg.family == "ssm":
         _ssm_shapes(add, "layers.ssm", L, cfg, tp, fsdp)
         add("layers.norm1", (L, d), (None, None))

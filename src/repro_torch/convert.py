@@ -11,8 +11,9 @@ side hands over as numpy arrays and plain objects:
   ``repro.core.types.CompressionConfig`` → the port's config;
 * :func:`arch_config` / :func:`run_config` — objects with the fields of
   ``repro.configs.base.ArchConfig`` / ``RunConfig`` → the port's (the dense,
-  MoE, SSM and hybrid families, the MoE and SSM sub-configs as the port's
-  ``MoECfg`` and ``SSMCfg``; the run config with its compression config);
+  MoE, SSM, hybrid and encoder–decoder families, the MoE and SSM
+  sub-configs as the port's ``MoECfg`` and ``SSMCfg``; the run config with
+  its compression config);
 * :func:`adamw_state` — an ``AdamWState``-shaped object (``step``, ``m``,
   ``v``, numpy leaves) → the port's optimizer state;
 * :func:`ef_state` — the reference's per-rank error-feedback residuals

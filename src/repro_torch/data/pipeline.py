@@ -1,5 +1,6 @@
 """Deterministic synthetic data — port of ``repro.data.pipeline`` (the dense,
-MoE, SSM and hybrid families' token batches).
+MoE, SSM and hybrid families' token batches; the encoder–decoder family's
+with their frame embeddings).
 
 :meth:`SyntheticLM.host_batch` is the reference's numpy code, copied, so
 its batches are bit-equal to the reference's for the same seed and step;
@@ -43,17 +44,25 @@ class SyntheticLM:
         return np.concatenate(out, axis=1).astype(np.int32)
 
     def host_batch(self, step: int) -> Dict[str, np.ndarray]:
-        if self.cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotPortedError(f"synthetic batches of the {self.cfg.family!r} family are "
+        cfg = self.cfg
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec"):
+            raise NotPortedError(f"synthetic batches of the {cfg.family!r} family are "
                                  "not ported yet (ROADMAP.md, queue 1)")
         rng = self._rng(step)
         b, s = self.shape.global_batch, self.shape.seq_len
         tokens = self._tokens(rng, b, s)
-        return {"tokens": tokens,
-                "labels": np.roll(tokens, -1, axis=1),
-                "mask": np.ones((b, s), np.float32)}
+        batch = {"tokens": tokens,
+                 "labels": np.roll(tokens, -1, axis=1),
+                 "mask": np.ones((b, s), np.float32)}
+        if cfg.family == "encdec":
+            # drawn after the tokens, padded as the reference's pipeline pads
+            from repro_torch.models.encdec import enc_seq_padded
+            batch["frames"] = rng.standard_normal(
+                (b, enc_seq_padded(cfg, 16), cfg.d_model)).astype(np.float32)
+        return batch
 
     def batch(self, step: int, device) -> Dict[str, torch.Tensor]:
         """The global batch of ``step`` on ``device``: tokens and labels
-        int32 (B, S), mask f32 (B, S)."""
+        int32 (B, S), mask f32 (B, S); for the encoder–decoder family
+        frames f32 (B, S_enc, D)."""
         return {k: torch.from_numpy(v).to(device) for k, v in self.host_batch(step).items()}

@@ -3,13 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         [--arch qwen3-4b] [--layers N] [--out build/profile_serve.json]
 
-Builds the serving path of ``chip_smoke.py`` phases 4, 4b, 4c and 4d
+Builds the serving path of ``chip_smoke.py`` phases 4, 4b, 4c, 4d and 4e
 (``--arch`` at full width, all its layers or the first ``--layers``,
 parameters drawn from seed 0 and cast to bf16, 8 prompts of 2048 seeded
 tokens, flash attention where the model has attention, bf16 compute;
 qwen3-4b by default; mamba2-130m is the SSM family's; jamba-v0.1-52b the
 hybrid's, with ``--layers`` a multiple of its 8-layer period: ``--layers
-8`` is one period, 13.3 B parameters), runs one
+8`` is one period, 13.3 B parameters; whisper-medium the
+encoder–decoder's, each prompt with 1536 seeded frames, its attention the
+plain chunked softmax), runs one
 prefill and 4 decode steps to warm up, times 2 prefills and 8 decode steps
 by the host clock around a synchronize, then profiles one prefill and, in a
 second window, 4 decode steps under ``torch.profiler`` (CPU and CUDA
@@ -103,6 +105,10 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(1)
     prompt = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
                                       device=dev)}
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import enc_seq_padded
+        prompt["frames"] = torch.randn((BATCH, enc_seq_padded(cfg, 16), cfg.d_model),
+                                       generator=gen, device=dev)
     prefill_fn, decode_fn = engine.build_serve_fns(
         cfg, RunConfig(), ShapeSpec("serve", "decode", PROMPT + 4 * DECODE, BATCH), device=dev)
 

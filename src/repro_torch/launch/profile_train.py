@@ -3,12 +3,13 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         [--arch qwen3-4b] [--out build/profile_train.json] [--no-overlap]
 
-Builds the training path of ``chip_smoke.py`` phase 5, 5b or 5c by
+Builds the training path of ``chip_smoke.py`` phase 5, 5b, 5c or 5d by
 ``--arch`` (``train/synthetic.py``: qwen3-4b by ``train_main_path``, at
 full width and 4 layers, ``fixed_k_1bit``, flash attention; olmoe-1b-7b by
 ``moe_train_path``, 2 layers; mamba2-130m by ``ssm_train_path``, all 24
-layers; each with 8 ranks stacked on the card, one 4096-token sequence
-each, bf16 compute, remat; the backward-pipelined sync, or the
+layers; whisper-medium by ``encdec_train_path``, all 24 + 24 layers, 1536
+frames a sequence; each with 8 ranks stacked on the card, one 4096-token
+sequence each, bf16 compute, remat; the backward-pipelined sync, or the
 post-backward one with ``--no-overlap``),
 runs one step to warm up, times 2 steps by the host clock (a synchronize at each phase
 boundary: forward+backward over the ranks, sync, optimizer), then profiles
@@ -51,24 +52,29 @@ def _kind(name: str) -> str:
 def _paths():
     from repro_torch.train import synthetic
     return {synthetic.MODEL: synthetic.train_main_path, synthetic.MOE_MODEL: synthetic.moe_train_path,
-            synthetic.SSM_MODEL: synthetic.ssm_train_path}
+            synthetic.SSM_MODEL: synthetic.ssm_train_path,
+            synthetic.ENCDEC_MODEL: synthetic.encdec_train_path}
 
 
 def take_layer_ms(cfg, params, dtype, reps: int = 3) -> dict:
     """ms of one rank's ``take_layer`` over all layers (forward: the slices
     and casts) and of their backward with unit cotangents, CUDA events,
-    after a warm-up: the min of ``reps``."""
+    after a warm-up: the min of ``reps``.  The stacks are the ``layers.*``
+    leaves, or an encoder–decoder's ``enc.*`` and ``dec.*``."""
     import torch
     from repro_torch.models import transformer as tfm
 
-    lp = {k: v.detach().requires_grad_() for k, v in tfm.sub(params, "layers").items()}
+    stacks = ({"enc": cfg.encoder_layers, "dec": cfg.num_layers} if cfg.family == "encdec"
+              else {"layers": cfg.num_layers})
+    lp = {f"{g}.{k}": v.detach().requires_grad_() for g in stacks
+          for k, v in tfm.sub(params, g).items()}
     names = sorted(lp)
     fwd, bwd = [], []
     for _ in range(reps + 1):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
-        outs = [t for i in range(cfg.num_layers)
-                for t in tfm.take_layer(lp, i, dtype).values()]
+        outs = [t for g, n in stacks.items() for i in range(n)
+                for t in tfm.take_layer(tfm.sub(lp, g), i, dtype).values()]
         ones = [torch.ones_like(t) for t in outs]
         ev[1].record()
         torch.autograd.grad(outs, [lp[k] for k in names], grad_outputs=ones)

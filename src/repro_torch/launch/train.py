@@ -10,10 +10,12 @@ the arch's reduced config and the reference's smoke run: fixed-k 1/16 with
 shared support over ``data``, error feedback, ``min_compress_size`` 1024;
 without it the full config, ``SHAPES[--shape]`` and ``get_run_config``
 (qwen3-4b at 36 layers does not fit one card: ROADMAP.md, queue 1).
-``--arch`` takes the dense, MoE, SSM and hybrid configs of the registry
-(qwen3-4b, olmoe-1b-7b, qwen2-moe-a2.7b, mamba2-130m, jamba-v0.1-52b);
-the SSM and hybrid smoke configs' chunk is 16 tokens, so their ``--seq``
-must be a multiple of 16 (the default 128 is).  The reference trains
+``--arch`` takes the dense, MoE, SSM, hybrid and encoder–decoder configs
+of the registry (qwen3-4b, olmoe-1b-7b, qwen2-moe-a2.7b, mamba2-130m,
+jamba-v0.1-52b, whisper-medium); the SSM and hybrid smoke configs' chunk
+is 16 tokens, so their ``--seq`` must be a multiple of 16 (the default 128
+is); whisper's batches carry its frames (512 of them in the smoke config,
+1536 in the full one).  The reference trains
 qwen2-moe-a2.7b and jamba-v0.1-52b with FSDP, which the port lacks:
 without ``--smoke`` their ``get_run_config`` raises
 :class:`NotPortedError` (ROADMAP.md, queue 1 item 5).

@@ -1,5 +1,6 @@
 """Shared model substrate — port of ``repro.models.common``: the shard
-context, the seeded parameter initializer, RMSNorm and RoPE.
+context, the seeded parameter initializer, RMSNorm, RoPE and the
+sinusoidal positions.
 
 The reference writes every layer per shard inside ``shard_map`` with
 Megatron-style collectives over its ``model`` axis; at ``tp = 1`` those
@@ -98,3 +99,17 @@ def apply_rope(x, positions, theta: float = 1e4):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, d_model: int, offset: int = 0, device=None):
+    """(length, d_model) f32 absolute positions ``offset`` … ``offset +
+    length − 1``: sines of the angles pos · 10⁴^(−2i/d) in the first half,
+    cosines in the second (the reference's order).  The f32 exponents'
+    power is taken in f64 and rounded once, as XLA's correctly rounded f32
+    ``pow`` gives it (torch's f32 ``pow`` is an ulp off at some exponents,
+    which the angle multiplies by the position)."""
+    pos = torch.arange(length, dtype=torch.float32, device=device) + offset
+    expo = -torch.arange(0, d_model, 2, dtype=torch.float32, device=device) / d_model
+    inv = (1e4 ** expo.double()).float()
+    ang = pos[:, None] * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

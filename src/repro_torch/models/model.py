@@ -1,6 +1,9 @@
-"""Model facade, dense, MoE, SSM and hybrid families — port of
-``repro.models.model`` at ``tp = 1``: context, init, input embedding, the
-train loss, the decode cache, prefill and the decode step.
+"""Model facade, dense, MoE, SSM, hybrid and encoder–decoder families —
+port of ``repro.models.model`` at ``tp = 1``: context, init, input
+embedding, the train loss, the decode cache, prefill and the decode step.
+The encoder–decoder family's init, train loss, cache, prefill and decode
+step are :mod:`repro_torch.models.encdec`'s, as the reference dispatches
+them.
 
 The reference runs these per shard inside ``shard_map``; the port runs them
 on one device with no mesh.  A mesh with a model axis above 1 raises
@@ -18,6 +21,7 @@ from repro_torch.configs.registry import hybrid_layout
 from repro_torch.core.wire.base import NotPortedError
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import common
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -38,6 +42,8 @@ def init(seed: int, cfg: ArchConfig, device=None) -> Dict[str, torch.Tensor]:
     """f32 parameters drawn on ``device`` (the card unless given) from a
     ``torch.Generator`` seeded with ``seed``."""
     gen = torch.Generator(resolve_device(device)).manual_seed(seed)
+    if cfg.family == "encdec":
+        return encdec_lib.init_encdec(gen, cfg)
     return tfm.init_lm(gen, cfg)
 
 
@@ -63,8 +69,11 @@ def train_loss(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
     divisions are by f32 tensors on the device, true divisions as in the
     reference.  Metrics: ``ce_sum``, ``count``, ``aux`` (the layer sum; 0
     for the dense and SSM families).  The aux term is over all layers,
-    also in the hybrid family, whose MoE FFNs are every ``every_n``-th."""
+    also in the hybrid family, whose MoE FFNs are every ``every_n``-th.
+    The encoder–decoder family's is :func:`encdec.train_loss`."""
     tfm.check_family(cfg)
+    if cfg.family == "encdec":
+        return encdec_lib.train_loss(ctx, params, cfg, run, batch, global_token_count)
     x = embed_inputs(ctx, params, cfg, batch)
     positions = torch.arange(batch["tokens"].shape[1], device=x.device)
     h, aux, _ = tfm.forward(ctx, params, cfg, run, x, positions)
@@ -82,8 +91,11 @@ def make_cache(ctx: ShardCtx, cfg: ArchConfig, b_local: int, s_max: int,
     family's attention cache is the dense family's).  The SSM family's
     (:func:`ssm_cache`) does not grow with ``s_max``; the hybrid's is
     {"attn": {"k", "v"} (periods, B, s_max, Hkv, hd), "ssm": the SSM cache
-    of its periods × (period − 1) mixers}."""
+    of its periods × (period − 1) mixers}; the encoder–decoder's
+    :func:`encdec.make_cache`."""
     tfm.check_family(cfg)
+    if cfg.family == "encdec":
+        return encdec_lib.make_cache(ctx, cfg, b_local, s_max, dtype, device)
     if cfg.family == "ssm":
         return ssm_cache(cfg, b_local, dtype, device)
     if cfg.family == "hybrid":
@@ -167,6 +179,8 @@ def decode_step(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, cache, t
     """tok: (B, 1) ints; pos: the current length.  Returns (next_token
     (B, 1), logits (B, 1, V) f32, cache) — the cache updated in place."""
     tfm.check_family(cfg)
+    if cfg.family == "encdec":
+        return encdec_lib.decode_step(ctx, params, cfg, run, cache, tok, pos)
     dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, ctx.tp)
     x = tfm.embed_tokens(ctx, params, cfg, tok)
     if cfg.family == "hybrid":
@@ -216,7 +230,10 @@ def prefill(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
     (B, 1, V) f32).  The cache (:func:`make_cache`) holds the prompt's K/V
     in bf16, zero-padded to ``s_max`` when given; the SSM family's the
     final conv windows in bf16 and states in f32, whatever ``s_max``; the
-    hybrid's both (:func:`regroup_hybrid_caches`)."""
+    hybrid's both (:func:`regroup_hybrid_caches`); the encoder–decoder's
+    :func:`encdec.prefill` (``batch`` also carries ``frames``)."""
+    if cfg.family == "encdec":
+        return encdec_lib.prefill(ctx, params, cfg, run, batch, s_max)
     x = embed_inputs(ctx, params, cfg, batch)
     positions = torch.arange(batch["tokens"].shape[1], device=x.device)
     h, _, caches = tfm.forward(ctx, params, cfg, run, x, positions, want_cache=True)

@@ -11,8 +11,11 @@ reference's ``gather_fsdp`` casts them; the embedding and the final norm
 are not.  With a gradient to compute, ``run.remat`` recomputes each layer
 in the backward (``torch.utils.checkpoint``, non-reentrant, around the
 layer body as ``jax.checkpoint(body)``; the hybrid's around a whole
-period) and ``run.remat_attention`` the attention call.  Other families
-raise :class:`NotPortedError`.
+period) and ``run.remat_attention`` the attention call.  The
+encoder–decoder family's init, forward and decode are
+:mod:`repro_torch.models.encdec`'s, on this module's embedding, head,
+cross-entropy and sampling; the VLM family raises
+:class:`NotPortedError`.
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ def take_layer(p: Dict[str, Any], i: int, dtype: torch.dtype) -> Dict[str, Any]:
     return {k: v[i].to(dtype) for k, v in p.items()}
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
 def check_family(cfg: ArchConfig) -> None:

@@ -21,14 +21,15 @@ def build_serve_fns(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, device=No
     decode_fn(params, cache, tok, pos) -> (next_tok (B, 1), cache), the
         cache updated in place (the reference donates it).
 
-    Tokens are moved to the device; the parameters must already lie there.
+    Tokens (and an encoder–decoder model's frames) are moved to the
+    device; the parameters must already lie there.
     """
     dev = resolve_device(device)
     ctx = model_lib.make_ctx(cfg, run)
     s_max = shape.seq_len if cfg.window is None else min(shape.seq_len, cfg.window)
 
     def prefill_fn(params, batch):
-        batch = {"tokens": batch["tokens"].to(dev)}
+        batch = {k: batch[k].to(dev) for k in ("tokens", "frames") if k in batch}
         return model_lib.prefill(ctx, params, cfg, run, batch, s_max=s_max)
 
     def decode_fn(params, cache, tok, pos: int):

@@ -29,6 +29,11 @@
   ``train_4k`` sequence, the reference's ``get_run_config(SSM_MODEL,
   "train_4k")`` as it is (``fixed_k_1bit`` over ``data``, one microbatch,
   no model axis, remat).
+* The encoder–decoder training path (:func:`encdec_train_path`):
+  ``ENCDEC_MODEL`` (whisper-medium) whole (24 encoder and 24 decoder
+  layers at full width), ``N`` ranks of one ``train_4k`` sequence with its
+  1536 frames, the reference's ``get_run_config(ENCDEC_MODEL, "train_4k")``
+  unchanged (``fixed_k_1bit`` over ``data``, one microbatch, remat).
 * The training path (:func:`train_main_path`): the same model, depth and
   ranks, one ``train_4k`` sequence per rank, the real forward and backward
   feeding the same sync under ``fixed_k_1bit``, then AdamW; with
@@ -71,6 +76,7 @@ MULTIPOD_MESH = {"pod": 2, "data": 4}
 MOE_MODEL = "olmoe-1b-7b"
 MOE_LAYERS = 2      # of 16
 SSM_MODEL = "mamba2-130m"      # all 24 layers: 8 f32 gradient stacks take 4.13 GB
+ENCDEC_MODEL = "whisper-medium"   # all 24 + 24 layers: 8 f32 gradient stacks take 24.25 GB
 
 
 def synthetic_grads(shapes: Mapping[str, Sequence[int]], n: int, step: int,
@@ -162,6 +168,15 @@ def ssm_train_path():
     ``N``)."""
     run = get_run_config(SSM_MODEL, "train_4k")
     return get_config(SSM_MODEL), run, dataclasses.replace(SHAPES["train_4k"], global_batch=N)
+
+
+def encdec_train_path():
+    """(cfg, run, shape) of the encoder–decoder training path:
+    ``ENCDEC_MODEL`` whole; the reference's ``get_run_config(ENCDEC_MODEL,
+    "train_4k")`` unchanged; ``train_4k`` sequences, one per rank (global
+    batch ``N``), each with its frames (``SyntheticLM``)."""
+    run = get_run_config(ENCDEC_MODEL, "train_4k")
+    return get_config(ENCDEC_MODEL), run, dataclasses.replace(SHAPES["train_4k"], global_batch=N)
 
 
 def rank_loss_and_grads(cfg, run, params, batch, global_tokens: float):

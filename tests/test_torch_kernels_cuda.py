@@ -941,3 +941,40 @@ def test_hybrid_forward_on_card_equals_cpu(dev):
     (hc, ac), (hh, ah) = out[str(dev)], out["cpu"]
     assert float((hc.double() - hh.double()).norm() / hh.double().norm()) <= 5e-3
     torch.testing.assert_close(ac, ah, atol=0, rtol=1e-5)
+
+
+# --------------------------------------------------------------------------- #
+# The encoder-decoder family (whisper-medium): no kernel (its attention is
+# the plain chunked softmax, as the reference's); the smoke model's f32
+# encoder and decoder on the card against the CPU, and a training batch's
+# loss and gradients there, at phase 4c's limit on hidden states.
+# --------------------------------------------------------------------------- #
+
+def test_encdec_forward_on_card_equals_cpu(dev):
+    from repro_torch.models import encdec as tencdec
+    from repro_torch.models import model as tmodel
+
+    cfg = smoke_config("whisper-medium")
+    run = RunConfig(attn_chunk_q=16, attn_chunk_k=16, remat=False, compute_dtype="float32")
+    ctx = tmodel.make_ctx(cfg, run)
+    params = tmodel.init(0, cfg, device="cpu")
+    batch = SyntheticLM(cfg, ShapeSpec("t", "train", 64, 2)).batch(0, "cpu")
+    out = {}
+    before = dict(backend.launches)
+    for where in (dev, torch.device("cpu")):
+        p = {k: v.to(where).requires_grad_() for k, v in params.items()}
+        b = {k: v.to(where) for k, v in batch.items()}
+        enc = tencdec.encode(ctx, p, cfg, run, b["frames"])
+        h, _ = tencdec._decoder_forward(ctx, p, cfg, run,
+                                        tencdec.embed_decoder(ctx, p, cfg, b["tokens"]), enc,
+                                        False)
+        loss, _ = tmodel.train_loss(ctx, p, cfg, run, b, 128.0)
+        grads = torch.autograd.grad(loss, [p[k] for k in sorted(p)])
+        out[where.type] = (h.detach().cpu(), float(loss), [g.cpu() for g in grads])
+    assert dict(backend.launches) == before
+    (hc, lc, gc), (hh, lh, gh) = out["cuda"], out["cpu"]
+    assert bool(torch.isfinite(hc).all())
+    assert float((hc.double() - hh.double()).norm() / hh.double().norm()) <= 5e-3
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    for a, b in zip(gc, gh):
+        assert float((a.double() - b.double()).norm() / b.double().norm()) <= 5e-3

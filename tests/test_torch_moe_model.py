@@ -61,6 +61,7 @@ from repro.optim import optimizers as jopt
 from repro.train import bucketing as jbucketing
 from repro.train import train_step as jts
 from repro_torch import convert
+from repro_torch.configs import registry
 from repro_torch.configs.base import ArchConfig, RunConfig, ShapeSpec
 from repro_torch.configs.registry import (compression_preset, get_run_config, param_shapes,
                                           smoke_config)
@@ -546,21 +547,31 @@ def test_serve_example_core(arch):
     assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
 
 
-def test_other_families_still_raise():
+def test_other_families_still_raise(monkeypatch):
     # jamba's config converts (its MoE and SSM sub-configs are the port's)
-    # and, the hybrid family being ported, runs; the encoder-decoder family
-    # does not
+    # and, the hybrid family being ported, runs; so does whisper's, the
+    # encoder-decoder family; the VLM family does not: its parameter shapes
+    # are the reference's, but the model, its smoke config and its batches
+    # raise
     jamba = convert.arch_config(j_smoke_config("jamba-v0.1-52b"))
     assert jamba.family == "hybrid" and jamba.moe is not None and jamba.ssm is not None
     ttfm.check_family(jamba)
     assert "periods.moe.w_up" in param_shapes(jamba)[0]
-    for family in ("encdec",):
+    whisper = convert.arch_config(j_smoke_config("whisper-medium"))
+    assert whisper.family == "encdec" and whisper.encoder_layers == 2
+    ttfm.check_family(whisper)
+    assert "dec.xattn.wq" in param_shapes(whisper)[0]
+    for family in ("vlm",):
         other = ArchConfig(name="x", family=family, num_layers=1, d_model=8, num_heads=1,
-                           num_kv_heads=1, d_ff=8, vocab_size=8)
+                           num_kv_heads=1, d_ff=8, vocab_size=8, num_patches=4)
         with pytest.raises(NotPortedError):
             ttfm.check_family(other)
+        assert "patch_proj" in param_shapes(other)[0]
+        monkeypatch.setitem(registry._ARCHS, "x", other)
         with pytest.raises(NotPortedError):
-            param_shapes(other)
+            smoke_config("x")
+        with pytest.raises(NotPortedError):
+            SyntheticLM(other, ShapeSpec("t", "train", 8, 2)).host_batch(0)
     with pytest.raises(NotPortedError):        # qwen2-moe is in the reference's FSDP set
         get_run_config("qwen2-moe-a2.7b", "train_4k")
     assert not get_run_config("olmoe-1b-7b", "train_4k").fsdp
