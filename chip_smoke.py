@@ -170,6 +170,18 @@ Phases, each printing its own lines:
    2080 and the cross K/V at 1536 frames, bf16), then the prefill again
    beside the encoder alone; prefill ms and the encoder's, decode ms per
    token, tokens/s, peaks;
+4f. serving the VLM family (``run_serving_vlm``): first the smoke llava (2
+   layers, 8 patches) in f32 compute on the card against the CPU (phase
+   4c's limits; kernel 11's f32 path at hd 16 on the card); then
+   llava-next-34b at full width, 20 of its 60 layers (12,126,026,752
+   parameters drawn in f32 and cast to bf16 leaf by leaf; kernel 11 at 56/8
+   heads, g = 7): one teacher-forced decode of 32 tokens after the 1152
+   patches and 896 tokens of each prompt against one forward over the 2080
+   positions, ``engine.generate`` on 8 prompts of 1152 seeded patch
+   embeddings and 896 seeded tokens with 32 greedy steps from position
+   2048 (one flash launch a layer per prefill), the cache's bytes
+   (1,363,148,800), the flash prefill against ``attn_impl="xla"`` (the
+   serving tolerances); prefill ms, decode ms per token, tokens/s, peaks;
 5. the training path (``train/synthetic.py::train_main_path``): qwen3-4b at
    full width and 4 layers, 8 ranks stacked, one 4096-token sequence each,
    ``fixed_k_1bit``.  Step 0's rank-0 loss and gradients with the flash
@@ -210,11 +222,13 @@ Phases, each printing its own lines:
    overlaps an asynchronous save against those that do not.  The training
    CLI (``launch/train.py --smoke --devices 4 --steps 4 --ckpt-every 2``,
    then ``--steps 6``, resuming at step 4; kernels 11–13 at hd 16 and 4;
-   then the same with ``--arch jamba-v0.1-52b`` (``run_cli_hybrid``: the
+   then the same with ``--arch jamba-v0.1-52b`` (``run_cli_arch``: the
    hybrid smoke config, one attention layer; its losses within
    ``CLI_CPU_LOSS_RTOL`` of the same run on the CPU from the same drawn
    parameters; with ``--no-compress`` a resumed run bit for bit an
-   uninterrupted one's checkpoint and losses) and the serving example
+   uninterrupted one's checkpoint and losses), and with ``--arch
+   llava-next-34b`` (the smoke VLM, 8 patches a sequence) the same
+   (``run_cli_arch`` runs both) and the serving example
    (``examples/serve_lm.py``: tokens in range, kernel 11 at hd 16 once a
    layer).  5b: the MoE training path
    (``run_training_moe``, ``synthetic.moe_train_path``): olmoe-1b-7b at full
@@ -240,7 +254,16 @@ Phases, each printing its own lines:
    gradients in bf16 against f32 compute (``ENCDEC_GRAD_TOL``,
    ``ENCDEC_LOSS_RTOL``), then ``fit_and_check`` for one step (kernel 4 n
    times on each of the 17 compressed buckets, no flash kernel) and its
-   post-backward twin, bit-equal after it.  The training, error-feedback and
+   post-backward twin, bit-equal after it.  5e: the VLM training path
+   (``run_training_vlm``, ``synthetic.vlm_train_path``): llava-next-34b at
+   full width and 1 of 60 layers, 4 ranks of one 4096-position sequence
+   (1152 patches, 2944 tokens) stacked, ``get_run_config("llava-next-34b",
+   "train_4k")`` with FSDP off and one microbatch (``fixed_k_1bit``,
+   remat): step 0's rank-0 loss and gradients in bf16 against f32 compute,
+   ``patch_proj``'s among them (``VLM_GRAD_TOL``, ``VLM_LOSS_RTOL``), then
+   ``fit_and_check`` for two steps (kernels 11–13 at 56/8 heads, 2·L·n and
+   L·n launches, kernel 4 n times a compressed bucket) and its
+   post-backward twin, bit-equal after each.  The training, error-feedback and
    multi-pod runs are each followed by a post-backward twin
    (``run_twin``: ``TWIN_STEPS`` steps from the same start with
    ``BucketSpec.overlap = False``), held bit for bit to the overlapped
@@ -1368,6 +1391,12 @@ FLASH_CASES = [
     # training sequence
     (8, 2048, 2048, 16, 16, 128, True, None, 0, ("bfloat16",)),
     (1, 4096, 4096, 16, 16, 128, True, None, 0, ("bfloat16",)),
+    # llava-next-34b's heads (56/8, g = 7): ragged tiles, its serving
+    # prefill (8 prompts of 1152 patches and 896 tokens) and one rank's
+    # training sequence (1152 patches and 2944 tokens)
+    (1, 1000, 1000, 56, 8, 128, True, None, 0, ("float32", "bfloat16")),
+    (8, 2048, 2048, 56, 8, 128, True, None, 0, ("bfloat16",)),
+    (1, 4096, 4096, 56, 8, 128, True, None, 0, ("bfloat16",)),
     # hd 32 (lm-8m), on the hd-64 tiles with columns 32-63 zero-filled: tile
     # edges, then one rank's attention in the training example
     (1, 1000, 1000, 4, 2, 32, True, None, 0, ("float32", "bfloat16")),   # ragged, g = 2
@@ -1392,6 +1421,8 @@ FLASH_TIMED = {(8, 2048, 32, 8, 128): ("serving", "flash_attention_fwd"),
                (8, 2048, 16, 16, 128): ("olmoe serving", None),
                (1, 32768, 32, 8, 128): ("hybrid 32k prompt", None),
                (1, 4096, 16, 16, 128): ("olmoe training", None),
+               (8, 2048, 56, 8, 128): ("llava serving", None),
+               (1, 4096, 56, 8, 128): ("llava training", None),
                (4, 128, 8, 4, 32): ("example", "flash_attention_fwd_hd32"),
                (4, 128, 4, 2, 16): ("training CLI", "flash_attention_fwd_hd16"),
                (4, 16, 4, 2, 16): ("serving example", None)}
@@ -1476,7 +1507,7 @@ def check_flash(records: dict) -> None:
                         "sdpa " + (f"{lms:.3f} ms ({ms / lms:.2f}x)" if lms else
                                    "out of memory"))
                 if row or path in ("serving example", "olmoe serving", "olmoe training",
-                                   "hybrid 32k prompt"):
+                                   "hybrid 32k prompt", "llava serving", "llava training"):
                     pms = cuda_ms(lambda: far.flash_attention_fwd(q, k, v, **kw), reps=1)
                     tag += f", plain {pms:.3f} ms"
                 if row:
@@ -1503,6 +1534,9 @@ FLASH_BWD_CASES = [
     (1, 256, 512, 4, 2, 128, True, None, 200, ("float32", "bfloat16")),  # q offset 200, Sk 512
     (1, 4096, 4096, 32, 8, 128, True, None, 0, ("bfloat16",)),
     (1, 4096, 4096, 16, 16, 128, True, None, 0, ("bfloat16",)),      # olmoe's heads, g = 1
+    # llava-next-34b's heads, g = 7: ragged tiles, then one rank's sequence
+    (1, 1000, 1000, 56, 8, 128, True, None, 0, ("float32", "bfloat16")),
+    (1, 4096, 4096, 56, 8, 128, True, None, 0, ("bfloat16",)),
     # hd 32 (lm-8m) on the hd-64 tiles: the edges above, then one rank's
     # attention in the training example
     (1, 1000, 1000, 4, 2, 32, True, None, 0, ("float32", "bfloat16")),    # ragged, g = 2
@@ -1521,6 +1555,7 @@ FLASH_BWD_CASES = [
 # the shapes at which kernels 12-13 are timed (bf16): (b, sq, hq, hkv, hd) ->
 # the suffix of their rows in the last JSON line, or None (printed only)
 FLASH_BWD_TIMED = {(1, 4096, 32, 8, 128): "", (1, 4096, 16, 16, 128): None,
+                   (1, 4096, 56, 8, 128): None,
                    (4, 128, 8, 4, 32): "_hd32", (4, 128, 4, 2, 16): "_hd16"}
 # f32: |Δ| ≤ atol + rtol·|ref|, the forward's; bf16: relative Frobenius error
 # of each of dq, dk, dv.  p and ds enter the products as bf16 hi + lo pairs
@@ -2933,6 +2968,170 @@ def run_serving_encdec(launches_total) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# Phase 4f: serving the VLM family.
+# --------------------------------------------------------------------------- #
+
+VLM_MODEL = "llava-next-34b"
+# 20 of its 60 layers at full width: the whole model's 34.4 B parameters take
+# 68.9 GB in bf16, and model.init draws every leaf in f32 on the card before
+# the cast (137.8 GB); 20 layers draw 48.5 GB
+VLM_LAYERS = 20
+VLM_PARAMS = 12_126_026_752
+# the smoke llava (2 layers, 8 patches) in f32 compute, one batch of prompts
+# of 8 patches and 248 tokens, on the card (kernel 11's f32 path at hd 16)
+# against the CPU (its plain version), held to phase 4c's limits
+VLM_F32_BATCH, VLM_F32_TEXT = 4, 248
+# the bf16 cache of the 8 prompts at s_max = 2080 (1152 patches, 896 tokens
+# and 32 decoded): 20 layers of k and v, 8 kv heads × 128
+VLM_CACHE_BYTES = 1_363_148_800
+
+
+def check_vlm_f32_card_vs_cpu() -> dict:
+    """The smoke VLM in f32 compute, one batch of prompts and patches: the
+    final hidden states and the last position's logits on the card against
+    the CPU."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import model, transformer
+
+    cfg = smoke_config(VLM_MODEL)
+    run = RunConfig(remat=False, compute_dtype="float32")
+    ctx = model.make_ctx(cfg, run)
+    params = model.init(SERVE_SEED, cfg, device="cpu")
+    gen = torch.Generator().manual_seed(SERVE_SEED + 2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (VLM_F32_BATCH, VLM_F32_TEXT),
+                                     generator=gen),
+             "patches": torch.randn((VLM_F32_BATCH, cfg.num_patches, cfg.d_model),
+                                    generator=gen)}
+    s = model.seq_total(batch)
+    outs = {}
+    for where in ("card", "cpu"):
+        dev = torch.device("cuda") if where == "card" else torch.device("cpu")
+        t = time.perf_counter()
+        with torch.no_grad():
+            p = {k: v.to(dev) for k, v in params.items()}
+            x = model.embed_inputs(ctx, p, cfg, {k: v.to(dev) for k, v in batch.items()})
+            h, _, _ = transformer.forward(ctx, p, cfg, run, x, torch.arange(s, device=dev))
+            logits = transformer.lm_head_logits(ctx, p, cfg, h[:, -1:])
+        outs[where] = (h.cpu(), logits.cpu(), (time.perf_counter() - t) * 1e3)
+        del p, x, h, logits
+    (hc, lc, ms_card), (hh, lh, ms_cpu) = outs["card"], outs["cpu"]
+    out = {"layers": cfg.num_layers, "positions": s,
+           "h_rel": float((hc.double() - hh.double()).norm() / hh.double().norm()),
+           "last_logits_max_abs": float((lc - lh).abs().max()), "logits_std": float(lh.std()),
+           "card_ms": ms_card, "cpu_ms": ms_cpu}
+    need(bool(torch.isfinite(hc).all()), "llava f32 forward on the card: not finite")
+    need(out["h_rel"] <= SSM_F32_H_RTOL and out["last_logits_max_abs"] <= SSM_F32_LOGIT_TOL,
+         f"llava f32 forward, card vs CPU: {out} over {SSM_F32_H_RTOL} / {SSM_F32_LOGIT_TOL}")
+    return out
+
+
+def run_serving_vlm(launches_total) -> dict:
+    """llava-next-34b at full width and VLM_LAYERS of its 60 layers
+    (parameters drawn in f32 on the card and cast to bf16 leaf by leaf),
+    after the smoke VLM's f32 forward on the card against the CPU: 8
+    prompts of 1152 seeded patch embeddings and SERVE_PROMPT − 1152 seeded
+    tokens; the teacher-forced decode of the next SERVE_STEPS tokens
+    against one forward over all SERVE_PROMPT + SERVE_STEPS positions, the
+    user's entry points (``engine.generate``: one kernel-11 launch a layer
+    per prefill, decoding from position SERVE_PROMPT), the cache's bytes
+    against the exact count, the flash prefill against
+    ``attn_impl="xla"``.  Returns the summary line."""
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model, transformer
+    from repro_torch.serving import engine
+
+    f32_check = check_vlm_f32_card_vs_cpu()
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(VLM_MODEL), num_layers=VLM_LAYERS)
+    run = RunConfig()                     # flash attention, bf16 compute
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SERVE_SEED, cfg, device=dev)          # f32, then bf16 leaf by leaf
+    for name in list(params):
+        params[name] = params[name].to(torch.bfloat16)
+    n_params = sum(v.numel() for v in params.values())
+    need(n_params == VLM_PARAMS, f"llava: {n_params} parameters at {VLM_LAYERS} layers, not "
+                                 f"{VLM_PARAMS}")
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    n_patch = cfg.num_patches
+    text, total = SERVE_PROMPT - n_patch, SERVE_PROMPT + SERVE_STEPS
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, text + SERVE_STEPS), generator=gen,
+                           device=dev)
+    patches = torch.randn((SERVE_BATCH, n_patch, cfg.d_model), generator=gen, device=dev)
+    prompt = {"tokens": tokens[:, :text], "patches": patches}
+    prefill_fn, decode_fn = engine.build_serve_fns(
+        cfg, run, ShapeSpec("serve", "decode", total, SERVE_BATCH), device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+
+    # teacher-forced: decode the known tokens after the prompt's patches and
+    # tokens, against one forward over all 2080 positions (this also warms up)
+    ctx = model.make_ctx(cfg, run)
+    with torch.no_grad():
+        cache, _ = prefill_fn(params, prompt)
+        dec = []
+        for i in range(SERVE_STEPS):
+            _, logits, cache = model.decode_step(ctx, params, cfg, run, cache,
+                                                 tokens[:, text + i:text + i + 1],
+                                                 SERVE_PROMPT + i)
+            dec.append(logits)
+        del cache
+        whole = {"tokens": tokens, "patches": patches}
+        x = model.embed_inputs(ctx, params, cfg, whole)
+        h, _, _ = transformer.forward(ctx, params, cfg, run, x,
+                                      torch.arange(model.seq_total(whole), device=dev))
+        full = transformer.lm_head_logits(ctx, params, cfg, h[:, SERVE_PROMPT:])
+        del x, h
+    dec = torch.cat(dec, dim=1)
+    teacher = agreement(f"llava: teacher-forced decode vs forward of {total}", dec, full)
+    teacher["step0_max_abs"] = float((dec[:, 0] - full[:, 0]).abs().max())
+    del dec, full
+
+    # the main path, as a user drives it; every count zeroed just before it
+    out, times, seen, counts = serve_main_path(prefill_fn, decode_fn, params, prompt,
+                                               launches_total)
+    need(counts == {"flash_attention_fwd": cfg.num_layers},
+         f"llava serving: launches {counts} != one flash forward per layer ({cfg.num_layers})")
+    need(tuple(out.shape) == (SERVE_BATCH, SERVE_STEPS), f"llava serving: tokens {out.shape}")
+    need(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "llava serving: token out of range")
+    cache, flash_logits = seen["prefill"]
+    need(bool(torch.isfinite(flash_logits).all()), "llava serving: non-finite prefill logits")
+    cache_bytes = ssm_cache_bytes(cache)
+    need(cache_bytes == VLM_CACHE_BYTES == SERVE_BATCH * total * cfg.num_layers * 2
+         * cfg.num_kv_heads * cfg.hd * 2,
+         f"llava serving: cache of {cache_bytes} B, not {VLM_CACHE_BYTES}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del seen, cache
+
+    with torch.no_grad():
+        _, xla_logits = model.prefill(ctx, params, cfg, dataclasses.replace(run, attn_impl="xla"),
+                                      prompt)
+    xla = agreement("llava: flash prefill vs xla prefill", flash_logits, xla_logits)
+    del params, flash_logits, xla_logits
+    torch.cuda.empty_cache()
+
+    prefill_ms = times["prefill"][0]
+    decode_ms = sum(times["decode"]) / len(times["decode"])
+    return {"model": cfg.name, "layers": cfg.num_layers,
+            "of_layers": get_config(VLM_MODEL).num_layers, "params": n_params,
+            "batch": SERVE_BATCH, "patches": n_patch, "tokens": text, "prompt": SERVE_PROMPT,
+            "decode_steps": SERVE_STEPS, "setup_s": setup_s, "prefill_ms": prefill_ms,
+            "prefill_positions_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3,
+            "decode_ms_per_token": decode_ms, "decode_ms": times["decode"],
+            "decode_tokens_per_s": SERVE_BATCH / decode_ms * 1e3,
+            "flash_launches_per_prefill": counts.get("flash_attention_fwd", 0),
+            "cache_bytes": cache_bytes, "teacher_forced": teacher, "flash_vs_xla": xla,
+            "f32_card_vs_cpu": f32_check, "init_peak_GiB": init_peak, "serve_peak_GiB": peak}
+
+
+# --------------------------------------------------------------------------- #
 # Phase 5: the training path.
 # --------------------------------------------------------------------------- #
 
@@ -3424,22 +3623,23 @@ def run_training_ssm(launches_total) -> dict:
 
 def train_whole_model(cfg, run, shape, grad_tol: float, loss_rtol: float, steps: int,
                       launches_total) -> dict:
-    """A model whose attention, if any, reaches no flash kernel, trained
-    with ``synthetic.N`` ranks stacked under the reference's run config:
-    step 0's rank-0 loss and gradients in bf16 against f32 compute (per
-    leaf ≤ ``grad_tol``, loss ≤ ``loss_rtol`` relative); then
-    ``Trainer.fit`` for ``steps`` steps under the backward-pipelined
-    schedule (``fit_and_check``: kernel 4's launches, n a compressed
-    bucket, the bytes, the error against ``mse_fixed_k_shared``, the step's
-    split and peak), digested after its first TWIN_STEPS steps (or all of
-    them, if fewer), and its post-backward twin, bit-equal after them."""
+    """A model trained with one sequence a rank (``shape.global_batch``
+    ranks) stacked under the reference's run config: step 0's rank-0 loss
+    and gradients in bf16 against f32 compute (per leaf ≤ ``grad_tol``,
+    loss ≤ ``loss_rtol`` relative); then ``Trainer.fit`` for ``steps``
+    steps under the backward-pipelined schedule (``fit_and_check``: the
+    flash kernels' launches where the model has attention, kernel 4's, n a
+    compressed bucket, the bytes, the error against
+    ``mse_fixed_k_shared``, the step's split and peak), digested after its
+    first TWIN_STEPS steps (or all of them, if fewer), and its
+    post-backward twin, bit-equal after them."""
     import torch
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import model
     from repro_torch.train import synthetic
 
     dev = torch.device("cuda")
-    n = synthetic.N
+    n = shape.global_batch
     global_tokens = float(shape.global_batch * shape.seq_len)
     torch.cuda.empty_cache()
     params = model.init(TRAIN_SEED, cfg, device=dev)
@@ -3501,6 +3701,38 @@ def run_training_encdec(launches_total) -> dict:
     out = train_whole_model(cfg, run, shape, ENCDEC_GRAD_TOL, ENCDEC_LOSS_RTOL,
                             ENCDEC_TRAIN_STEPS, launches_total)
     return {"encoder_layers": cfg.encoder_layers, **out}
+
+
+# Phase 5e: llava-next-34b at full width and 1 of 60 layers (1,526,748,160
+# parameters; 6.11 GB of f32 parameters, 12.2 GB of moments and 24.4 GB of
+# gradient stacks at n = 4), each rank's sequence its 1152 patches and 2944
+# tokens.  At 2 layers the first step peaked at 66.3 GiB and the second ran
+# out of the card's memory under the default caching allocator.  Step 0's rank-0 loss and gradients in bf16 against f32 compute:
+# the model's own bf16 noise, set from a CPU rehearsal of the same code at
+# d 1792 (56/8 heads of 32, ff 5120, vocab 64,000, 2 layers, one sequence of
+# 288 patches and 736 tokens): per leaf ‖Δg‖/‖g‖ up to 0.038 (w_gate;
+# patch_proj 0.032), loss 5.0e-5 relative; the limits 2.7 and 20 times
+# those.  A bf16 path that drops what f32 keeps (a cast, a mask, the
+# patches' projection) is off by order 1.
+VLM_GRAD_TOL, VLM_LOSS_RTOL = 0.1, 1e-3
+# two steps and their two-step twin, as the dense, MoE and SSM cells
+VLM_TRAIN_STEPS = 2
+
+
+def run_training_vlm(launches_total) -> dict:
+    """Phase 5e (``synthetic.vlm_train_path``): llava-next-34b at full width
+    and 1 layer, ``synthetic.VLM_N`` ranks of one 4096-position sequence
+    stacked, the reference's ``get_run_config`` with FSDP off and one
+    microbatch (``fixed_k_1bit``, remat), through :func:`train_whole_model`;
+    the ``patch_proj`` gradient's bf16-to-f32 reading reported apart."""
+    from repro_torch.train import synthetic
+
+    cfg, run, shape = synthetic.vlm_train_path()
+    out = train_whole_model(cfg, run, shape, VLM_GRAD_TOL, VLM_LOSS_RTOL, VLM_TRAIN_STEPS,
+                            launches_total)
+    rel = out["step0_bf16_vs_f32"]["rel"]
+    need("patch_proj" in rel, "llava training: no patch_proj gradient")
+    return {"patches": cfg.num_patches, "patch_proj_bf16_vs_f32": rel["patch_proj"], **out}
 
 
 EXAMPLE_STEPS = 4
@@ -3759,10 +3991,11 @@ def run_cli(launches_total) -> dict:
     return out
 
 
-# The hybrid through the same CLI (--arch jamba-v0.1-52b --smoke: one period
-# of 4 layers, attention at position 1; 4 ranks of 4 x 128 tokens): 4 steps
-# then resumed for 2, as qwen3-4b's run; the same 4 steps on the CPU from the
-# same parameters (the card's draw, saved by a run of 0 steps: the card's and
+# The hybrid and the VLM through the same CLI (--arch jamba-v0.1-52b --smoke:
+# one period of 4 layers, attention at position 1; --arch llava-next-34b
+# --smoke: 2 layers, each sequence 8 patches and 120 tokens; 4 ranks of 4
+# sequences of 128 positions): 4 steps then resumed for 2, as qwen3-4b's run;
+# the same 4 steps on the CPU from the same parameters (the card's draw, saved by a run of 0 steps: the card's and
 # the CPU's generators draw differently); and a run resumed at step 4 against
 # an uninterrupted one, bit for bit.  The smoke run's error-feedback
 # residuals are not saved (the reference's contract), so a resumed
@@ -3772,17 +4005,17 @@ def run_cli(launches_total) -> dict:
 # apart): each loss within CLI_CPU_LOSS_RTOL of the CPU's (one rerouted token
 # of the 2048 a step moves the loss by about 5e-4 relative; bf16 rounding by
 # less).
-HYBRID_CLI_ARGS = ("--arch", HYBRID_MODEL, "--smoke", "--devices", "4", "--ckpt-every", "2")
+CLI_ARCHS = (HYBRID_MODEL, VLM_MODEL)
 CLI_CPU_LOSS_RTOL = 5e-3
 
 
-def run_cli_hybrid(launches_total) -> dict:
-    """``python -m repro_torch.launch.train --arch jamba-v0.1-52b --smoke
-    --devices 4 --ckpt-every 2`` in process, its output captured: ``--steps
-    0 --ckpt-dir D`` (the drawn parameters saved), ``--steps 4`` (from them),
+def run_cli_arch(arch: str, launches_total) -> dict:
+    """``python -m repro_torch.launch.train --arch ARCH --smoke --devices 4
+    --ckpt-every 2`` in process, its output captured: ``--steps 0
+    --ckpt-dir D`` (the drawn parameters saved), ``--steps 4`` (from them),
     then ``--steps 6`` (resumed at step 4), each hd-16 flash kernel
-    launched once per rank a step (one attention layer, no remat) and
-    kernel 4; ``--steps 4 --device cpu`` from a copy of the step-0
+    launched once per rank and attention layer a step (the hybrid's one a
+    period; no remat) and kernel 4; ``--steps 4 --device cpu`` from a copy of the step-0
     checkpoint, its losses against the card's; with ``--no-compress`` 4 + 2
     steps into another directory against ``--steps 6`` uninterrupted: the
     step-6 checkpoints bit-equal and the printed losses of steps 4–5 the
@@ -3799,7 +4032,9 @@ def run_cli_hybrid(launches_total) -> dict:
     from repro_torch.launch import train as train_cli
 
     step_line = re.compile(r"^step +(\d+)  loss (\S+)  gnorm (\S+)  lr (\S+)$")
-    per_step = hybrid_layout(smoke_config(HYBRID_MODEL))[1] * 4
+    cfg = smoke_config(arch)
+    per_step = (hybrid_layout(cfg)[1] if cfg.family == "hybrid" else cfg.num_layers) * 4
+    cli_args = ("--arch", arch, "--smoke", "--devices", "4", "--ckpt-every", "2")
     torch.cuda.empty_cache()
     base = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     dirs = {k: str(pathlib.Path(base) / k) for k in ("card", "cpu", "exact", "whole")}
@@ -3814,7 +4049,7 @@ def run_cli_hybrid(launches_total) -> dict:
     out, losses = {}, {}
     try:
         for label, extra, d, last, want_steps in runs:
-            args = [*HYBRID_CLI_ARGS, *extra, "--steps", str(last), "--ckpt-dir", d]
+            args = [*cli_args, *extra, "--steps", str(last), "--ckpt-dir", d]
             backend.reset_launches()
             buf = io.StringIO()
             t0 = time.perf_counter()
@@ -3826,20 +4061,20 @@ def run_cli_hybrid(launches_total) -> dict:
             lines = buf.getvalue().strip().splitlines()
             rows = [step_line.match(line) for line in lines]
             need(rc == 0 and all(rows) and len(rows) == len(want_steps),
-                 f"hybrid cli {args}: output {buf.getvalue()!r}")
+                 f"{arch} cli {args}: output {buf.getvalue()!r}")
             got = [(int(m[1]), m[2]) for m in rows]
-            print(f"  hybrid cli {label}: {got} ({sec:.1f} s, launches {counts})", flush=True)
+            print(f"  {arch} cli {label}: {got} ({sec:.1f} s, launches {counts})", flush=True)
             need(tuple(s for s, _ in got) == want_steps
                  and all(math.isfinite(float(l)) for _, l in got),
-                 f"hybrid cli {args}: steps and losses {got}, want steps {want_steps}")
-            need(ckpt.latest_step(d) == last, f"hybrid cli {args}: newest checkpoint "
+                 f"{arch} cli {args}: steps and losses {got}, want steps {want_steps}")
+            need(ckpt.latest_step(d) == last, f"{arch} cli {args}: newest checkpoint "
                                               f"{ckpt.latest_step(d)}")
             losses[label] = dict(got)
             if label == "drawn":          # the CPU run starts from the card's draw
                 shutil.copytree(pathlib.Path(d) / "step-00000000",
                                 pathlib.Path(dirs["cpu"]) / "step-00000000")
             if label == "cpu":
-                need(not counts, f"hybrid cli on the CPU: launches {counts}")
+                need(not counts, f"{arch} cli on the CPU: launches {counts}")
             else:
                 launches_total.update(counts)
                 want = dict.fromkeys(CLI_FLASH, per_step * len(want_steps))
@@ -3847,23 +4082,23 @@ def run_cli_hybrid(launches_total) -> dict:
                 need({k: counts.get(k, 0) for k in CLI_FLASH} == want
                      and (fk == 0 if extra or not want_steps else
                           fk > 0 and fk % len(want_steps) == 0),
-                     f"hybrid cli {args}: launches {counts}, want {want} and fixed-k gathers "
+                     f"{arch} cli {args}: launches {counts}, want {want} and fixed-k gathers "
                      "where it compresses")
             out[label] = {"steps": [s for s, _ in got], "losses": [float(l) for _, l in got],
                           "sec": sec, "launches": counts}
         need(all(losses["exact resumed"][s] == losses["exact uninterrupted"][s] for s in (4, 5)),
-             f"hybrid cli: resumed losses {losses['exact resumed']} != uninterrupted "
+             f"{arch} cli: resumed losses {losses['exact resumed']} != uninterrupted "
              f"{losses['exact uninterrupted']}")
         a, b = (np.load(pathlib.Path(dirs[k]) / "step-00000006" / "arrays.npz")
                 for k in ("exact", "whole"))
         need(sorted(a.files) == sorted(b.files) and all(
             a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes() for k in a.files),
-            "hybrid cli: the resumed run's checkpoint at step 6 differs from the uninterrupted "
+            f"{arch} cli: the resumed run's checkpoint at step 6 differs from the uninterrupted "
             "run's")
         card, cpu = losses["card"], losses["cpu"]
         rel = [abs(float(card[s]) - float(cpu[s])) / abs(float(cpu[s])) for s in range(4)]
         need(max(rel) <= CLI_CPU_LOSS_RTOL,
-             f"hybrid cli: card losses {card} vs CPU {cpu}: {rel} over {CLI_CPU_LOSS_RTOL}")
+             f"{arch} cli: card losses {card} vs CPU {cpu}: {rel} over {CLI_CPU_LOSS_RTOL}")
         out["resumed_equals_uninterrupted"] = {"arrays": len(a.files), "bit_equal": True}
         out["card_vs_cpu_loss_rel"] = rel
     finally:
@@ -4273,6 +4508,9 @@ def main() -> int:
     summary = run_serving_encdec(total)
     print(f"[4e] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
+    summary = run_serving_vlm(total)
+    print(f"[4f] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
     kept = {}
     summary = run_training(total, kept)
     print(f"[5] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -4315,16 +4553,20 @@ def main() -> int:
     summary = run_training_encdec(total)
     print(f"[5d] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
+    summary = run_training_vlm(total)
+    print(f"[5e] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
     summary = run_example(total)
     print(f"[5] example {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     summary = run_cli(total)
     print(f"[5] training CLI {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
-    t0 = time.perf_counter()
-    summary = run_cli_hybrid(total)
-    print(f"[5] training CLI, hybrid {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",
-          flush=True)
+    for arch in CLI_ARCHS:
+        t0 = time.perf_counter()
+        summary = run_cli_arch(arch, total)
+        print(f"[5] training CLI, {arch} {json.dumps(summary)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     summary = run_serve_example(total)
     print(f"[5] serving example {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",

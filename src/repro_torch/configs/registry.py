@@ -6,7 +6,7 @@ preset name means the same config on both sides; the registry
 (:func:`repro_torch.core.wire.resolve`) says which of them the port can run;
 the ``hier_*`` presets run unflattened on a ``(pod, data)`` mesh.
 :func:`get_run_config` is the reference's run configuration.
-:func:`param_shapes` gives the dense, MoE, SSM, hybrid and
+:func:`param_shapes` gives the dense, VLM, MoE, SSM, hybrid and
 encoder–decoder families' leaf names, global shapes and sharding specs
 exactly as ``repro.models.transformer.init_lm`` (or
 ``repro.models.encdec.init_encdec``) with ``init_attention`` /
@@ -17,8 +17,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-from repro_torch.configs import (jamba_v01_52b, mamba2_130m, olmoe_1b_7b, qwen2_moe_a2_7b,
-                                 qwen3_4b, whisper_medium)
+from repro_torch.configs import (jamba_v01_52b, llava_next_34b, mamba2_130m, olmoe_1b_7b,
+                                 qwen2_moe_a2_7b, qwen3_4b, whisper_medium)
 from repro_torch.configs.base import SHAPES, ArchConfig, RunConfig
 from repro_torch.core import types as core_types
 from repro_torch.core.wire.base import NotPortedError
@@ -27,7 +27,7 @@ from repro_torch.models.ssm import SSMCfg
 
 _ARCHS = {m.CONFIG.name: m.CONFIG
           for m in (qwen3_4b, qwen2_moe_a2_7b, olmoe_1b_7b, mamba2_130m, jamba_v01_52b,
-                    whisper_medium)}
+                    whisper_medium, llava_next_34b)}
 
 
 def list_archs():
@@ -126,9 +126,10 @@ def robust_preset(name: str, policy: str,
 
 # the reference's microbatch counts for train shapes (dry-run memory sizing)
 _TRAIN_MICROBATCHES = {"qwen3-4b": 4, "qwen2-moe-a2.7b": 4, "olmoe-1b-7b": 2,
-                       "mamba2-130m": 1, "jamba-v0.1-52b": 8, "whisper-medium": 1}
+                       "mamba2-130m": 1, "jamba-v0.1-52b": 8, "whisper-medium": 1,
+                       "llava-next-34b": 8}
 # the reference's FSDP set among the port's archs (> 8B parameters)
-_BIG = {"qwen2-moe-a2.7b", "jamba-v0.1-52b"}
+_BIG = {"qwen2-moe-a2.7b", "jamba-v0.1-52b", "llava-next-34b"}
 
 
 def get_run_config(arch: str, shape: str, *, multi_pod: bool = False,
@@ -145,6 +146,16 @@ def get_run_config(arch: str, shape: str, *, multi_pod: bool = False,
     model axis into data parallelism).  FSDP (the reference's set of
     archs above 8B parameters) raises in ``RunConfig``, as do the shapes and families the port
     lacks."""
+    return _run_config(arch, shape, fsdp=get_config(arch).name in _BIG, multi_pod=multi_pod,
+                       compression=compression)
+
+
+def _run_config(arch: str, shape: str, *, fsdp: bool, multi_pod: bool = False,
+                compression=None) -> RunConfig:
+    """:func:`get_run_config` with FSDP on or off as ``fsdp`` says.  Off, it
+    is a cut of an arch of the FSDP set: FSDP lays out the same gradient
+    over the data axis, and the port keeps every parameter whole on one
+    card."""
     cfg = get_config(arch)
     kind = SHAPES[shape].kind
     if isinstance(compression, str):
@@ -161,8 +172,7 @@ def get_run_config(arch: str, shape: str, *, multi_pod: bool = False,
     if SHAPES[shape].seq_len >= 32768 and kind != "decode":
         chunk_q, chunk_k = 1024, 2048
     sharded = cfg.name != "mamba2-130m"
-    return RunConfig(microbatches=mb, fsdp=cfg.name in _BIG, model_parallel=sharded,
-                     seq_shard=sharded,
+    return RunConfig(microbatches=mb, fsdp=fsdp, model_parallel=sharded, seq_shard=sharded,
                      attn_chunk_q=chunk_q, attn_chunk_k=chunk_k, remat=(kind == "train"),
                      compression=compression)
 
@@ -174,10 +184,10 @@ def smoke_config(name: str) -> ArchConfig:
     full config has shared experts; an SSM config ``SSMCfg(d_state=16,
     head_dim=16, expand=2, conv_width=4, chunk=16)``; a hybrid config one
     period of 4 layers (``attn_every`` 4, attention at position 1) with
-    both; an encoder–decoder config 2 encoder layers and 24 frames.  Not
-    the VLM family, which the port lacks."""
+    both; an encoder–decoder config 2 encoder layers and 24 frames; a VLM
+    config 8 patches."""
     cfg = get_config(name)
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "encdec"):
         raise NotPortedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP.md, queue 1)")
     moe = None
@@ -198,7 +208,7 @@ def smoke_config(name: str) -> ArchConfig:
         tie_embeddings=cfg.tie_embeddings, moe=moe, ssm=ssm,
         attn_every=4 if hybrid else None, attn_offset=1 if hybrid else 0,
         encoder_layers=2 if encdec else 0, encoder_seq=24 if encdec else 0,
-        sub_quadratic=cfg.sub_quadratic)
+        num_patches=8 if cfg.family == "vlm" else 0, sub_quadratic=cfg.sub_quadratic)
 
 
 def _ceil_to(a: int, b: int) -> int:
@@ -279,7 +289,7 @@ def hybrid_layout(cfg: ArchConfig):
 
 def param_shapes(cfg: ArchConfig, tp: int = 1, fsdp: Optional[str] = None):
     """(shapes, specs): the global shape and sharding spec of every leaf of
-    a dense-, MoE-, SSM-, hybrid- or encoder–decoder-family model, named
+    a dense-, VLM-, MoE-, SSM-, hybrid- or encoder–decoder-family model, named
     and built as ``init_lm`` (``init_encdec``) builds them (``tp`` the
     model-axis size, ``fsdp`` the FSDP axis or None).  The hybrid's
     ``periods.*`` leaves stack each sublayer kind over all periods:

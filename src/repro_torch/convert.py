@@ -4,14 +4,15 @@ The port imports nothing of ``repro``; these functions take what the JAX
 side hands over as numpy arrays and plain objects:
 
 * :func:`tree_to_torch` — a gradient or parameter dict of numpy arrays →
-  torch tensors on ``device`` (same leaf names, same dtypes);
+  torch tensors on ``device`` (same leaf names, same dtypes: every leaf
+  crosses, a VLM's ``patch_proj`` with the rest);
 * :func:`key_to_torch` — raw ``uint32[2]`` Threefry key data
   (``jax.random.key_data(key)``) → the port's key (int64 words);
 * :func:`compression_config` — any object with the fields of
   ``repro.core.types.CompressionConfig`` → the port's config;
 * :func:`arch_config` / :func:`run_config` — objects with the fields of
   ``repro.configs.base.ArchConfig`` / ``RunConfig`` → the port's (the dense,
-  MoE, SSM, hybrid and encoder–decoder families, the MoE and SSM
+  VLM, MoE, SSM, hybrid and encoder–decoder families, the MoE and SSM
   sub-configs as the port's ``MoECfg`` and ``SSMCfg``; the run config with
   its compression config);
 * :func:`adamw_state` — an ``AdamWState``-shaped object (``step``, ``m``,

@@ -1,6 +1,7 @@
 """Deterministic synthetic data — port of ``repro.data.pipeline`` (the dense,
 MoE, SSM and hybrid families' token batches; the encoder–decoder family's
-with their frame embeddings).
+with their frame embeddings; the VLM family's with their patch
+embeddings).
 
 :meth:`SyntheticLM.host_batch` is the reference's numpy code, copied, so
 its batches are bit-equal to the reference's for the same seed and step;
@@ -45,11 +46,13 @@ class SyntheticLM:
 
     def host_batch(self, step: int) -> Dict[str, np.ndarray]:
         cfg = self.cfg
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec"):
+        if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "encdec"):
             raise NotPortedError(f"synthetic batches of the {cfg.family!r} family are "
-                                 "not ported yet (ROADMAP.md, queue 1)")
+                                 "not ported (ROADMAP.md, queue 1)")
         rng = self._rng(step)
         b, s = self.shape.global_batch, self.shape.seq_len
+        if cfg.family == "vlm":             # the patches take the first positions
+            s -= cfg.num_patches
         tokens = self._tokens(rng, b, s)
         batch = {"tokens": tokens,
                  "labels": np.roll(tokens, -1, axis=1),
@@ -59,10 +62,14 @@ class SyntheticLM:
             from repro_torch.models.encdec import enc_seq_padded
             batch["frames"] = rng.standard_normal(
                 (b, enc_seq_padded(cfg, 16), cfg.d_model)).astype(np.float32)
+        if cfg.family == "vlm":
+            batch["patches"] = rng.standard_normal(
+                (b, cfg.num_patches, cfg.d_model)).astype(np.float32)
         return batch
 
     def batch(self, step: int, device) -> Dict[str, torch.Tensor]:
         """The global batch of ``step`` on ``device``: tokens and labels
         int32 (B, S), mask f32 (B, S); for the encoder–decoder family
-        frames f32 (B, S_enc, D)."""
+        frames f32 (B, S_enc, D); for the VLM family tokens, labels and
+        mask over S − P text positions and patches f32 (B, P, D)."""
         return {k: torch.from_numpy(v).to(device) for k, v in self.host_batch(step).items()}

@@ -11,7 +11,8 @@ qwen3-4b by default; mamba2-130m is the SSM family's; jamba-v0.1-52b the
 hybrid's, with ``--layers`` a multiple of its 8-layer period: ``--layers
 8`` is one period, 13.3 B parameters; whisper-medium the
 encoder–decoder's, each prompt with 1536 seeded frames, its attention the
-plain chunked softmax), runs one
+plain chunked softmax; llava-next-34b the VLM's, each prompt 1152 seeded
+patch embeddings and 896 tokens, ``--layers 20`` as phase 4f), runs one
 prefill and 4 decode steps to warm up, times 2 prefills and 8 decode steps
 by the host clock around a synchronize, then profiles one prefill and, in a
 second window, 4 decode steps under ``torch.profiler`` (CPU and CUDA
@@ -103,8 +104,12 @@ def main(argv=None) -> int:
     for name in list(params):
         params[name] = params[name].to(torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(1)
-    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+    text = PROMPT - (cfg.num_patches if cfg.family == "vlm" else 0)
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, text), generator=gen,
                                       device=dev)}
+    if cfg.family == "vlm":
+        prompt["patches"] = torch.randn((BATCH, cfg.num_patches, cfg.d_model), generator=gen,
+                                        device=dev)
     if cfg.family == "encdec":
         from repro_torch.models.encdec import enc_seq_padded
         prompt["frames"] = torch.randn((BATCH, enc_seq_padded(cfg, 16), cfg.d_model),

@@ -3,13 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         [--arch qwen3-4b] [--out build/profile_train.json] [--no-overlap]
 
-Builds the training path of ``chip_smoke.py`` phase 5, 5b, 5c or 5d by
+Builds the training path of ``chip_smoke.py`` phase 5, 5b, 5c, 5d or 5e by
 ``--arch`` (``train/synthetic.py``: qwen3-4b by ``train_main_path``, at
 full width and 4 layers, ``fixed_k_1bit``, flash attention; olmoe-1b-7b by
 ``moe_train_path``, 2 layers; mamba2-130m by ``ssm_train_path``, all 24
 layers; whisper-medium by ``encdec_train_path``, all 24 + 24 layers, 1536
-frames a sequence; each with 8 ranks stacked on the card, one 4096-token
-sequence each, bf16 compute, remat; the backward-pipelined sync, or the
+frames a sequence; each with 8 ranks stacked on the card; llava-next-34b
+by ``vlm_train_path``, 1 layer, 4 ranks, 1152 patches a sequence; one
+4096-position sequence a rank, bf16 compute, remat; the backward-pipelined sync, or the
 post-backward one with ``--no-overlap``),
 runs one step to warm up, times 2 steps by the host clock (a synchronize at each phase
 boundary: forward+backward over the ranks, sync, optimizer), then profiles
@@ -53,7 +54,8 @@ def _paths():
     from repro_torch.train import synthetic
     return {synthetic.MODEL: synthetic.train_main_path, synthetic.MOE_MODEL: synthetic.moe_train_path,
             synthetic.SSM_MODEL: synthetic.ssm_train_path,
-            synthetic.ENCDEC_MODEL: synthetic.encdec_train_path}
+            synthetic.ENCDEC_MODEL: synthetic.encdec_train_path,
+            synthetic.VLM_MODEL: synthetic.vlm_train_path}
 
 
 def take_layer_ms(cfg, params, dtype, reps: int = 3) -> dict:
@@ -126,8 +128,8 @@ def main(argv=None) -> int:
             phase_ms[name].append((now - clock["t"]) * 1e3)
         clock["t"] = now
 
-    step_fn, init_fn, _ = build_train_step(cfg, run, shape, synthetic.N, device=dev,
-                                           on_phase=on_phase)
+    n = shape.global_batch                  # one sequence a rank
+    step_fn, init_fn, _ = build_train_step(cfg, run, shape, n, device=dev, on_phase=on_phase)
     params, opt_state, ef_state = init_fn(0)
     data = SyntheticLM(cfg, shape)
     batches = [data.batch(step, dev) for step in range(4)]
@@ -145,7 +147,7 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     step_ms = [step(1), step(2)]
     out = {"card": card, "torch": torch.__version__, "model": cfg.name,
-           "layers": cfg.num_layers, "ranks": synthetic.N, "tokens_per_rank": shape.seq_len,
+           "layers": cfg.num_layers, "ranks": n, "tokens_per_rank": shape.seq_len,
            "preset": synthetic.TRAIN_PRESET, "overlap": not args.no_overlap,
            "step_ms": step_ms,
            "phase_ms": {k: list(v) for k, v in phase_ms.items()},
@@ -156,8 +158,8 @@ def main(argv=None) -> int:
     out["step"] = _window(prof, wall, kind=_kind)
     out["step"]["wrapper_launches"] = dict(backend.launches)
     out["take_layer"] = take_layer_ms(cfg, params, getattr(torch, run.compute_dtype))
-    out["take_layer"]["per_step_ms"] = synthetic.N * (out["take_layer"]["forward_ms"]
-                                                      + out["take_layer"]["backward_ms"])
+    out["take_layer"]["per_step_ms"] = n * (out["take_layer"]["forward_ms"]
+                                            + out["take_layer"]["backward_ms"])
 
     print(json.dumps({k: out[k] for k in ("step_ms", "phase_ms", "peak_GiB", "take_layer")}),
           flush=True)

@@ -10,15 +10,17 @@ the arch's reduced config and the reference's smoke run: fixed-k 1/16 with
 shared support over ``data``, error feedback, ``min_compress_size`` 1024;
 without it the full config, ``SHAPES[--shape]`` and ``get_run_config``
 (qwen3-4b at 36 layers does not fit one card: ROADMAP.md, queue 1).
-``--arch`` takes the dense, MoE, SSM, hybrid and encoder–decoder configs
-of the registry (qwen3-4b, olmoe-1b-7b, qwen2-moe-a2.7b, mamba2-130m,
-jamba-v0.1-52b, whisper-medium); the SSM and hybrid smoke configs' chunk
-is 16 tokens, so their ``--seq`` must be a multiple of 16 (the default 128
-is); whisper's batches carry its frames (512 of them in the smoke config,
-1536 in the full one).  The reference trains
-qwen2-moe-a2.7b and jamba-v0.1-52b with FSDP, which the port lacks:
-without ``--smoke`` their ``get_run_config`` raises
-:class:`NotPortedError` (ROADMAP.md, queue 1 item 5).
+``--arch`` takes the dense, VLM, MoE, SSM, hybrid and encoder–decoder
+configs of the registry (qwen3-4b, llava-next-34b, olmoe-1b-7b,
+qwen2-moe-a2.7b, mamba2-130m, jamba-v0.1-52b, whisper-medium); the SSM and
+hybrid smoke configs' chunk is 16 tokens, so their ``--seq`` must be a
+multiple of 16 (the default 128 is); whisper's batches carry its frames
+(512 of them in the smoke config, 1536 in the full one); llava's sequences
+are its patches (8 in the smoke config, 1152 in the full one) and then
+``--seq`` less that many tokens.  The reference trains qwen2-moe-a2.7b,
+jamba-v0.1-52b and llava-next-34b with FSDP, which the port lacks: without
+``--smoke`` their ``get_run_config`` raises :class:`NotPortedError`
+(ROADMAP.md, queue 1).
 
 ``--devices N`` stacks N data-parallel ranks on the one device, the port's
 counterpart of the reference's N simulated host devices; ``--data`` times

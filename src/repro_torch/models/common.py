@@ -13,6 +13,7 @@ only and the layers call no collective; tensor parallelism raises
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Sequence
 
 import torch
@@ -85,8 +86,21 @@ def rms_norm(x, scale, eps: float = 1e-6):
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None):
-    return theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
-                     / head_dim)
+    """(head_dim / 2,) f32 inverse frequencies θ^(−2i/hd), bit-equal to the
+    reference's table: the f32 exponents (a true division, on the CPU) are
+    raised from θ rounded to f32 in f64, and the power rounded once, as
+    XLA's correctly rounded f32 ``pow`` gives it (torch's f32 ``pow`` is an
+    ulp off at some exponents, which the angle multiplies by the
+    position).  One table a (head_dim, θ, device), made once: a copy to
+    the card at every call would wait for the card."""
+    return _rope_table(head_dim, float(theta), str(torch.device(device or "cpu")))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_table(head_dim: int, theta: float, device: str):
+    expo = -torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+    base = float(torch.tensor(theta, dtype=torch.float32))
+    return (base ** expo.double()).float().to(device)
 
 
 def apply_rope(x, positions, theta: float = 1e4):

@@ -1,6 +1,9 @@
-"""Model facade, dense, MoE, SSM, hybrid and encoder–decoder families —
-port of ``repro.models.model`` at ``tp = 1``: context, init, input
+"""Model facade, dense, VLM, MoE, SSM, hybrid and encoder–decoder families
+— port of ``repro.models.model`` at ``tp = 1``: context, init, input
 embedding, the train loss, the decode cache, prefill and the decode step.
+The VLM family runs the dense stack on its patch embeddings, projected by
+``patch_proj`` and prepended to the tokens: its positions, caches and
+labels span patches and tokens.
 The encoder–decoder family's init, train loss, cache, prefill and decode
 step are :mod:`repro_torch.models.encdec`'s, as the reference dispatches
 them.
@@ -48,16 +51,38 @@ def init(seed: int, cfg: ArchConfig, device=None) -> Dict[str, torch.Tensor]:
 
 
 def embed_inputs(ctx: ShardCtx, params, cfg: ArchConfig, batch):
+    """(B, S, D) input embeddings in the compute dtype: the tokens'; for
+    the VLM family the patches (B, P, D), cast to the compute dtype and
+    multiplied by ``patch_proj`` in it, before them (S = P + the tokens)."""
     tfm.check_family(cfg)
-    return tfm.embed_tokens(ctx, params, cfg, batch["tokens"])
+    text = tfm.embed_tokens(ctx, params, cfg, batch["tokens"])
+    if cfg.family != "vlm":
+        return text
+    dt = ctx.compute_dtype
+    patches = torch.einsum("bpd,de->bpe", batch["patches"].to(dt), params["patch_proj"].to(dt))
+    return torch.cat([patches, text], dim=1)
 
 
-def _labels_local(batch):
-    """(labels, mask) of a token batch; the mask defaults to ones (f32)."""
+def seq_total(batch) -> int:
+    """The positions a batch runs through the stack, and a prompt fills in
+    the decode cache: its tokens, and a VLM batch's patches (B, P, D)
+    before them."""
+    return batch["tokens"].shape[1] + (batch["patches"].shape[1] if "patches" in batch else 0)
+
+
+def _labels_local(cfg: ArchConfig, batch):
+    """(labels, mask) of a token batch; the mask defaults to ones (f32).  The
+    VLM family's patch positions carry zero labels under a zero f32 mask."""
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    if cfg.family == "vlm":
+        b, dev = labels.shape[0], labels.device
+        labels = torch.cat([torch.zeros((b, cfg.num_patches), dtype=labels.dtype, device=dev),
+                            labels], dim=1)
+        mask = torch.cat([torch.zeros((b, cfg.num_patches), dtype=torch.float32, device=dev),
+                          mask.float()], dim=1)
     return labels, mask
 
 
@@ -70,14 +95,17 @@ def train_loss(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
     reference.  Metrics: ``ce_sum``, ``count``, ``aux`` (the layer sum; 0
     for the dense and SSM families).  The aux term is over all layers,
     also in the hybrid family, whose MoE FFNs are every ``every_n``-th.
-    The encoder–decoder family's is :func:`encdec.train_loss`."""
+    The encoder–decoder family's is :func:`encdec.train_loss`.  The VLM
+    family's positions span patches and tokens; its patch positions count
+    no loss, but the global count the caller passes is the reference's
+    ``global_batch × seq_len``, patch positions included."""
     tfm.check_family(cfg)
     if cfg.family == "encdec":
         return encdec_lib.train_loss(ctx, params, cfg, run, batch, global_token_count)
     x = embed_inputs(ctx, params, cfg, batch)
-    positions = torch.arange(batch["tokens"].shape[1], device=x.device)
+    positions = torch.arange(x.shape[1], device=x.device)
     h, aux, _ = tfm.forward(ctx, params, cfg, run, x, positions)
-    labels, mask = _labels_local(batch)
+    labels, mask = _labels_local(cfg, batch)
     ce_sum, cnt = tfm.vocab_parallel_ce(ctx, params, cfg, h, labels, mask)
     dev = ce_sum.device
     loss = (ce_sum / torch.tensor(global_token_count, dtype=torch.float32, device=dev)
@@ -88,7 +116,7 @@ def train_loss(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
 def make_cache(ctx: ShardCtx, cfg: ArchConfig, b_local: int, s_max: int,
                dtype=torch.bfloat16, device=None):
     """Zeroed decode cache {"k", "v"}: (L, B, s_max, Hkv, hd) each (the MoE
-    family's attention cache is the dense family's).  The SSM family's
+    and VLM families' attention cache is the dense family's).  The SSM family's
     (:func:`ssm_cache`) does not grow with ``s_max``; the hybrid's is
     {"attn": {"k", "v"} (periods, B, s_max, Hkv, hd), "ssm": the SSM cache
     of its periods × (period − 1) mixers}; the encoder–decoder's
@@ -231,11 +259,13 @@ def prefill(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
     in bf16, zero-padded to ``s_max`` when given; the SSM family's the
     final conv windows in bf16 and states in f32, whatever ``s_max``; the
     hybrid's both (:func:`regroup_hybrid_caches`); the encoder–decoder's
-    :func:`encdec.prefill` (``batch`` also carries ``frames``)."""
+    :func:`encdec.prefill` (``batch`` also carries ``frames``).  A VLM
+    batch also carries ``patches``; its cache holds patches and tokens, so
+    the first decode position is :func:`seq_total`."""
     if cfg.family == "encdec":
         return encdec_lib.prefill(ctx, params, cfg, run, batch, s_max)
     x = embed_inputs(ctx, params, cfg, batch)
-    positions = torch.arange(batch["tokens"].shape[1], device=x.device)
+    positions = torch.arange(x.shape[1], device=x.device)
     h, _, caches = tfm.forward(ctx, params, cfg, run, x, positions, want_cache=True)
     del x
     logits = tfm.lm_head_logits(ctx, params, cfg, h[:, -1:])

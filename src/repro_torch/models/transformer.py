@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly, dense, MoE, SSM and hybrid families — port of
+"""Decoder-only LM assembly, dense, VLM, MoE, SSM and hybrid families — port of
 ``repro.models.transformer`` at ``tp = 1``: init, embedding, the tied or
 untied LM head, the cross-entropy over it, greedy sampling, the attention
 and FFN sublayers (the gated MLP, or the MoE block with its aux loss), the
@@ -14,8 +14,9 @@ layer body as ``jax.checkpoint(body)``; the hybrid's around a whole
 period) and ``run.remat_attention`` the attention call.  The
 encoder–decoder family's init, forward and decode are
 :mod:`repro_torch.models.encdec`'s, on this module's embedding, head,
-cross-entropy and sampling; the VLM family raises
-:class:`NotPortedError`.
+cross-entropy and sampling.  The VLM family is the dense stack with a
+``patch_proj`` leaf (:func:`repro_torch.models.model.embed_inputs`
+prepends the projected patches to the tokens).
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ def take_layer(p: Dict[str, Any], i: int, dtype: torch.dtype) -> Dict[str, Any]:
     return {k: v[i].to(dtype) for k, v in p.items()}
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -94,6 +95,8 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
         mlp_lib.init_mlp(pb, "layers.mlp", L, d, cfg.d_ff)
     pb.ones("layers.norm1", (L, d))
     pb.ones("layers.norm2", (L, d))
+    if cfg.family == "vlm":
+        pb.add("patch_proj", (d, d), scale=d ** -0.5)
     return pb.params
 
 

@@ -34,6 +34,11 @@
   layers at full width), ``N`` ranks of one ``train_4k`` sequence with its
   1536 frames, the reference's ``get_run_config(ENCDEC_MODEL, "train_4k")``
   unchanged (``fixed_k_1bit`` over ``data``, one microbatch, remat).
+* The VLM training path (:func:`vlm_train_path`): ``VLM_MODEL``
+  (llava-next-34b) at full width and ``VLM_LAYERS`` of its 60 layers,
+  ``VLM_N`` ranks of one ``train_4k`` sequence (1152 patches and 2944
+  tokens), the reference's ``get_run_config(VLM_MODEL, "train_4k")`` with
+  FSDP off and one microbatch, not 8.
 * The training path (:func:`train_main_path`): the same model, depth and
   ranks, one ``train_4k`` sequence per rank, the real forward and backward
   feeding the same sync under ``fixed_k_1bit``, then AdamW; with
@@ -53,6 +58,7 @@ from typing import Dict, Mapping, Sequence
 import torch
 
 from repro_torch import random as prandom
+from repro_torch.configs import registry
 from repro_torch.configs.base import SHAPES, RunConfig
 from repro_torch.configs.registry import (compression_preset, get_config, get_run_config,
                                           param_shapes)
@@ -77,6 +83,12 @@ MOE_MODEL = "olmoe-1b-7b"
 MOE_LAYERS = 2      # of 16
 SSM_MODEL = "mamba2-130m"      # all 24 layers: 8 f32 gradient stacks take 4.13 GB
 ENCDEC_MODEL = "whisper-medium"   # all 24 + 24 layers: 8 f32 gradient stacks take 24.25 GB
+VLM_MODEL = "llava-next-34b"
+# 1 of 60 layers: 1.53 B parameters; 4 f32 gradient stacks take 24.4 GB.  At 2
+# layers (2.08 B) the stacked step peaked at 66.3 GiB and its second step ran
+# out of the card's 80 GB under the default caching allocator
+VLM_LAYERS = 1
+VLM_N = 4
 
 
 def synthetic_grads(shapes: Mapping[str, Sequence[int]], n: int, step: int,
@@ -177,6 +189,20 @@ def encdec_train_path():
     batch ``N``), each with its frames (``SyntheticLM``)."""
     run = get_run_config(ENCDEC_MODEL, "train_4k")
     return get_config(ENCDEC_MODEL), run, dataclasses.replace(SHAPES["train_4k"], global_batch=N)
+
+
+def vlm_train_path():
+    """(cfg, run, shape) of the VLM training path: ``VLM_MODEL`` at full
+    width and ``VLM_LAYERS`` layers; the reference's
+    ``get_run_config(VLM_MODEL, "train_4k")`` (``fixed_k_1bit`` over
+    ``data``, remat) with FSDP off (the port keeps every parameter whole)
+    and one microbatch, not 8: a rank's one sequence does not split;
+    ``train_4k`` sequences, one per rank (global batch ``VLM_N``), each its
+    patches and then its tokens."""
+    cfg = dataclasses.replace(get_config(VLM_MODEL), num_layers=VLM_LAYERS)
+    run = dataclasses.replace(registry._run_config(VLM_MODEL, "train_4k", fsdp=False),
+                              microbatches=1)
+    return cfg, run, dataclasses.replace(SHAPES["train_4k"], global_batch=VLM_N)
 
 
 def rank_loss_and_grads(cfg, run, params, batch, global_tokens: float):

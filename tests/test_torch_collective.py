@@ -36,6 +36,8 @@ import pathlib
 import socket
 import subprocess
 import sys
+import tempfile
+import time
 
 import jax
 import jax.numpy as jnp
@@ -185,9 +187,10 @@ from repro_torch import random as R
 from repro_torch.configs.registry import compression_preset
 from repro_torch.core.collectives import DistComm, compressed_mean
 import dataclasses
+import datetime
 rank, port, out, world = int(sys.argv[2]), sys.argv[3], sys.argv[4], int(sys.argv[5])
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
-                        rank=rank)
+                        rank=rank, timeout=datetime.timedelta(seconds=float(sys.argv[6])))
 xs = torch.from_numpy(np.load(out + "/xs.npy"))
 for name, (preset, scatter, *mode) in json.load(open(out + "/cfgs.json")).items():
     cfg = dataclasses.replace(compression_preset(preset, axes=("data",)),
@@ -217,6 +220,76 @@ def _free_port():
         return s.getsockname()[1]
 
 
+# Each gloo worker passes GLOO_INIT_TIMEOUT_S to init_process_group: a
+# rendezvous that cannot complete (the port taken, or another group's store
+# reached on it) and any collective then fail within it, not after PyTorch's
+# default 30 minutes.  Alone on an 8-core machine a world of these tests
+# takes 6-15 s, start to end.
+GLOO_INIT_TIMEOUT_S = 60
+GLOO_WAIT_S = 90
+
+
+class GlooWorld:
+    """The processes of one gloo group, ``argv(port)`` their command lines
+    (one a rank) and ``env`` their environment (or ``env(port, rank)``),
+    started at once on a port from :func:`_free_port`.  That function
+    closes its socket before rank 0's store binds the port, so another
+    group of a parallel test run can take it in between: a world whose
+    failed rank failed inside ``init_process_group`` (its traceback runs
+    through it) is started once more on a fresh port.  Any other failure
+    fails at once; a rank's failure kills the ranks still running, which
+    would otherwise wait for it until their timeout."""
+
+    def __init__(self, argv, env=None):
+        self.argv, self.env, self.outputs = argv, env, []
+        self._start()
+
+    def _start(self):
+        port = str(_free_port())
+        env = self.env if callable(self.env) else lambda port, rank: self.env
+        self.files = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+                      for _ in range(len(self.argv(port)))]
+        self.procs = [subprocess.Popen(a, stdout=o, stderr=e, text=True, env=env(port, r))
+                      for r, (a, (o, e)) in enumerate(zip(self.argv(port), self.files))]
+
+    def _wait(self, timeout):
+        """Every rank's (stdout, stderr) once all have exited or one has
+        failed; raises ``TimeoutExpired`` after ``timeout`` seconds."""
+        end = time.monotonic() + timeout
+        while (any(p.poll() is None for p in self.procs)
+               and not any(p.returncode for p in self.procs)):
+            if time.monotonic() > end:
+                self._kill()
+                raise subprocess.TimeoutExpired(self.procs[0].args, timeout)
+            time.sleep(0.05)
+        self._kill()
+        outs = []
+        for o, e in self.files:
+            outs.append(tuple(f.seek(0) or f.read() for f in (o, e)))
+            o.close()
+            e.close()
+        self.outputs.append(outs)
+        return outs
+
+    def _kill(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+    def wait(self, timeout: float = GLOO_WAIT_S):
+        """Each rank's (stdout, stderr), once every rank has exited 0."""
+        outs = self._wait(timeout)
+        if any(p.returncode for p in self.procs) and any(
+                "in init_process_group" in err for _, err in outs):
+            self._start()
+            outs = self._wait(timeout)
+        assert not any(p.returncode for p in self.procs), "\n".join(
+            f"attempt {i}, rank {r}:\n{o}{e}" for i, att in enumerate(self.outputs)
+            for r, (o, e) in enumerate(att))
+        return outs
+
+
 # f32 psums on Gaussian inputs, where every partial sum rounds and the order
 # of the adds shows: an exact bucket (mode "none") and the dense simulation
 # (an f32 wire); name -> (preset, scatter_decode, mode)
@@ -238,13 +311,9 @@ def _gloo_rounds(tmp_path, world, rounds=GLOO_ROUNDS, gauss=False):
           if gauss else _xs(world, 20_000, 11))
     np.save(tmp_path / "xs.npy", xs)
     (tmp_path / "cfgs.json").write_text(json.dumps(rounds))
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(ROOT / "src"), str(r),
-                               port, str(tmp_path), str(world)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
-    outs = [p.communicate(timeout=240)[0] for p in procs]
-    assert [p.returncode for p in procs] == [0] * world, "\n".join(outs)
+    GlooWorld(lambda port: [[sys.executable, "-c", _WORKER, str(ROOT / "src"), str(r), port,
+                             str(tmp_path), str(world), str(GLOO_INIT_TIMEOUT_S)]
+                            for r in range(world)]).wait()
     stacked = {}
     for name, spec in rounds.items():
         cfg = _round_cfg(*spec)

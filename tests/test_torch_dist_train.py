@@ -25,8 +25,6 @@ import json
 import os
 import pathlib
 import re
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -88,9 +86,10 @@ torch.set_num_threads(1)
 import test_torch_dist_train as t
 from repro_torch.core.collectives import DistComm
 from repro_torch.train import train_step as tts
+import datetime
 rank, port, out, world = int(sys.argv[3]), sys.argv[4], sys.argv[5], int(sys.argv[6])
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
-                        rank=rank)
+                        rank=rank, timeout=datetime.timedelta(seconds=float(sys.argv[7])))
 for mesh_name in t.WORLDS[world]:
     comm = DistComm(device="cpu", mesh=t.MESHES[mesh_name])
     for overlap in (True, False):
@@ -112,12 +111,6 @@ dist.destroy_process_group()
 """
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _env():
     return {**os.environ, "OMP_NUM_THREADS": "1"}
 
@@ -126,17 +119,15 @@ def _env():
 def gloo_runs(tmp_path_factory):
     """Runs the workers of both worlds at once, each world's meshes in one
     process group; returns the output directory."""
+    from test_torch_collective import GLOO_INIT_TIMEOUT_S, GlooWorld
+
     tmp = tmp_path_factory.mktemp("dist_train")
-    procs = []
-    for world in WORLDS:
-        port = str(_free_port())
-        procs += [subprocess.Popen([sys.executable, "-c", _WORKER, str(ROOT / "src"),
-                                    str(ROOT / "tests"), str(r), port, str(tmp), str(world)],
-                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                                   env=_env())
-                  for r in range(world)]
-    outs = [p.communicate(timeout=300)[0] for p in procs]
-    assert [p.returncode for p in procs] == [0] * len(procs), "\n".join(outs)
+    worlds = [GlooWorld(lambda port, world=world: [
+        [sys.executable, "-c", _WORKER, str(ROOT / "src"), str(ROOT / "tests"), str(r), port,
+         str(tmp), str(world), str(GLOO_INIT_TIMEOUT_S)] for r in range(world)], env=_env())
+        for world in WORLDS]
+    for world in worlds:
+        world.wait()
     return tmp
 
 
@@ -200,21 +191,14 @@ CLI = ["--smoke", "--steps", "3", "--seq", "32", "--batch", "4", "--device", "cp
 def _gloo_cli(args):
     """Starts ``launch/train.py ARGS --dist gloo`` in 2 processes; returns a
     function that waits for them and returns their stdout."""
-    port = str(_free_port())
+    from test_torch_collective import GlooWorld
+
     env = {**_env(), "PYTHONPATH": str(ROOT / "src"), "MASTER_ADDR": "127.0.0.1",
-           "MASTER_PORT": port, "WORLD_SIZE": "2"}
-    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *args,
-                               "--dist", "gloo"],
-                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in range(2)]
-
-    def wait():
-        outs = [p.communicate(timeout=300) for p in procs]
-        assert [p.returncode for p in procs] == [0, 0], [o[1] for o in outs]
-        return [o[0] for o in outs]
-
-    return wait
+           "WORLD_SIZE": "2"}
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *args, "--dist", "gloo"]
+    world = GlooWorld(lambda port: [cmd, cmd], env=lambda port, r: {
+        **env, "MASTER_PORT": port, "RANK": str(r), "LOCAL_RANK": str(r)})
+    return lambda: [out for out, _ in world.wait()]
 
 
 def test_cli_dist_gloo_prints_the_stacked_losses(tmp_path, capsys):

@@ -71,7 +71,7 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
         train_cli.main(CLI + ["--model", "2"])
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-v0.1-52b", "llava-next-34b"])
 def test_cli_refuses_the_fsdp_archs_without_smoke(arch):
     # the reference trains them with FSDP; --smoke trains their reduced configs
     with pytest.raises(NotPortedError, match="FSDP"):

@@ -76,7 +76,7 @@ from repro_torch.core import wire as twire
 from repro_torch.core.wire import base as twire_base
 from repro_torch.train import bucketing as tbucketing
 from test_torch_bucketing import _port_cfg
-from test_torch_collective import _free_port
+from test_torch_collective import GLOO_INIT_TIMEOUT_S, GlooWorld
 from test_torch_rotation import jit_butterfly  # noqa: F401  (fixture)
 
 # one intra-op thread: beside other test workers on a loaded machine, torch's
@@ -342,6 +342,11 @@ def _syncs():
     }, shapes, specs
 
 
+# the reference's shard_map programs on 8 fake CPU devices: 28 s of the
+# module's setup alone on an 8-core machine
+REF_WAIT_S = 150
+
+
 @pytest.fixture(scope="module")
 def real_mesh(tmp_path_factory):
     """Runs the reference's shard_map programs once; returns (inputs,
@@ -373,7 +378,7 @@ def real_mesh(tmp_path_factory):
         "rounds": {k: _cfg_json(v) for k, v in REAL_ROUNDS.items()},
         "syncs": sync_spec}))
     proc = subprocess.run([sys.executable, "-c", _REF, str(ROOT / "src"), str(tmp)],
-                          capture_output=True, text=True, timeout=600)
+                          capture_output=True, text=True, timeout=REF_WAIT_S)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     with np.load(tmp / "ref.npz") as z:
         ref = {k: z[k] for k in z.files}
@@ -466,9 +471,11 @@ from repro_torch.configs.registry import compression_preset, get_run_config, par
 from repro_torch.core.collectives import DistComm, compressed_mean
 from repro_torch.core import types as t
 from repro_torch.train import bucketing
+import datetime
 rank, port, out = int(sys.argv[2]), sys.argv[3], sys.argv[4]
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=4, rank=rank)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=4, rank=rank,
+                        timeout=datetime.timedelta(seconds=float(sys.argv[5])))
 mesh = {"pod": 2, "data": 2}
 inp = dict(np.load(out + "/inputs.npz"))
 spec = json.load(open(out + "/spec.json"))
@@ -503,12 +510,8 @@ def test_distcomm_gloo_mesh_equals_stacked(tmp_path):
     np.savez(tmp_path / "inputs.npz", rows=xs, **{f"grad.{k}": v for k, v in grads.items()})
     (tmp_path / "spec.json").write_text(json.dumps({"specs": {k: list(v)
                                                               for k, v in specs.items()}}))
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, "-c", _GLOO, str(ROOT / "src"), str(r), port,
-                               str(tmp_path)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(4)]
-    outs = [p.communicate(timeout=240)[0] for p in procs]
-    assert [p.returncode for p in procs] == [0] * 4, "\n".join(outs)
+    GlooWorld(lambda port: [[sys.executable, "-c", _GLOO, str(ROOT / "src"), str(r), port,
+                             str(tmp_path), str(GLOO_INIT_TIMEOUT_S)] for r in range(4)]).wait()
     res = [dict(np.load(tmp_path / f"out.{r}.npz")) for r in range(4)]
     for name in ("hier_fixed_k", "hier_bernoulli"):
         cfg = dataclasses.replace(tregistry.compression_preset(name), min_compress_size=1)

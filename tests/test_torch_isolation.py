@@ -80,8 +80,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_every_arch_runs_on_the_card_unless_asked(arch, monkeypatch):
-    """Each registered arch's smoke model (the dense, MoE, SSM, hybrid and
-    encoder-decoder families) refuses to run without a card unless a device
+    """Each registered arch's smoke model (the dense, VLM, MoE, SSM, hybrid
+    and encoder-decoder families) refuses to run without a card unless a device
     is given."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg, run = smoke_config(arch), RunConfig()

@@ -337,6 +337,8 @@ def _qkv(dev, b, sq, sk, hq, hkv, hd, dtype):
     (1, 100, 100, 2, 2, 64, True, None, 0),       # less than one tile
     (1, 512, 512, 4, 1, 128, True, 200, 0),       # a window straddling key tiles
     (1, 256, 512, 4, 2, 128, True, None, 200),    # q offset not a multiple of 128
+    (1, 1000, 1000, 56, 8, 128, True, None, 0),   # llava-next-34b's heads, g = 7
+    (2, 256, 256, 56, 8, 128, True, None, 0),
     # hd 32 (lm-8m) on the hd-64 tiles, columns 32-63 zero-filled by TMA
     (1, 1000, 1000, 4, 2, 32, True, None, 0),     # ragged, causal, g = 2
     (2, 100, 100, 8, 4, 32, False, None, 0),      # less than one tile, not causal
@@ -415,6 +417,8 @@ def _rel(got, want):
     (2, 100, 100, 8, 2, 128, True, None, 0),
     (1, 256, 512, 4, 2, 64, True, None, 200),     # q offset 200, Sk 512
     (1, 256, 512, 4, 2, 128, True, None, 200),
+    (1, 1000, 1000, 56, 8, 128, True, None, 0),   # llava-next-34b's heads, g = 7
+    (2, 256, 256, 56, 8, 128, True, None, 0),
     # hd 32 (lm-8m) on the hd-64 tiles
     (1, 1000, 1000, 4, 2, 32, True, None, 0),     # ragged, g = 2
     (1, 1024, 1024, 4, 1, 32, True, 200, 0),      # a window across key tiles
@@ -972,6 +976,42 @@ def test_encdec_forward_on_card_equals_cpu(dev):
         grads = torch.autograd.grad(loss, [p[k] for k in sorted(p)])
         out[where.type] = (h.detach().cpu(), float(loss), [g.cpu() for g in grads])
     assert dict(backend.launches) == before
+    (hc, lc, gc), (hh, lh, gh) = out["cuda"], out["cpu"]
+    assert bool(torch.isfinite(hc).all())
+    assert float((hc.double() - hh.double()).norm() / hh.double().norm()) <= 5e-3
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    for a, b in zip(gc, gh):
+        assert float((a.double() - b.double()).norm() / b.double().norm()) <= 5e-3
+
+
+# --------------------------------------------------------------------------- #
+# The VLM family (llava-next-34b): its heads (56/8, g = 7) are in the kernel
+# cases above; the smoke model (2 layers, 8 patches) in f32 on the card (the
+# flash kernel at hd 16) against the CPU, forward and a training batch's loss
+# and gradients, at phase 4c's limit on hidden states.
+# --------------------------------------------------------------------------- #
+
+def test_vlm_forward_and_grads_on_card_equal_cpu(dev):
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import transformer as ttfm
+
+    cfg = smoke_config("llava-next-34b")
+    run = RunConfig(attn_chunk_q=16, attn_chunk_k=16, remat=False, compute_dtype="float32")
+    ctx = tmodel.make_ctx(cfg, run)
+    params = tmodel.init(0, cfg, device="cpu")
+    batch = SyntheticLM(cfg, ShapeSpec("t", "train", 64, 2)).batch(0, "cpu")
+    out = {}
+    backend.reset_launches()
+    for where in (dev, torch.device("cpu")):
+        p = {k: v.to(where).requires_grad_() for k, v in params.items()}
+        b = {k: v.to(where) for k, v in batch.items()}
+        x = tmodel.embed_inputs(ctx, p, cfg, b)
+        h, _, _ = ttfm.forward(ctx, p, cfg, run, x, torch.arange(64, device=where))
+        loss, _ = tmodel.train_loss(ctx, p, cfg, run, b, 128.0)
+        grads = torch.autograd.grad(loss, [p[k] for k in sorted(p)])
+        out[where.type] = (h.detach().cpu(), float(loss), [g.cpu() for g in grads])
+    assert backend.launches["flash_attention_fwd_hd16"] == 2 * cfg.num_layers
+    assert backend.launches["flash_attention_bwd_dq_hd16"] == cfg.num_layers
     (hc, lc, gc), (hh, lh, gh) = out["cuda"], out["cpu"]
     assert bool(torch.isfinite(hc).all())
     assert float((hc.double() - hh.double()).norm() / hh.double().norm()) <= 5e-3

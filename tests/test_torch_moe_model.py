@@ -549,10 +549,10 @@ def test_serve_example_core(arch):
 
 def test_other_families_still_raise(monkeypatch):
     # jamba's config converts (its MoE and SSM sub-configs are the port's)
-    # and, the hybrid family being ported, runs; so does whisper's, the
-    # encoder-decoder family; the VLM family does not: its parameter shapes
-    # are the reference's, but the model, its smoke config and its batches
-    # raise
+    # and, the hybrid family being ported, runs; so do whisper's, the
+    # encoder-decoder family, and llava's, the VLM family; a family that
+    # neither package has does not: the model, its parameter shapes, its
+    # smoke config and its batches raise
     jamba = convert.arch_config(j_smoke_config("jamba-v0.1-52b"))
     assert jamba.family == "hybrid" and jamba.moe is not None and jamba.ssm is not None
     ttfm.check_family(jamba)
@@ -561,12 +561,17 @@ def test_other_families_still_raise(monkeypatch):
     assert whisper.family == "encdec" and whisper.encoder_layers == 2
     ttfm.check_family(whisper)
     assert "dec.xattn.wq" in param_shapes(whisper)[0]
-    for family in ("vlm",):
+    llava = convert.arch_config(j_smoke_config("llava-next-34b"))
+    assert llava.family == "vlm" and llava.num_patches == 8
+    ttfm.check_family(llava)
+    assert "patch_proj" in param_shapes(llava)[0]
+    for family in ("no-such-family",):
         other = ArchConfig(name="x", family=family, num_layers=1, d_model=8, num_heads=1,
                            num_kv_heads=1, d_ff=8, vocab_size=8, num_patches=4)
         with pytest.raises(NotPortedError):
             ttfm.check_family(other)
-        assert "patch_proj" in param_shapes(other)[0]
+        with pytest.raises(NotPortedError):
+            param_shapes(other)
         monkeypatch.setitem(registry._ARCHS, "x", other)
         with pytest.raises(NotPortedError):
             smoke_config("x")

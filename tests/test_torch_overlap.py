@@ -309,6 +309,11 @@ def _grid_grads(step):
             for k, s in sorted(SHAPES.items())}
 
 
+# the reference's overlap_params on 8 fake CPU devices: 21 s of the module's
+# first setup alone on an 8-core machine
+REF_WAIT_S = 150
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _reference_run(tmp_path_factory):
     """Starts the reference's subprocess as the module's first test starts,
@@ -329,7 +334,7 @@ def _reference_run(tmp_path_factory):
 @pytest.fixture(scope="module")
 def reference(_reference_run):
     tmp, proc = _reference_run
-    out = proc.communicate(timeout=600)[0]
+    out = proc.communicate(timeout=REF_WAIT_S)[0]
     assert proc.returncode == 0, out
     with np.load(tmp / "ref.npz") as z:
         return {k: z[k] for k in z.files}

@@ -36,7 +36,6 @@ import collections
 import dataclasses
 import json
 import pathlib
-import subprocess
 import sys
 
 import jax
@@ -63,7 +62,7 @@ from repro_torch.core.wire import robust
 from repro_torch.core.wire import rotated as trotated
 from repro_torch.distributed import fault_tolerance as ft
 from repro_torch.train import bucketing, train_step
-from test_torch_collective import _free_port
+from test_torch_collective import GLOO_INIT_TIMEOUT_S, GlooWorld
 from test_torch_rotation import jit_butterfly  # noqa: F401  (fixture)
 
 # one intra-op thread: beside other test workers on a loaded machine, torch's
@@ -559,9 +558,10 @@ from repro_torch import random as R
 from repro_torch.configs.registry import robust_preset
 from repro_torch.core.collectives import DistComm, compressed_mean
 import dataclasses
+import datetime
 rank, port, out, world = int(sys.argv[2]), sys.argv[3], sys.argv[4], int(sys.argv[5])
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
-                        rank=rank)
+                        rank=rank, timeout=datetime.timedelta(seconds=float(sys.argv[6])))
 xs = torch.from_numpy(np.load(out + "/xs.npy"))
 for name, (preset, policy, mask) in json.load(open(out + "/cfgs.json")).items():
     cfg = dataclasses.replace(robust_preset(preset, policy, axes=("data",)),
@@ -582,8 +582,7 @@ GLOO_ROUNDS = {"bernoulli_trim_scatter": ("bernoulli_seed_1bit", "trim(1)", None
 
 def test_distcomm_gloo_robust_rounds_equal_stacked(tmp_path):
     """World sizes 3 and 4, their processes started together."""
-    procs, rounds = {}, {}
-    port = _free_port()
+    worlds, rounds = {}, {}
     for n in (3, 4):
         out = tmp_path / f"n{n}"
         out.mkdir()
@@ -592,14 +591,11 @@ def test_distcomm_gloo_robust_rounds_equal_stacked(tmp_path):
         mask[1] = 0.0
         rounds[n] = {k: (p, pol, mask if m else None) for k, (p, pol, m) in GLOO_ROUNDS.items()}
         (out / "cfgs.json").write_text(json.dumps(rounds[n]))
-        procs[n] = [subprocess.Popen([sys.executable, "-c", _WORKER, str(ROOT / "src"), str(r),
-                                      str(port), str(out), str(n)],
-                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                    for r in range(n)]
-        port = _free_port()
-    for n, ps in procs.items():
-        outs = [p.communicate(timeout=240)[0] for p in ps]
-        assert [p.returncode for p in ps] == [0] * n, "\n".join(outs)
+        worlds[n] = GlooWorld(lambda port, n=n, out=out: [
+            [sys.executable, "-c", _WORKER, str(ROOT / "src"), str(r), port, str(out), str(n),
+             str(GLOO_INIT_TIMEOUT_S)] for r in range(n)])
+    for n, world in worlds.items():
+        world.wait()
         xs = np.load(tmp_path / f"n{n}" / "xs.npy")
         for name, (preset, policy, m) in rounds[n].items():
             want = tcoll.compressed_mean(torch.from_numpy(xs), R.PRNGKey(7), _cfg(preset, policy),

@@ -37,7 +37,7 @@ from repro.models import mlp as jmlp
 from repro.models import model as jmodel
 from repro_torch import convert
 from repro_torch.configs.base import RunConfig, ShapeSpec
-from repro_torch.configs.registry import param_shapes, smoke_config
+from repro_torch.configs.registry import get_config, list_archs, param_shapes, smoke_config
 from repro_torch.core.wire.base import NotPortedError
 from repro_torch.kernels import backend
 from repro_torch.models import attention as tattn
@@ -101,6 +101,21 @@ def test_apply_rope_matches_reference(theta, batched):
     got = tcommon.apply_rope(_t(x), torch.from_numpy(pos), theta)
     # cos/sin of angles up to ~1e3 rad: the two libraries' ulps
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-5)
+
+
+ROPE_CASES = sorted({(get_config(a).rope_theta, get_config(a).hd) for a in list_archs()}
+                    | {(get_config(a).rope_theta, 16) for a in list_archs()})
+
+
+@pytest.mark.parametrize("theta,hd", ROPE_CASES)
+def test_rope_frequencies_bit_equal_to_reference(theta, hd):
+    """The inverse-frequency table at every registered arch's (θ, head dim)
+    and at the smoke configs' head dim 16, bit for bit: at position 2080 an
+    ulp of a frequency moves the angle by up to 1.5e-5."""
+    want = np.asarray(jcommon.rope_frequencies(hd, theta))
+    got = tcommon.rope_frequencies(hd, theta).numpy()
+    assert got.dtype == want.dtype == np.float32 and got.shape == (hd // 2,)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def _attn_params(d, hq, hkv, hd, seed):
