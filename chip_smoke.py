@@ -10,7 +10,7 @@ Phases, each printing its own lines:
    ``nvcc`` per source, all started together), and beside them the sources
    of kernels 11–13 with ``-Xptxas -v``: for each bf16 kernel
    (``fa_fwd_wgmma``, ``fa_bwd_dkv_wgmma``, ``fa_bwd_dq_wgmma``, each at hd
-   16, 32, 64 and 128) its registers, spills (none allowed) and dynamic shared
+   16, 32, 64, 120 and 128) its registers, spills (none allowed) and dynamic shared
    memory, and ``HGMMA`` and ``UTMALDG`` in its SASS (``cuobjdump -sass``);
 2. hold each wire kernel bit-equal against its plain PyTorch version on the card,
    at d = 70,001 and 16,777,217 (n = 8 peers, keys folded per rank from
@@ -60,7 +60,13 @@ Phases, each printing its own lines:
    edges at hd 32 and 16, the training path's (1, 4096, 32/8, 128) bf16
    causal, the training example's (4, 128, 8/4, 32) and the training CLI's
    (4, 128, 4/2, 16), where kernels, plain sweeps and SDPA's backward are
-   timed; then hold the hash-PRNG encoders
+   timed; kernels 11–13 at hd 120 (h2o-danube-3-4b, 32/8 heads, on the
+   hd-128 tiles) at (1, 1024) causal and with a window of 200, ragged
+   tiles with q_offset 200 (Sq 1000, Sk 1200), in both dtypes, timed at the
+   serving prefill (8, 4080), one rank's training sequence (1, 4096) and
+   the 32,768-token prompt with the window of 4096 (SDPA with a boolean
+   mask there), and kernel 11 at minitron's 24/8 and mistral's 96/8 heads;
+   then hold the hash-PRNG encoders
    (kernel 14, the dense Bernoulli encode, and kernel 15, binary
    quantization with its packing) bit-equal to their plain versions at
    ``SIZES`` and at the embed bucket, f32 and bf16, aligned and not, with
@@ -182,6 +188,16 @@ Phases, each printing its own lines:
    2048 (one flash launch a layer per prefill), the cache's bytes
    (1,363,148,800), the flash prefill against ``attn_impl="xla"`` (the
    serving tolerances); prefill ms, decode ms per token, tokens/s, peaks;
+4g. the reference's last three dense configs (``run_serving_dense``):
+   minitron-4b whole and mistral-large-123b at full width and 8 of its 88
+   layers through ``run_serving`` (phase 4's checks: teacher-forced decode,
+   ``engine.generate``, the cache's shape, flash against xla; the LM head's
+   time in a decode step), then h2o-danube-3-4b whole (hd 120, window
+   4096): 8 prompts of 4080 tokens whose 32 decoded tokens wrap the
+   4096-slot ring, held against one forward over 4112 tokens, and one
+   32,768-token prompt at batch 1 (``run_serving_long_window``: all 32,768
+   slots kept, 3,019,898,880 B; 4 greedy tokens; flash against xla on the
+   first 4 layers);
 5. the training path (``train/synthetic.py::train_main_path``): qwen3-4b at
    full width and 4 layers, 8 ranks stacked, one 4096-token sequence each,
    ``fixed_k_1bit``.  Step 0's rank-0 loss and gradients with the flash
@@ -263,7 +279,15 @@ Phases, each printing its own lines:
    ``patch_proj``'s among them (``VLM_GRAD_TOL``, ``VLM_LOSS_RTOL``), then
    ``fit_and_check`` for two steps (kernels 11–13 at 56/8 heads, 2·L·n and
    L·n launches, kernel 4 n times a compressed bucket) and its
-   post-backward twin, bit-equal after each.  The training, error-feedback and
+   post-backward twin, bit-equal after each.  5f: the sliding-window
+   training path (``run_training_window``, ``synthetic.window_train_path``):
+   h2o-danube-3-4b at full width and 4 of 24 layers, 8 ranks of one
+   4096-token sequence stacked, ``get_run_config("h2o-danube-3-4b",
+   "train_4k")`` with one microbatch: step 0's rank-0 bf16 step with every
+   kernel call (kernels 11–13 at hd 120) held against the plain version,
+   the f32 kernels against the plain flash per leaf, bf16 against f32;
+   then ``fit_and_check`` for two steps and its post-backward twin,
+   bit-equal after each.  The training, error-feedback and
    multi-pod runs are each followed by a post-backward twin
    (``run_twin``: ``TWIN_STEPS`` steps from the same start with
    ``BucketSpec.overlap = False``), held bit for bit to the overlapped
@@ -362,6 +386,9 @@ REPLACES = {
     "flash_attention_fwd_hd16": "src/repro/kernels/flash_attention/flash_attention.py:121",
     "flash_attention_bwd_dkv_hd16": "src/repro/kernels/flash_attention/flash_attention.py:280",
     "flash_attention_bwd_dq_hd16": "src/repro/kernels/flash_attention/flash_attention.py:318",
+    "flash_attention_fwd_hd120": "src/repro/kernels/flash_attention/flash_attention.py:121",
+    "flash_attention_bwd_dkv_hd120": "src/repro/kernels/flash_attention/flash_attention.py:280",
+    "flash_attention_bwd_dq_hd120": "src/repro/kernels/flash_attention/flash_attention.py:318",
     "bernoulli_encode_2d": "src/repro/kernels/bernoulli_encode/bernoulli_encode.py:53",
     "binary_encode_2d": "src/repro/kernels/binary_quant/binary_quant.py:54",
 }
@@ -388,6 +415,9 @@ SOURCE = {
     "flash_attention_fwd_hd16": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_dkv_hd16": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "flash_attention_bwd_dq_hd16": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_fwd_hd120": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dkv_hd120": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dq_hd120": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "bernoulli_encode_2d": "src/repro_torch/csrc/bernoulli_encode.cu",
     "binary_encode_2d": "src/repro_torch/csrc/binary_quant.cu",
 }
@@ -475,8 +505,9 @@ def max_err(a, b) -> float:
 # --------------------------------------------------------------------------- #
 
 # The Hopper (TMA + wgmma) kernels phase 1 inspects, by source: each at hd 16,
-# 32, 64 and 128, with the C function that reports its dynamic shared memory.
-CUBIN_HEAD_DIMS = (16, 32, 64, 128)
+# 32, 64, 120 and 128, with the C function that reports its dynamic shared
+# memory.
+CUBIN_HEAD_DIMS = (16, 32, 64, 120, 128)
 CUBIN_KERNELS = {"flash_attention": {"fa_fwd_wgmma": ("fa_fwd_smem_bytes",)},
                  "flash_attention_bwd": {"fa_bwd_dkv_wgmma": ("fa_bwd_smem_bytes", 0),
                                          "fa_bwd_dq_wgmma": ("fa_bwd_smem_bytes", 1)}}
@@ -500,7 +531,7 @@ def start_flash_cubins():
 
 
 def check_flash_cubins(procs) -> None:
-    """Each bf16 kernel of ``CUBIN_KERNELS`` at hd 16, 32, 64 and 128: registers and
+    """Each bf16 kernel of ``CUBIN_KERNELS`` at hd 16, 32, 64, 120 and 128: registers and
     spills (none allowed) as ptxas reports them, its dynamic shared memory,
     and its SASS holding ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), by
     ``cuobjdump -sass``."""
@@ -1413,6 +1444,22 @@ FLASH_CASES = [
     (2, 100, 100, 4, 4, 16, False, None, 0, ("float32", "bfloat16")),   # less than one tile
     (4, 128, 128, 4, 2, 16, True, None, 0, ("float32", "bfloat16")),
     (4, 16, 16, 4, 2, 16, True, None, 0, ("bfloat16",)),
+    # minitron-4b's heads (24/8, g = 3) and mistral-large-123b's (96/8, g =
+    # 12): ragged tiles, then their serving prefills (8 prompts of 2048)
+    (1, 1000, 1000, 24, 8, 128, True, None, 0, ("float32", "bfloat16")),
+    (1, 1000, 1000, 96, 8, 128, True, None, 0, ("float32", "bfloat16")),
+    (8, 2048, 2048, 24, 8, 128, True, None, 0, ("bfloat16",)),
+    (8, 2048, 2048, 96, 8, 128, True, None, 0, ("bfloat16",)),
+    # hd 120 (h2o-danube-3-4b, 32/8 heads) on the hd-128 tiles with columns
+    # 120-127 zero-filled: causal, a window across key tiles, ragged tiles
+    # with a q offset; then its serving prefill (8 prompts of 4080 tokens,
+    # which its 4096 window does not cut) and its 32,768-token prompt, where
+    # the window makes most key tiles dead
+    (1, 1024, 1024, 32, 8, 120, True, None, 0, ("float32", "bfloat16")),
+    (1, 1024, 1024, 32, 8, 120, True, 200, 0, ("float32", "bfloat16")),
+    (1, 1000, 1200, 32, 8, 120, True, None, 200, ("float32", "bfloat16")),
+    (8, 4080, 4080, 32, 8, 120, True, 4096, 0, ("bfloat16",)),
+    (1, 32768, 32768, 32, 8, 120, True, 4096, 0, ("bfloat16",)),
 ]
 # the shapes at which kernel 11 is timed against SDPA (bf16): (b, sq, hq,
 # hkv, hd) -> (path, the name of its row in the last JSON line, or None)
@@ -1425,13 +1472,18 @@ FLASH_TIMED = {(8, 2048, 32, 8, 128): ("serving", "flash_attention_fwd"),
                (1, 4096, 56, 8, 128): ("llava training", None),
                (4, 128, 8, 4, 32): ("example", "flash_attention_fwd_hd32"),
                (4, 128, 4, 2, 16): ("training CLI", "flash_attention_fwd_hd16"),
-               (4, 16, 4, 2, 16): ("serving example", None)}
+               (4, 16, 4, 2, 16): ("serving example", None),
+               (8, 2048, 24, 8, 128): ("minitron serving", None),
+               (8, 2048, 96, 8, 128): ("mistral serving", None),
+               (8, 4080, 32, 8, 120): ("danube serving", "flash_attention_fwd_hd120"),
+               (1, 32768, 32, 8, 120): ("danube 32k prompt", None)}
 # (atol, rtol) on o: the reference's own for its kernel (tests/test_kernel_flash.py)
 FLASH_TOL = {"float32": (2e-3, 2e-3), "bfloat16": (3e-2, 0.0)}
 LSE_TOL = 1e-3
-# the full-softmax oracle's f32 scores above this many elements (16 GiB) are
-# not formed: the 32k prompt's would take 137 GB; the plain version holds it
-ORACLE_MAX_SCORES = 1 << 32
+# the full-softmax oracle's f32 scores above this many elements (8 GiB) are
+# not formed: the 32k prompt's would take 137 GB, danube's serving prefill's
+# 17 GB; the plain version holds them
+ORACLE_MAX_SCORES = 1 << 31
 
 
 def live_pairs(sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
@@ -1444,8 +1496,47 @@ def live_pairs(sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
     return int(torch.clamp(hi - lo, min=0).sum())
 
 
+def plain_block(s: int, most: int = 512) -> int:
+    """A block (or chunk) along a sequence of ``s`` for the plain versions
+    and the chunked attention, which tile by whole blocks: the largest
+    divisor of ``s`` up to ``most``."""
+    return next(b for b in range(min(s, most), 0, -1) if s % b == 0)
+
+
 def within(a, b, atol: float, rtol: float) -> bool:
     return bool(((a.double() - b.double()).abs() <= atol + rtol * b.double().abs()).all())
+
+
+def sdpa_call(q, k, v, *, causal: bool, window, q_offset: int, grad: bool = False):
+    """(fn, leaves, name): ``fn()`` is one call of
+    ``F.scaled_dot_product_attention`` computing the kernel's attention on
+    q, k, v (the model's layout) as ``leaves`` (B, H, S, hd) — a causal mask
+    by ``is_causal`` with GQA; a window that masks a live pair by an explicit
+    boolean mask, k and v repeated to q's heads inside the call (the
+    backends that take a mask take no GQA).  With ``grad`` the leaves
+    require a gradient, for ``torch.autograd.grad``."""
+    import torch
+    import torch.nn.functional as F
+
+    sq, sk = q.shape[1], k.shape[1]
+    leaves = [x.transpose(1, 2) for x in (q, k, v)]
+    if grad:
+        leaves = [x.detach().requires_grad_() for x in leaves]
+    qt, kt, vt = leaves
+    if window is None or (live_pairs(sq, sk, causal, window, q_offset)
+                          == live_pairs(sq, sk, causal, None, q_offset)):
+        need(causal and q_offset == 0 and sq == sk, "sdpa: is_causal needs a square mask")
+        return (lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                       enable_gqa=True)), leaves, "sdpa"
+    g = q.shape[2] // k.shape[2]
+    qp = torch.arange(q_offset, q_offset + sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None]
+    mask = (kp > qp - window) & (kp <= qp) if causal else kp > qp - window
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt.repeat_interleave(g, dim=1),
+                                              vt.repeat_interleave(g, dim=1), attn_mask=mask)
+    return call, leaves, "sdpa with a boolean mask"
 
 
 def check_flash(records: dict) -> None:
@@ -1471,8 +1562,7 @@ def check_flash(records: dict) -> None:
             kw = dict(causal=causal, window=window, q_offset=q_offset)
             o, lse = fak.flash_attention_fwd(q, k, v, **kw)
             torch.cuda.synchronize()
-            blocks = dict(block_q=512 if sq % 512 == 0 else sq,
-                          block_k=512 if sk % 512 == 0 else sk)
+            blocks = dict(block_q=plain_block(sq), block_k=plain_block(sk))
             op, lsep = far.flash_attention_fwd(q, k, v, **kw, **blocks)
             oracle = (far.attention(q, k, v, **kw) if b * hq * sq * sk <= ORACLE_MAX_SCORES
                       else op)
@@ -1492,23 +1582,23 @@ def check_flash(records: dict) -> None:
             path, row = FLASH_TIMED.get((b, sq, hq, hkv, hd), (None, None))
             if path and dt == "bfloat16":
                 ms = cuda_ms(lambda: fak.flash_attention_fwd(q, k, v, **kw), reps=10)
-                qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                lib, _, library = sdpa_call(q, k, v, **kw)
                 try:        # a backend without GQA at 32k would form 137 GB of scores
-                    lms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+                    lms = cuda_ms(lib, reps=10)
                 except torch.cuda.OutOfMemoryError:
                     lms = None
                     torch.cuda.empty_cache()
+                del lib
                 nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
                 flops = 4 * b * hq * hd * live_pairs(sq, sk, causal, window, q_offset)
                 tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
                 tag += (f"; {path} shape: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
                         f"{100 * max(tb, tf) / ms:.1f}% of its {max(tb, tf):.3f} ms bound), "
-                        "sdpa " + (f"{lms:.3f} ms ({ms / lms:.2f}x)" if lms else
-                                   "out of memory"))
-                if row or path in ("serving example", "olmoe serving", "olmoe training",
-                                   "hybrid 32k prompt", "llava serving", "llava training"):
-                    pms = cuda_ms(lambda: far.flash_attention_fwd(q, k, v, **kw), reps=1)
+                        f"{library} " + (f"{lms:.3f} ms ({ms / lms:.2f}x)" if lms else
+                                         "out of memory"))
+                if row or path not in ("serving", "training"):
+                    pms = cuda_ms(lambda: far.flash_attention_fwd(q, k, v, **kw, **blocks),
+                                  reps=1)
                     tag += f", plain {pms:.3f} ms"
                 if row:
                     records[row] = {
@@ -1551,12 +1641,22 @@ FLASH_BWD_CASES = [
     (2, 100, 100, 4, 4, 16, False, None, 0, ("float32", "bfloat16")),    # less than one tile
     (1, 256, 512, 4, 2, 16, True, None, 200, ("float32", "bfloat16")),   # q offset 200, Sk 512
     (4, 128, 128, 4, 2, 16, True, None, 0, ("float32", "bfloat16")),
+    # hd 120 (h2o-danube-3-4b) on the hd-128 tiles: causal, a window across
+    # tiles, ragged tiles with a q offset; then one rank's training sequence
+    # (which its 4096 window does not cut) and its 32,768-token prompt, where
+    # the window leaves every later q tile of a key tile dead
+    (1, 1024, 1024, 32, 8, 120, True, None, 0, ("float32", "bfloat16")),
+    (1, 1024, 1024, 32, 8, 120, True, 200, 0, ("float32", "bfloat16")),
+    (1, 1000, 1200, 32, 8, 120, True, None, 200, ("float32", "bfloat16")),
+    (1, 4096, 4096, 32, 8, 120, True, 4096, 0, ("bfloat16",)),
+    (1, 32768, 32768, 32, 8, 120, True, 4096, 0, ("bfloat16",)),
 ]
 # the shapes at which kernels 12-13 are timed (bf16): (b, sq, hq, hkv, hd) ->
-# the suffix of their rows in the last JSON line, or None (printed only)
-FLASH_BWD_TIMED = {(1, 4096, 32, 8, 128): "", (1, 4096, 16, 16, 128): None,
-                   (1, 4096, 56, 8, 128): None,
-                   (4, 128, 8, 4, 32): "_hd32", (4, 128, 4, 2, 16): "_hd16"}
+# whether these are their rows in the last JSON line (else printed only)
+FLASH_BWD_TIMED = {(1, 4096, 32, 8, 128): True, (1, 4096, 16, 16, 128): False,
+                   (1, 4096, 56, 8, 128): False,
+                   (4, 128, 8, 4, 32): True, (4, 128, 4, 2, 16): True,
+                   (1, 4096, 32, 8, 120): True, (1, 32768, 32, 8, 120): False}
 # f32: |Δ| ≤ atol + rtol·|ref|, the forward's; bf16: relative Frobenius error
 # of each of dq, dk, dv.  p and ds enter the products as bf16 hi + lo pairs
 # (2⁻¹⁶ relative); on the H100 the readings were ≤ 1.1e-5 at the small shapes
@@ -1582,7 +1682,6 @@ def check_flash_bwd(records: dict) -> None:
     yardstick: one call for dq, dk and dv, timed as ``torch.autograd.grad``
     of a forward built outside the timed region) timed."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.kernels.flash_attention import ref as far
 
@@ -1603,8 +1702,7 @@ def check_flash_bwd(records: dict) -> None:
             dk, dv = fak.flash_attention_bwd_dkv(*args, **kw)
             dq = fak.flash_attention_bwd_dq(*args, **kw)
             torch.cuda.synchronize()
-            blocks = dict(block_q=512 if sq % 512 == 0 else sq,
-                          block_k=512 if sk % 512 == 0 else sk)
+            blocks = dict(block_q=plain_block(sq), block_k=plain_block(sk))
             pdk, pdv = far.flash_attention_bwd_dkv(*args, **kw, **blocks)
             pdq = far.flash_attention_bwd_dq(*args, **kw, **blocks)
             tag = (f"flash_attention_bwd ({b}, {sq}/{sk}, {hq}/{hkv}, {hd}) {dt} causal={causal} "
@@ -1622,35 +1720,39 @@ def check_flash_bwd(records: dict) -> None:
             tag += ": " + ", ".join(f"{n} max |Δ| {e[0]:.3g} rel {e[1]:.3g}"
                                     for n, e in errs.items())
             timed = (b, sq, hq, hkv, hd) in FLASH_BWD_TIMED
-            suffix = FLASH_BWD_TIMED.get((b, sq, hq, hkv, hd))
+            row = FLASH_BWD_TIMED.get((b, sq, hq, hkv, hd))
             if timed and dt == "bfloat16":
                 ms_kv = cuda_ms(lambda: fak.flash_attention_bwd_dkv(*args, **kw), reps=10)
                 ms_q = cuda_ms(lambda: fak.flash_attention_bwd_dq(*args, **kw), reps=10)
                 pms_kv = cuda_ms(lambda: far.flash_attention_bwd_dkv(*args, **kw, **blocks), reps=1)
                 pms_q = cuda_ms(lambda: far.flash_attention_bwd_dq(*args, **kw, **blocks), reps=1)
-                qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-                out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-                dot = do.transpose(1, 2)
-                lms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                          retain_graph=True), reps=10)
-                del out, qt, kt, vt
+                lib, leaves, library = sdpa_call(q, k, v, **kw, grad=True)
+                try:
+                    out = lib()
+                    lms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do.transpose(1, 2),
+                                                              retain_graph=True), reps=10)
+                    del out
+                except torch.cuda.OutOfMemoryError:
+                    lms = None
+                    torch.cuda.empty_cache()
+                del lib, leaves
                 pairs = b * hq * live_pairs(sq, sk, causal, window, q_offset)
                 io = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * (lse.numel() + delta.numel())
                 for name, ms, pms, flops, nbytes, err in (
-                        ("flash_attention_bwd_dkv" + (suffix or ""), ms_kv, pms_kv,
+                        (fak.launch_name("flash_attention_bwd_dkv", hd), ms_kv, pms_kv,
                          8 * hd * pairs, io + 4 * 2 * k.numel(),
                          max(errs["dk"][0], errs["dv"][0])),
-                        ("flash_attention_bwd_dq" + (suffix or ""), ms_q, pms_q, 6 * hd * pairs,
-                         io + 4 * q.numel(), errs["dq"][0])):
+                        (fak.launch_name("flash_attention_bwd_dq", hd), ms_q, pms_q,
+                         6 * hd * pairs, io + 4 * q.numel(), errs["dq"][0])):
                     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
-                    if suffix is not None:
+                    if row:
                         records[name] = {
                             "max_abs_err": err, "ms": ms, "plain_ms": pms,
                             "bound_ms": max(tb, tf),
                             "bound_by": "bytes" if tb >= tf else "operations", "library_ms": lms}
                     tag += (f"; {name} {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, bound "
                             f"{max(tb, tf):.3f} ms), plain {pms:.3f} ms")
-                tag += f"; sdpa backward {lms:.3f} ms"
+                tag += f"; {library} backward " + (f"{lms:.3f} ms" if lms else "out of memory")
             print(f"  {tag}", flush=True)
             del q, k, v, do, o, lse, delta, dq, dk, dv, pdq, pdk, pdv
 
@@ -2053,29 +2155,56 @@ def agreement_over(name: str, pairs) -> dict:
     return out
 
 
-def run_serving(launches_total) -> dict:
-    """qwen3-4b at 36 layers, full width: the user's entry points, checked
-    and timed; returns the summary line."""
+def serving_params(cfg, n_params: Optional[int] = None):
+    """``cfg``'s parameters on the card in bf16: ``model.init``'s f32 draw,
+    cast leaf by leaf; their count held to ``n_params`` when given."""
+    import torch
+    from repro_torch.models import model
+
+    params = model.init(SERVE_SEED, cfg, device=torch.device("cuda"))
+    for name in list(params):
+        params[name] = params[name].to(torch.bfloat16)
+    count = sum(v.numel() for v in params.values())
+    need(n_params is None or count == n_params,
+         f"{cfg.name}: {count} parameters at {cfg.num_layers} layers, not {n_params}")
+    return params
+
+
+def run_serving(launches_total, arch: str = SERVE_MODEL, layers: Optional[int] = None,
+                prompt_len: Optional[int] = None, n_params: Optional[int] = None,
+                params=None) -> dict:
+    """A dense model (``arch`` at full width, cut to ``layers`` when given;
+    ``params`` from :func:`serving_params` when not handed in): SERVE_BATCH
+    prompts of ``prompt_len`` (SERVE_PROMPT) seeded tokens; the teacher-forced decode of the
+    next SERVE_STEPS tokens against one forward over all of them; the user's
+    entry points (``engine.generate``: one kernel-11 launch a layer per
+    prefill); the cache's shape (``s_max`` = the whole sequence, or a
+    window's width, which the decode's ring then wraps past); the flash
+    prefill against ``attn_impl="xla"``; the LM head's time in a decode
+    step.  Returns the summary line."""
     import torch
     from repro_torch.configs.base import RunConfig, ShapeSpec
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention.kernel import launch_name
     from repro_torch.models import model, transformer
     from repro_torch.serving import engine
 
     dev = torch.device("cuda")
-    cfg = get_config(SERVE_MODEL)
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     run = RunConfig()                     # flash attention, bf16 compute
+    prompt_len = prompt_len or SERVE_PROMPT
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = model.init(SERVE_SEED, cfg, device=dev)          # f32, then bf16 leaf by leaf
-    for name in list(params):
-        params[name] = params[name].to(torch.bfloat16)
+    if params is None:
+        params = serving_params(cfg, n_params)
     n_params = sum(v.numel() for v in params.values())
     gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
-    total = SERVE_PROMPT + SERVE_STEPS
+    total = prompt_len + SERVE_STEPS
     tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, total), generator=gen, device=dev)
-    prompt = {"tokens": tokens[:, :SERVE_PROMPT]}
+    prompt = {"tokens": tokens[:, :prompt_len]}
     prefill_fn, decode_fn = engine.build_serve_fns(
         cfg, run, ShapeSpec("serve", "decode", total, SERVE_BATCH), device=dev)
     torch.cuda.synchronize()
@@ -2084,51 +2213,68 @@ def run_serving(launches_total) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     # teacher-forced: decode the known continuation after a prefill of the
-    # prompt, against one forward over all 2080 tokens (this also warms up)
+    # prompt, against one forward over all the tokens (this also warms up)
     ctx = model.make_ctx(cfg, run)
-    cache, _ = prefill_fn(params, prompt)
-    dec = []
-    for i in range(SERVE_STEPS):
-        pos = SERVE_PROMPT + i
-        _, logits, cache = model.decode_step(ctx, params, cfg, run, cache,
-                                             tokens[:, pos:pos + 1], pos)
-        dec.append(logits)
-    del cache
-    x = model.embed_inputs(ctx, params, cfg, {"tokens": tokens})
-    h, _, _ = transformer.forward(ctx, params, cfg, run, x, torch.arange(total, device=dev))
-    full = transformer.lm_head_logits(ctx, params, cfg, h[:, SERVE_PROMPT:])
-    del x, h
-    teacher = agreement("teacher-forced decode vs prefill of 2080",
+    with torch.no_grad():
+        cache, _ = prefill_fn(params, prompt)
+        dec = []
+        for i in range(SERVE_STEPS):
+            pos = prompt_len + i
+            _, logits, cache = model.decode_step(ctx, params, cfg, run, cache,
+                                                 tokens[:, pos:pos + 1], pos)
+            dec.append(logits)
+        del cache
+        x = model.embed_inputs(ctx, params, cfg, {"tokens": tokens})
+        h, _, _ = transformer.forward(ctx, params, cfg, run, x, torch.arange(total, device=dev))
+        full = transformer.lm_head_logits(ctx, params, cfg, h[:, prompt_len:])
+        del x, h
+    teacher = agreement(f"{cfg.name}: teacher-forced decode vs forward of {total}",
                         torch.cat(dec, dim=1), full)
     del dec, full
 
     # the main path, as a user drives it; every count zeroed just before it
     out, times, seen, counts = serve_main_path(prefill_fn, decode_fn, params, prompt,
                                                launches_total)
-    need(counts == {"flash_attention_fwd": cfg.num_layers},
-         f"serving: launches {counts} != one flash forward per layer ({cfg.num_layers})")
+    flash = launch_name("flash_attention_fwd", cfg.hd)
+    need(counts == {flash: cfg.num_layers},
+         f"{cfg.name} serving: launches {counts} != one {flash} per layer ({cfg.num_layers})")
     need(tuple(out.shape) == (SERVE_BATCH, SERVE_STEPS), f"serving: tokens {tuple(out.shape)}")
     need(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "serving: token out of range")
-    flash_logits = seen["prefill"][1]
+    cache, flash_logits = seen["prefill"]
     need(bool(torch.isfinite(flash_logits).all()), "serving: non-finite prefill logits")
-    del seen
+    s_max = total if cfg.window is None else min(total, cfg.window)
+    slots = max(prompt_len, s_max)
+    want_shape = (cfg.num_layers, SERVE_BATCH, slots, cfg.num_kv_heads, cfg.hd)
+    need(tuple(cache["k"].shape) == tuple(cache["v"].shape) == want_shape,
+         f"{cfg.name} serving: cache {tuple(cache['k'].shape)}, not {want_shape}")
+    cache_bytes = ssm_cache_bytes(cache)
+    del seen, cache
 
-    _, xla_logits = model.prefill(ctx, params, cfg, dataclasses.replace(run, attn_impl="xla"),
-                                  prompt)
-    xla = agreement("flash prefill vs xla prefill", flash_logits, xla_logits)
+    chunk = plain_block(prompt_len, run.attn_chunk_q)     # the chunks tile the prompt
+    xla_run = dataclasses.replace(run, attn_impl="xla", attn_chunk_q=chunk, attn_chunk_k=chunk)
+    with torch.no_grad():
+        _, xla_logits = model.prefill(ctx, params, cfg, xla_run, prompt)
+    xla = agreement(f"{cfg.name}: flash prefill vs xla prefill", flash_logits, xla_logits)
+    h1 = torch.randn((SERVE_BATCH, 1, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    lm_head_ms = cuda_ms(lambda: transformer.lm_head_logits(ctx, params, cfg, h1), reps=10)
     peak = torch.cuda.max_memory_allocated() / 2**30
     del params, flash_logits, xla_logits
     torch.cuda.empty_cache()
 
     prefill_ms = times["prefill"][0]
     decode_ms = sum(times["decode"]) / len(times["decode"])
-    return {"model": SERVE_MODEL, "layers": cfg.num_layers, "params": n_params,
-            "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "decode_steps": SERVE_STEPS,
+    ring = {} if cfg.window is None else {
+        "window": cfg.window, "ring_slots": slots, "last_position": total - 1,
+        "decode_writes_wrapped": max(0, total - slots)}
+    return {"model": cfg.name, "layers": cfg.num_layers,
+            "of_layers": get_config(arch).num_layers, "params": n_params,
+            "batch": SERVE_BATCH, "prompt": prompt_len, "decode_steps": SERVE_STEPS,
             "setup_s": setup_s, "prefill_ms": prefill_ms,
-            "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3,
+            "prefill_tokens_per_s": SERVE_BATCH * prompt_len / prefill_ms * 1e3,
             "decode_ms_per_token": decode_ms, "decode_ms": times["decode"],
             "decode_tokens_per_s": SERVE_BATCH / decode_ms * 1e3,
-            "flash_launches_per_prefill": counts["flash_attention_fwd"],
+            "lm_head_ms": lm_head_ms, "lm_head_share_of_decode": lm_head_ms / decode_ms,
+            "flash_launches_per_prefill": counts.get(flash, 0), "cache_bytes": cache_bytes, **ring,
             "teacher_forced": teacher, "flash_vs_xla": xla, "init_peak_GiB": init_peak,
             "serve_peak_GiB": peak}
 
@@ -2197,9 +2343,11 @@ def rerouted(a: list, b: list) -> dict:
     return {"share_by_call": per_call, "share_any": float(flipped_tokens(a, b).float().mean())}
 
 
-def serve_main_path(prefill_fn, decode_fn, params, prompt, launches_total):
-    """``engine.generate`` as a user drives it (``SERVE_STEPS`` greedy
-    steps), every launch count zeroed just before it and added to
+def serve_main_path(prefill_fn, decode_fn, params, prompt, launches_total,
+                    steps: Optional[int] = None):
+    """``engine.generate`` as a user drives it (``steps``, by default
+    SERVE_STEPS, greedy steps),
+    every launch count zeroed just before it and added to
     ``launches_total`` after it, each prefill and decode call timed (host
     clock around a synchronize).  Returns (tokens, {"prefill": [ms],
     "decode": [ms]}, the last output of each, the launch counts)."""
@@ -2223,7 +2371,7 @@ def serve_main_path(prefill_fn, decode_fn, params, prompt, launches_total):
 
     backend.reset_launches()
     out = engine.generate(timed(prefill_fn, "prefill"), timed(decode_fn, "decode"), params,
-                          prompt, SERVE_STEPS)
+                          prompt, steps or SERVE_STEPS)
     counts = dict(backend.launches)
     launches_total.update(counts)
     return out, times, seen, counts
@@ -2364,7 +2512,6 @@ def run_serving_moe(arch: str, layers: Optional[int], launches_total) -> dict:
     import torch
     from repro_torch.configs.base import RunConfig, ShapeSpec
     from repro_torch.configs.registry import get_config
-    from repro_torch.models import model
     from repro_torch.serving import engine
 
     dev = torch.device("cuda")
@@ -2376,9 +2523,7 @@ def run_serving_moe(arch: str, layers: Optional[int], launches_total) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = model.init(SERVE_SEED, cfg, device=dev)          # f32, then bf16 leaf by leaf
-    for name in list(params):
-        params[name] = params[name].to(torch.bfloat16)
+    params = serving_params(cfg)
     n_params = sum(v.numel() for v in params.values())
     gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
     total = SERVE_PROMPT + SERVE_STEPS
@@ -2691,12 +2836,8 @@ def run_serving_hybrid(launches_total) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = model.init(SERVE_SEED, cfg, device=dev)          # f32, then bf16 leaf by leaf
-    for name in list(params):
-        params[name] = params[name].to(torch.bfloat16)
+    params = serving_params(cfg, HYBRID_PARAMS)
     n_params = sum(v.numel() for v in params.values())
-    need(n_params == HYBRID_PARAMS, f"jamba: {n_params} parameters in one period, not "
-                                    f"{HYBRID_PARAMS}")
     gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
     total, tf_total = SERVE_PROMPT + SERVE_STEPS, SERVE_PROMPT + HYBRID_TEACHER
     tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, max(total, tf_total)),
@@ -2872,11 +3013,8 @@ def run_serving_encdec(launches_total) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = model.init(SERVE_SEED, cfg, device=dev)          # f32, then bf16 leaf by leaf
-    for name in list(params):
-        params[name] = params[name].to(torch.bfloat16)
+    params = serving_params(cfg, ENCDEC_PARAMS)
     n_params = sum(v.numel() for v in params.values())
-    need(n_params == ENCDEC_PARAMS, f"whisper: {n_params} parameters, not {ENCDEC_PARAMS}")
     gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
     total, tf_total = SERVE_PROMPT + SERVE_STEPS, SERVE_PROMPT + ENCDEC_TEACHER
     tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, max(total, tf_total)),
@@ -3051,12 +3189,8 @@ def run_serving_vlm(launches_total) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = model.init(SERVE_SEED, cfg, device=dev)          # f32, then bf16 leaf by leaf
-    for name in list(params):
-        params[name] = params[name].to(torch.bfloat16)
+    params = serving_params(cfg, VLM_PARAMS)
     n_params = sum(v.numel() for v in params.values())
-    need(n_params == VLM_PARAMS, f"llava: {n_params} parameters at {VLM_LAYERS} layers, not "
-                                 f"{VLM_PARAMS}")
     gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
     n_patch = cfg.num_patches
     text, total = SERVE_PROMPT - n_patch, SERVE_PROMPT + SERVE_STEPS
@@ -3129,6 +3263,118 @@ def run_serving_vlm(launches_total) -> dict:
             "flash_launches_per_prefill": counts.get("flash_attention_fwd", 0),
             "cache_bytes": cache_bytes, "teacher_forced": teacher, "flash_vs_xla": xla,
             "f32_card_vs_cpu": f32_check, "init_peak_GiB": init_peak, "serve_peak_GiB": peak}
+
+
+# --------------------------------------------------------------------------- #
+# Phase 4g: the reference's last three dense configs.
+# --------------------------------------------------------------------------- #
+
+# (arch, layers or None for all, parameters): minitron-4b whole (24/8 heads,
+# g = 3; an untied 256,000-row embedding and head); mistral-large-123b at
+# full width, 8 of its 88 layers (96/8 heads, g = 12): the whole model's
+# 245 GB in bf16 fit no card, and model.init's f32 draw of 8 layers takes
+# 47.5 GB.  Each serves SERVE_BATCH prompts of SERVE_PROMPT tokens.
+DENSE_SERVE = (("minitron-4b", None, 5_096_279_040), ("mistral-large-123b", 8, 11_878_477_824))
+# h2o-danube-3-4b whole (hd 120, window 4096): prompts of 4080 tokens and
+# SERVE_STEPS decoded, 4112 positions in a 4096-slot ring (s_max = min(4112,
+# 4096)): the decode writes slots 4080-4095, then wraps to 0-15
+DANUBE_MODEL = "h2o-danube-3-4b"
+DANUBE_PARAMS = 3_961_839_360
+DANUBE_PROMPT = 4080
+# then one prompt of the reference's prefill_32k length at batch 1: its
+# cache keeps all 32,768 slots (24 layers x 8 kv heads x 120 x 2 B, k and
+# v); its decode attends all of them (the reference's decode passes no
+# window); the flash prefill is held against attn_impl="xla" on the first
+# DANUBE_XLA_LAYERS layers (the chunked path visits all 1024 chunk pairs a
+# layer at 32k)
+DANUBE_LONG, DANUBE_LONG_STEPS = 32768, 4
+DANUBE_LONG_CACHE_BYTES = 3_019_898_880
+DANUBE_XLA_LAYERS = 4
+
+
+def run_serving_long_window(cfg, params, launches_total) -> dict:
+    """One DANUBE_LONG-token prompt at batch 1 through the user's entry
+    points (one kernel-11 launch a layer, the window skipping dead key
+    tiles) and DANUBE_LONG_STEPS greedy tokens: the cache's bytes, ms a
+    token; the flash prefill's last logits against ``attn_impl="xla"`` on
+    the first DANUBE_XLA_LAYERS layers.  No teacher-forced check: past the
+    window the reference's decode and its prefill attend different keys."""
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeSpec
+    from repro_torch.kernels.flash_attention.kernel import launch_name
+    from repro_torch.models import model
+    from repro_torch.serving import engine
+
+    dev = torch.device("cuda")
+    run = RunConfig()
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 3)
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (1, DANUBE_LONG), generator=gen,
+                                      device=dev)}
+    prefill_fn, decode_fn = engine.build_serve_fns(
+        cfg, run, ShapeSpec("serve", "decode", DANUBE_LONG + DANUBE_LONG_STEPS, 1), device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, times, seen, counts = serve_main_path(prefill_fn, decode_fn, params, prompt,
+                                               launches_total, steps=DANUBE_LONG_STEPS)
+    flash = launch_name("flash_attention_fwd", cfg.hd)
+    need(counts == {flash: cfg.num_layers},
+         f"{cfg.name} 32k prompt: launches {counts} != one {flash} per layer")
+    need(tuple(out.shape) == (1, DANUBE_LONG_STEPS), f"32k prompt: tokens {tuple(out.shape)}")
+    cache, logits = seen["prefill"]
+    cache_bytes = ssm_cache_bytes(cache)
+    need(cache_bytes == DANUBE_LONG_CACHE_BYTES == cfg.num_layers * DANUBE_LONG * 2
+         * cfg.num_kv_heads * cfg.hd * 2 and cache["k"].shape[2] == DANUBE_LONG,
+         f"{cfg.name} 32k prompt: cache of {cache_bytes} B, {tuple(cache['k'].shape)}")
+    need(bool(torch.isfinite(logits).all()), "32k prompt: non-finite logits")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del seen, cache, logits
+
+    cut = dataclasses.replace(cfg, num_layers=DANUBE_XLA_LAYERS)
+    first = {k: v[:DANUBE_XLA_LAYERS] if k.startswith("layers.") else v
+             for k, v in params.items()}
+    ctx = model.make_ctx(cut, run)
+    with torch.no_grad():
+        _, fl = model.prefill(ctx, first, cut, run, prompt)
+        t = time.perf_counter()
+        _, xl = model.prefill(ctx, first, cut, dataclasses.replace(run, attn_impl="xla"), prompt)
+        torch.cuda.synchronize()
+        xla_ms = (time.perf_counter() - t) * 1e3
+    xla = agreement(f"{cfg.name} 32k prompt, {DANUBE_XLA_LAYERS} layers: flash vs xla", fl, xl)
+    del fl, xl, first
+    torch.cuda.empty_cache()
+    decode_ms = sum(times["decode"]) / len(times["decode"])
+    return {"prompt": DANUBE_LONG, "batch": 1, "prefill_ms": times["prefill"][0],
+            "prefill_tokens_per_s": DANUBE_LONG / times["prefill"][0] * 1e3,
+            "decode_ms_per_token": decode_ms, "decode_ms": times["decode"],
+            "cache_bytes": cache_bytes, "decode_attends_slots": DANUBE_LONG,
+            "flash_vs_xla_first_layers": {"layers": DANUBE_XLA_LAYERS, **xla,
+                                          "xla_prefill_ms": xla_ms},
+            "peak_GiB": peak}
+
+
+def run_serving_dense(launches_total) -> dict:
+    """Phase 4g: minitron-4b and mistral-large-123b (DENSE_SERVE) through
+    :func:`run_serving`; h2o-danube-3-4b whole through it with prompts of
+    DANUBE_PROMPT tokens (the decode's ring wraps), then the same
+    parameters through :func:`run_serving_long_window`.  Returns {arch:
+    summary}."""
+    from repro_torch.configs.registry import get_config
+
+    out = {}
+    for arch, layers, n_params in DENSE_SERVE:
+        t0 = time.perf_counter()
+        out[arch] = run_serving(launches_total, arch, layers, n_params=n_params)
+        out[arch]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = get_config(DANUBE_MODEL)
+    params = serving_params(cfg, DANUBE_PARAMS)
+    need(DANUBE_PROMPT + SERVE_STEPS > cfg.window > DANUBE_PROMPT,
+         f"{DANUBE_MODEL}: the decode of {DANUBE_PROMPT} + {SERVE_STEPS} does not wrap its ring")
+    ring = run_serving(launches_total, DANUBE_MODEL, prompt_len=DANUBE_PROMPT, params=params)
+    ring["long_prompt"] = run_serving_long_window(cfg, params, launches_total)
+    ring["phase_s"] = time.perf_counter() - t0
+    out[DANUBE_MODEL] = ring
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -3312,6 +3558,7 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
     import torch
     from repro_torch.core import wire
     from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention.kernel import launch_name
     from repro_torch.launch.step_report import state_digest, sync_timeline
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -3320,8 +3567,9 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
     cmp = run.compression
     codec = wire.resolve(cmp)
     flash = ({} if cfg.family in ("ssm", "encdec") else
-             {"flash_attention_fwd": 2 * L * n, "flash_attention_bwd_dkv": L * n,
-              "flash_attention_bwd_dq": L * n})
+             {launch_name(k, cfg.hd): c for k, c in (("flash_attention_fwd", 2 * L * n),
+                                                     ("flash_attention_bwd_dkv", L * n),
+                                                     ("flash_attention_bwd_dq", L * n))})
     expect = {"start": {}, "update": {}, "backward": flash}
     st = {"t": 0.0, "last": collections.Counter(), "err": 0.0, "cf": 0.0, "peak": 0,
           "step": -1, "events": {}}
@@ -3733,6 +3981,86 @@ def run_training_vlm(launches_total) -> dict:
     rel = out["step0_bf16_vs_f32"]["rel"]
     need("patch_proj" in rel, "llava training: no patch_proj gradient")
     return {"patches": cfg.num_patches, "patch_proj_bf16_vs_f32": rel["patch_proj"], **out}
+
+
+# Phase 5f: h2o-danube-3-4b at full width and 4 of 24 layers
+# (``synthetic.window_train_path``), 8 ranks of one 4096-token sequence: its
+# window of 4096 masks no causal pair there (k > q - 4096 for every q <
+# 4096), so kernels 11-13 at hd 120 run with the window and skip nothing;
+# phase 2 holds them where it cuts.  Step 0, rank 0: every kernel call of the
+# bf16 step held in place against the plain version (phase 2's limits); the
+# f32 step with the kernels (their SIMT f32 instances) against the plain
+# flash (TRAIN_F32_GRAD_TOL per leaf, TRAIN_F32_LOSS_RTOL); bf16 against f32
+# compute, the model's own bf16 noise, held to the VLM family's limits (the
+# dense stack's readings: 3.9-4.7% per leaf at 1-2 llava-next-34b layers on
+# an H100).
+# The plain flash runs in WINDOW_PLAIN_BLOCK tiles: the result does not
+# depend on the tiling for rows that see a key, and 64-row tiles take most
+# of phase 5's step-0 time at this length.
+WINDOW_GRAD_TOL, WINDOW_LOSS_RTOL = VLM_GRAD_TOL, VLM_LOSS_RTOL
+WINDOW_PLAIN_BLOCK = 512
+WINDOW_TRAIN_STEPS = 2
+
+
+def run_training_window(launches_total) -> dict:
+    """Phase 5f: the step-0 checks above, then ``Trainer.fit`` for
+    WINDOW_TRAIN_STEPS steps under the backward-pipelined schedule
+    (``fit_and_check``: kernels 11-13 at hd 120, 2·L·n and L·n launches a
+    step; kernel 4, n a compressed bucket) and its post-backward twin,
+    bit-equal after both steps."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention.kernel import launch_name
+    from repro_torch.models import model
+    from repro_torch.train import synthetic
+
+    dev = torch.device("cuda")
+    cfg, run, shape = synthetic.window_train_path()
+    n, L = synthetic.N, cfg.num_layers
+    global_tokens = float(shape.global_batch * shape.seq_len)
+    torch.cuda.empty_cache()
+    params = model.init(TRAIN_SEED, cfg, device=dev)
+    batch = SyntheticLM(cfg, shape, seed=TRAIN_SEED).batch(0, dev)
+    rank0 = {k: v[:shape.global_batch // n] for k, v in batch.items()}
+    flash = [launch_name(k, cfg.hd) for k in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                                              "flash_attention_bwd_dq")]
+    per_call, ms = {}, {}
+
+    def rank0_grads(label, r, span):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with span:
+            got = synthetic.rank_loss_and_grads(cfg, r, params, rank0, global_tokens)
+        torch.cuda.synchronize()
+        ms[label] = (time.perf_counter() - t) * 1e3
+        return got
+
+    f32 = dataclasses.replace(run, compute_dtype="float32")
+    backend.reset_launches()
+    kern = rank0_grads("bf16 kernels, each call checked", run,
+                       flash_on_card(WINDOW_PLAIN_BLOCK, per_call))
+    kern32 = rank0_grads("f32 kernels", f32, contextlib.nullcontext())
+    plain32 = rank0_grads("f32 plain flash", f32, flash_on_card(WINDOW_PLAIN_BLOCK))
+    want = {k: c * 2 for k, c in zip(flash, (2 * L, L, L))}
+    need({k: backend.launches[k] for k in flash} == want and sum(backend.launches.values())
+         == sum(want.values()), f"step 0, rank 0: launches {dict(backend.launches)} != {want}")
+    agree = {
+        "flash_per_call_vs_plain": per_call,
+        "f32_flash_vs_plain": _agreement(kern32, plain32, TRAIN_F32_GRAD_TOL,
+                                         TRAIN_F32_LOSS_RTOL, f"{cfg.name} f32 kernels vs plain"),
+        "bf16_vs_f32": _agreement(kern, kern32, WINDOW_GRAD_TOL, WINDOW_LOSS_RTOL,
+                                  f"{cfg.name} bf16 vs f32 compute"),
+        "rank0_loss_and_grads_ms": ms}
+    del params, batch, rank0, kern, kern32, plain32
+    torch.cuda.empty_cache()
+
+    summary = fit_and_check(cfg, run, shape, n, WINDOW_TRAIN_STEPS,
+                            "get_run_config: fixed_k_1bit, one microbatch", launches_total,
+                            digest_steps=tuple(range(WINDOW_TRAIN_STEPS)))
+    twin = run_twin(cfg.name, summary, cfg, run, shape, n, launches_total)
+    summary["digest"] = f"bit-equal to the post-backward twin after steps {sorted(summary['digest'])}"
+    return {"window": cfg.window, "hd": cfg.hd, **summary, "step0": agree, "twin": twin}
 
 
 EXAMPLE_STEPS = 4
@@ -4511,6 +4839,9 @@ def main() -> int:
     summary = run_serving_vlm(total)
     print(f"[4f] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
+    summary = run_serving_dense(total)
+    print(f"[4g] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
     kept = {}
     summary = run_training(total, kept)
     print(f"[5] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -4555,6 +4886,9 @@ def main() -> int:
     t0 = time.perf_counter()
     summary = run_training_vlm(total)
     print(f"[5e] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    summary = run_training_window(total)
+    print(f"[5f] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     summary = run_example(total)
     print(f"[5] example {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)

@@ -26,7 +26,12 @@ class ShapeSpec:
     global_batch: int
 
 
-SHAPES = {"train_4k": ShapeSpec("train_4k", "train", 4096, 256)}
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,8 +17,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-from repro_torch.configs import (jamba_v01_52b, llava_next_34b, mamba2_130m, olmoe_1b_7b,
-                                 qwen2_moe_a2_7b, qwen3_4b, whisper_medium)
+from repro_torch.configs import (h2o_danube3_4b, jamba_v01_52b, llava_next_34b, mamba2_130m,
+                                 minitron_4b, mistral_large_123b, olmoe_1b_7b, qwen2_moe_a2_7b,
+                                 qwen3_4b, whisper_medium)
 from repro_torch.configs.base import SHAPES, ArchConfig, RunConfig
 from repro_torch.core import types as core_types
 from repro_torch.core.wire.base import NotPortedError
@@ -26,7 +27,8 @@ from repro_torch.models.moe import MoECfg
 from repro_torch.models.ssm import SSMCfg
 
 _ARCHS = {m.CONFIG.name: m.CONFIG
-          for m in (qwen3_4b, qwen2_moe_a2_7b, olmoe_1b_7b, mamba2_130m, jamba_v01_52b,
+          for m in (qwen3_4b, h2o_danube3_4b, minitron_4b, mistral_large_123b,
+                    qwen2_moe_a2_7b, olmoe_1b_7b, mamba2_130m, jamba_v01_52b,
                     whisper_medium, llava_next_34b)}
 
 
@@ -125,11 +127,12 @@ def robust_preset(name: str, policy: str,
 
 
 # the reference's microbatch counts for train shapes (dry-run memory sizing)
-_TRAIN_MICROBATCHES = {"qwen3-4b": 4, "qwen2-moe-a2.7b": 4, "olmoe-1b-7b": 2,
-                       "mamba2-130m": 1, "jamba-v0.1-52b": 8, "whisper-medium": 1,
-                       "llava-next-34b": 8}
-# the reference's FSDP set among the port's archs (> 8B parameters)
-_BIG = {"qwen2-moe-a2.7b", "jamba-v0.1-52b", "llava-next-34b"}
+_TRAIN_MICROBATCHES = {"mistral-large-123b": 16, "llava-next-34b": 8, "jamba-v0.1-52b": 8,
+                       "qwen3-4b": 4, "h2o-danube-3-4b": 4, "minitron-4b": 4,
+                       "qwen2-moe-a2.7b": 4, "olmoe-1b-7b": 2, "whisper-medium": 1,
+                       "mamba2-130m": 1}
+# the reference's FSDP set (> 8B parameters)
+_BIG = {"mistral-large-123b", "jamba-v0.1-52b", "llava-next-34b", "qwen2-moe-a2.7b"}
 
 
 def get_run_config(arch: str, shape: str, *, multi_pod: bool = False,

@@ -63,9 +63,18 @@
 //   store.  S = Q.K^T runs its 2 (1) real k-steps of 16 only; P.V runs at
 //   n = 64, half (three quarters) of it on the zero columns (2x (4x) the
 //   operations the bound counts for that product).
+//   hd 120 (h2o-danube-3-4b) takes the hd-128 tiles the same way: the maps
+//   span the tensor's 120 columns (rows of 240 bytes), so the second box of
+//   each Q, K and V tile holds columns 64-119 and TMA zero-fills 120-127.
+//   S = Q.K^T runs 8 k-steps, the last over columns 112-127, whose zero half
+//   adds nothing; P.V runs at n = 128 and its columns 120-127 are zero, and
+//   the o store clips them.  The registers, shared memory and schedule are
+//   hd 128's; the scale is the caller's, 120^-0.5.
 // f32: fa_fwd_simt, 64-row tiles, 256 threads, each 4 rows x 4 keys of S
-//   and 4 rows x hd/16 columns of o with f32 FMAs (the reference's f32
-//   products; no TF32).  Neither main path runs it.
+//   and 4 rows x ceil(hd/16) columns of o with f32 FMAs (the reference's f32
+//   products; no TF32); at hd 120 a thread's last column is 120-127 for half
+//   the threads, which read zeros for V there and store nothing.  Neither
+//   main path runs it.
 //
 // Bound (bf16, causal): operations -- 4 * B * Hq * hd flops per live (q, k)
 // pair on the tensor cores (989 TFLOP/s dense bf16) against
@@ -123,7 +132,8 @@ template <int HD>
 __global__ void __launch_bounds__(256) fa_fwd_simt(Args a) {
   constexpr int LD = HD + 2;     // even: float2 loads; conflict-free columns
   constexpr int PLD = kBK + 1;
-  constexpr int NJ = HD / 16;    // output columns per thread
+  constexpr int NJ = (HD + 15) / 16;   // output columns per thread (hd 120: the last
+                                       // one's columns 120-127 are not stored)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
   float* Ks = Qs + kBQ * LD;
@@ -221,7 +231,8 @@ __global__ void __launch_bounds__(256) fa_fwd_simt(Args a) {
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * PLD + kk];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const float vv = Vs[kk * LD + tx + 16 * j];
+        const int col = tx + 16 * j;
+        const float vv = col < HD ? Vs[kk * LD + col] : 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
       }
@@ -235,7 +246,8 @@ __global__ void __launch_bounds__(256) fa_fwd_simt(Args a) {
     if (row >= a.sq) continue;
     const float li = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) og[row * q_stride + tx + 16 * j] = acc[i][j] / li;
+    for (int j = 0; j < NJ; ++j)
+      if (tx + 16 * j < HD) og[row * q_stride + tx + 16 * j] = acc[i][j] / li;
     if (tx == 0) a.lse[bh * a.sq + row] = m[i] + logf(li);
   }
 }
@@ -372,7 +384,7 @@ __global__ void __launch_bounds__(384, 1)
       hopper::mbar_wait(&full_k[s], (i / kStages) & 1);
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < k_steps(HD); ++kk) {
         const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
         hopper::wgmma_m64n128k16_ss(sc, dq + (off >> 4), dk + ((s * L::kTileBytes + off) >> 4),
                                     kk > 0);
@@ -386,7 +398,7 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
         const uint64_t d = dv + ((s * L::kTileBytes + kk * 16 * 128) >> 4);
-        if constexpr (HD == 128)
+        if constexpr (TD == 128)
           hopper::wgmma_m64n128k16_rs_mn(o, pa[kk], d);
         else
           hopper::wgmma_m64n64k16_rs_mn(o, pa[kk], d);
@@ -581,7 +593,7 @@ extern "C" {
 
 // q, o: (b, sq, hq, hd); k, v: (b, sk, hkv, hd), contiguous, of one dtype
 // (0: f32, 1: bf16, whose pointers are 16-byte aligned for TMA); lse:
-// (b, hq, sq) f32.  hd is 16, 32, 64 or 128, hq a multiple of hkv, window <= 0
+// (b, hq, sq) f32.  hd is 16, 32, 64, 120 or 128, hq a multiple of hkv, window <= 0
 // for none.  Returns the cudaError_t of the launch.
 int fa_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int64_t b,
            int64_t sq, int64_t sk, int64_t hq, int64_t hkv, int64_t hd, int64_t q_offset,
@@ -595,19 +607,23 @@ int fa_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int
   if (dtype == 0 && hd == 16) return launch_simt<16>(a, b, s);
   if (dtype == 0 && hd == 32) return launch_simt<32>(a, b, s);
   if (dtype == 0 && hd == 64) return launch_simt<64>(a, b, s);
+  if (dtype == 0 && hd == 120) return launch_simt<120>(a, b, s);
   if (dtype == 0 && hd == 128) return launch_simt<128>(a, b, s);
   if (dtype == 1 && hd == 16) return launch_wgmma<16>(a, b, s);
   if (dtype == 1 && hd == 32) return launch_wgmma<32>(a, b, s);
   if (dtype == 1 && hd == 64) return launch_wgmma<64>(a, b, s);
+  if (dtype == 1 && hd == 120) return launch_wgmma<120>(a, b, s);
   if (dtype == 1 && hd == 128) return launch_wgmma<128>(a, b, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory of one bf16 CTA at head dim hd (16, 32, 64 or 128), else 0.
+// Dynamic shared memory of one bf16 CTA at head dim hd (16, 32, 64, 120 or
+// 128), else 0.
 int fa_fwd_smem_bytes(int64_t hd) {
   return hd == 16    ? Smem<16>::kBytes
          : hd == 32  ? Smem<32>::kBytes
          : hd == 64  ? Smem<64>::kBytes
+         : hd == 120 ? Smem<120>::kBytes
          : hd == 128 ? Smem<128>::kBytes
                      : 0;
 }

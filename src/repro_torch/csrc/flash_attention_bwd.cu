@@ -69,12 +69,19 @@
 //   dO, K and V tile; S and dP run their 2 (1) real k-steps of 16 only, while
 //   dV, dK and dQ run at n = 64, half (three quarters) of it on the zero
 //   columns, whose sums are never stored (store_rows writes hd columns).
+//   hd 120 (h2o-danube-3-4b) takes the hd-128 tiles the same way: the maps
+//   span 120 columns (rows of 240 bytes) and TMA zero-fills columns 120-127
+//   of every tile; S and dP run 8 k-steps, the last over columns 112-127;
+//   dV, dK and dQ run at n = 128 and their columns 120-127 (zero) are not
+//   stored, so an f32 output row of one head never reaches the next head's
+//   first columns.  Registers and shared memory are hd 128's.
 //   f32: fa_bwd_dkv_simt, one CTA per (batch * kv head, 64-key tile) over the
 //     group's q heads and their live 64-row q tiles, and fa_bwd_dq_simt, one
 //     CTA per (batch * q head, 64-row q tile) over its live 64-key tiles; 256
 //     threads, SIMT f32 FMAs (no TF32): each thread 4 x 4 entries of S and
-//     dP, P and dS through shared memory, then 4 rows x hd/16 columns of the
-//     output sums.  Neither main path runs them.
+//     dP, P and dS through shared memory, then 4 rows x ceil(hd/16) columns
+//     of the output sums (at hd 120 the columns past 119 read zeros and are
+//     not stored).  Neither main path runs them.
 //
 // Bound (the training path, bf16, causal): operations.  Per live (q, k) pair
 // fa_bwd_dkv does 4 products of 2 * hd flops (S, dP, dV, dK) and fa_bwd_dq 3
@@ -247,7 +254,7 @@ template <int HD>
 __device__ __forceinline__ void mma_kmajor(float (&acc)[32], uint64_t a, int a_box, uint64_t b,
                                            int b_box) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < k_steps(HD); ++kk) {
     const int col = (kk % 4) * 32;
     hopper::wgmma_m64n64k16_ss(acc, a + (((kk / 4) * a_box + col) >> 4),
                                b + (((kk / 4) * b_box + col) >> 4), kk > 0);
@@ -256,14 +263,15 @@ __device__ __forceinline__ void mma_kmajor(float (&acc)[32], uint64_t a, int a_b
 
 // d += X . B: X the 64 x 64 tile whose A fragments are hi + lo (two wgmma per
 // k-step into one f32 sum), B 64 rows of hd at descriptor b read MN-major
-// (at hd 32 the tile's 64 columns, the upper 32 zero).
+// (at hd 32 the tile's 64 columns, the upper 32 zero; at hd 120 its 128, the
+// last 8 zero).
 template <int HD>
 __device__ __forceinline__ void mma_mn(float (&d)[tile_cols(HD) / 2], const uint32_t (&hi)[4][4],
                                        const uint32_t (&lo)[4][4], uint64_t b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t bk = b + ((kk * 16 * 128) >> 4);
-    if constexpr (HD == 128) {
+    if constexpr (tile_cols(HD) == 128) {
       hopper::wgmma_m64n128k16_rs_mn(d, hi[kk], bk);
       hopper::wgmma_m64n128k16_rs_mn(d, lo[kk], bk);
     } else {
@@ -723,7 +731,7 @@ constexpr size_t simt_smem() {
 template <int HD>
 __global__ void __launch_bounds__(256) fa_bwd_dkv_simt(Args a) {
   constexpr int LD = HD + 2;
-  constexpr int NJ = HD / 16;
+  constexpr int NJ = (HD + 15) / 16;   // hd 120: columns 120-127 not stored
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Ks = reinterpret_cast<float*>(smem_raw);
   float* Vs = Ks + kTile * LD;
@@ -782,7 +790,9 @@ __global__ void __launch_bounds__(256) fa_bwd_dkv_simt(Args a) {
         }
 #pragma unroll
         for (int jj = 0; jj < NJ; ++jj) {
-          const float ov = Os[qq * LD + tx + 16 * jj], qv = Qs[qq * LD + tx + 16 * jj];
+          const int col = tx + 16 * jj;
+          const float ov = col < HD ? Os[qq * LD + col] : 0.f;
+          const float qv = col < HD ? Qs[qq * LD + col] : 0.f;
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             dv[i][jj] = fmaf(pv[i], ov, dv[i][jj]);
@@ -801,6 +811,7 @@ __global__ void __launch_bounds__(256) fa_bwd_dkv_simt(Args a) {
     if (key >= a.sk) continue;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
+      if (tx + 16 * jj >= HD) continue;
       dkg[key * kv_stride + tx + 16 * jj] = dk[i][jj] * a.scale;
       dvg[key * kv_stride + tx + 16 * jj] = dv[i][jj];
     }
@@ -810,7 +821,7 @@ __global__ void __launch_bounds__(256) fa_bwd_dkv_simt(Args a) {
 template <int HD>
 __global__ void __launch_bounds__(256) fa_bwd_dq_simt(Args a) {
   constexpr int LD = HD + 2;
-  constexpr int NJ = HD / 16;
+  constexpr int NJ = (HD + 15) / 16;   // hd 120: columns 120-127 not stored
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
   float* Os = Qs + kTile * LD;
@@ -863,7 +874,8 @@ __global__ void __launch_bounds__(256) fa_bwd_dq_simt(Args a) {
       for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty + 16 * i) * kPLD + kk];
 #pragma unroll
       for (int jj = 0; jj < NJ; ++jj) {
-        const float kv = Ks[kk * LD + tx + 16 * jj];
+        const int col = tx + 16 * jj;
+        const float kv = col < HD ? Ks[kk * LD + col] : 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) dq[i][jj] = fmaf(dsv[i], kv, dq[i][jj]);
       }
@@ -876,7 +888,8 @@ __global__ void __launch_bounds__(256) fa_bwd_dq_simt(Args a) {
     const int64_t row = row0 + ty + 16 * i;
     if (row >= a.sq) continue;
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) dqg[row * q_stride + tx + 16 * jj] = dq[i][jj] * a.scale;
+    for (int jj = 0; jj < NJ; ++jj)
+      if (tx + 16 * jj < HD) dqg[row * q_stride + tx + 16 * jj] = dq[i][jj] * a.scale;
   }
 }
 
@@ -943,7 +956,7 @@ extern "C" {
 // q, dout: (b, sq, hq, hd); k, v: (b, sk, hkv, hd), contiguous, of one dtype
 // (0: f32, 1: bf16, whose pointers are 16-byte aligned for TMA); lse, delta:
 // (b, hq, sq) f32; dk, dv: (b, sk, hkv, hd) f32, written whole.  hd is 16, 32,
-// 64 or 128, hq a multiple of hkv, window <= 0 for none.  Returns the cudaError_t
+// 64, 120 or 128, hq a multiple of hkv, window <= 0 for none.  Returns the cudaError_t
 // of the launch.
 int fa_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* delta, float* dk, float* dv, int64_t b, int64_t sq, int64_t sk,
@@ -958,11 +971,14 @@ int fa_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, co
   if (dtype == 0 && hd == 16) return launch(fa_bwd_dkv_simt<16>, grid, 256, simt_smem<16>(), s, a);
   if (dtype == 0 && hd == 32) return launch(fa_bwd_dkv_simt<32>, grid, 256, simt_smem<32>(), s, a);
   if (dtype == 0 && hd == 64) return launch(fa_bwd_dkv_simt<64>, grid, 256, simt_smem<64>(), s, a);
+  if (dtype == 0 && hd == 120)
+    return launch(fa_bwd_dkv_simt<120>, grid, 256, simt_smem<120>(), s, a);
   if (dtype == 0 && hd == 128)
     return launch(fa_bwd_dkv_simt<128>, grid, 256, simt_smem<128>(), s, a);
   if (dtype == 1 && hd == 16) return launch_dkv_wgmma<16>(a, b, s);
   if (dtype == 1 && hd == 32) return launch_dkv_wgmma<32>(a, b, s);
   if (dtype == 1 && hd == 64) return launch_dkv_wgmma<64>(a, b, s);
+  if (dtype == 1 && hd == 120) return launch_dkv_wgmma<120>(a, b, s);
   if (dtype == 1 && hd == 128) return launch_dkv_wgmma<128>(a, b, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -981,21 +997,25 @@ int fa_bwd_dq(const void* q, const void* k, const void* v, const void* dout, con
   if (dtype == 0 && hd == 16) return launch(fa_bwd_dq_simt<16>, grid, 256, simt_smem<16>(), s, a);
   if (dtype == 0 && hd == 32) return launch(fa_bwd_dq_simt<32>, grid, 256, simt_smem<32>(), s, a);
   if (dtype == 0 && hd == 64) return launch(fa_bwd_dq_simt<64>, grid, 256, simt_smem<64>(), s, a);
+  if (dtype == 0 && hd == 120)
+    return launch(fa_bwd_dq_simt<120>, grid, 256, simt_smem<120>(), s, a);
   if (dtype == 0 && hd == 128)
     return launch(fa_bwd_dq_simt<128>, grid, 256, simt_smem<128>(), s, a);
   if (dtype == 1 && hd == 16) return launch_dq_wgmma<16>(a, b, s);
   if (dtype == 1 && hd == 32) return launch_dq_wgmma<32>(a, b, s);
   if (dtype == 1 && hd == 64) return launch_dq_wgmma<64>(a, b, s);
+  if (dtype == 1 && hd == 120) return launch_dq_wgmma<120>(a, b, s);
   if (dtype == 1 && hd == 128) return launch_dq_wgmma<128>(a, b, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Dynamic shared memory of one bf16 CTA of fa_bwd_dkv (dq = 0) or fa_bwd_dq
-// (dq = 1) at head dim hd (16, 32, 64 or 128), else 0.
+// (dq = 1) at head dim hd (16, 32, 64, 120 or 128), else 0.
 int fa_bwd_smem_bytes(int64_t hd, int dq) {
   if (hd == 16) return dq ? DqSmem<16>::kBytes : DkvSmem<16>::kBytes;
   if (hd == 32) return dq ? DqSmem<32>::kBytes : DkvSmem<32>::kBytes;
   if (hd == 64) return dq ? DqSmem<64>::kBytes : DkvSmem<64>::kBytes;
+  if (hd == 120) return dq ? DqSmem<120>::kBytes : DkvSmem<120>::kBytes;
   if (hd == 128) return dq ? DqSmem<128>::kBytes : DkvSmem<128>::kBytes;
   return 0;
 }

@@ -12,10 +12,17 @@ namespace flash {
 constexpr float kMasked = -1e30f;   // the reference's NEG_INF (flash_attention.py:27)
 constexpr int kTile = 64;           // rows of a q tile and keys of a key tile
 
-// Columns of a bf16 kernel's shared-memory tile: hd, or one whole 64-column
-// TMA box at hd 16 and 32 (the maps span hd columns, so TMA zero-fills
-// columns hd-63 on loads and clips them from stores).
-__host__ __device__ constexpr int tile_cols(int hd) { return hd < 64 ? 64 : hd; }
+// Columns of a bf16 kernel's shared-memory tile: hd rounded up to whole
+// 64-column TMA boxes -- one box at hd 16, 32 and 64, two at hd 120 and 128.
+// The maps span hd columns (a row of hd 120 is 240 bytes, a multiple of 16
+// as TMA requires), so TMA zero-fills the tile's columns past hd on loads
+// and clips them from stores.
+__host__ __device__ constexpr int tile_cols(int hd) { return (hd + 63) / 64 * 64; }
+
+// k-steps of 16 columns that a product over hd takes: hd / 16, and at hd
+// 120 one more over columns 112-127, whose last eight are the zero fill (they
+// add nothing to Q.K^T or dO.V^T).
+__host__ __device__ constexpr int k_steps(int hd) { return (hd + 15) / 16; }
 
 // Copy rows [row0, row0 + 64) of a (S, stride) row set into smem rows of LD
 // elements; rows at or past n_rows are zero-filled.  16-byte global loads,

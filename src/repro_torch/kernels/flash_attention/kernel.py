@@ -9,10 +9,11 @@
 
 Each is counted under its own name in
 :data:`repro_torch.kernels.backend.launches`, and at hd 32 (lm-8m, the
-training example's model) and hd 16 (the smoke configs of the training CLI
-and the serving example) under that name with ``_hd32`` or ``_hd16``
-appended: there the bf16 kernels run on 64-column tiles whose other columns
-TMA zero-fills, so their time and bound are their own.  They take CUDA tensors only,
+training example's model), hd 16 (the smoke configs of the training CLI
+and the serving example) and hd 120 (h2o-danube-3-4b) under that name with
+``_hd32``, ``_hd16`` or ``_hd120`` appended: there the bf16 kernels run on
+tiles of whole 64-column boxes (64 columns, or 128 at hd 120) whose columns
+past hd TMA zero-fills, so their time and bound are their own.  They take CUDA tensors only,
 in the model's (B, S, H, hd) layout (the reference kernels take
 (B, H, S, hd)), check them, allocate their outputs with ``torch.empty``,
 launch on PyTorch's current stream and raise on a nonzero
@@ -21,7 +22,7 @@ launch on PyTorch's current stream and raise on a nonzero
 64-row q tiles, the dQ sweep 128 q rows against 64-key tiles), which read q,
 k, v and do by TMA and so refuse tensors that do not start on a 16-byte
 boundary; f32 runs the SIMT kernels (64 × 64), whatever the caller's block
-sizes.  hd is 16, 32, 64 or 128.  Design and bound are in the sources' header
+sizes.  hd is 16, 32, 64, 120 or 128.  Design and bound are in the sources' header
 comments.
 """
 from __future__ import annotations
@@ -42,7 +43,7 @@ _SIGS = {("flash_attention", "fa_fwd"): [_P] * 5 + _TAIL,
          ("flash_attention_bwd", "fa_bwd_dkv"): [_P] * 8 + _TAIL,
          ("flash_attention_bwd", "fa_bwd_dq"): [_P] * 7 + _TAIL}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 120, 128)
 
 
 def _fn(lib: str, name: str):
@@ -75,9 +76,10 @@ def _check(q, k, v, q_offset: int, window: Optional[int]):
 
 
 def launch_name(base: str, hd: int) -> str:
-    """The name a launch at head dim ``hd`` is counted under: the hd-64
-    tile instances below 64 carry their head dim."""
-    return f"{base}_hd{hd}" if hd < 64 else base
+    """The name a launch at head dim ``hd`` is counted under: the instances
+    whose tiles are wider than hd (16 and 32 on the hd-64 tiles, 120 on the
+    hd-128 tiles) carry their head dim."""
+    return base if hd in (64, 128) else f"{base}_hd{hd}"
 
 
 def _check_aligned(*tensors):
@@ -95,7 +97,7 @@ def _tail(q, shape, q_offset, causal, window):
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                         q_offset: int = 0):
     """q: (B, Sq, Hq, hd); k, v: (B, Sk, Hkv, hd), CUDA, one dtype (f32 or
-    bf16), hd 16, 32, 64 or 128, Hq % Hkv == 0 → (o (B, Sq, Hq, hd) in q's dtype,
+    bf16), hd 16, 32, 64, 120 or 128, Hq % Hkv == 0 → (o (B, Sq, Hq, hd) in q's dtype,
     lse (B, Hq, Sq) f32)."""
     shape = _check(q, k, v, q_offset, window)
     _check_aligned(q, k, v)

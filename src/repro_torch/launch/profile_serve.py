@@ -1,7 +1,8 @@
 """Where the time of serving a model goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--arch qwen3-4b] [--layers N] [--out build/profile_serve.json]
+        [--arch qwen3-4b] [--layers N] [--prompt 2048] [--batch 8] \
+        [--out build/profile_serve.json]
 
 Builds the serving path of ``chip_smoke.py`` phases 4, 4b, 4c, 4d and 4e
 (``--arch`` at full width, all its layers or the first ``--layers``,
@@ -12,7 +13,10 @@ hybrid's, with ``--layers`` a multiple of its 8-layer period: ``--layers
 8`` is one period, 13.3 B parameters; whisper-medium the
 encoder–decoder's, each prompt with 1536 seeded frames, its attention the
 plain chunked softmax; llava-next-34b the VLM's, each prompt 1152 seeded
-patch embeddings and 896 tokens, ``--layers 20`` as phase 4f), runs one
+patch embeddings and 896 tokens, ``--layers 20`` as phase 4f;
+h2o-danube-3-4b, minitron-4b and mistral-large-123b phase 4g's, with
+``--prompt 4080`` for danube's prompts or ``--prompt 32768 --batch 1`` for
+its long one), runs one
 prefill and 4 decode steps to warm up, times 2 prefills and 8 decode steps
 by the host clock around a synchronize, then profiles one prefill and, in a
 second window, 4 decode steps under ``torch.profiler`` (CPU and CUDA
@@ -77,6 +81,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--layers", type=int, default=None, help="the first N layers (all by default)")
+    ap.add_argument("--prompt", type=int, default=PROMPT, help="positions a prompt")
+    ap.add_argument("--batch", type=int, default=BATCH, help="prompts")
     ap.add_argument("--out", default="build/profile_serve.json")
     args = ap.parse_args(argv)
 
@@ -104,18 +110,19 @@ def main(argv=None) -> int:
     for name in list(params):
         params[name] = params[name].to(torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(1)
-    text = PROMPT - (cfg.num_patches if cfg.family == "vlm" else 0)
-    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, text), generator=gen,
+    batch, plen = args.batch, args.prompt
+    text = plen - (cfg.num_patches if cfg.family == "vlm" else 0)
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (batch, text), generator=gen,
                                       device=dev)}
     if cfg.family == "vlm":
-        prompt["patches"] = torch.randn((BATCH, cfg.num_patches, cfg.d_model), generator=gen,
+        prompt["patches"] = torch.randn((batch, cfg.num_patches, cfg.d_model), generator=gen,
                                         device=dev)
     if cfg.family == "encdec":
         from repro_torch.models.encdec import enc_seq_padded
-        prompt["frames"] = torch.randn((BATCH, enc_seq_padded(cfg, 16), cfg.d_model),
+        prompt["frames"] = torch.randn((batch, enc_seq_padded(cfg, 16), cfg.d_model),
                                        generator=gen, device=dev)
     prefill_fn, decode_fn = engine.build_serve_fns(
-        cfg, RunConfig(), ShapeSpec("serve", "decode", PROMPT + 4 * DECODE, BATCH), device=dev)
+        cfg, RunConfig(), ShapeSpec("serve", "decode", plen + 4 * DECODE, batch), device=dev)
 
     def decode(cache, logits, start, steps):
         tok = torch.argmax(logits, dim=-1)
@@ -131,12 +138,12 @@ def main(argv=None) -> int:
         return out, (time.perf_counter() - t0) * 1e3
 
     cache, logits = prefill_fn(params, prompt)            # warm-up
-    cache = decode(cache, logits, PROMPT, DECODE)
+    cache = decode(cache, logits, plen, DECODE)
     prefill_ms = [timed(lambda: prefill_fn(params, prompt))[1] for _ in range(2)]
     (cache, logits), _ = timed(lambda: prefill_fn(params, prompt))
-    _, dms = timed(lambda: decode(cache, logits, PROMPT, 2 * DECODE))
+    _, dms = timed(lambda: decode(cache, logits, plen, 2 * DECODE))
     out = {"card": card, "torch": torch.__version__, "model": cfg.name,
-           "layers": cfg.num_layers, "batch": BATCH, "prompt": PROMPT,
+           "layers": cfg.num_layers, "batch": batch, "prompt": plen,
            "prefill_ms": prefill_ms, "decode_ms_per_token": dms / (2 * DECODE)}
 
     backend.reset_launches()
@@ -145,7 +152,7 @@ def main(argv=None) -> int:
     out["prefill"] = _window(prof, wall)
     out["prefill"]["wrapper_launches"] = dict(backend.launches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = timed(lambda: decode(cache, logits, PROMPT, DECODE))
+        _, wall = timed(lambda: decode(cache, logits, plen, DECODE))
     out["decode"] = _window(prof, wall)
     out["decode"]["steps"] = DECODE
 

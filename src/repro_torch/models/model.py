@@ -14,6 +14,7 @@ on one device with no mesh.  A mesh with a model axis above 1 raises
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
@@ -21,7 +22,6 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.configs.registry import hybrid_layout
-from repro_torch.core.wire.base import NotPortedError
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import common
 from repro_torch.models import encdec as encdec_lib
@@ -255,10 +255,12 @@ def _decode_hybrid(ctx, params, cfg, cache, x, pos: int, dims):
 def prefill(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
             s_max: Optional[int] = None):
     """Run the prompt through the model; returns (cache, last-position logits
-    (B, 1, V) f32).  The cache (:func:`make_cache`) holds the prompt's K/V
-    in bf16, zero-padded to ``s_max`` when given; the SSM family's the
-    final conv windows in bf16 and states in f32, whatever ``s_max``; the
-    hybrid's both (:func:`regroup_hybrid_caches`); the encoder–decoder's
+    (B, 1, V) f32).  The cache holds the prompt's K/V in bf16, zero-padded
+    to ``s_max`` when given and never cut (the reference's ``pad_to``):
+    max(S, s_max) slots, with a sliding window too, where :func:`make_cache`
+    cuts to the window; the SSM family's the final conv windows in bf16 and
+    states in f32, whatever ``s_max``; the hybrid's both
+    (:func:`regroup_hybrid_caches`); the encoder–decoder's
     :func:`encdec.prefill` (``batch`` also carries ``frames``).  A VLM
     batch also carries ``patches``; its cache holds patches and tokens, so
     the first decode position is :func:`seq_total`."""
@@ -279,11 +281,11 @@ def prefill(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, batch,
     else:
         k, v = caches
     s = k.shape[2]
-    cache = make_cache(ctx, cfg, k.shape[1], max(s, s_max or s), device=k.device)
+    # the zero cache of the config without its window: make_cache would cut
+    # it to the window, the reference's pad_to never cuts
+    cache = make_cache(ctx, dataclasses.replace(cfg, window=None), k.shape[1],
+                       max(s, s_max or s), device=k.device)
     kv = cache["attn"] if cfg.family == "hybrid" else cache
-    if kv["k"].shape[2] < s:
-        raise NotPortedError(f"a prompt of {s} tokens is longer than the sliding window's "
-                             f"cache ({kv['k'].shape[2]})")
     kv["k"][:, :, :s] = k
     kv["v"][:, :, :s] = v
     if cfg.family == "hybrid":

@@ -39,6 +39,11 @@
   ``VLM_N`` ranks of one ``train_4k`` sequence (1152 patches and 2944
   tokens), the reference's ``get_run_config(VLM_MODEL, "train_4k")`` with
   FSDP off and one microbatch, not 8.
+* The sliding-window training path (:func:`window_train_path`):
+  ``WINDOW_MODEL`` (h2o-danube-3-4b: hd 120, window 4096) at full width
+  and ``WINDOW_LAYERS`` of its 24 layers, ``N`` ranks of one ``train_4k``
+  sequence, the reference's ``get_run_config(WINDOW_MODEL, "train_4k")``
+  with one microbatch, not 4.
 * The training path (:func:`train_main_path`): the same model, depth and
   ranks, one ``train_4k`` sequence per rank, the real forward and backward
   feeding the same sync under ``fixed_k_1bit``, then AdamW; with
@@ -89,6 +94,8 @@ VLM_MODEL = "llava-next-34b"
 # out of the card's 80 GB under the default caching allocator
 VLM_LAYERS = 1
 VLM_N = 4
+WINDOW_MODEL = "h2o-danube-3-4b"
+WINDOW_LAYERS = 4   # of 24: 865 M parameters; 8 f32 gradient stacks take 27.7 GB
 
 
 def synthetic_grads(shapes: Mapping[str, Sequence[int]], n: int, step: int,
@@ -203,6 +210,19 @@ def vlm_train_path():
     run = dataclasses.replace(registry._run_config(VLM_MODEL, "train_4k", fsdp=False),
                               microbatches=1)
     return cfg, run, dataclasses.replace(SHAPES["train_4k"], global_batch=VLM_N)
+
+
+def window_train_path():
+    """(cfg, run, shape) of the sliding-window training path:
+    ``WINDOW_MODEL`` (hd 120, window 4096) at full width and
+    ``WINDOW_LAYERS`` layers; the reference's ``get_run_config(WINDOW_MODEL,
+    "train_4k")`` (``fixed_k_1bit`` over ``data``, remat) with one
+    microbatch, not 4: a rank's one sequence does not split; ``train_4k``
+    sequences, one per rank (global batch ``N``), which the window of 4096
+    does not cut."""
+    cfg = dataclasses.replace(get_config(WINDOW_MODEL), num_layers=WINDOW_LAYERS)
+    run = dataclasses.replace(get_run_config(WINDOW_MODEL, "train_4k"), microbatches=1)
+    return cfg, run, dataclasses.replace(SHAPES["train_4k"], global_batch=N)
 
 
 def rank_loss_and_grads(cfg, run, params, batch, global_tokens: float):

@@ -352,6 +352,12 @@ def _qkv(dev, b, sq, sk, hq, hkv, hd, dtype):
     (1, 256, 512, 4, 2, 16, True, None, 200),     # q offset not a multiple of 128
     (4, 128, 128, 4, 2, 16, True, None, 0),       # one rank of the training CLI's smoke run
     (4, 16, 16, 4, 2, 16, True, None, 0),         # the serving example's prefill
+    # hd 120 (h2o-danube-3-4b) on the hd-128 tiles, columns 120-127 zero-filled
+    (1, 1024, 1024, 32, 8, 120, True, None, 0),
+    (1, 1024, 1024, 32, 8, 120, True, 200, 0),    # a window straddling key tiles
+    (1, 1000, 1200, 32, 8, 120, True, None, 200),  # ragged, q offset not a multiple of 128
+    (2, 100, 100, 4, 2, 120, False, None, 0),     # less than one tile, not causal
+    (1, 512, 512, 4, 1, 120, True, 64, 0),        # a window narrower than a tile
 ])
 def test_flash_attention_kernel_within_tolerance_of_plain(dev, dtype, b, sq, sk, hq, hkv, hd,
                                                           causal, window, q_offset):
@@ -431,6 +437,13 @@ def _rel(got, want):
     (2, 100, 100, 4, 4, 16, False, None, 0),      # less than one tile, not causal
     (1, 256, 512, 4, 2, 16, True, None, 200),     # q offset 200, Sk 512
     (4, 128, 128, 4, 2, 16, True, None, 0),       # one rank of the training CLI's smoke run
+    # hd 120 (h2o-danube-3-4b) on the hd-128 tiles: the f32 outputs' rows of
+    # 120 columns must not reach the next head's
+    (1, 1024, 1024, 32, 8, 120, True, None, 0),
+    (1, 1024, 1024, 32, 8, 120, True, 200, 0),    # a window across key tiles
+    (1, 1000, 1200, 32, 8, 120, True, None, 200),  # ragged, q offset 200
+    (2, 100, 100, 4, 2, 120, False, None, 0),     # less than one tile, not causal
+    (1, 512, 512, 4, 1, 120, True, 64, 0),        # a window narrower than a tile
 ])
 def test_flash_attention_bwd_kernels_within_tolerance_of_plain(dev, dtype, b, sq, sk, hq, hkv,
                                                                hd, causal, window, q_offset):
@@ -448,7 +461,8 @@ def test_flash_attention_bwd_kernels_within_tolerance_of_plain(dev, dtype, b, sq
             assert _rel(got, w) <= BWD_REL, (name, _rel(got, w))
 
 
-@pytest.mark.parametrize("hd,suffix", [(128, ""), (32, "_hd32"), (16, "_hd16")])
+@pytest.mark.parametrize("hd,suffix", [(128, ""), (32, "_hd32"), (16, "_hd16"),
+                                       (120, "_hd120")])
 def test_flash_attention_backward_launches_the_kernels_on_a_card(dev, monkeypatch, hd, suffix):
     def plain(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached the plain version")
