@@ -287,7 +287,16 @@ Phases, each printing its own lines:
    kernel call (kernels 11–13 at hd 120) held against the plain version,
    the f32 kernels against the plain flash per leaf, bf16 against f32;
    then ``fit_and_check`` for two steps and its post-backward twin,
-   bit-equal after each.  The training, error-feedback and
+   bit-equal after each.  5g: FSDP over ``data`` on the stacked ranks
+   (``synthetic.fsdp_train_path``: qwen2-moe-a2.7b at full width, 4 ranks
+   of one 4096-token sequence, the reference's FSDP run config with one
+   microbatch): at 1 layer one step with FSDP on and one off from the same
+   draw, compression none (``run_fsdp_identities``: the unsharded leaves'
+   synced gradients bit-equal, each FSDP leaf's within 2⁻⁹ of n × the
+   exact mean); then at 4 layers ``fit_and_check`` for two steps
+   (``run_training_fsdp``: kernels 11–13 at 16/16 heads, kernel 4 n times
+   a compressed bucket, the FSDP rank sum's ms and bytes, the peak, the
+   end state's digest by rank shard).  The training, error-feedback and
    multi-pod runs are each followed by a post-backward twin
    (``run_twin``: ``TWIN_STEPS`` steps from the same start with
    ``BucketSpec.overlap = False``), held bit for bit to the overlapped
@@ -3577,6 +3586,7 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
     res_norms = collections.defaultdict(list)
     timeline = []
     digest = {}
+    fsdp = {"reduce_ms": [], "bytes": []}
 
     def on_phase(name, **state):
         if name in ("start", "backward"):        # the compute stream's position
@@ -3593,7 +3603,11 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
         got = dict(counts - st["last"])
         st["last"] = counts
         need(got == expect[name], f"training {name}: launches {got} != {expect[name]}")
+        if name == "backward" and run.fsdp:
+            ev = state["reduce_events"]
+            fsdp["reduce_ms"].append(sum(a.elapsed_time(b) for a, b in ev if a is not None))
         if name == "sync":
+            fsdp["bytes"].append(state["comm"].bytes_fsdp)
             need(state["schedule"] == schedule, f"training: schedule {state['schedule']}")
             timeline.append({"issued": list(state["rounds"].issued),
                              **sync_timeline(st["events"]["start"], st["events"]["backward"],
@@ -3682,6 +3696,8 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
         out["digest"] = digest
     if "aux" in hist[0]:
         out["aux"] = [h["aux"] for h in hist]
+    if run.fsdp:
+        out.update(fsdp_reduce_ms=fsdp["reduce_ms"], fsdp_reduce_bytes=fsdp["bytes"])
     if keep is not None:
         keep.update(params=params, opt_state=opt_state, hist=hist)
     del params, opt_state, trainer
@@ -4061,6 +4077,108 @@ def run_training_window(launches_total) -> dict:
     twin = run_twin(cfg.name, summary, cfg, run, shape, n, launches_total)
     summary["digest"] = f"bit-equal to the post-backward twin after steps {sorted(summary['digest'])}"
     return {"window": cfg.window, "hd": cfg.hd, **summary, "step0": agree, "twin": twin}
+
+
+# Phase 5g: FSDP (ZeRO-3 over data) on the stacked communicator.
+# (a) qwen2-moe-a2.7b at full width and FSDP_CHECK_LAYERS layer, FSDP_N ranks,
+# one step with FSDP on and one with it off from the same parameters,
+# compression none: every leaf FSDP does not shard takes the same exact mean
+# (bit-equal), and each FSDP leaf's gradient is the sum over the ranks, n
+# times the exact mean, rounded once to bf16: ‖Δ‖/‖g‖ ≤ FSDP_SUM_RTOL = 2⁻⁹
+# (one bf16 rounding; the CPU reading of this function on the smoke
+# qwen2-moe-a2.7b at n = 4 was 1.66e-3 to 1.74e-3).
+FSDP_CHECK_LAYERS = 1
+FSDP_SUM_RTOL = 2.0 ** -9
+# (b) two steps of synthetic.fsdp_train_path() at FSDP_LAYERS layers
+FSDP_TRAIN_STEPS = 2
+
+
+def run_fsdp_identities() -> dict:
+    """Phase 5g(a): the FSDP step against the replicated one (see above)."""
+    import torch
+    from repro_torch.core import types as core_types
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import synthetic
+    from repro_torch.train import train_step as ts
+
+    dev = torch.device("cuda")
+    cfg, run, shape = synthetic.fsdp_train_path(FSDP_CHECK_LAYERS)
+    run = dataclasses.replace(run, compression=core_types.CompressionConfig(mode="none"))
+    n = shape.global_batch
+    torch.cuda.empty_cache()
+    batch = SyntheticLM(cfg, shape, seed=TRAIN_SEED).batch(0, dev)
+    synced, ms = {}, {}
+    for fsdp in (False, True):
+        seen = {}
+        step_fn, init_fn, _ = ts.build_train_step(
+            cfg, dataclasses.replace(run, fsdp=fsdp), shape, n, device=dev,
+            on_phase=lambda name, **st: seen.update(synced=st["synced"]) if name == "sync"
+            else None)
+        state = init_fn(TRAIN_SEED)        # the same draw both times
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step_fn(*state, batch, 0)
+        torch.cuda.synchronize()
+        ms["fsdp" if fsdp else "replicated"] = (time.perf_counter() - t) * 1e3
+        synced[fsdp] = seen["synced"]
+        del step_fn, init_fn, state, seen
+    dims = ts.fsdp_leaf_dims(ts.param_shapes(cfg, fsdp="data")[1])
+    off, on = synced[False], synced[True]
+    need(sorted(off) == sorted(on), "FSDP identities: the two steps sync other leaves")
+    same = [k for k in off if k not in dims]
+    need(all(torch.equal(on[k], off[k]) for k in same),
+         f"FSDP identities: the unsharded leaves' gradients differ: "
+         f"{[k for k in same if not torch.equal(on[k], off[k])]}")
+    rel = {k: float(torch.linalg.vector_norm((on[k] - n * off[k]).double())
+                    / torch.linalg.vector_norm(on[k].double())) for k in dims}
+    worst = max(rel, key=rel.get)
+    need(rel[worst] <= FSDP_SUM_RTOL,
+         f"FSDP identities: {worst}'s gradient is {rel[worst]:.3g} from n x the mean")
+    del synced, off, on, batch
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": cfg.num_layers, "ranks": n,
+            "unsharded_leaves_bit_equal": len(same), "fsdp_leaves": len(dims),
+            "fsdp_sum_vs_n_mean_rel": rel, "worst": worst, "limit": FSDP_SUM_RTOL,
+            "step_ms": ms}
+
+
+def run_training_fsdp(launches_total) -> dict:
+    """Phase 5g(b): ``Trainer.fit`` for FSDP_TRAIN_STEPS steps of
+    ``synthetic.fsdp_train_path()`` (qwen2-moe-a2.7b at full width and
+    ``synthetic.FSDP_LAYERS`` layers, ``synthetic.FSDP_N`` stacked ranks of
+    one 4096-token sequence, FSDP over data, ``fixed_k_1bit`` on the leaves
+    FSDP does not shard, one microbatch) under the backward-pipelined
+    schedule
+    (``fit_and_check``: kernels 11-13, 2·L·n and L·n launches a step;
+    kernel 4, n a compressed bucket; the bytes and the error against the
+    closed form on the compressed buckets; the step's split, the FSDP rank
+    sum's ms and bytes, tokens/s, peak).  The end state's digest by rank
+    shard is the one the NCCL run of ``launch/bench_dist.py --fsdp-path``
+    prints."""
+    import torch
+    from repro_torch.launch.step_report import fsdp_state_digest
+    from repro_torch.train import synthetic
+    from repro_torch.train import train_step as ts
+
+    cfg, run, shape = synthetic.fsdp_train_path()
+    n = shape.global_batch
+    torch.cuda.empty_cache()
+    keep = {}
+    summary = fit_and_check(cfg, run, shape, n, FSDP_TRAIN_STEPS,
+                            "get_run_config: FSDP, fixed_k_1bit, one microbatch",
+                            launches_total, keep=keep)
+    per_bucket = summary["launches_per_step"].get("fixed_k_gather", 0) / summary[
+        "compressed_buckets"]
+    need(per_bucket == n, f"{cfg.name}: {per_bucket} fixed-k launches a compressed bucket, not {n}")
+    dims = ts.fsdp_leaf_dims(ts.param_shapes(cfg, fsdp="data")[1])
+    digest = {"params": fsdp_state_digest(keep["params"], dims, n),
+              "m": fsdp_state_digest(keep["opt_state"].m, dims, n),
+              "v": fsdp_state_digest(keep["opt_state"].v, dims, n)}
+    del keep
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[1] / 2**30 - summary["peak_GiB"]
+    return {**summary, "fsdp_leaves": len(dims), "card_GiB_free_at_peak": free,
+            "end_state_digest": digest}
 
 
 EXAMPLE_STEPS = 4
@@ -4889,6 +5007,13 @@ def main() -> int:
     t0 = time.perf_counter()
     summary = run_training_window(total)
     print(f"[5f] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    summary = run_fsdp_identities()
+    print(f"[5g] FSDP on vs off {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    t0 = time.perf_counter()
+    summary = run_training_fsdp(total)
+    print(f"[5g] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     summary = run_example(total)
     print(f"[5] example {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)

@@ -11,10 +11,12 @@ package restores in the other: ``<path>/step-%08d/``, committed by
 ``keep_last`` prunes the oldest steps.  The parameters are f32 masters and
 ``opt.step`` an int32 scalar, so numpy holds every leaf unchanged.
 
-The port keeps no sharding: every rank, stacked on the card or one to a
-process, holds each leaf whole.  So the reference's elastic restore, which
-reshards onto the current mesh, is here a restore under any rank count: the
-single copy of each leaf is what each rank holds.
+Every leaf is saved whole, with its spec: an FSDP leaf's names ``data``,
+and the trainer gathers its shards first where each process holds only
+its own.  The reference's elastic restore, which reshards onto the current
+mesh, is a restore under any rank count: whole leaves where the ranks hold
+them whole, or (``shard``) the slice of each FSDP leaf the current rank
+count gives this rank.
 
 :class:`AsyncCheckpointer` overlaps the file write with the next training
 steps, one save in flight, as the reference's does.
@@ -26,7 +28,7 @@ import os
 import shutil
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -108,14 +110,16 @@ def latest_step(path: str) -> Optional[int]:
 
 
 def restore(path: str, specs: Optional[Dict[str, Any]], opt_template,
-            step: Optional[int] = None, device=None):
+            step: Optional[int] = None, device=None,
+            shard: Optional[Callable[[str, np.ndarray], np.ndarray]] = None):
     """Load a checkpoint onto ``device`` (the card unless given).
 
     Returns (step, params, opt_state, extra).  ``opt_template`` is an
-    ``AdamWState`` used only for its type.  With no sharding in the port,
-    the restored leaves are whole and serve any rank count (the reference's
-    elastic restore); ``specs``, when given, must name the checkpoint's
-    parameters.
+    ``AdamWState`` used only for its type.  The leaves come back whole, or,
+    with ``shard(name, array)``, as that function cuts each parameter and
+    its moments (this rank's FSDP slice at the current rank count: the
+    reference's elastic restore); ``specs``, when given, must name the
+    checkpoint's parameters.
     """
     dev = resolve_device(device)
     step = step if step is not None else latest_step(path)
@@ -125,7 +129,9 @@ def restore(path: str, specs: Optional[Dict[str, Any]], opt_template,
     with open(os.path.join(final, MANIFEST)) as f:
         manifest = json.load(f)
 
-    def put(arr):
+    def put(name, arr):
+        if shard is not None:
+            arr = np.ascontiguousarray(shard(name, arr))
         return torch.from_numpy(arr).to(dev)
 
     params, m, v = {}, {}, {}
@@ -134,13 +140,16 @@ def restore(path: str, specs: Optional[Dict[str, Any]], opt_template,
         for key in data.files:
             k = key.replace("|", "/")
             if k.startswith("params/"):
-                params[k[len("params/"):]] = put(data[key])
+                name = k[len("params/"):]
+                params[name] = put(name, data[key])
             elif k.startswith("opt/m/"):
-                m[k[len("opt/m/"):]] = put(data[key])
+                name = k[len("opt/m/"):]
+                m[name] = put(name, data[key])
             elif k.startswith("opt/v/"):
-                v[k[len("opt/v/"):]] = put(data[key])
+                name = k[len("opt/v/"):]
+                v[name] = put(name, data[key])
             elif k == "opt/step":
-                opt_step = put(data[key])
+                opt_step = torch.from_numpy(data[key]).to(dev)
     if specs is not None and set(params) != set(specs):
         raise ValueError(f"checkpoint {final} holds parameters {sorted(params)}, "
                          f"the model {sorted(specs)}")
@@ -160,8 +169,10 @@ class AsyncCheckpointer:
     since ``adamw_update`` (``repro_torch.optim.optimizers``) builds new
     tensors, and each saved tensor is marked as used by the copy stream
     (``record_stream``), so the allocator does not give its memory to a
-    later step's tensors before the copy has read it.  The pinned buffers
-    are reused by the next save of the same leaves.
+    later step's tensors before the copy has read it.  A step that updates
+    in place (FSDP's) must not run ahead of the copies: :meth:`fence`
+    orders the current stream after them.  The pinned buffers are reused by
+    the next save of the same leaves.
 
     :attr:`history` has one entry per save: ``step``, ``enqueue_ms`` (host
     time of :meth:`save`: the first save of a checkpointer allocates its
@@ -174,6 +185,7 @@ class AsyncCheckpointer:
         self._error: Optional[BaseException] = None
         self._pinned: Dict[str, torch.Tensor] = {}
         self._stream = None
+        self._copied = None
         self.history = []
 
     def _host_copies(self, leaves: Dict[str, Any]):
@@ -213,6 +225,7 @@ class AsyncCheckpointer:
         self.wait()
         t0 = time.perf_counter()
         arrays, events = self._host_copies(_leaves(params, opt_state))
+        self._copied = None if events is None else events[1]
         entry = {"step": int(step), "enqueue_ms": (time.perf_counter() - t0) * 1e3}
 
         def write():
@@ -231,6 +244,14 @@ class AsyncCheckpointer:
 
         self._thread = threading.Thread(target=write, daemon=True)
         self._thread.start()
+
+    def fence(self):
+        """Make the current stream wait until the last save's device → host
+        copies have read the saved tensors (no wait on the CPU, whose copies
+        are made at once), without blocking the host: later kernels may
+        then write those tensors in place."""
+        if self._copied is not None:
+            torch.cuda.current_stream(self._stream.device).wait_event(self._copied)
 
     def wait(self):
         """Block until the save in flight is committed; re-raise its error."""

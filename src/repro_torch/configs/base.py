@@ -13,7 +13,6 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.core import types as core_types
-from repro_torch.core.wire.base import NotPortedError
 from repro_torch.models.moe import MoECfg
 from repro_torch.models.ssm import SSMCfg
 
@@ -81,9 +80,12 @@ class RunConfig:
     forward in the backward (``torch.utils.checkpoint``), ``remat_attention``
     the attention call's; neither has an effect without a gradient.
     ``microbatches`` splits each rank's batch for f32 gradient accumulation;
-    ``compression`` configures the gradient sync.  ``model_parallel`` acts
-    only with a model axis above 1, which raises
-    (:func:`repro_torch.models.model.make_ctx`); ``fsdp=True`` raises here.
+    ``compression`` configures the gradient sync.  ``fsdp`` shards every
+    leaf whose spec names ``data`` over the data axis (ZeRO-3): each layer
+    gathers its bf16 weights and reduce-scatters their gradients
+    (:func:`repro_torch.models.common.gather_fsdp`, the train step).
+    ``model_parallel`` acts only with a model axis above 1, which raises
+    (:func:`repro_torch.models.model.make_ctx`).
     ``seq_shard`` (the reference's sequence-parallel residual stream) is
     read only at tp > 1, which raises: it is carried so every field of the
     reference's ``RunConfig`` has its place.
@@ -102,8 +104,5 @@ class RunConfig:
     compute_dtype: str = "bfloat16"
 
     def __post_init__(self):
-        if self.fsdp:
-            raise NotPortedError("FSDP is not ported yet: the port's training step keeps "
-                                 "every parameter whole on one card (ROADMAP.md, queue 1)")
         if self.microbatches < 1:
             raise ValueError(f"microbatches must be >= 1, got {self.microbatches}")

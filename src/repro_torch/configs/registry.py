@@ -146,9 +146,10 @@ def get_run_config(arch: str, shape: str, *, multi_pod: bool = False,
     over ``("data",)``; a preset name is re-pointed the same way
     (:func:`compression_preset`).  mamba2-130m runs without a model axis
     (``model_parallel`` and ``seq_shard`` False: the reference folds the
-    model axis into data parallelism).  FSDP (the reference's set of
-    archs above 8B parameters) raises in ``RunConfig``, as do the shapes and families the port
-    lacks."""
+    model axis into data parallelism).  The reference's set of archs above
+    8B parameters (``_BIG``) trains with FSDP over ``data``: ``fsdp=True``,
+    as the reference sets it; the train step raises for FSDP on a mesh with
+    a ``pod`` axis."""
     return _run_config(arch, shape, fsdp=get_config(arch).name in _BIG, multi_pod=multi_pod,
                        compression=compression)
 
@@ -156,9 +157,8 @@ def get_run_config(arch: str, shape: str, *, multi_pod: bool = False,
 def _run_config(arch: str, shape: str, *, fsdp: bool, multi_pod: bool = False,
                 compression=None) -> RunConfig:
     """:func:`get_run_config` with FSDP on or off as ``fsdp`` says.  Off, it
-    is a cut of an arch of the FSDP set: FSDP lays out the same gradient
-    over the data axis, and the port keeps every parameter whole on one
-    card."""
+    is a cut of an arch of the FSDP set: every rank holds every parameter
+    whole, and the gradients take the exact or compressed mean."""
     cfg = get_config(arch)
     kind = SHAPES[shape].kind
     if isinstance(compression, str):

@@ -24,6 +24,11 @@ side hands over as numpy arrays and plain objects:
   ``(pod, data, ...)`` array, as the reference's devices are) → the port's
   (n, ...) stack in mesh order, row r = (pod r // n_in, data r % n_in), the
   order of ``StackedComm(mesh=...)`` and the train step's ranks.
+* :func:`fsdp_shard` / :func:`fsdp_unshard` — a whole array (the
+  reference's global array, numpy, or a torch tensor) → rank r's FSDP
+  shard of it by the leaf's spec, and the n ranks' shards → the whole
+  array: what ``NamedSharding(mesh, P(*spec))`` places on data rank r of
+  a ``(data n, model 1)`` mesh, and what the reference's checkpoint saves.
 
 A multi-pod run configuration (``get_run_config(..., multi_pod=True)``)
 carries its compression over ``("pod",)``, and a hierarchical preset its
@@ -87,8 +92,8 @@ def arch_config(src) -> ArchConfig:
 
 
 def run_config(src) -> RunConfig:
-    """A RunConfig-shaped object → the port's RunConfig.  FSDP raises
-    :class:`NotPortedError` (``RunConfig.__post_init__``)."""
+    """A RunConfig-shaped object → the port's RunConfig, ``fsdp`` with the
+    rest."""
     return _copy(RunConfig, src, compression=compression_config(src.compression))
 
 
@@ -126,3 +131,29 @@ def mesh_stack(per_device: Mapping[str, np.ndarray],
             raise ValueError(f"{k}: leading axes {a.shape[:len(sizes)]} are not the mesh's {sizes}")
         out[k] = a.reshape((-1,) + a.shape[len(sizes):])
     return out
+
+
+def _fsdp_dim(spec, axis: str) -> int:
+    spec = tuple(spec)
+    if axis not in spec:
+        raise ValueError(f"spec {spec} does not shard over {axis!r}")
+    return spec.index(axis)
+
+
+def fsdp_shard(x, spec, rank: int, n: int, axis: str = "data"):
+    """Rank ``rank``'s shard of the whole array ``x`` (numpy or torch), one of
+    ``n`` equal slices along the dim whose spec entry is ``axis``: a view."""
+    dim = _fsdp_dim(spec, axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split into {n} shards")
+    size = x.shape[dim] // n
+    return x[(slice(None),) * dim + (slice(rank * size, (rank + 1) * size),)]
+
+
+def fsdp_unshard(shards: Sequence, spec, axis: str = "data"):
+    """The whole array from its ranks' shards in rank order (numpy or torch,
+    as the shards are): their concatenation along the ``axis`` dim."""
+    dim = _fsdp_dim(spec, axis)
+    if isinstance(shards[0], torch.Tensor):
+        return torch.cat(tuple(shards), dim=dim)
+    return np.concatenate(shards, axis=dim)

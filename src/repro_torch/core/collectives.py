@@ -19,7 +19,9 @@ compression axes manual.  Here a communicator stands in for the axes:
 Both count the bytes handed to them, so a run can hold the traffic against
 the codecs' ``wire_bits`` / ``scatter_bits`` accounting: the codec axes'
 traffic in ``bytes_gathered`` / ``bytes_reduced``, the inner axes' in
-``bytes_inner``.
+``bytes_inner``, FSDP's weight gathers and gradient reduce-scatters
+(:meth:`~StackedComm.fsdp_gather`, :meth:`~StackedComm.reduce_scatter`, as
+the training step runs them) in ``bytes_fsdp``.
 
 Local data is a stack (L, *shape) with one row per local rank; every entry
 point returns the single (*shape) estimate all ranks hold.  Codec state
@@ -70,7 +72,7 @@ class _Bytes:
     """Byte counters one communicator shares with its views."""
 
     def __init__(self):
-        self.gathered = self.reduced = self.inner = 0
+        self.gathered = self.reduced = self.inner = self.fsdp = 0
 
 
 class _Counted:
@@ -99,8 +101,18 @@ class _Counted:
     def bytes_inner(self) -> int:
         return self._bytes.inner
 
+    @property
+    def bytes_fsdp(self) -> int:
+        """The bytes handed to FSDP's per-layer gathers and reduce-scatters
+        (:meth:`count_fsdp`): outside the codec axes' accounting."""
+        return self._bytes.fsdp
+
+    def count_fsdp(self, nbytes: int) -> None:
+        """Count ``nbytes`` as handed to an FSDP gather or reduce-scatter."""
+        self._bytes.fsdp += int(nbytes)
+
     def reset_bytes(self) -> None:
-        self._bytes.gathered = self._bytes.reduced = self._bytes.inner = 0
+        self._bytes.gathered = self._bytes.reduced = self._bytes.inner = self._bytes.fsdp = 0
 
     def _count(self, t, reduced: bool) -> None:
         nb = t.numel() * t.element_size()
@@ -239,6 +251,23 @@ class StackedComm(_Counted):
         for k, group in enumerate(self._groups(axes)):
             for r in group:
                 state[r].copy_(rows[k])
+
+    def fsdp_gather(self, rows, dim: int):
+        """FSDP's weight gather: the (n, *shard) rows, each rank's shard,
+        joined along ``dim`` of the shard into the whole tensor every rank
+        holds."""
+        self._check(rows)
+        return torch.cat(tuple(rows), dim=dim)
+
+    def reduce_scatter(self, rows, dim: int):
+        """FSDP's gradient reduce-scatter of bf16 tensors: the (n, *full)
+        rows, each rank's whole tensor, summed over the ranks in f32 from
+        +0.0 in rank order and rounded once to bf16 (as XLA on the CPU sums
+        a bf16 ``psum_scatter``), then cut along ``dim`` of the tensor:
+        the (n, *shard) rows, rank r's shard of the sum in row r."""
+        self._check(rows)
+        total = _rank_order_sum(rows).to(torch.bfloat16)
+        return torch.stack(torch.chunk(total, self.size, dim=dim))
 
 
 def inner_mean_scale(m: int, device):
@@ -382,6 +411,31 @@ class DistComm(_Counted):
 
     def barrier(self) -> None:
         self._dist.barrier(group=self.group)
+
+    def fsdp_gather(self, rows, dim: int):
+        """FSDP's weight gather: this rank's (1, *shard) row and its peers',
+        received whole (``all_gather_into_tensor``) and joined along
+        ``dim`` of the shard in rank order: the whole tensor."""
+        parts = self._gather(rows)
+        if dim == 0:
+            return parts.reshape((-1,) + tuple(parts.shape[2:]))
+        return torch.cat(tuple(parts), dim=dim)
+
+    def reduce_scatter(self, rows, dim: int):
+        """FSDP's gradient reduce-scatter of this rank's (1, *full) bf16 row:
+        each peer sends this rank only its shard of its tensor
+        (``all_to_all_single``: 1/n of each buffer, where a gather would
+        bring every peer's whole one), and the n received shards are summed
+        in f32 from +0.0 in rank order and rounded once to bf16, as
+        :meth:`StackedComm.reduce_scatter` does.  Returns the (1, *shard)
+        row of this rank's shard of the sum."""
+        if rows.shape[0] != 1:
+            raise ValueError(f"DistComm holds one rank; got {rows.shape[0]} rows")
+        x = rows[0]
+        send = x.unflatten(dim, (self.size, -1)).movedim(dim, 0).contiguous()
+        recv = torch.empty_like(send)
+        self._dist.all_to_all_single(recv, send, group=self.group)
+        return _rank_order_sum(recv).to(torch.bfloat16)[None]
 
     def spread(self, rows, state, axes):
         if rows is not state:

@@ -2,7 +2,7 @@
 step, both issue schedules, on one host's cards.
 
     PYTHONPATH=src python -m repro_torch.launch.bench_dist [--world 4] [--steps 2] \\
-        [--out chiprun_out/bench_dist.json]
+        [--out chiprun_out/bench_dist.json] [--fsdp-path [--layers 4]]
 
 Runs ``launch/train.py --main-path`` (``chip_smoke.py`` phase 5's training
 cell: qwen3-4b at full width and 4 layers, one 4096-token sequence a rank,
@@ -13,6 +13,12 @@ post-backward (``--no-overlap``), and with the same ranks stacked on card 0
 (phase ms, exposed sync ms, wire bytes of one rank's communicator), losses,
 the rounds' issue order and timeline, and whether its end state (digests
 of the parameters, m and v) equals the stacked backward-pipelined run's.
+With ``--fsdp-path`` the cell is ``chip_smoke.py`` phase 5g's instead
+(``train/synthetic.py::fsdp_train_path``: qwen2-moe-a2.7b at full width and
+``--layers`` layers, FSDP over ``data``), run twice, under its own
+schedule: over NCCL, each process holding its rank's shards, and stacked
+on card 0 with every leaf whole; the digests hold an FSDP leaf by its rank
+shards, so the two compare.
 Needs ``--world`` CUDA cards; fails without them.
 """
 from __future__ import annotations
@@ -30,6 +36,9 @@ def main(argv=None) -> int:
     ap.add_argument("--world", type=int, default=4)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default="chiprun_out/bench_dist.json")
+    ap.add_argument("--fsdp-path", action="store_true",
+                    help="phase 5g's FSDP cell instead of phase 5's training cell")
+    ap.add_argument("--layers", type=int, default=None, help="the FSDP cell's depth")
     args = ap.parse_args(argv)
 
     import torch
@@ -46,11 +55,12 @@ def main(argv=None) -> int:
     backend.build()              # once, before the ranks start
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    train = [sys.executable, "-m", "repro_torch.launch.train", "--main-path",
-             "--steps", str(args.steps)]
+    cell = ["--fsdp-path"] + (["--layers", str(args.layers)] if args.layers else [])
+    train = [sys.executable, "-m", "repro_torch.launch.train",
+             *(cell if args.fsdp_path else ["--main-path"]), "--steps", str(args.steps)]
     runs = {}
     for where in ("nccl", "stacked"):
-        for overlap in (True, False):
+        for overlap in ((True,) if args.fsdp_path else (True, False)):
             name = f"{where}_{'overlapped' if overlap else 'post_backward'}"
             report = out.with_name(f"{out.stem}_{name}.json")
             flags = ["--report", str(report)] + ([] if overlap else ["--no-overlap"])
@@ -74,7 +84,8 @@ def main(argv=None) -> int:
             "device": r["device"], "overlap": r["overlap"], "ranks": r["ranks"],
             "end_state_equals_stacked": r["digest"] == ref,
             "loss": [h["loss"] for h in r["history"]],
-            "steps": r["steps"]}
+            "grad_norm": [h["grad_norm"] for h in r["history"]],
+            "peak_GiB_by_rank": r.get("peak_GiB_by_rank"), "steps": r["steps"]}
         print(name, json.dumps(summary["runs"][name]), flush=True)
     out.write_text(json.dumps(summary, indent=1))
     return 0

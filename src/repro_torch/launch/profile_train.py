@@ -21,11 +21,11 @@ class — the flash-attention forward (``fa_fwd_*``) and backward
 (``fa_bwd_*``) kernels, the fixed-k gather, matrix products (cuBLAS /
 CUTLASS kernels), and everything else (PyTorch's elementwise and reduction
 kernels, copies) — and the top kernels by device time and operations by
-host time.  Last, the cost of ``models/transformer.py::take_layer`` alone
-(one rank's layer slices cast to bf16, then the backward of those slices
-with unit cotangents: the select backward writes a full (L, …) f32 tensor
-per layer for autograd to add up), timed by CUDA events.  Needs a CUDA
-card; fails without one.
+host time.  Last, the cost of taking the layers alone
+(``models/transformer.py``: one rank's ``unbind_layers`` and
+``take_layer`` of every layer, the rows cast to bf16, then the backward of
+those casts with unit cotangents, which stacks each leaf's row gradients
+once), timed by CUDA events.  Needs a CUDA card; fails without one.
 """
 from __future__ import annotations
 
@@ -58,13 +58,14 @@ def _paths():
             synthetic.VLM_MODEL: synthetic.vlm_train_path}
 
 
-def take_layer_ms(cfg, params, dtype, reps: int = 3) -> dict:
-    """ms of one rank's ``take_layer`` over all layers (forward: the slices
-    and casts) and of their backward with unit cotangents, CUDA events,
-    after a warm-up: the min of ``reps``.  The stacks are the ``layers.*``
-    leaves, or an encoder–decoder's ``enc.*`` and ``dec.*``."""
+def take_layer_ms(cfg, run, params, reps: int = 3) -> dict:
+    """ms of one rank's ``unbind_layers`` and ``take_layer`` over all layers
+    (forward: the rows and casts) and of their backward with unit
+    cotangents, CUDA events, after a warm-up: the min of ``reps``.  The
+    stacks are the ``layers.*`` leaves, or an encoder–decoder's ``enc.*``
+    and ``dec.*``."""
     import torch
-    from repro_torch.models import transformer as tfm
+    from repro_torch.models import model, transformer as tfm
 
     stacks = ({"enc": cfg.encoder_layers, "dec": cfg.num_layers} if cfg.family == "encdec"
               else {"layers": cfg.num_layers})
@@ -75,8 +76,9 @@ def take_layer_ms(cfg, params, dtype, reps: int = 3) -> dict:
     for _ in range(reps + 1):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
-        outs = [t for g, n in stacks.items() for i in range(n)
-                for t in tfm.take_layer(tfm.sub(lp, g), i, dtype).values()]
+        ctx = model.make_ctx(cfg, run)
+        outs = [t for g in stacks for row in tfm.unbind_layers(tfm.sub(lp, g))
+                for t in tfm.take_layer(ctx, cfg, g, row).values()]
         ones = [torch.ones_like(t) for t in outs]
         ev[1].record()
         torch.autograd.grad(outs, [lp[k] for k in names], grad_outputs=ones)
@@ -157,7 +159,7 @@ def main(argv=None) -> int:
         wall = step(3)
     out["step"] = _window(prof, wall, kind=_kind)
     out["step"]["wrapper_launches"] = dict(backend.launches)
-    out["take_layer"] = take_layer_ms(cfg, params, getattr(torch, run.compute_dtype))
+    out["take_layer"] = take_layer_ms(cfg, run, params)
     out["take_layer"]["per_step_ms"] = n * (out["take_layer"]["forward_ms"]
                                             + out["take_layer"]["backward_ms"])
 

@@ -10,7 +10,8 @@ and ``chip_smoke.py`` phase 5.
   of the backward, and the exposed sync: how long the step waits for its
   gradients beyond the backward.
 * :func:`state_digest` — a 64-bit fingerprint of each tensor's bits, so two
-  runs' states can be held equal bit for bit without keeping both.
+  runs' states can be held equal bit for bit without keeping both;
+  :func:`fsdp_state_digest` the same with FSDP leaves by rank shard.
 """
 from __future__ import annotations
 
@@ -68,6 +69,23 @@ def state_digest(tree: Mapping[str, torch.Tensor]) -> Dict[str, str]:
     return {k: tensor_digest(v) for k, v in sorted(tree.items())}
 
 
+def fsdp_state_digest(tree: Mapping[str, torch.Tensor], fsdp_dims: Mapping[str, int], n: int,
+                      gather=None) -> Dict[str, object]:
+    """:func:`state_digest` of ``tree`` with each FSDP leaf's (``fsdp_dims``:
+    name → the dim its rank shards split) given as the list of its ``n``
+    rank shards' digests in rank order: cut from the whole leaf, or, with
+    ``gather`` (a function of this process's digest returning every rank's
+    in rank order), from this process's own shard.  A run whose processes
+    hold shards and one whose stacked ranks hold whole leaves compare."""
+    out = state_digest({k: v for k, v in tree.items() if k not in fsdp_dims})
+    for k in fsdp_dims:
+        if gather is not None:
+            out[k] = list(gather(tensor_digest(tree[k])))
+        else:
+            out[k] = [tensor_digest(c) for c in torch.chunk(tree[k], n, fsdp_dims[k])]
+    return dict(sorted(out.items()))
+
+
 def sync_timeline(start, backward, rounds) -> Dict[str, object]:
     """A step's bucket rounds against its backward, on the card.
 
@@ -94,7 +112,11 @@ class StepTimer:
     phase ms (``backward_ms``: forward and backward over the local ranks,
     with the overlapped rounds' launches; ``sync_ms``; ``update_ms``), their
     sum ``step_ms``, the bytes handed to the communicator (``wire_bytes``,
-    this process's; the counters are reset each step), the schedule, the
+    this process's; ``fsdp_bytes``, FSDP's gathers and reduce-scatters; the
+    counters are reset each step), on the card ``fsdp_reduce_ms``, the
+    stacked ranks' FSDP rank sum and its rounding within the backward (by
+    their events; None where the reduce-scatters run inside the backward
+    under DistComm), the schedule, the
     rounds' issue order (``issued``) and, on the card, :func:`sync_timeline`'s
     ``exposed_sync_ms`` and ``rounds_ms``."""
 
@@ -121,9 +143,13 @@ class StepTimer:
             self._cur = {"step": state["step"]}
         else:
             self._cur[f"{name}_ms"] = (now - self._t) * 1e3
+        if name == "backward":
+            ev = [e for e in state.get("reduce_events", ()) if e[0] is not None]
+            self._cur["fsdp_reduce_ms"] = sum(a.elapsed_time(b) for a, b in ev) if ev else None
         if name == "sync":
             comm = state["comm"]
             self._cur["wire_bytes"] = comm.bytes_gathered + comm.bytes_reduced
+            self._cur["fsdp_bytes"] = comm.bytes_fsdp
             comm.reset_bytes()
             self._cur["schedule"] = state["schedule"]
             rounds = state["rounds"]

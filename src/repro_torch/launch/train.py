@@ -17,10 +17,10 @@ hybrid smoke configs' chunk is 16 tokens, so their ``--seq`` must be a
 multiple of 16 (the default 128 is); whisper's batches carry its frames
 (512 of them in the smoke config, 1536 in the full one); llava's sequences
 are its patches (8 in the smoke config, 1152 in the full one) and then
-``--seq`` less that many tokens.  The reference trains qwen2-moe-a2.7b,
-jamba-v0.1-52b and llava-next-34b with FSDP, which the port lacks: without
-``--smoke`` their ``get_run_config`` raises :class:`NotPortedError`
-(ROADMAP.md, queue 1).
+``--seq`` less that many tokens.  mistral-large-123b, qwen2-moe-a2.7b,
+jamba-v0.1-52b and llava-next-34b train with FSDP over ``data``, as the
+reference's ``get_run_config`` sets it (at full size they need cards to
+match: ROADMAP.md, queue 1).
 
 ``--devices N`` stacks N data-parallel ranks on the one device, the port's
 counterpart of the reference's N simulated host devices; ``--data`` times
@@ -41,9 +41,20 @@ is the world, ``--data`` × ``--model`` of it::
 on the CPU (``--device cpu``); only rank 0 prints and writes checkpoints.
 ``--main-path`` trains ``chip_smoke.py`` phase 5's training cell
 (``train/synthetic.py::train_main_path``: qwen3-4b at full width and 4
-layers, one ``train_4k`` sequence a rank, ``fixed_k_1bit``); ``--report``
+layers, one ``train_4k`` sequence a rank, ``fixed_k_1bit``);
+``--fsdp-path`` phase 5g's FSDP cell (``synthetic.fsdp_train_path``:
+qwen2-moe-a2.7b at full width, ``--layers`` of its 24 layers, 4 by
+default, one ``train_4k`` sequence a rank, FSDP over ``data``); under
+``--dist nccl`` each process then holds its rank's shards::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --dist nccl \
+        --fsdp-path --layers 24 --steps 2 --report chiprun_out/fsdp24.json
+
+``--report``
 writes each step's phase ms, exposed sync ms, bucket rounds and wire bytes
-and a digest of the end state (:mod:`repro_torch.launch.step_report`).
+and a digest of the end state (:mod:`repro_torch.launch.step_report`;
+an FSDP leaf's by rank shard, so a run whose processes hold shards and
+one whose stacked ranks hold whole leaves compare).
 The sync runs the backward-pipelined schedule by the reference's rule
 unless ``--no-overlap``.
 """
@@ -52,6 +63,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import pathlib
 import sys
@@ -64,7 +76,7 @@ from repro_torch.configs.registry import get_config, get_run_config, smoke_confi
 from repro_torch.core import types as core_types
 from repro_torch.core.collectives import DistComm
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch.step_report import StepTimer, state_digest
+from repro_torch.launch.step_report import StepTimer, fsdp_state_digest
 from repro_torch.optim.optimizers import AdamWConfig
 from repro_torch.train import synthetic
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -100,6 +112,11 @@ def _parse(argv=None):
     ap.add_argument("--main-path", action="store_true",
                     help="chip_smoke.py phase 5's training cell: qwen3-4b at full width and "
                          "4 layers, one train_4k sequence a rank, fixed_k_1bit")
+    ap.add_argument("--fsdp-path", action="store_true",
+                    help="chip_smoke.py phase 5g's FSDP cell: qwen2-moe-a2.7b at full width "
+                         "and --layers layers, one train_4k sequence a rank, FSDP over data")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="the depth of --fsdp-path (default: synthetic.FSDP_LAYERS)")
     ap.add_argument("--report", default=None,
                     help="write each step's phase ms, exposed sync ms, bucket rounds, wire "
                          "bytes and a digest of the end state to this JSON file (rank 0)")
@@ -150,10 +167,44 @@ def main(argv=None) -> int:
                          f"({'the world' if args.dist else '--devices'})")
     mesh = mesh_lib.data_parallel(mesh_lib.make_debug_mesh(data, model))
     comm = DistComm(device=device, mesh=mesh) if args.dist else None
+    cfg, run, shape = build_config(args, n, model)
 
+    tcfg = TrainerConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
+                         ckpt_every=args.ckpt_every, log_every=max(1, args.steps // 20))
+    timer = StepTimer(device) if args.report else None
+    tr = Trainer(cfg, run, shape, tcfg, opt_cfg=AdamWConfig(lr=args.lr, total_steps=args.steps),
+                 device=device, on_phase=timer, mesh=None if comm else mesh, comm=comm)
+    params, opt_state, hist = tr.fit()
+    if rank == 0:
+        for h in hist:
+            print(f"step {h['step']:5d}  loss {h['loss']:.4f}  "
+                  f"gnorm {h['grad_norm']:.3f}  lr {h['lr']:.2e}")
+    if args.report:
+        digest = {"params": _digest(tr, params), "m": _digest(tr, opt_state.m),
+                  "v": _digest(tr, opt_state.v)}
+        dev = torch.device(device)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
+        peaks = [peak]
+        if args.dist:
+            peaks = [None] * n
+            dist.all_gather_object(peaks, peak)
+        if rank == 0:
+            _write_report(args, tr, n, device, timer, hist, digest, peaks)
+    if args.dist:
+        dist.destroy_process_group()
+    return 0
+
+
+def build_config(args, n: int, model: int):
+    """(cfg, run, shape) the command line asks for over ``n`` ranks (a model
+    axis of ``model``)."""
+    if args.layers is not None and not args.fsdp_path:
+        raise ValueError("--layers sets the depth of --fsdp-path")
     if args.main_path:
         cfg, run, shape = synthetic.train_main_path()
         shape = dataclasses.replace(shape, global_batch=n)
+    elif args.fsdp_path:
+        cfg, run, shape = synthetic.fsdp_train_path(args.layers or synthetic.FSDP_LAYERS, n)
     elif args.smoke:
         cfg = smoke_config(args.arch)
         shape = ShapeSpec("cli", "train", args.seq, args.batch)
@@ -174,25 +225,24 @@ def main(argv=None) -> int:
         run = dataclasses.replace(
             run, compression=dataclasses.replace(
                 comp, bucket=dataclasses.replace(comp.bucket, overlap=False)))
-
-    tcfg = TrainerConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
-                         ckpt_every=args.ckpt_every, log_every=max(1, args.steps // 20))
-    timer = StepTimer(device) if args.report else None
-    tr = Trainer(cfg, run, shape, tcfg, opt_cfg=AdamWConfig(lr=args.lr, total_steps=args.steps),
-                 device=device, on_phase=timer, mesh=None if comm else mesh, comm=comm)
-    params, opt_state, hist = tr.fit()
-    if rank == 0:
-        for h in hist:
-            print(f"step {h['step']:5d}  loss {h['loss']:.4f}  "
-                  f"gnorm {h['grad_norm']:.3f}  lr {h['lr']:.2e}")
-    if args.report and rank == 0:
-        _write_report(args, tr, n, device, timer, params, opt_state, hist)
-    if args.dist:
-        dist.destroy_process_group()
-    return 0
+    return cfg, run, shape
 
 
-def _write_report(args, tr, n, device, timer, params, opt_state, hist) -> None:
+def _digest(tr, tree):
+    """:func:`fsdp_state_digest` of ``tree``: an FSDP leaf's by rank shard,
+    cut from the whole leaf where the ranks are stacked, gathered from every
+    process where each holds its own (a collective: every rank calls it)."""
+    n = math.prod(tr.mesh.values())
+
+    def gather(d):
+        got = [None] * n
+        dist.all_gather_object(got, d)
+        return got
+
+    return fsdp_state_digest(tree, tr.fsdp_dims, n, gather if tr.sharded else None)
+
+
+def _write_report(args, tr, n, device, timer, hist, digest, peaks) -> None:
     dev = torch.device(device)
     report = {
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
@@ -200,9 +250,8 @@ def _write_report(args, tr, n, device, timer, params, opt_state, hist) -> None:
         "layers": tr.cfg.num_layers, "seq": tr.shape.seq_len,
         "global_batch": tr.shape.global_batch, "overlap": tr.overlap,
         "plan_schedule": list(tr.sync_plan.schedule()) if tr.sync_plan else None,
-        "steps": timer.steps, "history": hist,
-        "digest": {"params": state_digest(params), "m": state_digest(opt_state.m),
-                   "v": state_digest(opt_state.v)}}
+        "fsdp": tr.run.fsdp, "peak_GiB_by_rank": peaks,
+        "steps": timer.steps, "history": hist, "digest": digest}
     path = pathlib.Path(args.report)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(report, indent=1))

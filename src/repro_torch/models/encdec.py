@@ -20,8 +20,9 @@ chunk is ``min(768, S_enc)``; the decoder's ``min(run.attn_chunk_q/k,
 S_dec)``; the cross-attention's key chunk ``min(768, S_enc)``.  A length
 that is not a multiple of its chunk raises (no padding).
 
-Each layer's weights, its norms included, are cast to the compute dtype
-before use (the reference's ``gather_fsdp``); with a gradient to compute,
+Each layer's weights, its norms included, go through ``gather_fsdp``
+(``transformer.take_layer``): cast to the compute dtype, FSDP leaves
+gathered where this process holds shards; with a gradient to compute,
 ``run.remat`` recomputes each encoder and decoder layer in the backward.
 """
 from __future__ import annotations
@@ -51,11 +52,12 @@ def enc_seq_padded(cfg: ArchConfig, tp: int) -> int:
     return -(-cfg.encoder_seq // base) * base
 
 
-def init_encdec(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+def init_encdec(gen: torch.Generator, cfg: ArchConfig, keep=None) -> Dict[str, torch.Tensor]:
     """The f32 parameters on ``gen``'s device, drawn from ``gen``: the names
     and shapes of ``configs.registry.param_shapes`` and the reference's
-    scales, leaf by leaf in ``init_encdec``'s order."""
-    pb = common.ParamBuilder(gen)
+    scales, leaf by leaf in ``init_encdec``'s order; ``keep`` as in
+    :class:`~repro_torch.models.common.ParamBuilder`."""
+    pb = common.ParamBuilder(gen, keep)
     d = cfg.d_model
     dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, 1)
     pb.add("embed", (cfg.vocab_padded(1), d), scale=0.02)
@@ -86,10 +88,11 @@ def encode(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, frames):
     x = frames.to(cd) + common.sinusoidal_positions(s, cfg.d_model,
                                                     device=frames.device)[None].to(cd)
     lp = sub(params, "enc")
+    rows = tfm.unbind_layers(lp)
     chunk = min(ENC_CHUNK, s)
 
     def body(x, i: int):
-        layer = tfm.take_layer(lp, i, cd)
+        layer = tfm.take_layer(ctx, cfg, "enc", rows[i])
         h = common.rms_norm(x, layer["norm1"])
         q, k, v = attn_lib.project_qkv(ctx, sub(layer, "attn"), h, dims, False, None, None)
         o = attn_lib.chunked_attention(q, k, v, causal=False, chunk_q=chunk, chunk_k=chunk)
@@ -111,14 +114,14 @@ def _decoder_forward(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, x, 
     and cross-attention kx and vx (S_enc long) in the compute dtype, else
     None."""
     dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, ctx.tp)
-    cd = ctx.compute_dtype
     lp = sub(params, "dec")
+    rows = tfm.unbind_layers(lp)
     s_dec = x.shape[1]
     chunk_q, chunk_k = min(run.attn_chunk_q, s_dec), min(run.attn_chunk_k, s_dec)
     chunk_x = min(ENC_CHUNK, enc.shape[1])
 
     def body(x, enc, i: int):
-        layer = tfm.take_layer(lp, i, cd)
+        layer = tfm.take_layer(ctx, cfg, "dec", rows[i])
         h = common.rms_norm(x, layer["norm1"])
         q, k, v = attn_lib.project_qkv(ctx, sub(layer, "attn"), h, dims, False, None, None)
         o = attn_lib.chunked_attention(q, k, v, causal=True, chunk_q=chunk_q, chunk_k=chunk_k)
@@ -214,14 +217,13 @@ def decode_step(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, cache, t
     slot ``pos`` in place and attends to slots 0 … pos, then to all of its
     cross K/V."""
     dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, ctx.tp)
-    cd = ctx.compute_dtype
     x = tfm.embed_tokens(ctx, params, cfg, tok)
     pos_emb = common.sinusoidal_positions(1, cfg.d_model, offset=pos, device=x.device)
     x = x + pos_emb[None].to(x.dtype)
-    lp = sub(params, "dec")
+    rows = tfm.unbind_layers(sub(params, "dec"))
     kcs, vcs = cache["k"], cache["v"]
     for li in range(cfg.num_layers):
-        layer = tfm.take_layer(lp, li, cd)
+        layer = tfm.take_layer(ctx, cfg, "dec", rows[li])
         h = common.rms_norm(x, layer["norm1"])
         q, k, v = attn_lib.project_qkv(ctx, sub(layer, "attn"), h, dims, False, None, None)
         kcs[li, :, pos] = k[:, 0].to(kcs.dtype)

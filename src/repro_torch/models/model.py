@@ -9,8 +9,8 @@ step are :mod:`repro_torch.models.encdec`'s, as the reference dispatches
 them.
 
 The reference runs these per shard inside ``shard_map``; the port runs them
-on one device with no mesh.  A mesh with a model axis above 1 raises
-:class:`NotPortedError`.
+on one device, or under FSDP on this process's shards of the ``data``
+axis.  A mesh with a model axis above 1 raises :class:`NotPortedError`.
 """
 from __future__ import annotations
 
@@ -34,20 +34,25 @@ from repro_torch.models.transformer import sub
 
 
 def make_ctx(cfg: ArchConfig, run: RunConfig, mesh_sizes: Optional[Dict[str, int]] = None,
-             dtype: Optional[torch.dtype] = None) -> ShardCtx:
-    """The one-device context; ``dtype`` defaults to ``run.compute_dtype``
-    (the reference's default, bf16).  A model axis above 1 raises."""
+             dtype: Optional[torch.dtype] = None, comm=None) -> ShardCtx:
+    """The context; ``dtype`` defaults to ``run.compute_dtype`` (the
+    reference's default, bf16), FSDP is ``run.fsdp`` over ``data``, and
+    ``comm`` the communicator over ``data`` when this process holds only its
+    rank's FSDP shards (:class:`ShardCtx`).  A model axis above 1 raises."""
     tp = (mesh_sizes or {}).get("model", 1) if run.model_parallel else 1
-    return ShardCtx(tp=tp, compute_dtype=dtype or getattr(torch, run.compute_dtype))
+    return ShardCtx(tp=tp, compute_dtype=dtype or getattr(torch, run.compute_dtype),
+                    fsdp=run.fsdp, comm=comm)
 
 
-def init(seed: int, cfg: ArchConfig, device=None) -> Dict[str, torch.Tensor]:
+def init(seed: int, cfg: ArchConfig, device=None, keep=None) -> Dict[str, torch.Tensor]:
     """f32 parameters drawn on ``device`` (the card unless given) from a
-    ``torch.Generator`` seeded with ``seed``."""
+    ``torch.Generator`` seeded with ``seed``; ``keep(name, leaf)``, when
+    given, takes what this process keeps of each whole leaf as it is drawn
+    (:class:`~repro_torch.models.common.ParamBuilder`)."""
     gen = torch.Generator(resolve_device(device)).manual_seed(seed)
     if cfg.family == "encdec":
-        return encdec_lib.init_encdec(gen, cfg)
-    return tfm.init_lm(gen, cfg)
+        return encdec_lib.init_encdec(gen, cfg, keep)
+    return tfm.init_lm(gen, cfg, keep)
 
 
 def embed_inputs(ctx: ShardCtx, params, cfg: ArchConfig, batch):
@@ -214,10 +219,10 @@ def decode_step(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, cache, t
     if cfg.family == "hybrid":
         return _finish_decode(ctx, params, cfg,
                               _decode_hybrid(ctx, params, cfg, cache, x, pos, dims), cache)
-    lp = sub(params, "layers")
+    rows = tfm.unbind_layers(sub(params, "layers"))
     kind = tfm.ffn_kind(cfg)
     for li in range(cfg.num_layers):
-        layer = tfm.take_layer(lp, li, ctx.compute_dtype)
+        layer = tfm.take_layer(ctx, cfg, "layers", rows[li])
         if cfg.family == "ssm":
             x = _ssm_decode_layer(ctx, cfg, layer, x, cache, li)
             continue
@@ -240,9 +245,11 @@ def _decode_hybrid(ctx, params, cfg, cache, x, pos: int, dims):
     FFN."""
     per, np_, nm, _, moe_at = hybrid_layout(cfg)
     a_cache, s_cache = cache["attn"], cache["ssm"]
+    rows = {k: torch.unbind(v) for k, v in params.items() if k.startswith("periods.")}
     for pi in range(np_):
         mi = 0
-        for i, p in enumerate(tfm.period_layers(params, cfg, pi, ctx.compute_dtype)):
+        for i, p in enumerate(tfm.period_layers(rows, cfg, pi)):
+            p = tfm.gather_sublayer(ctx, cfg, p)
             if i == cfg.attn_offset:
                 x = _attn_decode_layer(ctx, cfg, p, x, a_cache["k"], a_cache["v"], pi, pos, dims)
             else:

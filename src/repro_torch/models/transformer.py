@@ -6,9 +6,12 @@ SSM family's norm → Mamba-2 block → residual, the hybrid family's periods
 (:func:`_forward_hybrid`), and the forward over the stacked layers (a
 Python loop where the reference scans).
 
-Every layer's weights are cast to the compute dtype before use, as the
-reference's ``gather_fsdp`` casts them; the embedding and the final norm
-are not.  With a gradient to compute, ``run.remat`` recomputes each layer
+Each stack of layer leaves is split into its rows once a forward
+(:func:`unbind_layers`), and every layer's rows go through
+:func:`~repro_torch.models.common.gather_fsdp` (:func:`take_layer`): cast
+to the compute dtype, and gathered whole where this process holds only its
+FSDP shards, as the reference's ``gather_fsdp``; the embedding and the
+final norm are not.  With a gradient to compute, ``run.remat`` recomputes each layer
 in the backward (``torch.utils.checkpoint``, non-reentrant, around the
 layer body as ``jax.checkpoint(body)``; the hybrid's around a whole
 period) and ``run.remat_attention`` the attention call.  The
@@ -27,7 +30,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, RunConfig
-from repro_torch.configs.registry import hybrid_layout
+from repro_torch.configs.registry import hybrid_layout, param_shapes
 from repro_torch.core.wire.base import NotPortedError
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as attn_lib
@@ -43,9 +46,30 @@ def sub(p: Dict[str, Any], prefix: str) -> Dict[str, Any]:
     return {k[pl:]: v for k, v in p.items() if k.startswith(prefix + ".")}
 
 
-def take_layer(p: Dict[str, Any], i: int, dtype: torch.dtype) -> Dict[str, Any]:
-    """Layer ``i`` of the stacked leaves, cast to ``dtype``."""
-    return {k: v[i].to(dtype) for k, v in p.items()}
+def unbind_layers(p: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
+    """The rows of stacked (L, ...) leaves, one dict a layer: one
+    ``torch.unbind`` per leaf.  The rows are views; the backward stacks
+    their gradients once a leaf, where indexing layer i would write a
+    zero-filled (L, ...) gradient at every layer."""
+    cols = {k: torch.unbind(v) for k, v in p.items()}
+    n = len(next(iter(cols.values()))) if cols else 0
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+@functools.lru_cache(maxsize=None)
+def layer_specs(cfg: ArchConfig, fsdp_axis: str) -> Dict[str, tuple]:
+    """Every leaf's spec under FSDP over ``fsdp_axis`` with its stack dim
+    stripped, by full name (``param_shapes(cfg, fsdp=fsdp_axis)``)."""
+    return {k: v[1:] for k, v in param_shapes(cfg, fsdp=fsdp_axis)[1].items()}
+
+
+def take_layer(ctx: ShardCtx, cfg: ArchConfig, prefix: str,
+               row: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """One layer's rows of the ``prefix`` stacks (an entry of
+    :func:`unbind_layers`) through ``gather_fsdp``: in the compute dtype,
+    the FSDP leaves gathered where this process holds shards."""
+    specs = layer_specs(cfg, ctx.fsdp_axis)
+    return common.gather_fsdp(row, {k: specs[f"{prefix}.{k}"] for k in row}, ctx)
 
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
@@ -62,12 +86,13 @@ def ffn_kind(cfg: ArchConfig) -> str:
     return "moe" if cfg.family == "moe" else "mlp"
 
 
-def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+def init_lm(gen: torch.Generator, cfg: ArchConfig, keep=None) -> Dict[str, torch.Tensor]:
     """The f32 parameters on ``gen``'s device, drawn from ``gen``: the names
     and shapes of ``configs.registry.param_shapes`` and the reference's
-    scales, leaf by leaf in its order."""
+    scales, leaf by leaf in its order; ``keep`` as in
+    :class:`~repro_torch.models.common.ParamBuilder`."""
     check_family(cfg)
-    pb = common.ParamBuilder(gen)
+    pb = common.ParamBuilder(gen, keep)
     d = cfg.d_model
     dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, 1)
     pb.add("embed", (cfg.vocab_padded(1), d), scale=0.02)
@@ -203,10 +228,11 @@ def forward(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, x, positions
         return _forward_hybrid(ctx, params, cfg, run, x, positions, want_cache)
     dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, ctx.tp)
     lp = sub(params, "layers")
+    rows = unbind_layers(lp)
     kind = ffn_kind(cfg)
 
     def body(x, i: int):
-        layer = take_layer(lp, i, ctx.compute_dtype)
+        layer = take_layer(ctx, cfg, "layers", rows[i])
         x, kv = _attn_sublayer(ctx, cfg, run, layer, x, positions, dims)
         x, a = _ffn_sublayer(ctx, cfg, run, layer, x, kind)
         return x, a, kv
@@ -232,9 +258,10 @@ def _forward_ssm(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, x, want
     """The SSM family's forward: per layer norm1 → ``mamba_block`` →
     residual, remat per layer as the other families'."""
     lp = sub(params, "layers")
+    rows = unbind_layers(lp)
 
     def body(x, i: int):
-        layer = take_layer(lp, i, ctx.compute_dtype)
+        layer = take_layer(ctx, cfg, "layers", rows[i])
         h = common.rms_norm(x, layer["norm1"])
         if want_cache:
             out, st = ssm_lib.mamba_block(ctx, sub(layer, "ssm"), h, cfg.ssm, return_state=True)
@@ -254,19 +281,20 @@ def _forward_ssm(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, x, want
     return common.rms_norm(x, params["final_norm"]), aux, caches
 
 
-def period_layers(params, cfg: ArchConfig, pi: int, dtype: torch.dtype):
-    """Period ``pi``'s sublayers of the hybrid's ``periods.*`` leaves, one
-    dict a position: ``norm1`` and ``norm2`` (f32, as the reference takes
-    them outside ``gather_fsdp``), then ``attn.*`` at ``attn_offset``,
-    ``ssm.*`` elsewhere, ``moe.*`` or ``mlp.*`` by the position's FFN, each
-    cast to ``dtype``.  Row ``pi·n + j`` of a stack of n sublayers a period
-    is the j-th of period ``pi``: the reference's ``reshape_stack``."""
+def period_layers(params, cfg: ArchConfig, pi: int):
+    """Period ``pi``'s sublayers of the hybrid's ``periods.*`` leaves (the
+    stacks, or each stack's rows as ``torch.unbind`` gives them), one dict
+    a position, as stored: ``norm1`` and ``norm2``, then ``attn.*`` at
+    ``attn_offset``, ``ssm.*`` elsewhere, ``moe.*`` or ``mlp.*`` by the
+    position's FFN (:func:`gather_sublayer` readies them).  Row ``pi·n +
+    j`` of a stack of n sublayers a period is the j-th of period ``pi``:
+    the reference's ``reshape_stack``."""
     per, _, nm, n_moe, moe_at = hybrid_layout(cfg)
     pp = sub(params, "periods")
     groups = {g: sub(pp, g) for g in ("attn", "ssm", "moe", "mlp")}
 
     def row(group, j):
-        return {f"{group}.{k}": v[j].to(dtype) for k, v in groups[group].items()}
+        return {f"{group}.{k}": v[j] for k, v in groups[group].items()}
 
     out = []
     mi = fi_moe = fi_mlp = 0
@@ -287,6 +315,14 @@ def period_layers(params, cfg: ArchConfig, pi: int, dtype: torch.dtype):
     return out
 
 
+def gather_sublayer(ctx: ShardCtx, cfg: ArchConfig, p: Dict[str, torch.Tensor]):
+    """One hybrid position of :func:`period_layers` through ``gather_fsdp``,
+    its two norms left f32 as the reference takes them outside it."""
+    rest = {k: v for k, v in p.items() if k not in ("norm1", "norm2")}
+    return {"norm1": p["norm1"], "norm2": p["norm2"],
+            **take_layer(ctx, cfg, "periods", rest)}
+
+
 def _forward_hybrid(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, x, positions,
                     want_cache: bool):
     """The hybrid family's forward (the reference's ``_forward_hybrid``):
@@ -302,9 +338,12 @@ def _forward_hybrid(ctx: ShardCtx, params, cfg: ArchConfig, run: RunConfig, x, p
     per, np_, _, _, moe_at = hybrid_layout(cfg)
     dims = attn_lib.attn_dims(cfg.num_heads, cfg.num_kv_heads, cfg.hd, ctx.tp)
 
+    rows = {k: torch.unbind(v) for k, v in params.items() if k.startswith("periods.")}
+
     def body(x, aux, pi: int):
         slots = []
-        for i, p in enumerate(period_layers(params, cfg, pi, ctx.compute_dtype)):
+        for i, p in enumerate(period_layers(rows, cfg, pi)):
+            p = gather_sublayer(ctx, cfg, p)
             if i == cfg.attn_offset:
                 x, kv = _attn_sublayer(ctx, cfg, run, p, x, positions, dims)
                 slots.append(kv)

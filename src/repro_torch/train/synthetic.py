@@ -44,6 +44,12 @@
   and ``WINDOW_LAYERS`` of its 24 layers, ``N`` ranks of one ``train_4k``
   sequence, the reference's ``get_run_config(WINDOW_MODEL, "train_4k")``
   with one microbatch, not 4.
+* The FSDP training path (:func:`fsdp_train_path`): ``FSDP_MODEL``
+  (qwen2-moe-a2.7b) at full width and ``FSDP_LAYERS`` of its 24 layers,
+  ``FSDP_N`` ranks of one ``train_4k`` sequence, the reference's
+  ``get_run_config(FSDP_MODEL, "train_4k")`` (FSDP over ``data``,
+  ``fixed_k_1bit`` over ``data`` for the leaves FSDP does not shard, remat,
+  flash) with one microbatch, not 4.
 * The training path (:func:`train_main_path`): the same model, depth and
   ranks, one ``train_4k`` sequence per rank, the real forward and backward
   feeding the same sync under ``fixed_k_1bit``, then AdamW; with
@@ -96,6 +102,13 @@ VLM_LAYERS = 1
 VLM_N = 4
 WINDOW_MODEL = "h2o-danube-3-4b"
 WINDOW_LAYERS = 4   # of 24: 865 M parameters; 8 f32 gradient stacks take 27.7 GB
+FSDP_MODEL = "qwen2-moe-a2.7b"
+# 4 of 24 layers: 2.90 B parameters.  Stacked at n = 4 the f32 parameters and
+# moments take 34.9 GB, the FSDP gradients 9.1 GB and the other leaves' 4
+# gradient rows 10.0 GB; a rank's backward returns another 11.6 GB before
+# it is summed.  Without FSDP the 4 gradient rows of every leaf take 46.5 GB
+FSDP_LAYERS = 4
+FSDP_N = 4
 
 
 def synthetic_grads(shapes: Mapping[str, Sequence[int]], n: int, step: int,
@@ -223,6 +236,17 @@ def window_train_path():
     cfg = dataclasses.replace(get_config(WINDOW_MODEL), num_layers=WINDOW_LAYERS)
     run = dataclasses.replace(get_run_config(WINDOW_MODEL, "train_4k"), microbatches=1)
     return cfg, run, dataclasses.replace(SHAPES["train_4k"], global_batch=N)
+
+
+def fsdp_train_path(layers: int = FSDP_LAYERS, n: int = FSDP_N):
+    """(cfg, run, shape) of the FSDP training path: ``FSDP_MODEL`` at full
+    width and ``layers`` layers; the reference's ``get_run_config(FSDP_MODEL,
+    "train_4k")`` as it is (FSDP on, ``fixed_k_1bit`` over ``data``, remat,
+    flash) with one microbatch, not 4: a rank's one sequence does not
+    split; ``train_4k`` sequences, one per rank of ``n``."""
+    cfg = dataclasses.replace(get_config(FSDP_MODEL), num_layers=layers)
+    run = dataclasses.replace(get_run_config(FSDP_MODEL, "train_4k"), microbatches=1)
+    return cfg, run, dataclasses.replace(SHAPES["train_4k"], global_batch=n)
 
 
 def rank_loss_and_grads(cfg, run, params, batch, global_tokens: float):

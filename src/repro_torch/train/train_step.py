@@ -31,8 +31,29 @@ per bucket, each running the bucket's round (on a side stream on the card)
 once its cotangents are complete.  Otherwise the post-backward schedule
 (:func:`repro_torch.train.bucketing.sync_grads_bucketed` after the
 backward).  The two give the same bits.  ``microbatches > 1`` accumulates
-each rank's microbatch gradients in f32, then syncs once.  FSDP and tensor
-parallelism raise :class:`NotPortedError`.
+each rank's microbatch gradients in f32, then syncs once.
+
+FSDP (``run.fsdp``, ZeRO-3 over ``data``; the reference's ``gather_fsdp``
+and the ``psum_scatter`` its autodiff makes of it).  The leaves whose spec
+names ``data`` get no (L, *shape) stack and no sync: their gradient is the
+*sum* over the ranks, not the mean (the transpose of the gather sums every
+rank's cotangent, and the loss already divides by the global token count).
+Each microbatch's rank gradients, each an f32 copy of a bf16 cotangent, are
+summed in f32 from +0.0 in rank order and rounded once to bf16, as XLA sums
+a bf16 ``psum_scatter``; the rounded sums accumulate in f32 over the
+microbatches.  With :class:`DistComm` each process holds only its rank's
+shards (``init_fn`` draws each whole leaf, keeps the slice and frees the
+rest, leaf by leaf): every layer gathers its bf16 weights and its backward
+reduce-scatters their cotangents
+(:func:`repro_torch.models.common.gather_fsdp`); stacked, every rank holds
+the whole leaf, the "gather" is the cast, and the step sums the ranks.
+The loops run microbatches outside ranks, so a microbatch's rank sum is
+complete before the next; each rank's rows keep their bits.  The grad norm
+sums each FSDP leaf's squares per shard in rank order
+(:func:`repro_torch.optim.optimizers.global_norm`), so stacked and
+distributed steps give the same bits; AdamW then updates the parameters
+and moments in place.  FSDP on a mesh with a ``pod`` axis, and tensor
+parallelism, raise :class:`NotPortedError`.
 """
 from __future__ import annotations
 
@@ -44,7 +65,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import torch
 
 from repro_torch import random as prandom
-from repro_torch import resolve_device
+from repro_torch import convert, resolve_device
 from repro_torch.configs.base import ArchConfig, RunConfig, ShapeSpec
 from repro_torch.configs.registry import param_shapes
 from repro_torch.core import collectives as coll
@@ -158,6 +179,38 @@ def sync_grads(grads, specs, mesh_axes, cmp: core_types.CompressionConfig, key, 
     return out, new_ef
 
 
+def fsdp_leaf_dims(specs: Mapping[str, tuple], axis: str = "data") -> Dict[str, int]:
+    """The FSDP leaves of a spec tree: name → the dim of the whole leaf its
+    rank shards split (the dim whose spec entry is ``axis``)."""
+    return {k: tuple(v).index(axis) for k, v in specs.items() if axis in tuple(v)}
+
+
+def _timing_event(dev):
+    """A timing CUDA event recorded on the current stream, or None on the CPU."""
+    if torch.device(dev).type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _add_rank(acc, k, g, dist: bool, comm) -> None:
+    """One rank's gradient ``g`` of FSDP leaf ``k`` into this microbatch's
+    rank sum ``acc``.  Under DistComm the backward's reduce-scatter has
+    summed it already (this rank's shard, f32 of bf16); stacked, the f32
+    sum over the ranks runs here, in place, from +0.0 in rank order, and the
+    bytes a reduce-scatter would be handed (the rank's bf16 cotangent) are
+    counted."""
+    if dist:
+        acc[k] = g
+        return
+    comm.count_fsdp(g.numel() * 2)
+    if k in acc:
+        acc[k].add_(g)
+    else:
+        acc[k] = g.add_(0.0)
+
+
 def _rows(batch: Dict[str, torch.Tensor], part: int, parts: int) -> Dict[str, torch.Tensor]:
     """Part ``part`` of ``parts`` equal slices of every leaf's rows."""
     rows = next(iter(batch.values())).shape[0] // parts
@@ -186,8 +239,9 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
     communicator's (``n`` and ``mesh``, if given, must match it).
 
     ``step_fn(params, opt_state, ef_state, batch, step) -> (params,
-    opt_state, ef_state, metrics)`` with metrics ``loss``, ``grad_norm``
-    and ``lr`` (f32 device scalars), and for a config with an MoE
+    opt_state, ef_state, metrics)`` (under FSDP the update is in place: the
+    returned parameters and moments are the given tensors) with metrics
+    ``loss``, ``grad_norm`` and ``lr`` (f32 device scalars), and for a config with an MoE
     sub-config (the MoE and hybrid families) ``aux``, the
     layers' summed aux loss averaged over ranks and microbatches (the
     loss holds it over the layer count, per rank and microbatch); ``batch``
@@ -200,8 +254,12 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
     ``on_phase(name, **state)``, when given, is called as a step starts
     (``"start"``, with ``step``) and after each of its phases:
     ``"backward"`` once the last backward kernel is enqueued (``grads``:
-    the (L, *shape) stacks; under the overlapped schedule the rounds are
-    enqueued by then too), ``"sync"`` once the current stream waits on
+    the (L, *shape) stacks and the FSDP leaves' rank sums; under the
+    overlapped schedule the rounds are enqueued by then too;
+    ``reduce_events``: on the card, the (start, end) timing events around
+    each stretch of the stacked ranks' FSDP rank sum and its rounding,
+    within the backward phase; none under DistComm, whose reduce-scatters
+    run inside the backward), ``"sync"`` once the current stream waits on
     every round (``grads``, ``synced``, ``key``, the communicator ``comm``,
     the new ``ef_state``, ``schedule`` — ``"backward-pipelined"`` or
     ``"post-backward"`` — and ``rounds``, the
@@ -225,8 +283,14 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
     rows = len(local)
     dist = isinstance(comm, coll.DistComm)
     mesh_axes = tuple(msizes)
-    ctx = model_lib.make_ctx(cfg, run, msizes)
-    shapes, specs = param_shapes(cfg)
+    if run.fsdp and mesh_axes != ("data",):
+        raise NotPortedError(
+            f"FSDP on the mesh {msizes} is not ported yet: the multi-pod run of an FSDP arch "
+            "syncs its FSDP leaves over the pod axis, and the port shards over a lone data "
+            "axis only (ROADMAP.md, queue 1)")
+    ctx = model_lib.make_ctx(cfg, run, msizes, comm=comm if run.fsdp and dist else None)
+    shapes, specs = param_shapes(cfg, fsdp="data" if run.fsdp else None)
+    fsdp_dims = fsdp_leaf_dims(specs)
     if batch_axes_for(cfg, run, shape, msizes) != mesh_axes:
         raise NotPortedError(f"a global batch of {shape.global_batch} does not split over "
                              f"the mesh {msizes}: replicated batches are not ported")
@@ -246,43 +310,75 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
     key0 = prandom.PRNGKey(base_seed)
     names = sorted(shapes)
     notify = on_phase or (lambda name, **state: None)
+    mbs = run.microbatches
 
     def step_fn(params, opt_state, ef_state, batch, step):
         notify("start", step=int(step))
         key = prandom.fold_in(key0, int(step))
         leaves = {k: params[k].detach().requires_grad_() for k in names}
-        stacks = {k: torch.empty((rows,) + tuple(shapes[k]), dtype=torch.float32, device=dev)
-                  for k in names}
+        # the sync's input: an (L, *shape) f32 stack per leaf, one row a local
+        # rank, and each FSDP leaf's gradient summed over the ranks (local
+        # shards under DistComm)
+        grads = {k: torch.empty((rows,) + tuple(shapes[k]), dtype=torch.float32, device=dev)
+                 for k in names if k not in fsdp_dims}
         ef_in = ef_state if use_ef else None
         sync = None
-        loss_all = torch.zeros((), dtype=torch.float32, device=dev)
-        aux_all = torch.zeros((), dtype=torch.float32, device=dev)
-        for i, r in enumerate(local):
-            rank_batch = _rows(batch, r, n)
-            loss_r = torch.zeros((), dtype=torch.float32, device=dev)
-            tagged = leaves
-            if use_overlap and i == rows - 1:
-                tagged, sync = bucketing.overlap_params(leaves, plan, run.compression, key,
-                                                        comm, stacks, i, ef_in, side)
-            for mb in range(run.microbatches):
-                loss, lm = model_lib.train_loss(ctx, tagged, cfg, run,
-                                                _rows(rank_batch, mb, run.microbatches),
-                                                global_tokens)
-                aux_all = aux_all + lm["aux"].detach()
-                grads = torch.autograd.grad(loss, [leaves[k] for k in names],
-                                            allow_unused=sync is not None)
-                for k, g in zip(names, grads):
-                    if g is None:          # bucketed: its sync point wrote the row
+        losses = [[] for _ in local]
+        auxes = [[] for _ in local]
+        reduce_events = []
+        for mb in range(mbs):
+            acc = {}           # this microbatch's FSDP gradients, summed over the ranks
+            for i, r in enumerate(local):
+                mb_batch = _rows(_rows(batch, r, n), mb, mbs)
+                tagged = leaves
+                if use_overlap and i == rows - 1:
+                    tagged, sync = bucketing.overlap_params(leaves, plan, run.compression, key,
+                                                            comm, grads, i, ef_in, side)
+                loss, lm = model_lib.train_loss(ctx, tagged, cfg, run, mb_batch, global_tokens)
+                auxes[i].append(lm["aux"].detach())
+                losses[i].append(loss.detach())
+                got = list(torch.autograd.grad(loss, [leaves[k] for k in names],
+                                               allow_unused=sync is not None))
+                del loss, lm, tagged
+                for j, k in enumerate(names):
+                    # None: bucketed, its sync point wrote the row
+                    if k in fsdp_dims or got[j] is None:
                         continue
                     if mb == 0:
-                        stacks[k][i].copy_(g)
+                        grads[k][i].copy_(got[j])
                     else:
-                        stacks[k][i].add_(g)
-                loss_r = loss_r + loss.detach()
-                del grads, loss, lm
+                        grads[k][i].add_(got[j])
+                    got[j] = None
+                start = _timing_event(dev)
+                for j, k in enumerate(names):
+                    if k in fsdp_dims:
+                        _add_rank(acc, k, got[j], dist, comm)
+                        got[j] = None
+                if acc and not dist:
+                    reduce_events.append((start, _timing_event(dev)))
+                del got
+            start = _timing_event(dev)
+            for k, a in acc.items():
+                # the reference's psum_scatter rounds its f32 rank sum once to
+                # bf16; the microbatches accumulate the rounded sums in f32
+                if not dist:
+                    a.copy_(a.to(torch.bfloat16))
+                if mb == 0:
+                    grads[k] = a
+                else:
+                    grads[k].add_(a)
+            if acc and not dist:
+                reduce_events.append((start, _timing_event(dev)))
+            del acc
+        loss_all = torch.zeros((), dtype=torch.float32, device=dev)
+        aux_all = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(rows):
+            loss_r = torch.zeros((), dtype=torch.float32, device=dev)
+            for mb in range(mbs):
+                loss_r = loss_r + losses[i][mb]
+                aux_all = aux_all + auxes[i][mb]
             loss_all = loss_all + loss_r
-        del tagged
-        notify("backward", grads=stacks)
+        notify("backward", grads=grads, reduce_events=reduce_events)
         rounds = None
         if sync is not None:
             synced, new_ef = sync.finish()
@@ -290,19 +386,20 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
             del sync
         elif plan is not None:
             rounds = bucketing.RoundLog()
-            synced, new_ef = bucketing.sync_grads_bucketed(stacks, plan, run.compression, key,
+            synced, new_ef = bucketing.sync_grads_bucketed(grads, plan, run.compression, key,
                                                            comm, ef_in, rounds)
         else:
-            synced, new_ef = sync_grads(stacks, specs, mesh_axes, run.compression, key, comm,
+            synced, new_ef = sync_grads(grads, specs, mesh_axes, run.compression, key, comm,
                                         ef_in)
         if use_ef:
             ef_state = new_ef
-        notify("sync", grads=stacks, synced=synced, key=key, comm=comm, ef_state=ef_state,
+        notify("sync", grads=grads, synced=synced, key=key, comm=comm, ef_state=ef_state,
                schedule=schedule, rounds=rounds)
-        del stacks
-        gnorm = opt_lib.global_norm(synced)
+        del grads
+        gnorm = opt_lib.global_norm(synced, fsdp_dims, shards=1 if dist else n,
+                                    rank_sum=comm.rank_sum if dist else None)
         params, opt_state = opt_lib.adamw_update(opt_cfg, synced, opt_state, params,
-                                                 grad_norm=gnorm)
+                                                 grad_norm=gnorm, in_place=run.fsdp)
         notify("update", params=params, opt_state=opt_state)
         if dist:
             loss_all = comm.rank_sum(loss_all)
@@ -311,12 +408,18 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
         if cfg.moe is not None:
             if dist:
                 aux_all = comm.rank_sum(aux_all)
-            metrics["aux"] = aux_all / torch.tensor(float(n * run.microbatches),
+            metrics["aux"] = aux_all / torch.tensor(float(n * mbs),
                                                     dtype=torch.float32, device=dev)
         return params, opt_state, ef_state, metrics
 
     def init_fn(seed: int):
-        params = model_lib.init(seed, cfg, device=dev)
+        keep = None
+        if fsdp_dims and dist:
+            def keep(name, x):
+                if name not in fsdp_dims:
+                    return x
+                return convert.fsdp_shard(x, specs[name], comm.rank, n).clone()
+        params = model_lib.init(seed, cfg, device=dev, keep=keep)
         if use_ef and plan is not None:
             ef_state = bucketing.init_ef_state(plan, run.compression, rows, dev)
         elif use_ef:

@@ -10,7 +10,9 @@ The reference's fault-tolerance contract:
   batches come from :class:`~repro_torch.data.pipeline.SyntheticLM`, a pure
   function of (seed, step), and the sync keys from the step, so the stream
   realigns exactly;
-* a checkpoint restores at any rank count (the port keeps no sharding);
+* a checkpoint restores at any rank count: its leaves are whole (under
+  FSDP with one rank per process every rank first gathers its shards), and
+  a process that holds FSDP shards restores its rank's slices;
 * with one rank per process (``comm``, a :class:`DistComm`) rank 0 writes
   the checkpoints, every rank waits at a barrier after the last save, and
   every rank restores from the same directory.
@@ -25,7 +27,7 @@ import logging
 import time
 from typing import Callable, Mapping, Optional
 
-from repro_torch import resolve_device
+from repro_torch import convert, resolve_device
 from repro_torch.checkpoint import checkpointing as ckpt
 from repro_torch.configs.base import ArchConfig, RunConfig, ShapeSpec
 from repro_torch.configs.registry import param_shapes
@@ -71,7 +73,11 @@ class Trainer:
         self.mesh = ts.resolve_mesh(n, mesh) if comm is None else ts.comm_mesh(comm)
         self.dist = comm if isinstance(comm, DistComm) else None
         self.writes = self.dist is None or self.dist.rank == 0
-        self.specs = param_shapes(cfg)[1]
+        self.specs = param_shapes(cfg, fsdp="data" if run.fsdp else None)[1]
+        # the FSDP leaves (name → the dim their shards split); a process of a
+        # DistComm holds only its rank's shards of them
+        self.fsdp_dims = ts.fsdp_leaf_dims(self.specs)
+        self.sharded = bool(self.fsdp_dims) and self.dist is not None
         self.data = SyntheticLM(cfg, shape, seed=tcfg.seed)
         # every save of fit() goes through it: ckpt.history times each one
         self.ckpt = ckpt.AsyncCheckpointer()
@@ -91,8 +97,15 @@ class Trainer:
         if last is not None:
             template = opt_state._replace(m={}, v={})   # the drawn state is freed first
             del params, opt_state
+            shard = None
+            if self.sharded:
+                def shard(name, arr):
+                    if name not in self.fsdp_dims:
+                        return arr
+                    return convert.fsdp_shard(arr, self.specs[name], self.dist.rank,
+                                              self.dist.size)
             start, params, opt_state, _ = ckpt.restore(self.tcfg.ckpt_dir, self.specs, template,
-                                                       device=self.device)
+                                                       device=self.device, shard=shard)
             log.info("restored checkpoint at step %d", start)
         return start, params, opt_state, ef
 
@@ -117,15 +130,37 @@ class Trainer:
                 m["sec"] = time.time() - t0
                 self.metrics_history.append(m)
                 log.info("step %d loss %.4f gnorm %.3f", step, m["loss"], m["grad_norm"])
-            if self.writes and self.tcfg.ckpt_dir and (step + 1) % self.tcfg.ckpt_every == 0:
-                self.ckpt.save(self.tcfg.ckpt_dir, step + 1, params, opt_state, self.specs,
-                               extra={"arch": self.cfg.name}, keep_last=self.tcfg.keep_last)
+            if self.tcfg.ckpt_dir and (step + 1) % self.tcfg.ckpt_every == 0:
+                self._save(step + 1, params, opt_state)
         self.ckpt.wait()
         self.ef_state = ef
-        if self.writes and self.tcfg.ckpt_dir:
-            self.ckpt.save(self.tcfg.ckpt_dir, self.tcfg.steps, params, opt_state, self.specs,
-                           extra={"arch": self.cfg.name}, keep_last=self.tcfg.keep_last)
+        if self.tcfg.ckpt_dir:
+            self._save(self.tcfg.steps, params, opt_state)
             self.ckpt.wait()
         if self.dist is not None and self.tcfg.ckpt_dir:
             self.dist.barrier()
         return params, opt_state, self.metrics_history
+
+    def whole(self, params, opt_state):
+        """(params, opt_state) with every leaf whole: as given, or, where this
+        process holds FSDP shards, each FSDP leaf and its moments gathered
+        from every rank (a collective: every rank calls it)."""
+        if not self.sharded:
+            return params, opt_state
+
+        def join(tree):
+            return {k: (self.dist.fsdp_gather(v[None], self.fsdp_dims[k])
+                        if k in self.fsdp_dims else v) for k, v in tree.items()}
+
+        return join(params), opt_state._replace(m=join(opt_state.m), v=join(opt_state.v))
+
+    def _save(self, step: int, params, opt_state) -> None:
+        """Save the state after ``step`` steps through the checkpointer, whole,
+        on the writing rank; a step that updates in place (FSDP's) waits
+        for the device → host copies before it runs."""
+        params, opt_state = self.whole(params, opt_state)
+        if self.writes:
+            self.ckpt.save(self.tcfg.ckpt_dir, step, params, opt_state, self.specs,
+                           extra={"arch": self.cfg.name}, keep_last=self.tcfg.keep_last)
+            if self.run.fsdp:
+                self.ckpt.fence()

@@ -30,7 +30,6 @@ from repro.models import common as jcommon
 from repro.models import model as jmodel
 from repro_torch import convert
 from repro_torch.configs import registry
-from repro_torch.core.wire.base import NotPortedError
 from repro_torch.kernels import backend
 from repro_torch.kernels.flash_attention import ref as tref
 from repro_torch.models import attention as tattn
@@ -75,16 +74,14 @@ def test_config_equals_reference_field_for_field(arch):
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_run_config_equals_reference(arch, shape):
-    """minitron and danube: the reference's run config field for field (4
-    microbatches for train_4k, 2048-key chunks for prefill_32k); mistral is
-    in the reference's FSDP set, which the port refuses."""
+    """The reference's run config field for field (4 microbatches for
+    minitron's and danube's train_4k, 16 for mistral's, 2048-key chunks for
+    prefill_32k); mistral is in the reference's FSDP set, and so FSDP is on
+    in the port's too."""
     want = jregistry.get_run_config(arch, shape)
-    if arch == "mistral-large-123b":
-        assert want.fsdp
-        with pytest.raises(NotPortedError):
-            registry.get_run_config(arch, shape)
-        return
-    assert registry.get_run_config(arch, shape) == convert.run_config(want)
+    got = registry.get_run_config(arch, shape)
+    assert got == convert.run_config(want)
+    assert got.fsdp == want.fsdp == (arch == "mistral-large-123b")
 
 
 @pytest.mark.parametrize("size", ["smoke", "full"])

@@ -28,6 +28,7 @@ import torch
 
 from repro.configs.base import RunConfig as JRunConfig
 from repro.configs.base import ShapeSpec as JShapeSpec
+from repro.configs.registry import get_run_config as j_get_run_config
 from repro.configs.registry import smoke_config as j_smoke_config
 from repro.core import types as jtypes
 from repro.models import model as jmodel
@@ -35,6 +36,7 @@ from repro.serving import engine as jengine
 from repro.train import train_step as jts
 from repro_torch import convert
 from repro_torch.checkpoint import checkpointing as ckpt
+from repro_torch.configs.registry import get_config
 from repro_torch.core.wire.base import NotPortedError
 from repro_torch.examples import serve_lm
 from repro_torch.launch import mesh as mesh_lib
@@ -71,11 +73,15 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
         train_cli.main(CLI + ["--model", "2"])
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-v0.1-52b", "llava-next-34b"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-v0.1-52b", "llava-next-34b",
+                                  "mistral-large-123b"])
 def test_cli_refuses_the_fsdp_archs_without_smoke(arch):
-    # the reference trains them with FSDP; --smoke trains their reduced configs
-    with pytest.raises(NotPortedError, match="FSDP"):
-        train_cli.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
+    # the reference trains them with FSDP, and so does the CLI without --smoke:
+    # at full size they do not run here, so the config it builds is checked
+    cfg, run, shape = train_cli.build_config(
+        train_cli._parse(["--arch", arch, "--steps", "1", "--device", "cpu"]), 1, 1)
+    assert run.fsdp and run == convert.run_config(j_get_run_config(arch, "train_4k"))
+    assert cfg == get_config(arch) and shape.name == "train_4k"
 
 
 @pytest.mark.parametrize("axes", [["--devices", "4", "--data", "3"], ["--data", "4"]])

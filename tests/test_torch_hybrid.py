@@ -239,7 +239,7 @@ def test_period_positions_take_their_rows(which):
     params = {k: torch.arange(s[0], dtype=torch.float32) for k, s in param_shapes(cfg)[0].items()}
     kinds = []
     for pi in range(np_):
-        layers = ttfm.period_layers(params, cfg, pi, torch.float32)
+        layers = ttfm.period_layers(params, cfg, pi)
         mi = fi_moe = fi_mlp = 0
         for i, p in enumerate(layers):
             assert int(p["norm1"]) == int(p["norm2"]) == pi * per + i

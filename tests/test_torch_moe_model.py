@@ -52,6 +52,7 @@ import torch
 from repro.configs.base import RunConfig as JRunConfig
 from repro.configs.base import ShapeSpec as JShapeSpec
 from repro.configs.registry import compression_preset as j_compression_preset
+from repro.configs.registry import get_run_config as j_get_run_config
 from repro.configs.registry import smoke_config as j_smoke_config
 from repro.core import types as jtypes
 from repro.data.pipeline import SyntheticLM as JSyntheticLM
@@ -577,6 +578,8 @@ def test_other_families_still_raise(monkeypatch):
             smoke_config("x")
         with pytest.raises(NotPortedError):
             SyntheticLM(other, ShapeSpec("t", "train", 8, 2)).host_batch(0)
-    with pytest.raises(NotPortedError):        # qwen2-moe is in the reference's FSDP set
-        get_run_config("qwen2-moe-a2.7b", "train_4k")
+    # qwen2-moe is in the reference's FSDP set: FSDP on, as the reference's
+    assert get_run_config("qwen2-moe-a2.7b", "train_4k") == convert.run_config(
+        j_get_run_config("qwen2-moe-a2.7b", "train_4k"))
+    assert get_run_config("qwen2-moe-a2.7b", "train_4k").fsdp
     assert not get_run_config("olmoe-1b-7b", "train_4k").fsdp

@@ -345,10 +345,18 @@ def test_generate_shape_and_greedy_start():
 
 
 def test_unported_options_raise():
-    cfg, run, _ = _smoke()
+    cfg, run, params = _smoke()
     with pytest.raises(NotPortedError):
         tmodel.make_ctx(cfg, run, {"data": 1, "model": 2})
     with pytest.raises(NotPortedError):
         tcommon.ShardCtx(tp=2)
-    with pytest.raises(NotPortedError):
-        convert.run_config(JRunConfig(fsdp=True))
+    # FSDP converts; serving under it on one device is a data axis of 1,
+    # where the gather is the cast: the same logits
+    frun = convert.run_config(JRunConfig(fsdp=True, attn_chunk_q=16, attn_chunk_k=16,
+                                         remat=False, compute_dtype="float32"))
+    ctx = tmodel.make_ctx(cfg, frun)
+    assert frun.fsdp and ctx.fsdp and ctx.comm is None
+    prompt = {"tokens": torch.arange(32, dtype=torch.int64).reshape(2, 16)}
+    got = tmodel.prefill(ctx, params, cfg, frun, prompt)[1]
+    want = tmodel.prefill(tmodel.make_ctx(cfg, run), params, cfg, run, prompt)[1]
+    assert torch.equal(got, want)

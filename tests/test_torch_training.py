@@ -352,9 +352,13 @@ def test_trainer_fit_three_steps():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotPortedError):
-        RunConfig(fsdp=True)
-    with pytest.raises(NotPortedError):
-        convert.run_config(_jrun(fsdp=True))
+    # FSDP is accepted and converts; on a mesh with a pod axis it raises
+    assert RunConfig(fsdp=True).fsdp and convert.run_config(_jrun(fsdp=True)).fsdp
+    with pytest.raises(NotPortedError, match="pod axis"):
+        tts.build_train_step(CFG, RunConfig(fsdp=True), SHAPE, mesh={"pod": 2, "data": 2},
+                             device="cpu")
+    with pytest.raises(NotPortedError, match="tensor parallelism"):
+        tts.build_train_step(CFG, RunConfig(), SHAPE, mesh={"data": 2, "model": 2},
+                             device="cpu")
     with pytest.raises(NotPortedError):
         tts.build_train_step(CFG, RunConfig(), ShapeSpec("odd", "train", S, 3), 2, device="cpu")

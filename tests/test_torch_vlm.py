@@ -54,7 +54,6 @@ from repro_torch.configs import registry
 from repro_torch.configs.registry import (compression_preset, get_config, get_run_config,
                                           param_shapes, smoke_config)
 from repro_torch.core.collectives import StackedComm
-from repro_torch.core.wire.base import NotPortedError
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.kernels import backend
 from repro_torch.launch import profile_serve, profile_train
@@ -175,14 +174,14 @@ def test_host_batch_matches_reference():
 
 
 def test_run_config_matches_reference():
-    """llava is in the reference's FSDP set: ``get_run_config`` raises as
-    jamba's does; with FSDP off it is the reference's run field for field
-    (8 microbatches, remat, ``fixed_k_1bit`` over ``data``), and the
-    training path takes it with one microbatch."""
-    with pytest.raises(NotPortedError, match="FSDP"):
-        get_run_config(ARCH, "train_4k")
+    """llava is in the reference's FSDP set: ``get_run_config`` is the
+    reference's field for field, FSDP on; with FSDP off it is the
+    reference's run otherwise (8 microbatches, remat, ``fixed_k_1bit`` over
+    ``data``), and the training path takes that with one microbatch."""
     jrun = j_get_run_config(ARCH, "train_4k")
     assert jrun.fsdp and jrun.microbatches == 8
+    fsdp = get_run_config(ARCH, "train_4k")
+    assert fsdp.fsdp and fsdp == convert.run_config(jrun)
     want = convert.run_config(dataclasses.replace(jrun, fsdp=False))
     got = registry._run_config(ARCH, "train_4k", fsdp=False)
     assert got == want and got.remat and got.microbatches == 8
@@ -488,7 +487,8 @@ STEP_LINE = re.compile(r"^step +(\d+)  loss (\S+)  gnorm (\S+)  lr (\S+)$")
 def test_cli_smoke_run_and_resume(tmp_path, capsys):
     """``--arch llava-next-34b --smoke --devices 2``: 2 steps that save
     (``patch_proj`` in the checkpoint), then resumed for 1; without
-    ``--smoke`` the CLI refuses the FSDP arch."""
+    ``--smoke`` the CLI trains the FSDP arch under the reference's run
+    config (too large to run here: the config it builds is checked)."""
     d = str(tmp_path / "ckpt")
     args = ["--arch", ARCH, "--smoke", "--devices", "2", "--seq", "32", "--batch", "4",
             "--ckpt-every", "2", "--ckpt-dir", d, "--device", "cpu"]
@@ -500,8 +500,10 @@ def test_cli_smoke_run_and_resume(tmp_path, capsys):
         assert ckpt.latest_step(d) == steps
     arrays = np.load(tmp_path / "ckpt" / "step-00000003" / "arrays.npz")
     assert any("patch_proj" in k for k in arrays.files)
-    with pytest.raises(NotPortedError, match="FSDP"):
-        train_cli.main(["--arch", ARCH, "--steps", "1", "--device", "cpu"])
+    cfg, run, _ = train_cli.build_config(
+        train_cli._parse(["--arch", ARCH, "--steps", "1", "--device", "cpu"]), 1, 1)
+    assert cfg == get_config(ARCH) and run.fsdp
+    assert run == convert.run_config(j_get_run_config(ARCH, "train_4k"))
 
 
 @pytest.mark.parametrize("script", [profile_serve, profile_train])
