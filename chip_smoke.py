@@ -296,7 +296,21 @@ Phases, each printing its own lines:
    exact mean); then at 4 layers ``fit_and_check`` for two steps
    (``run_training_fsdp``: kernels 11–13 at 16/16 heads, kernel 4 n times
    a compressed bucket, the FSDP rank sum's ms and bytes, the peak, the
-   end state's digest by rank shard).  The training, error-feedback and
+   end state's digest by rank shard).  5h: FSDP with a pod axis, the
+   reference's multi-pod run of its FSDP archs, stacked
+   (``synthetic.multipod_fsdp_train_path``: qwen2-moe-a2.7b at full width
+   on (pod 2, data 2), ``get_run_config(..., multi_pod=True)`` with one
+   microbatch): at 1 layer FSDP on against off under compression none
+   (``run_fsdp_identities(mesh)``: the unsharded leaves bit-equal, each
+   FSDP leaf within 2⁻⁹ of n_data × the exact mean); then at
+   ``MULTIPOD_FSDP_LAYERS`` ``fit_and_check`` for two steps under
+   ``fixed_k_1bit`` over pod (``run_training_multipod_fsdp``: kernel 4
+   n_pod times a bucket of the other leaves and n_pod × n_data times an
+   FSDP shard bucket, each data coordinate's round on its own shard;
+   kernels 11–13 2·L·n and L·n times; the pod-axis bytes of both kinds of
+   bucket against their accounting at n_eff = 2; the error over the closed
+   form per data coordinate; the pod sums' ms; the peak; the end state's
+   digest by data shard).  The training, error-feedback and
    multi-pod runs are each followed by a post-backward twin
    (``run_twin``: ``TWIN_STEPS`` steps from the same start with
    ``BucketSpec.overlap = False``), held bit for bit to the overlapped
@@ -1893,6 +1907,15 @@ def codec_layout(cmp, n: int, mesh=None):
         a for a in mesh if a not in cmp.axes)
 
 
+def shard_copies(b, mesh=None) -> int:
+    """How many rounds a bucket's sync runs: one per coordinate of the mesh
+    axes its leaves are sharded over (an FSDP shard bucket under a
+    compression over pod: one per data coordinate), else one."""
+    if mesh is None:
+        return 1
+    return math.prod(size for a, size in mesh.items() if a not in b.caxes + b.eaxes)
+
+
 def wire_accounting(plan, cmp, n: int, mesh=None):
     """(wire bits per compressed bucket, the (gathered, reduced) bytes one
     round hands the codec axes): gather codecs ship ``bucket_wire_bits``
@@ -1911,6 +1934,9 @@ def wire_accounting(plan, cmp, n: int, mesh=None):
     else:
         wire_bits = {b.bid: codec.wire_bits(n_codec, b.size, cmp)
                      for b in plan.buckets if b.kind == "compressed"}
+    # an FSDP shard bucket ships one round per data coordinate
+    wire_bits = {b.bid: wire_bits[b.bid] * shard_copies(b, mesh)
+                 for b in plan.buckets if b.bid in wire_bits}
     sent = sum(wire_bits.values()) / 8
     exact_bytes = sum(n * b.size * 4 for b in plan.buckets if b.kind == "exact")
     if codec.reduce == "all_gather":
@@ -1923,11 +1949,15 @@ def check_bytes(name: str, comm, want) -> None:
     need(got == want, f"{name}: communicator bytes (gathered, reduced) {got} != accounting {want}")
 
 
-def error_and_closed_form(codec: str, cmp, plan, stacks, synced, key, mesh=None):
+def error_and_closed_form(codec: str, cmp, plan, stacks, synced, key, mesh=None, specs=None):
     """(Σ squared error of the synced estimate against the exact mean of the
     codec's inputs, Σ closed form) over the plan's compressed buckets; on a
-    mesh the codec's inputs are the pod means of the (n, ...) stacks."""
+    mesh the codec's inputs are the pod means of the (n, ...) stacks, and
+    an FSDP shard bucket's (``specs`` the leaves' specs) are each data
+    coordinate's rows, its estimate that coordinate's shard of the synced
+    leaves: one round, and one closed form, per coordinate."""
     import torch
+    from repro_torch import convert
     from repro_torch import random as prandom
     from repro_torch.core.collectives import StackedComm
     from repro_torch.train import bucketing
@@ -1938,6 +1968,19 @@ def error_and_closed_form(codec: str, cmp, plan, stacks, synced, key, mesh=None)
         if b.kind != "compressed":
             continue
         v = bucketing.pack_bucket(stacks, b)
+        k = shard_copies(b, mesh)
+        if k > 1:
+            need(list(mesh)[-1] == "data" and k == mesh["data"],
+                 f"{b.bid}: shards over {mesh}, not over its last axis data")
+            for d in range(k):
+                rows = v[d::k]
+                y = torch.cat([convert.fsdp_shard(synced[s.name], specs[s.name], d, k)
+                               .reshape(-1) for s in b.slots])
+                err += float(torch.sum((y - rows.mean(0)) ** 2, dtype=torch.float64))
+                cf += closed_form(codec, cmp, rows, prandom.fold_in(key, j))
+                del rows, y
+            del v
+            continue
         if pre:
             v = StackedComm(device=v.device, mesh=mesh).mean_over(v, pre)
         y = torch.cat([synced[s.name].reshape(-1) for s in b.slots])
@@ -3624,7 +3667,8 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
                     digest.setdefault(st["step"], {})["ef"] = state_digest(state["ef_state"])
             else:
                 err, cf = error_and_closed_form(codec.name, cmp, plan, state["grads"],
-                                                state["synced"], state["key"], mesh)
+                                                state["synced"], state["key"], mesh,
+                                                trainer.specs)
                 st["err"] += err
                 st["cf"] += cf
         if name == "update" and st["step"] in digest_steps:
@@ -3642,7 +3686,8 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
     schedule = "backward-pipelined" if trainer.overlap else "post-backward"
     comp = [b for b in plan.buckets if b.kind == "compressed"]
     n_codec, nshards, _ = codec_layout(cmp, n, mesh)
-    sync = {k: v * len(comp) for k, v in expected_launches(
+    rounds = sum(shard_copies(b, mesh) for b in comp)
+    sync = {k: v * rounds for k, v in expected_launches(
         codec.name, cmp.scatter_decode, n_codec, nshards).items()}
     if trainer.overlap:         # the rounds launch from inside the backward
         expect["backward"] = dict(collections.Counter(expect["backward"]) + collections.Counter(sync))
@@ -3699,7 +3744,7 @@ def fit_and_check(cfg, run, shape, n: int, steps: int, preset: str, launches_tot
     if run.fsdp:
         out.update(fsdp_reduce_ms=fsdp["reduce_ms"], fsdp_reduce_bytes=fsdp["bytes"])
     if keep is not None:
-        keep.update(params=params, opt_state=opt_state, hist=hist)
+        keep.update(params=params, opt_state=opt_state, hist=hist, plan=plan)
     del params, opt_state, trainer
     torch.cuda.empty_cache()
     step_ms = [sum(phase_ms[p][i] for p in ("backward", "sync", "update")) for i in range(steps)]
@@ -4093,8 +4138,10 @@ FSDP_SUM_RTOL = 2.0 ** -9
 FSDP_TRAIN_STEPS = 2
 
 
-def run_fsdp_identities() -> dict:
-    """Phase 5g(a): the FSDP step against the replicated one (see above)."""
+def run_fsdp_identities(mesh=None) -> dict:
+    """Phase 5g(a), or with ``mesh`` (pod, data) phase 5h(a): the FSDP step
+    against the replicated one (see above); with a pod axis each FSDP leaf
+    is the mean over pod of each pod's data sum, n_data × the exact mean."""
     import torch
     from repro_torch.core import types as core_types
     from repro_torch.data.pipeline import SyntheticLM
@@ -4102,16 +4149,20 @@ def run_fsdp_identities() -> dict:
     from repro_torch.train import train_step as ts
 
     dev = torch.device("cuda")
-    cfg, run, shape = synthetic.fsdp_train_path(FSDP_CHECK_LAYERS)
+    if mesh is None:
+        cfg, run, shape = synthetic.fsdp_train_path(FSDP_CHECK_LAYERS)
+        n = scale = shape.global_batch
+    else:
+        cfg, run, shape, mesh = synthetic.multipod_fsdp_train_path(FSDP_CHECK_LAYERS)
+        n, scale = None, mesh["data"]
     run = dataclasses.replace(run, compression=core_types.CompressionConfig(mode="none"))
-    n = shape.global_batch
     torch.cuda.empty_cache()
     batch = SyntheticLM(cfg, shape, seed=TRAIN_SEED).batch(0, dev)
     synced, ms = {}, {}
     for fsdp in (False, True):
         seen = {}
         step_fn, init_fn, _ = ts.build_train_step(
-            cfg, dataclasses.replace(run, fsdp=fsdp), shape, n, device=dev,
+            cfg, dataclasses.replace(run, fsdp=fsdp), shape, n, device=dev, mesh=mesh,
             on_phase=lambda name, **st: seen.update(synced=st["synced"]) if name == "sync"
             else None)
         state = init_fn(TRAIN_SEED)        # the same draw both times
@@ -4129,14 +4180,15 @@ def run_fsdp_identities() -> dict:
     need(all(torch.equal(on[k], off[k]) for k in same),
          f"FSDP identities: the unsharded leaves' gradients differ: "
          f"{[k for k in same if not torch.equal(on[k], off[k])]}")
-    rel = {k: float(torch.linalg.vector_norm((on[k] - n * off[k]).double())
+    rel = {k: float(torch.linalg.vector_norm((on[k] - scale * off[k]).double())
                     / torch.linalg.vector_norm(on[k].double())) for k in dims}
     worst = max(rel, key=rel.get)
     need(rel[worst] <= FSDP_SUM_RTOL,
-         f"FSDP identities: {worst}'s gradient is {rel[worst]:.3g} from n x the mean")
+         f"FSDP identities: {worst}'s gradient is {rel[worst]:.3g} from {scale} x the mean")
     del synced, off, on, batch
     torch.cuda.empty_cache()
-    return {"model": cfg.name, "layers": cfg.num_layers, "ranks": n,
+    return {"model": cfg.name, "layers": cfg.num_layers, "ranks": shape.global_batch,
+            "mesh": mesh, "fsdp_scale": scale,
             "unsharded_leaves_bit_equal": len(same), "fsdp_leaves": len(dims),
             "fsdp_sum_vs_n_mean_rel": rel, "worst": worst, "limit": FSDP_SUM_RTOL,
             "step_ms": ms}
@@ -4179,6 +4231,57 @@ def run_training_fsdp(launches_total) -> dict:
     free = torch.cuda.mem_get_info()[1] / 2**30 - summary["peak_GiB"]
     return {**summary, "fsdp_leaves": len(dims), "card_GiB_free_at_peak": free,
             "end_state_digest": digest}
+
+
+# Phase 5h: FSDP with a pod axis (pod 2, data 2), stacked: (a) is
+# run_fsdp_identities(synthetic.MULTIPOD_FSDP_MESH); (b) two steps of
+# synthetic.multipod_fsdp_train_path() at MULTIPOD_FSDP_LAYERS layers
+MULTIPOD_FSDP_STEPS = 2
+
+
+def run_training_multipod_fsdp(launches_total) -> dict:
+    """Phase 5h(b): ``Trainer.fit`` for MULTIPOD_FSDP_STEPS steps of
+    ``synthetic.multipod_fsdp_train_path()`` under the backward-pipelined
+    schedule (``fit_and_check``, which runs each FSDP shard bucket's round
+    once per data coordinate: the launches, the pod-axis bytes against the
+    accounting and the error against the closed form at n_eff = n_pod per
+    coordinate).  Reports the pod-axis bytes of the shard buckets and of the
+    others apart (their accounting; the communicator's total equals their
+    sum), the pod sums' ms, the peak and the end state's digest by data
+    shard, the one ``launch/bench_dist.py --multipod-fsdp-path`` prints."""
+    import torch
+    from repro_torch.core import wire
+    from repro_torch.launch.step_report import fsdp_state_digest
+    from repro_torch.train import synthetic
+    from repro_torch.train import train_step as ts
+
+    cfg, run, shape, mesh = synthetic.multipod_fsdp_train_path()
+    n = math.prod(mesh.values())
+    torch.cuda.empty_cache()
+    keep = {}
+    summary = fit_and_check(cfg, run, shape, n, MULTIPOD_FSDP_STEPS,
+                            "get_run_config(multi_pod=True): FSDP over data, fixed_k_1bit over "
+                            "pod, one microbatch", launches_total, mesh, keep=keep)
+    plan = keep.pop("plan")
+    cmp = run.compression
+    codec = wire.resolve(cmp)
+    n_pod = mesh["pod"]
+    bits = {"fsdp_shard_buckets": 0.0, "other_buckets": 0.0}
+    for b in plan.buckets:
+        if b.kind == "compressed":
+            kind = "fsdp_shard_buckets" if shard_copies(b, mesh) > 1 else "other_buckets"
+            bits[kind] += codec.wire_bits(n_pod, b.size, cmp) * shard_copies(b, mesh)
+    need(all(v > 0 for v in bits.values()), f"multi-pod FSDP: pod-axis bits {bits}")
+    dims = ts.fsdp_leaf_dims(ts.param_shapes(cfg, fsdp="data")[1])
+    digest = {"params": fsdp_state_digest(keep["params"], dims, mesh["data"]),
+              "m": fsdp_state_digest(keep["opt_state"].m, dims, mesh["data"]),
+              "v": fsdp_state_digest(keep["opt_state"].v, dims, mesh["data"])}
+    del keep
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[1] / 2**30 - summary["peak_GiB"]
+    return {**summary, "fsdp_leaves": len(dims),
+            "pod_axis_MB_per_step": {k: v / 8 / 1e6 for k, v in bits.items()},
+            "card_GiB_free_at_peak": free, "end_state_digest": digest}
 
 
 EXAMPLE_STEPS = 4
@@ -5014,6 +5117,14 @@ def main() -> int:
     t0 = time.perf_counter()
     summary = run_training_fsdp(total)
     print(f"[5g] {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    summary = run_fsdp_identities(synthetic.MULTIPOD_FSDP_MESH)
+    print(f"[5h] multi-pod FSDP on vs off {json.dumps(summary)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    summary = run_training_multipod_fsdp(total)
+    print(f"[5h] multi-pod FSDP {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
     t0 = time.perf_counter()
     summary = run_example(total)
     print(f"[5] example {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s)", flush=True)

@@ -148,8 +148,8 @@ def get_run_config(arch: str, shape: str, *, multi_pod: bool = False,
     (``model_parallel`` and ``seq_shard`` False: the reference folds the
     model axis into data parallelism).  The reference's set of archs above
     8B parameters (``_BIG``) trains with FSDP over ``data``: ``fsdp=True``,
-    as the reference sets it; the train step raises for FSDP on a mesh with
-    a ``pod`` axis."""
+    as the reference sets it; with ``multi_pod`` its FSDP leaves' shards
+    take the compressed mean over ``pod`` (exact inside each pod)."""
     return _run_config(arch, shape, fsdp=get_config(arch).name in _BIG, multi_pod=multi_pod,
                        compression=compression)
 

@@ -156,7 +156,9 @@ class StackedComm(_Counted):
     stand for all the ranks that share those coordinates (the caller's data
     is replicated over the other axes, as after :meth:`mean_over`); so each
     distinct computation runs once: one pack per codec rank, one shard
-    decode per inner shard.  The byte counters count every contribution
+    decode per inner shard.  Data that differs over the other axes (FSDP's
+    shards over ``data``) takes :meth:`by_shard`: the rows and the view per
+    coordinate of those axes.  The byte counters count every contribution
     (all rows) and are shared with the views.
     """
 
@@ -221,6 +223,21 @@ class StackedComm(_Counted):
             idx[k][j] = r
         return idx
 
+    def by_shard(self, axes):
+        """[(rows, sub)] for each coordinate of ``axes`` (mesh order): the
+        stack's rows of the ranks at that coordinate, in ``sub``'s rank
+        order (a slice: a view), and ``sub``,
+        the communicator over the other axes (byte counters shared).  For
+        data that differs along ``axes`` (FSDP's shards over ``data``) a
+        round over ``sub`` on each coordinate's rows runs the reference's
+        round once per coordinate: each ``data`` coordinate's pod group on
+        its own shard, with the keys of every other coordinate (the codec
+        folds in the rank over its compression axes only)."""
+        axes = self._sub_axes(axes)
+        rest = tuple(a for a in self.axes if a not in axes)
+        sub = self.over(rest)
+        return [(_index(rows), sub) for rows in self._groups(rest)]
+
     def mean_over(self, x, axes):
         """The exact mean over ``axes`` of the (n, ...) rows, as the rows of
         ``over(the other axes)``: per group, an f32 sum from +0.0 over its
@@ -280,6 +297,14 @@ def inner_mean_scale(m: int, device):
     return torch.full((), 1.0 / m, dtype=torch.float32, device=device)
 
 
+def _index(rows):
+    """Evenly spaced row indices as a slice (a view of the stack)."""
+    step = rows[1] - rows[0] if len(rows) > 1 else 1
+    if step <= 0 or list(rows) != list(range(rows[0], rows[-1] + 1, step)):
+        raise ValueError(f"rows {list(rows)} are not evenly spaced")
+    return slice(rows[0], rows[-1] + 1, step)
+
+
 def _rank_order_sum(rows):
     """Σ of the (n, ...) rows in f32, from 0, in rank order."""
     acc = torch.zeros(rows.shape[1:], dtype=torch.float32, device=rows.device)
@@ -306,15 +331,21 @@ class DistComm(_Counted):
     axes, pod-major: process rank r sits at the coordinates StackedComm
     gives row r.  The groups of every proper subset of the axes are made
     with ``torch.distributed.new_group`` in the constructor, which every
-    process must therefore call in the same order.  :meth:`mean_over`
-    gathers its group's rows and sums them in rank order, so it gives
-    StackedComm's bits at every group size.
+    process must therefore call in the same order; ``timeout`` (a
+    ``datetime.timedelta``), when given, bounds each of their collectives,
+    so a rank that never joins one fails the run instead of hanging it.
+    :meth:`mean_over` gathers its group's rows and sums them in rank order,
+    so it gives StackedComm's bits at every group size.  FSDP runs its
+    gathers, reduce-scatters and :meth:`rank_sum` on the ``data`` group's
+    view (``over(("data",))``): on a mesh with a ``pod`` axis the world is
+    not the group that holds a leaf's shards.
     """
 
-    def __init__(self, group=None, device=None, *, mesh=None, _view=None):
+    def __init__(self, group=None, device=None, *, mesh=None, timeout=None, _view=None):
         import torch.distributed as dist
 
         self._dist = dist
+        self._timeout = timeout
         self.device = resolve_device(device)
         if _view is not None:
             parent, axes, inner = _view
@@ -351,7 +382,7 @@ class DistComm(_Counted):
                     groups.setdefault(_rank_over(c, self.mesh, rest), []).append(r)
                 for ranks in groups.values():
                     ranks.sort(key=lambda r: _rank_over(coords[r], self.mesh, axes))
-                    g = self._dist.new_group(ranks)
+                    g = self._dist.new_group(ranks, timeout=self._timeout)
                     if self.rank in ranks:
                         self._subgroups[axes] = g
         self._subgroups[names] = self.group
@@ -388,6 +419,13 @@ class DistComm(_Counted):
         if axes == self.axes and inner == self._inner:
             return self
         return DistComm(device=self.device, _view=(self._root, axes, inner))
+
+    def by_shard(self, axes):
+        """[(rows, sub)] as :meth:`StackedComm.by_shard` gives them: this
+        process's one row, at its own coordinate of ``axes``, and its group
+        over the other axes."""
+        axes = self._sub_axes(axes)
+        return [(slice(0, 1), self.over(tuple(a for a in self.axes if a not in axes)))]
 
     def mean_over(self, x, axes):
         """The exact mean over ``axes`` of the (1, ...) row: the group's rows

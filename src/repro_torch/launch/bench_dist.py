@@ -18,7 +18,12 @@ With ``--fsdp-path`` the cell is ``chip_smoke.py`` phase 5g's instead
 ``--layers`` layers, FSDP over ``data``), run twice, under its own
 schedule: over NCCL, each process holding its rank's shards, and stacked
 on card 0 with every leaf whole; the digests hold an FSDP leaf by its rank
-shards, so the two compare.
+shards, so the two compare.  With ``--multipod-fsdp-path [--layers 3]`` it is phase
+5h's (``synthetic.multipod_fsdp_train_path``: the same model on the (pod
+2, data 2) mesh, FSDP over ``data``, ``fixed_k_1bit`` over ``pod``; a
+world of 4), the same two runs, the NCCL one on sub-groups of the world:
+the data groups' gathers and reduce-scatters and the pod groups' rounds;
+the digests hold an FSDP leaf by its data shards.
 Needs ``--world`` CUDA cards; fails without them.
 """
 from __future__ import annotations
@@ -38,8 +43,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="chiprun_out/bench_dist.json")
     ap.add_argument("--fsdp-path", action="store_true",
                     help="phase 5g's FSDP cell instead of phase 5's training cell")
+    ap.add_argument("--multipod-fsdp-path", action="store_true",
+                    help="phase 5h's multi-pod FSDP cell (pod 2, data 2): a world of 4")
     ap.add_argument("--layers", type=int, default=None, help="the FSDP cell's depth")
     args = ap.parse_args(argv)
+    fsdp = args.fsdp_path or args.multipod_fsdp_path
 
     import torch
 
@@ -55,12 +63,13 @@ def main(argv=None) -> int:
     backend.build()              # once, before the ranks start
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    cell = ["--fsdp-path"] + (["--layers", str(args.layers)] if args.layers else [])
+    cell = (["--multipod-fsdp-path" if args.multipod_fsdp_path else "--fsdp-path"]
+            + (["--layers", str(args.layers)] if args.layers else []))
     train = [sys.executable, "-m", "repro_torch.launch.train",
-             *(cell if args.fsdp_path else ["--main-path"]), "--steps", str(args.steps)]
+             *(cell if fsdp else ["--main-path"]), "--steps", str(args.steps)]
     runs = {}
     for where in ("nccl", "stacked"):
-        for overlap in ((True,) if args.fsdp_path else (True, False)):
+        for overlap in ((True,) if fsdp else (True, False)):
             name = f"{where}_{'overlapped' if overlap else 'post_backward'}"
             report = out.with_name(f"{out.stem}_{name}.json")
             flags = ["--report", str(report)] + ([] if overlap else ["--no-overlap"])
@@ -82,6 +91,7 @@ def main(argv=None) -> int:
     for name, r in runs.items():
         summary["runs"][name] = {
             "device": r["device"], "overlap": r["overlap"], "ranks": r["ranks"],
+            "mesh": r["mesh"], "layers": r["layers"],
             "end_state_equals_stacked": r["digest"] == ref,
             "loss": [h["loss"] for h in r["history"]],
             "grad_norm": [h["grad_norm"] for h in r["history"]],

@@ -73,9 +73,9 @@ def fsdp_state_digest(tree: Mapping[str, torch.Tensor], fsdp_dims: Mapping[str, 
                       gather=None) -> Dict[str, object]:
     """:func:`state_digest` of ``tree`` with each FSDP leaf's (``fsdp_dims``:
     name → the dim its rank shards split) given as the list of its ``n``
-    rank shards' digests in rank order: cut from the whole leaf, or, with
-    ``gather`` (a function of this process's digest returning every rank's
-    in rank order), from this process's own shard.  A run whose processes
+    data shards' digests in data order: cut from the whole leaf, or, with
+    ``gather`` (a function of this process's digest returning every data
+    shard's in order), from this process's own shard.  A run whose processes
     hold shards and one whose stacked ranks hold whole leaves compare."""
     out = state_digest({k: v for k, v in tree.items() if k not in fsdp_dims})
     for k in fsdp_dims:
@@ -112,8 +112,10 @@ class StepTimer:
     phase ms (``backward_ms``: forward and backward over the local ranks,
     with the overlapped rounds' launches; ``sync_ms``; ``update_ms``), their
     sum ``step_ms``, the bytes handed to the communicator (``wire_bytes``,
-    this process's; ``fsdp_bytes``, FSDP's gathers and reduce-scatters; the
-    counters are reset each step), on the card ``fsdp_reduce_ms``, the
+    this process's, over the codec axes; ``fsdp_bytes``, FSDP's gathers and
+    reduce-scatters; ``inner_bytes``, the exact means over the axes the
+    codec does not span, such as ``data`` under a compression over ``pod``;
+    the counters are reset each step), on the card ``fsdp_reduce_ms``, the
     stacked ranks' FSDP rank sum and its rounding within the backward (by
     their events; None where the reduce-scatters run inside the backward
     under DistComm), the schedule, the
@@ -150,6 +152,7 @@ class StepTimer:
             comm = state["comm"]
             self._cur["wire_bytes"] = comm.bytes_gathered + comm.bytes_reduced
             self._cur["fsdp_bytes"] = comm.bytes_fsdp
+            self._cur["inner_bytes"] = comm.bytes_inner
             comm.reset_bytes()
             self._cur["schedule"] = state["schedule"]
             rounds = state["rounds"]

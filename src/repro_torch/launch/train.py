@@ -50,6 +50,15 @@ default, one ``train_4k`` sequence a rank, FSDP over ``data``); under
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --dist nccl \
         --fsdp-path --layers 24 --steps 2 --report chiprun_out/fsdp24.json
 
+``--multipod-fsdp-path`` trains phase 5h's cell
+(``synthetic.multipod_fsdp_train_path``: the same model at ``--layers``
+layers on its own mesh, (pod 2, data 2), with the reference's
+``get_run_config(..., multi_pod=True)``: FSDP over ``data``,
+``fixed_k_1bit`` over ``pod``), under ``--devices 4`` or a world of 4;
+``--dist`` runs the data groups' gathers and reduce-scatters and the pod
+groups' rounds as sub-groups of the world.  Under ``--dist`` every
+collective fails the run after ``COLLECTIVE_TIMEOUT`` instead of hanging.
+
 ``--report``
 writes each step's phase ms, exposed sync ms, bucket rounds and wire bytes
 and a digest of the end state (:mod:`repro_torch.launch.step_report`;
@@ -62,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
 import math
 import os
@@ -80,6 +90,10 @@ from repro_torch.launch.step_report import StepTimer, fsdp_state_digest
 from repro_torch.optim.optimizers import AdamWConfig
 from repro_torch.train import synthetic
 from repro_torch.train.trainer import Trainer, TrainerConfig
+
+# how long one collective of a --dist run, sub-groups' included, may wait
+# before the run fails (a rank that never joins it would hang the run)
+COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 def _parse(argv=None):
@@ -115,8 +129,13 @@ def _parse(argv=None):
     ap.add_argument("--fsdp-path", action="store_true",
                     help="chip_smoke.py phase 5g's FSDP cell: qwen2-moe-a2.7b at full width "
                          "and --layers layers, one train_4k sequence a rank, FSDP over data")
+    ap.add_argument("--multipod-fsdp-path", action="store_true",
+                    help="chip_smoke.py phase 5h's cell: qwen2-moe-a2.7b at full width and "
+                         "--layers layers on the (pod 2, data 2) mesh, FSDP over data, "
+                         "fixed_k_1bit over pod; --devices 4 or a world of 4")
     ap.add_argument("--layers", type=int, default=None,
-                    help="the depth of --fsdp-path (default: synthetic.FSDP_LAYERS)")
+                    help="the depth of --fsdp-path (default: synthetic.FSDP_LAYERS) or "
+                         "--multipod-fsdp-path (synthetic.MULTIPOD_FSDP_LAYERS)")
     ap.add_argument("--report", default=None,
                     help="write each step's phase ms, exposed sync ms, bucket rounds, wire "
                          "bytes and a digest of the end state to this JSON file (rank 0)")
@@ -125,7 +144,8 @@ def _parse(argv=None):
 
 def _init_dist(args):
     """(rank, world, device) of this process, its process group started
-    from torchrun's environment."""
+    from torchrun's environment with ``COLLECTIVE_TIMEOUT`` on each
+    collective."""
     if args.devices > 1:
         raise ValueError("--dist runs one rank per process; --devices N stacks N ranks on "
                          "one device: give one or the other")
@@ -149,7 +169,7 @@ def _init_dist(args):
         device = torch.device("cpu")
     dist.init_process_group(args.dist, init_method=f"tcp://{env['MASTER_ADDR']}:"
                                                    f"{env['MASTER_PORT']}",
-                            world_size=world, rank=rank)
+                            world_size=world, rank=rank, timeout=COLLECTIVE_TIMEOUT)
     return rank, world, device
 
 
@@ -160,14 +180,22 @@ def main(argv=None) -> int:
         rank, n, device = _init_dist(args)
     else:
         n = args.devices or 1
-    data = args.data or max(1, n // max(1, args.model or 1))
-    model = args.model or (n // data)
-    if data * model != n:
-        raise ValueError(f"a mesh of data {data} x model {model} does not hold {n} ranks "
-                         f"({'the world' if args.dist else '--devices'})")
-    mesh = mesh_lib.data_parallel(mesh_lib.make_debug_mesh(data, model))
-    comm = DistComm(device=device, mesh=mesh) if args.dist else None
-    cfg, run, shape = build_config(args, n, model)
+    if args.multipod_fsdp_path:
+        cfg, run, shape, mesh = synthetic.multipod_fsdp_train_path(
+            args.layers or synthetic.MULTIPOD_FSDP_LAYERS)
+        if math.prod(mesh.values()) != n or args.data or args.model:
+            raise ValueError(f"--multipod-fsdp-path runs on its mesh {mesh}: "
+                             f"{math.prod(mesh.values())} ranks, not {n}, and no --data/--model")
+        run = _overlap_flag(args, run)
+    else:
+        data = args.data or max(1, n // max(1, args.model or 1))
+        model = args.model or (n // data)
+        if data * model != n:
+            raise ValueError(f"a mesh of data {data} x model {model} does not hold {n} ranks "
+                             f"({'the world' if args.dist else '--devices'})")
+        mesh = mesh_lib.data_parallel(mesh_lib.make_debug_mesh(data, model))
+        cfg, run, shape = build_config(args, n, model)
+    comm = DistComm(device=device, mesh=mesh, timeout=COLLECTIVE_TIMEOUT) if args.dist else None
 
     tcfg = TrainerConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
                          ckpt_every=args.ckpt_every, log_every=max(1, args.steps // 20))
@@ -199,7 +227,7 @@ def build_config(args, n: int, model: int):
     """(cfg, run, shape) the command line asks for over ``n`` ranks (a model
     axis of ``model``)."""
     if args.layers is not None and not args.fsdp_path:
-        raise ValueError("--layers sets the depth of --fsdp-path")
+        raise ValueError("--layers sets the depth of --fsdp-path or --multipod-fsdp-path")
     if args.main_path:
         cfg, run, shape = synthetic.train_main_path()
         shape = dataclasses.replace(shape, global_batch=n)
@@ -220,26 +248,33 @@ def build_config(args, n: int, model: int):
         cfg = get_config(args.arch)
         shape = SHAPES[args.shape]
         run = get_run_config(args.arch, args.shape)
-    if args.no_overlap:
-        comp = run.compression
-        run = dataclasses.replace(
-            run, compression=dataclasses.replace(
-                comp, bucket=dataclasses.replace(comp.bucket, overlap=False)))
-    return cfg, run, shape
+    return cfg, _overlap_flag(args, run), shape
+
+
+def _overlap_flag(args, run: RunConfig) -> RunConfig:
+    """``run`` with ``BucketSpec.overlap`` off under ``--no-overlap``."""
+    if not args.no_overlap:
+        return run
+    comp = run.compression
+    return dataclasses.replace(run, compression=dataclasses.replace(
+        comp, bucket=dataclasses.replace(comp.bucket, overlap=False)))
 
 
 def _digest(tr, tree):
-    """:func:`fsdp_state_digest` of ``tree``: an FSDP leaf's by rank shard,
+    """:func:`fsdp_state_digest` of ``tree``: an FSDP leaf's by data shard,
     cut from the whole leaf where the ranks are stacked, gathered from every
-    process where each holds its own (a collective: every rank calls it)."""
-    n = math.prod(tr.mesh.values())
+    process where each holds its own (a collective: every rank calls it).
+    Every pod holds the same shards: a shard whose pods' digests differ is
+    reported as all of them, joined by ``|``."""
+    n, n_data = math.prod(tr.mesh.values()), tr.mesh["data"]
 
     def gather(d):
         got = [None] * n
         dist.all_gather_object(got, d)
-        return got
+        # rank r holds data shard r % n_data (pod-major)
+        return ["|".join(dict.fromkeys(got[e::n_data])) for e in range(n_data)]
 
-    return fsdp_state_digest(tree, tr.fsdp_dims, n, gather if tr.sharded else None)
+    return fsdp_state_digest(tree, tr.fsdp_dims, n_data, gather if tr.sharded else None)
 
 
 def _write_report(args, tr, n, device, timer, hist, digest, peaks) -> None:

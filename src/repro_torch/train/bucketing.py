@@ -25,12 +25,15 @@ Gradients are stacks: each leaf is (L, *shape) with one row per local rank
 of the communicator (on a mesh, in mesh order), and so is each bucket's
 residual, (L, size).  The
 synced result holds one (*shape) tensor per leaf, the estimate every rank
-holds.
+holds; a bucket of leaves sharded over some mesh axes (FSDP's shards over
+``data`` under a compression over ``pod``: :func:`held_axes`) runs its
+round once per coordinate of those axes and gives each leaf as a (K,
+*shard) stack of the K coordinates' estimates held here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -178,9 +181,11 @@ def pack_bucket(grads: Mapping[str, torch.Tensor], bucket: Bucket) -> torch.Tens
 
 def unpack_bucket(vec: torch.Tensor, bucket: Bucket,
                   like: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Scatter a (size,) bucket result back to leaf shapes and dtypes."""
-    return {s.name: vec[s.offset:s.offset + s.size].reshape(s.shape).to(like[s.name].dtype)
-            for s in bucket.slots}
+    """Scatter a (..., size) bucket result back to (..., *leaf shape) and
+    the leaves' dtypes."""
+    lead = tuple(vec.shape[:-1])
+    return {s.name: vec[..., s.offset:s.offset + s.size].reshape(lead + tuple(s.shape))
+            .to(like[s.name].dtype) for s in bucket.slots}
 
 
 def bucket_wire_bits(plan: BucketPlan, cfg: t.CompressionConfig, n: int,
@@ -235,12 +240,29 @@ def _bucket_cfg(b: Bucket, cmp: t.CompressionConfig, *,
         error_feedback=error_feedback)
 
 
+def held_axes(b: Bucket, comm) -> Tuple[str, ...]:
+    """The communicator's mesh axes the bucket does not sync over: those its
+    leaves are sharded over (FSDP's ``data`` under a compression over
+    ``pod``); () on a flat communicator."""
+    axes = getattr(comm, "axes", None) or ()
+    return tuple(a for a in axes if a not in b.caxes + b.eaxes)
+
+
 def _bucket_round(grads: Mapping[str, torch.Tensor], b: Bucket, j: int,
                   cmp: t.CompressionConfig, key, comm, ef=None):
     """ONE bucket's sync: pack → (exact mean / codec round) → unpack, with
     the bucket key fold_in(key, j) of its plan position j.  ``ef`` is the
     bucket's (L, size) residual (engages the stateful ``ef_*`` codec) or
     None.  Returns (synced leaf dict, new residual or None).
+
+    A bucket whose leaves are sharded over some of the communicator's axes
+    (:func:`held_axes`: an FSDP shard bucket, whose stack rows hold each
+    rank's shard of its pod's sum) runs the round once per coordinate of
+    those axes on that coordinate's rows (``comm.by_shard``), each with the
+    same key, as each ``data`` coordinate's pod group runs it in the
+    reference; its residual rows stay each rank's own.  Its leaves come
+    back as (K, *shard) stacks, the estimates of the K coordinates held
+    here (all of them stacked, this process's one under DistComm).
 
     On a mesh, the bucket's exact axes that are codec inner axes ride the
     codec round (it pre-reduces them, and its scatter decode shards over
@@ -251,12 +273,30 @@ def _bucket_round(grads: Mapping[str, torch.Tensor], b: Bucket, j: int,
     .mean_flat_stateful`: one row per group over those axes, written back
     to every rank of the group.  Flat configs take the one-axis path."""
     v = pack_bucket(grads, b)
+    held = held_axes(b, comm)
+    if not held:
+        y, _ = _round(v, b, j, cmp, key, comm, ef)    # the residual in place
+        return unpack_bucket(y, b, grads), ef
+    groups = comm.by_shard(held)
+    out = torch.empty((len(groups), b.size), dtype=torch.float32, device=v.device)
+    for k, (rows, sub) in enumerate(groups):
+        e = None if ef is None else ef[rows]
+        out[k], e = _round(v[rows], b, j, cmp, key, sub, e)
+        if ef is not None:
+            ef[rows] = e
+    return unpack_bucket(out, b, grads), ef
+
+
+def _round(v, b: Bucket, j: int, cmp: t.CompressionConfig, key, comm, ef):
+    """:func:`_bucket_round` on the packed (L, size) rows ``v`` over a
+    communicator that spans the bucket's axes: ((size,) estimate, the new
+    residual or None; ``ef`` is written in place where it can be)."""
     if b.kind == "exact":
         axes = getattr(comm, "axes", None)
         if axes is not None and set(axes) != set(b.eaxes):
             raise ValueError(f"bucket {b.bid} syncs over {b.eaxes}, not over every axis of "
                              f"the communicator's mesh {axes}")
-        return unpack_bucket(coll.exact_mean(v, comm), b, grads), ef
+        return coll.exact_mean(v, comm), ef
     lcfg = _bucket_cfg(b, cmp, error_feedback=ef is not None)
     pre = tuple(a for a in b.eaxes if a not in lcfg.inner_axes)
     sub = comm
@@ -269,9 +309,9 @@ def _bucket_round(grads: Mapping[str, torch.Tensor], b: Bucket, j: int,
         v, st = coll.compressed_mean_stateful(v, st, kb, lcfg, sub)
         if pre:
             comm.spread(st, ef, pre)
-        return unpack_bucket(v, b, grads), ef
-    v = coll.compressed_mean(v, kb, lcfg, sub)
-    return unpack_bucket(v, b, grads), None
+            return v, ef
+        return v, st
+    return coll.compressed_mean(v, kb, lcfg, sub), None
 
 
 def _timing_event(t: torch.Tensor):
@@ -383,9 +423,11 @@ class OverlapSync:
 
     def __init__(self, plan: BucketPlan, cmp: t.CompressionConfig, key, comm,
                  stacks: Mapping[str, torch.Tensor], row: int,
-                 ef_state: Optional[Mapping[str, torch.Tensor]] = None, stream=None):
+                 ef_state: Optional[Mapping[str, torch.Tensor]] = None, stream=None,
+                 absorb: Optional[Callable[[str, torch.Tensor], None]] = None):
         self.plan, self.cmp, self.key, self.comm = plan, cmp, key, comm
         self.stacks, self.row, self.ef_state, self.stream = stacks, row, ef_state, stream
+        self.absorb = absorb
         self.synced: Dict[str, torch.Tensor] = {}
         self.rounds = RoundLog()
 
@@ -401,7 +443,10 @@ class OverlapSync:
     def _fire(self, j: int, cots) -> None:
         b = self.plan.buckets[j]
         for s, g in zip(b.slots, cots):
-            self.stacks[s.name][self.row].copy_(g)
+            if self.absorb is None:
+                self.stacks[s.name][self.row].copy_(g)
+            else:
+                self.absorb(s.name, g)
         ef = (self.ef_state[b.bid]
               if self.ef_state is not None and b.kind == "compressed" else None)
         if self.stream is None:
@@ -449,7 +494,7 @@ class OverlapSync:
 def overlap_params(params: Mapping[str, torch.Tensor], plan: BucketPlan,
                    cmp: t.CompressionConfig, key, comm, stacks: Mapping[str, torch.Tensor],
                    row: int, ef_state: Optional[Mapping[str, torch.Tensor]] = None,
-                   stream=None):
+                   stream=None, absorb: Optional[Callable[[str, torch.Tensor], None]] = None):
     """Wrap the parameter tree with per-bucket sync points (the overlapped
     schedule); returns (tagged params, the :class:`OverlapSync`).
 
@@ -465,7 +510,9 @@ def overlap_params(params: Mapping[str, torch.Tensor], plan: BucketPlan,
 
     The bucketed leaves' own gradients come back as None (the sync points
     hand none on); passthrough leaves' come back as usual and are the
-    caller's to write into row ``row``.
+    caller's to write into row ``row``.  ``absorb(name, cotangent)``, when
+    given, takes each cotangent in place of the copy into row ``row``
+    (the stacked FSDP step adds it into its pod's sum).
     """
-    sync = OverlapSync(plan, cmp, key, comm, stacks, row, ef_state, stream)
+    sync = OverlapSync(plan, cmp, key, comm, stacks, row, ef_state, stream, absorb)
     return sync.params(params), sync

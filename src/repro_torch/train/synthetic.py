@@ -50,6 +50,13 @@
   ``get_run_config(FSDP_MODEL, "train_4k")`` (FSDP over ``data``,
   ``fixed_k_1bit`` over ``data`` for the leaves FSDP does not shard, remat,
   flash) with one microbatch, not 4.
+* The multi-pod FSDP training path (:func:`multipod_fsdp_train_path`):
+  ``FSDP_MODEL`` at full width and ``MULTIPOD_FSDP_LAYERS`` of its 24
+  layers on ``MULTIPOD_FSDP_MESH`` = (pod 2, data 2), one ``train_4k``
+  sequence a rank, the reference's ``get_run_config(FSDP_MODEL,
+  "train_4k", multi_pod=True)`` (FSDP over ``data``, ``fixed_k_1bit``
+  over ``pod`` on the FSDP shards and, after the exact mean over
+  ``data``, on the other leaves) with one microbatch, not 4.
 * The training path (:func:`train_main_path`): the same model, depth and
   ranks, one ``train_4k`` sequence per rank, the real forward and backward
   feeding the same sync under ``fixed_k_1bit``, then AdamW; with
@@ -109,6 +116,14 @@ FSDP_MODEL = "qwen2-moe-a2.7b"
 # it is summed.  Without FSDP the 4 gradient rows of every leaf take 46.5 GB
 FSDP_LAYERS = 4
 FSDP_N = 4
+MULTIPOD_FSDP_MESH = {"pod": 2, "data": 2}
+# 3 of 24 layers: 2.33 B parameters.  Stacked at (pod 2, data 2) the f32
+# parameters and moments take 28.0 GB, the two pods' sums of the FSDP leaves
+# (their bucket rows) 13.7 GB, the other leaves' 4 gradient rows 10.0 GB and
+# the synced gradients 9.3 GB; a rank's backward returns 9.3 GB before it is
+# summed.  The step peaked at 61.7 GiB on an 80 GB card; at 4 layers it ran
+# out of memory
+MULTIPOD_FSDP_LAYERS = 3
 
 
 def synthetic_grads(shapes: Mapping[str, Sequence[int]], n: int, step: int,
@@ -247,6 +262,22 @@ def fsdp_train_path(layers: int = FSDP_LAYERS, n: int = FSDP_N):
     cfg = dataclasses.replace(get_config(FSDP_MODEL), num_layers=layers)
     run = dataclasses.replace(get_run_config(FSDP_MODEL, "train_4k"), microbatches=1)
     return cfg, run, dataclasses.replace(SHAPES["train_4k"], global_batch=n)
+
+
+def multipod_fsdp_train_path(layers: int = MULTIPOD_FSDP_LAYERS):
+    """(cfg, run, shape, mesh) of the multi-pod FSDP training path:
+    ``FSDP_MODEL`` at full width and ``layers`` layers on
+    ``MULTIPOD_FSDP_MESH``; the reference's ``get_run_config(FSDP_MODEL,
+    "train_4k", multi_pod=True)`` as it is (FSDP over ``data``,
+    ``fixed_k_1bit`` over ``pod``, remat, flash) with one microbatch, not 4:
+    a rank's one sequence does not split; ``train_4k`` sequences, one per
+    rank (global batch 4)."""
+    cfg = dataclasses.replace(get_config(FSDP_MODEL), num_layers=layers)
+    run = dataclasses.replace(get_run_config(FSDP_MODEL, "train_4k", multi_pod=True),
+                              microbatches=1)
+    mesh = dict(MULTIPOD_FSDP_MESH)
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=math.prod(mesh.values()))
+    return cfg, run, shape, mesh
 
 
 def rank_loss_and_grads(cfg, run, params, batch, global_tokens: float):

@@ -52,8 +52,27 @@ complete before the next; each rank's rows keep their bits.  The grad norm
 sums each FSDP leaf's squares per shard in rank order
 (:func:`repro_torch.optim.optimizers.global_norm`), so stacked and
 distributed steps give the same bits; AdamW then updates the parameters
-and moments in place.  FSDP on a mesh with a ``pod`` axis, and tensor
-parallelism, raise :class:`NotPortedError`.
+and moments in place.  Tensor parallelism raises :class:`NotPortedError`.
+
+FSDP on a (pod, data) mesh (the reference's multi-pod run of an FSDP arch,
+the compression over ``pod``): the gathers, reduce-scatters and the norm's
+sum run over each pod's ``data`` group, and the FSDP leaves are synced too:
+each rank's row of such a leaf's stack is its shard of its pod's sum (the
+reduce-scatter over ``data``), and each bucket of them runs its round over
+``pod`` once per data coordinate, on that coordinate's shards, with the
+same key (:func:`repro_torch.train.bucketing._bucket_round`); the mean
+over pod of the pods' sums is n_data × the other leaves' scale.  Stacked,
+each pod's data ranks are summed apart, in place into that pod's block of
+the (n, *shard) stack (:func:`_pod_sum`: from +0.0 in data order, rounded
+once to bf16 after the pod's last data rank), so the stack's rows are the
+sums' shards and no second copy is made; under DistComm the data group's
+reduce-scatter gives the rank its row.  The backward-pipelined schedule
+applies as on one axis: the last local rank's sync points add its
+cotangents into the last pod's sum before their rounds (every other pod is
+complete by then), so ``overlap_enabled`` and the reported schedule read as
+without FSDP, and the two schedules give the same bits.  The synced FSDP
+leaves come back in the parameters' layout: whole (stacked) or this
+process's shard.  The per-leaf sync (bucketing off) raises there.
 """
 from __future__ import annotations
 
@@ -194,6 +213,27 @@ def _timing_event(dev):
     return ev
 
 
+def _pod_sum(stack, g, r: int, n_data: int, dim: int, comm) -> None:
+    """Rank ``r``'s gradient ``g`` of a whole FSDP leaf (split along ``dim``)
+    into its pod's sum, in place: the pod's (n_data, *shard) block of the
+    (n, *shard) f32 ``stack`` holds shard e of the sum in row e (the rows
+    the reference's reduce-scatter over ``data`` gives the pod's ranks).
+    Summed from +0.0 in data order and rounded once to bf16 after the pod's
+    last data rank, as XLA sums a bf16 ``psum_scatter``; the bytes a
+    reduce-scatter would be handed (the rank's bf16 cotangent) are
+    counted."""
+    comm.count_fsdp(g.numel() * 2)
+    p, d = divmod(r, n_data)
+    rows = stack[p * n_data:(p + 1) * n_data]
+    g = g.unflatten(dim, (n_data, -1)).movedim(dim, 0)
+    if d == 0:
+        torch.add(g, 0.0, out=rows)
+    else:
+        rows.add_(g)
+    if d == n_data - 1:
+        rows.copy_(rows.to(torch.bfloat16))
+
+
 def _add_rank(acc, k, g, dist: bool, comm) -> None:
     """One rank's gradient ``g`` of FSDP leaf ``k`` into this microbatch's
     rank sum ``acc``.  Under DistComm the backward's reduce-scatter has
@@ -258,8 +298,9 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
     overlapped schedule the rounds are enqueued by then too;
     ``reduce_events``: on the card, the (start, end) timing events around
     each stretch of the stacked ranks' FSDP rank sum and its rounding,
-    within the backward phase; none under DistComm, whose reduce-scatters
-    run inside the backward), ``"sync"`` once the current stream waits on
+    within the backward phase, the last rank's adds into the last pod's
+    sum that its sync points make included; none under DistComm, whose
+    reduce-scatters run inside the backward), ``"sync"`` once the current stream waits on
     every round (``grads``, ``synced``, ``key``, the communicator ``comm``,
     the new ``ef_state``, ``schedule`` — ``"backward-pipelined"`` or
     ``"post-backward"`` — and ``rounds``, the
@@ -283,14 +324,23 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
     rows = len(local)
     dist = isinstance(comm, coll.DistComm)
     mesh_axes = tuple(msizes)
-    if run.fsdp and mesh_axes != ("data",):
-        raise NotPortedError(
-            f"FSDP on the mesh {msizes} is not ported yet: the multi-pod run of an FSDP arch "
-            "syncs its FSDP leaves over the pod axis, and the port shards over a lone data "
-            "axis only (ROADMAP.md, queue 1)")
-    ctx = model_lib.make_ctx(cfg, run, msizes, comm=comm if run.fsdp and dist else None)
+    if run.fsdp and tuple(a for a in mesh_axes if a != "model") not in (("data",),
+                                                                       ("pod", "data")):
+        raise NotPortedError(f"FSDP on the mesh {msizes} is not ported: the port shards over "
+                             "data, on a (data) or (pod, data) mesh")
+    # FSDP's gathers, reduce-scatters and norm run over the data group; a pod
+    # axis makes each FSDP leaf a stack of shards synced over pod
+    dcomm = comm.over(("data",)) if dist else None
+    pods = run.fsdp and "pod" in msizes
+    n_data = msizes["data"]
+    ctx = model_lib.make_ctx(cfg, run, msizes, comm=dcomm if run.fsdp else None)
     shapes, specs = param_shapes(cfg, fsdp="data" if run.fsdp else None)
     fsdp_dims = fsdp_leaf_dims(specs)
+    # the leaves whose rank gradients the step sums, not written to rows
+    summed = () if pods and dist else tuple(sorted(fsdp_dims))
+    # each rank's row of a leaf's stack: its shard of an FSDP leaf with a pod axis
+    row_shapes = {k: (bucketing.local_shape(shapes[k], specs[k], msizes) if pods
+                      and k in fsdp_dims else tuple(shapes[k])) for k in shapes}
     if batch_axes_for(cfg, run, shape, msizes) != mesh_axes:
         raise NotPortedError(f"a global batch of {shape.global_batch} does not split over "
                              f"the mesh {msizes}: replicated batches are not ported")
@@ -299,6 +349,9 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
                          f"{run.microbatches} microbatches")
     global_tokens = float(shape.global_batch * shape.seq_len)
     plan = grad_sync_plan(run, shapes, specs, msizes)
+    if pods and plan is None:
+        raise NotPortedError("FSDP on a mesh with a pod axis syncs through the bucketed sync: "
+                             "the per-leaf sync (bucket.enabled = False) is not ported for it")
     use_overlap = overlap_enabled(plan, run)
     schedule = "backward-pipelined" if use_overlap else "post-backward"
     if plan is not None:
@@ -317,23 +370,37 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
         key = prandom.fold_in(key0, int(step))
         leaves = {k: params[k].detach().requires_grad_() for k in names}
         # the sync's input: an (L, *shape) f32 stack per leaf, one row a local
-        # rank, and each FSDP leaf's gradient summed over the ranks (local
-        # shards under DistComm)
-        grads = {k: torch.empty((rows,) + tuple(shapes[k]), dtype=torch.float32, device=dev)
-                 for k in names if k not in fsdp_dims}
+        # rank; on a data-only mesh each FSDP leaf's gradient summed over the
+        # ranks (local shards under DistComm), with a pod axis a stack of each
+        # rank's shard of its pod's sum
+        grads = {k: torch.empty((rows,) + row_shapes[k], dtype=torch.float32, device=dev)
+                 for k in names if k not in fsdp_dims or pods}
+        reduce_events = []
+        absorb = None
+        if pods and summed:
+            def absorb(k, g):
+                # the last stacked rank's cotangent, taken by its sync point
+                if k in summed:
+                    start = _timing_event(dev)
+                    _pod_sum(grads[k], g, local[-1], n_data, fsdp_dims[k], comm)
+                    reduce_events.append((start, _timing_event(dev)))
+                else:
+                    grads[k][rows - 1].copy_(g)
         ef_in = ef_state if use_ef else None
         sync = None
         losses = [[] for _ in local]
         auxes = [[] for _ in local]
-        reduce_events = []
         for mb in range(mbs):
             acc = {}           # this microbatch's FSDP gradients, summed over the ranks
+            if pods and summed:
+                acc = grads if mb == 0 else {k: torch.empty_like(grads[k]) for k in summed}
             for i, r in enumerate(local):
                 mb_batch = _rows(_rows(batch, r, n), mb, mbs)
                 tagged = leaves
                 if use_overlap and i == rows - 1:
                     tagged, sync = bucketing.overlap_params(leaves, plan, run.compression, key,
-                                                            comm, grads, i, ef_in, side)
+                                                            comm, grads, i, ef_in, side,
+                                                            absorb)
                 loss, lm = model_lib.train_loss(ctx, tagged, cfg, run, mb_batch, global_tokens)
                 auxes[i].append(lm["aux"].detach())
                 losses[i].append(loss.detach())
@@ -341,8 +408,8 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
                                                allow_unused=sync is not None))
                 del loss, lm, tagged
                 for j, k in enumerate(names):
-                    # None: bucketed, its sync point wrote the row
-                    if k in fsdp_dims or got[j] is None:
+                    # None: bucketed, its sync point took the cotangent
+                    if k in summed or got[j] is None:
                         continue
                     if mb == 0:
                         grads[k][i].copy_(got[j])
@@ -351,12 +418,22 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
                     got[j] = None
                 start = _timing_event(dev)
                 for j, k in enumerate(names):
-                    if k in fsdp_dims:
+                    if k not in summed or got[j] is None:
+                        continue
+                    if pods:
+                        _pod_sum(acc[k], got[j], r, n_data, fsdp_dims[k], comm)
+                    else:
                         _add_rank(acc, k, got[j], dist, comm)
-                        got[j] = None
-                if acc and not dist:
+                    got[j] = None
+                if summed and not dist:
                     reduce_events.append((start, _timing_event(dev)))
                 del got
+            if pods:
+                if mb:
+                    for k, a in acc.items():
+                        grads[k].add_(a)
+                del acc
+                continue
             start = _timing_event(dev)
             for k, a in acc.items():
                 # the reference's psum_scatter rounds its f32 rank sum once to
@@ -393,11 +470,18 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
                                         ef_in)
         if use_ef:
             ef_state = new_ef
+        if pods:
+            # each FSDP leaf's (K, *shard) estimates → the parameter's layout:
+            # this process's shard, or the whole leaf from its n_data shards
+            for k in fsdp_dims:
+                est = synced.pop(k)
+                synced[k] = est[0] if dist else convert.fsdp_unshard(est.unbind(0), specs[k])
+                del est
         notify("sync", grads=grads, synced=synced, key=key, comm=comm, ef_state=ef_state,
                schedule=schedule, rounds=rounds)
         del grads
-        gnorm = opt_lib.global_norm(synced, fsdp_dims, shards=1 if dist else n,
-                                    rank_sum=comm.rank_sum if dist else None)
+        gnorm = opt_lib.global_norm(synced, fsdp_dims, shards=1 if dist else n_data,
+                                    rank_sum=dcomm.rank_sum if dist else None)
         params, opt_state = opt_lib.adamw_update(opt_cfg, synced, opt_state, params,
                                                  grad_norm=gnorm, in_place=run.fsdp)
         notify("update", params=params, opt_state=opt_state)
@@ -418,7 +502,7 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, shape: ShapeSpec, n: Optio
             def keep(name, x):
                 if name not in fsdp_dims:
                     return x
-                return convert.fsdp_shard(x, specs[name], comm.rank, n).clone()
+                return convert.fsdp_shard(x, specs[name], dcomm.rank, n_data).clone()
         params = model_lib.init(seed, cfg, device=dev, keep=keep)
         if use_ef and plan is not None:
             ef_state = bucketing.init_ef_state(plan, run.compression, rows, dev)

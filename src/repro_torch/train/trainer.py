@@ -10,9 +10,10 @@ The reference's fault-tolerance contract:
   batches come from :class:`~repro_torch.data.pipeline.SyntheticLM`, a pure
   function of (seed, step), and the sync keys from the step, so the stream
   realigns exactly;
-* a checkpoint restores at any rank count: its leaves are whole (under
-  FSDP with one rank per process every rank first gathers its shards), and
-  a process that holds FSDP shards restores its rank's slices;
+* a checkpoint restores at any rank count and on any mesh: its leaves are
+  whole (under FSDP with one rank per process every rank first gathers its
+  shards over its data group), and a process that holds FSDP shards
+  restores the slices of its data coordinate;
 * with one rank per process (``comm``, a :class:`DistComm`) rank 0 writes
   the checkpoints, every rank waits at a barrier after the last save, and
   every rank restores from the same directory.
@@ -78,6 +79,8 @@ class Trainer:
         # DistComm holds only its rank's shards of them
         self.fsdp_dims = ts.fsdp_leaf_dims(self.specs)
         self.sharded = bool(self.fsdp_dims) and self.dist is not None
+        # the group that holds an FSDP leaf's shards: the data axis
+        self.data_comm = self.dist.over(("data",)) if self.sharded else None
         self.data = SyntheticLM(cfg, shape, seed=tcfg.seed)
         # every save of fit() goes through it: ckpt.history times each one
         self.ckpt = ckpt.AsyncCheckpointer()
@@ -102,8 +105,8 @@ class Trainer:
                 def shard(name, arr):
                     if name not in self.fsdp_dims:
                         return arr
-                    return convert.fsdp_shard(arr, self.specs[name], self.dist.rank,
-                                              self.dist.size)
+                    return convert.fsdp_shard(arr, self.specs[name], self.data_comm.rank,
+                                              self.data_comm.size)
             start, params, opt_state, _ = ckpt.restore(self.tcfg.ckpt_dir, self.specs, template,
                                                        device=self.device, shard=shard)
             log.info("restored checkpoint at step %d", start)
@@ -144,12 +147,13 @@ class Trainer:
     def whole(self, params, opt_state):
         """(params, opt_state) with every leaf whole: as given, or, where this
         process holds FSDP shards, each FSDP leaf and its moments gathered
-        from every rank (a collective: every rank calls it)."""
+        from every rank of its data group (a collective: every rank calls
+        it; every pod's group holds the same leaves)."""
         if not self.sharded:
             return params, opt_state
 
         def join(tree):
-            return {k: (self.dist.fsdp_gather(v[None], self.fsdp_dims[k])
+            return {k: (self.data_comm.fsdp_gather(v[None], self.fsdp_dims[k])
                         if k in self.fsdp_dims else v) for k, v in tree.items()}
 
         return join(params), opt_state._replace(m=join(opt_state.m), v=join(opt_state.v))

@@ -278,11 +278,8 @@ def test_run_configs_of_the_fsdp_archs_are_the_reference_s():
     assert sorted(tregistry._BIG) == sorted(jregistry._BIG)
 
 
-def test_fsdp_with_a_pod_axis_and_tensor_parallelism_raise():
+def test_tensor_parallelism_raises():
     cfg = tregistry.smoke_config(DENSE)
-    with pytest.raises(NotPortedError, match="pod axis"):
-        tts.build_train_step(cfg, _run(DENSE, "none", 1), ShapeSpec("t", "train", S, 4),
-                             mesh={"pod": 2, "data": 2}, device="cpu")
     with pytest.raises(NotPortedError, match="tensor parallelism"):
         tmodel.make_ctx(cfg, _run(DENSE, "none", 1), {"data": 2, "model": 2})
 

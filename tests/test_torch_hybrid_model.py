@@ -202,7 +202,9 @@ def test_run_config_raises_for_fsdp_as_the_reference_sets_it():
     """The reference trains jamba with FSDP and 8 microbatches; the port's
     run config is the reference's, FSDP on, as the converted one, and the
     CLI without ``--smoke`` trains under it (too large to run here: the
-    config it builds is checked); FSDP with a pod axis still raises."""
+    config it builds is checked); on a (pod, data) mesh the multi-pod run
+    config builds, its FSDP leaves in buckets synced over pod alone, and a
+    model axis still raises."""
     jrun = j_get_run_config(ARCH, "train_4k")
     assert jrun.fsdp and jrun.microbatches == 8 and jrun.model_parallel
     run = get_run_config(ARCH, "train_4k")
@@ -210,9 +212,16 @@ def test_run_config_raises_for_fsdp_as_the_reference_sets_it():
     _, cli_run, _ = train_cli.build_config(
         train_cli._parse(["--arch", ARCH, "--steps", "1", "--device", "cpu"]), 1, 1)
     assert cli_run == run
-    with pytest.raises(NotPortedError, match="pod axis"):
+    pod_run = dataclasses.replace(get_run_config(ARCH, "train_4k", multi_pod=True),
+                                  microbatches=1)
+    _, _, plan = tts.build_train_step(CFG, pod_run, ShapeSpec("t", "train", 32, 4),
+                                      mesh={"pod": 2, "data": 2}, device="cpu")
+    dims = tts.fsdp_leaf_dims(param_shapes(CFG, fsdp="data")[1])
+    assert {s.name for b in plan.buckets if b.caxes + b.eaxes == ("pod",)
+            for s in b.slots} == set(dims)
+    with pytest.raises(NotPortedError, match="tensor parallelism"):
         tts.build_train_step(CFG, dataclasses.replace(run, microbatches=1),
-                             ShapeSpec("t", "train", 32, 4), mesh={"pod": 2, "data": 2},
+                             ShapeSpec("t", "train", 32, 4), mesh={"data": 2, "model": 2},
                              device="cpu")
     assert convert.arch_config(JCFG) == CFG
 

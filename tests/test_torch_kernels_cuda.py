@@ -1032,3 +1032,46 @@ def test_vlm_forward_and_grads_on_card_equal_cpu(dev):
     assert abs(lc - lh) <= 1e-5 * abs(lh)
     for a, b in zip(gc, gh):
         assert float((a.double() - b.double()).norm() / b.double().norm()) <= 5e-3
+
+
+# --------------------------------------------------------------------------- #
+# FSDP with a pod axis: the stacked (pod 2, data 2) step of the dense smoke in
+# f32 compute, two steps under fixed_k_1bit over pod, on the card against the
+# CPU from the same parameters (kernel 4 once per pod rank and round: an FSDP
+# shard bucket's round once per data coordinate; the flash kernels at hd 16).
+# --------------------------------------------------------------------------- #
+
+def test_multipod_fsdp_step_on_card_equals_cpu(dev):
+    from repro_torch.models import model as tmodel
+
+    cfg = smoke_config("mistral-large-123b")
+    cmp = dataclasses.replace(compression_preset("fixed_k_1bit", axes=("pod",)),
+                              min_compress_size=1024)
+    run = RunConfig(fsdp=True, attn_chunk_q=16, attn_chunk_k=16, remat=False,
+                    compute_dtype="float32", compression=cmp)
+    shape = ShapeSpec("t", "train", 64, 4)
+    mesh = {"pod": 2, "data": 2}
+    params = tmodel.init(0, cfg, device="cpu")
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        step_fn, init_fn, plan = build_train_step(cfg, run, shape, device=where, mesh=mesh)
+        _, opt, ef = init_fn(0)
+        p = {k: v.to(where) for k, v in params.items()}
+        data = SyntheticLM(cfg, shape)
+        backend.reset_launches()
+        metrics = []
+        for step in range(2):
+            p, opt, ef, m = step_fn(p, opt, ef, data.batch(step, where), step)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        out[where.type] = (metrics, {k: v.cpu() for k, v in p.items()}, dict(backend.launches))
+    (mc, pc, lc), (mh, ph, _) = out["cuda"], out["cpu"]
+    shard = [b for b in plan.buckets if b.kind == "compressed" and not b.eaxes]
+    other = [b for b in plan.buckets if b.kind == "compressed" and b.eaxes]
+    assert shard and other
+    assert lc["fixed_k_gather"] == 2 * (2 * 2 * len(shard) + 2 * len(other))
+    assert lc["flash_attention_fwd_hd16"] == 2 * 4 * cfg.num_layers
+    for (lcu, gcu), (lh, gh) in zip(mc, mh):
+        assert abs(lcu - lh) <= 1e-5 * abs(lh) and abs(gcu - gh) <= 1e-3 * abs(gh)
+    for k in ph:
+        assert bool(torch.isfinite(pc[k]).all()), k
+        assert float((pc[k].double() - ph[k].double()).norm() / ph[k].double().norm()) <= 5e-3, k

@@ -352,11 +352,14 @@ def test_trainer_fit_three_steps():
 
 
 def test_unported_options_raise():
-    # FSDP is accepted and converts; on a mesh with a pod axis it raises
+    # FSDP is accepted and converts; on a mesh with a pod axis its per-leaf
+    # sync (bucketing off) raises
     assert RunConfig(fsdp=True).fsdp and convert.run_config(_jrun(fsdp=True)).fsdp
+    per_leaf = RunConfig(fsdp=True, compression=dataclasses.replace(
+        RunConfig().compression, bucket=dataclasses.replace(RunConfig().compression.bucket,
+                                                            enabled=False)))
     with pytest.raises(NotPortedError, match="pod axis"):
-        tts.build_train_step(CFG, RunConfig(fsdp=True), SHAPE, mesh={"pod": 2, "data": 2},
-                             device="cpu")
+        tts.build_train_step(CFG, per_leaf, SHAPE, mesh={"pod": 2, "data": 2}, device="cpu")
     with pytest.raises(NotPortedError, match="tensor parallelism"):
         tts.build_train_step(CFG, RunConfig(), SHAPE, mesh={"data": 2, "model": 2},
                              device="cpu")
